@@ -8,12 +8,12 @@ Needs one NVIDIA card (Hopper: the kernels are built for sm_90a) and
 package. Phases, in order; any failure exits non-zero:
 
 a. Build every kernel source in ``distributed_tpu_torch/csrc`` with
-   ``nvcc`` (one source so far); print the build time, ptxas's register
-   and spill report, and the card's name and power limit.
-b. Kernels: each kernel against its plain PyTorch version on the card, at
-   the serving shapes (S=8 slots, H=12 heads, hd=64, block 16, 64 table
-   entries), f32/bf16 and int8 pools, kw 1 and 4, mixed positions with
-   trash-table slots; max abs error against the stated tolerance,
+   ``nvcc``, one process per source, all at once; print the build time,
+   ptxas's register and spill report, and the card's name and power limit.
+b. Paged attention: each kernel against its plain PyTorch version on the
+   card, at the serving shapes (S=8 slots, H=12 heads, hd=64, block 16, 64
+   table entries), f32/bf16 and int8 pools, kw 1 and 4, mixed positions
+   with trash-table slots; max abs error against the stated tolerance,
    per-launch time (CUDA events, pools rotated past the 50 MB L2) beside
    the plain version's time and the bound.
 c. Engine at full width: the GPT-2-small LM (vocab 32768, 12 layers,
@@ -25,10 +25,29 @@ c. Engine at full width: the GPT-2-small LM (vocab 32768, 12 layers,
    first tokens (from prefill) must match; the agreement share is printed.
 d. The same width at 2 layers in f32 with TF32 off: fused and reference
    must be token-exact.
-e. int8 KV at full width (counts zeroed before, read after): tokens/s and
-   the agreement share with phase c.
-f. The kernel table as one JSON line, the card's name and power limit,
-   then ``{"ok": true, "device": {...}}`` as the last line.
+e. int8 KV at full width, fused (counts zeroed before, read after):
+   tokens/s and the agreement share with phase c.
+f. Fused cross-entropy: both kernels against their plain versions at the
+   LM head's N=32768 rows of C=32768 bf16 logits (losses to 1e-4, every
+   dlogit to one bf16 ulp of its own value), then timed on the same
+   inputs (each launch after an L2 flush) beside the plain version,
+   ``F.cross_entropy`` (the library yardstick, timed only) and the bound.
+g. Flash attention: forward, dQ and dK/dV against the plain versions at
+   B=32, T=1024, H=12, D=64, causal, bf16 and f32, every entry within
+   ``FLASH_TOL``; timed in bf16 beside the plain version,
+   ``F.scaled_dot_product_attention`` and the bound.
+h. Training at full width: the GPT-2-small LM (bf16 layers) compiled with
+   ``Adam(1e-4)``, the pallas loss and accuracy, batch 32 x 1024 tokens
+   from ``numpy.random.default_rng(0)``; 2 warm-up steps, then 5 timed
+   steps through ``fit`` (counts zeroed just before, read just after):
+   per-step losses (finite, falling on the repeated batch), steps/s,
+   tokens/s, MFU, launches per step and peak memory.
+i. The kernel path against the plain path: a 2-layer f32 LM (TF32 off),
+   3 Adam steps with ``flash=True`` and the pallas loss against
+   ``flash=False`` and the stock loss; per-step losses must agree to 1e-5
+   relative.
+Then the kernel table as one JSON line, the card's name and power limit,
+and ``{"ok": true, "device": {...}}`` as the last line.
 """
 
 import json
@@ -42,11 +61,28 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# Flash attention, (atol, rtol) per entry. bf16: rtol 2e-2 is 2.5 ulps at
+# worst (the two sides may round one output a last bit apart); atol 2e-3
+# covers entries near zero, where the bf16 probabilities' rounding at
+# other running maxima (forward) adds up in absolute terms.
+FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-3, 2e-2)}
+# The flash kernels replace the lane-packed variants too (flash_attention.py
+# :384, :448, :490): one strided kernel family reads both layouts.
 REPLACES = {
     "paged_attention": "distributed_tpu/ops/paged_attention.py:93",
     "paged_attention_int8": "distributed_tpu/ops/paged_attention.py:151",
+    "xent_fwd": "distributed_tpu/ops/pallas_kernels.py:35",
+    "xent_bwd": "distributed_tpu/ops/pallas_kernels.py:46",
+    "flash_fwd": "distributed_tpu/ops/flash_attention.py:83",
+    "flash_dq": "distributed_tpu/ops/flash_attention.py:199",
+    "flash_dkv": "distributed_tpu/ops/flash_attention.py:238",
 }
-SOURCE = "distributed_tpu_torch/csrc/paged_attention.cu"
+SOURCES = {
+    "paged_attention": "paged_attention", "paged_attention_int8":
+    "paged_attention", "xent_fwd": "xent", "xent_bwd": "xent",
+    "flash_fwd": "flash_attention", "flash_dq": "flash_attention",
+    "flash_dkv": "flash_attention",
+}
 
 LM = dict(num_layers=12, d_model=768, num_heads=12, max_len=1024)
 VOCAB = 32768
@@ -229,6 +265,313 @@ def report(tag, tel, wall):
           f"{tel['kv_utilization']['mean']:.3f}")
 
 
+# ------------------------------------------------------------ phase f, g
+def cuda_ms_flushed(torch, fn, iters):
+    """Mean device ms of ``fn(i)`` over ``iters`` launches, each timed
+    between its own CUDA events right after a 128 MB write that evicts the
+    50 MB L2, so every launch reads its inputs from HBM."""
+    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
+    fn(0)
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for i, (a, b) in enumerate(ev):
+        flush.zero_()
+        a.record()
+        fn(i)
+        b.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in ev) / iters
+
+
+def bound_ms(nbytes, flops, dtype):
+    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
+    operations over the peak rate of ``dtype``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def max_err(got, want):
+    return (got.float() - want.float()).abs().max().item()
+
+
+def phase_xent(torch, xent):
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    rows = {}
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def inputs(n):
+        logits = (2 * torch.randn((n, VOCAB), generator=g, device=dev)).to(
+            torch.bfloat16)
+        labels = torch.randint(0, VOCAB, (n,), generator=g, device=dev)
+        gout = torch.full((n,), 1.0 / n, device=dev)
+        return logits, labels, gout
+
+    # The LM head's rows at the main path's batch: 32 x 1024 tokens.
+    n = 32 * LM["max_len"]
+    logits, labels, gout = inputs(n)
+    loss = xent.xent_fwd(logits, labels)
+    want = xent.xent_fwd_ref(logits, labels)
+    torch.cuda.synchronize()
+    # f32 losses of about 12: sums of 32768 exponentials in another order.
+    err = max_err(loss, want)
+    print(f"  xent_fwd   N={n} C={VOCAB} bf16 max_abs_err={err:.3e} "
+          f"(limit 1e-04) {'ok' if err <= 1e-4 else 'MISMATCH'}")
+    rows["xent_fwd"] = {"max_abs_err": err}
+    failed = err > 1e-4
+    del loss, want
+    dl = xent.xent_bwd(logits, labels, gout)
+    want = xent.xent_bwd_ref(logits, labels, gout)
+    torch.cuda.synchronize()
+    # dlogits: one bf16 ulp of each reference entry. Both sides round one
+    # f32 value once to bf16; a last-bit difference before the rounding
+    # can move it by one ulp, and nothing more.
+    diff = (dl.float() - want.float()).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        want.float().abs().clamp_min(1e-30))) - 7)
+    worst = (diff / ulp).max().item()
+    err = diff.max().item()
+    print(f"  xent_bwd   N={n} C={VOCAB} bf16 max_abs_err={err:.3e}, worst "
+          f"entry {worst:.2f} of its own bf16 ulp (limit 1) "
+          f"{'ok' if worst <= 1 else 'MISMATCH'}")
+    rows["xent_bwd"] = {"max_abs_err": err}
+    failed |= worst > 1
+    del dl, want, diff, ulp
+    torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit("xent: a kernel disagrees with its plain version")
+
+    lf = logits.float().requires_grad_(True)
+    lib_out = F.cross_entropy(lf, labels, reduction="none")
+    logit_bytes = logits.numel() * logits.element_size()
+    timings = {  # bytes: each input read once, each output written once
+        "xent_fwd": dict(
+            kernel=lambda i: xent.xent_fwd(logits, labels),
+            plain=lambda i: xent.xent_fwd_ref(logits, labels),
+            library=lambda i: F.cross_entropy(logits.float(), labels,
+                                              reduction="none"),
+            nbytes=logit_bytes + 8 * n + 4 * n, flops=3 * logits.numel()),
+        "xent_bwd": dict(
+            kernel=lambda i: xent.xent_bwd(logits, labels, gout),
+            plain=lambda i: xent.xent_bwd_ref(logits, labels, gout),
+            library=lambda i: torch.autograd.grad(lib_out, lf, gout,
+                                                  retain_graph=True),
+            nbytes=2 * logit_bytes + 8 * n + 4 * n,
+            flops=5 * logits.numel()),
+    }
+    for name, t in timings.items():
+        ms = cuda_ms_flushed(torch, t["kernel"], 20)
+        plain_ms = cuda_ms_flushed(torch, t["plain"], 3)
+        library_ms = cuda_ms_flushed(torch, t["library"], 5)
+        b_ms, b_by = bound_ms(t["nbytes"], t["flops"], "float32")
+        rows[name].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=b_ms, bound_by=b_by)
+        print(f"  {name:10s} N={n} C={VOCAB} bf16: {ms * 1e3:.1f} us/launch, "
+              f"plain {plain_ms * 1e3:.1f} us, F.cross_entropy "
+              f"{library_ms * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us "
+              f"({b_by}: {t['nbytes'] / 1e9:.3f} GB), {b_ms / ms:.1%} of bound")
+    del logits, labels, gout, lf, lib_out
+    torch.cuda.empty_cache()
+    return rows
+
+
+def flash_bounds(b, t, h, d, causal, elem):
+    """{kernel: (bytes, flops)} of one call: each input read once, each
+    output written once; products over the (i, j) pairs the mask keeps
+    (2*D operations per pair and product: 2 in the forward, 3 for dQ, 4
+    for dK/dV)."""
+    pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
+    tensor = b * t * h * d * elem
+    stats = b * h * t * 4
+    return {
+        "flash_fwd": (4 * tensor + 2 * stats, 4 * d * pairs),
+        "flash_dq": (5 * tensor + 3 * stats, 6 * d * pairs),
+        "flash_dkv": (6 * tensor + 3 * stats, 8 * d * pairs),
+    }
+
+
+def phase_flash(torch, fa):
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    b, t, h, d = 32, LM["max_len"], LM["num_heads"], LM["d_model"] // LM["num_heads"]
+    rows = {}
+    g = torch.Generator(device=dev).manual_seed(13)
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        q, k, v, do = (torch.randn((b, t, h, d), generator=g, device=dev).to(dtype)
+                       for _ in range(4))
+        o, m, l = fa.flash_fwd(q, k, v, True)
+        delta = fa.flash_delta(do, o)
+        dq, dk, dv = fa.flash_bwd(q, k, v, do, m, l, delta, True)
+        o_ref, _, _ = fa.flash_fwd_ref(q, k, v, True)
+        refs = fa.flash_bwd_ref(q, k, v, do, m, l, delta, True)
+        torch.cuda.synchronize()
+        atol, rtol = FLASH_TOL[dname]
+        failed = []
+        for name, got, want in (("o", o, o_ref), ("dq", dq, refs[0]),
+                                ("dk", dk, refs[1]), ("dv", dv, refs[2])):
+            got, want = got.float(), want.float()
+            diff = (got - want).abs()
+            err = diff.max().item()
+            # Elementwise: every entry within atol + rtol * |its reference|.
+            worst = (diff / (atol + rtol * want.abs())).max().item()
+            rel_l2 = (torch.linalg.vector_norm(got - want)
+                      / torch.linalg.vector_norm(want)).item()
+            ok = worst <= 1
+            print(f"  flash {name:2s} B={b} T={t} H={h} D={d} causal {dname:8s} "
+                  f"max_abs_err={err:.3e}, worst entry {worst:.3f} of atol "
+                  f"{atol:g} + rtol {rtol:g} * |ref| (limit 1), relative L2 "
+                  f"{rel_l2:.2e} {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                failed.append(name)
+            kernel = {"o": "flash_fwd", "dq": "flash_dq"}.get(name, "flash_dkv")
+            row = rows.setdefault(kernel, {"max_abs_err": 0.0})
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            del got, want, diff
+        del o_ref, refs
+        torch.cuda.empty_cache()
+        if failed:
+            raise SystemExit(f"flash {failed} ({dname}): kernels disagree "
+                             "with their plain versions")
+        if dtype != torch.bfloat16:
+            continue
+        # The main path's dtype: time each kernel, the plain versions, and
+        # PyTorch's SDPA forward and backward on the same inputs.
+        qt, kt, vt = (x.transpose(1, 2).requires_grad_(True) for x in (q, k, v))
+        lib_o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        do_t = do.transpose(1, 2)
+        bwd_plain = cuda_ms_flushed(
+            torch, lambda i: fa.flash_bwd_ref(q, k, v, do, m, l, delta, True), 3)
+        lib_bwd = cuda_ms_flushed(torch, lambda i: torch.autograd.grad(
+            lib_o, (qt, kt, vt), do_t, retain_graph=True), 10)
+        timings = {
+            "flash_fwd": (lambda i: fa.flash_fwd(q, k, v, True),
+                          cuda_ms_flushed(torch, lambda i: fa.flash_fwd_ref(
+                              q, k, v, True), 3),
+                          cuda_ms_flushed(torch, lambda i: F.scaled_dot_product_attention(
+                              qt, kt, vt, is_causal=True), 10)),
+            "flash_dq": (lambda i: fa._flash_dq_cuda(q, k, v, do, m, l, delta,
+                                                      True),
+                         bwd_plain, lib_bwd),
+            "flash_dkv": (lambda i: fa._flash_dkv_cuda(q, k, v, do, m, l,
+                                                        delta, True),
+                          bwd_plain, lib_bwd),
+        }
+        bounds = flash_bounds(b, t, h, d, True, q.element_size())
+        for name, (fn, plain_ms, library_ms) in timings.items():
+            ms = cuda_ms_flushed(torch, fn, 20)
+            nbytes, flops = bounds[name]
+            b_ms, b_by = bound_ms(nbytes, flops, dname)
+            rows[name].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                              bound_ms=b_ms, bound_by=b_by)
+            print(f"  {name:10s} bf16: {ms * 1e3:.1f} us/launch, plain "
+                  f"{plain_ms * 1e3:.1f} us, SDPA {library_ms * 1e3:.1f} us, "
+                  f"bound {b_ms * 1e3:.1f} us ({b_by}: {nbytes / 1e6:.1f} MB, "
+                  f"{flops / 1e9:.1f} GFLOP), {b_ms / ms:.1%} of bound")
+        del qt, kt, vt, lib_o
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ------------------------------------------------------------ phase h, i
+def lm_fwd_flops_per_token(num_layers, d_model, seq_len, vocab):
+    """Analytic matmul FLOPs per token, forward (the formula of the JAX
+    package's LM bench): per block qkv+proj (8 d^2) + MLP (2 d d_ff * 2,
+    d_ff = 4d) + attention scores/values (4 s d); LM head (2 d V)."""
+    d_ff = 4 * d_model
+    return (num_layers * (8 * d_model ** 2 + 4 * d_model * d_ff
+                          + 4 * seq_len * d_model)
+            + 2 * d_model * vocab)
+
+
+def lm_batch(batch, seq_len, seed=0):
+    """Next-token batch as the JAX package's LM bench makes it."""
+    rng = np.random.default_rng(seed)
+    tok = rng.integers(0, VOCAB, (batch, seq_len + 1), dtype=np.int64)
+    return tok[:, :-1].astype(np.int32), tok[:, 1:].astype(np.int32)
+
+
+def phase_train(torch, dtt, kernel_mods, batch=32, warmup=2, steps=5):
+    t_len = LM["max_len"]
+    x, y = lm_batch(batch, t_len)
+    model = dtt.Model(dtt.models.transformer_lm(VOCAB, dtype="bfloat16", **LM))
+    model.compile(optimizer=dtt.optim.Adam(1e-4),
+                  loss="pallas_sparse_categorical_crossentropy",
+                  metrics=["accuracy"])
+    model.build((t_len,), seed=0)
+    t = time.perf_counter()
+    model.fit(x, y, batch_size=batch, epochs=warmup, steps_per_epoch=1,
+              shuffle=False, verbose=0)
+    torch.cuda.synchronize()
+    print(f"  {model.num_params / 1e6:.1f}M params; {warmup} warm-up steps "
+          f"in {time.perf_counter() - t:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    for mod in kernel_mods:
+        mod.reset_launch_counts()
+    t = time.perf_counter()
+    hist = model.fit(x, y, batch_size=batch, epochs=steps, steps_per_epoch=1,
+                     shuffle=False, verbose=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {}
+    for mod in kernel_mods:
+        launches.update(mod.launches)
+    losses = hist.history["loss"]
+    sps = steps / wall
+    tokens = batch * t_len
+    fwd = lm_fwd_flops_per_token(LM["num_layers"], LM["d_model"], t_len, VOCAB)
+    mfu = 3 * fwd * tokens * sps / PEAK_FLOPS["bfloat16"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  losses {[round(v, 5) for v in losses]}, accuracy "
+          f"{hist.history['accuracy'][-1]:.5f}")
+    print(f"  {steps} steps in {wall:.3f} s: {sps:.3f} steps/s, "
+          f"{sps * tokens:.0f} tokens/s, MFU {mfu:.4f} (3 x {fwd / 1e6:.1f} "
+          f"MFLOP/token at 989 TFLOP/s), peak memory {peak_gb:.2f} GB")
+    per_step = {k: v / steps for k, v in launches.items()
+                if not k.startswith("paged")}
+    print(f"  launches per step {per_step}")
+    if not all(np.isfinite(losses)) or not all(
+            b < a for a, b in zip(losses, losses[1:])):
+        raise SystemExit(f"training losses not finite and falling: {losses}")
+    want = {"xent_fwd": 1, "xent_bwd": 1, "flash_fwd": LM["num_layers"],
+            "flash_dq": LM["num_layers"], "flash_dkv": LM["num_layers"]}
+    if per_step != want:
+        raise SystemExit(f"launches per step {per_step}, expected {want}")
+    del model
+    torch.cuda.empty_cache()
+    return {k: launches[k] for k in want}
+
+
+def phase_kernel_vs_plain(torch, dtt, batch=4, steps=3):
+    t_len = LM["max_len"]
+    x, y = lm_batch(batch, t_len, seed=1)
+
+    def train(flash, loss):
+        model = dtt.Model(dtt.models.transformer_lm(
+            VOCAB, flash=flash, **dict(LM, num_layers=2)))
+        model.compile(optimizer=dtt.optim.Adam(1e-4), loss=loss,
+                      metrics=["accuracy"])
+        model.build((t_len,), seed=1)
+        hist = model.fit(x, y, batch_size=batch, epochs=steps,
+                         steps_per_epoch=1, shuffle=False, verbose=0)
+        return hist.history["loss"], dtt.interop.params_to_numpy(model.params)
+
+    kern_losses, kern_params = train(True, "pallas_sparse_categorical_crossentropy")
+    plain_losses, plain_params = train(False, "sparse_categorical_crossentropy")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(kern_losses, plain_losses))
+    dparam = max(float(np.abs(kern_params[p] - plain_params[p]).max())
+                 for p in kern_params)
+    print(f"  kernels {kern_losses}\n  plain   {plain_losses}\n  max "
+          f"relative loss difference {rel:.3e} (limit 1e-5), max parameter "
+          f"difference {dparam:.3e}")
+    if rel > 1e-5:
+        raise SystemExit("the kernel path's losses disagree with the plain path")
+
+
 def main():
     import torch
 
@@ -237,7 +580,10 @@ def main():
               "an NVIDIA card", file=sys.stderr)
         return 2
     import distributed_tpu_torch as dtt
+    from distributed_tpu_torch.ops import _build
+    from distributed_tpu_torch.ops import flash_attention as flash_ops
     from distributed_tpu_torch.ops import paged_attention as paged_ops
+    from distributed_tpu_torch.ops import pallas_kernels as xent_ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -247,11 +593,15 @@ def main():
 
     print("phase a: build")
     t = time.perf_counter()
-    path, log = paged_ops.build()
-    print(f"  built {path.name} in {time.perf_counter() - t:.1f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"    {line.strip()}")
+    built = _build.build(*sorted(set(SOURCES.values())))
+    print(f"  built {', '.join(p.name for p, _ in built.values())} in "
+          f"{time.perf_counter() - t:.1f} s (one nvcc per source, in parallel)")
+    for _, log in built.values():
+        for line in log.splitlines():
+            if "Compiling entry" in line:
+                print(f"    {line.split('Compiling entry function')[-1].strip()}")
+            elif "registers" in line or "spill" in line:
+                print(f"      {line.strip()}")
 
     print("phase b: kernels vs plain versions, S=8 H=12 hd=64 bs=16 nb=64")
     print('kernels: ["paged_attention (K1)", "paged_attention_int8 (K2)"]')
@@ -303,7 +653,8 @@ def main():
 
     print("phase e: int8 KV at full width, fused")
     paged_ops.reset_launch_counts()
-    q8, tel8, wall8 = serve(dtt, model, reqs, kv_dtype="int8")
+    q8, tel8, wall8 = serve(dtt, model, reqs, kv_dtype="int8",
+                            decode_kernel="fused")
     launches = dict(paged_ops.launches)
     report("int8 KV", tel8, wall8)
     print(f"  launches {launches}")
@@ -313,13 +664,33 @@ def main():
     rows["paged_attention_int8"]["launches"] = launches["paged_attention_int8"]
     share8, _ = agreement(q8, fused, reqs)
     print(f"  int8 vs bf16 KV: token agreement {share8:.4f}")
+    del model
+    torch.cuda.empty_cache()
+
+    print(f"phase f: fused cross-entropy kernels vs plain (C={VOCAB}, bf16)")
+    rows.update(phase_xent(torch, xent_ops))
+
+    print("phase g: flash-attention kernels vs plain (B=32, T=1024, H=12, "
+          "D=64, causal)")
+    rows.update(phase_flash(torch, flash_ops))
+
+    print("phase h: GPT-2-small LM training, bf16 layers, Adam(1e-4), pallas "
+          "loss, batch 32 x 1024")
+    train_launches = phase_train(torch, dtt, (xent_ops, flash_ops))
+    for name, n in train_launches.items():
+        rows[name]["launches"] = n
+
+    print("phase i: 2 layers, f32, TF32 off: kernel path vs plain path, 3 "
+          "Adam steps")
+    phase_kernel_vs_plain(torch, dtt)
 
     kernels = [
-        {"name": name, "route": "cuda", "source": SOURCE,
+        {"name": name, "route": "cuda",
+         "source": f"distributed_tpu_torch/csrc/{SOURCES[name]}.cu",
          "replaces": REPLACES[name], "launches": r["launches"],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": None}
+         "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
         for name, r in rows.items()
     ]
     print(json.dumps({"kernels": kernels}))

@@ -11,16 +11,23 @@ It never imports ``jax`` or ``distributed_tpu``. Entry points take
 of running on the CPU, and the CPU is used only when asked for
 (``device="cpu"``), as the tests do.
 
-Ported so far: the serving slice — ``models.transformer_lm`` served by
-``serving.Engine`` through paged KV pools, with the paged-attention decode
-kernel written by hand in CUDA (``csrc/paged_attention.cu``).
+Ported so far:
+
+- serving: ``models.transformer_lm`` served by ``serving.Engine`` through
+  paged KV pools, with the paged-attention decode kernel written by hand
+  in CUDA (``csrc/paged_attention.cu``);
+- training: ``Model.compile/fit/evaluate`` of the same LM with
+  ``optim.Adam``/``SGD``, flash attention (``csrc/flash_attention.cu``:
+  forward, dQ, dK/dV) and the fused softmax cross-entropy
+  (``csrc/xent.cu``: forward, backward), all hand-written in CUDA.
 """
 
-from . import interop, models, nn, ops, precision, quant, serving
+from . import interop, models, nn, ops, optim, precision, quant, serving
 from .device import resolve_device
+from .training.history import History
 from .training.model import Model
 
 __all__ = [
-    "Model", "interop", "models", "nn", "ops", "precision", "quant",
-    "resolve_device", "serving",
+    "History", "Model", "interop", "models", "nn", "ops", "optim",
+    "precision", "quant", "resolve_device", "serving",
 ]

@@ -3,7 +3,8 @@
 The port's modules register their parameters under the JAX package's tree
 paths (``residual_1/main/dense_1/kernel``), with the same layouts (Dense
 kernels ``(din, units)``, attention projections ``(d, heads*head_dim)``),
-so a JAX parameter tree loads with no transposes. The path rules are those
+so a JAX parameter tree loads with no transposes, and trained parameters
+come back as numpy under the same paths (``params_to_numpy``). The path rules are those
 of the JAX package's ``checkpoint/core.py``: sorted dict keys, ``#i`` for
 tuple and list entries, joined by ``/``.
 """
@@ -47,6 +48,16 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
     }
 
 
+def params_to_numpy(params) -> Dict[str, np.ndarray]:
+    """The port's ``{path: tensor}`` parameters (``Model.params``) as
+    ``{path: f32 numpy array}`` on the host, under the same tree paths as
+    ``flatten_tree`` gives a JAX parameter tree, so the two compare leaf
+    by leaf."""
+    return {path: t.detach().to("cpu", torch.float32).numpy()
+            for path, t in params.items()}
+
+
 __all__ = [
     "SEP", "flatten_tree", "iter_leaf_paths", "params_from_jax",
+    "params_to_numpy",
 ]

@@ -18,14 +18,17 @@ def transformer_block(
     num_heads: int,
     d_ff: int,
     *,
+    flash="auto",
     dtype=None,
 ) -> list:
-    """Pre-LN block as two Residuals: [LN -> MHA] + [LN -> MLP]."""
+    """Pre-LN block as two Residuals: [LN -> MHA] + [LN -> MLP].
+    ``flash`` passes through to MultiHeadAttention (True/False/'auto')."""
     attn = nn.Residual(
         nn.Sequential(
             [
                 nn.LayerNorm(),
-                nn.MultiHeadAttention(num_heads, causal=True, dtype=dtype),
+                nn.MultiHeadAttention(num_heads, causal=True, flash=flash,
+                                      dtype=dtype),
             ],
             name="main",
         )
@@ -55,12 +58,15 @@ def transformer_lm(
     pipeline: bool = False,
     scan: bool = False,
     remat: bool = False,
+    flash="auto",
     dtype=None,
 ) -> nn.Sequential:
     """Token-in, logits-out LM: (B, T) int tokens -> (B, T, vocab).
 
-    ``moe_experts``, ``pipeline``, ``scan`` and ``remat`` select variants
-    that are not ported yet and raise ``NotImplementedError``."""
+    ``flash`` picks each attention layer's full-sequence path (see
+    ``nn.MultiHeadAttention``). ``moe_experts``, ``pipeline``, ``scan``
+    and ``remat`` select variants that are not ported yet and raise
+    ``NotImplementedError``."""
     for flag, value in (("moe_experts", moe_experts), ("pipeline", pipeline),
                         ("scan", scan), ("remat", remat)):
         if value:
@@ -71,7 +77,8 @@ def transformer_lm(
         nn.PositionalEmbedding(max_len),
     ]
     for _ in range(num_layers):
-        layers += transformer_block(d_model, num_heads, d_ff, dtype=dtype)
+        layers += transformer_block(d_model, num_heads, d_ff, flash=flash,
+                                    dtype=dtype)
     layers += [nn.LayerNorm(), nn.Dense(vocab_size, dtype=dtype)]
     return nn.Sequential(layers, name="transformer_lm")
 

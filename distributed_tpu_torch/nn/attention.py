@@ -1,8 +1,12 @@
 """Multi-head attention and learned positional embeddings.
 
-Scores and softmax compute in f32 whatever the activation dtype; scores
-are divided by ``sqrt(head_dim)``, and probabilities are cast to the
-value dtype before the product with V — the JAX package's arithmetic.
+Scores and softmax compute in f32 whatever the activation dtype, and
+probabilities are cast to the value dtype before the product with V — the
+JAX package's arithmetic. The full-sequence pass takes one of two paths,
+chosen by ``flash`` as in the JAX layer: dense attention (scores divided
+by ``sqrt(head_dim)``, the (T, T) scores formed) or flash attention
+(``ops.flash_attention``: scores multiplied by ``1/sqrt(head_dim)``, the
+CUDA kernels on a card, their plain versions on the CPU).
 Projections are 2-D ``(d, heads*head_dim)`` kernels named ``wq, wk, wv,
 wo`` with biases ``bq, bk, bv, bo``, as in the JAX parameter tree.
 
@@ -25,7 +29,7 @@ from . import initializers
 from .core import Layer, Shape
 from ..ops import paged_attention as paged_ops
 from ..ops._common import NEG
-from ..ops.flash_attention import dense_attention
+from ..ops.flash_attention import dense_attention, flash_attention
 from ..precision import resolve_dtype
 from ..quant import _QMAX, QKEY, SKEY
 
@@ -73,12 +77,17 @@ class MultiHeadAttention(Layer):
         num_heads: int,
         *,
         causal: bool = False,
+        flash="auto",
         dtype=None,
         name: Optional[str] = None,
     ):
         super().__init__(name)
+        if flash not in (True, False, "auto"):
+            raise ValueError(f"flash must be True, False or 'auto', got "
+                             f"{flash!r}")
         self.num_heads = int(num_heads)
         self.causal = bool(causal)
+        self.flash = flash
         self.dtype = dtype
 
     def build(self, input_shape: Shape, generator):
@@ -121,10 +130,21 @@ class MultiHeadAttention(Layer):
             self._proj(x, "wv", "bv").reshape(*lead_kv, *hd),
         )
 
+    def _use_flash(self, x) -> bool:
+        """``flash=True``: always (the plain versions on a CPU tensor);
+        ``"auto"``: from 512 positions on, on the card (the JAX layer's
+        rule, with "TPU backend" read as "CUDA tensor"); ``False``: never."""
+        if self.flash == "auto":
+            return x.shape[1] >= 512 and x.is_cuda
+        return bool(self.flash)
+
     def forward(self, x):
         b, t, _ = x.shape
         q, k, v = self._qkv(x, (b, t), (b, t))
-        ctx = dense_attention(q, k, v, self.causal)
+        if self._use_flash(x):
+            ctx = flash_attention(q, k, v, causal=self.causal)
+        else:
+            ctx = dense_attention(q, k, v, self.causal)
         return self._out(ctx.reshape(b, t, -1))
 
     # ------------------------------------------- paged (block) KV cache --

@@ -1,5 +1,15 @@
-"""Ops: the paged-attention decode kernel and the dense attention path."""
+"""Ops: the CUDA kernels of the port and the plain tensor code around them.
 
-from . import flash_attention, paged_attention
+- ``paged_attention``: the serving decode read (kernel K1/K2).
+- ``flash_attention``: flash attention forward and backward, and the
+  dense path.
+- ``pallas_kernels``: fused softmax cross-entropy forward and backward.
+- ``losses`` and ``metrics``: what ``Model.compile`` takes by name.
+"""
 
-__all__ = ["flash_attention", "paged_attention"]
+from . import flash_attention, losses, metrics, paged_attention, pallas_kernels
+
+__all__ = [
+    "flash_attention", "losses", "metrics", "paged_attention",
+    "pallas_kernels",
+]

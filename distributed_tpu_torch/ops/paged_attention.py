@@ -11,7 +11,8 @@ Dispatch is by the device of the tensors, with no fallback:
 
 - CUDA tensors launch the hand-written kernel in
   ``csrc/paged_attention.cu`` (built by ``nvcc`` for ``sm_90a`` at first
-  use, into ``_build/``). A failed build or launch raises.
+  use, into ``_build/``; see ``ops._build``). A failed build or launch
+  raises.
 - CPU tensors run :func:`paged_attention_ref`, the plain version of the
   same arithmetic. On a card it is used only by tests and by
   ``chip_smoke.py`` to check the kernel.
@@ -25,16 +26,13 @@ kernel's launches per variant, so a run can show it went through them.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
 from ..quant import QKEY, SKEY, dequantize
+from . import _build
+from ._build import _I, _P
 from ._common import NEG
 
 REFERENCE = "reference"
@@ -45,16 +43,6 @@ KINDS = (REFERENCE, FUSED)
 #: f32/bf16 pools) and "paged_attention_int8" (int8 pools). Incremented
 #: only where the kernel is launched.
 launches = {"paged_attention": 0, "paged_attention_int8": 0}
-
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "paged_attention.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
 
 def reset_launch_counts() -> None:
     for name in launches:
@@ -121,85 +109,20 @@ def paged_attention_ref(q, k_pool, v_pool, block_tables, positions):
 
 
 # ------------------------------------------------------------- CUDA kernel
-def _nvcc() -> str:
-    for cand in (
-        shutil.which("nvcc"),
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                     "bin", "nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError(
-        "nvcc not found (PATH, $CUDA_HOME/bin): the paged-attention CUDA "
-        "kernel cannot be built"
-    )
-
-
-def build():
-    """Compile ``csrc/paged_attention.cu`` into ``_build/`` unless a build
-    of this exact source and these flags is there already. Returns
-    ``(library_path, compiler_output)``; ``compiler_output`` holds ptxas's
-    register and spill report of a fresh build, "" for a cached one.
-    Raises ``RuntimeError`` with nvcc's output when the build fails."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"paged_attention-{digest[:16]}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {SOURCE}:\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
-
-
-class _Library:
-    """The built kernel library, loaded once per process."""
-
-    handle = None
-
-    @classmethod
-    def get(cls):
-        if cls.handle is None:
-            path, _ = build()
-            lib = ctypes.CDLL(str(path))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.dtt_paged_attention.argtypes = (
-                [i, i] + [p] * 8 + [i] * 6 + [ctypes.c_float, p]
-            )
-            lib.dtt_paged_attention.restype = i
-            lib.dtt_paged_attention_max_kw.restype = i
-            lib.dtt_paged_attention_max_hd.restype = i
-            cls.handle = lib
-        return cls.handle
-
-
-def _check(t, name, device, dtype=None, ndim=None):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if dtype is not None and t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if ndim is not None and t.dim() != ndim:
-        raise ValueError(f"{name} has {t.dim()} dims, expected {ndim}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+_LIB = _build.Library("paged_attention", {
+    "dtt_paged_attention": [_I, _I] + [_P] * 8 + [_I] * 6 + [ctypes.c_float, _P],
+    "dtt_paged_attention_max_kw": [],
+    "dtt_paged_attention_max_hd": [],
+})
 
 
 def _paged_attention_cuda(q, k_pool, v_pool, block_tables, positions):
-    lib = _Library.get()
+    lib = _LIB.get()
     dev = q.device
     quant = isinstance(k_pool, dict)
-    if q.dtype not in _DTYPE_CODES:
+    if q.dtype not in _build.DTYPE_CODES:
         raise ValueError(f"q dtype {q.dtype} not supported (f32, bf16)")
-    _check(q, "q", dev, ndim=4)
+    _build.require(q, "q", dev, ndim=4)
     s, kw, h, hd = q.shape
     if kw > lib.dtt_paged_attention_max_kw() or \
             hd > lib.dtt_paged_attention_max_hd():
@@ -212,15 +135,15 @@ def _paged_attention_cuda(q, k_pool, v_pool, block_tables, positions):
         kq, vq = k_pool[QKEY], v_pool[QKEY]
         ksc, vsc = k_pool[SKEY], v_pool[SKEY]
         for t, n in ((kq, "k_pool.q"), (vq, "v_pool.q")):
-            _check(t, n, dev, torch.int8, 4)
+            _build.require(t, n, dev, torch.int8, 4)
         for t, n in ((ksc, "k_pool.scale"), (vsc, "v_pool.scale")):
-            _check(t, n, dev, torch.float32, 4)
+            _build.require(t, n, dev, torch.float32, 4)
             if t.shape != kq.shape[:3] + (1,):
                 raise ValueError(f"{n} shape {tuple(t.shape)} mismatches")
     else:
         kq, vq, ksc, vsc = k_pool, v_pool, None, None
         for t, n in ((kq, "k_pool"), (vq, "v_pool")):
-            _check(t, n, dev, q.dtype, 4)
+            _build.require(t, n, dev, q.dtype, 4)
     if kq.shape != vq.shape or tuple(kq.shape[2:]) != (h, hd):
         raise ValueError(
             f"pool shapes {tuple(kq.shape)}/{tuple(vq.shape)} do not match "
@@ -232,21 +155,20 @@ def _paged_attention_cuda(q, k_pool, v_pool, block_tables, positions):
             f"the kernel needs head_dim % 16 == 0 and 16-byte aligned pools "
             f"(head_dim {hd})"
         )
-    _check(block_tables, "block_tables", dev, torch.int32, 2)
-    _check(positions, "positions", dev, torch.int32, 1)
+    _build.require(block_tables, "block_tables", dev, torch.int32, 2)
+    _build.require(positions, "positions", dev, torch.int32, 1)
     if block_tables.shape[0] != s or positions.shape[0] != s:
         raise ValueError("block_tables/positions must have one row per slot")
     out = torch.empty_like(q)
     rc = lib.dtt_paged_attention(
-        _DTYPE_CODES[q.dtype], int(quant), q.data_ptr(), kq.data_ptr(),
+        _build.DTYPE_CODES[q.dtype], int(quant), q.data_ptr(), kq.data_ptr(),
         vq.data_ptr(), ksc.data_ptr() if quant else None,
         vsc.data_ptr() if quant else None, block_tables.data_ptr(),
         positions.data_ptr(), out.data_ptr(), s, kw, h, hd, kq.shape[1],
         block_tables.shape[1], float(math.sqrt(hd)),
-        torch.cuda.current_stream(dev).cuda_stream,
+        _build.stream(dev),
     )
-    if rc != 0:
-        raise RuntimeError(f"paged_attention kernel launch failed: CUDA error {rc}")
+    _build.check_launch(rc, "paged_attention")
     launches["paged_attention_int8" if quant else "paged_attention"] += 1
     return out
 
@@ -255,13 +177,9 @@ def paged_attention(q, k_pool, v_pool, block_tables, positions):
     """Fused gather + masked attention over paged KV pools; the arguments
     and result are :func:`paged_attention_ref`'s. CUDA tensors run the
     kernel, CPU tensors the plain version."""
-    if q.device.type == "cuda":
-        return _paged_attention_cuda(q, k_pool, v_pool, block_tables,
-                                     positions)
-    if q.device.type == "cpu":
-        return paged_attention_ref(q, k_pool, v_pool, block_tables,
-                                   positions)
-    raise ValueError(f"paged_attention: unsupported device {q.device}")
+    return _build.dispatch(q, _paged_attention_cuda, paged_attention_ref,
+                           "paged_attention")(q, k_pool, v_pool, block_tables,
+                                              positions)
 
 
 __all__ = [

@@ -20,10 +20,10 @@ mid-prefill point at the trash block. Prefill chunks are padded to a
 multiple of 64 positions, as in the JAX engine, so both write the same
 pool rows.
 
-The decode attention reads through ``decode_kernel``: ``"fused"`` (the
-default here) calls ``ops.paged_attention`` — the hand-written CUDA kernel
-on a card — and ``"reference"`` gathers each slot's blocks into a view
-and runs dense attention. Everything runs under ``torch.inference_mode``.
+The decode attention reads through ``decode_kernel``: ``"reference"`` (the
+default, as in the JAX engine) gathers each slot's blocks into a view and
+runs dense attention, and ``"fused"`` calls ``ops.paged_attention`` — the
+hand-written CUDA kernel on a card. Everything runs under ``torch.inference_mode``.
 """
 
 from __future__ import annotations
@@ -115,8 +115,8 @@ class Engine:
     ``prefix_cache=True`` shares full prompt blocks across requests
     (refcounted, copy-on-write). ``kv_dtype="int8"`` stores the pools as
     int8 with per-(position, head) scales; None uses
-    ``model.decode_dtype()``. ``decode_kernel``: "fused" (default) or
-    "reference" (see the module docstring).
+    ``model.decode_dtype()``. ``decode_kernel``: "reference" (default, as
+    in the JAX engine) or "fused" (see the module docstring).
     """
 
     def __init__(self, model: Model, max_slots: int, block_size: int, *,
@@ -125,7 +125,7 @@ class Engine:
                  temperature: float = 0.0, top_k: Optional[int] = None,
                  eos_id: Optional[int] = None, seed: int = 0,
                  prefix_cache: bool = False, kv_dtype=None,
-                 decode_kernel: str = paged_ops.FUSED):
+                 decode_kernel: str = paged_ops.REFERENCE):
         if not model.built:
             raise RuntimeError("Model not built")
         if prefill_chunk is not None and prefill_chunk < 1:

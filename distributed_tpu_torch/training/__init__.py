@@ -1,5 +1,6 @@
-"""Model container (the fit loop is not ported yet)."""
+"""Model container and its Keras-shaped trainer (compile/fit/evaluate)."""
 
+from .history import History
 from .model import Model
 
-__all__ = ["Model"]
+__all__ = ["History", "Model"]

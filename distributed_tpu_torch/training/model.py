@@ -1,19 +1,64 @@
-"""``Model``: a layer stack, its parameters, and the device they live on.
+"""``Model``: a layer stack, its parameters, and the Keras-shaped trainer.
 
-A thin counterpart of the JAX package's ``training/model.py``: ``build``
+The counterpart of the JAX package's ``training/model.py``: ``build``
 creates the parameters from a seed, ``params`` exposes them under the JAX
-tree paths, and ``decode_dtype`` names the KV-cache dtype the serving
-engine uses. ``compile``/``fit`` are not ported yet.
+tree paths, ``compile``/``fit``/``evaluate`` train and score on one device,
+and ``decode_dtype`` names the KV-cache dtype the serving engine uses.
+
+A train step is forward, loss, ``torch.autograd.grad`` and the optimizer's
+in-place update. Master parameters stay f32; layers built with ``dtype=``
+cast them per call, and the gradients come back f32 through the casts, as
+in JAX. PyTorch runs eagerly, so there is no jit and no donation; the
+per-step loss and metric sums stay on the device and are fetched once per
+epoch, as the JAX loop does. Only the single-device paths are ported: the
+other ``compile``/``fit`` options raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+import time
+from typing import Dict, Iterable, Optional, Sequence
 
+import numpy as np
 import torch
 
+from .. import optim
 from ..device import resolve_device
 from ..interop import SEP
+from ..ops import losses as losses_lib
+from ..ops import metrics as metrics_lib
+from .history import History
+from .progress import ProgressLine
+
+
+def _index_stream(
+    n: int, batch: int, shuffle: bool, seed: Optional[int], start_step: int = 0
+):
+    """Yield index blocks forever; reshuffles each pass (Keras semantics:
+    with steps_per_epoch the cursor carries across epochs). A copy of the
+    JAX package's, so shuffled batches come in the same order.
+
+    Each pass's permutation depends only on (seed, pass index), so a
+    resumed run (``start_step`` = the restored ``model.step``) continues
+    with the batch the interrupted run would have taken next."""
+    base = 0 if seed is None else seed
+    per_pass = max((n - batch) // batch + 1, 1)
+    pass_idx, within = divmod(start_step, per_pass)
+    while True:
+        rng = np.random.default_rng((base, pass_idx))
+        order = rng.permutation(n) if shuffle else np.arange(n)
+        starts = range(0, n - batch + 1, batch)
+        for start in list(starts)[within:]:
+            yield order[start : start + batch]
+        within = 0
+        pass_idx += 1
+
+
+def _unported(where: str, **options) -> None:
+    """Raise for any option that is set: those paths are not ported yet."""
+    for name, value in options.items():
+        if value not in (None, False, (), []):
+            raise NotImplementedError(f"{where}({name}=...): not yet ported")
 
 
 class Model:
@@ -24,6 +69,10 @@ class Model:
         self.module = module
         self.device = resolve_device(device)
         self.built = False
+        self.compiled = False
+        self.step = 0  # global optimizer step (the batch-order cursor)
+        self.tx = None
+        self.opt_state = None
         self._decode_dtype = None
 
     def build(self, input_shape: Sequence[int], seed: int = 0):
@@ -34,9 +83,10 @@ class Model:
         self.input_shape = tuple(int(d) for d in input_shape)
         self.module.build(self.input_shape, generator)
         self.module.to(self.device)
-        self.module.requires_grad_(False)
         self.built = True
         self._decode_dtype = None
+        if self.compiled:
+            self.opt_state = self.tx.init(self._param_list())
         return self
 
     def _require_built(self):
@@ -52,6 +102,15 @@ class Model:
             name.replace(".", SEP): p
             for name, p in self.module.named_parameters()
         }
+
+    def _param_list(self):
+        return list(self.params.values())
+
+    @property
+    def num_params(self) -> int:
+        if not self.built:
+            raise ValueError("Model not built")
+        return sum(p.numel() for p in self.params.values())
 
     def load_params(self, params: Dict[str, torch.Tensor]) -> None:
         """Copy ``{tree path: tensor}`` (e.g. ``interop.params_from_jax``)
@@ -83,6 +142,199 @@ class Model:
                 x = torch.zeros((1, 1), dtype=torch.int64, device=self.device)
                 self._decode_dtype = self.module(x).dtype
         return self._decode_dtype
+
+    # ---------------------------------------------------------------- compile
+    def compile(
+        self,
+        optimizer="sgd",
+        loss="sparse_categorical_crossentropy",
+        metrics: Iterable = ("accuracy",),
+        grad_clip: Optional[float] = None,
+        gradient_accumulation_steps: Optional[int] = None,
+        head_chunks: Optional[int] = None,
+        steps_per_execution: Optional[int] = None,
+        precision=None,
+        strategy=None,
+        **optimizer_kwargs,
+    ):
+        """Set the optimizer (a name, with ``optimizer_kwargs`` for its
+        constructor, or an ``optim`` instance), the loss (a name, e.g.
+        ``"pallas_sparse_categorical_crossentropy"``, or a callable) and the
+        metrics. A built model's optimizer state starts afresh, as in JAX.
+        Clipping, accumulation, the chunked head, multi-step execution,
+        precision policies and strategies are kept for call parity with the
+        JAX package and raise ``NotImplementedError``."""
+        _unported(
+            "compile", grad_clip=grad_clip,
+            gradient_accumulation_steps=gradient_accumulation_steps,
+            head_chunks=head_chunks, steps_per_execution=steps_per_execution,
+            precision=precision, strategy=strategy,
+        )
+        self.tx = optim.get(optimizer, **optimizer_kwargs)
+        self.loss_fn = losses_lib.get(loss)
+        self.metric_fns = [(metrics_lib.name_of(m), metrics_lib.get(m))
+                           for m in metrics]
+        self.compiled = True
+        if self.built:
+            self.opt_state = self.tx.init(self._param_list())
+        return self
+
+    # -------------------------------------------------------- learning rate
+    def set_learning_rate(self, lr: float):
+        """Change the learning rate of the current optimizer state (held
+        there as an f32 hyperparameter, as optax.inject_hyperparams does)."""
+        if self.opt_state is None:
+            raise RuntimeError("compile() and build() the model first")
+        self.opt_state = optim.set_hyperparam(self.opt_state,
+                                              "learning_rate", lr)
+        return self
+
+    def get_learning_rate(self) -> float:
+        if self.opt_state is None:
+            raise RuntimeError("compile() and build() the model first")
+        return optim.get_hyperparam(self.opt_state, "learning_rate")
+
+    # ------------------------------------------------------------- train step
+    def _to_device(self, a) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _train_step(self, x, y):
+        """One optimizer step on a device batch: returns the loss (a
+        device scalar) and each metric's (sum, count)."""
+        params = self._param_list()
+        logits = self.module(x)
+        loss = self.loss_fn(logits, y)
+        grads = torch.autograd.grad(loss, params, materialize_grads=True)
+        self.tx.update(params, grads, self.opt_state)
+        with torch.no_grad():
+            mvals = {name: fn(logits.detach(), y)
+                     for name, fn in self.metric_fns}
+        return loss.detach(), mvals
+
+    # -------------------------------------------------------------------- fit
+    def fit(
+        self,
+        x,
+        y=None,
+        batch_size: int = 32,
+        epochs: int = 1,
+        steps_per_epoch: Optional[int] = None,
+        validation_data=None,
+        shuffle: bool = True,
+        verbose: int = 1,
+        initial_epoch: int = 0,
+        seed: Optional[int] = None,
+        callbacks: Sequence = (),
+        grad_accum: Optional[int] = None,
+    ) -> History:
+        """Train on host arrays ``(x, y)``: ``batch_size`` rows per step,
+        ``steps_per_epoch`` steps per epoch (default ``len(x) //
+        batch_size``), batches drawn in the JAX package's order
+        (``shuffle``, ``seed``). Returns a ``History`` of per-epoch means.
+        Batch iterators, validation, callbacks and ``grad_accum`` are not
+        ported yet and raise."""
+        if not self.compiled:
+            raise RuntimeError("Call compile() before fit()")
+        if y is None:
+            raise NotImplementedError(
+                "fit(x) from a batch iterator: not yet ported")
+        _unported("fit", validation_data=validation_data,
+                  callbacks=callbacks, grad_accum=grad_accum)
+        x = np.asarray(x)
+        y = np.asarray(y)
+        if not self.built:
+            self.build(x.shape[1:], seed=0 if seed is None else seed)
+        n = x.shape[0]
+        if batch_size > n:
+            raise ValueError(f"batch_size {batch_size} > dataset size {n}")
+        if steps_per_epoch is None:
+            steps_per_epoch = n // batch_size
+        stream = _index_stream(n, batch_size, shuffle, seed,
+                               start_step=self.step)
+        history = History()
+        for epoch in range(initial_epoch, epochs):
+            t0 = time.perf_counter()
+            losses = []
+            msums: Dict[str, list] = {name: [] for name, _ in self.metric_fns}
+            bar = None
+            if verbose == 1:
+                bar = ProgressLine(steps_per_epoch,
+                                   prefix=f"Epoch {epoch + 1}/{epochs}: ")
+            for done in range(1, steps_per_epoch + 1):
+                idx = next(stream)
+                loss, mvals = self._train_step(self._to_device(x[idx]),
+                                               self._to_device(y[idx]))
+                self.step += 1
+                losses.append(loss)
+                for name, _ in self.metric_fns:
+                    msums[name].append(mvals[name])
+                if bar is not None:
+                    bar.update(done)
+            if bar is not None:
+                bar.close()
+            # One host sync per epoch: every loss and metric sum at once.
+            logs = {"loss": float(np.mean(
+                torch.stack(losses).to(torch.float32).cpu().numpy()))}
+            for name, pairs in msums.items():
+                s = torch.stack([p[0] for p in pairs]).to(torch.float32)
+                c = np.float32(sum(float(p[1]) for p in pairs))
+                logs[name] = float(np.float32(s.sum().item()) / max(c, 1.0))
+            dt = time.perf_counter() - t0
+            history.record(epoch, logs)
+            if verbose:
+                parts = " - ".join(f"{k}: {v:.4f}" for k, v in logs.items())
+                print(f"Epoch {epoch + 1}/{epochs} - "
+                      f"{batch_size * steps_per_epoch} samples - {dt:.2f}s "
+                      f"({dt / steps_per_epoch * 1000:.1f}ms/step) - {parts}")
+        return history
+
+    # --------------------------------------------------------------- evaluate
+    def evaluate(self, x, y=None, batch_size: int = 32, verbose: int = 1,
+                 steps: Optional[int] = None) -> Dict[str, float]:
+        """Loss and metrics over arrays ``(x, y)``, as per-element means
+        (an LM's loss is the mean over every token, as in training). The
+        last batch may be partial; it is scored as it is, with no padding
+        (PyTorch needs no static shapes), which the JAX package's masked
+        padding computes the same."""
+        if y is None:
+            raise NotImplementedError(
+                "evaluate(x) from a batch iterator: not yet ported")
+        _unported("evaluate", steps=steps)
+        if not (self.built and self.compiled):
+            raise RuntimeError("Model must be built and compiled")
+        x = np.asarray(x)
+        y = np.asarray(y)
+        per_ex = losses_lib.get_per_example(self.loss_fn)
+        results = []  # device values; one host sync at the end
+        with torch.inference_mode():
+            for start in range(0, x.shape[0], batch_size):
+                xb = self._to_device(x[start:start + batch_size])
+                yb = self._to_device(y[start:start + batch_size])
+                logits = self.module(xb)
+                valid = float(yb.numel())
+                if per_ex is not None:
+                    loss_sum = per_ex(logits, yb).sum()
+                else:
+                    loss_sum = self.loss_fn(logits, yb) * valid
+                msums = {}
+                for name, fn in self.metric_fns:
+                    scores = metrics_lib.per_example(fn)
+                    if scores is not None:
+                        sc = scores(logits, yb)
+                        msums[name] = (sc.sum(), float(sc.numel()))
+                    else:
+                        msums[name] = fn(logits, yb)
+                results.append((loss_sum, valid, msums))
+        count = sum(r[1] for r in results)
+        out = {"loss": sum(float(r[0]) for r in results) / max(count, 1.0)}
+        for name, _ in self.metric_fns:
+            s = sum(float(r[2][name][0]) for r in results)
+            c = sum(float(r[2][name][1]) for r in results)
+            out[name] = s / max(c, 1.0)
+        if verbose:
+            parts = " - ".join(f"{k}: {v:.4f}" for k, v in out.items())
+            print(f"Evaluate - {x.shape[0]} samples - {parts}")
+        return out
 
 
 __all__ = ["Model"]

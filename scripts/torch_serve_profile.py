@@ -70,7 +70,7 @@ def main():
     reqs = chip_smoke.requests(16, (32, 512), (64, 128))
     engine = dtt.serving.Engine(model, max_slots=8, block_size=16,
                                 max_len=chip_smoke.LM["max_len"],
-                                kv_dtype=args.kv_dtype)
+                                kv_dtype=args.kv_dtype, decode_kernel="fused")
 
     def run():
         t = time.perf_counter()

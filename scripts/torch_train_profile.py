@@ -1,0 +1,140 @@
+#!/usr/bin/env python3
+"""Where the PyTorch port's training step time goes, on one NVIDIA card.
+
+    python3 scripts/torch_train_profile.py [--layers 12] [--steps 3]
+
+Trains chip_smoke.py's phase-h configuration (the GPT-2-small LM at full
+width, bf16 layers, random weights from seed 0, ``Adam(1e-4)``, the pallas
+loss, batch 32 x 1024 tokens from ``numpy.random.default_rng(0)``) through
+``Model.fit``: two warm-up steps, a timed run of ``--steps`` steps (host
+clock, ending in a synchronize), then the same number of steps under
+``torch.profiler`` (CPU and CUDA): device time by kernel, grouped into the
+port's CUDA kernels, GEMMs and the rest, and the device's busy share of
+the timed run's wall time.
+
+Prints a summary and writes the numbers to ``chiprun_out/train_profile.json``.
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke  # noqa: E402  (the workload definition)
+import distributed_tpu_torch as dtt  # noqa: E402
+
+# Kernel-name fragments of each group (first match wins).
+GROUPS = (
+    ("flash attention (port)", ("flash_fwd_kernel", "flash_dq_kernel",
+                                "flash_dkv_kernel")),
+    ("cross-entropy (port)", ("xent_fwd_kernel", "xent_bwd_kernel")),
+    ("GEMM (cuBLAS)", ("nvjet", "gemm", "Gemm", "xmma", "cutlass")),
+    ("optimizer (foreach)", ("multi_tensor_apply", "foreach")),
+)
+
+
+def group_of(name):
+    for label, keys in GROUPS:
+        if any(k in name for k in keys):
+            return label
+    return "other (elementwise, reductions, copies)"
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--layers", type=int, default=chip_smoke.LM["num_layers"])
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--out", default=os.path.join(
+        ROOT, "chiprun_out", "train_profile.json"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs an NVIDIA card", file=sys.stderr)
+        return 2
+
+    lm = dict(chip_smoke.LM, num_layers=args.layers)
+    t_len, batch = lm["max_len"], 32
+    x, y = chip_smoke.lm_batch(batch, t_len)
+    model = dtt.Model(dtt.models.transformer_lm(
+        chip_smoke.VOCAB, dtype="bfloat16", **lm))
+    model.compile(optimizer=dtt.optim.Adam(1e-4),
+                  loss="pallas_sparse_categorical_crossentropy",
+                  metrics=["accuracy"])
+    model.build((t_len,), seed=0)
+
+    def fit(steps):
+        t = time.perf_counter()
+        model.fit(x, y, batch_size=batch, epochs=1, steps_per_epoch=steps,
+                  shuffle=False, verbose=0)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    fit(2)  # warm-up
+    wall = fit(args.steps)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        prof_wall = fit(args.steps)
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def dev_us(e):
+        return float(getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0)))
+
+    kernels = sorted(
+        ({"name": e.key, "count": int(e.count), "device_ms": dev_us(e) / 1e3}
+         for e in prof.key_averages()
+         if e.device_type == cuda and dev_us(e) > 0),
+        key=lambda r: -r["device_ms"],
+    )
+    busy_ms = sum(k["device_ms"] for k in kernels)
+    groups = {}
+    for k in kernels:
+        g = groups.setdefault(group_of(k["name"]), {"device_ms": 0.0,
+                                                    "launches": 0})
+        g["device_ms"] += k["device_ms"]
+        g["launches"] += k["count"]
+    steps = args.steps
+    result = {
+        "device": torch.cuda.get_device_name(0),
+        "card": chip_smoke.card_line(),
+        "layers": args.layers,
+        "timed_run": {"steps": steps, "wall_s": wall,
+                      "ms_per_step": 1e3 * wall / steps},
+        "profiled_run": {
+            "wall_s": prof_wall,
+            "device_busy_ms_per_step": busy_ms / steps,
+            "device_busy_share_of_timed_run": busy_ms / (1e3 * wall),
+            "groups_ms_per_step": {k: v["device_ms"] / steps
+                                   for k, v in groups.items()},
+            "group_launches_per_step": {k: v["launches"] / steps
+                                        for k, v in groups.items()},
+            "top_kernels": kernels[:25],
+        },
+    }
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(result, f, indent=1)
+    print(f"{result['card']} | layers {args.layers}")
+    print(f"timed run: {steps} steps in {wall:.3f} s, "
+          f"{1e3 * wall / steps:.1f} ms/step")
+    p = result["profiled_run"]
+    print(f"profiled run: {prof_wall:.3f} s wall; device busy "
+          f"{busy_ms / steps:.1f} ms/step = "
+          f"{p['device_busy_share_of_timed_run']:.1%} of the timed run")
+    for k, v in sorted(groups.items(), key=lambda kv: -kv[1]["device_ms"]):
+        print(f"  {v['device_ms'] / steps:9.2f} ms/step  "
+              f"x{v['launches'] / steps:7.1f}  {k}")
+    for k in kernels[:25]:
+        print(f"  {k['device_ms'] / steps:9.2f} ms/step  x{k['count'] / steps:7.1f}"
+              f"  {k['name'][:100]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

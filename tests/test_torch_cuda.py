@@ -7,14 +7,18 @@ card it runs without them (``tests/conftest.py`` imports JAX, hence
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerances: 2e-5 for f32 (sums in different orders), 2e-2 for bf16
-(probabilities round to bf16 at different running maxima).
+Tolerances, per entry: 2e-5 for f32 (sums in different orders); bf16
+outputs 2e-2 (probabilities round to bf16 at different running maxima),
+bf16 flash gradients atol 2e-3 + rtol 2e-2; the cross-entropy: 1e-5 on
+the f32 losses, one bf16 ulp of each entry on bf16 gradients.
 """
 
 import pytest
 import torch
 
+from distributed_tpu_torch.ops import flash_attention as flash_ops
 from distributed_tpu_torch.ops import paged_attention as paged_ops
+from distributed_tpu_torch.ops import pallas_kernels as xent_ops
 
 
 @pytest.fixture
@@ -61,3 +65,82 @@ def test_paged_attention_kernel_matches_plain(cuda_device, dtype, kw, int8):
     assert paged_ops.launches[key] == before + 1
     tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+# ----------------------------------------------- fused softmax cross-entropy
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c", [(37, 300), (64, 4096)])
+def test_xent_kernels_match_plain(cuda_device, dtype, n, c):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    logits = (3 * torch.randn((n, c), generator=g, device=cuda_device)).to(dtype)
+    labels = torch.randint(0, c, (n,), generator=g, device=cuda_device)
+    labels[0] = c  # out of range: picks 0, one-hot of nothing
+    gout = torch.rand((n,), generator=g, device=cuda_device)
+    before = dict(xent_ops.launches)
+    loss = xent_ops.xent_fwd(logits, labels)
+    dl = xent_ops.xent_bwd(logits, labels, gout)
+    torch.cuda.synchronize()
+    assert xent_ops.launches["xent_fwd"] == before["xent_fwd"] + 1
+    assert xent_ops.launches["xent_bwd"] == before["xent_bwd"] + 1
+    torch.testing.assert_close(loss, xent_ops.xent_fwd_ref(logits, labels),
+                               atol=1e-5, rtol=1e-5)
+    want = xent_ops.xent_bwd_ref(logits, labels, gout).float()
+    assert dl.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(dl, want, atol=1e-6, rtol=0)
+    else:  # every entry within one bf16 ulp of its own value
+        ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+        assert bool(((dl.float() - want).abs() <= ulp).all())
+
+
+# ---------------------------------------------------------- flash attention
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(2, 64, 4, 32), (1, 100, 3, 32),
+                                   (2, 200, 2, 64)])
+def test_flash_kernels_match_plain(cuda_device, dtype, causal, shape):
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v, do = (torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+                   for _ in range(4))
+    before = dict(flash_ops.launches)
+    o, m, l = flash_ops.flash_fwd(q, k, v, causal)
+    delta = flash_ops.flash_delta(do, o)
+    dq, dk, dv = flash_ops.flash_bwd(q, k, v, do, m, l, delta, causal)
+    torch.cuda.synchronize()
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        assert flash_ops.launches[name] == before[name] + 1
+    o_ref, m_ref, l_ref = flash_ops.flash_fwd_ref(q, k, v, causal)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(m, m_ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(l, l_ref, atol=tol, rtol=tol)
+    want = flash_ops.flash_bwd_ref(q, k, v, do, m, l, delta, causal)
+    # Every gradient entry within atol + rtol * |its reference|.
+    atol, rtol = (2e-5, 2e-5) if dtype == torch.float32 else (2e-3, 2e-2)
+    for got, ref in zip((dq, dk, dv), want):
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                                   rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_matches_dense(cuda_device):
+    """flash_attention's gradients through autograd against the dense
+    path's, in f32 with TF32 off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    shape = (2, 130, 3, 64)
+    base = [torch.randn(shape, generator=g, device=cuda_device)
+            for _ in range(3)]
+    w = torch.randn(shape, generator=g, device=cuda_device)
+
+    def grads(fn):
+        q, k, v = (t.clone().requires_grad_(True) for t in base)
+        (fn(q, k, v) * w).sum().backward()
+        return q.grad, k.grad, v.grad
+
+    got = grads(lambda q, k, v: flash_ops.flash_attention(q, k, v, causal=True))
+    want = grads(lambda q, k, v: flash_ops.dense_attention(q, k, v, True))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=5e-5, rtol=1e-4)

@@ -138,3 +138,30 @@ def test_engine_logprobs_and_validation(pair):
         eng.run([Request(np.zeros(60, np.int32), 10)])
     with pytest.raises(ValueError, match="positional"):
         Engine(pair[1], max_slots=2, block_size=4, max_len=128)
+
+
+def test_default_decode_kernel_is_the_jax_engines():
+    """Both Engines read decode through the same path when the caller does
+    not choose one: "reference", the JAX Engine's default."""
+    import inspect
+
+    def default(cls):
+        return inspect.signature(cls.__init__).parameters[
+            "decode_kernel"].default
+
+    assert default(Engine) == default(JaxEngine) == "reference"
+
+
+def test_default_engines_serve_a_bf16_pair_identically():
+    """Default-constructed engines of both packages on the same bf16
+    weights: identical tokens (with the port's old "fused" default the
+    two read decode through different paths)."""
+    jm, pm = lm_pair(vocab=VOCAB, num_layers=2, d_model=32, num_heads=2,
+                     max_len=64, dtype="bfloat16")
+    prompts, news = _requests(seed=9, n=4)
+    want = JaxEngine(jm, max_slots=2, block_size=4, max_len=64).run(
+        [JaxRequest(p, m) for p, m in zip(prompts, news)])
+    got = Engine(pm, max_slots=2, block_size=4, max_len=64).run(
+        [Request(p, m) for p, m in zip(prompts, news)])
+    for i, (w, g) in enumerate(zip(want, got)):
+        assert np.array_equal(np.asarray(w), g), f"request {i}"

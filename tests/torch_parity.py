@@ -30,11 +30,12 @@ def port_model(module, input_shape, jax_params):
 
 
 def lm_pair(vocab=64, num_layers=2, d_model=32, num_heads=2, max_len=64,
-            dtype=None, seed=0):
+            dtype=None, seed=0, **lm_kw):
     """The same transformer_lm in both packages, on the same weights.
-    ``dtype``: None (f32) or "bfloat16"."""
+    ``dtype``: None (f32) or "bfloat16"; ``lm_kw`` (e.g. ``flash=True``)
+    go to both constructors."""
     kw = dict(num_layers=num_layers, d_model=d_model, num_heads=num_heads,
-              max_len=max_len)
+              max_len=max_len, **lm_kw)
     jm = jax_model(dtpu.models.transformer_lm(
         vocab, dtype=None if dtype is None else jax.numpy.dtype(dtype), **kw),
         (16,), seed=seed)
