@@ -46,11 +46,37 @@ i. The kernel path against the plain path: a 2-layer f32 LM (TF32 off),
    3 Adam steps with ``flash=True`` and the pallas loss against
    ``flash=False`` and the stock loss; per-step losses must agree to 1e-5
    relative.
+j. Fused Adam (K11) against its plain version on GPT-2-small's own
+   parameter tree (every leaf and shape), gradients from a seeded
+   generator: 3 ``fused_adam`` updates (wd 0) and 3 ``fused_adamw``
+   updates (wd 0.01); parameters and both moments must be bit-identical.
+   Then timed per update (after an L2 flush) beside the plain ``foreach``
+   walk, ``torch.optim.AdamW(fused=True)`` (the library yardstick, timed
+   only) and the bytes bound.
+k. The reference workload: ``cluster.initialize()`` from a one-worker
+   DTPU_CONFIG (an NCCL group of world 1) and a ``DataParallel()`` scope;
+   ``mnist_cnn`` as the JAX package's ``bench_mnist`` configures it
+   (synthetic images, global batch 256, ``SGD(0.001)``; 10 warm-up and
+   100 timed steps) and ``cifar_cnn`` as ``bench_cifar`` does (batch 256
+   from ``default_rng(0)``, ``SGD(0.01, momentum=0.9)``; 5 + 50 steps),
+   both through ``fit`` with TF32 off: steps/s, images/s, finite losses.
+   Then 5 mnist steps under ``DataParallel`` (world 1) and under
+   ``SingleDevice`` from the same parameters, cuDNN deterministic: the
+   losses must be equal.
+l. GPT-2-small under the same ``DataParallel`` scope with
+   ``fused_adamw(3e-4, weight_decay=0.01)``, otherwise phase h's
+   configuration: 2 warm-up and 5 timed steps (counts zeroed just before,
+   read just after): steps/s, tokens/s, MFU, peak memory, launches per
+   step of K11 and K3-K10. Then 3 steps with ``fused_adamw`` and 3 with
+   the plain ``AdamW`` from the same parameters and batch: the losses
+   must be equal. The process group is destroyed at the end.
 Then the kernel table as one JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}`` as the last line.
 """
 
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -76,12 +102,13 @@ REPLACES = {
     "flash_fwd": "distributed_tpu/ops/flash_attention.py:83",
     "flash_dq": "distributed_tpu/ops/flash_attention.py:199",
     "flash_dkv": "distributed_tpu/ops/flash_attention.py:238",
+    "fused_adam": "distributed_tpu/ops/fused_update.py:82",
 }
 SOURCES = {
     "paged_attention": "paged_attention", "paged_attention_int8":
     "paged_attention", "xent_fwd": "xent", "xent_bwd": "xent",
     "flash_fwd": "flash_attention", "flash_dq": "flash_attention",
-    "flash_dkv": "flash_attention",
+    "flash_dkv": "flash_attention", "fused_adam": "fused_adam",
 }
 
 LM = dict(num_layers=12, d_model=768, num_heads=12, max_len=1024)
@@ -266,15 +293,20 @@ def report(tag, tel, wall):
 
 
 # ------------------------------------------------------------ phase f, g
-def cuda_ms_flushed(torch, fn, iters):
+def cuda_ms_flushed(torch, fn, iters, ahead=False):
     """Mean device ms of ``fn(i)`` over ``iters`` launches, each timed
     between its own CUDA events right after a 128 MB write that evicts the
-    50 MB L2, so every launch reads its inputs from HBM."""
+    50 MB L2, so every launch reads its inputs from HBM. ``ahead``: the
+    card first spins ~50 ms so the host queues every call before the
+    first starts, and the events time the device, not the host's
+    preparation of a call that launches many kernels."""
     flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
     fn(0)
     torch.cuda.synchronize()
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    if ahead:
+        torch.cuda._sleep(100_000_000)
     for i, (a, b) in enumerate(ev):
         flush.zero_()
         a.record()
@@ -572,6 +604,224 @@ def phase_kernel_vs_plain(torch, dtt, batch=4, steps=3):
         raise SystemExit("the kernel path's losses disagree with the plain path")
 
 
+# ------------------------------------------------------------------ phase j
+def phase_fused_adam(torch, dtt, adam_ops, lr=3e-4, wd=0.01):
+    dev = torch.device("cuda")
+    lm = dtt.Model(dtt.models.transformer_lm(VOCAB, dtype="bfloat16", **LM))
+    lm.build((LM["max_len"],), seed=0)
+    base = [p.detach() for p in lm.params.values()]
+    n = sum(p.numel() for p in base)
+    g = torch.Generator(device=dev).manual_seed(17)
+    grads = [torch.randn(p.shape, generator=g, device=dev) * 1e-2 for p in base]
+    per_update = math.ceil(len(base) / adam_ops.MAX_LEAVES)
+    print(f"  {len(base)} leaves, {n / 1e6:.1f}M f32 entries: {per_update} "
+          f"launches per update ({adam_ops.MAX_LEAVES} leaves per launch)")
+    err, failed = 0.0, []
+    for fused, plain in (("fused_adam", "adam"), ("fused_adamw", "adamw")):
+        runs = []
+        for name in (fused, plain):
+            opt = dtt.optim.get(name, learning_rate=lr)
+            params = [p.clone() for p in base]
+            state = opt.init(params)
+            for _ in range(3):
+                opt.update(params, grads, state)
+            runs.append(params + state["mu"] + state["nu"])
+        torch.cuda.synchronize()
+        bad = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                  for a, b in zip(*runs))
+        e = max(max_err(a, b) for a, b in zip(*runs))
+        err = max(err, e)
+        print(f"  {fused:11s} vs {plain:5s} (plain), 3 updates: {bad} of "
+              f"{3 * n} p/m/v entries differ in any bit, max_abs_err "
+              f"{e:.3e} (limit: bit-identical) {'ok' if not bad else 'MISMATCH'}")
+        if bad:
+            failed.append(fused)
+        del runs
+    if failed:
+        raise SystemExit(f"{failed}: the fused Adam kernel disagrees with its "
+                         "plain version")
+
+    def f32(v):
+        return float(torch.tensor(v, dtype=torch.float32))
+
+    s = adam_ops.AdamScalars(
+        neg_lr=-f32(lr), b1=f32(0.9), b2=f32(0.999), c1=f32(1 - f32(0.9)),
+        c2=f32(1 - f32(0.999)), eps=f32(1e-8), wd=f32(wd),
+        bc1=f32(1 - f32(0.9) ** 4), bc2=f32(1 - f32(0.999) ** 4))
+    p = [x.clone() for x in base]
+    m = [torch.zeros_like(x) for x in base]
+    v = [torch.zeros_like(x) for x in base]
+    ms = cuda_ms_flushed(torch, lambda i: adam_ops.adam_update(p, grads, m, v, s),
+                         20, ahead=True)
+    plain_ms = cuda_ms_flushed(
+        torch, lambda i: adam_ops.adam_update_ref(p, grads, m, v, s), 5,
+        ahead=True)
+    lib_params = [torch.nn.Parameter(x.clone()) for x in base]
+    for q, gr in zip(lib_params, grads):
+        q.grad = gr
+    lib = torch.optim.AdamW(lib_params, lr=lr, weight_decay=wd, fused=True)
+    library_ms = cuda_ms_flushed(torch, lambda i: lib.step(), 5, ahead=True)
+    # Each entry reads p, g, m, v and writes p, m, v (f32); 16 operations
+    # (7 in the moments, 5 in the normalised step, 2 each for the decay
+    # and the apply).
+    nbytes, flops = 28 * n, 16 * n
+    b_ms, b_by = bound_ms(nbytes, flops, "float32")
+    print(f"  fused_adamw update: {ms * 1e3:.1f} us ({per_update} launches), "
+          f"plain foreach {plain_ms * 1e3:.1f} us, torch.optim.AdamW(fused="
+          f"True) {library_ms * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us "
+          f"({b_by}: {nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP), "
+          f"{b_ms / ms:.1%} of bound")
+    del lm, base, grads, p, m, v, lib, lib_params
+    torch.cuda.empty_cache()
+    return {"fused_adam": dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               library_ms=library_ms, bound_ms=b_ms,
+                               bound_by=b_by)}
+
+
+# ------------------------------------------------------------------ phase k
+def fit_timed(torch, model, x, y, batch, warmup, steps):
+    """(mean loss of the timed steps, wall s): ``warmup`` steps, then
+    ``steps`` steps as one epoch of ``fit`` on the repeated batch (one
+    host sync at its end)."""
+    model.fit(x, y, batch_size=batch, epochs=1, steps_per_epoch=warmup,
+              shuffle=False, verbose=0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    hist = model.fit(x, y, batch_size=batch, epochs=1, steps_per_epoch=steps,
+                     shuffle=False, verbose=0)
+    torch.cuda.synchronize()
+    return hist.history["loss"][0], time.perf_counter() - t
+
+
+def phase_cnn(torch, dtt, batch=256):
+    port = dtt.cluster.free_port()
+    os.environ["DTPU_CONFIG"] = dtt.cluster.ClusterSpec(
+        workers=[f"127.0.0.1:{port}"], index=0).to_json()
+    spec = dtt.cluster.initialize(timeout=120)
+    strategy = dtt.DataParallel()
+    print(f"  cluster: {spec.num_processes} worker(s), process group "
+          f"{torch.distributed.get_backend()} of world "
+          f"{strategy.num_replicas_in_sync}, device {strategy.device}")
+    loss = "sparse_categorical_crossentropy"
+    x, y = dtt.data.synthetic_images(batch, (28, 28), 10, 0)
+    x = x[..., None].astype(np.float32) / 255.0
+
+    def mnist(strat, seed=0):
+        with strat.scope():
+            m = dtt.Model(dtt.models.mnist_cnn())
+            m.compile(optimizer=dtt.optim.SGD(0.001), loss=loss,
+                      metrics=["accuracy"])
+        m.build((28, 28, 1), seed=seed)
+        return m
+
+    rng = np.random.default_rng(0)
+    cx = rng.standard_normal((batch, 32, 32, 3), dtype=np.float32)
+    cy = rng.integers(0, 10, (batch,), dtype=np.int64).astype(np.int32)
+    with strategy.scope():
+        cifar = dtt.Model(dtt.models.cifar_cnn())
+        cifar.compile(optimizer=dtt.optim.SGD(0.01, momentum=0.9), loss=loss,
+                      metrics=["accuracy"])
+    cifar.build((32, 32, 3))
+    for name, model, xs, ys, warmup, steps in (
+            ("mnist_cnn", mnist(strategy), x, y, 10, 100),
+            ("cifar_cnn", cifar, cx, cy, 5, 50)):
+        mean_loss, wall = fit_timed(torch, model, xs, ys, batch, warmup, steps)
+        sps = steps / wall
+        print(f"  {name} ({model.num_params} params), global batch {batch}, "
+              f"TF32 off: {steps} steps in {wall:.3f} s after {warmup} warm-up: "
+              f"{sps:.2f} steps/s, {sps * batch:.0f} images/s, mean loss "
+              f"{mean_loss:.5f}")
+        if not np.isfinite(mean_loss):
+            raise SystemExit(f"{name}: training loss not finite")
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for strat in (strategy, dtt.SingleDevice()):
+            hist = mnist(strat, seed=1).fit(x, y, batch_size=batch, epochs=5,
+                                            steps_per_epoch=1, shuffle=False,
+                                            verbose=0)
+            runs.append(hist.history["loss"])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    print(f"  DataParallel (world 1) {runs[0]}\n  SingleDevice           "
+          f"{runs[1]}: {'equal' if runs[0] == runs[1] else 'DIFFER'}")
+    if runs[0] != runs[1]:
+        raise SystemExit("DataParallel over one rank and SingleDevice differ")
+    return strategy
+
+
+# ------------------------------------------------------------------ phase l
+def phase_dp_lm(torch, dtt, strategy, kernel_mods, batch=32, warmup=2,
+                steps=5):
+    t_len = LM["max_len"]
+    x, y = lm_batch(batch, t_len)
+
+    def lm(optimizer):
+        with strategy.scope():
+            model = dtt.Model(dtt.models.transformer_lm(
+                VOCAB, dtype="bfloat16", **LM))
+            model.compile(optimizer=optimizer,
+                          loss="pallas_sparse_categorical_crossentropy",
+                          metrics=["accuracy"])
+        model.build((t_len,), seed=0)
+        return model
+
+    model = lm(dtt.optim.fused_adamw(3e-4, weight_decay=0.01))
+    model.fit(x, y, batch_size=batch, epochs=warmup, steps_per_epoch=1,
+              shuffle=False, verbose=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in kernel_mods:
+        mod.reset_launch_counts()
+    t = time.perf_counter()
+    hist = model.fit(x, y, batch_size=batch, epochs=steps, steps_per_epoch=1,
+                     shuffle=False, verbose=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {}
+    for mod in kernel_mods:
+        launches.update(mod.launches)
+    losses = hist.history["loss"]
+    sps = steps / wall
+    tokens = batch * t_len
+    fwd = lm_fwd_flops_per_token(LM["num_layers"], LM["d_model"], t_len, VOCAB)
+    mfu = 3 * fwd * tokens * sps / PEAK_FLOPS["bfloat16"]
+    print(f"  losses {[round(v, 5) for v in losses]}")
+    print(f"  {steps} steps in {wall:.3f} s: {sps:.3f} steps/s, "
+          f"{sps * tokens:.0f} tokens/s, MFU {mfu:.4f}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    per_step = {k: v / steps for k, v in launches.items()
+                if not k.startswith("paged")}
+    print(f"  launches per step {per_step}")
+    leaves = len(model.params)
+    want = {"xent_fwd": 1, "xent_bwd": 1, "flash_fwd": LM["num_layers"],
+            "flash_dq": LM["num_layers"], "flash_dkv": LM["num_layers"],
+            "fused_adam": math.ceil(leaves / 64)}
+    if per_step != want:
+        raise SystemExit(f"launches per step {per_step}, expected {want}")
+    if not all(np.isfinite(losses)) or not all(
+            b < a for a, b in zip(losses, losses[1:])):
+        raise SystemExit(f"training losses not finite and falling: {losses}")
+    del model
+    torch.cuda.empty_cache()
+    runs = []
+    for opt in (dtt.optim.fused_adamw(3e-4, weight_decay=0.01),
+                dtt.optim.AdamW(3e-4, weight_decay=0.01)):
+        model = lm(opt)
+        runs.append(model.fit(x, y, batch_size=batch, epochs=3,
+                              steps_per_epoch=1, shuffle=False,
+                              verbose=0).history["loss"])
+        del model
+        torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(*runs))
+    print(f"  fused_adamw {runs[0]}\n  AdamW       {runs[1]}\n  "
+          f"{'identical' if runs[0] == runs[1] else 'not identical'}, max "
+          f"relative difference {rel:.3e} (limit 1e-5)")
+    if rel > 1e-5:
+        raise SystemExit("fused_adamw and AdamW losses disagree")
+    return launches["fused_adam"]
+
+
 def main():
     import torch
 
@@ -582,6 +832,7 @@ def main():
     import distributed_tpu_torch as dtt
     from distributed_tpu_torch.ops import _build
     from distributed_tpu_torch.ops import flash_attention as flash_ops
+    from distributed_tpu_torch.ops import fused_update as adam_ops
     from distributed_tpu_torch.ops import paged_attention as paged_ops
     from distributed_tpu_torch.ops import pallas_kernels as xent_ops
 
@@ -683,6 +934,18 @@ def main():
     print("phase i: 2 layers, f32, TF32 off: kernel path vs plain path, 3 "
           "Adam steps")
     phase_kernel_vs_plain(torch, dtt)
+
+    print("phase j: fused Adam kernel vs plain, GPT-2-small's parameter tree")
+    rows.update(phase_fused_adam(torch, dtt, adam_ops))
+
+    print("phase k: mnist_cnn and cifar_cnn under DataParallel (NCCL, world 1)")
+    strategy = phase_cnn(torch, dtt)
+
+    print("phase l: GPT-2-small under DataParallel, fused_adamw(3e-4, wd "
+          "0.01), pallas loss, batch 32 x 1024")
+    rows["fused_adam"]["launches"] = phase_dp_lm(
+        torch, dtt, strategy, (xent_ops, flash_ops, adam_ops))
+    dtt.cluster.shutdown()
 
     kernels = [
         {"name": name, "route": "cuda",

@@ -19,15 +19,29 @@ Ported so far:
 - training: ``Model.compile/fit/evaluate`` of the same LM with
   ``optim.Adam``/``SGD``, flash attention (``csrc/flash_attention.cu``:
   forward, dQ, dK/dV) and the fused softmax cross-entropy
-  (``csrc/xent.cu``: forward, backward), all hand-written in CUDA.
+  (``csrc/xent.cu``: forward, backward), all hand-written in CUDA;
+- the reference's data-parallel CNN trainer: ``models.mnist_cnn`` and
+  ``cifar_cnn`` on the offline ``data`` sets, under ``SingleDevice`` or
+  ``DataParallel`` (one process per card over a ``torch.distributed``
+  group that ``cluster.initialize`` forms from ``DTPU_CONFIG``;
+  ``python -m distributed_tpu_torch.launch`` starts the workers), with
+  the optimizers ``SGD`` (momentum), ``AdamW`` and ``fused_adam``/
+  ``fused_adamw``, whose update is the fused Adam kernel
+  (``csrc/fused_adam.cu``).
 """
 
-from . import interop, models, nn, ops, optim, precision, quant, serving
+from . import (
+    cluster, data, interop, launch, models, nn, ops, optim, parallel,
+    precision, quant, serving, utils,
+)
 from .device import resolve_device
+from .parallel import DataParallel, MultiWorkerMirroredStrategy, SingleDevice
 from .training.history import History
 from .training.model import Model
 
 __all__ = [
-    "History", "Model", "interop", "models", "nn", "ops", "optim",
-    "precision", "quant", "resolve_device", "serving",
+    "DataParallel", "History", "Model", "MultiWorkerMirroredStrategy",
+    "SingleDevice", "cluster", "data", "interop", "launch", "models", "nn",
+    "ops", "optim", "parallel", "precision", "quant", "resolve_device",
+    "serving", "utils",
 ]

@@ -1,12 +1,16 @@
-"""Layers of the port (the subset the serving slice runs)."""
+"""Layers of the port (the subset its slices run: the LM and the CNNs)."""
 
 from . import activations, initializers
 from .attention import MultiHeadAttention, PositionalEmbedding
 from .core import Layer, NameScope, Residual, Sequential
-from .layers import Dense, Embedding, LayerNorm
+from .layers import (
+    Activation, AvgPool2D, Conv2D, Dense, Embedding, Flatten, GlobalAvgPool2D,
+    LayerNorm, MaxPool2D,
+)
 
 __all__ = [
-    "Dense", "Embedding", "Layer", "LayerNorm", "MultiHeadAttention",
+    "Activation", "AvgPool2D", "Conv2D", "Dense", "Embedding", "Flatten",
+    "GlobalAvgPool2D", "Layer", "LayerNorm", "MaxPool2D", "MultiHeadAttention",
     "NameScope", "PositionalEmbedding", "Residual", "Sequential",
     "activations", "initializers",
 ]

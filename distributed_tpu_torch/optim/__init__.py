@@ -25,6 +25,8 @@ from typing import Dict, List
 
 import torch
 
+from ..ops import fused_update
+
 _F32 = torch.float32
 
 
@@ -57,24 +59,52 @@ class _Optimizer:
 
 
 class SGD(_Optimizer):
-    """optax.sgd without momentum: ``p += -lr * g``."""
+    """optax.sgd: ``p += -lr * g``; with ``momentum``, optax's trace
+    first: ``t = g + momentum * t``, the update ``t`` (Nesterov: ``g +
+    momentum * t``)."""
 
     name = "sgd"
 
-    def __init__(self, learning_rate: float = 0.001):
-        super().__init__(learning_rate=learning_rate)
+    def __init__(self, learning_rate: float = 0.001, momentum: float = 0.0,
+                 nesterov: bool = False):
+        # As in the JAX package, momentum 0 builds plain optax.sgd: no
+        # trace in the state and no momentum hyperparameter.
+        hp = dict(learning_rate=learning_rate)
+        if momentum:
+            hp["momentum"] = momentum
+        super().__init__(**hp)
+        self.nesterov = bool(nesterov)
+
+    def _init_slots(self, params):
+        if "momentum" not in self.hyperparams:
+            return {}
+        return {"trace": [torch.zeros_like(p, dtype=_F32) for p in params]}
 
     @torch.no_grad()
     def update(self, params, grads, state):
-        step = (-state["hyperparams"]["learning_rate"]).item()
-        for p, g in zip(params, grads):
-            p.add_(g.to(_F32) * step)
+        hp = state["hyperparams"]
+        step = (-hp["learning_rate"]).item()
+        if "momentum" not in hp:
+            for p, g in zip(params, grads):
+                p.add_(g.to(_F32) * step)
+            return
+        mom = hp["momentum"].item()
+        g = [x.to(_F32) for x in grads]
+        trace = state["trace"]
+        torch._foreach_mul_(trace, mom)
+        torch._foreach_add_(trace, g)
+        upd = (torch._foreach_add(g, torch._foreach_mul(trace, mom))
+               if self.nesterov else trace)
+        torch._foreach_add_(params, torch._foreach_mul(upd, step))
 
 
 class Adam(_Optimizer):
-    """optax.adam (eps_root 0, no Nesterov), under inject_hyperparams."""
+    """optax.adam (eps_root 0, no Nesterov), under inject_hyperparams: the
+    ``torch._foreach_*`` walk of ``ops.fused_update.adam_update_ref``."""
 
     name = "adam"
+    #: True: the update runs K11 (``ops.fused_update``) on CUDA tensors.
+    fused = False
 
     def __init__(self, learning_rate: float = 0.001, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8):
@@ -87,45 +117,71 @@ class Adam(_Optimizer):
             "nu": [torch.zeros_like(p, dtype=_F32) for p in params],
         }
 
-    @torch.no_grad()
-    def update(self, params, grads, state):
+    def _scalars(self, state) -> fused_update.AdamScalars:
+        """Advance the step count and compute the update's scalars in f32,
+        as optax computes them on its f32 hyperparameter arrays; .item()
+        hands each exact f32 value on."""
         hp = state["hyperparams"]
         one = _f32(1.0)
-        b1, b2, eps = hp["b1"], hp["b2"], hp["eps"]
+        b1, b2 = hp["b1"], hp["b2"]
         state["count"] += 1
         count = torch.tensor(state["count"], dtype=_F32)
-        # Scalars computed in f32, as optax computes them on its f32
-        # hyperparameter arrays; .item() hands the exact f32 value on.
-        c1, c2 = (one - b1).item(), (one - b2).item()
-        bc1 = (one - b1 ** count).item()
-        bc2 = (one - b2 ** count).item()
-        neg_lr = (-hp["learning_rate"]).item()
-        b1, b2, eps = b1.item(), b2.item(), eps.item()
-        mus, nus = state["mu"], state["nu"]
-        g = [x.to(_F32) for x in grads]
-        # mu = (1 - b1) * g + b1 * mu
-        torch._foreach_mul_(mus, b1)
-        torch._foreach_add_(mus, torch._foreach_mul(g, c1))
-        # nu = (1 - b2) * g**2 + b2 * nu
-        torch._foreach_mul_(nus, b2)
-        torch._foreach_add_(nus, torch._foreach_mul(
-            torch._foreach_mul(g, g), c2))
-        # update = mu_hat / (sqrt(nu_hat + 0) + eps), scaled by -lr
-        mu_hat = torch._foreach_div(mus, bc1)
-        den = torch._foreach_div(nus, bc2)
-        torch._foreach_sqrt_(den)
-        torch._foreach_add_(den, eps)
-        upd = torch._foreach_div(mu_hat, den)
-        torch._foreach_mul_(upd, neg_lr)
-        torch._foreach_add_(params, upd)
+        wd = hp.get("weight_decay")
+        return fused_update.AdamScalars(
+            neg_lr=(-hp["learning_rate"]).item(), b1=b1.item(),
+            b2=b2.item(), c1=(one - b1).item(), c2=(one - b2).item(),
+            eps=hp["eps"].item(), wd=0.0 if wd is None else wd.item(),
+            bc1=(one - b1 ** count).item(), bc2=(one - b2 ** count).item(),
+        )
+
+    @torch.no_grad()
+    def update(self, params, grads, state):
+        step = (fused_update.adam_update if self.fused
+                else fused_update.adam_update_ref)
+        step(params, grads, state["mu"], state["nu"], self._scalars(state))
 
 
-_REGISTRY = {"sgd": SGD, "adam": Adam}
+class AdamW(Adam):
+    """optax.adamw: ``scale_by_adam``, then ``add_decayed_weights``
+    (``u + wd * p``), then ``scale(-lr)``. The ``foreach`` walk on every
+    device, as optax's AdamW is no Pallas kernel."""
+
+    name = "adamw"
+
+    def __init__(self, learning_rate: float = 0.001,
+                 weight_decay: float = 0.01, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
+        _Optimizer.__init__(self, learning_rate=learning_rate, b1=b1, b2=b2,
+                            eps=eps, weight_decay=weight_decay)
+
+
+class fused_adam(Adam):
+    """Adam whose update runs as the fused kernel K11 on CUDA tensors
+    (``ops.fused_update``; the plain version on CPU tensors): the same
+    arithmetic as :class:`Adam`, bit for bit."""
+
+    name = "fused_adam"
+    fused = True
+
+
+class fused_adamw(AdamW):
+    """AdamW through the fused kernel K11: the decay term folds into the
+    same pass. The same arithmetic as :class:`AdamW`, bit for bit."""
+
+    name = "fused_adamw"
+    fused = True
+
+
+_REGISTRY = {
+    "sgd": SGD, "adam": Adam, "adamw": AdamW, "fused_adam": fused_adam,
+    "fused_adamw": fused_adamw,
+}
 
 
 def get(name_or_opt, **kwargs) -> _Optimizer:
-    """An optimizer from its name (``"adam"``, ``"sgd"``; ``kwargs`` go to
-    its constructor) or an optimizer instance as is."""
+    """An optimizer from its name (``"sgd"``, ``"adam"``, ``"adamw"``,
+    ``"fused_adam"``, ``"fused_adamw"``; ``kwargs`` go to its
+    constructor) or an optimizer instance as is."""
     if isinstance(name_or_opt, _Optimizer):
         return name_or_opt
     try:
@@ -153,4 +209,7 @@ def get_hyperparam(opt_state: Dict, name: str) -> float:
     return hp[name].item()
 
 
-__all__ = ["Adam", "SGD", "get", "get_hyperparam", "set_hyperparam"]
+__all__ = [
+    "Adam", "AdamW", "SGD", "fused_adam", "fused_adamw", "get",
+    "get_hyperparam", "set_hyperparam",
+]

@@ -2,16 +2,24 @@
 
 The counterpart of the JAX package's ``training/model.py``: ``build``
 creates the parameters from a seed, ``params`` exposes them under the JAX
-tree paths, ``compile``/``fit``/``evaluate`` train and score on one device,
-and ``decode_dtype`` names the KV-cache dtype the serving engine uses.
+tree paths, ``compile``/``fit``/``evaluate`` train and score, and
+``decode_dtype`` names the KV-cache dtype the serving engine uses.
+
+A model captures the strategy of the ``strategy.scope()`` it is built in
+(``SingleDevice`` outside one), and ``compile(strategy=...)`` replaces it.
+Under ``DataParallel`` each rank takes its rows of every global batch,
+computes the loss as the mean over them, and the gradients are averaged
+over the ranks (one all-reduce per dtype) before the optimizer; the
+epoch's losses and metric sums are reduced across the ranks at its one
+host sync. Every rank builds the same parameters from the same seed.
 
 A train step is forward, loss, ``torch.autograd.grad`` and the optimizer's
 in-place update. Master parameters stay f32; layers built with ``dtype=``
 cast them per call, and the gradients come back f32 through the casts, as
 in JAX. PyTorch runs eagerly, so there is no jit and no donation; the
 per-step loss and metric sums stay on the device and are fetched once per
-epoch, as the JAX loop does. Only the single-device paths are ported: the
-other ``compile``/``fit`` options raise ``NotImplementedError``.
+epoch, as the JAX loop does. The ``compile``/``fit`` options of the JAX
+package that are not ported raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from ..device import resolve_device
 from ..interop import SEP
 from ..ops import losses as losses_lib
 from ..ops import metrics as metrics_lib
+from ..parallel.strategy import SingleDevice, Strategy, current_strategy
 from .history import History
 from .progress import ProgressLine
 
@@ -62,12 +71,27 @@ def _unported(where: str, **options) -> None:
 
 
 class Model:
-    """``Model(module, device=None)``: ``device=None`` is the card; it
-    raises ``RuntimeError`` when there is none (pass ``device="cpu"``)."""
+    """``Model(module, device=None)``: the model on the device of the
+    ambient strategy (``strategy.scope()``), else on ``device``, where
+    ``None`` is the card; it raises ``RuntimeError`` when there is none
+    (pass ``device="cpu"``)."""
 
     def __init__(self, module, *, device=None):
         self.module = module
-        self.device = resolve_device(device)
+        # Scope-wraps-construction: capture the ambient strategy now.
+        strategy = current_strategy()
+        if strategy is None:
+            strategy = SingleDevice(device)
+        elif device is not None:
+            want = resolve_device(device)
+            if want.type != strategy.device.type or want.index not in (
+                    None, strategy.device.index):
+                raise ValueError(
+                    f"Model(device={device!r}) inside the scope of a "
+                    f"strategy on {strategy.device}: the strategy places "
+                    "the model")
+        self.strategy: Strategy = strategy
+        self.device = strategy.device
         self.built = False
         self.compiled = False
         self.step = 0  # global optimizer step (the batch-order cursor)
@@ -160,16 +184,27 @@ class Model:
         """Set the optimizer (a name, with ``optimizer_kwargs`` for its
         constructor, or an ``optim`` instance), the loss (a name, e.g.
         ``"pallas_sparse_categorical_crossentropy"``, or a callable) and the
-        metrics. A built model's optimizer state starts afresh, as in JAX.
-        Clipping, accumulation, the chunked head, multi-step execution,
-        precision policies and strategies are kept for call parity with the
+        metrics. ``strategy`` (a ``parallel.Strategy``) replaces the one
+        captured at construction and moves a built model to its device. A
+        built model's optimizer state starts afresh, as in JAX. Clipping,
+        accumulation, the chunked head, multi-step execution, precision
+        policies and ``strategy="auto"`` are kept for call parity with the
         JAX package and raise ``NotImplementedError``."""
         _unported(
             "compile", grad_clip=grad_clip,
             gradient_accumulation_steps=gradient_accumulation_steps,
             head_chunks=head_chunks, steps_per_execution=steps_per_execution,
-            precision=precision, strategy=strategy,
+            precision=precision, strategy=strategy == "auto",
         )
+        if strategy is not None:
+            if not isinstance(strategy, Strategy):
+                raise ValueError(
+                    "strategy must be None or a parallel.Strategy instance; "
+                    f"got {strategy!r}")
+            self.strategy = strategy
+            self.device = strategy.device
+            if self.built:
+                self.module.to(self.device)
         self.tx = optim.get(optimizer, **optimizer_kwargs)
         self.loss_fn = losses_lib.get(loss)
         self.metric_fns = [(metrics_lib.name_of(m), metrics_lib.get(m))
@@ -205,6 +240,7 @@ class Model:
         logits = self.module(x)
         loss = self.loss_fn(logits, y)
         grads = torch.autograd.grad(loss, params, materialize_grads=True)
+        grads = self.strategy.reduce_gradients(grads)
         self.tx.update(params, grads, self.opt_state)
         with torch.no_grad():
             mvals = {name: fn(logits.detach(), y)
@@ -227,10 +263,12 @@ class Model:
         callbacks: Sequence = (),
         grad_accum: Optional[int] = None,
     ) -> History:
-        """Train on host arrays ``(x, y)``: ``batch_size`` rows per step,
-        ``steps_per_epoch`` steps per epoch (default ``len(x) //
-        batch_size``), batches drawn in the JAX package's order
-        (``shuffle``, ``seed``). Returns a ``History`` of per-epoch means.
+        """Train on host arrays ``(x, y)``: ``batch_size`` rows per step
+        (the global batch: under ``DataParallel`` each rank takes its
+        share, and it must divide evenly), ``steps_per_epoch`` steps per
+        epoch (default ``len(x) // batch_size``), batches drawn in the JAX
+        package's order (``shuffle``, ``seed``). Returns a ``History`` of
+        per-epoch means.
         Batch iterators, validation, callbacks and ``grad_accum`` are not
         ported yet and raise."""
         if not self.compiled:
@@ -249,6 +287,7 @@ class Model:
             raise ValueError(f"batch_size {batch_size} > dataset size {n}")
         if steps_per_epoch is None:
             steps_per_epoch = n // batch_size
+        self.strategy.local_batch_size(batch_size)  # replica divisibility
         stream = _index_stream(n, batch_size, shuffle, seed,
                                start_step=self.step)
         history = History()
@@ -262,8 +301,8 @@ class Model:
                                    prefix=f"Epoch {epoch + 1}/{epochs}: ")
             for done in range(1, steps_per_epoch + 1):
                 idx = next(stream)
-                loss, mvals = self._train_step(self._to_device(x[idx]),
-                                               self._to_device(y[idx]))
+                loss, mvals = self._train_step(self.strategy.put_batch(x[idx]),
+                                               self.strategy.put_batch(y[idx]))
                 self.step += 1
                 losses.append(loss)
                 for name, _ in self.metric_fns:
@@ -272,13 +311,20 @@ class Model:
                     bar.update(done)
             if bar is not None:
                 bar.close()
-            # One host sync per epoch: every loss and metric sum at once.
-            logs = {"loss": float(np.mean(
-                torch.stack(losses).to(torch.float32).cpu().numpy()))}
-            for name, pairs in msums.items():
-                s = torch.stack([p[0] for p in pairs]).to(torch.float32)
-                c = np.float32(sum(float(p[1]) for p in pairs))
-                logs[name] = float(np.float32(s.sum().item()) / max(c, 1.0))
+            # One host sync per epoch: every loss and metric sum at once,
+            # summed over the replicas (each loss is its rank's mean, so the
+            # losses are divided by their number; each rank scores as many
+            # elements, so the counts are multiplied by it).
+            reps = self.strategy.num_replicas_in_sync
+            vec = self.strategy.all_reduce_sum(torch.cat(
+                [torch.stack(losses).to(torch.float32)]
+                + [torch.stack([p[0] for p in pairs]).to(torch.float32)
+                   for pairs in msums.values()])).cpu().numpy()
+            logs = {"loss": float(np.mean(vec[:steps_per_epoch] / reps))}
+            for i, (name, pairs) in enumerate(msums.items()):
+                s = vec[(i + 1) * steps_per_epoch:(i + 2) * steps_per_epoch]
+                c = np.float32(sum(float(p[1]) for p in pairs) * reps)
+                logs[name] = float(np.float32(s.sum()) / max(c, 1.0))
             dt = time.perf_counter() - t0
             history.record(epoch, logs)
             if verbose:
@@ -295,7 +341,9 @@ class Model:
         (an LM's loss is the mean over every token, as in training). The
         last batch may be partial; it is scored as it is, with no padding
         (PyTorch needs no static shapes), which the JAX package's masked
-        padding computes the same."""
+        padding computes the same. Under ``DataParallel`` each rank scores
+        its rows of every batch (``batch_size`` must divide evenly) and the
+        sums are reduced across the ranks at the end."""
         if y is None:
             raise NotImplementedError(
                 "evaluate(x) from a batch iterator: not yet ported")
@@ -304,33 +352,50 @@ class Model:
             raise RuntimeError("Model must be built and compiled")
         x = np.asarray(x)
         y = np.asarray(y)
+        n = x.shape[0]
+        lo, hi = self.strategy.row_range(batch_size)
         per_ex = losses_lib.get_per_example(self.loss_fn)
-        results = []  # device values; one host sync at the end
+        sums, counts = [], []  # per batch: [loss, metric...]; sums on device
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
         with torch.inference_mode():
-            for start in range(0, x.shape[0], batch_size):
-                xb = self._to_device(x[start:start + batch_size])
-                yb = self._to_device(y[start:start + batch_size])
+            for start in range(0, n, batch_size):
+                rows = slice(min(start + lo, n), min(start + hi, n))
+                if rows.start == rows.stop:  # a partial batch ends before us
+                    sums.append([zero] * (1 + len(self.metric_fns)))
+                    counts.append([0.0] * (1 + len(self.metric_fns)))
+                    continue
+                xb = self._to_device(x[rows])
+                yb = self._to_device(y[rows])
                 logits = self.module(xb)
                 valid = float(yb.numel())
                 if per_ex is not None:
                     loss_sum = per_ex(logits, yb).sum()
                 else:
                     loss_sum = self.loss_fn(logits, yb) * valid
-                msums = {}
+                row_sums, row_counts = [loss_sum], [valid]
                 for name, fn in self.metric_fns:
                     scores = metrics_lib.per_example(fn)
                     if scores is not None:
                         sc = scores(logits, yb)
-                        msums[name] = (sc.sum(), float(sc.numel()))
+                        row_sums.append(sc.sum())
+                        row_counts.append(float(sc.numel()))
                     else:
-                        msums[name] = fn(logits, yb)
-                results.append((loss_sum, valid, msums))
-        count = sum(r[1] for r in results)
-        out = {"loss": sum(float(r[0]) for r in results) / max(count, 1.0)}
-        for name, _ in self.metric_fns:
-            s = sum(float(r[2][name][0]) for r in results)
-            c = sum(float(r[2][name][1]) for r in results)
-            out[name] = s / max(c, 1.0)
+                        msum, mcount = fn(logits, yb)
+                        row_sums.append(msum)
+                        row_counts.append(float(mcount))
+                sums.append([v.to(torch.float32) for v in row_sums])
+                counts.append(row_counts)
+        k = 1 + len(self.metric_fns)
+        vec = self.strategy.all_reduce_sum(torch.cat([
+            torch.stack([v for row in sums for v in row]).to(torch.float64),
+            torch.tensor([c for row in counts for c in row],
+                         dtype=torch.float64, device=self.device),
+        ])).cpu().numpy().reshape(2, -1, k)
+        totals = [sum(float(v) for v in vec[0, :, j]) for j in range(k)]
+        dens = [sum(float(c) for c in vec[1, :, j]) for j in range(k)]
+        out = {"loss": totals[0] / max(dens[0], 1.0)}
+        for j, (name, _) in enumerate(self.metric_fns, start=1):
+            out[name] = totals[j] / max(dens[j], 1.0)
         if verbose:
             parts = " - ".join(f"{k}: {v:.4f}" for k, v in out.items())
             print(f"Evaluate - {x.shape[0]} samples - {parts}")

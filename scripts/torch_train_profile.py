@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's training step time goes, on one NVIDIA card.
 
-    python3 scripts/torch_train_profile.py [--layers 12] [--steps 3]
+    python3 scripts/torch_train_profile.py [--workload lm] [--layers 12]
+                                           [--steps 3]
 
-Trains chip_smoke.py's phase-h configuration (the GPT-2-small LM at full
-width, bf16 layers, random weights from seed 0, ``Adam(1e-4)``, the pallas
-loss, batch 32 x 1024 tokens from ``numpy.random.default_rng(0)``) through
-``Model.fit``: two warm-up steps, a timed run of ``--steps`` steps (host
-clock, ending in a synchronize), then the same number of steps under
-``torch.profiler`` (CPU and CUDA): device time by kernel, grouped into the
-port's CUDA kernels, GEMMs and the rest, and the device's busy share of
-the timed run's wall time.
+Trains one of chip_smoke.py's configurations through ``Model.fit``:
+``lm`` is phase h (the GPT-2-small LM at full width, bf16 layers, random
+weights from seed 0, ``Adam(1e-4)``, the pallas loss, batch 32 x 1024
+tokens from ``numpy.random.default_rng(0)``); ``lm_dp`` is phase l (the
+same under a world-1 ``DataParallel`` with ``fused_adamw(3e-4)``);
+``mnist_cnn`` and ``cifar_cnn`` are phase k's (world-1 ``DataParallel``,
+global batch 256, TF32 off). Two warm-up steps, a timed run of ``--steps``
+steps (host clock, ending in a synchronize), then the same number of
+steps under ``torch.profiler`` (CPU and CUDA): device time by kernel,
+grouped into the port's CUDA kernels, GEMMs, convolutions and the rest,
+and the device's busy share of the timed run's wall time.
 
-Prints a summary and writes the numbers to ``chiprun_out/train_profile.json``.
+Prints a summary; ``--out PATH`` also writes the numbers there as JSON.
 """
 
 import argparse
@@ -21,6 +25,7 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -34,8 +39,11 @@ GROUPS = (
     ("flash attention (port)", ("flash_fwd_kernel", "flash_dq_kernel",
                                 "flash_dkv_kernel")),
     ("cross-entropy (port)", ("xent_fwd_kernel", "xent_bwd_kernel")),
+    ("fused Adam (port)", ("fused_adam_kernel",)),
+    ("convolution (cuDNN)", ("conv", "Conv", "wgrad", "dgrad", "implicit")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "Gemm", "xmma", "cutlass")),
     ("optimizer (foreach)", ("multi_tensor_apply", "foreach")),
+    ("all-reduce (NCCL)", ("nccl",)),
 )
 
 
@@ -48,24 +56,48 @@ def group_of(name):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--workload", default="lm",
+                    choices=("lm", "lm_dp", "mnist_cnn", "cifar_cnn"))
     ap.add_argument("--layers", type=int, default=chip_smoke.LM["num_layers"])
     ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--out", default=os.path.join(
-        ROOT, "chiprun_out", "train_profile.json"))
+    ap.add_argument("--out", default=None, help="write the numbers as JSON")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs an NVIDIA card", file=sys.stderr)
         return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
-    lm = dict(chip_smoke.LM, num_layers=args.layers)
-    t_len, batch = lm["max_len"], 32
-    x, y = chip_smoke.lm_batch(batch, t_len)
-    model = dtt.Model(dtt.models.transformer_lm(
-        chip_smoke.VOCAB, dtype="bfloat16", **lm))
-    model.compile(optimizer=dtt.optim.Adam(1e-4),
-                  loss="pallas_sparse_categorical_crossentropy",
-                  metrics=["accuracy"])
-    model.build((t_len,), seed=0)
+    if args.workload.startswith("lm"):
+        lm = dict(chip_smoke.LM, num_layers=args.layers)
+        t_len, batch = lm["max_len"], 32
+        x, y = chip_smoke.lm_batch(batch, t_len)
+        module = dtt.models.transformer_lm(chip_smoke.VOCAB, dtype="bfloat16",
+                                           **lm)
+        input_shape = (t_len,)
+        loss = "pallas_sparse_categorical_crossentropy"
+    else:
+        batch = 256
+        if args.workload == "mnist_cnn":
+            x, y = dtt.data.synthetic_images(batch, (28, 28), 10, 0)
+            x = x[..., None].astype("float32") / 255.0
+            module, input_shape = dtt.models.mnist_cnn(), (28, 28, 1)
+        else:
+            rng = np.random.default_rng(0)
+            x = rng.standard_normal((batch, 32, 32, 3), dtype=np.float32)
+            y = rng.integers(0, 10, (batch,), dtype=np.int64).astype(np.int32)
+            module, input_shape = dtt.models.cifar_cnn(), (32, 32, 3)
+        loss = "sparse_categorical_crossentropy"
+    optimizer = {"lm": dtt.optim.Adam(1e-4),
+                 "lm_dp": dtt.optim.fused_adamw(3e-4, weight_decay=0.01),
+                 "mnist_cnn": dtt.optim.SGD(0.001),
+                 "cifar_cnn": dtt.optim.SGD(0.01, momentum=0.9)}[args.workload]
+    strategy = (dtt.SingleDevice() if args.workload == "lm"
+                else dtt.DataParallel())
+    with strategy.scope():
+        model = dtt.Model(module)
+        model.compile(optimizer=optimizer, loss=loss, metrics=["accuracy"])
+    model.build(input_shape, seed=0)
 
     def fit(steps):
         t = time.perf_counter()
@@ -103,6 +135,7 @@ def main():
     result = {
         "device": torch.cuda.get_device_name(0),
         "card": chip_smoke.card_line(),
+        "workload": args.workload,
         "layers": args.layers,
         "timed_run": {"steps": steps, "wall_s": wall,
                       "ms_per_step": 1e3 * wall / steps},
@@ -117,10 +150,11 @@ def main():
             "top_kernels": kernels[:25],
         },
     }
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
-    with open(args.out, "w") as f:
-        json.dump(result, f, indent=1)
-    print(f"{result['card']} | layers {args.layers}")
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    print(f"{result['card']} | {args.workload} | layers {args.layers}")
     print(f"timed run: {steps} steps in {wall:.3f} s, "
           f"{1e3 * wall / steps:.1f} ms/step")
     p = result["profiled_run"]
@@ -133,6 +167,7 @@ def main():
     for k in kernels[:25]:
         print(f"  {k['device_ms'] / steps:9.2f} ms/step  x{k['count'] / steps:7.1f}"
               f"  {k['name'][:100]}")
+    dtt.cluster.shutdown()
     return 0
 
 

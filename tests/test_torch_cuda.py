@@ -10,13 +10,16 @@ card it runs without them (``tests/conftest.py`` imports JAX, hence
 Tolerances, per entry: 2e-5 for f32 (sums in different orders); bf16
 outputs 2e-2 (probabilities round to bf16 at different running maxima),
 bf16 flash gradients atol 2e-3 + rtol 2e-2; the cross-entropy: 1e-5 on
-the f32 losses, one bf16 ulp of each entry on bf16 gradients.
+the f32 losses, one bf16 ulp of each entry on bf16 gradients. The fused
+Adam kernel: bit for bit (both sides round every operation once, in the
+same order).
 """
 
 import pytest
 import torch
 
 from distributed_tpu_torch.ops import flash_attention as flash_ops
+from distributed_tpu_torch.ops import fused_update as adam_ops
 from distributed_tpu_torch.ops import paged_attention as paged_ops
 from distributed_tpu_torch.ops import pallas_kernels as xent_ops
 
@@ -144,3 +147,55 @@ def test_flash_attention_autograd_matches_dense(cuda_device):
     want = grads(lambda q, k, v: flash_ops.dense_attention(q, k, v, True))
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=5e-5, rtol=1e-4)
+
+
+# ------------------------------------------------------------- fused Adam
+def _adam_leaves(dev, sizes, offset, seed):
+    """(params, grads, mus, nus): one view per size into one flat buffer
+    per role, starting ``offset`` elements in, so odd sizes and offsets
+    give leaves that are not 16-byte aligned."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    total = offset + sum(sizes)
+
+    def views(buf):
+        out, at = [], offset
+        for n in sizes:
+            out.append(buf[at:at + n])
+            at += n
+        return out
+
+    return (views(torch.randn(total, generator=g, device=dev)),
+            views(torch.randn(total, generator=g, device=dev) * 1e-2),
+            views(torch.randn(total, generator=g, device=dev) * 1e-3),
+            views(torch.rand(total, generator=g, device=dev) * 1e-5))
+
+
+def _bits(ts):
+    return [t.view(torch.int32) for t in ts]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wd", [0.0, 0.01])
+@pytest.mark.parametrize("sizes,offset", [
+    ([1, 3, 1001, 8192, 8193, 70001], 0),  # odd lengths, aligned starts
+    ([4096, 37, 12, 5000], 1),  # starts off the 16-byte grid
+    ([97] * 150, 3),  # more leaves than one launch takes
+])
+def test_fused_adam_kernel_matches_plain_bit_for_bit(cuda_device, wd, sizes,
+                                                     offset):
+    p, g, m, v = _adam_leaves(cuda_device, sizes, offset, seed=len(sizes))
+    p2, m2, v2 = ([t.clone() for t in ts] for ts in (p, m, v))
+    before = adam_ops.launches["fused_adam"]
+    for count in (1, 2, 3):
+        s = adam_ops.AdamScalars(
+            neg_lr=-1e-3, b1=0.9, b2=0.999, c1=1 - 0.9, c2=1 - 0.999,
+            eps=1e-8, wd=wd, bc1=1 - 0.9 ** count, bc2=1 - 0.999 ** count)
+        s = adam_ops.AdamScalars(*(float(torch.tensor(x)) for x in s))
+        adam_ops.adam_update(p, g, m, v, s)
+        adam_ops.adam_update_ref(p2, g, m2, v2, s)
+    torch.cuda.synchronize()
+    per_update = -(-len(sizes) // adam_ops.MAX_LEAVES)
+    assert adam_ops.launches["fused_adam"] == before + 3 * per_update
+    for got, want in ((p, p2), (m, m2), (v, v2)):
+        for a, b in zip(_bits(got), _bits(want)):
+            assert torch.equal(a, b)
