@@ -70,6 +70,41 @@ l. GPT-2-small under the same ``DataParallel`` scope with
    step of K11 and K3-K10. Then 3 steps with ``fused_adamw`` and 3 with
    the plain ``AdamW`` from the same parameters and batch: the losses
    must be equal. The process group is destroyed at the end.
+m. ResNet-50's kernels against their plain versions at the model's own
+   shapes, batch 256 at 224x224 (read from the built model): K12 at the 17
+   distinct (M, K, N) of a step's 72 products (the 36 1x1 convolutions'
+   forwards and their dX products (M, N) @ (N, K)), K13 and K14 at the 12
+   distinct (M, C) of its 53 BatchNorms, in bf16, and each at one shape in
+   f32. K12: every entry within one bf16 ulp of the plain version's plus
+   the f32 sums' rounding bound 2 K 2^-24 sum|x||w| (f32: 2e-5 of that
+   sum); K13/K14: rtol 1e-5 plus 1e-5 times the sum of the terms'
+   magnitudes (summed in another order), and the same bits on a second
+   call. Each launch is timed after an L2 flush beside the plain version,
+   the bound and a library call that computes the same function, timed
+   only (``torch.matmul``; ``torch.batch_norm_stats`` and
+   ``torch.batch_norm_backward_reduce`` on an NCHW view); the JSON row
+   holds per-step totals over the 72 products (the 53 calls).
+n. ResNet-50 training as the JAX package's ``bench_resnet50`` configures
+   it (``resnet(50, 1000, dtype="bfloat16")``, ``bn_shift="running"``,
+   ``stem="conv7"``; ``SGD(0.1, momentum=0.9)``, sparse cross-entropy,
+   accuracy; global batch 256 at 224x224x3 from ``default_rng(0)``
+   normals, labels in [0, 1000)) under phase k's ``DataParallel``: 3
+   warm-up steps, then 20 timed steps through ``fit`` (counts zeroed just
+   before, read just after): per-step losses and the BN buffers (finite),
+   steps/s, images/s, MFU (8.17 GFLOP forward per image, 2 x 4.09 G
+   multiply-adds), peak memory and launches per step: exactly 72 of K12
+   (36 forward, 36 dX) and 53 calls of K13 and of K14.
+o. A small f32 ResNet (``resnet(50, 10, small_inputs=True, stage_blocks=
+   (1, 1, 1, 1), width=16)``, 32x32, batch 32), TF32 off, 3 momentum-SGD
+   steps from the same parameters on the card (kernels) and on the CPU
+   (plain versions): losses within 1e-4 relative. Then, cuDNN
+   deterministic, world-1 ``DataParallel`` and ``SingleDevice`` on the
+   card: equal losses and equal BN buffers. The process group is
+   destroyed at the end.
+p. K15, the launch probe, against ``x * 1.0001`` on an (8, 128) f32 tile,
+   bit for bit; its per-launch time by the differential method (host
+   clock, 10 and 60 launches, each run ending in a synchronize), beside
+   its plain version and ``torch.mul(x, 1.0001)``, the library call.
 Then the kernel table as one JSON line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -103,12 +138,18 @@ REPLACES = {
     "flash_dq": "distributed_tpu/ops/flash_attention.py:199",
     "flash_dkv": "distributed_tpu/ops/flash_attention.py:238",
     "fused_adam": "distributed_tpu/ops/fused_update.py:82",
+    "conv1x1": "examples/pallas_conv1x1.py:33",
+    "bn_stats": "examples/bn_pallas.py:80",
+    "bn_bwd_reduce": "examples/bn_pallas.py:119",
+    "launch_probe": "examples/profile_op_floor.py:92",
 }
 SOURCES = {
     "paged_attention": "paged_attention", "paged_attention_int8":
     "paged_attention", "xent_fwd": "xent", "xent_bwd": "xent",
     "flash_fwd": "flash_attention", "flash_dq": "flash_attention",
     "flash_dkv": "flash_attention", "fused_adam": "fused_adam",
+    "conv1x1": "conv1x1", "bn_stats": "bn_reduce", "bn_bwd_reduce":
+    "bn_reduce", "launch_probe": "launch_probe",
 }
 
 LM = dict(num_layers=12, d_model=768, num_heads=12, max_len=1024)
@@ -822,6 +863,377 @@ def phase_dp_lm(torch, dtt, strategy, kernel_mods, batch=32, warmup=2,
     return launches["fused_adam"]
 
 
+# ------------------------------------------------------------------ phase m
+RESNET_BATCH = 256
+# Forward FLOPs of ResNet-50 per 224x224 image: 4.09 G multiply-adds, 2
+# FLOPs each (bench.py's 4.089e9 counts multiply-adds as FLOPs).
+RESNET50_FWD_FLOPS = 8.17e9
+
+
+def resnet50_shapes(torch, dtt, batch=RESNET_BATCH):
+    """{(M, K, N): count} of ResNet-50's 1x1 convolutions and {(M, C):
+    count} of its BatchNorms at ``batch`` images of 224x224, read from the
+    layers of a built model."""
+    module = dtt.models.resnet50(1000)
+    module.build((224, 224, 3), torch.Generator().manual_seed(0))
+    convs, bns = {}, {}
+    for layer in module.modules():
+        if isinstance(layer, dtt.nn.Conv2D) and layer.kernel_size == (1, 1):
+            h, w, cin = layer.input_shape
+            sh, sw = layer.strides
+            key = (batch * -(-h // sh) * -(-w // sw), cin, layer.filters)
+            convs[key] = convs.get(key, 0) + 1
+        elif isinstance(layer, dtt.nn.BatchNorm):
+            h, w, c = layer.input_shape
+            bns[(batch * h * w, c)] = bns.get((batch * h * w, c), 0) + 1
+    return convs, bns
+
+
+def check_conv1x1(torch, conv_ops, x, w):
+    """(max_abs_err, worst, ok) of K12 against its plain version."""
+    got = conv_ops.conv1x1(x, w)
+    want = conv_ops.conv1x1_ref(x, w)
+    bound = x.float().abs() @ w.float().abs()
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    if x.dtype == torch.float32:
+        limit = 2e-5 * bound
+    else:  # one bf16 ulp of each entry plus the f32 sums' rounding bound
+        want = want.float()
+        limit = (torch.exp2(torch.floor(torch.log2(
+            want.abs().clamp_min(1e-30))) - 7)
+            + 2 * x.shape[1] * 2.0 ** -24 * bound)
+    worst = ((got.float() - want).abs() / (limit + 1e-30)).max().item()
+    del got, want, bound, limit
+    return err, worst, worst <= 1
+
+
+def check_sums(got, want, magnitude):
+    """(max_abs_err, worst, ok): (2, C) sums within rtol 1e-5 plus 1e-5 x
+    ``magnitude``, each sum's sum of |terms| (a sum of signed terms can
+    cancel to near 0; the order of the additions moves it by a share of
+    the terms' magnitudes)."""
+    atol = 1e-5 * magnitude
+    worst = ((got - want).abs() / (1e-5 * want.abs() + atol + 1e-30)).max().item()
+    return (got - want).abs().max().item(), worst, worst <= 1
+
+
+def library_ms_or_none(torch, fn, iters, what):
+    """A library yardstick's time, or None (printed) when it does not take
+    these inputs; only the yardstick is optional, never a kernel."""
+    try:
+        return cuda_ms_flushed(torch, fn, iters)
+    except RuntimeError as e:
+        print(f"    {what}: no library time ({str(e).splitlines()[0][:120]})")
+        return None
+
+
+def phase_resnet_kernels(torch, dtt, conv_ops, bn_ops):
+    dev = torch.device("cuda")
+    convs, bns = resnet50_shapes(torch, dtt)
+    print(f"  ResNet-50 at batch {RESNET_BATCH}: {sum(convs.values())} 1x1 "
+          f"convolutions at {len(convs)} forward shapes, {sum(bns.values())} "
+          f"BatchNorms at {len(bns)} shapes")
+    g = torch.Generator(device=dev).manual_seed(19)
+    failed = []
+    totals = {name: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                         nbytes=0, flops=0, max_abs_err=0.0)
+              for name in ("conv1x1", "bn_stats", "bn_bwd_reduce")}
+
+    def add(name, count, err, ms, plain_ms, lib_ms, nbytes, flops, dtype):
+        t = totals[name]
+        t["max_abs_err"] = max(t["max_abs_err"], err)
+        if dtype != torch.bfloat16:
+            return
+        b_ms, _ = bound_ms(nbytes, flops, "float32" if name != "conv1x1"
+                           else "bfloat16")
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
+                     ("library_ms", lib_ms)):
+            t[k] = None if v is None or t[k] is None else t[k] + count * v
+        t["nbytes"] += count * nbytes
+        t["flops"] += count * flops
+
+    # K12: x @ w at every shape of a training step in bf16, one shape in
+    # f32. A step runs each 1x1 convolution's forward (M, K) @ (K, N) and
+    # its dX, (M, N) @ (N, K) with W^T made contiguous.
+    products = {}
+    for (m, k, n), count in convs.items():
+        for shape in ((m, k, n), (m, n, k)):
+            products[shape] = products.get(shape, 0) + count
+    cases = [(shape, torch.bfloat16) for shape in sorted(products)]
+    cases.append(((50176, 256, 1024), torch.float32))
+    for (m, k, n), dtype in cases:
+        x = torch.randn((m, k), generator=g, device=dev).to(dtype)
+        w = (torch.randn((k, n), generator=g, device=dev) / k ** 0.5).to(dtype)
+        err, worst, ok = check_conv1x1(torch, conv_ops, x, w)
+        dname = str(dtype).split(".")[-1]
+        count = products[(m, k, n)] if dtype == torch.bfloat16 else 0
+        line = (f"  conv1x1 ({m:>7}, {k:>4}, {n:>4}) {dname:8s} x{count}: "
+                f"max_abs_err {err:.3e}, worst {worst:.3f} of its limit "
+                f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            failed.append(f"conv1x1 {(m, k, n)} {dname}")
+        e = x.element_size()
+        nbytes, flops = (m * k + k * n + m * n) * e, 2 * m * k * n
+        ms = plain_ms = lib_ms = None
+        if dtype == torch.bfloat16:
+            ms = cuda_ms_flushed(torch, lambda i: conv_ops.conv1x1(x, w), 10)
+            plain_ms = cuda_ms_flushed(
+                torch, lambda i: conv_ops.conv1x1_ref(x, w), 3)
+            lib_ms = cuda_ms_flushed(torch, lambda i: torch.matmul(x, w), 10)
+            b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
+            line += (f"; {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f}, "
+                     f"torch.matmul {lib_ms * 1e3:.1f}, bound {b_ms * 1e3:.1f} "
+                     f"({b_by}), {b_ms / ms:.1%} of bound")
+        print(line)
+        add("conv1x1", count, err, ms, plain_ms, lib_ms, nbytes, flops, dtype)
+        del x, w
+    torch.cuda.empty_cache()
+
+    # K13 and K14 at every BatchNorm shape in bf16, one shape in f32.
+    cases = [(shape, torch.bfloat16) for shape in sorted(bns)]
+    cases.append(((50176, 256), torch.float32))
+    for (m, c), dtype in cases:
+        x = (torch.randn((m, c), generator=g, device=dev) * 2 + 1).to(dtype)
+        dy = torch.randn((m, c), generator=g, device=dev).to(dtype)
+        shift = torch.randn((c,), generator=g, device=dev) * 0.5
+        mean = torch.randn((c,), generator=g, device=dev) * 0.5
+        inv = torch.rand((c,), generator=g, device=dev) + 0.5
+        count = bns.get((m, c), 0) if dtype == torch.bfloat16 else 0
+        dname = str(dtype).split(".")[-1]
+        stats = bn_ops.bn_stats(x, shift)
+        again = bn_ops.bn_stats(x, shift)
+        bwd = bn_ops.bn_bwd_reduce(dy, x, mean, inv)
+        bwd_again = bn_ops.bn_bwd_reduce(dy, x, mean, inv)
+        xc = x.float() - shift
+        mag = torch.stack([xc.abs().sum(0), xc.square().sum(0)])
+        del xc
+        s_err, s_worst, s_ok = check_sums(stats, bn_ops.bn_stats_ref(x, shift),
+                                          mag)
+        dyf = dy.float()
+        mag = torch.stack([dyf.abs().sum(0),
+                           (dyf * (x.float() - mean) * inv).abs().sum(0)])
+        del dyf
+        b_err, b_worst, b_ok = check_sums(
+            bwd, bn_ops.bn_bwd_reduce_ref(dy, x, mean, inv), mag)
+        del mag
+        same = torch.equal(stats, again) and torch.equal(bwd, bwd_again)
+        ok = s_ok and b_ok and same
+        line = (f"  bn ({m:>7}, {c:>4}) {dname:8s} x{count}: bn_stats "
+                f"max_abs_err {s_err:.3e} worst {s_worst:.3f}, bn_bwd_reduce "
+                f"{b_err:.3e} worst {b_worst:.3f}, repeat calls "
+                f"{'bit-identical' if same else 'DIFFER'} "
+                f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            failed.append(f"bn {(m, c)} {dname}")
+        e = x.element_size()
+        s_bytes, s_flops = m * c * e + 12 * c, 4 * m * c
+        b_bytes, b_flops = 2 * m * c * e + 16 * c, 5 * m * c
+        times = {"bn_stats": (None,) * 3, "bn_bwd_reduce": (None,) * 3}
+        if dtype == torch.bfloat16:
+            # The library's reductions on the NCHW view of the same rows
+            # (mean/invstd and the backward's sums, in another form).
+            x4, dy4 = x.view(m, c, 1, 1), dy.view(m, c, 1, 1)
+            weight = torch.ones((c,), device=dev)
+            times = {
+                "bn_stats": (
+                    cuda_ms_flushed(torch, lambda i: bn_ops.bn_stats(x, shift), 10),
+                    cuda_ms_flushed(torch, lambda i: bn_ops.bn_stats_ref(x, shift), 3),
+                    library_ms_or_none(torch, lambda i: torch.batch_norm_stats(
+                        x4, 1e-5), 10, "torch.batch_norm_stats")),
+                "bn_bwd_reduce": (
+                    cuda_ms_flushed(torch, lambda i: bn_ops.bn_bwd_reduce(
+                        dy, x, mean, inv), 10),
+                    cuda_ms_flushed(torch, lambda i: bn_ops.bn_bwd_reduce_ref(
+                        dy, x, mean, inv), 3),
+                    library_ms_or_none(
+                        torch, lambda i: torch.batch_norm_backward_reduce(
+                            dy4, x4, mean, inv, weight, True, True, True), 10,
+                        "torch.batch_norm_backward_reduce")),
+            }
+            for name, (ms, plain_ms, lib_ms) in times.items():
+                nb, fl = (s_bytes, s_flops) if name == "bn_stats" else (b_bytes, b_flops)
+                b_ms, b_by = bound_ms(nb, fl, "float32")
+                lib = "none" if lib_ms is None else f"{lib_ms * 1e3:.1f}"
+                line += (f"\n      {name:13s} {ms * 1e3:.1f} us ("
+                         f"{bn_ops.LAUNCHES_PER_CALL} launches), plain "
+                         f"{plain_ms * 1e3:.1f}, library {lib}, bound "
+                         f"{b_ms * 1e3:.1f} ({b_by}), {b_ms / ms:.1%} of bound")
+        print(line)
+        add("bn_stats", count, s_err, *times["bn_stats"], s_bytes, s_flops, dtype)
+        add("bn_bwd_reduce", count, b_err, *times["bn_bwd_reduce"], b_bytes,
+            b_flops, dtype)
+        del x, dy, stats, again, bwd, bwd_again
+    torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"{failed}: kernels disagree with their plain versions")
+    rows = {}
+    for name, t in totals.items():
+        what = ("72 products, 36 forward and 36 dX" if name == "conv1x1"
+                else "53 calls")
+        b_ms, b_by = bound_ms(t["nbytes"], t["flops"],
+                              "bfloat16" if name == "conv1x1" else "float32")
+        lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.3f}"
+        print(f"  {name:13s} per step ({what}): {t['ms']:.3f} ms, plain "
+              f"{t['plain_ms']:.3f}, library {lib}, bound {b_ms:.3f} ms "
+              f"({b_by}: {t['nbytes'] / 1e9:.2f} GB, {t['flops'] / 1e9:.1f} "
+              f"GFLOP), {b_ms / t['ms']:.1%} of bound")
+        rows[name] = dict(max_abs_err=t["max_abs_err"], ms=t["ms"],
+                          plain_ms=t["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                          library_ms=t["library_ms"])
+    return rows
+
+
+# ------------------------------------------------------------------ phase n
+def resnet_batch(batch, size=224, classes=1000, seed=0):
+    """``bench_resnet50``'s batch: normals and labels from default_rng."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((batch, size, size, 3), dtype=np.float32)
+    y = rng.integers(0, classes, (batch,), dtype=np.int64).astype(np.int32)
+    return x, y
+
+
+def phase_resnet_train(torch, dtt, strategy, conv_ops, bn_ops, warmup=3,
+                       steps=20):
+    batch = RESNET_BATCH
+    x, y = resnet_batch(batch)
+    with strategy.scope():
+        model = dtt.Model(dtt.models.resnet(50, 1000, dtype="bfloat16"))
+        model.compile(optimizer=dtt.optim.SGD(0.1, momentum=0.9),
+                      loss="sparse_categorical_crossentropy",
+                      metrics=["accuracy"])
+    model.build((224, 224, 3), seed=0)
+    t = time.perf_counter()
+    model.fit(x, y, batch_size=batch, epochs=1, steps_per_epoch=warmup,
+              shuffle=False, verbose=0)
+    torch.cuda.synchronize()
+    print(f"  {model.num_params} params in {len(model.params)} leaves, "
+          f"{len(model.state)} BN buffers; {warmup} warm-up steps in "
+          f"{time.perf_counter() - t:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    conv_ops.reset_launch_counts()
+    bn_ops.reset_launch_counts()
+    t = time.perf_counter()
+    hist = model.fit(x, y, batch_size=batch, epochs=steps, steps_per_epoch=1,
+                     shuffle=False, verbose=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(conv_ops.launches, **bn_ops.launches)
+    losses = hist.history["loss"]
+    sps = steps / wall
+    mfu = 3 * RESNET50_FWD_FLOPS * batch * sps / PEAK_FLOPS["bfloat16"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  losses {[round(v, 5) for v in losses]}, accuracy "
+          f"{hist.history['accuracy'][-1]:.5f}")
+    print(f"  {steps} steps in {wall:.3f} s: {sps:.3f} steps/s, "
+          f"{sps * batch:.1f} images/s, MFU {mfu:.4f} (3 x 8.17 GFLOP/image "
+          f"at 989 TFLOP/s), peak memory {peak_gb:.2f} GB")
+    per_call = bn_ops.LAUNCHES_PER_CALL
+    per_step = {k: v / steps for k, v in launches.items()}
+    print(f"  launches per step {per_step} (K13/K14: {per_call} per call)")
+    buffers = all(bool(torch.isfinite(b).all()) for b in model.state.values())
+    print(f"  BN buffers finite: {buffers}; running var of the stem BN "
+          f"{model.state['batch_norm/var'][:4].tolist()}")
+    want = {"conv1x1": 72, "bn_stats": 53 * per_call,
+            "bn_bwd_reduce": 53 * per_call}
+    if per_step != want:
+        raise SystemExit(f"launches per step {per_step}, expected {want}")
+    if not all(np.isfinite(losses)) or not buffers:
+        raise SystemExit(f"ResNet-50 losses or BN buffers not finite: {losses}")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------------------------------------ phase o
+def phase_resnet_kernel_vs_plain(torch, dtt, strategy, batch=32, steps=3):
+    x, y = resnet_batch(batch, size=32, classes=10, seed=1)
+    tiny = dict(small_inputs=True, stage_blocks=(1, 1, 1, 1), width=16)
+    compile_kw = dict(loss="sparse_categorical_crossentropy",
+                      metrics=["accuracy"])
+
+    def train(strat):
+        with strat.scope():
+            model = dtt.Model(dtt.models.resnet(50, 10, **tiny))
+            model.compile(optimizer=dtt.optim.SGD(0.01, momentum=0.9),
+                          **compile_kw)
+        model.build((32, 32, 3), seed=1)
+        hist = model.fit(x, y, batch_size=batch, epochs=steps,
+                         steps_per_epoch=1, shuffle=False, verbose=0)
+        return hist.history["loss"], dtt.interop.state_to_numpy(model.state)
+
+    card, _ = train(dtt.SingleDevice())
+    cpu, _ = train(dtt.SingleDevice("cpu"))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    print(f"  card (kernels) {card}\n  CPU (plain)    {cpu}\n  max relative "
+          f"loss difference {rel:.3e} (limit 1e-4)")
+    if rel > 1e-4:
+        raise SystemExit("the kernel path's losses disagree with the plain path")
+    torch.backends.cudnn.deterministic = True
+    try:
+        (dp, dp_state), (single, single_state) = (train(strategy),
+                                                  train(dtt.SingleDevice()))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    same_state = all(np.array_equal(dp_state[k], single_state[k])
+                     for k in single_state)
+    print(f"  DataParallel (world 1) {dp}\n  SingleDevice           {single}: "
+          f"losses {'equal' if dp == single else 'DIFFER'}, BN buffers "
+          f"{'equal' if same_state else 'DIFFER'}")
+    if dp != single or not same_state:
+        raise SystemExit("DataParallel over one rank and SingleDevice differ")
+
+
+# ------------------------------------------------------------------ phase p
+def differential_s(torch, fn, n1=10, n2=60, warmup=3):
+    """Seconds per call of ``fn()`` by the difference of two run lengths,
+    each ending in a synchronize (the JAX package's profile_op_floor
+    method): the fixed cost of a run (the sync) cancels."""
+    def run(n):
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    run(n1)
+    t1 = run(n1)
+    t2 = run(n2)
+    return max(t2 - t1, 1e-9) / (n2 - n1)
+
+
+def phase_launch_probe(torch, probe_ops):
+    dev = torch.device("cuda")
+    x = torch.randn(probe_ops.SHAPE, generator=torch.Generator(
+        device=dev).manual_seed(23), device=dev)
+    probe_ops.reset_launch_counts()
+    got = probe_ops.launch_probe(x)
+    want = probe_ops.launch_probe_ref(x)
+    torch.cuda.synchronize()
+    same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    print(f"  launch_probe {tuple(x.shape)} f32 vs x * 1.0001: "
+          f"{'bit-identical' if same else 'DIFFER'}")
+    if not same:
+        raise SystemExit("launch_probe disagrees with its plain version")
+    ms = 1e3 * differential_s(torch, lambda: probe_ops.launch_probe(x))
+    plain_ms = 1e3 * differential_s(torch, lambda: probe_ops.launch_probe_ref(x))
+    library_ms = 1e3 * differential_s(torch, lambda: torch.mul(x, 1.0001))
+    launches = probe_ops.launches["launch_probe"]
+    nbytes = 2 * x.numel() * 4
+    b_ms, b_by = bound_ms(nbytes, x.numel(), "float32")
+    print(f"  per launch (differential, 10 vs 60 calls): {ms * 1e3:.2f} us; "
+          f"plain version {plain_ms * 1e3:.2f} us; torch.mul(x, 1.0001) "
+          f"{library_ms * 1e3:.2f} us; bound {b_ms * 1e6:.2f} ns ({b_by}: "
+          f"{nbytes} bytes); {launches} launches")
+    return {"launch_probe": dict(max_abs_err=max_err(got, want), ms=ms,
+                                 plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=b_by, library_ms=library_ms,
+                                 launches=launches)}
+
+
 def main():
     import torch
 
@@ -831,8 +1243,11 @@ def main():
         return 2
     import distributed_tpu_torch as dtt
     from distributed_tpu_torch.ops import _build
+    from distributed_tpu_torch.ops import bn_reduce as bn_ops
+    from distributed_tpu_torch.ops import conv1x1 as conv_ops
     from distributed_tpu_torch.ops import flash_attention as flash_ops
     from distributed_tpu_torch.ops import fused_update as adam_ops
+    from distributed_tpu_torch.ops import launch_probe as probe_ops
     from distributed_tpu_torch.ops import paged_attention as paged_ops
     from distributed_tpu_torch.ops import pallas_kernels as xent_ops
 
@@ -945,7 +1360,25 @@ def main():
           "0.01), pallas loss, batch 32 x 1024")
     rows["fused_adam"]["launches"] = phase_dp_lm(
         torch, dtt, strategy, (xent_ops, flash_ops, adam_ops))
+
+    print("phase m: K12, K13, K14 vs plain at ResNet-50's shapes (batch 256, "
+          "224x224)")
+    rows.update(phase_resnet_kernels(torch, dtt, conv_ops, bn_ops))
+
+    print("phase n: ResNet-50 training under DataParallel, bf16, SGD(0.1, "
+          "momentum=0.9), batch 256 x 224x224")
+    resnet_launches = phase_resnet_train(torch, dtt, strategy, conv_ops,
+                                         bn_ops)
+    for name in ("conv1x1", "bn_stats", "bn_bwd_reduce"):
+        rows[name]["launches"] = resnet_launches[name]
+
+    print("phase o: small f32 ResNet, TF32 off: card vs CPU, then "
+          "DataParallel (world 1) vs SingleDevice")
+    phase_resnet_kernel_vs_plain(torch, dtt, strategy)
     dtt.cluster.shutdown()
+
+    print("phase p: the launch probe (K15) vs x * 1.0001")
+    rows.update(phase_launch_probe(torch, probe_ops))
 
     kernels = [
         {"name": name, "route": "cuda",

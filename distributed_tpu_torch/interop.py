@@ -4,7 +4,9 @@ The port's modules register their parameters under the JAX package's tree
 paths (``residual_1/main/dense_1/kernel``), with the same layouts (Dense
 kernels ``(din, units)``, attention projections ``(d, heads*head_dim)``),
 so a JAX parameter tree loads with no transposes, and trained parameters
-come back as numpy under the same paths (``params_to_numpy``). The path rules are those
+come back as numpy under the same paths (``params_to_numpy``); the state
+(BatchNorm's running statistics) travels the same way (``state_from_jax``,
+``state_to_numpy``). The path rules are those
 of the JAX package's ``checkpoint/core.py``: sorted dict keys, ``#i`` for
 tuple and list entries, joined by ``/``.
 """
@@ -57,7 +59,21 @@ def params_to_numpy(params) -> Dict[str, np.ndarray]:
             for path, t in params.items()}
 
 
+def state_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``Model.state`` tree (BatchNorm's running ``mean``
+    and ``var``; leaves as numpy arrays) as the port's flat ``{path:
+    tensor}`` state, in f32 on the CPU. Load it with ``Model.load_state``."""
+    return params_from_jax(tree)
+
+
+def state_to_numpy(state) -> Dict[str, np.ndarray]:
+    """The port's ``{path: buffer}`` state (``Model.state``) as ``{path:
+    f32 numpy array}``, under the paths ``flatten_tree`` gives a JAX state
+    tree."""
+    return params_to_numpy(state)
+
+
 __all__ = [
     "SEP", "flatten_tree", "iter_leaf_paths", "params_from_jax",
-    "params_to_numpy",
+    "params_to_numpy", "state_from_jax", "state_to_numpy",
 ]

@@ -24,6 +24,8 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from . import activations
+
 Shape = Tuple[int, ...]
 
 
@@ -151,24 +153,37 @@ class Sequential(Layer):
 
 
 class Residual(Layer):
-    """Skip connection: ``y = main(x) + x`` (the identity shortcut of the
-    JAX package's Residual, the only one the ported models use)."""
+    """Skip connection: ``y = activation(main(x) + shortcut(x))``, the
+    shortcut the identity by default, as the JAX package's Residual. The
+    branches register as ``main`` and ``shortcut`` (the JAX tree's keys).
+    The paged paths serve the identity shortcut only (the LM's blocks)."""
 
-    def __init__(self, main: Layer, name: Optional[str] = None):
+    def __init__(self, main: Layer, shortcut: Optional[Layer] = None,
+                 activation=None, name: Optional[str] = None):
         super().__init__(name)
         self.main = main
+        self.shortcut = shortcut
+        self.activation = activations.get(activation)
 
     def build(self, input_shape, generator):
         out = self.main.build(tuple(input_shape), generator)
-        if out != tuple(input_shape):
+        sc = (tuple(input_shape) if self.shortcut is None
+              else self.shortcut.build(tuple(input_shape), generator))
+        if out != sc:
             raise ValueError(
-                f"Residual main branch maps {tuple(input_shape)} to {out}; "
-                "the identity shortcut needs the same shape"
+                f"Residual branch shapes differ: main {out} vs shortcut "
+                f"{sc} (add a projection shortcut)"
             )
         return out
 
     def forward(self, x):
-        return self.main(x) + x
+        sc = x if self.shortcut is None else self.shortcut(x)
+        return self.activation(self.main(x) + sc)
+
+    def _identity_only(self):
+        if self.shortcut is not None:
+            raise NotImplementedError(
+                "Residual with a shortcut branch: paged decode not ported")
 
     def init_paged_cache(self, num_blocks, block_size, dtype, device):
         c = self.main.init_paged_cache(num_blocks, block_size, dtype, device)
@@ -176,19 +191,21 @@ class Residual(Layer):
 
     def paged_decode(self, cache, x, *, block_tables, positions,
                      decode_kernel="reference"):
+        self._identity_only()
         y, c = self.main.paged_decode(
             cache.get("main", {}), x, block_tables=block_tables,
             positions=positions, decode_kernel=decode_kernel)
         if c:
             cache["main"] = c
-        return y + x, cache
+        return self.activation(y + x), cache
 
     def paged_prefill(self, cache, x, *, block_table, start):
+        self._identity_only()
         y, c = self.main.paged_prefill(
             cache.get("main", {}), x, block_table=block_table, start=start)
         if c:
             cache["main"] = c
-        return y + x, cache
+        return self.activation(y + x), cache
 
 
 __all__ = ["Layer", "NameScope", "Residual", "Sequential", "Shape"]

@@ -9,6 +9,13 @@ Activations between layers stay NHWC; a convolution or pooling views them
 as NCHW with ``permute`` (the memory order is ``torch.channels_last``'s,
 so cuDNN reads them in place) and permutes the result back.
 
+A Conv2D with a 1x1 kernel is one matrix product over the NHWC rows and
+runs through ``ops.conv1x1`` (kernel K12 on the card) at any stride: XLA's
+SAME padding never pads a 1x1 window (its total, ``(ceil(n/s) - 1)*s + 1
+- n``, is at most 0), so stride s is ``x[:, ::s, ::s]`` and then the
+product. Every other window goes to cuDNN. BatchNorm's reductions run
+through ``ops.bn_reduce`` (K13 forward, K14 backward).
+
 ``padding="same"`` is XLA's: the total padding of a dimension of size n
 with window k and stride s is ``max((ceil(n/s) - 1)*s + k - n, 0)``,
 ``total // 2`` before and the rest after (one more after than before for
@@ -25,6 +32,9 @@ import torch.nn.functional as F
 
 from . import activations, initializers
 from .core import Layer, Shape
+from ..ops import bn_reduce
+from ..ops.conv1x1 import conv1x1_apply
+from ..parallel.strategy import current_strategy
 from ..precision import resolve_dtype
 
 IntOr2 = Union[int, Tuple[int, int]]
@@ -66,7 +76,10 @@ def _check_padding(padding: str) -> str:
 
 
 class Conv2D(Layer):
-    """2-D convolution over NHWC inputs with an HWIO kernel."""
+    """2-D convolution over NHWC inputs with an HWIO kernel. A layer with
+    ``use_bias=False`` registers no ``bias``, so its tree paths are the
+    JAX layer's. The kernel is drawn glorot-uniform, the JAX layer's
+    default and the only initializer its models use."""
 
     def __init__(
         self,
@@ -75,6 +88,8 @@ class Conv2D(Layer):
         strides: IntOr2 = 1,
         padding: str = "valid",
         activation=None,
+        use_bias: bool = True,
+        kernel_initializer="glorot_uniform",
         dtype=None,
         name: Optional[str] = None,
     ):
@@ -84,14 +99,21 @@ class Conv2D(Layer):
         self.strides = _pair(strides)
         self.padding = _check_padding(padding)
         self.activation = activations.get(activation)
+        self.use_bias = use_bias
+        if kernel_initializer != "glorot_uniform":
+            raise NotImplementedError(
+                f"Conv2D(kernel_initializer={kernel_initializer!r}): not yet "
+                "ported")
         self.dtype = dtype
 
     def build(self, input_shape: Shape, generator):
         h, w, cin = input_shape
         kh, kw = self.kernel_size
+        self.input_shape = tuple(input_shape)
         self.kernel = torch.nn.Parameter(initializers.glorot_uniform()(
             generator, (kh, kw, cin, self.filters)))
-        self.bias = torch.nn.Parameter(torch.zeros(self.filters))
+        if self.use_bias:
+            self.bias = torch.nn.Parameter(torch.zeros(self.filters))
         return (_conv_out(h, kh, self.strides[0], self.padding),
                 _conv_out(w, kw, self.strides[1], self.padding), self.filters)
 
@@ -101,10 +123,21 @@ class Conv2D(Layer):
         if dt is not None:
             x = x.to(dt)
             kernel = kernel.to(dt)
-        xn = _pad_nchw(x.permute(0, 3, 1, 2), self.kernel_size, self.strides,
-                       self.padding)
-        y = F.conv2d(xn, kernel.permute(3, 2, 0, 1), stride=self.strides)
-        y = y.permute(0, 2, 3, 1) + self.bias.to(y.dtype)
+        if self.kernel_size == (1, 1):
+            sh, sw = self.strides
+            if (sh, sw) != (1, 1):
+                x = x[:, ::sh, ::sw]
+            n, ho, wo, cin = x.shape
+            y = conv1x1_apply(x.reshape(-1, cin),
+                              kernel.reshape(cin, self.filters))
+            y = y.reshape(n, ho, wo, self.filters)
+        else:
+            xn = _pad_nchw(x.permute(0, 3, 1, 2), self.kernel_size,
+                           self.strides, self.padding)
+            y = F.conv2d(xn, kernel.permute(3, 2, 0, 1), stride=self.strides)
+            y = y.permute(0, 2, 3, 1)
+        if self.use_bias:
+            y = y + self.bias.to(y.dtype)
         return self.activation(y)
 
 
@@ -161,6 +194,131 @@ class LayerNorm(Layer):
         return y.to(x.dtype)
 
 
+def _bn_normalize(x, mean, var, scale, bias, epsilon):
+    """``(x - mean) * inv + bias`` with ``inv = rsqrt(var + eps) * scale``
+    in f32, the rest in x's dtype, in the JAX layer's order."""
+    dt = x.dtype
+    inv = torch.rsqrt(var + epsilon) * scale
+    return (x - mean.to(dt)) * inv.to(dt) + bias.to(dt)
+
+
+class _BatchNormFn(torch.autograd.Function):
+    """The JAX layer's ``_bn_norm`` and its custom VJP: normalize with the
+    given statistics; the backward folds the statistics' gradients into dx
+    (zero cotangents for mean and var) with K14's two sums. Under a
+    strategy with replicas the sums are reduced over them for dx only:
+    dscale and dbias are this rank's sums, and the strategy's gradient
+    average (sum over ranks / P, each rank's loss the mean of its own
+    rows) turns them into the global batch's."""
+
+    @staticmethod
+    def forward(ctx, x, mean, var, scale, bias, epsilon, strategy):
+        ctx.save_for_backward(x, mean, var, scale)
+        ctx.epsilon = epsilon
+        ctx.strategy = strategy
+        return _bn_normalize(x, mean, var, scale, bias, epsilon)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, mean, var, scale = ctx.saved_tensors
+        c = x.shape[-1]
+        x2d = x.reshape(-1, c)
+        inv0 = torch.rsqrt(var + ctx.epsilon)
+        local = bn_reduce.bn_bwd_reduce(dy.reshape(-1, c).contiguous(), x2d,
+                                        mean, inv0)
+        total, n = local, x2d.shape[0]
+        if ctx.strategy is not None:
+            total = ctx.strategy.all_reduce_sum(local.clone())
+            n *= ctx.strategy.num_replicas_in_sync
+        xhat = (x.float() - mean) * inv0
+        dx = (scale * inv0) * (dy.float() - total[0] / n
+                               - xhat * (total[1] / n))
+        return dx.to(x.dtype), None, None, local[1], local[0], None, None
+
+
+class BatchNorm(Layer):
+    """Batch normalization over all but the channel (last) axis, as the
+    JAX layer computes it: parameters ``scale`` and ``bias``, f32 buffers
+    ``mean`` and ``var`` (the JAX state tree's paths).
+
+    In train mode the statistics are single-pass shifted moments: K13
+    sums ``x - shift`` and its square, ``mean = shift + m1``, ``var =
+    max(m2 - m1^2, 0)``; the shift is the running mean (``"running"``) or
+    the mean of batch row 0 (``"data"``). The running statistics move to
+    ``momentum * state + (1 - momentum) * stat`` in place, without
+    gradients. Under a strategy with replicas (``current_strategy()``,
+    which ``Model.fit`` sets) K13's sums are all-reduced and divided by
+    the global count, and a ``"data"`` shift is rank 0's, so every rank
+    sees the global batch's statistics (sync-BN, as GSPMD makes it in the
+    JAX package). Eval mode normalizes with the running statistics.
+
+    Not ``F.batch_norm``: its momentum weighs the batch, not the state,
+    and its running variance is unbiased; the JAX layer's is not."""
+
+    # Class-level defaults, as the JAX layer's ("reduce"/"dot"; "data"/
+    # "running"). The JAX layer's "dot" computes the same sums as products
+    # with a row of ones; here both names take K13 (or its plain version).
+    stats_impl = "reduce"
+    stats_shift = "data"
+
+    def __init__(self, momentum: float = 0.9, epsilon: float = 1e-5,
+                 stats_impl: Optional[str] = None,
+                 stats_shift: Optional[str] = None, name=None):
+        super().__init__(name)
+        self.momentum = float(momentum)
+        self.epsilon = float(epsilon)
+        if stats_impl is not None:
+            if stats_impl not in ("reduce", "dot"):
+                raise ValueError(
+                    f"stats_impl must be 'reduce' or 'dot', got {stats_impl!r}"
+                )
+            self.stats_impl = stats_impl
+        if stats_shift is not None:
+            if stats_shift not in ("data", "running"):
+                raise ValueError(
+                    f"stats_shift must be 'data' or 'running', got "
+                    f"{stats_shift!r}"
+                )
+            self.stats_shift = stats_shift
+
+    def build(self, input_shape: Shape, generator):
+        c = input_shape[-1]
+        self.input_shape = tuple(input_shape)
+        self.scale = torch.nn.Parameter(torch.ones(c))
+        self.bias = torch.nn.Parameter(torch.zeros(c))
+        self.register_buffer("mean", torch.zeros(c))
+        self.register_buffer("var", torch.ones(c))
+        return tuple(input_shape)
+
+    def forward(self, x):
+        if not self.training:
+            return _bn_normalize(x, self.mean, self.var, self.scale,
+                                 self.bias, self.epsilon)
+        strategy = current_strategy()
+        c = x.shape[-1]
+        x2d = x.reshape(-1, c)
+        with torch.no_grad():
+            if self.stats_shift == "running":
+                shift = self.mean.clone()
+            else:
+                shift = x[:1].float().mean(dim=tuple(range(x.dim() - 1)))
+                if strategy is not None:
+                    shift = strategy.broadcast(shift)
+            sums = bn_reduce.bn_stats(x2d.detach(), shift)
+            n = x2d.shape[0]
+            if strategy is not None:
+                sums = strategy.all_reduce_sum(sums)
+                n *= strategy.num_replicas_in_sync
+            m1, m2 = sums[0] / n, sums[1] / n
+            mean = shift + m1
+            var = torch.clamp_min(m2 - m1.square(), 0.0)
+            m = self.momentum
+            self.mean.copy_(m * self.mean + (1 - m) * mean)
+            self.var.copy_(m * self.var + (1 - m) * var)
+        return _BatchNormFn.apply(x, mean, var, self.scale, self.bias,
+                                  self.epsilon, strategy)
+
+
 class Embedding(Layer):
     def __init__(self, vocab_size: int, dim: int, dtype=None, name=None):
         super().__init__(name)
@@ -179,6 +337,32 @@ class Embedding(Layer):
         rows = self.table[x.long()]
         dt = resolve_dtype(self.dtype)
         return rows if dt is None else rows.to(dt)
+
+
+class SpaceToDepth(Layer):
+    """(N, H, W, C) -> (N, H/b, W/b, C*b*b): each b x b spatial block
+    becomes one position, its entries in (row, column, channel) order, as
+    the JAX layer's reshape and transpose order them."""
+
+    def __init__(self, block_size: int = 2, name: Optional[str] = None):
+        super().__init__(name)
+        self.block_size = int(block_size)
+
+    def build(self, input_shape: Shape, generator):
+        h, w, c = input_shape
+        b = self.block_size
+        if h % b or w % b:
+            raise ValueError(
+                f"SpaceToDepth({b}) needs spatial dims divisible by {b}; "
+                f"got {(h, w)}"
+            )
+        return (h // b, w // b, c * b * b)
+
+    def forward(self, x):
+        n, h, w, c = x.shape
+        b = self.block_size
+        x = x.reshape(n, h // b, b, w // b, b, c).permute(0, 1, 3, 2, 4, 5)
+        return x.reshape(n, h // b, w // b, c * b * b)
 
 
 class Flatten(Layer):
@@ -261,6 +445,6 @@ class GlobalAvgPool2D(Layer):
 
 
 __all__ = [
-    "Activation", "AvgPool2D", "Conv2D", "Dense", "Embedding", "Flatten",
-    "GlobalAvgPool2D", "LayerNorm", "MaxPool2D",
+    "Activation", "AvgPool2D", "BatchNorm", "Conv2D", "Dense", "Embedding",
+    "Flatten", "GlobalAvgPool2D", "LayerNorm", "MaxPool2D", "SpaceToDepth",
 ]

@@ -13,6 +13,12 @@ rank builds the same parameters from the same seed, takes the same global
 batch indices and keeps its own rows of them (the JAX package's row
 sharding), and averages the gradients with one all-reduce per dtype
 before the optimizer, so the replicas stay bit-identical.
+BatchNorm is sync-BN, as GSPMD makes it in the JAX package: a layer that
+needs statistics over the global batch finds the strategy its train step
+runs under (``current_strategy()``; ``Model.fit`` enters the model's
+``scope()`` for each step) and calls ``all_reduce_sum``/``broadcast``,
+which are collectives under ``DataParallel`` and do nothing under
+``SingleDevice``.
 ``torch.nn.parallel.DistributedDataParallel`` is not used: its reducer
 hooks ``.grad`` accumulation, which the port's ``torch.autograd.grad``
 step never does. ``DataParallel()`` outside a process group forms a
@@ -87,6 +93,10 @@ class Strategy:
         """``t`` summed over the replicas, in place (as it is here)."""
         return t
 
+    def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """``t`` replaced in place by replica ``src``'s (as it is here)."""
+        return t
+
 
 class SingleDevice(Strategy):
     """No distribution: the model on one device (``None``: the card)."""
@@ -159,6 +169,10 @@ class DataParallel(Strategy):
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         dist.all_reduce(t, op=dist.ReduceOp.SUM)
+        return t
+
+    def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        dist.broadcast(t, src=src)
         return t
 
 

@@ -13,6 +13,13 @@ over the ranks (one all-reduce per dtype) before the optimizer; the
 epoch's losses and metric sums are reduced across the ranks at its one
 host sync. Every rank builds the same parameters from the same seed.
 
+A model with state (BatchNorm's running statistics) keeps it in buffers,
+``state`` exposes them under the JAX state paths and ``load_state`` loads
+them. ``fit`` runs the module in train mode (the JAX ``apply``'s
+``train=True``) inside its strategy's ``scope()``, so a layer that reduces
+over the batch finds the replicas; everything else (``evaluate``, a call
+of ``model.module``) runs it in eval mode, as ``train=False``.
+
 A train step is forward, loss, ``torch.autograd.grad`` and the optimizer's
 in-place update. Master parameters stay f32; layers built with ``dtype=``
 cast them per call, and the gradients come back f32 through the casts, as
@@ -107,6 +114,7 @@ class Model:
         self.input_shape = tuple(int(d) for d in input_shape)
         self.module.build(self.input_shape, generator)
         self.module.to(self.device)
+        self.module.eval()
         self.built = True
         self._decode_dtype = None
         if self.compiled:
@@ -136,25 +144,43 @@ class Model:
             raise ValueError("Model not built")
         return sum(p.numel() for p in self.params.values())
 
+    @property
+    def state(self) -> Dict[str, torch.Tensor]:
+        """``{tree path: buffer}``: the model's state (BatchNorm's
+        running ``mean`` and ``var``) under the JAX package's state paths
+        (``residual/main/batch_norm/mean``); empty for a stateless model."""
+        self._require_built()
+        return {
+            name.replace(".", SEP): b
+            for name, b in self.module.named_buffers()
+        }
+
+    @staticmethod
+    def _copy_into(own, new, what):
+        if set(own) != set(new):
+            raise ValueError(
+                f"{what} paths differ: missing {sorted(set(own) - set(new))}, "
+                f"unexpected {sorted(set(new) - set(own))}"
+            )
+        with torch.no_grad():
+            for path, t in own.items():
+                src = torch.as_tensor(new[path])
+                if tuple(src.shape) != tuple(t.shape):
+                    raise ValueError(
+                        f"{path}: shape {tuple(src.shape)} != {tuple(t.shape)}"
+                    )
+                t.copy_(src)
+
     def load_params(self, params: Dict[str, torch.Tensor]) -> None:
         """Copy ``{tree path: tensor}`` (e.g. ``interop.params_from_jax``)
         into the parameters. Paths and shapes must match exactly."""
-        own = self.params
-        if set(own) != set(params):
-            raise ValueError(
-                "parameter paths differ: missing "
-                f"{sorted(set(own) - set(params))}, unexpected "
-                f"{sorted(set(params) - set(own))}"
-            )
-        with torch.no_grad():
-            for path, p in own.items():
-                src = torch.as_tensor(params[path])
-                if tuple(src.shape) != tuple(p.shape):
-                    raise ValueError(
-                        f"{path}: shape {tuple(src.shape)} != {tuple(p.shape)}"
-                    )
-                p.copy_(src)
+        self._copy_into(self.params, params, "parameter")
         self._decode_dtype = None
+
+    def load_state(self, state: Dict[str, torch.Tensor]) -> None:
+        """Copy ``{tree path: tensor}`` (e.g. ``interop.state_from_jax``)
+        into the state buffers. Paths and shapes must match exactly."""
+        self._copy_into(self.state, state, "state")
 
     def decode_dtype(self) -> torch.dtype:
         """KV-cache / activation dtype for decode: the dtype of the logits
@@ -237,9 +263,10 @@ class Model:
         """One optimizer step on a device batch: returns the loss (a
         device scalar) and each metric's (sum, count)."""
         params = self._param_list()
-        logits = self.module(x)
-        loss = self.loss_fn(logits, y)
-        grads = torch.autograd.grad(loss, params, materialize_grads=True)
+        with self.strategy.scope():
+            logits = self.module(x)
+            loss = self.loss_fn(logits, y)
+            grads = torch.autograd.grad(loss, params, materialize_grads=True)
         grads = self.strategy.reduce_gradients(grads)
         self.tx.update(params, grads, self.opt_state)
         with torch.no_grad():
@@ -291,6 +318,16 @@ class Model:
         stream = _index_stream(n, batch_size, shuffle, seed,
                                start_step=self.step)
         history = History()
+        self.module.train()
+        try:
+            self._fit_epochs(x, y, batch_size, epochs, steps_per_epoch,
+                             verbose, initial_epoch, stream, history)
+        finally:
+            self.module.eval()
+        return history
+
+    def _fit_epochs(self, x, y, batch_size, epochs, steps_per_epoch, verbose,
+                    initial_epoch, stream, history):
         for epoch in range(initial_epoch, epochs):
             t0 = time.perf_counter()
             losses = []
@@ -332,7 +369,6 @@ class Model:
                 print(f"Epoch {epoch + 1}/{epochs} - "
                       f"{batch_size * steps_per_epoch} samples - {dt:.2f}s "
                       f"({dt / steps_per_epoch * 1000:.1f}ms/step) - {parts}")
-        return history
 
     # --------------------------------------------------------------- evaluate
     def evaluate(self, x, y=None, batch_size: int = 32, verbose: int = 1,
@@ -357,6 +393,7 @@ class Model:
         per_ex = losses_lib.get_per_example(self.loss_fn)
         sums, counts = [], []  # per batch: [loss, metric...]; sums on device
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        self.module.eval()
         with torch.inference_mode():
             for start in range(0, n, batch_size):
                 rows = slice(min(start + lo, n), min(start + hi, n))

@@ -8,7 +8,8 @@ process; here each rank holds one replica, so the checks compare across
 the default process group.
 
 ``assert_replicas_identical`` is exact and raises on every rank, naming
-the first parameter that differs; ``replica_drift`` reports the worst
+the first parameter that differs (``assert_model_replicas_identical``
+checks a model's parameters and its state buffers); ``replica_drift`` reports the worst
 difference per parameter (0.0 everywhere on a healthy run). Every rank
 must call them (they are collectives). Without a group, or in a group of
 one, there is nothing to compare.
@@ -82,6 +83,14 @@ def assert_replicas_identical(params: Dict[str, torch.Tensor],
             )
 
 
+def assert_model_replicas_identical(model) -> None:
+    """:func:`assert_replicas_identical` over a ``Model``'s parameters and
+    then its state buffers (BatchNorm's running statistics, which sync-BN
+    keeps identical across the ranks)."""
+    assert_replicas_identical(model.params, "params")
+    assert_replicas_identical(model.state, "state")
+
+
 def replica_drift(params: Dict[str, torch.Tensor]) -> Dict[str, float]:
     """``{name: max |difference| from rank 0's replica over all ranks}``,
     on every rank; 0.0 when bit-identical (matching NaN/inf pairs count as
@@ -104,4 +113,7 @@ def replica_drift(params: Dict[str, torch.Tensor]) -> Dict[str, float]:
     return out
 
 
-__all__ = ["assert_replicas_identical", "replica_drift"]
+__all__ = [
+    "assert_model_replicas_identical", "assert_replicas_identical",
+    "replica_drift",
+]

@@ -11,16 +11,21 @@ phase-k and phase-l configurations at N times their global batch (the
 same rows per card as on one card, the reference's scaling rule): the
 mnist_cnn (256 images per card, ``SGD(0.001)``, 10 warm-up and 100 timed
 steps as one ``fit`` epoch), the cifar_cnn (256 per card, ``SGD(0.01,
-momentum=0.9)``, 5 + 50 steps) and the GPT-2-small LM (32 x 1024 tokens
+momentum=0.9)``, 5 + 50 steps), ResNet-50 as chip_smoke.py's phase n
+configures it (bf16, sync-BN, 256 images of 224x224 per card, ``SGD(0.1,
+momentum=0.9)``, 3 + 20 steps) and the GPT-2-small LM (32 x 1024 tokens
 per card, ``fused_adamw(3e-4, weight_decay=0.01)``, the pallas loss, 2 + 5
-one-step epochs). After each model the replicas must be bit-identical
-(``utils.sync_check``). It also times one all-reduce of each model's
+one-step epochs). After each model the replicas, parameters and
+BatchNorm buffers alike, must be bit-identical (``utils.sync_check``). It also times one all-reduce of each model's
 gradient bucket on its own (CUDA events, after a barrier). Then each
 worker count trains both models 3 steps more at one global batch for
-every N (mnist_cnn 256 images, the LM 32 x 1024 tokens, fresh weights
-from seed 1): the losses at N workers must match those at the first N,
-to 1e-5 relative (f32) and 2e-3 (the LM's bf16 layers round partial
-gradients at other places).
+every N (mnist_cnn 256 images; phase o's small f32 ResNet, 32 images of
+32x32, ``SGD(0.01, momentum=0.9)``; the LM 32 x 1024 tokens; fresh
+weights from seed 1): the losses at N workers must match those at the
+first N, to 1e-5 relative (mnist), 1e-4 (the ResNet: sync-BN makes each
+BatchNorm's statistics those of the global batch, summed in another
+order) and 2e-3 (the LM's bf16 layers round partial gradients at other
+places).
 
 Prints, per N and model, steps/s, images or tokens per second (in all and
 per card), the all-reduce's ms, and one JSON line; exits non-zero when a
@@ -37,10 +42,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 # Per card: (batch, warm-up steps, timed steps).
-CNN_RUN = {"mnist_cnn": (256, 10, 100), "cifar_cnn": (256, 5, 50)}
+CNN_RUN = {"mnist_cnn": (256, 10, 100), "cifar_cnn": (256, 5, 50),
+           "resnet50": (256, 3, 20)}
 LM_RUN = (32, 2, 5)
 # The same global batch at every N: (model, global batch, loss rtol).
-PARITY = (("mnist_cnn", 256, 1e-5), ("lm", 32, 2e-3))
+PARITY = (("mnist_cnn", 256, 1e-5), ("small_resnet", 32, 1e-4), ("lm", 32, 2e-3))
 
 
 def worker():
@@ -83,7 +89,7 @@ def worker():
                          steps_per_epoch=steps, shuffle=False, verbose=0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        sync_check.assert_replicas_identical(model.params)
+        sync_check.assert_model_replicas_identical(model)
         sps = epochs * steps / wall
         rows[name] = {"steps_per_s": sps, "unit": unit,
                       "per_s": sps * batch * per_row,
@@ -99,6 +105,22 @@ def worker():
             opt = dtt.optim.fused_adamw(3e-4, weight_decay=0.01)
             loss, shape = ("pallas_sparse_categorical_crossentropy",
                            (chip_smoke.LM["max_len"],))
+        elif name == "resnet50":
+            x, y = chip_smoke.resnet_batch(batch)
+            module = dtt.models.resnet(50, 1000, dtype="bfloat16")
+            opt = dtt.optim.SGD(0.1, momentum=0.9)
+            loss, shape = "sparse_categorical_crossentropy", (224, 224, 3)
+        elif name == "small_resnet":
+            # The parity run: phase o's f32 ResNet. (ResNet-50's own
+            # stage-4 kernel gradients at initialisation move by 8-12 %
+            # when the rows of one batch are merely summed in reverse
+            # order, f32 on one process: no reduction order can be held
+            # to them.)
+            x, y = chip_smoke.resnet_batch(batch, size=32, classes=10, seed=1)
+            module = dtt.models.resnet(50, 10, small_inputs=True,
+                                       stage_blocks=(1, 1, 1, 1), width=16)
+            opt = dtt.optim.SGD(0.01, momentum=0.9)
+            loss, shape = "sparse_categorical_crossentropy", (32, 32, 3)
         else:
             if name == "mnist_cnn":
                 x, y = dtt.data.synthetic_images(batch, (28, 28), 10, 0)
@@ -133,7 +155,7 @@ def worker():
         parity[name] = model.fit(x, y, batch_size=batch, epochs=3,
                                  steps_per_epoch=1, shuffle=False,
                                  verbose=0).history["loss"]
-        sync_check.assert_replicas_identical(model.params)
+        sync_check.assert_model_replicas_identical(model)
         del model
     dtt.launch.report_result({"rank": spec.index, "world": n,
                               "device": str(strategy.device), "rows": rows,

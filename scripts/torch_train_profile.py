@@ -10,7 +10,10 @@ weights from seed 0, ``Adam(1e-4)``, the pallas loss, batch 32 x 1024
 tokens from ``numpy.random.default_rng(0)``); ``lm_dp`` is phase l (the
 same under a world-1 ``DataParallel`` with ``fused_adamw(3e-4)``);
 ``mnist_cnn`` and ``cifar_cnn`` are phase k's (world-1 ``DataParallel``,
-global batch 256, TF32 off). Two warm-up steps, a timed run of ``--steps``
+global batch 256, TF32 off); ``resnet50`` is phase n (ResNet-50 in bf16 as
+the JAX package's ``bench_resnet50`` configures it, world-1
+``DataParallel``, global batch 256 at 224x224, ``SGD(0.1, momentum=0.9)``).
+Two warm-up steps, a timed run of ``--steps``
 steps (host clock, ending in a synchronize), then the same number of
 steps under ``torch.profiler`` (CPU and CUDA): device time by kernel,
 grouped into the port's CUDA kernels, GEMMs, convolutions and the rest,
@@ -40,6 +43,12 @@ GROUPS = (
                                 "flash_dkv_kernel")),
     ("cross-entropy (port)", ("xent_fwd_kernel", "xent_bwd_kernel")),
     ("fused Adam (port)", ("fused_adam_kernel",)),
+    ("1x1-conv GEMM K12 (port)", ("conv1x1_bf16_kernel",
+                                  "conv1x1_f32_kernel")),
+    ("BatchNorm reductions K13/K14 (port)", ("bn_partial_kernel",
+                                             "bn_finalize_kernel")),
+    ("layout copies (NCHW<->NHWC, contiguous)", (
+        "nchwToNhwc", "nhwcToNchw", "direct_copy", "CatArrayBatchedCopy")),
     ("convolution (cuDNN)", ("conv", "Conv", "wgrad", "dgrad", "implicit")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "Gemm", "xmma", "cutlass")),
     ("optimizer (foreach)", ("multi_tensor_apply", "foreach")),
@@ -57,7 +66,8 @@ def group_of(name):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", default="lm",
-                    choices=("lm", "lm_dp", "mnist_cnn", "cifar_cnn"))
+                    choices=("lm", "lm_dp", "mnist_cnn", "cifar_cnn",
+                             "resnet50"))
     ap.add_argument("--layers", type=int, default=chip_smoke.LM["num_layers"])
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default=None, help="write the numbers as JSON")
@@ -76,6 +86,11 @@ def main():
                                            **lm)
         input_shape = (t_len,)
         loss = "pallas_sparse_categorical_crossentropy"
+    elif args.workload == "resnet50":
+        batch = chip_smoke.RESNET_BATCH
+        x, y = chip_smoke.resnet_batch(batch)
+        module = dtt.models.resnet(50, 1000, dtype="bfloat16")
+        input_shape, loss = (224, 224, 3), "sparse_categorical_crossentropy"
     else:
         batch = 256
         if args.workload == "mnist_cnn":
@@ -91,7 +106,8 @@ def main():
     optimizer = {"lm": dtt.optim.Adam(1e-4),
                  "lm_dp": dtt.optim.fused_adamw(3e-4, weight_decay=0.01),
                  "mnist_cnn": dtt.optim.SGD(0.001),
-                 "cifar_cnn": dtt.optim.SGD(0.01, momentum=0.9)}[args.workload]
+                 "cifar_cnn": dtt.optim.SGD(0.01, momentum=0.9),
+                 "resnet50": dtt.optim.SGD(0.1, momentum=0.9)}[args.workload]
     strategy = (dtt.SingleDevice() if args.workload == "lm"
                 else dtt.DataParallel())
     with strategy.scope():

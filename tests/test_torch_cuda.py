@@ -12,14 +12,21 @@ outputs 2e-2 (probabilities round to bf16 at different running maxima),
 bf16 flash gradients atol 2e-3 + rtol 2e-2; the cross-entropy: 1e-5 on
 the f32 losses, one bf16 ulp of each entry on bf16 gradients. The fused
 Adam kernel: bit for bit (both sides round every operation once, in the
-same order).
+same order). The 1x1-convolution GEMM (K12): f32 within 2e-5 relative of
+the sum of |x||w| (sums in another order); bf16 within one ulp of each
+entry plus that bound. BatchNorm's reductions (K13/K14): rtol 1e-5 plus
+1e-5 times the sum of the terms' magnitudes, and the same bits on a second
+call (fixed order, no atomics). The launch probe (K15): bit for bit.
 """
 
 import pytest
 import torch
 
+from distributed_tpu_torch.ops import bn_reduce as bn_ops
+from distributed_tpu_torch.ops import conv1x1 as conv_ops
 from distributed_tpu_torch.ops import flash_attention as flash_ops
 from distributed_tpu_torch.ops import fused_update as adam_ops
+from distributed_tpu_torch.ops import launch_probe as probe_ops
 from distributed_tpu_torch.ops import paged_attention as paged_ops
 from distributed_tpu_torch.ops import pallas_kernels as xent_ops
 
@@ -199,3 +206,93 @@ def test_fused_adam_kernel_matches_plain_bit_for_bit(cuda_device, wd, sizes,
     for got, want in ((p, p2), (m, m2), (v, v2)):
         for a, b in zip(_bits(got), _bits(want)):
             assert torch.equal(a, b)
+
+
+# ------------------------------------------------- 1x1 convolution GEMM (K12)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(3136, 64, 256), (1000, 256, 64),
+                                   (77, 24, 40), (130, 2048, 512)])
+def test_conv1x1_kernel_matches_plain(cuda_device, dtype, m, k, n):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda_device).manual_seed(m)
+    x = torch.randn((m, k), generator=g, device=cuda_device).to(dtype)
+    w = (torch.randn((k, n), generator=g, device=cuda_device) * 0.1).to(dtype)
+    before = conv_ops.launches["conv1x1"]
+    got = conv_ops.conv1x1(x, w)
+    torch.cuda.synchronize()
+    assert conv_ops.launches["conv1x1"] == before + 1
+    want = conv_ops.conv1x1_ref(x, w).float()
+    bound = x.float().abs() @ w.float().abs()
+    diff = (got.float() - want).abs()
+    if dtype == torch.float32:
+        assert bool((diff <= 2e-5 * bound + 1e-30).all())
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+        assert bool((diff <= ulp + 2 * k * 2.0 ** -24 * bound + 1e-30).all())
+
+
+@pytest.mark.cuda
+def test_conv1x1_autograd_matches_plain(cuda_device):
+    """dX through K12 and dW through torch.matmul against the plain
+    product's autograd, f32, TF32 off."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn((500, 64), generator=g, device=cuda_device)
+    w = torch.randn((64, 96), generator=g, device=cuda_device)
+    dy = torch.randn((500, 96), generator=g, device=cuda_device)
+    xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    got = torch.autograd.grad(conv_ops.conv1x1_apply(xs, ws), (xs, ws), dy)
+    xs, ws = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    want = torch.autograd.grad(xs @ ws, (xs, ws), dy)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-5)
+
+
+# ---------------------------------------------- BatchNorm reductions (K13/14)
+def _close_sums(got, want, terms):
+    atol = 1e-5 * terms.abs().sum(0)
+    assert bool(((got - want).abs() <= 1e-5 * want.abs() + atol + 1e-30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,c", [(50176, 64), (4099, 96), (777, 2048),
+                                 (1000, 3)])
+def test_bn_reduce_kernels_match_plain(cuda_device, dtype, m, c):
+    g = torch.Generator(device=cuda_device).manual_seed(c)
+    x = (torch.randn((m, c), generator=g, device=cuda_device) * 2 + 1).to(dtype)
+    dy = torch.randn((m, c), generator=g, device=cuda_device).to(dtype)
+    shift = torch.randn((c,), generator=g, device=cuda_device) * 0.5
+    mean = torch.randn((c,), generator=g, device=cuda_device) * 0.5
+    inv = torch.rand((c,), generator=g, device=cuda_device) + 0.5
+    before = dict(bn_ops.launches)
+    stats = bn_ops.bn_stats(x, shift)
+    again = bn_ops.bn_stats(x, shift)
+    bwd = bn_ops.bn_bwd_reduce(dy, x, mean, inv)
+    torch.cuda.synchronize()
+    per_call = bn_ops.LAUNCHES_PER_CALL
+    assert bn_ops.launches["bn_stats"] == before["bn_stats"] + 2 * per_call
+    assert (bn_ops.launches["bn_bwd_reduce"]
+            == before["bn_bwd_reduce"] + per_call)
+    assert torch.equal(stats, again)
+    xc = x.float() - shift
+    want = bn_ops.bn_stats_ref(x, shift)
+    _close_sums(stats[0], want[0], xc)
+    _close_sums(stats[1], want[1], xc * xc)
+    want = bn_ops.bn_bwd_reduce_ref(dy, x, mean, inv)
+    _close_sums(bwd[0], want[0], dy.float())
+    _close_sums(bwd[1], want[1], dy.float() * (x.float() - mean) * inv)
+
+
+# ------------------------------------------------------ launch probe (K15)
+@pytest.mark.cuda
+def test_launch_probe_matches_plain_bit_for_bit(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(probe_ops.SHAPE, generator=g, device=cuda_device)
+    before = probe_ops.launches["launch_probe"]
+    got = probe_ops.launch_probe(x)
+    torch.cuda.synchronize()
+    assert probe_ops.launches["launch_probe"] == before + 1
+    assert torch.equal(got.view(torch.int32),
+                       probe_ops.launch_probe_ref(x).view(torch.int32))

@@ -8,7 +8,10 @@ steps of global batch 64 (32 rows each). The same fit runs in JAX under
 ``DataParallel(jax.devices()[:2])`` and in the port under
 ``SingleDevice`` on the whole batch. Then the workers check that their
 replicas are bit-identical, that a divergence injected on rank 1 is
-reported by name, and that a global batch of 63 raises.
+reported by name, and that a global batch of 63 raises. A second pair of
+workers fits the tiny ResNet (BatchNorm in every block) over 2 ranks of 8
+rows, against JAX's 2-device DataParallel and the port's SingleDevice:
+sync-BN.
 
 Tolerances, f32: losses rtol 1e-5 (the data-parallel gate; the ranks average
 two 32-row means where JAX and SingleDevice take one 64-row mean);
@@ -182,6 +185,100 @@ def test_global_batch_not_divisible_raises_naming_both(runs):
     for row in runs["port_dp"].values():
         assert row["batch_error"] == (
             "Global batch 63 not divisible by 2 replicas")
+
+
+# ------------------------------------------------------------ sync-BN ResNet
+RESNET_WORKER = '''
+import sys
+
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+import distributed_tpu_torch as dtt
+from distributed_tpu_torch.utils import sync_check
+
+spec = dtt.cluster.initialize(device="cpu", timeout=60)
+data = np.load(sys.argv[1])
+with dtt.DataParallel(device="cpu").scope():
+    model = dtt.Model(dtt.models.resnet(50, 10, **%(tiny)r))
+    model.compile(optimizer=dtt.optim.SGD(%(lr)r, momentum=0.9), **%(compile)r)
+model.build((16, 16, 3))
+model.load_params({k[2:]: torch.from_numpy(data[k]) for k in data.files
+                   if k.startswith("p:")})
+model.load_state({k[2:]: torch.from_numpy(data[k]) for k in data.files
+                  if k.startswith("s:")})
+hist = model.fit(data["x"], data["y"], **%(fit)r)
+sync_check.assert_model_replicas_identical(model)
+if spec.is_chief:
+    np.savez(sys.argv[2], **dtt.interop.state_to_numpy(model.state))
+dtt.launch.report_result({"rank": spec.index, "history": hist.history})
+dtt.cluster.shutdown()
+'''
+RESNET_TINY = dict(small_inputs=True, stage_blocks=(1, 1, 1, 1), width=16)
+RESNET_FIT = dict(batch_size=16, epochs=3, steps_per_epoch=1, shuffle=True,
+                  seed=0, verbose=0)
+RESNET_LR = 0.05
+
+
+def test_two_rank_sync_batchnorm_resnet_matches_jax_dp_and_single_device(
+        tmp_path):
+    """The tiny ResNet (BatchNorm in every block) over 2 gloo ranks of 8
+    rows each: sync-BN makes each step's batch statistics those of the
+    global 16 rows, as GSPMD makes JAX's ``DataParallel`` and as one
+    device computes them; the running statistics end equal to JAX's and
+    to SingleDevice's (atol 1e-4, as parameters in
+    ``test_torch_resnet.py``), losses at rtol 1e-5, and the replicas and
+    their buffers bit-identical.
+
+    Data seed 4, as in ``test_torch_resnet.py`` and for the same reason:
+    over data seeds 0-7 the port's SingleDevice against JAX's 2-device
+    DataParallel holds at 0, 2 and 4; JAX against itself with its
+    parameters moved by 2e-7 (``tests/resnet_seed_sweep.py
+    --config dp``) parts at 1, 2, 3 and 5, and at seed 4 under 2 of 11
+    such perturbations."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((64, 16, 16, 3)).astype(np.float32)
+    y = rng.integers(0, 10, 64).astype(np.int32)
+    with dtpu.DataParallel(jax.devices()[:2]).scope():
+        jm = dtpu.Model(dtpu.models.resnet(50, 10, **RESNET_TINY))
+        jm.compile(optimizer=dtpu.optim.SGD(RESNET_LR, momentum=0.9),
+                   **COMPILE)
+    jm.build((16, 16, 3), seed=0)
+    params = dtt.interop.flatten_tree(jax.device_get(jm.params))
+    state = dtt.interop.flatten_tree(jax.device_get(jm.state))
+    np.savez(tmp_path / "in.npz", x=x, y=y,
+             **{f"p:{k}": v for k, v in params.items()},
+             **{f"s:{k}": v for k, v in state.items()})
+    script = tmp_path / "worker.py"
+    script.write_text(RESNET_WORKER % dict(
+        tiny=RESNET_TINY, lr=RESNET_LR, compile=COMPILE, fit=RESNET_FIT))
+    launcher = dtt.launch.LocalLauncher(env_extra={"PYTHONPATH": str(ROOT)})
+    rows = launcher.run([sys.executable, str(script), str(tmp_path / "in.npz"),
+                         str(tmp_path / "out.npz")], 2, timeout=120)
+    for r in rows:
+        assert r.ok, f"worker {r.index}: {r.error}\n{r.log_tail}"
+    with np.load(tmp_path / "out.npz") as z:
+        dp_state = {k: z[k] for k in z.files}
+
+    jax_hist = jm.fit(x, y, **RESNET_FIT).history
+    sm = dtt.Model(dtt.models.resnet(50, 10, **RESNET_TINY), device="cpu")
+    sm.compile(optimizer=dtt.optim.SGD(RESNET_LR, momentum=0.9), **COMPILE)
+    sm.build((16, 16, 3))
+    sm.load_params({k: torch.tensor(v) for k, v in params.items()})
+    sm.load_state({k: torch.tensor(v) for k, v in state.items()})
+    single_hist = sm.fit(x, y, **RESNET_FIT).history
+
+    assert rows[0].value["history"] == rows[1].value["history"]
+    for want in (jax_hist["loss"], single_hist["loss"]):
+        np.testing.assert_allclose(rows[0].value["history"]["loss"], want,
+                                   rtol=1e-5)
+    for want in (dtt.interop.flatten_tree(jax.device_get(jm.state)),
+                 dtt.interop.state_to_numpy(sm.state)):
+        assert set(dp_state) == set(want)
+        for path in dp_state:
+            np.testing.assert_allclose(dp_state[path], want[path], rtol=0,
+                                       atol=1e-4, err_msg=path)
 
 
 def test_world_one_data_parallel_equals_single_device():
