@@ -10,6 +10,10 @@ package. Phases, in order; any failure exits non-zero:
 a. Build every kernel source in ``distributed_tpu_torch/csrc`` with
    ``nvcc``, one process per source, all at once; print the build time,
    ptxas's register and spill report, and the card's name and power limit.
+   For the bf16 flash kernels (wgmma), one line each: registers, spills,
+   the dynamic shared memory a block asks for, and the count of HGMMA
+   instructions in their SASS (``cuobjdump``, where the toolkit has it;
+   none exits).
 b. Paged attention: each kernel against its plain PyTorch version on the
    card, at the serving shapes (S=8 slots, H=12 heads, hd=64, block 16, 64
    table entries), f32/bf16 and int8 pools, kw 1 and 4, mixed positions
@@ -33,15 +37,19 @@ f. Fused cross-entropy: both kernels against their plain versions at the
    inputs (each launch after an L2 flush) beside the plain version,
    ``F.cross_entropy`` (the library yardstick, timed only) and the bound.
 g. Flash attention: forward, dQ and dK/dV against the plain versions at
-   B=32, T=1024, H=12, D=64, causal, bf16 and f32, every entry within
-   ``FLASH_TOL``; timed in bf16 beside the plain version,
-   ``F.scaled_dot_product_attention`` and the bound.
+   B=32, T=1024, H=12, D=64, causal, bf16 and f32, and at B=8, T=1024,
+   H=6, D=128 in bf16: every entry of O, dQ, dK, dV within ``FLASH_TOL``,
+   ``m`` within 1e-5. Timed in bf16 beside the plain versions and
+   ``F.scaled_dot_product_attention``'s forward and whole backward in the
+   same call, with each kernel's TFLOP/s and the bound; dQ + dK/dV summed
+   against SDPA's backward.
 h. Training at full width: the GPT-2-small LM (bf16 layers) compiled with
    ``Adam(1e-4)``, the pallas loss and accuracy, batch 32 x 1024 tokens
    from ``numpy.random.default_rng(0)``; 2 warm-up steps, then 5 timed
    steps through ``fit`` (counts zeroed just before, read just after):
    per-step losses (finite, falling on the repeated batch), steps/s,
-   tokens/s, MFU, launches per step and peak memory.
+   tokens/s, MFU, launches per step (the flash forward and dK/dV on their
+   wgmma route) and peak memory.
 i. The kernel path against the plain path: a 2-layer f32 LM (TF32 off),
    3 Adam steps with ``flash=True`` and the pallas loss against
    ``flash=False`` and the stock loss; per-step losses must agree to 1e-5
@@ -112,6 +120,8 @@ and ``{"ok": true, "device": {...}}`` as the last line.
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -182,6 +192,52 @@ def cuda_ms(torch, fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# ------------------------------------------------------------------ phase a
+def sass_opcode_counts(lib_path, opcode):
+    """{kernel: count of ``opcode`` in its SASS} by ``cuobjdump -sass``, or
+    None where the toolkit has no cuobjdump."""
+    exe = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(exe):
+        return None
+    sass = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[-1].strip()
+            counts[fn] = 0
+        elif fn and opcode in line:
+            counts[fn] += 1
+    return counts
+
+
+def wgmma_report(fa, lib_path, log):
+    """The bf16 flash kernels (wgmma): registers and spills as ptxas
+    reported them (``log``: a fresh build's output), the dynamic shared
+    memory a block asks for, and the HGMMA instructions in their SASS;
+    exits if a kernel has none."""
+    entries, cur = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            cur = line.split("'")[1]
+            entries[cur] = []
+        elif cur and ("registers" in line or "spill" in line):
+            entries[cur].append(line.split("ptxas info    :")[-1].strip())
+    hgmma = sass_opcode_counts(lib_path, "HGMMA")
+    for mangled in sorted(set(entries) | set(hgmma or {})):
+        hit = re.search(r"(flash_(fwd|dkv)_wgmma_kernel)ILi(\d+)E", mangled)
+        if not hit:
+            continue
+        name, width = hit.group(1), int(hit.group(3))
+        smem = fa.wgmma_smem_bytes(f"flash_{hit.group(2)}", width)
+        n = "no cuobjdump" if hgmma is None else hgmma.get(mangled, 0)
+        print(f"  {name} W={width}: {'; '.join(entries.get(mangled, []))}; "
+              f"{smem} B dynamic shared memory; HGMMA in SASS: {n}")
+        if hgmma is not None and not hgmma.get(mangled):
+            raise SystemExit(f"{name} W={width}: no HGMMA in its SASS")
 
 
 # ------------------------------------------------------------------ phase b
@@ -466,54 +522,80 @@ def flash_bounds(b, t, h, d, causal, elem):
     }
 
 
+def check_flash(torch, fa, q, k, v, do, causal, rows):
+    """Forward, dQ and dK/dV against the plain versions on the same inputs:
+    every entry of O, dQ, dK, dV within ``FLASH_TOL`` and ``m`` within
+    1e-5 (+ 1e-5 relative). Updates each kernel's ``max_abs_err`` in
+    ``rows``; exits if any disagrees."""
+    b, t, h, d = q.shape
+    dname = str(q.dtype).split(".")[-1]
+    o, m, l = fa.flash_fwd(q, k, v, causal)
+    delta = fa.flash_delta(do, o)
+    dq, dk, dv = fa.flash_bwd(q, k, v, do, m, l, delta, causal)
+    o_ref, m_ref, _ = fa.flash_fwd_ref(q, k, v, causal)
+    refs = fa.flash_bwd_ref(q, k, v, do, m, l, delta, causal)
+    torch.cuda.synchronize()
+    atol, rtol = FLASH_TOL[dname]
+    failed = []
+    m_err = max_err(m, m_ref)
+    m_worst = ((m - m_ref).abs() / (1e-5 + 1e-5 * m_ref.abs())).max().item()
+    print(f"  flash m  B={b} T={t} H={h} D={d} {dname:8s} max_abs_err={m_err:.3e}"
+          f", worst {m_worst:.3f} of 1e-5 + 1e-5 * |ref| (limit 1) "
+          f"{'ok' if m_worst <= 1 else 'MISMATCH'}")
+    if m_worst > 1:
+        failed.append("m")
+    for name, got, want in (("o", o, o_ref), ("dq", dq, refs[0]),
+                            ("dk", dk, refs[1]), ("dv", dv, refs[2])):
+        got, want = got.float(), want.float()
+        diff = (got - want).abs()
+        err = diff.max().item()
+        # Elementwise: every entry within atol + rtol * |its reference|.
+        worst = (diff / (atol + rtol * want.abs())).max().item()
+        rel_l2 = (torch.linalg.vector_norm(got - want)
+                  / torch.linalg.vector_norm(want)).item()
+        ok = worst <= 1
+        print(f"  flash {name:2s} B={b} T={t} H={h} D={d} causal {dname:8s} "
+              f"max_abs_err={err:.3e}, worst entry {worst:.3f} of atol "
+              f"{atol:g} + rtol {rtol:g} * |ref| (limit 1), relative L2 "
+              f"{rel_l2:.2e} {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            failed.append(name)
+        kernel = {"o": "flash_fwd", "dq": "flash_dq"}.get(name, "flash_dkv")
+        row = rows.setdefault(kernel, {"max_abs_err": 0.0})
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        del got, want, diff
+    del o_ref, refs
+    torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"flash {failed} ({dname}, D={d}): kernels disagree "
+                         "with their plain versions")
+    return m, l, o
+
+
 def phase_flash(torch, fa):
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
     b, t, h, d = 32, LM["max_len"], LM["num_heads"], LM["d_model"] // LM["num_heads"]
     rows = {}
+    # bf16 at D = 128 (the wgmma kernels' other width), at full length.
+    g = torch.Generator(device=dev).manual_seed(17)
+    wide = [torch.randn((8, t, 6, 128), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(4)]
+    check_flash(torch, fa, *wide, True, rows)
+    del wide
     g = torch.Generator(device=dev).manual_seed(13)
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
         q, k, v, do = (torch.randn((b, t, h, d), generator=g, device=dev).to(dtype)
                        for _ in range(4))
-        o, m, l = fa.flash_fwd(q, k, v, True)
-        delta = fa.flash_delta(do, o)
-        dq, dk, dv = fa.flash_bwd(q, k, v, do, m, l, delta, True)
-        o_ref, _, _ = fa.flash_fwd_ref(q, k, v, True)
-        refs = fa.flash_bwd_ref(q, k, v, do, m, l, delta, True)
-        torch.cuda.synchronize()
-        atol, rtol = FLASH_TOL[dname]
-        failed = []
-        for name, got, want in (("o", o, o_ref), ("dq", dq, refs[0]),
-                                ("dk", dk, refs[1]), ("dv", dv, refs[2])):
-            got, want = got.float(), want.float()
-            diff = (got - want).abs()
-            err = diff.max().item()
-            # Elementwise: every entry within atol + rtol * |its reference|.
-            worst = (diff / (atol + rtol * want.abs())).max().item()
-            rel_l2 = (torch.linalg.vector_norm(got - want)
-                      / torch.linalg.vector_norm(want)).item()
-            ok = worst <= 1
-            print(f"  flash {name:2s} B={b} T={t} H={h} D={d} causal {dname:8s} "
-                  f"max_abs_err={err:.3e}, worst entry {worst:.3f} of atol "
-                  f"{atol:g} + rtol {rtol:g} * |ref| (limit 1), relative L2 "
-                  f"{rel_l2:.2e} {'ok' if ok else 'MISMATCH'}")
-            if not ok:
-                failed.append(name)
-            kernel = {"o": "flash_fwd", "dq": "flash_dq"}.get(name, "flash_dkv")
-            row = rows.setdefault(kernel, {"max_abs_err": 0.0})
-            row["max_abs_err"] = max(row["max_abs_err"], err)
-            del got, want, diff
-        del o_ref, refs
-        torch.cuda.empty_cache()
-        if failed:
-            raise SystemExit(f"flash {failed} ({dname}): kernels disagree "
-                             "with their plain versions")
+        m, l, o = check_flash(torch, fa, q, k, v, do, True, rows)
         if dtype != torch.bfloat16:
             continue
+        delta = fa.flash_delta(do, o)
         # The main path's dtype: time each kernel, the plain versions, and
-        # PyTorch's SDPA forward and backward on the same inputs.
+        # PyTorch's SDPA forward and whole backward (dQ, dK and dV in one
+        # call) on the same inputs.
         qt, kt, vt = (x.transpose(1, 2).requires_grad_(True) for x in (q, k, v))
         lib_o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
         do_t = do.transpose(1, 2)
@@ -541,10 +623,16 @@ def phase_flash(torch, fa):
             b_ms, b_by = bound_ms(nbytes, flops, dname)
             rows[name].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                               bound_ms=b_ms, bound_by=b_by)
-            print(f"  {name:10s} bf16: {ms * 1e3:.1f} us/launch, plain "
+            print(f"  {name:10s} bf16: {ms * 1e3:.1f} us/launch "
+                  f"({flops / ms / 1e9:.1f} TFLOP/s), plain "
                   f"{plain_ms * 1e3:.1f} us, SDPA {library_ms * 1e3:.1f} us, "
                   f"bound {b_ms * 1e3:.1f} us ({b_by}: {nbytes / 1e6:.1f} MB, "
                   f"{flops / 1e9:.1f} GFLOP), {b_ms / ms:.1%} of bound")
+        bwd = rows["flash_dq"]["ms"] + rows["flash_dkv"]["ms"]
+        bwd_flops = bounds["flash_dq"][1] + bounds["flash_dkv"][1]
+        print(f"  backward, dQ + dK/dV: {bwd * 1e3:.1f} us "
+              f"({bwd_flops / bwd / 1e9:.1f} TFLOP/s) against SDPA's whole "
+              f"backward {lib_bwd * 1e3:.1f} us: {bwd / lib_bwd:.2f}x")
         del qt, kt, vt, lib_o
         torch.cuda.empty_cache()
     return rows
@@ -614,6 +702,14 @@ def phase_train(torch, dtt, kernel_mods, batch=32, warmup=2, steps=5):
             "flash_dq": LM["num_layers"], "flash_dkv": LM["num_layers"]}
     if per_step != want:
         raise SystemExit(f"launches per step {per_step}, expected {want}")
+    routes = {k: v / steps for mod in kernel_mods
+              for k, v in getattr(mod, "route_launches", {}).items() if v}
+    print(f"  flash routes per step {routes}")
+    want_routes = {"flash_fwd/wgmma": want["flash_fwd"],
+                   "flash_dkv/wgmma": want["flash_dkv"]}
+    if routes != want_routes:
+        raise SystemExit(f"flash routes per step {routes}, expected "
+                         f"{want_routes}")
     del model
     torch.cuda.empty_cache()
     return {k: launches[k] for k in want}
@@ -1268,6 +1364,7 @@ def main():
                 print(f"    {line.split('Compiling entry function')[-1].strip()}")
             elif "registers" in line or "spill" in line:
                 print(f"      {line.strip()}")
+    wgmma_report(flash_ops, *built["flash_attention"])
 
     print("phase b: kernels vs plain versions, S=8 H=12 hd=64 bs=16 nb=64")
     print('kernels: ["paged_attention (K1)", "paged_attention_int8 (K2)"]')

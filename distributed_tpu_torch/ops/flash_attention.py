@@ -15,11 +15,18 @@ lane-packed ``_fwd_kernel_packed``/``_dq_kernel_packed``/
 layouts: it reads the heads out of (B, T, H, D) by strides, so neither a
 fold to (B*H, T, D) nor a lane packing is needed.
 
+The forward and dK/dV take one of two routes by dtype
+(:func:`flash_route`): bf16 goes to the Hopper kernels (``wgmma`` products
+with the sums in registers, ``cp.async`` tile copies), whose tiles are 64
+or 128 columns wide (narrower heads are zero-padded in shared memory);
+float32 goes to the CUDA-core kernels, in full f32. dQ has one kernel for
+both dtypes.
+
 Dispatch is by the device of the tensors, with no fallback: CUDA tensors
 launch the kernels (a failed build or launch raises), CPU tensors run
 :func:`flash_fwd_ref` / :func:`flash_bwd_ref`, the plain versions of the
 same arithmetic, dense over the full (T, T) scores. ``launches`` counts
-each kernel's launches.
+each kernel's launches, ``route_launches`` the same per route.
 """
 
 from __future__ import annotations
@@ -36,11 +43,34 @@ from ._common import NEG
 
 #: Launches of each CUDA kernel; incremented only where it is launched.
 launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+#: The forward's and dK/dV's launches by route (see :func:`flash_route`).
+route_launches = {"flash_fwd/wgmma": 0, "flash_fwd/cuda_core": 0,
+                  "flash_dkv/wgmma": 0, "flash_dkv/cuda_core": 0}
+#: The widest head the kernels take.
+MAX_D = 128
 
 
 def reset_launch_counts() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, route_launches):
+        for name in counts:
+            counts[name] = 0
+
+
+def flash_route(dtype, d: int):
+    """``(route, width)`` of the forward and dK/dV kernels for heads of
+    ``dtype`` and width ``d``: ``("wgmma", 64 or 128)`` for bf16, the
+    Hopper kernels with their tiles padded to that width;
+    ``("cuda_core", d)`` for float32. Raises ``ValueError`` for another
+    dtype, or unless ``d`` is a multiple of 16 and at most ``MAX_D``."""
+    if d < 16 or d % 16 or d > MAX_D:
+        raise ValueError(f"flash_attention: head_dim {d} must be a multiple "
+                         f"of 16 and at most {MAX_D}")
+    if dtype == torch.bfloat16:
+        return "wgmma", 64 if d <= 64 else 128
+    if dtype == torch.float32:
+        return "cuda_core", d
+    raise ValueError(f"flash_attention: dtype {dtype} not supported "
+                     "(float32, bfloat16)")
 
 
 def dense_attention(q, k, v, causal: bool):
@@ -123,21 +153,29 @@ def flash_bwd_ref(q, k, v, do, m, l, delta, causal: bool = False):
 
 # ------------------------------------------------------------- CUDA kernels
 _LIB = _build.Library("flash_attention", {
-    "dtt_flash_max_d": [],
-    "dtt_flash_fwd": [_I] + [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P],
+    "dtt_flash_fwd_f32": [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P],
+    "dtt_flash_fwd_wgmma": [_I] + [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P],
     "dtt_flash_dq": [_I] + [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P],
-    "dtt_flash_dkv": [_I] + [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P],
+    "dtt_flash_dkv_f32": [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P],
+    "dtt_flash_dkv_wgmma": [_I] + [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P],
+    "dtt_flash_wgmma_smem": [_I, _I],
 })
 
 
-def _check_qkv(lib, *tensors):
+def wgmma_smem_bytes(kernel: str, width: int) -> int:
+    """Dynamic shared memory a block of the wgmma ``"flash_fwd"`` or
+    ``"flash_dkv"`` kernel asks for at head width ``width`` (64 or 128)."""
+    return _LIB.get().dtt_flash_wgmma_smem(
+        {"flash_fwd": 0, "flash_dkv": 1}[kernel], width)
+
+
+def _check_qkv(*tensors):
     """Device, dtype, layout and alignment checks of the kernels' inputs:
-    contiguous (B, T, H, D) tensors of one dtype (f32 or bf16) with
-    D % 16 == 0 and D <= the kernel's limit, on 16-byte boundaries."""
+    contiguous (B, T, H, D) tensors of one dtype on 16-byte boundaries,
+    with a dtype and D that :func:`flash_route` takes. Returns the
+    route."""
     q = tensors[0]
-    if q.dtype not in _build.DTYPE_CODES:
-        raise ValueError(f"flash_attention: dtype {q.dtype} not supported "
-                         "(float32, bfloat16)")
+    route = flash_route(q.dtype, q.shape[-1])
     for i, t in enumerate(tensors):
         _build.require(t, f"input {i}", q.device, q.dtype, 4)
         if tuple(t.shape) != tuple(q.shape):
@@ -145,10 +183,7 @@ def _check_qkv(lib, *tensors):
                              f"{tuple(q.shape)} differ")
         if t.data_ptr() % 16:
             raise ValueError("flash_attention: inputs must be 16-byte aligned")
-    d = q.shape[-1]
-    if d % 16 or d > lib.dtt_flash_max_d():
-        raise ValueError(f"flash_attention: head_dim {d} must be a multiple "
-                         f"of 16 and at most {lib.dtt_flash_max_d()}")
+    return route
 
 
 def _dims(q, causal):
@@ -157,33 +192,38 @@ def _dims(q, causal):
 
 
 def _flash_fwd_cuda(q, k, v, causal):
+    route, width = _check_qkv(q, k, v)
     lib = _LIB.get()
-    _check_qkv(lib, q, k, v)
     b, t, h, _ = q.shape
     o = torch.empty_like(q)
     m = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
-    rc = lib.dtt_flash_fwd(
-        _build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        o.data_ptr(), m.data_ptr(), l.data_ptr(), *_dims(q, causal),
-        _build.stream(q.device))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            m.data_ptr(), l.data_ptr(), *_dims(q, causal),
+            _build.stream(q.device))
+    if route == "wgmma":
+        rc = lib.dtt_flash_fwd_wgmma(width, *args)
+    else:
+        rc = lib.dtt_flash_fwd_f32(*args)
     _build.check_launch(rc, "flash_fwd")
     launches["flash_fwd"] += 1
+    route_launches[f"flash_fwd/{route}"] += 1
     return o, m, l
 
 
-def _check_bwd(lib, q, k, v, do, m, l, delta):
-    _check_qkv(lib, q, k, v, do)
+def _check_bwd(q, k, v, do, m, l, delta):
+    route = _check_qkv(q, k, v, do)
     b, t, h, _ = q.shape
     for x, name in ((m, "m"), (l, "l"), (delta, "delta")):
         _build.require(x, name, q.device, torch.float32, 3)
         if tuple(x.shape) != (b, h, t):
             raise ValueError(f"{name} must be (B, H, T) = {(b, h, t)}")
+    return route
 
 
 def _flash_dq_cuda(q, k, v, do, m, l, delta, causal):
+    _check_bwd(q, k, v, do, m, l, delta)
     lib = _LIB.get()
-    _check_bwd(lib, q, k, v, do, m, l, delta)
     dq = torch.empty_like(q)
     rc = lib.dtt_flash_dq(
         _build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
@@ -196,16 +236,19 @@ def _flash_dq_cuda(q, k, v, do, m, l, delta, causal):
 
 
 def _flash_dkv_cuda(q, k, v, do, m, l, delta, causal):
+    route, width = _check_bwd(q, k, v, do, m, l, delta)
     lib = _LIB.get()
-    _check_bwd(lib, q, k, v, do, m, l, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    rc = lib.dtt_flash_dkv(
-        _build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), do.data_ptr(), m.data_ptr(), l.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *_dims(q, causal),
-        _build.stream(q.device))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            m.data_ptr(), l.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), *_dims(q, causal), _build.stream(q.device))
+    if route == "wgmma":
+        rc = lib.dtt_flash_dkv_wgmma(width, *args)
+    else:
+        rc = lib.dtt_flash_dkv_f32(*args)
     _build.check_launch(rc, "flash_dkv")
     launches["flash_dkv"] += 1
+    route_launches[f"flash_dkv/{route}"] += 1
     return dk, dv
 
 
@@ -254,14 +297,14 @@ def flash_attention(q, k, v, *, causal: bool = False,
     Returns (B, T, H, D) in q's dtype; scores and softmax compute in f32.
     ``block_q``/``block_k`` are the TPU kernels' VMEM tile sizes, kept so
     calls carry over from the JAX package; the card's kernels choose their
-    own tiles (64 rows) and ignore them."""
+    own tiles and ignore them."""
     del block_q, block_k
     return _Flash.apply(q.contiguous(), k.contiguous(), v.contiguous(),
                         bool(causal))
 
 
 __all__ = [
-    "dense_attention", "flash_attention", "flash_bwd", "flash_bwd_ref",
-    "flash_delta", "flash_fwd", "flash_fwd_ref", "launches",
-    "reset_launch_counts",
+    "MAX_D", "dense_attention", "flash_attention", "flash_bwd",
+    "flash_bwd_ref", "flash_delta", "flash_fwd", "flash_fwd_ref",
+    "flash_route", "launches", "reset_launch_counts", "route_launches",
 ]

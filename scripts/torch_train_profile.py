@@ -39,8 +39,7 @@ import distributed_tpu_torch as dtt  # noqa: E402
 
 # Kernel-name fragments of each group (first match wins).
 GROUPS = (
-    ("flash attention (port)", ("flash_fwd_kernel", "flash_dq_kernel",
-                                "flash_dkv_kernel")),
+    ("flash attention (port)", ("flash_fwd_", "flash_dq_", "flash_dkv_")),
     ("cross-entropy (port)", ("xent_fwd_kernel", "xent_bwd_kernel")),
     ("fused Adam (port)", ("fused_adam_kernel",)),
     ("1x1-conv GEMM K12 (port)", ("conv1x1_bf16_kernel",

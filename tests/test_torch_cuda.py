@@ -9,7 +9,8 @@ card it runs without them (``tests/conftest.py`` imports JAX, hence
 
 Tolerances, per entry: 2e-5 for f32 (sums in different orders); bf16
 outputs 2e-2 (probabilities round to bf16 at different running maxima),
-bf16 flash gradients atol 2e-3 + rtol 2e-2; the cross-entropy: 1e-5 on
+bf16 flash gradients atol 2e-3 + rtol 2e-2, and flash dK/dV the same bits
+on a second run (no atomics); the cross-entropy: 1e-5 on
 the f32 losses, one bf16 ulp of each entry on bf16 gradients. The fused
 Adam kernel: bit for bit (both sides round every operation once, in the
 same order). The 1x1-convolution GEMM (K12): f32 within 2e-5 relative of
@@ -105,15 +106,41 @@ def test_xent_kernels_match_plain(cuda_device, dtype, n, c):
 
 
 # ---------------------------------------------------------- flash attention
+# bf16 takes the wgmma kernels, whose tiles are 64 or 128 columns wide: D
+# of 32 and 48 are zero-padded to 64, 128 fills its tile. T of 77, 130 and
+# 1000 leave ragged tiles (64 q and kv rows in the forward, 64 keys and 32
+# queries in dK/dV); 1024 none. Those cases take inputs on a grid of 1/8
+# (normals rounded, within +-4): every score and every dO . v is then exact
+# in f32 whatever the order of its sum, so the kernels and the plain
+# versions round the same probabilities and dS to bf16, and the comparison
+# sees the kernels' own layouts and the order of their f32 products. With
+# unrounded normals one dS entry in a few thousand lies within a few f32
+# ulps of a bf16 rounding midpoint, and the two sides may round it apart:
+# at (2, 77, 2, 32) causal, seed 5, one such entry moves one dK entry by
+# 0.0045 on its value of 0.10, past atol 2e-3 + rtol 2e-2.
+FLASH_CASES = (
+    [(dtype, shape, False) for dtype in (torch.float32, torch.bfloat16)
+     for shape in ((2, 64, 4, 32), (1, 100, 3, 32), (2, 200, 2, 64))]
+    + [(torch.bfloat16, (2, t, 2, d), True) for d in (32, 48, 64, 128)
+       for t in (77, 130, 1000, 1024)])
+
+
+def _flash_inputs(dev, dtype, shape, seed=5, grid=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for _ in range(4):
+        x = torch.randn(shape, generator=g, device=dev)
+        if grid:
+            x = torch.round(x * 8).clamp(-32, 32) / 8
+        out.append(x.to(dtype))
+    return out
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("shape", [(2, 64, 4, 32), (1, 100, 3, 32),
-                                   (2, 200, 2, 64)])
-def test_flash_kernels_match_plain(cuda_device, dtype, causal, shape):
-    g = torch.Generator(device=cuda_device).manual_seed(5)
-    q, k, v, do = (torch.randn(shape, generator=g, device=cuda_device).to(dtype)
-                   for _ in range(4))
+@pytest.mark.parametrize("dtype,shape,grid", FLASH_CASES)
+def test_flash_kernels_match_plain(cuda_device, dtype, causal, shape, grid):
+    q, k, v, do = _flash_inputs(cuda_device, dtype, shape, grid=grid)
     before = dict(flash_ops.launches)
     o, m, l = flash_ops.flash_fwd(q, k, v, causal)
     delta = flash_ops.flash_delta(do, o)
@@ -132,6 +159,55 @@ def test_flash_kernels_match_plain(cuda_device, dtype, causal, shape):
     for got, ref in zip((dq, dk, dv), want):
         torch.testing.assert_close(got.float(), ref.float(), atol=atol,
                                    rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_fwd_identity_v_gives_the_probabilities(cuda_device, causal):
+    """With T = D = 64 and V the identity, O = P / l: each output entry is
+    one probability, so a misplaced score in the register A operand of
+    O += P V (the packing of the S fragment) shows as a wrong entry."""
+    q, k, _, _ = _flash_inputs(cuda_device, torch.bfloat16, (1, 64, 1, 64), 9)
+    v = torch.eye(64, device=cuda_device, dtype=torch.bfloat16)[None, :, None]
+    o, _, l = flash_ops.flash_fwd(q, k, v, causal)
+    o_ref, _, l_ref = flash_ops.flash_fwd_ref(q, k, v, causal)
+    s = (q[0, :, 0].float() @ k[0, :, 0].float().T) * flash_ops._scale(64)
+    if causal:
+        s = s.masked_fill(~torch.ones_like(s, dtype=torch.bool).tril(), -1e30)
+    probs = torch.softmax(s, dim=-1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(l, l_ref, atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(o[0, :, 0].float(), probs, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
+                                         (torch.float32, "cuda_core")])
+def test_flash_dtype_takes_its_route_once(cuda_device, dtype, route):
+    q, k, v, do = _flash_inputs(cuda_device, dtype, (1, 130, 2, 64))
+    before = dict(flash_ops.route_launches)
+    o, m, l = flash_ops.flash_fwd(q, k, v, True)
+    flash_ops.flash_bwd(q, k, v, do, m, l, flash_ops.flash_delta(do, o), True)
+    torch.cuda.synchronize()
+    grown = {name: n - before[name]
+             for name, n in flash_ops.route_launches.items()}
+    assert grown == {name: int(name.endswith("/" + route)) for name in grown}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1000, 3, 64), (1, 130, 2, 128)])
+def test_flash_dkv_is_bit_identical_from_run_to_run(cuda_device, shape):
+    """dK/dV has no atomics: each block owns its key rows and sums its q
+    tiles in one order, so two runs give the same bits."""
+    q, k, v, do = _flash_inputs(cuda_device, torch.bfloat16, shape)
+    o, m, l = flash_ops.flash_fwd(q, k, v, True)
+    delta = flash_ops.flash_delta(do, o)
+    first = flash_ops._flash_dkv_cuda(q, k, v, do, m, l, delta, True)
+    second = flash_ops._flash_dkv_cuda(q, k, v, do, m, l, delta, True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
 @pytest.mark.cuda

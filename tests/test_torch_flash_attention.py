@@ -3,9 +3,12 @@
 The JAX ``flash_attention`` runs its Pallas kernels in interpret mode with
 ``block_q=block_k=32``: the lane-packed kernels at (2, 64, 4, 32) (four
 32-wide heads fill a 128-lane vector) and the folded ones at (1, 100, 3,
-32) (T not a multiple of the tile). The port runs the plain versions of
-its CUDA kernels (CPU tensors), which form the full (T, T) scores; the
-card's kernels are held to those in ``tests/test_torch_cuda.py``.
+32) (T not a multiple of the tile), and at the head widths the card's
+bf16 kernels pad (48, to 64) and fill (128), with a ragged T of 77. The
+port runs the plain versions of its CUDA kernels (CPU tensors), which
+form the full (T, T) scores; the card's kernels are held to those in
+``tests/test_torch_cuda.py``. :func:`flash_route`, the wrapper's choice
+of kernel family and padded width, is plain Python and tested here.
 
 Values and the gradients of q, k and v (through ``sum(out * w)``), causal
 and not. Tolerances: f32 as the JAX package's own flash test (values
@@ -28,7 +31,7 @@ from torch_parity import as_np, lm_pair
 
 torch.set_num_threads(1)
 
-SHAPES = [(2, 64, 4, 32), (1, 100, 3, 32)]
+SHAPES = [(2, 64, 4, 32), (1, 100, 3, 32), (1, 77, 2, 48), (1, 77, 1, 128)]
 TOL = {"float32": dict(value=(2e-5, 1e-5), grad=(5e-5, 1e-4)),
        "bfloat16": dict(value=(2e-2, 2e-2), grad=(2e-2, 2e-2))}
 
@@ -125,6 +128,25 @@ def test_attention_layer_paths_match_jax(flash):
     with torch.inference_mode():
         got = pm.module(torch.from_numpy(x))
     np.testing.assert_allclose(as_np(got), as_np(want), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("d,width", [(16, 64), (32, 64), (48, 64), (64, 64),
+                                     (80, 128), (112, 128), (128, 128)])
+def test_bf16_takes_the_wgmma_route_at_a_padded_width(d, width):
+    assert port_fa.flash_route(torch.bfloat16, d) == ("wgmma", width)
+
+
+@pytest.mark.parametrize("d", [16, 48, 64, 128])
+def test_float32_takes_the_cuda_core_route_unpadded(d):
+    assert port_fa.flash_route(torch.float32, d) == ("cuda_core", d)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 144), (torch.float32, 144),
+                                     (torch.bfloat16, 40), (torch.float32, 8),
+                                     (torch.bfloat16, 0), (torch.float16, 64)])
+def test_flash_route_refuses_what_no_kernel_takes(dtype, d):
+    with pytest.raises(ValueError, match="head_dim|dtype"):
+        port_fa.flash_route(dtype, d)
 
 
 def test_flash_option_is_validated():
