@@ -10,16 +10,20 @@ package. Phases, in order; any failure exits non-zero:
 a. Build every kernel source in ``distributed_tpu_torch/csrc`` with
    ``nvcc``, one process per source, all at once; print the build time,
    ptxas's register and spill report, and the card's name and power limit.
-   For the bf16 flash kernels (wgmma), one line each: registers, spills,
-   the dynamic shared memory a block asks for, and the count of HGMMA
-   instructions in their SASS (``cuobjdump``, where the toolkit has it;
-   none exits).
+   For the Hopper kernels (wgmma: the flash forward, dQ and dK/dV in bf16
+   and f16 at widths 64, 128 and 256, and the 1x1-conv GEMM), one line
+   each: registers, spills, the dynamic shared memory a block asks for, and
+   the count of HGMMA instructions in their SASS (``cuobjdump``, where the
+   toolkit has it; none exits).
 b. Paged attention: each kernel against its plain PyTorch version on the
    card, at the serving shapes (S=8 slots, H=12 heads, hd=64, block 16, 64
    table entries), f32/bf16 and int8 pools, kw 1 and 4, mixed positions
    with trash-table slots; max abs error against the stated tolerance,
    per-launch time (CUDA events, pools rotated past the 50 MB L2) beside
-   the plain version's time and the bound.
+   the plain version's time and the bound. Then every head width class:
+   hd 8, 24 and 256 (in place, no copy of the pools; 8 and 24 read element
+   by element from int8 pools), bf16, f16 and int8 pools, each against its
+   plain version.
 c. Engine at full width: the GPT-2-small LM (vocab 32768, 12 layers,
    d_model 768, 12 heads, max_len 1024, bf16 layers, random weights from
    seed 0) served by ``Engine(max_slots=8, block_size=16, max_len=1024)``
@@ -39,17 +43,22 @@ f. Fused cross-entropy: both kernels against their plain versions at the
 g. Flash attention: forward, dQ and dK/dV against the plain versions at
    B=32, T=1024, H=12, D=64, causal, bf16 and f32, and at B=8, T=1024,
    H=6, D=128 in bf16: every entry of O, dQ, dK, dV within ``FLASH_TOL``,
-   ``m`` within 1e-5. Timed in bf16 beside the plain versions and
+   O's relative L2 error within ``O_REL_L2``, ``m`` within 1e-5. Timed in bf16 beside the plain versions and
    ``F.scaled_dot_product_attention``'s forward and whole backward in the
    same call, with each kernel's TFLOP/s and the bound; dQ + dK/dV summed
-   against SDPA's backward.
+   against SDPA's backward. Then every head width and f16: the three
+   kernels at D 8, 24 and 256 in bf16 and f16, and at D 64 in f16 (B 2, T
+   1000, H 4, causal, inputs on a 1/8 grid; f16 limits atol 5e-4 + rtol
+   5e-3; O's entries may also differ by one ulp of each 16-bit
+   probability times |v|), each against its plain version; every 16-bit
+   launch of the phase on the wgmma route (dQ included).
 h. Training at full width: the GPT-2-small LM (bf16 layers) compiled with
    ``Adam(1e-4)``, the pallas loss and accuracy, batch 32 x 1024 tokens
    from ``numpy.random.default_rng(0)``; 2 warm-up steps, then 5 timed
    steps through ``fit`` (counts zeroed just before, read just after):
    per-step losses (finite, falling on the repeated batch), steps/s,
-   tokens/s, MFU, launches per step (the flash forward and dK/dV on their
-   wgmma route) and peak memory.
+   tokens/s, MFU, launches per step (the flash forward, dQ and dK/dV all on
+   their wgmma route) and peak memory.
 i. The kernel path against the plain path: a 2-layer f32 LM (TF32 off),
    3 Adam steps with ``flash=True`` and the pallas loss against
    ``flash=False`` and the stock loss; per-step losses must agree to 1e-5
@@ -83,15 +92,17 @@ m. ResNet-50's kernels against their plain versions at the model's own
    distinct (M, K, N) of a step's 72 products (the 36 1x1 convolutions'
    forwards and their dX products (M, N) @ (N, K)), K13 and K14 at the 12
    distinct (M, C) of its 53 BatchNorms, in bf16, and each at one shape in
-   f32. K12: every entry within one bf16 ulp of the plain version's plus
+   f32; K12 also at (3136, 64, 36) in bf16, N zero-padded to 40. K12: every entry within one bf16 ulp of the plain version's plus
    the f32 sums' rounding bound 2 K 2^-24 sum|x||w| (f32: 2e-5 of that
    sum); K13/K14: rtol 1e-5 plus 1e-5 times the sum of the terms'
    magnitudes (summed in another order), and the same bits on a second
    call. Each launch is timed after an L2 flush beside the plain version,
    the bound and a library call that computes the same function, timed
    only (``torch.matmul``; ``torch.batch_norm_stats`` and
-   ``torch.batch_norm_backward_reduce`` on an NCHW view); the JSON row
-   holds per-step totals over the 72 products (the 53 calls).
+   ``torch.batch_norm_backward_reduce`` on an NCHW view), with each
+   product's share of its bound and TFLOP/s; every bf16 product on K12's
+   wgmma route, f32 on its CUDA-core route; the JSON row holds per-step totals over the 72 products
+   (the 53 calls).
 n. ResNet-50 training as the JAX package's ``bench_resnet50`` configures
    it (``resnet(50, 1000, dtype="bfloat16")``, ``bn_shift="running"``,
    ``stem="conv7"``; ``SGD(0.1, momentum=0.9)``, sparse cross-entropy,
@@ -101,7 +112,8 @@ n. ResNet-50 training as the JAX package's ``bench_resnet50`` configures
    before, read just after): per-step losses and the BN buffers (finite),
    steps/s, images/s, MFU (8.17 GFLOP forward per image, 2 x 4.09 G
    multiply-adds), peak memory and launches per step: exactly 72 of K12
-   (36 forward, 36 dX) and 53 calls of K13 and of K14.
+   (36 forward, 36 dX), all on its wgmma route, and 53 calls of K13 and of
+   K14.
 o. A small f32 ResNet (``resnet(50, 10, small_inputs=True, stage_blocks=
    (1, 1, 1, 1), width=16)``, 32x32, batch 32), TF32 off, 3 momentum-SGD
    steps from the same parameters on the card (kernels) and on the CPU
@@ -113,8 +125,9 @@ p. K15, the launch probe, against ``x * 1.0001`` on an (8, 128) f32 tile,
    bit for bit; its per-launch time by the differential method (host
    clock, 10 and 60 launches, each run ending in a synchronize), beside
    its plain version and ``torch.mul(x, 1.0001)``, the library call.
-Then the kernel table as one JSON line, the card's name and power limit,
-and ``{"ok": true, "device": {...}}`` as the last line.
+Then the kernel table as one JSON line (each row also names the CUDA
+kernel of the main path, ``kernel``), the card's name and power limit, and
+``{"ok": true, "device": {...}}`` as the last line.
 """
 
 import json
@@ -136,7 +149,17 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # worst (the two sides may round one output a last bit apart); atol 2e-3
 # covers entries near zero, where the bf16 probabilities' rounding at
 # other running maxima (forward) adds up in absolute terms.
-FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-3, 2e-2)}
+# f16: the bf16 limits scaled by the ratio of the two types' ulps (2^-10 /
+# 2^-7) and doubled.
+FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-3, 2e-2),
+             "float16": (5e-4, 5e-3)}
+# O's relative L2 error: bf16 reads 1.29e-3 to 1.32e-3 at D 8-256 and f16
+# 1.6e-4 (PERF.md); a kernel that left a kv tile out of P V would read
+# several percent.
+O_REL_L2 = {"float32": 1e-6, "bfloat16": 3e-3, "float16": 4e-4}
+# One ulp of a 16-bit probability in [1/2, 1), relative: 2^-8 in bf16,
+# 2^-11 in f16 (each side rounds p to v's dtype, at its own row maximum).
+PROB_ULP = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -11}
 # The flash kernels replace the lane-packed variants too (flash_attention.py
 # :384, :448, :490): one strided kernel family reads both layouts.
 REPLACES = {
@@ -152,6 +175,18 @@ REPLACES = {
     "bn_stats": "examples/bn_pallas.py:80",
     "bn_bwd_reduce": "examples/bn_pallas.py:119",
     "launch_probe": "examples/profile_op_floor.py:92",
+}
+KERNELS = {  # the CUDA kernel each row's main path launches
+    "paged_attention": "paged_attention_kernel<T, false, kVec, kHd>",
+    "paged_attention_int8": "paged_attention_kernel<T, true, kVec, kHd>",
+    "xent_fwd": "xent_fwd_kernel", "xent_bwd": "xent_bwd_kernel",
+    "flash_fwd": "flash_fwd_wgmma_kernel<bf16, 64>",
+    "flash_dq": "flash_dq_wgmma_kernel<bf16, 64>",
+    "flash_dkv": "flash_dkv_wgmma_kernel<bf16, 64>",
+    "fused_adam": "fused_adam_kernel", "conv1x1": "conv1x1_wgmma_kernel",
+    "bn_stats": "bn_partial_kernel + bn_finalize_kernel",
+    "bn_bwd_reduce": "bn_partial_kernel + bn_finalize_kernel",
+    "launch_probe": "launch_probe_kernel",
 }
 SOURCES = {
     "paged_attention": "paged_attention", "paged_attention_int8":
@@ -214,38 +249,47 @@ def sass_opcode_counts(lib_path, opcode):
     return counts
 
 
-def wgmma_report(fa, lib_path, log):
-    """The bf16 flash kernels (wgmma): registers and spills as ptxas
-    reported them (``log``: a fresh build's output), the dynamic shared
-    memory a block asks for, and the HGMMA instructions in their SASS;
-    exits if a kernel has none."""
-    entries, cur = {}, None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            cur = line.split("'")[1]
-            entries[cur] = []
-        elif cur and ("registers" in line or "spill" in line):
-            entries[cur].append(line.split("ptxas info    :")[-1].strip())
-    hgmma = sass_opcode_counts(lib_path, "HGMMA")
-    for mangled in sorted(set(entries) | set(hgmma or {})):
-        hit = re.search(r"(flash_(fwd|dkv)_wgmma_kernel)ILi(\d+)E", mangled)
-        if not hit:
-            continue
-        name, width = hit.group(1), int(hit.group(3))
-        smem = fa.wgmma_smem_bytes(f"flash_{hit.group(2)}", width)
-        n = "no cuobjdump" if hgmma is None else hgmma.get(mangled, 0)
-        print(f"  {name} W={width}: {'; '.join(entries.get(mangled, []))}; "
-              f"{smem} B dynamic shared memory; HGMMA in SASS: {n}")
-        if hgmma is not None and not hgmma.get(mangled):
-            raise SystemExit(f"{name} W={width}: no HGMMA in its SASS")
+def wgmma_report(fa, conv_ops, built):
+    """The Hopper kernels (wgmma): registers and spills as ptxas reported
+    them (``built``: a fresh build's output per source), the dynamic
+    shared memory a block asks for, and the HGMMA instructions in their
+    SASS; exits if a kernel has none."""
+    for source in ("flash_attention", "conv1x1"):
+        lib_path, log = built[source]
+        entries, cur = {}, None
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                cur = line.split("'")[1]
+                entries[cur] = []
+            elif cur and ("registers" in line or "spill" in line):
+                entries[cur].append(line.split("ptxas info    :")[-1].strip())
+        hgmma = sass_opcode_counts(lib_path, "HGMMA")
+        for mangled in sorted(m for m in set(entries) | set(hgmma or {})
+                              if "wgmma_kernel" in m):
+            hit = re.search(r"(flash_(fwd|dq|dkv)_wgmma_kernel)I(13__nv_bfloat16"
+                            r"|6__half)Li(\d+)E", mangled)
+            if hit:
+                kind = "bf16" if "bfloat16" in hit.group(3) else "f16"
+                width = int(hit.group(4))
+                name = f"{hit.group(1)}<{kind}, {width}>"
+                smem = fa.wgmma_smem_bytes(f"flash_{hit.group(2)}", width)
+            elif "conv1x1_wgmma_kernel" in mangled:
+                name, smem = "conv1x1_wgmma_kernel", conv_ops.wgmma_smem_bytes()
+            else:
+                continue
+            n = "no cuobjdump" if hgmma is None else hgmma.get(mangled, 0)
+            print(f"  {name}: {'; '.join(entries.get(mangled, []))}; {smem} B "
+                  f"dynamic shared memory; HGMMA in SASS: {n}")
+            if hgmma is not None and not hgmma.get(mangled):
+                raise SystemExit(f"{name}: no HGMMA in its SASS")
 
 
 # ------------------------------------------------------------------ phase b
-def kernel_inputs(torch, dev, dtype, kw, int8, seed):
+def kernel_inputs(torch, dev, dtype, kw, int8, seed, hd=64):
     """Serving-shaped inputs: 8 slots, 6 with disjoint tables at mixed
     positions (0 included), 2 on the all-trash table at position 0, as
     the engine's free slots are."""
-    s, h, hd, bs, nb = 8, 12, 64, 16, 64
+    s, h, bs, nb = 8, 12, 16, 64
     g = torch.Generator(device=dev).manual_seed(seed)
     nblocks = s * nb + 1
     kp = torch.randn((nblocks, bs, h, hd), generator=g, device=dev)
@@ -334,6 +378,30 @@ def phase_kernels(torch, paged_ops):
                   f"({b_by}: {nbytes / 1e6:.2f} MB at "
                   f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, {flops / 1e6:.1f} "
                   f"MFLOP), {b_ms / ms:.1%} of bound")
+    # Every head width class, read in place: 16-byte chunks where a pool
+    # row is whole chunks (bf16/f16 24 and 256), element by element
+    # otherwise (int8 8 and 24); 256 runs the 256-thread blocks.
+    tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.float16: 5e-3}
+    for hd in (8, 24, 256):
+        for dtype, kw, int8 in ((torch.bfloat16, 1, False),
+                                (torch.float16, 4, False),
+                                (torch.bfloat16, 1, True),
+                                (torch.float16, 1, True)):
+            args = kernel_inputs(torch, dev, dtype, kw, int8, hd, hd=hd)
+            got = paged_ops.paged_attention(*args)
+            want = paged_ops.paged_attention_ref(*args)
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            ok = bool(torch.allclose(got.float(), want.float(), atol=tol[dtype],
+                                     rtol=tol[dtype]))
+            name = "paged_attention_int8" if int8 else "paged_attention"
+            dname = str(dtype).split(".")[-1]
+            print(f"  {name:22s} hd={hd:<3d} q={dname:8s} kw={kw} max_abs_err="
+                  f"{err:.3e} tol={tol[dtype]:g} {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                raise SystemExit(f"{name}: kernel disagrees with its plain "
+                                 f"version (hd {hd}, q {dname}, kw {kw})")
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
     return rows
 
 
@@ -522,11 +590,16 @@ def flash_bounds(b, t, h, d, causal, elem):
     }
 
 
-def check_flash(torch, fa, q, k, v, do, causal, rows):
+def check_flash(torch, fa, q, k, v, do, causal, rows, prob_bound=False):
     """Forward, dQ and dK/dV against the plain versions on the same inputs:
-    every entry of O, dQ, dK, dV within ``FLASH_TOL`` and ``m`` within
-    1e-5 (+ 1e-5 relative). Updates each kernel's ``max_abs_err`` in
-    ``rows``; exits if any disagrees."""
+    every entry of O, dQ, dK, dV within ``FLASH_TOL``, O's relative L2
+    error within ``O_REL_L2`` and ``m`` within 1e-5 (+ 1e-5 relative).
+    ``prob_bound``: O's entries may also differ by one 16-bit ulp of each
+    probability times |v|, ``PROB_ULP * (P @ |V|)``, the most that rounding
+    the probabilities at other running maxima can move them (over a long
+    row of grid values it moves an output near 0 past ``FLASH_TOL``).
+    Updates each kernel's ``max_abs_err`` in ``rows``; exits if any
+    disagrees."""
     b, t, h, d = q.shape
     dname = str(q.dtype).split(".")[-1]
     o, m, l = fa.flash_fwd(q, k, v, causal)
@@ -535,7 +608,6 @@ def check_flash(torch, fa, q, k, v, do, causal, rows):
     o_ref, m_ref, _ = fa.flash_fwd_ref(q, k, v, causal)
     refs = fa.flash_bwd_ref(q, k, v, do, m, l, delta, causal)
     torch.cuda.synchronize()
-    atol, rtol = FLASH_TOL[dname]
     failed = []
     m_err = max_err(m, m_ref)
     m_worst = ((m - m_ref).abs() / (1e-5 + 1e-5 * m_ref.abs())).max().item()
@@ -546,18 +618,26 @@ def check_flash(torch, fa, q, k, v, do, causal, rows):
         failed.append("m")
     for name, got, want in (("o", o, o_ref), ("dq", dq, refs[0]),
                             ("dk", dk, refs[1]), ("dv", dv, refs[2])):
+        atol, rtol = FLASH_TOL[dname]
         got, want = got.float(), want.float()
         diff = (got - want).abs()
         err = diff.max().item()
         # Elementwise: every entry within atol + rtol * |its reference|.
-        worst = (diff / (atol + rtol * want.abs())).max().item()
+        limit = atol + rtol * want.abs()
+        if name == "o" and prob_bound:
+            limit += PROB_ULP[dname] * fa.flash_fwd_ref(
+                q.float(), k.float(), v.float().abs(), causal)[0]
+        worst = (diff / limit).max().item()
         rel_l2 = (torch.linalg.vector_norm(got - want)
                   / torch.linalg.vector_norm(want)).item()
-        ok = worst <= 1
+        ok = worst <= 1 and (name != "o" or rel_l2 <= O_REL_L2[dname])
         print(f"  flash {name:2s} B={b} T={t} H={h} D={d} causal {dname:8s} "
               f"max_abs_err={err:.3e}, worst entry {worst:.3f} of atol "
-              f"{atol:g} + rtol {rtol:g} * |ref| (limit 1), relative L2 "
-              f"{rel_l2:.2e} {'ok' if ok else 'MISMATCH'}")
+              f"{atol:g} + rtol {rtol:g} * |ref|"
+              f"{' + ulp * (P @ |V|)' if name == 'o' and prob_bound else ''} "
+              f"(limit 1), relative L2 {rel_l2:.2e}"
+              f"{f' (limit {O_REL_L2[dname]:g})' if name == 'o' else ''} "
+              f"{'ok' if ok else 'MISMATCH'}")
         if not ok:
             failed.append(name)
         kernel = {"o": "flash_fwd", "dq": "flash_dq"}.get(name, "flash_dkv")
@@ -632,10 +712,38 @@ def phase_flash(torch, fa):
         bwd_flops = bounds["flash_dq"][1] + bounds["flash_dkv"][1]
         print(f"  backward, dQ + dK/dV: {bwd * 1e3:.1f} us "
               f"({bwd_flops / bwd / 1e9:.1f} TFLOP/s) against SDPA's whole "
-              f"backward {lib_bwd * 1e3:.1f} us: {bwd / lib_bwd:.2f}x")
+              f"backward {lib_bwd * 1e3:.1f} us: {bwd / lib_bwd:.2f}x; dQ "
+              f"alone {rows['flash_dq']['ms'] / lib_bwd:.2f}x")
         del qt, kt, vt, lib_o
         torch.cuda.empty_cache()
+    check_flash_widths(torch, fa, rows)
     return rows
+
+
+def check_flash_widths(torch, fa, rows):
+    """The three kernels at every head width class and in f16 against the
+    plain versions (B 2, T 1000, H 4, causal): D 8 and 24 pad to the
+    64-column tile, 256 fills the widest (each block one 128-column half
+    of the outputs); inputs on a 1/8 grid, whose scores and dO . v are
+    exact in f32, so no bf16 rounding tie of dS separates the two sides.
+    O is held with ``prob_bound`` (see :func:`check_flash`). Every launch
+    must take the wgmma route."""
+    dev = torch.device("cuda")
+    cases = [(torch.bfloat16, d) for d in (8, 24, 256)]
+    cases += [(torch.float16, d) for d in (8, 24, 64, 256)]
+    before = dict(fa.route_launches)
+    for dtype, d in cases:
+        g = torch.Generator(device=dev).manual_seed(d)
+        q, k, v, do = (
+            (torch.round(torch.randn((2, 1000, 4, d), generator=g, device=dev)
+                         * 8).clamp(-32, 32) / 8).to(dtype) for _ in range(4))
+        check_flash(torch, fa, q, k, v, do, True, rows, prob_bound=True)
+        del q, k, v, do
+    grown = {k: n - before[k] for k, n in fa.route_launches.items()}
+    want = {k: len(cases) if k.endswith("/wgmma") else 0 for k in grown}
+    print(f"  routes of the width checks {grown}")
+    if grown != want:
+        raise SystemExit(f"flash routes {grown}, expected {want}")
 
 
 # ------------------------------------------------------------ phase h, i
@@ -706,6 +814,7 @@ def phase_train(torch, dtt, kernel_mods, batch=32, warmup=2, steps=5):
               for k, v in getattr(mod, "route_launches", {}).items() if v}
     print(f"  flash routes per step {routes}")
     want_routes = {"flash_fwd/wgmma": want["flash_fwd"],
+                   "flash_dq/wgmma": want["flash_dq"],
                    "flash_dkv/wgmma": want["flash_dkv"]}
     if routes != want_routes:
         raise SystemExit(f"flash routes per step {routes}, expected "
@@ -1039,7 +1148,7 @@ def phase_resnet_kernels(torch, dtt, conv_ops, bn_ops):
     def add(name, count, err, ms, plain_ms, lib_ms, nbytes, flops, dtype):
         t = totals[name]
         t["max_abs_err"] = max(t["max_abs_err"], err)
-        if dtype != torch.bfloat16:
+        if dtype != torch.bfloat16 or not count:  # timed: a step's bf16 calls
             return
         b_ms, _ = bound_ms(nbytes, flops, "float32" if name != "conv1x1"
                            else "bfloat16")
@@ -1050,37 +1159,48 @@ def phase_resnet_kernels(torch, dtt, conv_ops, bn_ops):
         t["flops"] += count * flops
 
     # K12: x @ w at every shape of a training step in bf16, one shape in
-    # f32. A step runs each 1x1 convolution's forward (M, K) @ (K, N) and
-    # its dX, (M, N) @ (N, K) with W^T made contiguous.
+    # f32, and one bf16 shape whose N is not a multiple of 8 (the wrapper
+    # zero-pads it to 40 for the same kernel). A step runs each 1x1
+    # convolution's forward (M, K) @ (K, N) and its dX, (M, N) @ (N, K)
+    # with W^T made contiguous. Each check's launch must take its dtype's
+    # route.
     products = {}
     for (m, k, n), count in convs.items():
         for shape in ((m, k, n), (m, n, k)):
             products[shape] = products.get(shape, 0) + count
     cases = [(shape, torch.bfloat16) for shape in sorted(products)]
-    cases.append(((50176, 256, 1024), torch.float32))
+    cases += [((3136, 64, 36), torch.bfloat16), ((50176, 256, 1024), torch.float32)]
     for (m, k, n), dtype in cases:
         x = torch.randn((m, k), generator=g, device=dev).to(dtype)
         w = (torch.randn((k, n), generator=g, device=dev) / k ** 0.5).to(dtype)
+        conv_ops.reset_launch_counts()
         err, worst, ok = check_conv1x1(torch, conv_ops, x, w)
+        route = "wgmma" if dtype == torch.bfloat16 else "cuda_core"
+        routes = {r: c for r, c in conv_ops.route_launches.items() if c}
         dname = str(dtype).split(".")[-1]
-        count = products[(m, k, n)] if dtype == torch.bfloat16 else 0
+        count = products.get((m, k, n), 0) if dtype == torch.bfloat16 else 0
         line = (f"  conv1x1 ({m:>7}, {k:>4}, {n:>4}) {dname:8s} x{count}: "
                 f"max_abs_err {err:.3e}, worst {worst:.3f} of its limit "
-                f"{'ok' if ok else 'MISMATCH'}")
+                f"{'ok' if ok else 'MISMATCH'}, route {routes}")
         if not ok:
             failed.append(f"conv1x1 {(m, k, n)} {dname}")
+        if routes != {f"conv1x1/{route}": 1}:
+            failed.append(f"conv1x1 {(m, k, n)} {dname} routes {routes}, "
+                          f"expected one launch on {route}")
         e = x.element_size()
         nbytes, flops = (m * k + k * n + m * n) * e, 2 * m * k * n
         ms = plain_ms = lib_ms = None
-        if dtype == torch.bfloat16:
+        if count:
             ms = cuda_ms_flushed(torch, lambda i: conv_ops.conv1x1(x, w), 10)
             plain_ms = cuda_ms_flushed(
                 torch, lambda i: conv_ops.conv1x1_ref(x, w), 3)
             lib_ms = cuda_ms_flushed(torch, lambda i: torch.matmul(x, w), 10)
             b_ms, b_by = bound_ms(nbytes, flops, "bfloat16")
-            line += (f"; {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f}, "
-                     f"torch.matmul {lib_ms * 1e3:.1f}, bound {b_ms * 1e3:.1f} "
-                     f"({b_by}), {b_ms / ms:.1%} of bound")
+            line += (f"; {ms * 1e3:.1f} us ({flops / ms / 1e9:.1f} TFLOP/s), "
+                     f"plain {plain_ms * 1e3:.1f}, torch.matmul "
+                     f"{lib_ms * 1e3:.1f}, bound {b_ms * 1e3:.1f} ({b_by}), "
+                     f"{b_ms / ms:.1%} of bound (torch.matmul "
+                     f"{b_ms / lib_ms:.1%})")
         print(line)
         add("conv1x1", count, err, ms, plain_ms, lib_ms, nbytes, flops, dtype)
         del x, w
@@ -1234,6 +1354,11 @@ def phase_resnet_train(torch, dtt, strategy, conv_ops, bn_ops, warmup=3,
             "bn_bwd_reduce": 53 * per_call}
     if per_step != want:
         raise SystemExit(f"launches per step {per_step}, expected {want}")
+    routes = {k: v / steps for k, v in conv_ops.route_launches.items() if v}
+    print(f"  conv1x1 routes per step {routes}")
+    if routes != {"conv1x1/wgmma": 72}:
+        raise SystemExit(f"conv1x1 routes per step {routes}, expected all 72 "
+                         "on wgmma")
     if not all(np.isfinite(losses)) or not buffers:
         raise SystemExit(f"ResNet-50 losses or BN buffers not finite: {losses}")
     del model
@@ -1364,7 +1489,7 @@ def main():
                 print(f"    {line.split('Compiling entry function')[-1].strip()}")
             elif "registers" in line or "spill" in line:
                 print(f"      {line.strip()}")
-    wgmma_report(flash_ops, *built["flash_attention"])
+    wgmma_report(flash_ops, conv_ops, built)
 
     print("phase b: kernels vs plain versions, S=8 H=12 hd=64 bs=16 nb=64")
     print('kernels: ["paged_attention (K1)", "paged_attention_int8 (K2)"]')
@@ -1479,6 +1604,7 @@ def main():
 
     kernels = [
         {"name": name, "route": "cuda",
+         "kernel": KERNELS[name],
          "source": f"distributed_tpu_torch/csrc/{SOURCES[name]}.cu",
          "replaces": REPLACES[name], "launches": r["launches"],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],

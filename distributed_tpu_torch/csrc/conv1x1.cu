@@ -10,147 +10,133 @@
 // What it computes (the plain PyTorch version is conv1x1_ref in
 // distributed_tpu_torch/ops/conv1x1.py): out (M, N) = x (M, K) @ w (K, N),
 // all row-major, every product summed in f32 and the sum rounded once to
-// the input dtype. bf16 runs on the tensor cores (nvcuda::wmma 16x16x16,
-// f32 accumulators); f32 runs on the CUDA cores in full f32 (no TF32).
+// the input dtype.
 //
-// What bounds it: bytes, at ResNet-50's shapes. A 1x1 convolution has
-// K = 64-2,048 input channels and N = 64-2,048 filters over M = 12,544-
-// 802,816 rows at batch 256; the product does 2K operations per output
-// and the output is as large as the input or larger, so the arithmetic
-// intensity is at most K*N/(K+N) operations per byte -- 51 at (64, 256),
-// 410 at (1,024, 2,048) -- mostly below the 295 the card needs to be
-// bound by its tensor cores. At (802,816, 64, 256): 514 MB moved (153 us
-// at 3.35 TB/s), 26.3 GFLOP (27 us at 989 TFLOP/s).
+// What bounds it: bytes, at most of ResNet-50's shapes. A 1x1 convolution
+// has K = 64-2,048 input channels and N = 64-2,048 filters over M =
+// 12,544-802,816 rows at batch 256; the product does 2K operations per
+// output and the output is as large as the input or larger, so the
+// arithmetic intensity is at most K*N/(K+N) operations per byte -- 51 at
+// (64, 256), 410 at (1,024, 2,048) -- mostly below the 295 the card needs
+// to be bound by its tensor cores. At (802,816, 64, 256): 514 MB moved
+// (153 us at 3.35 TB/s), 26.3 GFLOP (27 us at 989 TFLOP/s).
 //
-// The design: one block computes a 128 x 128 output tile with 8 warps,
-// each warp a 32 x 64 piece (2 x 4 wmma fragments); K is walked in chunks
-// of 32 staged in shared memory with 16-byte loads. Blocks are numbered
-// with the N tiles fastest, so the blocks in flight at once share their x
-// rows and x is read from device memory about once; w is small and stays
-// in L2. The output is written once: each warp stages one 16 x 16
-// fragment in shared memory, rounds it and stores it with 16-byte
-// vectors. Rows past M, and columns past K or N, are masked (the Pallas
-// version needs M % block_m == 0; this one does not). The f32 kernel is
-// a 64 x 64 tile of 4 x 4 outputs per thread. Simple first: no cp.async,
-// TMA or wgmma, no double buffering; its time beside its bound is in
-// PERF.md.
+// Two routes, by dtype (conv1x1_route in ops/conv1x1.py):
+// * "wgmma", bf16: conv1x1_wgmma_kernel, designed for Hopper. Its rows
+//   are whole 16-byte chunks: K and N are multiples of 8 and the pointers
+//   16-byte aligned (every shape of ResNet-50; the wrapper zero-pads other
+//   shapes to that in a copy). A block owns a 128 x 128 output tile, two
+//   warpgroups of 64 rows each, the sums in registers (64 a thread), two
+//   blocks an SM, so one block's products run while the other waits for
+//   its copies or writes its tile out. K is walked in chunks of 64 through
+//   a ring of kStages = 3 cp.async stages in 128-byte-swizzled shared
+//   memory, the copies of chunk j + 2 in flight while chunk j is
+//   multiplied: X is the A operand, K-major; W, (K, N) row-major, is the B
+//   operand, MN-major (wgmma's transpose bit). Rows past M and the K and N
+//   tails are zero-filled by the copies (src-size 0). Blocks are numbered
+//   with the N tiles fastest, so the blocks in flight at once share their
+//   X rows and X is read from device memory about once; W is small and
+//   stays in L2. The epilogue rounds the tile to bf16, stages it in shared
+//   memory and writes it with 16-byte vectors, masked at M and N. Two
+//   blocks an SM cap a thread at 128 registers, and ptxas spills at that
+//   cap: an 8-byte stack frame, 4 bytes of spill stores and 4 of loads.
+//   Other ring depths and tiles, and a persistent grid, were slower
+//   (PERF.md).
+// * "cuda_core", float32: conv1x1_f32_kernel, a 64 x 64 tile of 4 x 4
+//   outputs a thread in full f32 (no TF32), rows past M and columns past
+//   K or N masked.
+// (The Pallas version needs M % block_m == 0; these do not.) The times
+// beside the bound are in PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "hopper_wgmma.cuh"
 
 namespace {
 
-using namespace nvcuda;
+// ------------------------------------------------------------ bf16, wgmma
+constexpr int kStages = 3;
+constexpr int kGM = 128, kGN = 128, kGK = 64, kGThreads = 256;  // two warpgroups
+constexpr uint32_t kATile = kGM * kGK * 2, kStage = kATile + kGK * kGN * 2;
+constexpr int kLdC = kGN + 8;  // staged output rows: 16-byte aligned, no bank conflicts
+constexpr size_t kGemmSmem = kStages * kStage + 1024;
+static_assert(kGM * kLdC * 2 <= kStages * kStage, "the output tile fits in the stages");
+constexpr int kGemmBlocks = 2;  // blocks an SM: 128 registers a thread
+static_assert(kGemmBlocks * (kGemmSmem + 1024) <= 232448, "two blocks fit in an SM");
 
-// ---------------------------------------------------------------- bf16
-constexpr int kBM = 128, kBN = 128, kBK = 32;
-constexpr int kThreads = 256;             // 8 warps: 4 along M x 2 along N
-constexpr int kLdA = kBK + 8;             // padded rows, 16-byte aligned
-constexpr int kLdB = kBN + 8;
+__global__ void __launch_bounds__(kGThreads, kGemmBlocks)
+    conv1x1_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                         __nv_bfloat16* __restrict__ out, int M, int K, int N, int tiles_n) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = (smem_addr(smem) + 1023) & ~1023u;
+  const int row0 = (int)(blockIdx.x / tiles_n) * kGM, col0 = (int)(blockIdx.x % tiles_n) * kGN;
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32, quad = lane % 4;
+  const int n_chunks = (K + kGK - 1) / kGK;
 
-// One 16-byte vector (8 bf16) of a row-major (rows, cols) matrix at
-// (r, c), zero where it leaves the matrix. `vec`: every row starts on a
-// 16-byte boundary and cols % 8 == 0, so a vector inside is aligned.
-__device__ __forceinline__ uint4 load8(const __nv_bfloat16* p, long long rows, int cols,
-                                       long long r, int c, bool vec) {
-  if (vec && r < rows && c + 8 <= cols)
-    return *reinterpret_cast<const uint4*>(p + r * cols + c);
-  union {  // raw bits: unsigned short is trivial, as a union member must be
-    uint4 u;
-    unsigned short h[8];
-  } v;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    v.h[i] = (r < rows && c + i < cols) ? __bfloat16_as_ushort(p[r * cols + c + i]) : 0;
-  return v.u;
-}
-
-__global__ void __launch_bounds__(kThreads)
-    conv1x1_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                        __nv_bfloat16* __restrict__ out, long long M, int K, int N, int tiles_n,
-                        int vec) {
-  __shared__ __align__(32) __nv_bfloat16 As[kBM * kLdA];
-  __shared__ __align__(32) __nv_bfloat16 Bs[kBK * kLdB];
-  __shared__ __align__(32) float stage[kThreads / 32][16 * 16];
-
-  const long long tile = blockIdx.x;
-  const long long row0 = (tile / tiles_n) * kBM;
-  const int col0 = (int)(tile % tiles_n) * kBN;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 1, wn = warp & 1;  // this warp's 32 x 64 piece
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    // A: 128 rows x 4 vectors; B: 32 rows x 16 vectors; 2 vectors each.
-#pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int e = tid + t * kThreads;
-      const int ar = e >> 2, ac = (e & 3) * 8;
-      *reinterpret_cast<uint4*>(&As[ar * kLdA + ac]) =
-          load8(x, M, K, row0 + ar, k0 + ac, vec);
-      const int br = e >> 4, bc = (e & 15) * 8;
-      *reinterpret_cast<uint4*>(&Bs[br * kLdB + bc]) =
-          load8(w, K, N, k0 + br, col0 + bc, vec);
+  // Chunk j into stage j % kStages: X rows [row0, +128) x columns [k0,
+  // +64) and W rows [k0, +64) x columns [col0, +128). One commit group
+  // per chunk, empty past the last, so wait counts stay uniform.
+  auto load_chunk = [&](int j) {
+    if (j < n_chunks) {
+      const uint32_t st = base + (j % kStages) * kStage;
+      const int k0 = j * kGK;
+      load_tile_async<kGM, kGK, kGThreads>(st, x + k0, row0, M, (size_t)K, K - k0);
+      load_tile_async<kGK, kGN, kGThreads>(st + kATile, w + col0, k0, K, (size_t)N, N - col0);
     }
-    __syncthreads();
+    cp_async_commit();
+  };
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
+  for (int j = 0; j < kStages - 1; ++j) load_chunk(j);
+
+  float acc[kGN / 2];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], &As[(wm * 32 + i * 16) * kLdA + kk], kLdA);
+  for (int i = 0; i < kGN / 2; ++i) acc[i] = 0.f;
+  for (int j = 0; j < n_chunks; ++j) {
+    cp_async_wait<kStages - 2>();  // chunk j has landed (this thread's copies)
+    fence_async_shared();
+    __syncthreads();  // ... everyone's; and every product of chunk j - 1 is done
+    load_chunk(j + kStages - 1);  // into the stage chunk j - 1 used
+    const uint32_t st = base + (j % kStages) * kStage;
+    fence_regs(acc);
+    wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, &Bs[kk * kLdB + wn * 64 + j * 16], kLdB);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
-      }
-    }
-    __syncthreads();
+    for (int kk = 0; kk < kGK / 16; ++kk)
+      wgmma_ss<__nv_bfloat16, 1>(acc, kmajor_desc(st + wg * 64 * 128, kGM, kk),
+                                 mnmajor_desc(st + kATile, kGK, kk), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
   }
+  cp_async_wait<0>();
+  __syncthreads();  // every warpgroup is done with the stages
 
-  // Epilogue: one fragment at a time through this warp's stage; lane l
-  // writes 8 columns of row l / 2.
-  float* st = stage[warp];
-  const int sr = lane >> 1, sc = (lane & 1) * 8;
+  // Epilogue: round to bf16 into shared memory (thread: rows r and r + 8,
+  // column pairs 8n + 2 quad), then 16-byte vectors to global memory.
+  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem + (base - smem_addr(smem)));
+  const int r = wg * 64 + (threadIdx.x / 32) % 4 * 16 + lane / 4;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int n = 0; n < kGN / 8; ++n)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const long long r = row0 + wm * 32 + i * 16 + sr;
-      const int c = col0 + wn * 64 + j * 16 + sc;
-      if (r < M) {
-        union {
-          uint4 u;
-          unsigned short h[8];
-        } v;
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(tile + (r + 8 * h) * kLdC + 8 * n + 2 * quad) =
+          pack2<__nv_bfloat16>(acc[4 * n + 2 * h], acc[4 * n + 2 * h + 1]);
+  __syncthreads();
 #pragma unroll
-        for (int q = 0; q < 8; ++q)
-          v.h[q] = __bfloat16_as_ushort(__float2bfloat16_rn(st[sr * 16 + sc + q]));
-        if (vec && c + 8 <= N) {
-          *reinterpret_cast<uint4*>(out + r * N + c) = v.u;
-        } else {
-#pragma unroll
-          for (int q = 0; q < 8; ++q)
-            if (c + q < N) out[r * N + c + q] = __ushort_as_bfloat16(v.h[q]);
-        }
-      }
-      __syncwarp();
-    }
+  for (int i = 0; i < kGM * kGN / 8 / kGThreads; ++i) {
+    const int idx = threadIdx.x + i * kGThreads;
+    const int tr = idx / (kGN / 8), tc = idx % (kGN / 8) * 8;
+    const int gr = row0 + tr, gc = col0 + tc;
+    if (gr < M && gc < N)
+      *reinterpret_cast<uint4*>(out + (size_t)gr * N + gc) =
+          *reinterpret_cast<const uint4*>(tile + tr * kLdC + tc);
+  }
 }
 
 // ----------------------------------------------------------------- f32
-constexpr int kFM = 64, kFN = 64, kFK = 16;  // 256 threads, 4 x 4 outputs each
+constexpr int kFM = 64, kFN = 64, kFK = 16, kThreads = 256;  // 4 x 4 outputs a thread
 
 __global__ void __launch_bounds__(kThreads)
     conv1x1_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
@@ -206,20 +192,27 @@ inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 
 extern "C" {
 
 // out (M, N) = x (M, K) @ w (K, N), row-major and contiguous, in one
-// launch. dtype: 0 = float32, 1 = bfloat16 (x, w and out alike). Returns
-// the cudaError_t of the launch (0 = cudaSuccess).
+// launch. dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the
+// wgmma kernel: K and N multiples of 8, 16-byte aligned pointers); x, w
+// and out share it. Returns the cudaError_t of the launch (0 =
+// cudaSuccess).
 int dtt_conv1x1(int dtype, const void* x, const void* w, void* out, long long M, int K, int N,
                 void* stream) {
   if (M < 1 || K < 1 || N < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    const int tiles_n = (N + kBN - 1) / kBN;
-    const long long blocks = ((M + kBM - 1) / kBM) * tiles_n;
+    if (K % 8 || N % 8 || !aligned16(x) || !aligned16(w) || !aligned16(out) ||
+        M > 0x7fffffffLL - kGM)
+      return (int)cudaErrorInvalidValue;
+    const int tiles_n = (N + kGN - 1) / kGN;
+    const long long blocks = ((M + kGM - 1) / kGM) * tiles_n;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    const int vec = K % 8 == 0 && N % 8 == 0 && aligned16(x) && aligned16(w) && aligned16(out);
-    conv1x1_bf16_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
+    cudaError_t err = cudaFuncSetAttribute(
+        conv1x1_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kGemmSmem);
+    if (err != cudaSuccess) return (int)err;
+    conv1x1_wgmma_kernel<<<(unsigned)blocks, kGThreads, kGemmSmem, st>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-        static_cast<__nv_bfloat16*>(out), M, K, N, tiles_n, vec);
+        static_cast<__nv_bfloat16*>(out), (int)M, K, N, tiles_n);
   } else if (dtype == 0) {
     const int tiles_n = (N + kFN - 1) / kFN;
     const long long blocks = ((M + kFM - 1) / kFM) * tiles_n;
@@ -232,5 +225,8 @@ int dtt_conv1x1(int dtype, const void* x, const void* w, void* out, long long M,
   }
   return (int)cudaGetLastError();
 }
+
+// Dynamic shared memory of a conv1x1_wgmma_kernel block.
+int dtt_conv1x1_wgmma_smem() { return (int)kGemmSmem; }
 
 }  // extern "C"

@@ -2,8 +2,10 @@
 
 Each source has a plain C interface and is compiled by one ``nvcc`` call
 for ``sm_90a`` into the git-ignored ``_build/`` at first use, then loaded
-with ``ctypes``. A build is keyed on a hash of the source and the flags,
-so an edited source builds anew and an unchanged one is reused.
+with ``ctypes``. A build is keyed on a hash of the source, of every header
+it includes from ``csrc/`` (``#include "name.cuh"``, followed through the
+headers), and of the flags, so an edited source or header builds anew and
+an unchanged one is reused.
 :func:`build` starts one ``nvcc`` per source, all at once, and waits for
 them together; a failed build raises with the compiler's output.
 """
@@ -13,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -46,18 +49,37 @@ def source(name: str) -> Path:
     return CSRC / f"{name}.cu"
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def build_key(src: Path) -> str:
+    """Hex digest of the source ``src``, of each header it includes by
+    ``#include "..."`` (resolved beside the including file, each hashed
+    once, its own includes followed), and of ``NVCC_FLAGS``."""
+    h = hashlib.sha256()
+    seen, todo = set(), [Path(src)]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        data = path.read_bytes()
+        h.update(str(len(data)).encode() + b":" + path.name.encode() + b":" + data)
+        todo += [path.parent / m.decode() for m in _INCLUDE.findall(data)]
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()
+
+
 def _library_path(name: str) -> Path:
-    src = source(name).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    return BUILD_DIR / f"{name}-{build_key(source(name))[:16]}.so"
 
 
 def build(*names: str):
     """Compile ``csrc/<name>.cu`` for each name not built yet, one
-    ``nvcc`` process per source, all running at once. Returns
-    ``{name: (library_path, compiler_output)}``; ``compiler_output`` holds
-    ptxas's register and spill report of a fresh build, "" for a reused
-    one. Raises ``RuntimeError`` with nvcc's output when a build fails."""
+    ``nvcc`` process per source, all running at once. Returns ``{name:
+    (library_path, compiler_output)}``; ``compiler_output`` holds ptxas's
+    register and spill report of a fresh build, "" for a reused one.
+    Raises ``RuntimeError`` with nvcc's output when a build fails."""
     out, running = {}, []
     for name in names:
         lib = _library_path(name)
@@ -86,8 +108,10 @@ def build(*names: str):
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-#: The ``dtype`` argument of every launcher: 0 = float32, 1 = bfloat16.
+#: The ``dtype`` argument of every launcher: 0 = float32, 1 = bfloat16;
+#: the flash and paged-attention launchers also take 2 = float16.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+FLOAT_CODES = {**DTYPE_CODES, torch.float16: 2}
 
 
 class Library:
@@ -147,6 +171,6 @@ def dispatch(x, cuda_fn, plain_fn, what: str):
 
 
 __all__ = [
-    "BUILD_DIR", "CSRC", "DTYPE_CODES", "Library", "NVCC_FLAGS", "build", "check_launch",
-    "dispatch", "require", "source", "stream",
+    "BUILD_DIR", "CSRC", "DTYPE_CODES", "FLOAT_CODES", "Library", "NVCC_FLAGS", "build",
+    "build_key", "check_launch", "dispatch", "require", "source", "stream",
 ]

@@ -15,12 +15,16 @@ lane-packed ``_fwd_kernel_packed``/``_dq_kernel_packed``/
 layouts: it reads the heads out of (B, T, H, D) by strides, so neither a
 fold to (B*H, T, D) nor a lane packing is needed.
 
-The forward and dK/dV take one of two routes by dtype
-(:func:`flash_route`): bf16 goes to the Hopper kernels (``wgmma`` products
-with the sums in registers, ``cp.async`` tile copies), whose tiles are 64
-or 128 columns wide (narrower heads are zero-padded in shared memory);
-float32 goes to the CUDA-core kernels, in full f32. dQ has one kernel for
-both dtypes.
+Each kernel takes one of two routes by dtype (:func:`flash_route`): bf16
+and f16 go to the Hopper kernels (``wgmma`` products with the sums in
+registers, ``cp.async`` tile copies), whose tiles are 64, 128 or 256
+columns wide (narrower heads are zero-padded in shared memory); float32
+goes to the CUDA-core kernels, in full f32. Every head width from 1 to
+``MAX_D`` runs the kernels: a head whose rows are not whole 16-byte chunks
+(D not a multiple of 8, or of 4 in f32) is zero-padded to the next one in
+a copy here, with the scale of the real D, and the padded columns of the
+outputs are sliced away. That is exact: zero columns of Q and K add 0 to
+every score, zero columns of V give zero output columns.
 
 Dispatch is by the device of the tensors, with no fallback: CUDA tensors
 launch the kernels (a failed build or launch raises), CPU tensors run
@@ -37,17 +41,19 @@ from typing import Optional
 
 import torch
 
+import torch.nn.functional as F
+
 from . import _build
 from ._build import _I, _P
-from ._common import NEG
+from ._common import NEG, round_up
 
 #: Launches of each CUDA kernel; incremented only where it is launched.
 launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
-#: The forward's and dK/dV's launches by route (see :func:`flash_route`).
-route_launches = {"flash_fwd/wgmma": 0, "flash_fwd/cuda_core": 0,
-                  "flash_dkv/wgmma": 0, "flash_dkv/cuda_core": 0}
-#: The widest head the kernels take.
-MAX_D = 128
+#: The same launches by route (see :func:`flash_route`).
+route_launches = {f"{k}/{r}": 0 for k in launches
+                  for r in ("wgmma", "cuda_core")}
+#: The widest head the kernels take (the widest wgmma tile).
+MAX_D = 256
 
 
 def reset_launch_counts() -> None:
@@ -57,20 +63,28 @@ def reset_launch_counts() -> None:
 
 
 def flash_route(dtype, d: int):
-    """``(route, width)`` of the forward and dK/dV kernels for heads of
-    ``dtype`` and width ``d``: ``("wgmma", 64 or 128)`` for bf16, the
-    Hopper kernels with their tiles padded to that width;
-    ``("cuda_core", d)`` for float32. Raises ``ValueError`` for another
-    dtype, or unless ``d`` is a multiple of 16 and at most ``MAX_D``."""
-    if d < 16 or d % 16 or d > MAX_D:
-        raise ValueError(f"flash_attention: head_dim {d} must be a multiple "
-                         f"of 16 and at most {MAX_D}")
-    if dtype == torch.bfloat16:
-        return "wgmma", 64 if d <= 64 else 128
+    """``(route, width)`` of the kernels for heads of ``dtype`` and width
+    ``d``: ``("wgmma", 64, 128 or 256)`` for bf16 and f16, the Hopper
+    kernels with their tiles padded to that width; ``("cuda_core", d
+    rounded up to a multiple of 4)`` for float32, the width the CUDA-core
+    kernels see. Raises ``ValueError`` unless ``1 <= d <= MAX_D`` and the
+    dtype is one of those three (float64 too: the JAX package, without
+    x64, has no float64 arrays to take)."""
+    if dtype not in _build.FLOAT_CODES:
+        raise ValueError(f"flash_attention: dtype {dtype} not supported "
+                         "(float32, bfloat16, float16)")
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"flash_attention: head_dim {d} must be in "
+                         f"[1, {MAX_D}]")
     if dtype == torch.float32:
-        return "cuda_core", d
-    raise ValueError(f"flash_attention: dtype {dtype} not supported "
-                     "(float32, bfloat16)")
+        return "cuda_core", round_up(d, 4)
+    return "wgmma", 64 if d <= 64 else 128 if d <= 128 else 256
+
+
+def _kernel_d(dtype, d: int) -> int:
+    """The head width the kernels are given: ``d`` rounded up to whole
+    16-byte chunks of a row (a multiple of 4 in f32, of 8 in 16 bits)."""
+    return round_up(d, 4 if dtype == torch.float32 else 8)
 
 
 def dense_attention(q, k, v, causal: bool):
@@ -96,25 +110,27 @@ def _scale(d: int) -> float:
     return 1.0 / math.sqrt(d)
 
 
-def _scores(q, k, causal):
-    """(B, H, T, T) f32 scores ``(q . k) * scale`` and the valid mask."""
+def _scores(q, k, causal, scale=None):
+    """(B, H, T, T) f32 scores ``(q . k) * scale`` and the valid mask;
+    ``scale`` defaults to ``_scale(D)``."""
     t = q.shape[1]
     s = torch.einsum(
         "bqhd,bkhd->bhqk", q.to(torch.float32), k.to(torch.float32)
-    ) * _scale(q.shape[-1])
+    ) * (_scale(q.shape[-1]) if scale is None else scale)
     valid = torch.ones((t, t), dtype=torch.bool, device=q.device)
     if causal:
         valid = valid.tril()
     return s, valid
 
 
-def flash_fwd_ref(q, k, v, causal: bool = False):
+def flash_fwd_ref(q, k, v, causal: bool = False, scale=None):
     """Plain flash forward over (B, T, H, D): returns ``(o, m, l)``, ``o``
     in q's dtype and the row max ``m`` and row sum ``l`` as (B, H, T) f32.
     Dense over the full scores: ``p = exp(s - m)`` rounded to v's dtype
     for the product with V (f32 accumulation), ``o = acc / max(l,
-    1e-30)``."""
-    s, valid = _scores(q, k, causal)
+    1e-30)``. ``scale`` (default ``1/sqrt(D)``): that of a narrower head
+    this one zero-pads."""
+    s, valid = _scores(q, k, causal, scale)
     s = torch.where(valid, s, NEG)
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
@@ -133,18 +149,20 @@ def flash_delta(do, o):
     return delta.transpose(1, 2).contiguous()
 
 
-def flash_bwd_ref(q, k, v, do, m, l, delta, causal: bool = False):
+def flash_bwd_ref(q, k, v, do, m, l, delta, causal: bool = False,
+                  scale=None):
     """Plain flash backward: ``(dq, dk, dv)`` in the dtypes of q, k, v.
     ``p = valid ? exp(s - m) / max(l, 1e-30) : 0`` from the saved row
     stats, ``ds = p * (dO . v - delta) * scale``; ``dq = ds.to(k) @ k``,
     ``dk = ds.to(q)^T @ q``, ``dv = p.to(dO)^T @ dO``, each accumulated in
-    f32 and cast."""
+    f32 and cast. ``scale`` as in :func:`flash_fwd_ref`."""
     f32 = torch.float32
-    s, valid = _scores(q, k, causal)
+    scale = _scale(q.shape[-1]) if scale is None else scale
+    s, valid = _scores(q, k, causal, scale)
     p = torch.where(valid, torch.exp(s - m[..., None])
                     / torch.clamp_min(l, 1e-30)[..., None], 0.0)
     dp = torch.einsum("bqhd,bkhd->bhqk", do.to(f32), v.to(f32))
-    ds = p * (dp - delta[..., None]) * _scale(q.shape[-1])
+    ds = p * (dp - delta[..., None]) * scale
     dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).to(f32), k.to(f32))
     dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).to(f32), q.to(f32))
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).to(f32), do.to(f32))
@@ -152,21 +170,22 @@ def flash_bwd_ref(q, k, v, do, m, l, delta, causal: bool = False):
 
 
 # ------------------------------------------------------------- CUDA kernels
+_LAUNCH = [_I, _I]  # dtype, width
+_SHAPE = [_I] * 5 + [ctypes.c_float, _P]  # B, T, H, D, causal, scale, stream
 _LIB = _build.Library("flash_attention", {
-    "dtt_flash_fwd_f32": [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P],
-    "dtt_flash_fwd_wgmma": [_I] + [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P],
-    "dtt_flash_dq": [_I] + [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P],
-    "dtt_flash_dkv_f32": [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P],
-    "dtt_flash_dkv_wgmma": [_I] + [_P] * 9 + [_I] * 5 + [ctypes.c_float, _P],
+    "dtt_flash_fwd": _LAUNCH + [_P] * 6 + _SHAPE,
+    "dtt_flash_dq": _LAUNCH + [_P] * 8 + _SHAPE,
+    "dtt_flash_dkv": _LAUNCH + [_P] * 9 + _SHAPE,
     "dtt_flash_wgmma_smem": [_I, _I],
 })
+_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 
 
 def wgmma_smem_bytes(kernel: str, width: int) -> int:
-    """Dynamic shared memory a block of the wgmma ``"flash_fwd"`` or
-    ``"flash_dkv"`` kernel asks for at head width ``width`` (64 or 128)."""
-    return _LIB.get().dtt_flash_wgmma_smem(
-        {"flash_fwd": 0, "flash_dkv": 1}[kernel], width)
+    """Dynamic shared memory a block of the wgmma ``"flash_fwd"``,
+    ``"flash_dq"`` or ``"flash_dkv"`` kernel asks for at padded width
+    ``width`` (64, 128 or 256)."""
+    return _LIB.get().dtt_flash_wgmma_smem(_KERNELS.index(kernel), width)
 
 
 def _check_qkv(*tensors):
@@ -186,70 +205,71 @@ def _check_qkv(*tensors):
     return route
 
 
-def _dims(q, causal):
-    b, t, h, d = q.shape
-    return b, t, h, d, int(causal), _scale(d)
+def _check_stats(q, *stats):
+    b, t, h, _ = q.shape
+    for x, name in zip(stats, ("m", "l", "delta")):
+        _build.require(x, name, q.device, torch.float32, 3)
+        if tuple(x.shape) != (b, h, t):
+            raise ValueError(f"{name} must be (B, H, T) = {(b, h, t)}")
+
+
+def _padded(*tensors):
+    """The tensors zero-padded along D to the kernels' width (the same
+    tensors where D already is one)."""
+    d = tensors[0].shape[-1]
+    dp = _kernel_d(tensors[0].dtype, d)
+    return tuple(x if dp == d else F.pad(x, (0, dp - d)) for x in tensors)
+
+
+def _launch(kernel, route, width, tensors, outs, causal, d):
+    """Launches ``kernel`` on the padded inputs and outputs, with the
+    scale of the real head width ``d``, and counts it."""
+    q = tensors[0]
+    b, t, h, dp = q.shape
+    rc = getattr(_LIB.get(), f"dtt_{kernel}")(
+        _build.FLOAT_CODES[q.dtype], width, *(x.data_ptr() for x in tensors),
+        *(x.data_ptr() for x in outs), b, t, h, dp, int(causal), _scale(d),
+        _build.stream(q.device))
+    _build.check_launch(rc, kernel)
+    launches[kernel] += 1
+    route_launches[f"{kernel}/{route}"] += 1
+
+
+def _unpad(x, d):
+    return x if x.shape[-1] == d else x[..., :d].contiguous()
 
 
 def _flash_fwd_cuda(q, k, v, causal):
     route, width = _check_qkv(q, k, v)
-    lib = _LIB.get()
-    b, t, h, _ = q.shape
-    o = torch.empty_like(q)
+    b, t, h, d = q.shape
+    qp, kp, vp = _padded(q, k, v)
+    o = torch.empty_like(qp)
     m = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            m.data_ptr(), l.data_ptr(), *_dims(q, causal),
-            _build.stream(q.device))
-    if route == "wgmma":
-        rc = lib.dtt_flash_fwd_wgmma(width, *args)
-    else:
-        rc = lib.dtt_flash_fwd_f32(*args)
-    _build.check_launch(rc, "flash_fwd")
-    launches["flash_fwd"] += 1
-    route_launches[f"flash_fwd/{route}"] += 1
-    return o, m, l
-
-
-def _check_bwd(q, k, v, do, m, l, delta):
-    route = _check_qkv(q, k, v, do)
-    b, t, h, _ = q.shape
-    for x, name in ((m, "m"), (l, "l"), (delta, "delta")):
-        _build.require(x, name, q.device, torch.float32, 3)
-        if tuple(x.shape) != (b, h, t):
-            raise ValueError(f"{name} must be (B, H, T) = {(b, h, t)}")
-    return route
+    _launch("flash_fwd", route, width, (qp, kp, vp), (o, m, l), causal, d)
+    return _unpad(o, d), m, l
 
 
 def _flash_dq_cuda(q, k, v, do, m, l, delta, causal):
-    _check_bwd(q, k, v, do, m, l, delta)
-    lib = _LIB.get()
-    dq = torch.empty_like(q)
-    rc = lib.dtt_flash_dq(
-        _build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), do.data_ptr(), m.data_ptr(), l.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), *_dims(q, causal),
-        _build.stream(q.device))
-    _build.check_launch(rc, "flash_dq")
-    launches["flash_dq"] += 1
-    return dq
+    route, width = _check_qkv(q, k, v, do)
+    _check_stats(q, m, l, delta)
+    d = q.shape[-1]
+    padded = _padded(q, k, v, do)
+    dq = torch.empty_like(padded[0])
+    _launch("flash_dq", route, width, (*padded, m, l, delta), (dq,), causal,
+            d)
+    return _unpad(dq, d)
 
 
 def _flash_dkv_cuda(q, k, v, do, m, l, delta, causal):
-    route, width = _check_bwd(q, k, v, do, m, l, delta)
-    lib = _LIB.get()
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            m.data_ptr(), l.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), *_dims(q, causal), _build.stream(q.device))
-    if route == "wgmma":
-        rc = lib.dtt_flash_dkv_wgmma(width, *args)
-    else:
-        rc = lib.dtt_flash_dkv_f32(*args)
-    _build.check_launch(rc, "flash_dkv")
-    launches["flash_dkv"] += 1
-    route_launches[f"flash_dkv/{route}"] += 1
-    return dk, dv
+    route, width = _check_qkv(q, k, v, do)
+    _check_stats(q, m, l, delta)
+    d = q.shape[-1]
+    padded = _padded(q, k, v, do)
+    dk, dv = torch.empty_like(padded[1]), torch.empty_like(padded[2])
+    _launch("flash_dkv", route, width, (*padded, m, l, delta), (dk, dv),
+            causal, d)
+    return _unpad(dk, d), _unpad(dv, d)
 
 
 def _flash_bwd_cuda(q, k, v, do, m, l, delta, causal):

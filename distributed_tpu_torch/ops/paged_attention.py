@@ -40,8 +40,8 @@ FUSED = "fused"
 KINDS = (REFERENCE, FUSED)
 
 #: Launches of the CUDA kernel, per variant: "paged_attention" (plain
-#: f32/bf16 pools) and "paged_attention_int8" (int8 pools). Incremented
-#: only where the kernel is launched.
+#: f32/bf16/f16 pools) and "paged_attention_int8" (int8 pools).
+#: Incremented only where the kernel is launched.
 launches = {"paged_attention": 0, "paged_attention_int8": 0}
 
 def reset_launch_counts() -> None:
@@ -110,7 +110,8 @@ def paged_attention_ref(q, k_pool, v_pool, block_tables, positions):
 
 # ------------------------------------------------------------- CUDA kernel
 _LIB = _build.Library("paged_attention", {
-    "dtt_paged_attention": [_I, _I] + [_P] * 8 + [_I] * 6 + [ctypes.c_float, _P],
+    "dtt_paged_attention": [_I, _I, _I] + [_P] * 8 + [_I] * 6
+    + [ctypes.c_float, _P],
     "dtt_paged_attention_max_kw": [],
     "dtt_paged_attention_max_hd": [],
 })
@@ -120,8 +121,8 @@ def _paged_attention_cuda(q, k_pool, v_pool, block_tables, positions):
     lib = _LIB.get()
     dev = q.device
     quant = isinstance(k_pool, dict)
-    if q.dtype not in _build.DTYPE_CODES:
-        raise ValueError(f"q dtype {q.dtype} not supported (f32, bf16)")
+    if q.dtype not in _build.FLOAT_CODES:
+        raise ValueError(f"q dtype {q.dtype} not supported (f32, bf16, f16)")
     _build.require(q, "q", dev, ndim=4)
     s, kw, h, hd = q.shape
     if kw > lib.dtt_paged_attention_max_kw() or \
@@ -149,20 +150,19 @@ def _paged_attention_cuda(q, k_pool, v_pool, block_tables, positions):
             f"pool shapes {tuple(kq.shape)}/{tuple(vq.shape)} do not match "
             f"q heads {(h, hd)}"
         )
-    # The kernel reads pool rows as 16-byte chunks.
-    if hd % 16 or kq.data_ptr() % 16 or vq.data_ptr() % 16:
-        raise ValueError(
-            f"the kernel needs head_dim % 16 == 0 and 16-byte aligned pools "
-            f"(head_dim {hd})"
-        )
+    # Pool rows of whole 16-byte chunks on 16-byte boundaries are read as
+    # chunks; any other head width element by element. Chosen from the
+    # shape before the launch, never on failure; the pools are not copied.
+    vec = int(hd * kq.element_size() % 16 == 0 and kq.data_ptr() % 16 == 0
+              and vq.data_ptr() % 16 == 0)
     _build.require(block_tables, "block_tables", dev, torch.int32, 2)
     _build.require(positions, "positions", dev, torch.int32, 1)
     if block_tables.shape[0] != s or positions.shape[0] != s:
         raise ValueError("block_tables/positions must have one row per slot")
     out = torch.empty_like(q)
     rc = lib.dtt_paged_attention(
-        _build.DTYPE_CODES[q.dtype], int(quant), q.data_ptr(), kq.data_ptr(),
-        vq.data_ptr(), ksc.data_ptr() if quant else None,
+        _build.FLOAT_CODES[q.dtype], int(quant), vec, q.data_ptr(),
+        kq.data_ptr(), vq.data_ptr(), ksc.data_ptr() if quant else None,
         vsc.data_ptr() if quant else None, block_tables.data_ptr(),
         positions.data_ptr(), out.data_ptr(), s, kw, h, hd, kq.shape[1],
         block_tables.shape[1], float(math.sqrt(hd)),

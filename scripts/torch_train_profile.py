@@ -42,7 +42,7 @@ GROUPS = (
     ("flash attention (port)", ("flash_fwd_", "flash_dq_", "flash_dkv_")),
     ("cross-entropy (port)", ("xent_fwd_kernel", "xent_bwd_kernel")),
     ("fused Adam (port)", ("fused_adam_kernel",)),
-    ("1x1-conv GEMM K12 (port)", ("conv1x1_bf16_kernel",
+    ("1x1-conv GEMM K12 (port)", ("conv1x1_wgmma_kernel",
                                   "conv1x1_f32_kernel")),
     ("BatchNorm reductions K13/K14 (port)", ("bn_partial_kernel",
                                              "bn_finalize_kernel")),

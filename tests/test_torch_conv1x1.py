@@ -201,3 +201,46 @@ def test_residual_with_projection_and_activation_matches_jax(strides):
     with pytest.raises(ValueError, match="shapes differ"):
         dtt.nn.Residual(dtt.nn.Conv2D(3, 1)).build((4, 4, 2),
                                                    torch.Generator())
+
+
+@pytest.mark.parametrize("dtype,k,n,route", [
+    (torch.bfloat16, 64, 256, ("wgmma", 64, 256)),
+    (torch.bfloat16, 2048, 512, ("wgmma", 2048, 512)),
+    (torch.bfloat16, 24, 40, ("wgmma", 24, 40)),
+    (torch.bfloat16, 64, 36, ("wgmma", 64, 40)),
+    (torch.bfloat16, 3, 64, ("wgmma", 8, 64)),
+    (torch.bfloat16, 1, 1, ("wgmma", 8, 8)),
+    (torch.float32, 64, 256, ("cuda_core", 64, 256)),
+    (torch.float32, 3, 36, ("cuda_core", 3, 36)),
+])
+def test_conv1x1_route_is_chosen_from_the_shape(dtype, k, n, route):
+    """bf16 products take the wgmma kernel at K and N rounded up to
+    multiples of 8 (rows of whole 16-byte chunks), f32 the CUDA-core one
+    at their own widths; decided before the launch (the card tests count
+    the routes)."""
+    assert conv_ops.conv1x1_route(dtype, k, n) == route
+
+
+@pytest.mark.parametrize("m,k,n", [(37, 3, 36), (16, 64, 36), (5, 1, 1)])
+def test_conv1x1_zero_padding_is_exact(m, k, n):
+    """The plain product of the zero-padded copies the wrapper gives the
+    wgmma kernel, sliced back to N columns, is the unpadded product bit
+    for bit: the padded columns of X meet zero rows of W. Inputs on a 1/8
+    grid, whose sums are exact in f32 in any order."""
+    rng = np.random.default_rng(m + k + n)
+    x, w = (torch.from_numpy(np.round(rng.standard_normal(shape) * 8) / 8).to(
+        torch.bfloat16) for shape in ((m, k), (k, n)))
+    _, kp, np_ = conv_ops.conv1x1_route(torch.bfloat16, k, n)
+    xp, wp = conv_ops.padded(x, m, kp), conv_ops.padded(w, kp, np_)
+    assert xp.shape == (m, kp) and wp.shape == (kp, np_)
+    assert xp.data_ptr() % 16 == 0 and wp.data_ptr() % 16 == 0
+    assert not xp[:, k:].any() and not wp[k:].any() and not wp[:, n:].any()
+    got = conv_ops.conv1x1_ref(xp, wp)[:, :n]
+    assert torch.equal(got.view(torch.int16),
+                       conv_ops.conv1x1_ref(x, w).view(torch.int16))
+    assert conv_ops.padded(xp, m, kp) is xp
+
+
+def test_conv1x1_route_refuses_other_dtypes():
+    with pytest.raises(ValueError, match="dtype"):
+        conv_ops.conv1x1_route(torch.float16, 64, 64)

@@ -9,13 +9,15 @@ card it runs without them (``tests/conftest.py`` imports JAX, hence
 
 Tolerances, per entry: 2e-5 for f32 (sums in different orders); bf16
 outputs 2e-2 (probabilities round to bf16 at different running maxima),
-bf16 flash gradients atol 2e-3 + rtol 2e-2, and flash dK/dV the same bits
-on a second run (no atomics); the cross-entropy: 1e-5 on
+bf16 flash gradients atol 2e-3 + rtol 2e-2; f16 the bf16 limits scaled by
+the ratio of the two types' ulps (2^-10 / 2^-7) and doubled: outputs 5e-3,
+gradients atol 5e-4 + rtol 5e-3; flash dQ and dK/dV the same bits on a
+second run (no atomics); the cross-entropy: 1e-5 on
 the f32 losses, one bf16 ulp of each entry on bf16 gradients. The fused
 Adam kernel: bit for bit (both sides round every operation once, in the
 same order). The 1x1-convolution GEMM (K12): f32 within 2e-5 relative of
 the sum of |x||w| (sums in another order); bf16 within one ulp of each
-entry plus that bound. BatchNorm's reductions (K13/K14): rtol 1e-5 plus
+entry plus that bound, and the same bits on a second run. BatchNorm's reductions (K13/K14): rtol 1e-5 plus
 1e-5 times the sum of the terms' magnitudes, and the same bits on a second
 call (fixed order, no atomics). The launch probe (K15): bit for bit.
 """
@@ -78,6 +80,34 @@ def test_paged_attention_kernel_matches_plain(cuda_device, dtype, kw, int8):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+# Every head width up to 256 and f16: rows of whole 16-byte chunks go
+# through the register prefetch (hd 24 and 256 in 16 bits, 8 in f32),
+# others element by element (hd 8 and 24 in int8, 100 in bf16); 256 runs
+# the 256-thread class.
+PAGED_WIDTHS = [(dtype, kw, int8, hd) for hd in (8, 24, 256)
+                for dtype, kw, int8 in ((torch.float32, 1, False),
+                                        (torch.bfloat16, 4, False),
+                                        (torch.float16, 1, False),
+                                        (torch.bfloat16, 1, True),
+                                        (torch.float16, 4, True))]
+PAGED_WIDTHS.append((torch.bfloat16, 3, False, 100))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kw,int8,hd", PAGED_WIDTHS)
+def test_paged_attention_kernel_matches_plain_at_every_width(cuda_device, dtype,
+                                                             kw, int8, hd):
+    args = _inputs(cuda_device, dtype, kw, int8, hd=hd, seed=hd)
+    key = "paged_attention_int8" if int8 else "paged_attention"
+    before = paged_ops.launches[key]
+    got = paged_ops.paged_attention(*args)
+    want = paged_ops.paged_attention_ref(*args)
+    torch.cuda.synchronize()
+    assert paged_ops.launches[key] == before + 1
+    tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.float16: 5e-3}[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
 # ----------------------------------------------- fused softmax cross-entropy
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -106,8 +136,9 @@ def test_xent_kernels_match_plain(cuda_device, dtype, n, c):
 
 
 # ---------------------------------------------------------- flash attention
-# bf16 takes the wgmma kernels, whose tiles are 64 or 128 columns wide: D
-# of 32 and 48 are zero-padded to 64, 128 fills its tile. T of 77, 130 and
+# bf16 takes the wgmma kernels (forward, dQ and dK/dV), whose tiles are 64
+# or 128 columns wide: D of 32 and 48 are zero-padded to 64, 128 fills its
+# tile. T of 77, 130 and
 # 1000 leave ragged tiles (64 q and kv rows in the forward, 64 keys and 32
 # queries in dK/dV); 1024 none. Those cases take inputs on a grid of 1/8
 # (normals rounded, within +-4): every score and every dO . v is then exact
@@ -161,6 +192,52 @@ def test_flash_kernels_match_plain(cuda_device, dtype, causal, shape, grid):
                                    rtol=rtol)
 
 
+# Every head width and f16: D of 8, 24 and 40 pad to the 64-column tile,
+# 256 fills the widest tile, whose blocks each write one 128-column half;
+# D of 7 and 100 are first padded in a copy to whole 16-byte rows. f32 at
+# D 112 and 128: dK/dV takes 32-row tiles there (64 would not fit in
+# shared memory), the forward and dQ 64. 16-bit inputs on the 1/8 grid,
+# as above.
+FLASH_WIDTHS = (
+    [(dtype, (2, 130, 2, d)) for dtype in (torch.bfloat16, torch.float16,
+                                           torch.float32)
+     for d in (8, 24, 40, 256)]
+    + [(torch.float16, (2, 1000, 2, 64)), (torch.float16, (1, 77, 2, 128)),
+       (torch.bfloat16, (1, 77, 2, 7)), (torch.float32, (1, 77, 2, 7)),
+       (torch.bfloat16, (1, 200, 3, 100)), (torch.bfloat16, (1, 1000, 1, 256)),
+       (torch.float32, (1, 77, 2, 112)), (torch.float32, (1, 130, 2, 128))])
+FLASH_TOLS = {torch.float32: ((2e-5, 2e-5), (2e-5, 2e-5)),
+              torch.bfloat16: ((2e-2, 2e-2), (2e-3, 2e-2)),
+              torch.float16: ((5e-3, 5e-3), (5e-4, 5e-3))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype,shape", FLASH_WIDTHS)
+def test_flash_kernels_match_plain_at_every_width(cuda_device, dtype, causal,
+                                                  shape):
+    q, k, v, do = _flash_inputs(cuda_device, dtype, shape, seed=shape[-1],
+                                grid=dtype != torch.float32)
+    before = dict(flash_ops.route_launches)
+    o, m, l = flash_ops.flash_fwd(q, k, v, causal)
+    delta = flash_ops.flash_delta(do, o)
+    dq, dk, dv = flash_ops.flash_bwd(q, k, v, do, m, l, delta, causal)
+    torch.cuda.synchronize()
+    route = "cuda_core" if dtype == torch.float32 else "wgmma"
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        assert flash_ops.route_launches[f"{name}/{route}"] == \
+            before[f"{name}/{route}"] + 1
+    assert o.shape == dq.shape == dk.shape == dv.shape == q.shape
+    (vat, vrt), (gat, grt) = FLASH_TOLS[dtype]
+    o_ref, m_ref, l_ref = flash_ops.flash_fwd_ref(q, k, v, causal)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=vat, rtol=vrt)
+    torch.testing.assert_close(m, m_ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(l, l_ref, atol=max(vat, 2e-5), rtol=max(vrt, 2e-5))
+    want = flash_ops.flash_bwd_ref(q, k, v, do, m, l, delta, causal)
+    for got, ref in zip((dq, dk, dv), want):
+        torch.testing.assert_close(got.float(), ref.float(), atol=gat, rtol=grt)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_fwd_identity_v_gives_the_probabilities(cuda_device, causal):
@@ -183,6 +260,7 @@ def test_flash_fwd_identity_v_gives_the_probabilities(cuda_device, causal):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
+                                         (torch.float16, "wgmma"),
                                          (torch.float32, "cuda_core")])
 def test_flash_dtype_takes_its_route_once(cuda_device, dtype, route):
     q, k, v, do = _flash_inputs(cuda_device, dtype, (1, 130, 2, 64))
@@ -208,6 +286,22 @@ def test_flash_dkv_is_bit_identical_from_run_to_run(cuda_device, shape):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,shape", [(torch.bfloat16, (2, 1000, 3, 64)),
+                                         (torch.bfloat16, (1, 130, 2, 128)),
+                                         (torch.float16, (1, 130, 2, 256))])
+def test_flash_dq_is_bit_identical_from_run_to_run(cuda_device, dtype, shape):
+    """dQ has no atomics: each block owns its query rows and sums its kv
+    tiles in one order in registers, so two runs give the same bits."""
+    q, k, v, do = _flash_inputs(cuda_device, dtype, shape)
+    o, m, l = flash_ops.flash_fwd(q, k, v, True)
+    delta = flash_ops.flash_delta(do, o)
+    first = flash_ops._flash_dq_cuda(q, k, v, do, m, l, delta, True)
+    second = flash_ops._flash_dq_cuda(q, k, v, do, m, l, delta, True)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
 
 
 @pytest.mark.cuda
@@ -306,6 +400,42 @@ def test_conv1x1_kernel_matches_plain(cuda_device, dtype, m, k, n):
     else:
         ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
         assert bool((diff <= ulp + 2 * k * 2.0 ** -24 * bound + 1e-30).all())
+
+
+def _close_to_plain_bf16(got, x, w):
+    """Each entry within one bf16 ulp of the plain version's plus the f32
+    sums' rounding bound 2 K 2^-24 sum|x||w| (phase m's limit)."""
+    want = conv_ops.conv1x1_ref(x, w).float()
+    bound = x.float().abs() @ w.float().abs()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
+    limit = ulp + 2 * x.shape[1] * 2.0 ** -24 * bound + 1e-30
+    return bool(((got.float() - want).abs() <= limit).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,offset", [
+    (3136, 64, 256, 0), (12544, 2048, 512, 0), (1000, 256, 64, 0),
+    (1000, 200, 72, 0), (500, 64, 36, 0), (500, 36, 64, 0), (500, 64, 64, 1)])
+def test_conv1x1_routes_match_plain_and_repeat_bit_for_bit(cuda_device, m, k,
+                                                            n, offset):
+    """The wgmma kernel at ResNet-50 shapes, a ragged M (1000 rows: the last
+    128-row tile part empty), ragged K and N tails (200 = 3 x 64 + 8, 72);
+    N = 36 and K = 36 (rows not whole 16-byte chunks) and an X that starts
+    2 bytes past a 16-byte boundary, each through the wrapper's zero-padded
+    copy."""
+    g = torch.Generator(device=cuda_device).manual_seed(k + n)
+    x = torch.randn((m * k + offset,), generator=g, device=cuda_device).to(
+        torch.bfloat16)[offset:].view(m, k)
+    w = (torch.randn((k, n), generator=g, device=cuda_device) / k ** 0.5).to(
+        torch.bfloat16)
+    before = dict(conv_ops.route_launches)
+    first = conv_ops.conv1x1(x, w)
+    second = conv_ops.conv1x1(x, w)
+    torch.cuda.synchronize()
+    grown = {r: c - before[r] for r, c in conv_ops.route_launches.items()}
+    assert grown == {r: 2 * (r == "conv1x1/wgmma") for r in grown}
+    assert _close_to_plain_bf16(first, x, w)
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
 
 
 @pytest.mark.cuda

@@ -141,9 +141,36 @@ def test_float32_takes_the_cuda_core_route_unpadded(d):
     assert port_fa.flash_route(torch.float32, d) == ("cuda_core", d)
 
 
-@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 144), (torch.float32, 144),
-                                     (torch.bfloat16, 40), (torch.float32, 8),
-                                     (torch.bfloat16, 0), (torch.float16, 64)])
+# Every head width from 1 to 256 and f16 has a kernel: 16-bit heads pad to
+# the wgmma tile (64, 128, 256), f32 heads to whole 16-byte rows.
+ROUTES = [(torch.bfloat16, 144, ("wgmma", 256)),
+          (torch.float32, 144, ("cuda_core", 144)),
+          (torch.bfloat16, 40, ("wgmma", 64)),
+          (torch.float32, 8, ("cuda_core", 8)),
+          (torch.float16, 64, ("wgmma", 64)),
+          (torch.float16, 1, ("wgmma", 64)),
+          (torch.float16, 24, ("wgmma", 64)),
+          (torch.float16, 65, ("wgmma", 128)),
+          (torch.float16, 129, ("wgmma", 256)),
+          (torch.float16, 256, ("wgmma", 256)),
+          (torch.bfloat16, 1, ("wgmma", 64)),
+          (torch.bfloat16, 8, ("wgmma", 64)),
+          (torch.bfloat16, 200, ("wgmma", 256)),
+          (torch.bfloat16, 256, ("wgmma", 256)),
+          (torch.float32, 1, ("cuda_core", 4)),
+          (torch.float32, 24, ("cuda_core", 24)),
+          (torch.float32, 250, ("cuda_core", 252)),
+          (torch.float32, 256, ("cuda_core", 256))]
+
+
+@pytest.mark.parametrize("dtype,d,want", ROUTES)
+def test_flash_route_takes_every_width_and_f16(dtype, d, want):
+    assert port_fa.flash_route(dtype, d) == want
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 0), (torch.float16, 0),
+                                     (torch.bfloat16, 257), (torch.float32, 257),
+                                     (torch.int32, 64), (torch.float64, 64)])
 def test_flash_route_refuses_what_no_kernel_takes(dtype, d):
     with pytest.raises(ValueError, match="head_dim|dtype"):
         port_fa.flash_route(dtype, d)
