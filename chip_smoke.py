@@ -102,9 +102,12 @@ m. ResNet-50's kernels against their plain versions at the model's own
    the bound and a library call that computes the same function, timed
    only (``torch.matmul``; ``torch.batch_norm_stats`` and
    ``torch.batch_norm_backward_reduce`` on an NCHW view), with each
-   product's share of its bound and TFLOP/s; every bf16 product on K12's
-   wgmma route, f32 on its CUDA-core route; the JSON row holds per-step totals over the 72 products
-   (the 53 calls).
+   call's share of its bound (and K12's TFLOP/s); K13, K14, their plain
+   versions and the library calls on the device clock (the host queues
+   every call first), with each K13/K14 call's host cost on the enqueue
+   clock; every bf16 product on K12's wgmma route, f32 on its CUDA-core
+   route; the JSON row holds per-step totals over the 72 products (the 53
+   calls).
 n. ResNet-50 training as the JAX package's ``bench_resnet50`` configures
    it (``resnet(50, 1000, dtype="bfloat16")``, ``bn_shift="running"``,
    ``stem="conv7"``; ``SGD(0.1, momentum=0.9)``, sparse cross-entropy,
@@ -115,7 +118,7 @@ n. ResNet-50 training as the JAX package's ``bench_resnet50`` configures
    steps/s, images/s, MFU (8.17 GFLOP forward per image, 2 x 4.09 G
    multiply-adds), peak memory and launches per step: exactly 72 of K12
    (36 forward, 36 dX), all on its wgmma route, and 53 calls of K13 and of
-   K14.
+   K14 (``LAUNCHES_PER_CALL`` launches each: one).
 o. A small f32 ResNet (``resnet(50, 10, small_inputs=True, stage_blocks=
    (1, 1, 1, 1), width=16)``, 32x32, batch 32), TF32 off, 3 momentum-SGD
    steps from the same parameters on the card (kernels) and on the CPU
@@ -133,6 +136,16 @@ p. K15, the launch probe, against ``x * 1.0001`` on an (8, 128) f32 tile,
    clock, 10 and 60 launches, each run ending in a synchronize) and the
    enqueue clock (the host's time to issue 50 calls); K15's time over
    ``torch.mul``'s, the library call's, printed as a ratio.
+q. float16, which the reference takes wherever these kernels run: K9/K10
+   at the LM head's vocabulary (4 x 1024 rows of 32768 f16 logits; losses
+   to 1e-4, dlogits to one f16 ulp), K12 at (50176, 256, 1024) and at
+   (3136, 64, 36) (N zero-padded to 40; one f16 ulp plus the f32 sums'
+   bound), K13/K14 at (200704, 128) and at (100003, 3) (the per-element
+   route; phase m's limits, the same bits on a second call), each against
+   its plain version with its launches counted; then a small f16 ResNet
+   (phase o's, ``dtype="float16"``, the pallas loss) through 3 ``fit``
+   steps: finite losses, and every one of K9, K10, K12, K13 and K14
+   launched (counts zeroed just before, read just after).
 Then the kernel table as one JSON line (each row also names the CUDA
 kernel of the main path, ``kernel``), the card's name and power limit, and
 ``{"ok": true, "device": {...}}`` as the last line.
@@ -191,9 +204,9 @@ KERNELS = {  # the CUDA kernel each row's main path launches
     "flash_fwd": "flash_fwd_wgmma_kernel<bf16, 64>",
     "flash_dq": "flash_dq_wgmma_kernel<bf16, 64>",
     "flash_dkv": "flash_dkv_wgmma_kernel<bf16, 64>",
-    "fused_adam": "fused_adam_kernel", "conv1x1": "conv1x1_wgmma_kernel",
-    "bn_stats": "bn_partial_kernel + bn_finalize_kernel",
-    "bn_bwd_reduce": "bn_partial_kernel + bn_finalize_kernel",
+    "fused_adam": "fused_adam_kernel", "conv1x1": "conv1x1_wgmma_kernel<bf16>",
+    "bn_stats": "bn_reduce_kernel<bf16, 8, false>",
+    "bn_bwd_reduce": "bn_reduce_kernel<bf16, 8, true>",
     "launch_probe": "launch_probe_kernel",
 }
 SOURCES = {
@@ -282,7 +295,9 @@ def wgmma_report(fa, conv_ops, built):
                 name = f"{hit.group(1)}<{kind}, {width}>"
                 smem = fa.wgmma_smem_bytes(f"flash_{hit.group(2)}", width)
             elif "conv1x1_wgmma_kernel" in mangled:
-                name, smem = "conv1x1_wgmma_kernel", conv_ops.wgmma_smem_bytes()
+                kind = "bf16" if "bfloat16" in mangled else "f16"
+                name = f"conv1x1_wgmma_kernel<{kind}>"
+                smem = conv_ops.wgmma_smem_bytes()
             else:
                 continue
             n = "no cuobjdump" if hgmma is None else hgmma.get(mangled, 0)
@@ -489,14 +504,18 @@ def report(tag, tel, wall):
 
 
 # ------------------------------------------------------------ phase f, g
-def cuda_ms_flushed(torch, fn, iters, ahead=False):
+def cuda_ms_flushed(torch, fn, iters, ahead=False, clean=False):
     """Mean device ms of ``fn(i)`` over ``iters`` launches, each timed
     between its own CUDA events right after a 128 MB write that evicts the
     50 MB L2, so every launch reads its inputs from HBM. ``ahead``: the
     card first spins ~50 ms so the host queues every call before the
     first starts, and the events time the device, not the host's
-    preparation of a call that launches many kernels."""
+    preparation of a call that launches many kernels. ``clean``: evict by
+    a 128 MB read instead, so the L2 holds clean lines and the timed call
+    does not also pay for writing the flush's dirty lines back."""
     flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
+    if clean:
+        flush.zero_()
     fn(0)
     torch.cuda.synchronize()
     ev = [(torch.cuda.Event(enable_timing=True),
@@ -504,7 +523,10 @@ def cuda_ms_flushed(torch, fn, iters, ahead=False):
     if ahead:
         torch.cuda._sleep(100_000_000)
     for i, (a, b) in enumerate(ev):
-        flush.zero_()
+        if clean:
+            flush.sum()
+        else:
+            flush.zero_()
         a.record()
         fn(i)
         b.record()
@@ -1158,7 +1180,7 @@ def library_ms_or_none(torch, fn, iters, what):
     """A library yardstick's time, or None (printed) when it does not take
     these inputs; only the yardstick is optional, never a kernel."""
     try:
-        return cuda_ms_flushed(torch, fn, iters)
+        return cuda_ms_flushed(torch, fn, iters, ahead=True)
     except RuntimeError as e:
         print(f"    {what}: no library time ({str(e).splitlines()[0][:120]})")
         return None
@@ -1238,6 +1260,7 @@ def phase_resnet_kernels(torch, dtt, conv_ops, bn_ops):
     torch.cuda.empty_cache()
 
     # K13 and K14 at every BatchNorm shape in bf16, one shape in f32.
+    host_us = {"bn_stats": 0.0, "bn_bwd_reduce": 0.0}
     cases = [(shape, torch.bfloat16) for shape in sorted(bns)]
     cases.append(((50176, 256), torch.float32))
     for (m, c), dtype in cases:
@@ -1280,30 +1303,36 @@ def phase_resnet_kernels(torch, dtt, conv_ops, bn_ops):
         if dtype == torch.bfloat16:
             # The library's reductions on the NCHW view of the same rows
             # (mean/invstd and the backward's sums, in another form).
+            # Device clock (ahead=True: the host queues every call first),
+            # and each call's host cost on the enqueue clock.
             x4, dy4 = x.view(m, c, 1, 1), dy.view(m, c, 1, 1)
             weight = torch.ones((c,), device=dev)
-            times = {
+            calls = {
                 "bn_stats": (
-                    cuda_ms_flushed(torch, lambda i: bn_ops.bn_stats(x, shift), 10),
-                    cuda_ms_flushed(torch, lambda i: bn_ops.bn_stats_ref(x, shift), 3),
-                    library_ms_or_none(torch, lambda i: torch.batch_norm_stats(
-                        x4, 1e-5), 10, "torch.batch_norm_stats")),
+                    lambda i: bn_ops.bn_stats(x, shift),
+                    lambda i: bn_ops.bn_stats_ref(x, shift),
+                    lambda i: torch.batch_norm_stats(x4, 1e-5),
+                    "torch.batch_norm_stats"),
                 "bn_bwd_reduce": (
-                    cuda_ms_flushed(torch, lambda i: bn_ops.bn_bwd_reduce(
-                        dy, x, mean, inv), 10),
-                    cuda_ms_flushed(torch, lambda i: bn_ops.bn_bwd_reduce_ref(
-                        dy, x, mean, inv), 3),
-                    library_ms_or_none(
-                        torch, lambda i: torch.batch_norm_backward_reduce(
-                            dy4, x4, mean, inv, weight, True, True, True), 10,
-                        "torch.batch_norm_backward_reduce")),
+                    lambda i: bn_ops.bn_bwd_reduce(dy, x, mean, inv),
+                    lambda i: bn_ops.bn_bwd_reduce_ref(dy, x, mean, inv),
+                    lambda i: torch.batch_norm_backward_reduce(
+                        dy4, x4, mean, inv, weight, True, True, True),
+                    "torch.batch_norm_backward_reduce"),
             }
+            for name, (kernel, plain, library, what) in calls.items():
+                times[name] = (
+                    cuda_ms_flushed(torch, kernel, 10, ahead=True),
+                    cuda_ms_flushed(torch, plain, 3, ahead=True),
+                    library_ms_or_none(torch, library, 10, what))
+                host_us[name] += count * 1e6 * enqueue_s(
+                    torch, lambda: kernel(0))
             for name, (ms, plain_ms, lib_ms) in times.items():
                 nb, fl = (s_bytes, s_flops) if name == "bn_stats" else (b_bytes, b_flops)
                 b_ms, b_by = bound_ms(nb, fl, "float32")
                 lib = "none" if lib_ms is None else f"{lib_ms * 1e3:.1f}"
                 line += (f"\n      {name:13s} {ms * 1e3:.1f} us ("
-                         f"{bn_ops.LAUNCHES_PER_CALL} launches), plain "
+                         f"{bn_ops.LAUNCHES_PER_CALL} launch), plain "
                          f"{plain_ms * 1e3:.1f}, library {lib}, bound "
                          f"{b_ms * 1e3:.1f} ({b_by}), {b_ms / ms:.1%} of bound")
         print(line)
@@ -1321,10 +1350,12 @@ def phase_resnet_kernels(torch, dtt, conv_ops, bn_ops):
         b_ms, b_by = bound_ms(t["nbytes"], t["flops"],
                               "bfloat16" if name == "conv1x1" else "float32")
         lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.3f}"
+        host = (f"; host {host_us[name] / 1e3:.3f} ms (enqueue clock)"
+                if name in host_us else "")
         print(f"  {name:13s} per step ({what}): {t['ms']:.3f} ms, plain "
               f"{t['plain_ms']:.3f}, library {lib}, bound {b_ms:.3f} ms "
               f"({b_by}: {t['nbytes'] / 1e9:.2f} GB, {t['flops'] / 1e9:.1f} "
-              f"GFLOP), {b_ms / t['ms']:.1%} of bound")
+              f"GFLOP), {b_ms / t['ms']:.1%} of bound{host}")
         rows[name] = dict(max_abs_err=t["max_abs_err"], ms=t["ms"],
                           plain_ms=t["plain_ms"], bound_ms=b_ms, bound_by=b_by,
                           library_ms=t["library_ms"])
@@ -1572,6 +1603,129 @@ def phase_launch_probe(torch, probe_ops, paged_ops):
                                  launches=launches)}
 
 
+# ------------------------------------------------------------------ phase q
+def close_in_ulps(torch, got, want, dtype, extra=0.0):
+    """(max_abs_err, worst, ok): every entry within one ulp of ``dtype``
+    (bf16 2^-7, f16 2^-10 of its binade; f16 2^-24 below its normal range)
+    of the plain version's, plus ``extra``."""
+    want = want.float()
+    bits = 7 if dtype == torch.bfloat16 else 10
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - bits)
+    if bits == 10:
+        ulp = ulp.clamp_min(2.0 ** -24)
+    diff = (got.float() - want).abs()
+    worst = (diff / (ulp + extra)).max().item()
+    return diff.max().item(), worst, worst <= 1
+
+
+def phase_f16(torch, dtt, xent_ops, conv_ops, bn_ops):
+    """The f16 repair: K9/K10, K12 and K13/K14 on f16 tensors against their
+    plain versions, then a small f16 ResNet through ``fit``."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(29)
+    failed = []
+
+    def report(what, err, worst, ok, extra=""):
+        print(f"  {what}: max_abs_err {err:.3e}, worst {worst:.3f} of its "
+              f"limit{extra} {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            failed.append(what)
+
+    # K9/K10 at the LM head's vocabulary, 4 x 1024 rows.
+    n = 4 * LM["max_len"]
+    logits = (2 * torch.randn((n, VOCAB), generator=g, device=dev)).half()
+    labels = torch.randint(0, VOCAB, (n,), generator=g, device=dev)
+    gout = torch.full((n,), 1.0 / n, device=dev)
+    before = dict(xent_ops.launches)
+    loss = xent_ops.xent_fwd(logits, labels)
+    dl = xent_ops.xent_bwd(logits, labels, gout)
+    torch.cuda.synchronize()
+    err = max_err(loss, xent_ops.xent_fwd_ref(logits, labels))
+    report(f"xent_fwd (N={n}, C={VOCAB}) f16, limit 1e-4", err, err / 1e-4,
+           err <= 1e-4)
+    report(f"xent_bwd (N={n}, C={VOCAB}) f16, one f16 ulp",
+           *close_in_ulps(torch, dl, xent_ops.xent_bwd_ref(logits, labels,
+                                                           gout), torch.float16))
+    if {k: xent_ops.launches[k] - before[k] for k in before} != {
+            "xent_fwd": 1, "xent_bwd": 1}:
+        failed.append("xent f16 launches")
+    del logits, labels, gout, loss, dl
+
+    # K12 at a ResNet-50 shape and with N not a multiple of 8.
+    for m, k, nn in ((50176, 256, 1024), (3136, 64, 36)):
+        x = torch.randn((m, k), generator=g, device=dev).half()
+        w = (torch.randn((k, nn), generator=g, device=dev) / k ** 0.5).half()
+        conv_ops.reset_launch_counts()
+        got = conv_ops.conv1x1(x, w)
+        bound = 2 * k * 2.0 ** -24 * (x.float().abs() @ w.float().abs())
+        report(f"conv1x1 ({m}, {k}, {nn}) f16, one f16 ulp + 2K 2^-24 "
+               f"sum|x||w|", *close_in_ulps(torch, got,
+                                          conv_ops.conv1x1_ref(x, w),
+                                          torch.float16, bound),
+               f", routes {dict(conv_ops.route_launches)}")
+        if conv_ops.route_launches != {"conv1x1/cuda_core": 0,
+                                       "conv1x1/wgmma": 1}:
+            failed.append(f"conv1x1 f16 route {conv_ops.route_launches}")
+        del x, w, got, bound
+
+    # K13/K14 at a ResNet-50 shape and a ragged one (the per-element route).
+    for m, c in ((200704, 128), (100003, 3)):
+        x = (torch.randn((m, c), generator=g, device=dev) * 2 + 1).half()
+        dy = torch.randn((m, c), generator=g, device=dev).half()
+        shift = torch.randn((c,), generator=g, device=dev) * 0.5
+        mean = torch.randn((c,), generator=g, device=dev) * 0.5
+        inv = torch.rand((c,), generator=g, device=dev) + 0.5
+        bn_ops.reset_launch_counts()
+        stats = [bn_ops.bn_stats(x, shift) for _ in range(2)]
+        bwd = [bn_ops.bn_bwd_reduce(dy, x, mean, inv) for _ in range(2)]
+        xc = x.float() - shift
+        err, worst, ok = check_sums(stats[0], bn_ops.bn_stats_ref(x, shift),
+                                    torch.stack([xc.abs().sum(0),
+                                                 xc.square().sum(0)]))
+        dyf = dy.float()
+        b_err, b_worst, b_ok = check_sums(
+            bwd[0], bn_ops.bn_bwd_reduce_ref(dy, x, mean, inv),
+            torch.stack([dyf.abs().sum(0),
+                         (dyf * (x.float() - mean) * inv).abs().sum(0)]))
+        same = torch.equal(stats[0], stats[1]) and torch.equal(bwd[0], bwd[1])
+        report(f"bn ({m}, {c}) f16: bn_stats, then bn_bwd_reduce {b_err:.3e} "
+               f"worst {b_worst:.3f}; repeat calls "
+               f"{'bit-identical' if same else 'DIFFER'}", err,
+               max(worst, b_worst), ok and b_ok and same,
+               f", launches {dict(bn_ops.launches)}")
+        if dict(bn_ops.launches) != {"bn_stats": 2, "bn_bwd_reduce": 2}:
+            failed.append(f"bn f16 launches {dict(bn_ops.launches)}")
+        del x, dy, xc, dyf, stats, bwd
+    torch.cuda.empty_cache()
+
+    # A small f16 ResNet, 3 fit steps, every repaired kernel on its path.
+    batch = 32
+    x, y = resnet_batch(batch, size=32, classes=10, seed=3)
+    model = dtt.Model(dtt.models.resnet(
+        50, 10, small_inputs=True, stage_blocks=(1, 1, 1, 1), width=16,
+        dtype="float16"))
+    model.compile(optimizer=dtt.optim.SGD(0.01, momentum=0.9),
+                  loss="pallas_sparse_categorical_crossentropy",
+                  metrics=["accuracy"])
+    model.build((32, 32, 3), seed=3)
+    for ops in (xent_ops, conv_ops, bn_ops):
+        ops.reset_launch_counts()
+    hist = model.fit(x, y, batch_size=batch, epochs=3, steps_per_epoch=1,
+                     shuffle=False, verbose=0)
+    torch.cuda.synchronize()
+    launches = dict(xent_ops.launches, **conv_ops.launches, **bn_ops.launches)
+    losses = hist.history["loss"]
+    print(f"  resnet(50, 10, small_inputs, stage_blocks (1, 1, 1, 1), width "
+          f"16, float16), 32x32, batch {batch}, 3 steps: losses "
+          f"{[round(v, 5) for v in losses]}, launches {launches}")
+    if not all(np.isfinite(losses)):
+        failed.append(f"f16 ResNet losses {losses}")
+    if not all(launches.values()):
+        failed.append(f"f16 ResNet launched none of some kernel: {launches}")
+    if failed:
+        raise SystemExit(f"{failed}: the f16 checks failed")
+
+
 def main():
     import torch
 
@@ -1719,6 +1873,10 @@ def main():
     print("phase p: the launch probe (K15) vs x * 1.0001; the host's cost "
           "of a launch")
     rows.update(phase_launch_probe(torch, probe_ops, paged_ops))
+
+    print("phase q: float16 through K9/K10, K12 and K13/K14, and a small "
+          "f16 ResNet")
+    phase_f16(torch, dtt, xent_ops, conv_ops, bn_ops)
 
     kernels = [
         {"name": name, "route": "cuda",

@@ -22,7 +22,8 @@
 // (153 us at 3.35 TB/s), 26.3 GFLOP (27 us at 989 TFLOP/s).
 //
 // Two routes, by dtype (conv1x1_route in ops/conv1x1.py):
-// * "wgmma", bf16: conv1x1_wgmma_kernel, designed for Hopper. Its rows
+// * "wgmma", bf16 and f16: conv1x1_wgmma_kernel<T>, designed for Hopper
+//   (f16 takes the same tiles and wgmma's f16 form). Its rows
 //   are whole 16-byte chunks: K and N are multiples of 8 and the pointers
 //   16-byte aligned (every shape of ResNet-50; the wrapper zero-pads other
 //   shapes to that in a copy). A block owns a 128 x 128 output tile, two
@@ -36,7 +37,7 @@
 //   tails are zero-filled by the copies (src-size 0). Blocks are numbered
 //   with the N tiles fastest, so the blocks in flight at once share their
 //   X rows and X is read from device memory about once; W is small and
-//   stays in L2. The epilogue rounds the tile to bf16, stages it in shared
+//   stays in L2. The epilogue rounds the tile to T, stages it in shared
 //   memory and writes it with 16-byte vectors, masked at M and N. Two
 //   blocks an SM cap a thread at 128 registers, and ptxas spills at that
 //   cap: an 8-byte stack frame, 4 bytes of spill stores and 4 of loads.
@@ -56,7 +57,7 @@
 
 namespace {
 
-// ------------------------------------------------------------ bf16, wgmma
+// ------------------------------------------------------- bf16 and f16, wgmma
 constexpr int kStages = 3;
 constexpr int kGM = 128, kGN = 128, kGK = 64, kGThreads = 256;  // two warpgroups
 constexpr uint32_t kATile = kGM * kGK * 2, kStage = kATile + kGK * kGN * 2;
@@ -66,9 +67,10 @@ static_assert(kGM * kLdC * 2 <= kStages * kStage, "the output tile fits in the s
 constexpr int kGemmBlocks = 2;  // blocks an SM: 128 registers a thread
 static_assert(kGemmBlocks * (kGemmSmem + 1024) <= 232448, "two blocks fit in an SM");
 
+template <typename T>
 __global__ void __launch_bounds__(kGThreads, kGemmBlocks)
-    conv1x1_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                         __nv_bfloat16* __restrict__ out, int M, int K, int N, int tiles_n) {
+    conv1x1_wgmma_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out,
+                         int M, int K, int N, int tiles_n) {
   using namespace hopper;
   extern __shared__ unsigned char smem[];
   const uint32_t base = (smem_addr(smem) + 1023) & ~1023u;
@@ -104,7 +106,7 @@ __global__ void __launch_bounds__(kGThreads, kGemmBlocks)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kGK / 16; ++kk)
-      wgmma_ss<__nv_bfloat16, 1>(acc, kmajor_desc(st + wg * 64 * 128, kGM, kk),
+      wgmma_ss<T, 1>(acc, kmajor_desc(st + wg * 64 * 128, kGM, kk),
                                  mnmajor_desc(st + kATile, kGK, kk), 1);
     wgmma_commit();
     wgmma_wait_all();
@@ -113,16 +115,16 @@ __global__ void __launch_bounds__(kGThreads, kGemmBlocks)
   cp_async_wait<0>();
   __syncthreads();  // every warpgroup is done with the stages
 
-  // Epilogue: round to bf16 into shared memory (thread: rows r and r + 8,
+  // Epilogue: round to T into shared memory (thread: rows r and r + 8,
   // column pairs 8n + 2 quad), then 16-byte vectors to global memory.
-  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem + (base - smem_addr(smem)));
+  T* tile = reinterpret_cast<T*>(smem + (base - smem_addr(smem)));
   const int r = wg * 64 + (threadIdx.x / 32) % 4 * 16 + lane / 4;
 #pragma unroll
   for (int n = 0; n < kGN / 8; ++n)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
       *reinterpret_cast<uint32_t*>(tile + (r + 8 * h) * kLdC + 8 * n + 2 * quad) =
-          pack2<__nv_bfloat16>(acc[4 * n + 2 * h], acc[4 * n + 2 * h + 1]);
+          pack2<T>(acc[4 * n + 2 * h], acc[4 * n + 2 * h + 1]);
   __syncthreads();
 #pragma unroll
   for (int i = 0; i < kGM * kGN / 8 / kGThreads; ++i) {
@@ -187,32 +189,41 @@ __global__ void __launch_bounds__(kThreads)
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+template <typename T>
+cudaError_t launch_wgmma(const void* x, const void* w, void* out, int M, int K, int N,
+                         int tiles_n, unsigned blocks, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      conv1x1_wgmma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kGemmSmem);
+  if (err != cudaSuccess) return err;
+  conv1x1_wgmma_kernel<T><<<blocks, kGThreads, kGemmSmem, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out), M, K, N, tiles_n);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // out (M, N) = x (M, K) @ w (K, N), row-major and contiguous, in one
-// launch. dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the
-// wgmma kernel: K and N multiples of 8, 16-byte aligned pointers); x, w
-// and out share it. Returns the cudaError_t of the launch (0 =
+// launch. dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16, 2 =
+// float16 (the wgmma kernel: K and N multiples of 8, 16-byte aligned
+// pointers); x, w and out share it. Returns the cudaError_t of the launch (0 =
 // cudaSuccess).
 int dtt_conv1x1(int dtype, const void* x, const void* w, void* out, long long M, int K, int N,
                 void* stream) {
   if (M < 1 || K < 1 || N < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
+  if (dtype == 1 || dtype == 2) {
     if (K % 8 || N % 8 || !aligned16(x) || !aligned16(w) || !aligned16(out) ||
         M > 0x7fffffffLL - kGM)
       return (int)cudaErrorInvalidValue;
     const int tiles_n = (N + kGN - 1) / kGN;
     const long long blocks = ((M + kGM - 1) / kGM) * tiles_n;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(
-        conv1x1_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kGemmSmem);
-    if (err != cudaSuccess) return (int)err;
-    conv1x1_wgmma_kernel<<<(unsigned)blocks, kGThreads, kGemmSmem, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-        static_cast<__nv_bfloat16*>(out), (int)M, K, N, tiles_n);
+    return (int)(dtype == 1 ? launch_wgmma<__nv_bfloat16>(x, w, out, (int)M, K, N, tiles_n,
+                                                         (unsigned)blocks, st)
+                            : launch_wgmma<__half>(x, w, out, (int)M, K, N, tiles_n,
+                                                   (unsigned)blocks, st));
   } else if (dtype == 0) {
     const int tiles_n = (N + kFN - 1) / kFN;
     const long long blocks = ((M + kFM - 1) / kFM) * tiles_n;
@@ -226,7 +237,7 @@ int dtt_conv1x1(int dtype, const void* x, const void* w, void* out, long long M,
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory of a conv1x1_wgmma_kernel block.
+// Dynamic shared memory of a conv1x1_wgmma_kernel<T> block.
 int dtt_conv1x1_wgmma_smem() { return (int)kGemmSmem; }
 
 }  // extern "C"

@@ -3,6 +3,7 @@
 // Replaces the Pallas kernels of distributed_tpu/ops/pallas_kernels.py:
 //   _xent_fwd_kernel  (:35)  per-row logsumexp - picked logit, (N,) f32
 //   _xent_bwd_kernel  (:46)  (softmax - onehot) * g, in the logits' dtype
+// for logits in f32, bf16 or f16.
 //
 // What they compute (the plain PyTorch versions are xent_fwd_ref and
 // xent_bwd_ref in distributed_tpu_torch/ops/pallas_kernels.py), for row r
@@ -12,8 +13,9 @@
 //   forward:  loss[r] = (log(s) + m) - x[label]   (x[label] read as 0 for a
 //             label outside [0, C), which is not valid input)
 //   backward: dx[c] = (exp(x[c] - m) / s - (c == label)) * g[r], cast to
-//             the logits' dtype. The softmax is recomputed from the logits,
-//             never saved, and divided by s, as the TPU kernel does.
+//             the logits' dtype (rounded once, to nearest). The softmax is
+//             recomputed from the logits, never saved, and divided by s, as
+//             the TPU kernel does.
 //
 // What bounds them: bytes. Each logit is read, and in the backward each
 // dlogit written, for a handful of flops per element; at the LM head
@@ -28,6 +30,7 @@
 // row across blocks. Its time beside its bound is in PERF.md.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -42,11 +45,15 @@ template <> __device__ __forceinline__ float to_float<float>(float v) { return v
 template <> __device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+template <> __device__ __forceinline__ float to_float<__half>(__half v) { return __half2float(v); }
 
 template <typename T> __device__ __forceinline__ T from_float(float v);
 template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+template <> __device__ __forceinline__ __half from_float<__half>(float v) {
+  return __float2half_rn(v);
 }
 
 // Calls f(column, value) for every element of one row, in 16-byte vectors
@@ -172,7 +179,7 @@ cudaError_t launch_bwd(const void* logits, const void* labels, const void* g, vo
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (the logits and dlogits). labels are
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (the logits and dlogits). labels are
 // int64, loss and g float32. vec = 1 when every row starts on a 16-byte
 // boundary and C fills whole 16-byte vectors. Returns the cudaError_t of
 // the launch (0 = cudaSuccess).
@@ -182,6 +189,7 @@ int dtt_xent_fwd(int dtype, const void* logits, const void* labels, void* loss, 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch_fwd<float>(logits, labels, loss, N, C, vec, st);
   if (dtype == 1) return (int)launch_fwd<__nv_bfloat16>(logits, labels, loss, N, C, vec, st);
+  if (dtype == 2) return (int)launch_fwd<__half>(logits, labels, loss, N, C, vec, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -192,6 +200,7 @@ int dtt_xent_bwd(int dtype, const void* logits, const void* labels, const void* 
   if (dtype == 0) return (int)launch_bwd<float>(logits, labels, g, dlogits, N, C, vec, st);
   if (dtype == 1)
     return (int)launch_bwd<__nv_bfloat16>(logits, labels, g, dlogits, N, C, vec, st);
+  if (dtype == 2) return (int)launch_bwd<__half>(logits, labels, g, dlogits, N, C, vec, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -23,7 +23,11 @@ the host's cost of a launch (the launch probe K15 measures it):
 - a launcher with many arguments takes them as one struct of 64-bit
   fields (:func:`packed`), packed by ``struct`` in one call and handed to
   ``ctypes`` as one pointer, instead of one converted argument each (K15,
-  K1/K2).
+  K1/K2, K13/K14);
+- a kernel that merges its blocks' partial sums in one launch keeps its
+  arrival counters and partials in a :func:`workspace` per (device,
+  stream), and plans its grid from the card's :func:`sm_count` (K1/K2,
+  K13/K14).
 """
 
 from __future__ import annotations
@@ -125,10 +129,9 @@ def build(*names: str):
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-#: The ``dtype`` argument of every launcher: 0 = float32, 1 = bfloat16;
-#: the flash and paged-attention launchers also take 2 = float16.
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-FLOAT_CODES = {**DTYPE_CODES, torch.float16: 2}
+#: The ``dtype`` argument of the launchers: 0 = float32, 1 = bfloat16,
+#: 2 = float16.
+FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def packed(n: int) -> struct.Struct:
@@ -181,6 +184,36 @@ class Library:
         if value is None:
             value = self._constants[fn] = int(getattr(self.get(), fn)())
         return value
+
+
+_SMS = {}  # device index -> SM count
+
+
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``, read once a
+    process."""
+    n = _SMS.get(index)
+    if n is None:
+        n = _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return n
+
+
+def workspace(cache, dev, st, n_counters: int, n_floats: int):
+    """``(counters, partials)`` for a kernel's launches on stream ``st`` of
+    ``dev``: int32 arrival counters, which the kernel leaves at zero, and
+    f32 partials. Kept in ``cache`` (one entry per device and stream, so
+    launches on two streams never share counters) between calls, and
+    grown when a call needs more."""
+    ws = cache.get((dev.index, st))
+    if ws is None or ws[0].numel() < n_counters or ws[1].numel() < n_floats:
+        have = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
+        ws = cache[(dev.index, st)] = (
+            torch.zeros(max(n_counters, have[0]), dtype=torch.int32,
+                        device=dev),
+            torch.empty(max(n_floats, have[1]), dtype=torch.float32,
+                        device=dev))
+    return ws
 
 
 def check_launch(rc: int, what: str) -> None:
@@ -244,7 +277,7 @@ def dispatch(x, cuda_fn, plain_fn, what: str):
 
 
 __all__ = [
-    "BUILD_DIR", "CSRC", "DTYPE_CODES", "FLOAT_CODES", "Library", "NVCC_FLAGS", "build",
+    "BUILD_DIR", "CSRC", "FLOAT_CODES", "Library", "NVCC_FLAGS", "build",
     "build_key", "check_launch", "dispatch", "packed", "raw_stream", "require",
-    "source", "stream",
+    "sm_count", "source", "stream", "workspace",
 ]

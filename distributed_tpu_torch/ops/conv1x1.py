@@ -4,14 +4,14 @@ A 1x1 convolution over NHWC activations is one matrix product: the
 activation's (N*H*W, Cin) rows times the (Cin, Cout) kernel. The JAX
 package's ``examples/pallas_conv1x1.py`` wrote that product as a Pallas
 kernel, ``_mm_kernel``; the port's ``nn.Conv2D`` routes every 1x1 kernel
-here, and ``csrc/conv1x1.cu`` replaces it: bf16 on the tensor cores, f32 on
-the CUDA cores (no TF32), the products summed in f32 and rounded once to
-the input dtype, as ``_mm_kernel`` does (``preferred_element_type=f32``
-then ``.astype``). :func:`conv1x1_route` picks the kernel from the dtype
-before the launch: bf16 goes to the Hopper kernel (``wgmma``, ``cp.async``
-ring), whose rows are whole 16-byte chunks, so a K or N that is not a
-multiple of 8 (no ResNet-50 shape) is zero-padded in a copy; f32 goes to
-the CUDA-core kernel.
+here, and ``csrc/conv1x1.cu`` replaces it: bf16 and f16 on the tensor
+cores, f32 on the CUDA cores (no TF32), the products summed in f32 and
+rounded once to the input dtype, as ``_mm_kernel`` does
+(``preferred_element_type=f32`` then ``.astype``). :func:`conv1x1_route`
+picks the kernel from the dtype before the launch: bf16 and f16 go to the
+Hopper kernel (``wgmma``, ``cp.async`` ring), whose rows are whole 16-byte
+chunks, so a K or N that is not a multiple of 8 (no ResNet-50 shape) is
+zero-padded in a copy; f32 goes to the CUDA-core kernel.
 
 :func:`conv1x1_apply` is differentiable. Its backward computes dX = dY @
 W^T through the same kernel (a block of rows times a small matrix, the
@@ -48,16 +48,16 @@ def reset_launch_counts() -> None:
 
 def conv1x1_route(dtype, k: int, n: int):
     """``(route, k, n)``: the kernel for an ``(M, k) @ (k, n)`` product of
-    ``dtype`` and the widths it is launched at. bf16 takes ``"wgmma"``
-    with ``k`` and ``n`` rounded up to multiples of 8 (rows of whole
-    16-byte chunks; the zero columns and rows of the padded copy add
+    ``dtype`` and the widths it is launched at. bf16 and f16 take
+    ``"wgmma"`` with ``k`` and ``n`` rounded up to multiples of 8 (rows of
+    whole 16-byte chunks; the zero columns and rows of the padded copy add
     nothing to any sum); float32 takes ``"cuda_core"`` at ``k`` and
     ``n``."""
     if dtype == torch.float32:
         return "cuda_core", k, n
-    if dtype != torch.bfloat16:
+    if dtype not in (torch.bfloat16, torch.float16):
         raise ValueError(f"conv1x1: dtype {dtype} not supported "
-                         "(float32, bfloat16)")
+                         "(float32, bfloat16, float16)")
     return "wgmma", round_up(k, 8), round_up(n, 8)
 
 
@@ -89,9 +89,6 @@ def wgmma_smem_bytes() -> int:
 
 
 def _conv1x1_cuda(x2d, w):
-    if x2d.dtype not in _build.DTYPE_CODES:
-        raise ValueError(f"conv1x1: dtype {x2d.dtype} not supported "
-                         "(float32, bfloat16)")
     _build.require(x2d, "x2d", x2d.device, ndim=2)
     _build.require(w, "w", x2d.device, x2d.dtype, 2)
     m, k = x2d.shape
@@ -99,14 +96,14 @@ def _conv1x1_cuda(x2d, w):
         raise ValueError(f"conv1x1: x2d is {tuple(x2d.shape)}, w "
                          f"{tuple(w.shape)}")
     n = w.shape[1]
+    route, k_run, n_run = conv1x1_route(x2d.dtype, k, n)
     if m == 0 or n == 0:
         return torch.empty((m, n), dtype=x2d.dtype, device=x2d.device)
-    route, k_run, n_run = conv1x1_route(x2d.dtype, k, n)
     if route == "wgmma":
         x2d, w = padded(x2d, m, k_run), padded(w, k_run, n_run)
     out = torch.empty((m, n_run), dtype=x2d.dtype, device=x2d.device)
     rc = _LIB.get().dtt_conv1x1(
-        _build.DTYPE_CODES[x2d.dtype], x2d.data_ptr(), w.data_ptr(),
+        _build.FLOAT_CODES[x2d.dtype], x2d.data_ptr(), w.data_ptr(),
         out.data_ptr(), m, k_run, n_run, _build.stream(x2d.device))
     _build.check_launch(rc, "conv1x1")
     launches["conv1x1"] += 1

@@ -141,32 +141,14 @@ _LIB = _build.Library("paged_attention", {
     "dtt_paged_attention_max_kw": [],
     "dtt_paged_attention_max_hd": [],
 })
-_SMS = {}        # device index -> SM count
 _WORKSPACE = {}  # (device index, stream) -> (counters, partials)
-
-
-def _sm_count(index):
-    n = _SMS.get(index)
-    if n is None:
-        n = _SMS[index] = torch.cuda.get_device_properties(
-            index).multi_processor_count
-    return n
+_sm_count = _build.sm_count
 
 
 def _workspace(dev, st, n_counters, n_floats):
-    """The merge's scratch for launches on stream ``st``: int32 arrival
-    counters, which the kernel leaves at zero, and f32 partials. Kept
-    between calls (one per stream, so launches on two streams never share
-    counters) and grown when a call needs more."""
-    ws = _WORKSPACE.get((dev.index, st))
-    if ws is None or ws[0].numel() < n_counters or ws[1].numel() < n_floats:
-        have = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
-        ws = _WORKSPACE[(dev.index, st)] = (
-            torch.zeros(max(n_counters, have[0]), dtype=torch.int32,
-                        device=dev),
-            torch.empty(max(n_floats, have[1]), dtype=torch.float32,
-                        device=dev))
-    return ws
+    """The merge's scratch for launches on stream ``st``
+    (:func:`_build.workspace`)."""
+    return _build.workspace(_WORKSPACE, dev, st, n_counters, n_floats)
 
 
 def _paged_attention_cuda(q, k_pool, v_pool, block_tables, positions):

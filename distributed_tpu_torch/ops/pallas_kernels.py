@@ -12,7 +12,9 @@ logits instead of saving it.
 Dispatch is by the device of the tensors, with no fallback: CUDA tensors
 launch the kernels (a failed build or launch raises), CPU tensors run
 :func:`xent_fwd_ref` / :func:`xent_bwd_ref`, the plain versions of the
-same arithmetic. ``launches`` counts each kernel's launches.
+same arithmetic. Logits may be f32, bf16 or f16, as the JAX package's
+kernels take them; the losses are f32 and the dlogits take the logits'
+dtype. ``launches`` counts each kernel's launches.
 
 Above ``MAX_FUSED_CLASSES`` classes the registry-level losses use the
 stock loss, with a one-time warning, exactly as the JAX package does: its
@@ -89,9 +91,9 @@ _LIB = _build.Library("xent", {
 def _prepare(logits, labels):
     """Checks shared by both launches; labels as contiguous int64 and the
     kernels' 16-byte-vector flag."""
-    if logits.dtype not in _build.DTYPE_CODES:
+    if logits.dtype not in _build.FLOAT_CODES:
         raise ValueError(f"fused_softmax_xent: dtype {logits.dtype} not "
-                         "supported (float32, bfloat16)")
+                         "supported (float32, bfloat16, float16)")
     _build.require(logits, "logits", logits.device, ndim=2)
     n, c = logits.shape
     labels = labels.reshape(-1).to(torch.int64).contiguous()
@@ -107,7 +109,7 @@ def _xent_fwd_cuda(logits, labels):
     labels, n, c, vec = _prepare(logits, labels)
     loss = torch.empty((n,), dtype=torch.float32, device=logits.device)
     rc = lib.dtt_xent_fwd(
-        _build.DTYPE_CODES[logits.dtype], logits.data_ptr(), labels.data_ptr(),
+        _build.FLOAT_CODES[logits.dtype], logits.data_ptr(), labels.data_ptr(),
         loss.data_ptr(), n, c, vec, _build.stream(logits.device))
     _build.check_launch(rc, "xent_fwd")
     launches["xent_fwd"] += 1
@@ -121,7 +123,7 @@ def _xent_bwd_cuda(logits, labels, g):
     _build.require(g, "g", logits.device, torch.float32, 1)
     dlogits = torch.empty_like(logits)
     rc = lib.dtt_xent_bwd(
-        _build.DTYPE_CODES[logits.dtype], logits.data_ptr(), labels.data_ptr(),
+        _build.FLOAT_CODES[logits.dtype], logits.data_ptr(), labels.data_ptr(),
         g.data_ptr(), dlogits.data_ptr(), n, c, vec,
         _build.stream(logits.device))
     _build.check_launch(rc, "xent_bwd")

@@ -44,8 +44,7 @@ GROUPS = (
     ("fused Adam (port)", ("fused_adam_kernel",)),
     ("1x1-conv GEMM K12 (port)", ("conv1x1_wgmma_kernel",
                                   "conv1x1_f32_kernel")),
-    ("BatchNorm reductions K13/K14 (port)", ("bn_partial_kernel",
-                                             "bn_finalize_kernel")),
+    ("BatchNorm reductions K13/K14 (port)", ("bn_reduce_kernel",)),
     ("layout copies (NCHW<->NHWC, contiguous)", (
         "nchwToNhwc", "nhwcToNchw", "direct_copy", "CatArrayBatchedCopy")),
     ("convolution (cuDNN)", ("conv", "Conv", "wgrad", "dgrad", "implicit")),

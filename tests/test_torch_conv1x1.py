@@ -242,5 +242,9 @@ def test_conv1x1_zero_padding_is_exact(m, k, n):
 
 
 def test_conv1x1_route_refuses_other_dtypes():
+    """float16 takes the wgmma route as bf16 does (the reference's
+    ``_mm_kernel`` takes any float dtype); float64, which the JAX package
+    does not run, is refused."""
+    assert conv_ops.conv1x1_route(torch.float16, 64, 36) == ("wgmma", 64, 40)
     with pytest.raises(ValueError, match="dtype"):
-        conv_ops.conv1x1_route(torch.float16, 64, 64)
+        conv_ops.conv1x1_route(torch.float64, 64, 64)

@@ -13,13 +13,14 @@ bf16 flash gradients atol 2e-3 + rtol 2e-2; f16 the bf16 limits scaled by
 the ratio of the two types' ulps (2^-10 / 2^-7) and doubled: outputs 5e-3,
 gradients atol 5e-4 + rtol 5e-3; flash dQ and dK/dV the same bits on a
 second run (no atomics); the cross-entropy: 1e-5 on
-the f32 losses, one bf16 ulp of each entry on bf16 gradients. The fused
+the f32 losses, one ulp of each entry on bf16 and f16 gradients. The fused
 Adam kernel: bit for bit (both sides round every operation once, in the
 same order). The 1x1-convolution GEMM (K12): f32 within 2e-5 relative of
-the sum of |x||w| (sums in another order); bf16 within one ulp of each
-entry plus that bound, and the same bits on a second run. BatchNorm's reductions (K13/K14): rtol 1e-5 plus
-1e-5 times the sum of the terms' magnitudes, and the same bits on a second
-call (fixed order, no atomics). The launch probe (K15): bit for bit.
+the sum of |x||w| (sums in another order); bf16 and f16 within one ulp
+of each entry plus that bound, and the same bits on a second run.
+BatchNorm's reductions (K13/K14): rtol 1e-5 plus 1e-5 times the sum of the
+terms' magnitudes, and the same bits on a second call (fixed order, no
+atomics). The launch probe (K15): bit for bit.
 Paged decode also gives the same bits on a second call (its chunks merge
 in a fixed order).
 """
@@ -198,8 +199,17 @@ def test_kernels_launch_on_the_callers_stream(cuda_device):
 
 
 # ----------------------------------------------- fused softmax cross-entropy
+def _ulp(want, dtype):
+    """One ulp of each entry of ``want`` in ``dtype`` (bf16: 2^-7 of its
+    binade; f16: 2^-10, and 2^-24 below the normal range)."""
+    bits = 7 if dtype == torch.bfloat16 else 10
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - bits)
+    return ulp.clamp_min(2.0 ** -24) if dtype == torch.float16 else ulp
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("n,c", [(37, 300), (64, 4096)])
 def test_xent_kernels_match_plain(cuda_device, dtype, n, c):
     g = torch.Generator(device=cuda_device).manual_seed(3)
@@ -219,9 +229,8 @@ def test_xent_kernels_match_plain(cuda_device, dtype, n, c):
     assert dl.dtype == dtype
     if dtype == torch.float32:
         torch.testing.assert_close(dl, want, atol=1e-6, rtol=0)
-    else:  # every entry within one bf16 ulp of its own value
-        ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
-        assert bool(((dl.float() - want).abs() <= ulp).all())
+    else:  # every entry within one ulp of its own value
+        assert bool(((dl.float() - want).abs() <= _ulp(want, dtype)).all())
 
 
 # ---------------------------------------------------------- flash attention
@@ -469,7 +478,8 @@ def test_fused_adam_kernel_matches_plain_bit_for_bit(cuda_device, wd, sizes,
 
 # ------------------------------------------------- 1x1 convolution GEMM (K12)
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("m,k,n", [(3136, 64, 256), (1000, 256, 64),
                                    (77, 24, 40), (130, 2048, 512)])
 def test_conv1x1_kernel_matches_plain(cuda_device, dtype, m, k, n):
@@ -487,17 +497,18 @@ def test_conv1x1_kernel_matches_plain(cuda_device, dtype, m, k, n):
     if dtype == torch.float32:
         assert bool((diff <= 2e-5 * bound + 1e-30).all())
     else:
-        ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
-        assert bool((diff <= ulp + 2 * k * 2.0 ** -24 * bound + 1e-30).all())
+        limit = _ulp(want, dtype) + 2 * k * 2.0 ** -24 * bound + 1e-30
+        assert bool((diff <= limit).all())
 
 
 def _close_to_plain_bf16(got, x, w):
-    """Each entry within one bf16 ulp of the plain version's plus the f32
-    sums' rounding bound 2 K 2^-24 sum|x||w| (phase m's limit)."""
+    """Each entry within one ulp (of x's 16-bit type) of the plain
+    version's plus the f32 sums' rounding bound 2 K 2^-24 sum|x||w| (phase
+    m's limit)."""
     want = conv_ops.conv1x1_ref(x, w).float()
     bound = x.float().abs() @ w.float().abs()
-    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30))) - 7)
-    limit = ulp + 2 * x.shape[1] * 2.0 ** -24 * bound + 1e-30
+    limit = (_ulp(want, x.dtype) + 2 * x.shape[1] * 2.0 ** -24 * bound
+             + 1e-30)
     return bool(((got.float() - want).abs() <= limit).all())
 
 
@@ -528,6 +539,26 @@ def test_conv1x1_routes_match_plain_and_repeat_bit_for_bit(cuda_device, m, k,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(3136, 64, 256), (3136, 64, 36),
+                                   (1000, 36, 64)])
+def test_conv1x1_f16_takes_the_wgmma_route_and_repeats(cuda_device, m, k, n):
+    """f16 at a ResNet-50 shape and with N or K not a multiple of 8 (the
+    wrapper's zero-padded copy), through the same wgmma kernel as bf16."""
+    g = torch.Generator(device=cuda_device).manual_seed(k * n)
+    x = torch.randn((m, k), generator=g, device=cuda_device).half()
+    w = (torch.randn((k, n), generator=g, device=cuda_device) / k ** 0.5).half()
+    before = dict(conv_ops.route_launches)
+    first = conv_ops.conv1x1(x, w)
+    second = conv_ops.conv1x1(x, w)
+    torch.cuda.synchronize()
+    grown = {r: c - before[r] for r, c in conv_ops.route_launches.items()}
+    assert grown == {r: 2 * (r == "conv1x1/wgmma") for r in grown}
+    assert first.dtype == torch.float16 and first.shape == (m, n)
+    assert _close_to_plain_bf16(first, x, w)
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
+@pytest.mark.cuda
 def test_conv1x1_autograd_matches_plain(cuda_device):
     """dX through K12 and dW through torch.matmul against the plain
     product's autograd, f32, TF32 off."""
@@ -550,17 +581,34 @@ def _close_sums(got, want, terms):
     assert bool(((got - want).abs() <= 1e-5 * want.abs() + atol + 1e-30).all())
 
 
+def _bn_inputs(dev, m, c, dtype, seed, offset=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn((m * c + offset,), generator=g, device=dev) * 2 + 1).to(
+        dtype)[offset:].view(m, c)
+    dy = torch.randn((m, c), generator=g, device=dev).to(dtype)
+    shift = torch.randn((c,), generator=g, device=dev) * 0.5
+    mean = torch.randn((c,), generator=g, device=dev) * 0.5
+    inv = torch.rand((c,), generator=g, device=dev) + 0.5
+    return x, dy, shift, mean, inv
+
+
+def _check_bn(stats, bwd, x, dy, shift, mean, inv):
+    xc = x.float() - shift
+    want = bn_ops.bn_stats_ref(x, shift)
+    _close_sums(stats[0], want[0], xc)
+    _close_sums(stats[1], want[1], xc * xc)
+    want = bn_ops.bn_bwd_reduce_ref(dy, x, mean, inv)
+    _close_sums(bwd[0], want[0], dy.float())
+    _close_sums(bwd[1], want[1], dy.float() * (x.float() - mean) * inv)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("m,c", [(50176, 64), (4099, 96), (777, 2048),
                                  (1000, 3)])
 def test_bn_reduce_kernels_match_plain(cuda_device, dtype, m, c):
-    g = torch.Generator(device=cuda_device).manual_seed(c)
-    x = (torch.randn((m, c), generator=g, device=cuda_device) * 2 + 1).to(dtype)
-    dy = torch.randn((m, c), generator=g, device=cuda_device).to(dtype)
-    shift = torch.randn((c,), generator=g, device=cuda_device) * 0.5
-    mean = torch.randn((c,), generator=g, device=cuda_device) * 0.5
-    inv = torch.rand((c,), generator=g, device=cuda_device) + 0.5
+    x, dy, shift, mean, inv = _bn_inputs(cuda_device, m, c, dtype, seed=c)
     before = dict(bn_ops.launches)
     stats = bn_ops.bn_stats(x, shift)
     again = bn_ops.bn_stats(x, shift)
@@ -571,13 +619,82 @@ def test_bn_reduce_kernels_match_plain(cuda_device, dtype, m, c):
     assert (bn_ops.launches["bn_bwd_reduce"]
             == before["bn_bwd_reduce"] + per_call)
     assert torch.equal(stats, again)
-    xc = x.float() - shift
-    want = bn_ops.bn_stats_ref(x, shift)
-    _close_sums(stats[0], want[0], xc)
-    _close_sums(stats[1], want[1], xc * xc)
-    want = bn_ops.bn_bwd_reduce_ref(dy, x, mean, inv)
-    _close_sums(bwd[0], want[0], dy.float())
-    _close_sums(bwd[1], want[1], dy.float() * (x.float() - mean) * inv)
+    _check_bn(stats, bwd, x, dy, shift, mean, inv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c,dtype,offset", [
+    (100003, 3, torch.bfloat16, 0),      # ragged M (prime), C = 3
+    (4099, 64, torch.bfloat16, 1),       # x off a 16-byte boundary
+    (12547, 96, torch.float16, 0),       # f16, ragged M
+    (50176, 256, torch.float16, 0),      # f16 at a ResNet-50 shape
+    (3211264, 64, torch.bfloat16, 0),    # ResNet-50's largest BatchNorm
+])
+def test_bn_reduce_one_launch_same_bits_every_route(cuda_device, m, c, dtype,
+                                                    offset):
+    """One launch a call, the same bits on a second call, and the plain
+    versions' sums, on the per-element route (C = 3, an input one element
+    past a 16-byte boundary: chosen before the launch, not an error) and on
+    the 16-byte route."""
+    x, dy, shift, mean, inv = _bn_inputs(cuda_device, m, c, dtype, seed=m,
+                                         offset=offset)
+    before = dict(bn_ops.launches)
+    stats = [bn_ops.bn_stats(x, shift) for _ in range(2)]
+    bwd = [bn_ops.bn_bwd_reduce(dy, x, mean, inv) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert bn_ops.launches["bn_stats"] == before["bn_stats"] + 2
+    assert bn_ops.launches["bn_bwd_reduce"] == before["bn_bwd_reduce"] + 2
+    assert torch.equal(stats[0], stats[1]) and torch.equal(bwd[0], bwd[1])
+    _check_bn(stats[0], bwd[0], x, dy, shift, mean, inv)
+
+
+@pytest.mark.cuda
+def test_bn_reduce_launches_on_the_callers_stream(cuda_device):
+    """Inside ``torch.cuda.stream(s)`` K13 and K14 run on ``s``: they see
+    what ``s`` wrote just before them, after a ~50 ms spin the default
+    stream does not wait for."""
+    x, dy, shift, mean, inv = _bn_inputs(cuda_device, 50176, 256,
+                                         torch.bfloat16, seed=8)
+    x_new, dy_new = torch.randn_like(x), torch.randn_like(dy)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(cuda_device)
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(100_000_000)
+        x.copy_(x_new)
+        dy.copy_(dy_new)
+        stats = bn_ops.bn_stats(x, shift)
+        bwd = bn_ops.bn_bwd_reduce(dy, x, mean, inv)
+    torch.cuda.synchronize()
+    _check_bn(stats, bwd, x_new, dy_new, shift, mean, inv)
+
+
+@pytest.mark.cuda
+def test_bn_reduce_streams_in_turn_never_share_counters(cuda_device):
+    """Calls on two streams in turn, with no wait between them: each
+    stream has its own counters and partials, every result is its plain
+    version's, and the counters are back at zero."""
+    shapes = [(200704, 128), (12544, 512), (802816, 64)]
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    cases = [_bn_inputs(cuda_device, m, c, torch.bfloat16, seed=i)
+             for i, (m, c) in enumerate(shapes)]
+    torch.cuda.synchronize()
+    results = []
+    for r in range(3):
+        for j, st in enumerate(streams):
+            case = cases[(r + j) % len(cases)]
+            with torch.cuda.stream(st):
+                x, dy, shift, mean, inv = case
+                results.append((case, bn_ops.bn_stats(x, shift),
+                                bn_ops.bn_bwd_reduce(dy, x, mean, inv)))
+    torch.cuda.synchronize()
+    for case, stats, bwd in results:
+        _check_bn(stats, bwd, *case)
+    keys = [(cuda_device.index or 0, st.cuda_stream) for st in streams]
+    ws = [bn_ops._WORKSPACE[k] for k in keys]
+    assert ws[0][0].data_ptr() != ws[1][0].data_ptr()
+    assert ws[0][1].data_ptr() != ws[1][1].data_ptr()
+    for counters, _ in ws:
+        assert not counters.any()
 
 
 # ------------------------------------------------------ launch probe (K15)
