@@ -146,8 +146,26 @@ q. float16, which the reference takes wherever these kernels run: K9/K10
    (phase o's, ``dtype="float16"``, the pallas loss) through 3 ``fit``
    steps: finite losses, and every one of K9, K10, K12, K13 and K14
    launched (counts zeroed just before, read just after).
+r. Checkpoints, resumed mid-``fit`` under a world-1 ``DataParallel``
+   (NCCL): ResNet-50 as phase n configures it, and a 2-layer bf16 LM (d
+   128, 2 heads, flash, the pallas loss, ``fused_adamw``; batch 8 x 256).
+   Each: run A fits 4 steps with ``ModelCheckpoint(save_freq=2,
+   async_save=True)`` and copies params, state and optimizer state to the
+   host right after the save; two uninterrupted runs, the first with a
+   synchronous save at step 2; run B, a fresh model with
+   ``ModelCheckpoint(restore=True)``, resumes at step 2 and runs steps 3-4
+   (counts zeroed just before, read just after) from a directory holding
+   A's step-2 file, as a run that died before its step-4 save would leave
+   it. The async file, B's
+   restored tensors and A's step-2 copy must be bit-identical, B's step-3
+   loss A's bit for bit, B's step-4 loss within the uninterrupted runs'
+   spread (at least 4 f32 ulps), and K12, K13 and K14 (ResNet-50) and
+   K3-K5, K9-K11 (the LM) launched in B's steps. npz only (no ``h5py``
+   on the card's machine). Printed: the save's blocking time in the loop,
+   sync and async, the restore time and the file size.
 Then the kernel table as one JSON line (each row also names the CUDA
-kernel of the main path, ``kernel``), the card's name and power limit, and
+kernel of the main path, ``kernel``, and carries its launches in phase r's
+resumed steps, ``launches_resumed``), the card's name and power limit, and
 ``{"ok": true, "device": {...}}`` as the last line.
 """
 
@@ -1726,6 +1744,186 @@ def phase_f16(torch, dtt, xent_ops, conv_ops, bn_ops):
         raise SystemExit(f"{failed}: the f16 checks failed")
 
 
+# ------------------------------------------------------------------ phase r
+def host_state(dtt, model):
+    """``{path: numpy}`` of a model's params, state and optimizer state,
+    copied to the host now, under the checkpoint's own paths."""
+    from distributed_tpu_torch.checkpoint import core as ckpt
+    return ckpt.flatten_tree({
+        "params": model.params, "state": model.state,
+        "opt_state": dtt.interop.opt_state_to_tree(
+            model.tx, model.opt_state, model.params)})
+
+
+def differing(a, b):
+    """The paths where two ``{path: array}`` differ in presence, dtype,
+    shape or any bit."""
+    return sorted(p for p in set(a) | set(b)
+                  if p not in a or p not in b or a[p].dtype != b[p].dtype
+                  or a[p].shape != b[p].shape
+                  or a[p].tobytes() != b[p].tobytes())
+
+
+def resume_run(torch, dtt, tag, make, x, y, batch, kernel_mods, tmp):
+    """Run A fits 4 steps (one per epoch) with an async ``ModelCheckpoint``
+    every 2 steps and a host copy right after the step-2 save; two
+    uninterrupted runs (the first with a synchronous save at step 2) give
+    the spread of step 4; run B, a fresh model, restores through
+    ``ModelCheckpoint(restore=True)`` from a directory that holds A's
+    step-2 file (as a run that died before its step-4 save would leave)
+    and runs steps 3-4 with the launch counts zeroed just before and read
+    just after. Returns B's launches; raises on any disagreement."""
+    from distributed_tpu_torch.checkpoint import core as ckpt
+    cb = dtt.callbacks
+    fit = dict(batch_size=batch, epochs=4, steps_per_epoch=1, shuffle=False,
+               seed=0, verbose=0)
+    times, copies = {}, {}
+
+    def stall(key):
+        """Callbacks around a save at step 2: host time to return, and to
+        the end of the device work it queued."""
+        def before(m, step, logs):
+            if step == 2:
+                torch.cuda.synchronize()
+                times[key] = [time.perf_counter()]
+
+        def after(m, step, logs):
+            if step == 2:
+                times[key].append(time.perf_counter())
+                torch.cuda.synchronize()
+                times[key].append(time.perf_counter())
+        return (cb.LambdaCallback(on_batch_end=before),
+                cb.LambdaCallback(on_batch_end=after))
+
+    def losses_of(model, callbacks):
+        out = model.fit(x, y, callbacks=callbacks, **fit).history["loss"]
+        torch.cuda.synchronize()
+        del model
+        torch.cuda.empty_cache()
+        return out
+
+    pre, post = stall("sync")
+    u1 = losses_of(make(), [pre, cb.ModelCheckpoint(tmp / "sync", save_freq=2),
+                            post])
+    u2 = losses_of(make(), [])
+    pre, post = stall("async")
+    snap = cb.LambdaCallback(on_batch_end=lambda m, s, logs: s == 2 and (
+        copies.setdefault("A step 2", host_state(dtt, m))))
+    a = losses_of(make(), [pre, cb.ModelCheckpoint(
+        tmp / "async", save_freq=2, async_save=True), post, snap])
+    copies["async file"], meta = ckpt._load_flat(tmp / "async" / "ckpt-2.npz")
+    (tmp / "died").mkdir()
+    shutil.copy(tmp / "async" / "ckpt-2.npz", tmp / "died")
+
+    def restore_begin(m):
+        torch.cuda.synchronize()
+        times["restore"] = time.perf_counter()
+
+    def restore_end(m):
+        torch.cuda.synchronize()
+        times["restore"] = time.perf_counter() - times["restore"]
+        copies["B restored"] = host_state(dtt, m)
+
+    for mod in kernel_mods:
+        mod.reset_launch_counts()
+    model_b = make()
+    b = model_b.fit(x, y, callbacks=[
+        cb.LambdaCallback(on_train_begin=restore_begin),
+        cb.ModelCheckpoint(tmp / "died", save_freq=100, restore=True),
+        cb.LambdaCallback(on_train_begin=restore_end)], **fit).history["loss"]
+    torch.cuda.synchronize()
+    launches = {}
+    for mod in kernel_mods:
+        launches.update(mod.launches)
+    step_b = model_b.step
+    del model_b
+    torch.cuda.empty_cache()
+
+    size = (tmp / "async" / "ckpt-2.npz").stat().st_size
+    n_leaves = len(copies["async file"])
+    print(f"  {tag}: checkpoint {size / 1e6:.1f} MB, {n_leaves} leaves, "
+          f"meta {meta}; save at step 2, blocking the train loop: sync "
+          f"{times['sync'][1] - times['sync'][0]:.4f} s; async "
+          f"{times['async'][1] - times['async'][0]:.4f} s on the host, "
+          f"{times['async'][2] - times['async'][0]:.4f} s to its device "
+          f"copies' end; restore (load, checks, copies to the card) "
+          f"{times['restore']:.4f} s | {card_line()}")
+    bad = {f"{p} vs {q}": differing(copies[p], copies[q])
+           for p, q in (("async file", "A step 2"),
+                        ("B restored", "A step 2"))}
+    print(f"  async file, B's restored tensors, A's step-2 copy: "
+          + ", ".join(f"{k} {'bit-identical' if not v else f'DIFFER at {v[:3]}'}"
+                      for k, v in bad.items()))
+    ulp = float(np.spacing(np.float32(a[3])))
+    runs = [u1[3], u2[3], a[3]]
+    spread = max(max(runs) - min(runs), 4 * ulp)
+    lo, hi = min(runs) - spread, max(runs) + spread
+    print(f"  losses: A {a}, B {b} (resumed at step {step_b - len(b)}); "
+          f"uninterrupted step 4 {u1[3]!r}, {u2[3]!r}; B step 3 "
+          f"{'bit-identical' if b[0] == a[2] else 'DIFFERS'}; B step 4 "
+          f"{b[1]!r} in [{lo!r}, {hi!r}] (the runs' spread, at least 4 "
+          f"ulps of f32)")
+    print(f"  launches in B's 2 steps {launches}")
+    failed = [k for k, v in bad.items() if v]
+    if step_b != 4 or len(b) != 2:
+        failed.append(f"B ran to step {step_b} in {len(b)} epochs")
+    if b[0] != a[2]:
+        failed.append(f"B's step-3 loss {b[0]!r} != A's {a[2]!r}")
+    if not lo <= b[1] <= hi:
+        failed.append(f"B's step-4 loss {b[1]!r} outside [{lo!r}, {hi!r}]")
+    if not all(np.isfinite(a + b + u1 + u2)):
+        failed.append("losses not finite")
+    if not launches or not all(launches.values()):
+        failed.append(f"a kernel was not launched in B's steps: {launches}")
+    if failed:
+        raise SystemExit(f"{tag}: {failed}")
+    return launches
+
+
+def phase_resume(torch, dtt, conv_ops, bn_ops, lm_mods):
+    import tempfile
+    from pathlib import Path
+    strategy = dtt.DataParallel()
+    root = Path(tempfile.mkdtemp(prefix="dtt-resume-"))
+    try:
+        x, y = resnet_batch(RESNET_BATCH)
+
+        def resnet50():
+            with strategy.scope():
+                m = dtt.Model(dtt.models.resnet(50, 1000, dtype="bfloat16"))
+                m.compile(optimizer=dtt.optim.SGD(0.1, momentum=0.9),
+                          loss="sparse_categorical_crossentropy",
+                          metrics=["accuracy"])
+            return m.build((224, 224, 3), seed=0)
+
+        launches = resume_run(
+            torch, dtt, f"ResNet-50 bf16, batch {RESNET_BATCH}", resnet50, x,
+            y, RESNET_BATCH, (conv_ops, bn_ops), root / "resnet")
+        del x, y
+        t_len, lm_batch_rows = 256, 8
+        x, y = lm_batch(lm_batch_rows, t_len, seed=2)
+
+        def small_lm():
+            with strategy.scope():
+                m = dtt.Model(dtt.models.transformer_lm(
+                    VOCAB, num_layers=2, d_model=128, num_heads=2,
+                    max_len=t_len, dtype="bfloat16", flash=True))
+                m.compile(optimizer=dtt.optim.fused_adamw(
+                              1e-3, weight_decay=0.01),
+                          loss="pallas_sparse_categorical_crossentropy",
+                          metrics=["accuracy"])
+            return m.build((t_len,), seed=0)
+
+        launches.update(resume_run(
+            torch, dtt, f"LM 2 layers d 128 bf16, fused_adamw, batch "
+            f"{lm_batch_rows} x {t_len}", small_lm, x, y, lm_batch_rows,
+            lm_mods, root / "lm"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        dtt.cluster.shutdown()
+    return launches
+
+
 def main():
     import torch
 
@@ -1878,6 +2076,12 @@ def main():
           "f16 ResNet")
     phase_f16(torch, dtt, xent_ops, conv_ops, bn_ops)
 
+    print("phase r: checkpoints: ResNet-50 and a small LM resumed mid-fit "
+          "under DataParallel (NCCL, world 1)")
+    for name, n in phase_resume(torch, dtt, conv_ops, bn_ops,
+                                (xent_ops, flash_ops, adam_ops)).items():
+        rows[name]["launches_resumed"] = n
+
     kernels = [
         {"name": name, "route": "cuda",
          "kernel": KERNELS[name],
@@ -1885,7 +2089,8 @@ def main():
          "replaces": REPLACES[name], "launches": r["launches"],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
+         "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+         "launches_resumed": r.get("launches_resumed")}
         for name, r in rows.items()
     ]
     print(json.dumps({"kernels": kernels}))

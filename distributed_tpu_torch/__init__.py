@@ -27,21 +27,30 @@ Ported so far:
   ``python -m distributed_tpu_torch.launch`` starts the workers), with
   the optimizers ``SGD`` (momentum), ``AdamW`` and ``fused_adam``/
   ``fused_adamw``, whose update is the fused Adam kernel
-  (``csrc/fused_adam.cu``).
+  (``csrc/fused_adam.cu``);
+- ResNet with sync-BN (``csrc/conv1x1.cu``, ``csrc/bn_reduce.cu``);
+- checkpoints and model retrieval: ``Checkpointer``, ``export_hdf5``/
+  ``import_hdf5`` and ``checkpoint.artifact_encode``/``artifact_decode``
+  (files either package reads), ``Model.save_weights``/``load_weights``/
+  ``predict``, and ``fit``'s ``callbacks`` (``ModelCheckpoint`` resumes a
+  run that died) and ``validation_data``.
 """
 
 from . import (
-    cluster, data, interop, launch, models, nn, ops, optim, parallel,
-    precision, quant, serving, utils,
+    checkpoint, cluster, data, interop, launch, models, nn, ops, optim,
+    parallel, precision, quant, serving, utils,
 )
+from .checkpoint import Checkpointer, export_hdf5, import_hdf5
 from .device import resolve_device
 from .parallel import DataParallel, MultiWorkerMirroredStrategy, SingleDevice
+from .training import callbacks
 from .training.history import History
 from .training.model import Model
 
 __all__ = [
-    "DataParallel", "History", "Model", "MultiWorkerMirroredStrategy",
-    "SingleDevice", "cluster", "data", "interop", "launch", "models", "nn",
-    "ops", "optim", "parallel", "precision", "quant", "resolve_device",
-    "serving", "utils",
+    "Checkpointer", "DataParallel", "History", "Model",
+    "MultiWorkerMirroredStrategy", "SingleDevice", "callbacks", "checkpoint",
+    "cluster", "data", "export_hdf5", "import_hdf5", "interop", "launch",
+    "models", "nn", "ops", "optim", "parallel", "precision", "quant",
+    "resolve_device", "serving", "utils",
 ]

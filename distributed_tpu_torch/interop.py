@@ -9,14 +9,39 @@ come back as numpy under the same paths (``params_to_numpy``); the state
 ``state_to_numpy``). The path rules are those
 of the JAX package's ``checkpoint/core.py``: sorted dict keys, ``#i`` for
 tuple and list entries, joined by ``/``.
+
+The optimizer state goes under optax's paths (``opt_state_to_tree``,
+``opt_state_from_tree``): the JAX package keeps it as
+``inject_hyperparams``' state, ``(count, hyperparams, {}, inner)``, and a
+JAX restore grafts the leaves of a file onto its own template by count,
+so the port writes exactly the leaves optax has, with their dtypes:
+
+==================  ======================================================
+optimizer           flat paths (``<p>``: a parameter's path)
+==================  ======================================================
+``SGD`` (momentum)  ``#0`` int32, ``#1/learning_rate``, ``#1/momentum``,
+                    ``#3/#0/#0/<p>`` (trace)
+``SGD``             ``#0``, ``#1/learning_rate``
+``Adam``/``AdamW``  ``#0``, ``#1/{b1,b2,eps,eps_root,learning_rate[,
+                    weight_decay]}``, ``#3/#0/#0`` int32 (count),
+                    ``#3/#0/#1/<p>`` (mu), ``#3/#0/#2/<p>`` (nu)
+``fused_adam[w]``   ``#0``, ``#1/{b1,b2,eps,learning_rate,weight_decay}``,
+                    ``#3/#0`` int32, ``#3/#1/<p>`` (mu), ``#3/#2/<p>`` (nu)
+==================  ======================================================
+
+Hyperparameters optax holds and the port does not (Adam's ``eps_root``,
+``fused_adam``'s ``weight_decay``) are written as 0, and a file where they
+are not 0 is refused.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
+
+from . import optim
 
 SEP = "/"
 
@@ -73,7 +98,125 @@ def state_to_numpy(state) -> Dict[str, np.ndarray]:
     return params_to_numpy(state)
 
 
+_FORMAT_ERROR = (
+    "Checkpoint optimizer state has {got} leaves but this model's optimizer "
+    "expects {want}. The optimizer-state FORMAT changed (named optimizers "
+    "carry injected hyperparameters since round 4; gradient accumulation "
+    "adds a MultiSteps accumulator) — or compile() used a different "
+    "optimizer than the checkpointing run. To keep the weights, load "
+    "params/state only (Model.load_weights on an exported file) and let "
+    "the optimizer state reinitialize."
+)
+
+
+def _slots(tx) -> Dict[str, str]:
+    """``{slot of the port's state: its optax path prefix}``."""
+    if isinstance(tx, optim.SGD):
+        return {"trace": "#3/#0/#0"} if "momentum" in tx.hyperparams else {}
+    if isinstance(tx, optim.Adam):
+        base = "#3" if tx.fused else "#3/#0"
+        return {"count": f"{base}/#0", "mu": f"{base}/#1",
+                "nu": f"{base}/#2"}
+    raise ValueError(f"no optax layout for the optimizer {tx!r}")
+
+
+def _fixed_hyperparams(tx) -> List[str]:
+    """The hyperparameters optax holds and the port keeps at 0."""
+    if isinstance(tx, optim.Adam):
+        if not tx.fused:
+            return ["eps_root"]
+        if "weight_decay" not in tx.hyperparams:
+            return ["weight_decay"]
+    return []
+
+
+def _expected_paths(tx, params) -> List[str]:
+    paths = ["#0"] + [f"#1{SEP}{k}" for k in
+                      list(tx.hyperparams) + _fixed_hyperparams(tx)]
+    for slot, prefix in _slots(tx).items():
+        if slot == "count":
+            paths.append(prefix)
+        else:
+            paths += [f"{prefix}{SEP}{p}" for p in params]
+    return paths
+
+
+def _scalar(a):
+    """A 0-d leaf (numpy, or a tensor on any device) as a Python number."""
+    return a.item() if isinstance(a, torch.Tensor) else np.asarray(a).item()
+
+
+def opt_state_to_tree(tx, opt_state: Dict, params: Dict[str, torch.Tensor]):
+    """The port's optimizer state (``Model.opt_state`` of ``tx``, slots as
+    lists in the order of ``params``, ``Model.params``) as optax's tree:
+    ``(count, hyperparams, {}, inner)`` with the moments keyed by
+    parameter path. The moments are the state's own tensors (no copy);
+    the counts are int32 and the hyperparameters f32 numpy scalars."""
+    hp = {k: v.numpy() for k, v in opt_state["hyperparams"].items()}
+    hp.update({k: np.float32(0.0) for k in _fixed_hyperparams(tx)})
+    by_path = {s: dict(zip(params, opt_state[s])) for s in _slots(tx)
+               if s != "count"}
+    if "trace" in by_path:
+        inner = ((by_path["trace"],),)
+    elif "mu" in by_path:
+        adam = (np.int32(opt_state["count"]), by_path["mu"], by_path["nu"])
+        inner = adam if tx.fused else (adam,)
+    else:
+        inner = ()
+    return (np.int32(opt_state["inject_count"]), hp, {}, inner)
+
+
+def opt_state_from_tree(tx, tree, params: Dict[str, torch.Tensor]) -> Dict:
+    """The port's optimizer state for ``tx`` from optax's tree (as
+    ``opt_state_to_tree`` writes it, or the flat ``{path: leaf}`` of a
+    checkpoint of either package: any nesting whose leaf paths are
+    optax's, with the gaps in its tuple numbers), the moments copied to f32 on
+    the parameters' devices and matched to them by path. Raises the JAX
+    package's format error when the leaf count differs, and ValueError
+    for other paths, a moment of another shape or a fixed
+    hyperparameter that is not 0. The state is built aside, so nothing
+    changes on an error."""
+    flat = dict(iter_leaf_paths(tree))
+    want = _expected_paths(tx, params)
+    if len(flat) != len(want):
+        raise ValueError(_FORMAT_ERROR.format(got=len(flat), want=len(want)))
+    if set(flat) != set(want):
+        raise ValueError(
+            "optimizer-state paths differ: missing "
+            f"{sorted(set(want) - set(flat))}, unexpected "
+            f"{sorted(set(flat) - set(want))}")
+    for k in _fixed_hyperparams(tx):
+        value = _scalar(flat[f"#1{SEP}{k}"])
+        if value != 0.0:
+            raise ValueError(
+                f"optimizer hyperparameter {k}={value}: the port's "
+                f"{type(tx).__name__} runs with {k} 0")
+    slots = _slots(tx)
+    moments = {s: prefix for s, prefix in slots.items() if s != "count"}
+    for prefix in moments.values():
+        for path, p in params.items():
+            a = flat[f"{prefix}{SEP}{path}"]
+            if tuple(a.shape) != tuple(p.shape):
+                raise ValueError(
+                    f"{prefix}{SEP}{path}: shape {tuple(a.shape)} != the "
+                    f"parameter's {tuple(p.shape)}")
+    state = {
+        "inject_count": int(_scalar(flat["#0"])),
+        "hyperparams": {k: torch.tensor(_scalar(flat[f"#1{SEP}{k}"]),
+                                        dtype=torch.float32)
+                        for k in tx.hyperparams},
+    }
+    if "count" in slots:
+        state["count"] = int(_scalar(flat[slots["count"]]))
+    for slot, prefix in moments.items():
+        state[slot] = [torch.as_tensor(flat[f"{prefix}{SEP}{path}"]).to(
+                           p.device, torch.float32, copy=True)
+                       for path, p in params.items()]
+    return state
+
+
 __all__ = [
-    "SEP", "flatten_tree", "iter_leaf_paths", "params_from_jax",
-    "params_to_numpy", "state_from_jax", "state_to_numpy",
+    "SEP", "flatten_tree", "iter_leaf_paths", "opt_state_from_tree",
+    "opt_state_to_tree", "params_from_jax", "params_to_numpy",
+    "state_from_jax", "state_to_numpy",
 ]

@@ -5,10 +5,12 @@ The JAX package builds its named optimizers through
 optimizer STATE as f32 scalars and ``Model.set_learning_rate`` can change
 the learning rate between steps. The port keeps that contract: ``init``
 returns a state dict whose ``"hyperparams"`` hold the values (rounded to
-f32, as optax holds them), ``set_hyperparam``/``get_hyperparam`` read and
-write them, and ``update`` applies one step IN PLACE to the parameters
+f32, as optax holds them) and whose ``"inject_count"`` counts the updates
+(the wrapper's own step count), ``set_hyperparam``/``get_hyperparam`` read
+and write them, and ``update`` applies one step IN PLACE to the parameters
 and the moments (optax returns new trees; in place keeps one copy of the
-state in device memory).
+state in device memory). ``interop.opt_state_to_tree`` writes the state
+under optax's tree paths, so a checkpoint carries it to the JAX package.
 
 Adam is optax's ``scale_by_adam`` followed by ``scale(-learning_rate)``
 and ``apply_updates``: ``mu = (1-b1)*g + b1*mu``, ``nu = (1-b2)*g*g +
@@ -43,7 +45,8 @@ class _Optimizer:
         self.hyperparams = hyperparams
 
     def init(self, params: List[torch.Tensor]) -> Dict:
-        state = {"hyperparams": {k: _f32(v) for k, v in
+        state = {"inject_count": 0,
+                 "hyperparams": {k: _f32(v) for k, v in
                                  self.hyperparams.items()}}
         state.update(self._init_slots(params))
         return state
@@ -55,6 +58,10 @@ class _Optimizer:
     def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
                state: Dict) -> None:
         """One step: ``params`` and the state's slots change in place."""
+        state["inject_count"] += 1
+        self._apply(params, grads, state)
+
+    def _apply(self, params, grads, state) -> None:
         raise NotImplementedError
 
 
@@ -80,8 +87,7 @@ class SGD(_Optimizer):
             return {}
         return {"trace": [torch.zeros_like(p, dtype=_F32) for p in params]}
 
-    @torch.no_grad()
-    def update(self, params, grads, state):
+    def _apply(self, params, grads, state):
         hp = state["hyperparams"]
         step = (-hp["learning_rate"]).item()
         if "momentum" not in hp:
@@ -134,8 +140,7 @@ class Adam(_Optimizer):
             bc1=(one - b1 ** count).item(), bc2=(one - b2 ** count).item(),
         )
 
-    @torch.no_grad()
-    def update(self, params, grads, state):
+    def _apply(self, params, grads, state):
         step = (fused_update.adam_update if self.fused
                 else fused_update.adam_update_ref)
         step(params, grads, state["mu"], state["nu"], self._scalars(state))

@@ -27,6 +27,14 @@ in JAX. PyTorch runs eagerly, so there is no jit and no donation; the
 per-step loss and metric sums stay on the device and are fetched once per
 epoch, as the JAX loop does. The ``compile``/``fit`` options of the JAX
 package that are not ported raise ``NotImplementedError``.
+
+``fit`` calls its callbacks (``training.callbacks``) at the JAX package's
+hook points and honours its crash-restart contract: after a restoring
+``ModelCheckpoint``, ``epochs`` is the total, and the epochs and steps
+already done are skipped. With no callbacks a step does what it did
+without them: no host sync and no device work is added.
+``save_weights``/``load_weights`` write and read the JAX package's HDF5
+and npz weight files (``checkpoint``), and ``predict`` gives the logits.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import numpy as np
 import torch
 
 from .. import optim
+from ..checkpoint import core as ckpt
 from ..device import resolve_device
 from ..interop import SEP
 from ..ops import losses as losses_lib
@@ -101,9 +110,13 @@ class Model:
         self.device = strategy.device
         self.built = False
         self.compiled = False
+        self.input_shape: Optional[tuple] = None
         self.step = 0  # global optimizer step (the batch-order cursor)
         self.tx = None
         self.opt_state = None
+        self.stop_training = False  # callbacks (EarlyStopping) set this
+        self._resumed_step = None  # set by a restoring Checkpointer
+        self._seed = 0
         self._decode_dtype = None
 
     def build(self, input_shape: Sequence[int], seed: int = 0):
@@ -112,6 +125,7 @@ class Model:
         weights on every device), and move them to ``self.device``."""
         generator = torch.Generator().manual_seed(int(seed))
         self.input_shape = tuple(int(d) for d in input_shape)
+        self._seed = int(seed)
         self.module.build(self.input_shape, generator)
         self.module.to(self.device)
         self.module.eval()
@@ -156,20 +170,25 @@ class Model:
         }
 
     @staticmethod
-    def _copy_into(own, new, what):
+    def _check_tree(own, new, what):
+        """Raise ValueError unless ``new`` has exactly ``own``'s paths, each
+        of its shape."""
         if set(own) != set(new):
             raise ValueError(
                 f"{what} paths differ: missing {sorted(set(own) - set(new))}, "
                 f"unexpected {sorted(set(new) - set(own))}"
             )
+        for path, t in own.items():
+            shape = tuple(new[path].shape)
+            if shape != tuple(t.shape):
+                raise ValueError(f"{path}: shape {shape} != {tuple(t.shape)}")
+
+    @classmethod
+    def _copy_into(cls, own, new, what):
+        cls._check_tree(own, new, what)
         with torch.no_grad():
             for path, t in own.items():
-                src = torch.as_tensor(new[path])
-                if tuple(src.shape) != tuple(t.shape):
-                    raise ValueError(
-                        f"{path}: shape {tuple(src.shape)} != {tuple(t.shape)}"
-                    )
-                t.copy_(src)
+                t.copy_(torch.as_tensor(new[path]))
 
     def load_params(self, params: Dict[str, torch.Tensor]) -> None:
         """Copy ``{tree path: tensor}`` (e.g. ``interop.params_from_jax``)
@@ -283,6 +302,7 @@ class Model:
         epochs: int = 1,
         steps_per_epoch: Optional[int] = None,
         validation_data=None,
+        validation_steps: Optional[int] = None,
         shuffle: bool = True,
         verbose: int = 1,
         initial_epoch: int = 0,
@@ -294,17 +314,35 @@ class Model:
         (the global batch: under ``DataParallel`` each rank takes its
         share, and it must divide evenly), ``steps_per_epoch`` steps per
         epoch (default ``len(x) // batch_size``), batches drawn in the JAX
-        package's order (``shuffle``, ``seed``). Returns a ``History`` of
-        per-epoch means.
-        Batch iterators, validation, callbacks and ``grad_accum`` are not
-        ported yet and raise."""
+        package's order (``shuffle``, ``seed``), continuing from
+        ``model.step``. Returns a ``History`` of per-epoch means.
+
+        ``callbacks`` (``training.callbacks``) are called as in the JAX
+        package: ``on_train_begin`` (before the batch order is set, so a
+        restoring ``ModelCheckpoint`` moves it), then per epoch
+        ``on_epoch_begin``, ``on_batch_end(model, step, {"loss": device
+        scalar})`` after each step (the global batch's loss: under
+        ``DataParallel`` the ranks' losses are averaged for it, one
+        all-reduce a step when there are callbacks) and
+        ``on_epoch_end(model, epoch, logs)``, and ``on_train_end(model,
+        history)``; a callback that sets ``model.stop_training`` ends the
+        run after the step or epoch.
+        After a restore (``model._resumed_step``) with ``initial_epoch``
+        0, ``epochs`` is the total: the finished epochs are skipped and
+        the interrupted one runs its remaining steps.
+        ``validation_data=(x, y)`` is evaluated after each epoch and
+        logged as ``val_<name>``. A batch iterator (as ``x`` or as
+        ``validation_data``; ``validation_steps`` goes with it) and
+        ``grad_accum`` are not ported yet and raise."""
         if not self.compiled:
             raise RuntimeError("Call compile() before fit()")
         if y is None:
             raise NotImplementedError(
                 "fit(x) from a batch iterator: not yet ported")
-        _unported("fit", validation_data=validation_data,
-                  callbacks=callbacks, grad_accum=grad_accum)
+        if hasattr(validation_data, "__next__"):
+            raise NotImplementedError(
+                "fit(validation_data=<batch iterator>): not yet ported")
+        _unported("fit", grad_accum=grad_accum)
         x = np.asarray(x)
         y = np.asarray(y)
         if not self.built:
@@ -315,60 +353,100 @@ class Model:
         if steps_per_epoch is None:
             steps_per_epoch = n // batch_size
         self.strategy.local_batch_size(batch_size)  # replica divisibility
+        history = History()
+        callbacks = list(callbacks)
+        self.stop_training = False
+        self._resumed_step = None
+        for cb in callbacks:
+            cb.on_train_begin(self)
+        # After on_train_begin: a restoring ModelCheckpoint may have moved
+        # self.step, and the batch order continues from it.
         stream = _index_stream(n, batch_size, shuffle, seed,
                                start_step=self.step)
-        history = History()
+        resume_offset = 0
+        if self._resumed_step is not None and initial_epoch == 0:
+            initial_epoch, resume_offset = divmod(self._resumed_step,
+                                                  steps_per_epoch)
+        self._resumed_step = None
         self.module.train()
         try:
             self._fit_epochs(x, y, batch_size, epochs, steps_per_epoch,
-                             verbose, initial_epoch, stream, history)
+                             verbose, initial_epoch, resume_offset, stream,
+                             history, callbacks, validation_data)
         finally:
             self.module.eval()
+        for cb in callbacks:
+            cb.on_train_end(self, history)
         return history
 
     def _fit_epochs(self, x, y, batch_size, epochs, steps_per_epoch, verbose,
-                    initial_epoch, stream, history):
+                    initial_epoch, resume_offset, stream, history, callbacks,
+                    validation_data):
         for epoch in range(initial_epoch, epochs):
             t0 = time.perf_counter()
+            for cb in callbacks:
+                cb.on_epoch_begin(self, epoch)
             losses = []
             msums: Dict[str, list] = {name: [] for name, _ in self.metric_fns}
+            epoch_steps = steps_per_epoch - resume_offset
+            resume_offset = 0
             bar = None
             if verbose == 1:
-                bar = ProgressLine(steps_per_epoch,
+                bar = ProgressLine(epoch_steps,
                                    prefix=f"Epoch {epoch + 1}/{epochs}: ")
-            for done in range(1, steps_per_epoch + 1):
+            reps = self.strategy.num_replicas_in_sync
+            done = 0
+            while done < epoch_steps:
                 idx = next(stream)
                 loss, mvals = self._train_step(self.strategy.put_batch(x[idx]),
                                                self.strategy.put_batch(y[idx]))
                 self.step += 1
+                done += 1
                 losses.append(loss)
                 for name, _ in self.metric_fns:
                     msums[name].append(mvals[name])
+                if callbacks:
+                    # The global batch's loss on every rank, as in JAX.
+                    logs = {"loss": loss if reps == 1 else
+                            self.strategy.all_reduce_sum(loss.clone()) / reps}
+                    for cb in callbacks:
+                        cb.on_batch_end(self, self.step, logs)
                 if bar is not None:
                     bar.update(done)
+                if self.stop_training:
+                    break
             if bar is not None:
                 bar.close()
             # One host sync per epoch: every loss and metric sum at once,
             # summed over the replicas (each loss is its rank's mean, so the
             # losses are divided by their number; each rank scores as many
             # elements, so the counts are multiplied by it).
-            reps = self.strategy.num_replicas_in_sync
             vec = self.strategy.all_reduce_sum(torch.cat(
                 [torch.stack(losses).to(torch.float32)]
                 + [torch.stack([p[0] for p in pairs]).to(torch.float32)
                    for pairs in msums.values()])).cpu().numpy()
-            logs = {"loss": float(np.mean(vec[:steps_per_epoch] / reps))}
+            logs = {"loss": float(np.mean(vec[:done] / reps))}
             for i, (name, pairs) in enumerate(msums.items()):
-                s = vec[(i + 1) * steps_per_epoch:(i + 2) * steps_per_epoch]
+                s = vec[(i + 1) * done:(i + 2) * done]
                 c = np.float32(sum(float(p[1]) for p in pairs) * reps)
                 logs[name] = float(np.float32(s.sum()) / max(c, 1.0))
+            if validation_data is not None:
+                val = self.evaluate(validation_data[0], validation_data[1],
+                                    batch_size=batch_size, verbose=0)
+                logs.update({f"val_{k}": v for k, v in val.items()})
             dt = time.perf_counter() - t0
             history.record(epoch, logs)
+            for cb in callbacks:
+                cb.on_epoch_end(self, epoch, logs)
+            if self.stop_training:
+                epochs = epoch + 1  # for the epoch counter printed below
             if verbose:
                 parts = " - ".join(f"{k}: {v:.4f}" for k, v in logs.items())
                 print(f"Epoch {epoch + 1}/{epochs} - "
-                      f"{batch_size * steps_per_epoch} samples - {dt:.2f}s "
-                      f"({dt / steps_per_epoch * 1000:.1f}ms/step) - {parts}")
+                      f"{batch_size * done} samples - {dt:.2f}s "
+                      f"({dt / done * 1000:.1f}ms/step) - {parts}")
+            if self.stop_training:
+                break
 
     # --------------------------------------------------------------- evaluate
     def evaluate(self, x, y=None, batch_size: int = 32, verbose: int = 1,
@@ -379,7 +457,9 @@ class Model:
         (PyTorch needs no static shapes), which the JAX package's masked
         padding computes the same. Under ``DataParallel`` each rank scores
         its rows of every batch (``batch_size`` must divide evenly) and the
-        sums are reduced across the ranks at the end."""
+        sums are reduced across the ranks at the end. The module runs in
+        eval mode and is left in the mode it was in (``fit`` validates
+        between its epochs)."""
         if y is None:
             raise NotImplementedError(
                 "evaluate(x) from a batch iterator: not yet ported")
@@ -393,35 +473,39 @@ class Model:
         per_ex = losses_lib.get_per_example(self.loss_fn)
         sums, counts = [], []  # per batch: [loss, metric...]; sums on device
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        was_training = self.module.training
         self.module.eval()
-        with torch.inference_mode():
-            for start in range(0, n, batch_size):
-                rows = slice(min(start + lo, n), min(start + hi, n))
-                if rows.start == rows.stop:  # a partial batch ends before us
-                    sums.append([zero] * (1 + len(self.metric_fns)))
-                    counts.append([0.0] * (1 + len(self.metric_fns)))
-                    continue
-                xb = self._to_device(x[rows])
-                yb = self._to_device(y[rows])
-                logits = self.module(xb)
-                valid = float(yb.numel())
-                if per_ex is not None:
-                    loss_sum = per_ex(logits, yb).sum()
-                else:
-                    loss_sum = self.loss_fn(logits, yb) * valid
-                row_sums, row_counts = [loss_sum], [valid]
-                for name, fn in self.metric_fns:
-                    scores = metrics_lib.per_example(fn)
-                    if scores is not None:
-                        sc = scores(logits, yb)
-                        row_sums.append(sc.sum())
-                        row_counts.append(float(sc.numel()))
+        try:
+            with torch.inference_mode():
+                for start in range(0, n, batch_size):
+                    rows = slice(min(start + lo, n), min(start + hi, n))
+                    if rows.start == rows.stop:  # the batch ends before us
+                        sums.append([zero] * (1 + len(self.metric_fns)))
+                        counts.append([0.0] * (1 + len(self.metric_fns)))
+                        continue
+                    xb = self._to_device(x[rows])
+                    yb = self._to_device(y[rows])
+                    logits = self.module(xb)
+                    valid = float(yb.numel())
+                    if per_ex is not None:
+                        loss_sum = per_ex(logits, yb).sum()
                     else:
-                        msum, mcount = fn(logits, yb)
-                        row_sums.append(msum)
-                        row_counts.append(float(mcount))
-                sums.append([v.to(torch.float32) for v in row_sums])
-                counts.append(row_counts)
+                        loss_sum = self.loss_fn(logits, yb) * valid
+                    row_sums, row_counts = [loss_sum], [valid]
+                    for name, fn in self.metric_fns:
+                        scores = metrics_lib.per_example(fn)
+                        if scores is not None:
+                            sc = scores(logits, yb)
+                            row_sums.append(sc.sum())
+                            row_counts.append(float(sc.numel()))
+                        else:
+                            msum, mcount = fn(logits, yb)
+                            row_sums.append(msum)
+                            row_counts.append(float(mcount))
+                    sums.append([v.to(torch.float32) for v in row_sums])
+                    counts.append(row_counts)
+        finally:
+            self.module.train(was_training)
         k = 1 + len(self.metric_fns)
         vec = self.strategy.all_reduce_sum(torch.cat([
             torch.stack([v for row in sums for v in row]).to(torch.float64),
@@ -437,6 +521,85 @@ class Model:
             parts = " - ".join(f"{k}: {v:.4f}" for k, v in out.items())
             print(f"Evaluate - {x.shape[0]} samples - {parts}")
         return out
+
+
+    # ---------------------------------------------------------------- predict
+    def predict(self, x, batch_size: int = 32,
+                steps: Optional[int] = None) -> np.ndarray:
+        """The logits of every row of the host array ``x``, as f32 numpy,
+        ``batch_size`` rows per forward pass in eval mode (the last batch
+        partial). Under ``DataParallel`` every rank computes all rows, so
+        each returns the whole result, as in the JAX package. Up to 16
+        batches of logits stay on the device before they are fetched. A
+        batch iterator (and ``steps``, which goes with it) is not ported
+        yet and raises."""
+        self._require_built()
+        if hasattr(x, "__next__"):
+            raise NotImplementedError(
+                "predict(<batch iterator>): not yet ported")
+        _unported("predict", steps=steps)
+        x = np.asarray(x)
+        self.strategy.local_batch_size(batch_size)
+        fetched, pending = [], []
+        was_training = self.module.training
+        self.module.eval()
+        try:
+            with torch.inference_mode():
+                for start in range(0, x.shape[0], batch_size):
+                    xb = self._to_device(x[start:start + batch_size])
+                    pending.append(self.module(xb).to(torch.float32))
+                    if len(pending) >= 16:
+                        fetched.append(pending.pop(0).cpu().numpy())
+                fetched += [o.cpu().numpy() for o in pending]
+        finally:
+            self.module.train(was_training)
+        return np.concatenate(fetched, axis=0)
+
+    # ---------------------------------------------------------------- weights
+    def save_weights(self, path):
+        """Write the parameters and the state (BatchNorm's running
+        statistics) as ``{"params", "state"}`` to an HDF5 file, or npz when
+        ``path`` ends in ``.npz``: the JAX package's ``save_weights``
+        files. Chief-only; ``checkpoint.Checkpointer`` keeps training
+        checkpoints."""
+        self._require_built()
+        tree = {"params": self.params, "state": self.state}
+        path = str(path)
+        if path.endswith(".npz"):
+            return ckpt.save_npz(path, tree)
+        return ckpt.export_hdf5(path, tree)
+
+    def load_weights(self, path):
+        """Load a ``save_weights`` file of either package (HDF5, or npz by
+        its suffix), or a bare parameter tree (``export_hdf5(path,
+        params)``; the state is left as it is then). Paths and shapes are
+        checked before anything is copied. A compiled model's optimizer
+        state starts afresh, as in the JAX package."""
+        if not self.built:
+            raise RuntimeError(
+                "Build the model first (model.build(input_shape)) so the "
+                "loaded weights have parameters to go into")
+        path = str(path)
+        if path.endswith(".npz"):
+            tree, _ = ckpt.load_npz(path)
+        else:
+            tree, _ = ckpt.import_hdf5(path)
+        if "params" in tree and set(tree) <= {"params", "state"}:
+            # A stateless model's empty state leaves no entry in the file.
+            params, state = tree["params"], tree.get("state")
+        else:
+            params, state = tree, None
+        params = ckpt.flatten_tree(params)
+        self._check_tree(self.params, params, "parameter")
+        if state is not None:
+            state = ckpt.flatten_tree(state)
+            self._check_tree(self.state, state, "state")
+        self.load_params(params)
+        if state is not None:
+            self.load_state(state)
+        if self.compiled:
+            self.opt_state = self.tx.init(self._param_list())
+        return self
 
 
 __all__ = ["Model"]

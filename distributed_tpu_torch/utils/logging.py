@@ -1,7 +1,7 @@
 """Chief-aware logging with a rank stamp.
 
 From the JAX package's ``utils/logging.py``, cut to what the port's
-bootstrap uses: a standard ``logging`` logger whose stderr
+bootstrap and checkpoints use: a standard ``logging`` logger whose stderr
 lines carry `` r<i>/<n>`` in a gang of processes (nothing for a single
 process). The rank comes from a live ``torch.distributed`` group, else the
 DTPU_CONFIG/TF_CONFIG cluster spec, else (0, 1).
@@ -60,4 +60,8 @@ def info(msg: str):
     _logger.info(msg)
 
 
-__all__ = ["info", "rank_world"]
+def warning(msg: str):
+    _logger.warning(msg)
+
+
+__all__ = ["info", "rank_world", "warning"]
