@@ -17,12 +17,15 @@ a. Build every kernel source in ``distributed_tpu_torch/csrc`` with
    toolkit has it; none exits).
 b. Paged attention: each kernel against its plain PyTorch version on the
    card, at the serving shapes (S=8 slots, H=12 heads, hd=64, block 16, 64
-   table entries), f32/bf16 and int8 pools, kw 1 and 4, mixed positions
-   with trash-table slots, and a full server (8 slots at position 1,023,
-   each on its own table) in f32, bf16 and int8; max abs error against the
-   stated tolerance. At both shapes, bf16 kw 1: per-launch time (CUDA
-   events, pools rotated past the 50 MB L2) beside the plain version's
-   time and the bound, with the share of the bound. Then every head
+   table entries), f32/bf16 and int8 pools, kw 1 and 4, and (a
+   speculative verify's query rows, past the kernel's row group of 8)
+   bf16 and int8 at kw 8 and 12, mixed positions with trash-table slots,
+   and a full server (8 slots at position 1,023, each on its own table)
+   in f32, bf16 and int8; max abs error against the stated tolerance. At
+   both shapes, bf16 kw 1: per-launch time (CUDA events, pools rotated
+   past the 50 MB L2) beside the plain version's time and the bound, with
+   the share of the bound; at the mixed positions also kw 4 and 12 (one
+   launch each). Then every head
    width class: hd 8, 24 and 256 (in place, no copy of the pools; 8 and 24
    read element by element from int8 pools), bf16, f16 and int8 pools,
    each against its plain version.
@@ -163,10 +166,32 @@ r. Checkpoints, resumed mid-``fit`` under a world-1 ``DataParallel``
    K3-K5, K9-K11 (the LM) launched in B's steps. npz only (no ``h5py``
    on the card's machine). Printed: the save's blocking time in the loop,
    sync and async, the restore time and the file size.
+s. Speculative serving and weight hot-swap through ``Engine``.
+   (s1) Phase c's GPT-2-small (bf16 layers, seed 0) and a truncated-depth
+   draft (its first 6 blocks plus the embedding, positional table, final
+   norm and head, copied by layer name, as ``bench.py``'s serving bench
+   builds it), ``Engine(max_slots=8, block_size=16, max_len=1024,
+   decode_kernel="fused", draft_model=draft, spec_k=4)`` serving phase
+   c's 16 greedy requests (counts zeroed just before, read just after);
+   then the same with the target as its own draft. Printed: tokens/s,
+   TTFT p50/p99, accept rate, tokens per verify, K1's launches by kw (the
+   draft's decodes at kw 1, the verify at kw 4), the host ms a round of
+   the draft chain and of the verify (each ending with its tokens on the
+   host), and the share of tokens that agree with phase c's fused run;
+   the engine's snapshot of the weights in device memory. (s2) Phase d's
+   2-layer f32 model, TF32 off: self-draft and a 1-layer truncated draft
+   at ``spec_k`` 4 and 12, and int8 KV at 4, each token-exact against the
+   same engine without a draft, every K1/K2 launch counted and kw 12
+   launched. (s3) ``update_weights`` mid-run through ``on_decode_step``:
+   at full width (the blocking time for 136.2M parameters, the
+   ``weights_versions`` spans), and on (s2)'s model, where a request
+   admitted after the swap must match a fresh engine on the new weights.
 Then the kernel table as one JSON line (each row also names the CUDA
 kernel of the main path, ``kernel``, and carries its launches in phase r's
-resumed steps, ``launches_resumed``), the card's name and power limit, and
-``{"ok": true, "device": {...}}`` as the last line.
+resumed steps, ``launches_resumed``; K1/K2 also their launches in phase
+s's speculative runs, ``launches_spec``, and their time by kw, ``ms_by_kw``),
+the card's name and power limit, and ``{"ok": true, "device": {...}}`` as
+the last line.
 """
 
 import json
@@ -379,13 +404,13 @@ def bound(q, kp, tables, positions):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
 
-def time_paged(torch, paged_ops, name, dtype, int8, full):
-    """Per-launch device time of the kernel at kw = 1, rotating 4 copies
-    of the pools past the 50 MB L2, beside the plain version's and the
-    bound; prints the share of the bound. Returns (ms, plain_ms, bound_ms,
-    bound_by)."""
+def time_paged(torch, paged_ops, name, dtype, int8, full, kw=1):
+    """Per-launch device time of the kernel at ``kw`` query rows a slot,
+    rotating 4 copies of the pools past the 50 MB L2, beside the plain
+    version's and the bound; prints the share of the bound. Returns (ms,
+    plain_ms, bound_ms, bound_by)."""
     dev = torch.device("cuda")
-    copies = [kernel_inputs(torch, dev, dtype, 1, int8, seed=100 + c,
+    copies = [kernel_inputs(torch, dev, dtype, kw, int8, seed=100 + c,
                             full=full) for c in range(4)]
     ms = cuda_ms(torch, lambda j: paged_ops.paged_attention(
         *copies[j % 4]), 200)
@@ -393,6 +418,7 @@ def time_paged(torch, paged_ops, name, dtype, int8, full):
         *copies[j % 4]), 20)
     b_ms, b_by, nbytes, flops = bound(*copies[0][:2], *copies[0][3:])
     shape = "8 slots at 1023" if full else "mixed positions"
+    shape += f", kw {kw}" if kw > 1 else ""
     print(f"  {name:22s} {shape}: {ms * 1e3:.1f} us/launch, plain "
           f"{plain_ms * 1e3:.1f} us, bound {b_ms * 1e3:.2f} us "
           f"({b_by}: {nbytes / 1e6:.2f} MB at "
@@ -411,6 +437,10 @@ def phase_kernels(torch, paged_ops):
         ("paged_attention_int8", torch.bfloat16, 1, True, False),
         ("paged_attention_int8", torch.bfloat16, 4, True, False),
         ("paged_attention_int8", torch.float32, 1, True, False),
+        ("paged_attention", torch.bfloat16, 8, False, False),
+        ("paged_attention", torch.bfloat16, 12, False, False),
+        ("paged_attention_int8", torch.bfloat16, 8, True, False),
+        ("paged_attention_int8", torch.bfloat16, 12, True, False),
         ("paged_attention", torch.bfloat16, 1, False, True),
         ("paged_attention", torch.float32, 1, False, True),
         ("paged_attention_int8", torch.bfloat16, 1, True, True),
@@ -432,14 +462,17 @@ def phase_kernels(torch, paged_ops):
         if not ok:
             raise SystemExit(f"{name}: kernel disagrees with its plain "
                              f"version (q {dname}, kw {kw}, {shape})")
-        row = rows.setdefault(name, {"max_abs_err": 0.0})
+        row = rows.setdefault(name, {"max_abs_err": 0.0, "ms_by_kw": {}})
         row["max_abs_err"] = max(row["max_abs_err"], err)
-        if kw == 1 and dtype == torch.bfloat16:
-            # The main path's shapes (bf16 layers, decode): the engine's
-            # mixed positions (the row's time) and a full server.
+        if dtype == torch.bfloat16 and (kw == 1 or (kw in (4, 12) and not full)):
+            # The main path's shapes (bf16 layers): decode at the engine's
+            # mixed positions (the row's time) and a full server; a
+            # speculative verify's kw 4 and 12 at the mixed positions.
             ms, plain_ms, b_ms, b_by = time_paged(torch, paged_ops, name,
-                                                  dtype, int8, full)
+                                                  dtype, int8, full, kw)
             if not full:
+                row["ms_by_kw"][kw] = ms
+            if kw == 1 and not full:
                 row.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                            bound_by=b_by)
     # Every head width class, read in place: 16-byte chunks where a pool
@@ -1924,6 +1957,194 @@ def phase_resume(torch, dtt, conv_ops, bn_ops, lm_mods):
     return launches
 
 
+# ------------------------------------------------------------------ phase s
+def truncated_draft(dtt, target, layers, dtype=None, seed=0):
+    """The target's first ``layers`` blocks plus its embedding, positional
+    table, final norm and head, copied by layer name (``bench.py``'s
+    free-draft construction)."""
+    draft = dtt.Model(dtt.models.transformer_lm(
+        VOCAB, dtype=dtype, **dict(LM, num_layers=layers)))
+    draft.build((LM["max_len"],), seed=seed)
+    own = target.params
+    draft.load_params({k: own[k] for k in draft.params})
+    return draft
+
+
+def launches_by_kw(paged_ops):
+    return {f"{name}/kw{kw}": n
+            for (name, kw), n in sorted(paged_ops.launches_by_kw.items())}
+
+
+def snapshot_bytes(served):
+    return sum(t.numel() * t.element_size() for t in served.params.values())
+
+
+def spec_full_width(torch, dtt, paged_ops, target, draft, label, reqs,
+                    fused_c):
+    """(s1) One speculative run at full width (counts zeroed just before,
+    read just after); returns K1's launches and the target's snapshot
+    bytes."""
+    engine = dtt.serving.Engine(
+        target, max_slots=8, block_size=16, max_len=LM["max_len"],
+        decode_kernel="fused", draft_model=draft, spec_k=4)
+    snap = snapshot_bytes(engine._target)
+    snap_draft = snapshot_bytes(engine._draft_served)
+    paged_ops.reset_launch_counts()
+    t = time.perf_counter()
+    outs = engine.run([dtt.serving.Request(p, m) for p, m in reqs])
+    wall = time.perf_counter() - t
+    by_kw = launches_by_kw(paged_ops)
+    launches = paged_ops.launches["paged_attention"]
+    tel = engine.last_run_telemetry
+    check_outputs(outs, reqs, VOCAB)
+    spec = tel["speculative"]
+    rounds = spec["rounds"]
+    report(label, tel, wall)
+    share, first = agreement(outs, fused_c, reqs)
+    draft_layers = sum(1 for k in draft.params if k.endswith("/wq"))
+    print(f"  {label}: accept rate {spec['accept_rate']:.4f}, tokens per "
+          f"verify {spec['tokens_per_dispatch']:.3f} (8 slots), rounds "
+          f"{rounds}; host ms a round: draft chain "
+          f"{tel['draft'] / rounds * 1e3:.2f} (3 decodes), verify "
+          f"{tel['decode'] / rounds * 1e3:.2f}; prefill {tel['prefill']:.3f}"
+          f" s in all")
+    print(f"  {label}: K1 launches by kw {by_kw}; agreement with phase c's "
+          f"fused run {share:.4f} (first tokens "
+          f"{'match' if first else 'DIFFER'}); engine snapshots in device "
+          f"memory: target {snap / 1e6:.1f} MB, draft {snap_draft / 1e6:.1f}"
+          " MB")
+    want = {"paged_attention/kw1": draft_layers * 3 * rounds,
+            "paged_attention/kw4": LM["num_layers"] * rounds}
+    if by_kw != want:
+        raise SystemExit(f"{label}: K1 launches {by_kw}, expected {want} "
+                         "(one per layer and pass)")
+    del engine
+    torch.cuda.empty_cache()
+    return launches, snap
+
+
+def spec_exact(dtt, paged_ops, small, sreqs):
+    """(s2) Token-exact speculation at f32 through K1/K2 (counts zeroed
+    just before each run, read just after); returns K2's launches in the
+    int8 run."""
+    drafts = {"self-draft": small,
+              "1-layer draft": truncated_draft(dtt, small, 1, seed=3)}
+    plain = {}
+    int8_launches = 0
+    for draft, k, kv in [("self-draft", 4, None), ("self-draft", 12, None),
+                         ("1-layer draft", 4, None),
+                         ("1-layer draft", 12, None),
+                         ("self-draft", 4, "int8")]:
+        if kv not in plain:
+            plain[kv], _, _ = serve(dtt, small, sreqs, decode_kernel="fused",
+                                    kv_dtype=kv)
+        paged_ops.reset_launch_counts()
+        got, tel, _ = serve(dtt, small, sreqs, decode_kernel="fused",
+                            kv_dtype=kv, draft_model=drafts[draft], spec_k=k)
+        by_kw = launches_by_kw(paged_ops)
+        name = "paged_attention_int8" if kv else "paged_attention"
+        launched = paged_ops.launches[name]
+        exact = all(np.array_equal(x, y) for x, y in zip(got, plain[kv]))
+        spec = tel["speculative"]
+        label = f"{draft}{', int8 KV' if kv else ''} spec_k={k}"
+        print(f"  {label}: token-exact {exact}, accept rate "
+              f"{spec['accept_rate']:.4f}, tokens per verify "
+              f"{spec['tokens_per_dispatch']:.3f}, rounds {spec['rounds']}, "
+              f"{tel['tokens_per_sec']:.1f} tokens/s; launches {by_kw}")
+        if not exact:
+            raise SystemExit(f"{label}: speculative tokens differ from plain "
+                             "decode's")
+        if by_kw.get(f"{name}/kw{k}", 0) != 2 * tel["decode_steps"]:
+            raise SystemExit(f"{label}: the verify did not launch {name} at "
+                             f"kw {k} once per layer and round")
+        if kv:
+            int8_launches = launched
+    return int8_launches
+
+
+def swap_hook(at, tree, seen):
+    def hook(engine, step):
+        if step == at:
+            t = time.perf_counter()
+            engine.update_weights(tree)
+            seen.append(time.perf_counter() - t)
+    return hook
+
+
+def moved(torch, params, by):
+    """A copy of ``params`` with each leaf moved by ``by`` times its mean
+    magnitude, on the card."""
+    with torch.no_grad():
+        return {k: v + by * v.abs().mean() for k, v in params.items()}
+
+
+def phase_spec(torch, dtt, paged_ops, reqs, fused_c, small, sreqs):
+    print("  (s1) GPT-2-small, 8 slots, spec_k 4, fused")
+    target = dtt.Model(dtt.models.transformer_lm(
+        VOCAB, dtype="bfloat16", **LM))
+    target.build((LM["max_len"],), seed=0)
+    draft = truncated_draft(dtt, target, LM["num_layers"] // 2,
+                            dtype="bfloat16", seed=1)
+    serve(dtt, target, requests(2, (8, 16), (4, 4), seed=1),
+          decode_kernel="fused", draft_model=draft, spec_k=4)  # warm-up
+    k1, snap = spec_full_width(torch, dtt, paged_ops, target, draft,
+                               f"{LM['num_layers'] // 2}-layer draft", reqs,
+                               fused_c)
+    k1_self, _ = spec_full_width(torch, dtt, paged_ops, target, target,
+                                 "self-draft", reqs, fused_c)
+    del draft
+    torch.cuda.empty_cache()
+
+    print("  (s2) 2 layers, f32, TF32 off: speculation must be token-exact")
+    k2 = spec_exact(dtt, paged_ops, small, sreqs)
+
+    print("  (s3) update_weights mid-run through on_decode_step")
+    engine = dtt.serving.Engine(target, max_slots=8, block_size=16,
+                                max_len=LM["max_len"], decode_kernel="fused")
+    new = moved(torch, target.params, 0.01)
+    seen = []
+    engine.run([dtt.serving.Request(p, m) for p, m in reqs[:8]],
+               on_decode_step=swap_hook(8, new, seen))
+    tel = engine.last_run_telemetry
+    n_params = sum(t.numel() for t in new.values())
+    spans = sorted({json.dumps(r["weights_versions"])
+                    for r in tel["requests"]})
+    print(f"  GPT-2-small: update_weights of {n_params / 1e6:.1f}M parameters "
+          f"({snap / 1e6:.1f} MB) blocked {seen[0] * 1e3:.2f} ms (the copy "
+          f"into the snapshot, then a synchronize); weights_versions spans "
+          f"{spans}; weight_swaps {tel['weight_swaps']}")
+    if tel["weight_swaps"] != 1 or len(seen) != 1:
+        raise SystemExit("the full-width swap did not happen once")
+    del engine, new, target
+    torch.cuda.empty_cache()
+    # A request admitted after the swap (one slot: it waits for the first
+    # to finish) against a fresh engine on the new weights.
+    first, later = sreqs[0], sreqs[1]
+    new = moved(torch, small.params, 0.02)
+    engine = dtt.serving.Engine(small, max_slots=1, block_size=16,
+                                max_len=LM["max_len"], decode_kernel="fused")
+    seen = []
+    outs = engine.run([dtt.serving.Request(p, m) for p, m in (first, later)],
+                      on_decode_step=swap_hook(3, new, seen))
+    rows = engine.last_run_telemetry["requests"]
+    fresh_model = dtt.Model(dtt.models.transformer_lm(
+        VOCAB, **dict(LM, num_layers=2)))
+    fresh_model.build((LM["max_len"],), seed=1)
+    fresh_model.load_params(new)
+    fresh = dtt.serving.Engine(
+        fresh_model, max_slots=1, block_size=16, max_len=LM["max_len"],
+        decode_kernel="fused").run([dtt.serving.Request(*later)])
+    match = np.array_equal(outs[1], fresh[0])
+    print(f"  2-layer f32: spans {rows[0]['weights_versions']} then "
+          f"{rows[1]['weights_versions']}; the request admitted after the "
+          f"swap equals a fresh engine's on the new weights: {match}")
+    if not match or rows[1]["weights_versions"] != [
+            {"version": 1, "tokens": later[1]}]:
+        raise SystemExit("a request admitted after the swap did not serve "
+                         "the new weights")
+    return k1 + k1_self, k2
+
+
 def main():
     import torch
 
@@ -2005,7 +2226,6 @@ def main():
     print(f"  token-exact: {exact}")
     if not exact:
         raise SystemExit("f32 fused and reference runs differ")
-    del small
     torch.cuda.empty_cache()
 
     print("phase e: int8 KV at full width, fused")
@@ -2082,6 +2302,11 @@ def main():
                                 (xent_ops, flash_ops, adam_ops)).items():
         rows[name]["launches_resumed"] = n
 
+    print("phase s: speculative serving and weight hot-swap through Engine")
+    k1, k2 = phase_spec(torch, dtt, paged_ops, reqs, fused, small, sreqs)
+    rows["paged_attention"]["launches_spec"] = k1
+    rows["paged_attention_int8"]["launches_spec"] = k2
+
     kernels = [
         {"name": name, "route": "cuda",
          "kernel": KERNELS[name],
@@ -2090,7 +2315,9 @@ def main():
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
-         "launches_resumed": r.get("launches_resumed")}
+         "launches_resumed": r.get("launches_resumed"),
+         **({"launches_spec": r["launches_spec"], "ms_by_kw": r["ms_by_kw"]}
+            if "ms_by_kw" in r else {})}
         for name, r in rows.items()
     ]
     print(json.dumps({"kernels": kernels}))

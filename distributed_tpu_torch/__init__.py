@@ -15,7 +15,9 @@ Ported so far:
 
 - serving: ``models.transformer_lm`` served by ``serving.Engine`` through
   paged KV pools, with the paged-attention decode kernel written by hand
-  in CUDA (``csrc/paged_attention.cu``);
+  in CUDA (``csrc/paged_attention.cu``), speculative decoding
+  (``draft_model``, ``spec_k``), weight hot-swap (``update_weights``) and
+  the engine's telemetry (``obs``, ``utils.events``);
 - training: ``Model.compile/fit/evaluate`` of the same LM with
   ``optim.Adam``/``SGD``, flash attention (``csrc/flash_attention.cu``:
   forward, dQ, dK/dV) and the fused softmax cross-entropy
@@ -37,7 +39,7 @@ Ported so far:
 """
 
 from . import (
-    checkpoint, cluster, data, interop, launch, models, nn, ops, optim,
+    checkpoint, cluster, data, interop, launch, models, nn, obs, ops, optim,
     parallel, precision, quant, serving, utils,
 )
 from .checkpoint import Checkpointer, export_hdf5, import_hdf5
@@ -51,6 +53,6 @@ __all__ = [
     "Checkpointer", "DataParallel", "History", "Model",
     "MultiWorkerMirroredStrategy", "SingleDevice", "callbacks", "checkpoint",
     "cluster", "data", "export_hdf5", "import_hdf5", "interop", "launch",
-    "models", "nn", "ops", "optim", "parallel", "precision", "quant",
+    "models", "nn", "obs", "ops", "optim", "parallel", "precision", "quant",
     "resolve_device", "serving", "utils",
 ]

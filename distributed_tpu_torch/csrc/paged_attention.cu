@@ -6,15 +6,16 @@
 //
 // What it computes (the plain PyTorch version is paged_attention_ref in
 // distributed_tpu_torch/ops/paged_attention.py): for slot s, query row
-// k < kw and head h, attention of q[s, k, h] over the slot's cached K/V
-// rows, read through the block table (position p of slot s lives in pool
-// block tables[s, p / bs] at offset p % bs) and masked causally to
-// positions <= positions[s] + k. Scores are (q . k) / sqrt(hd) in f32,
-// masked with -1e30; the softmax is online (running max m, sum l,
-// accumulator acc in f32); the unnormalized probabilities are rounded to
-// the value dtype before the product with V; the output is
-// acc / max(l, 1e-30) in q's dtype. int8 pools dequantize each row as
-// float(q) * scale, rounded once to q's dtype, before it is used.
+// k < kw (any kw >= 1) and head h, attention of q[s, k, h] over the
+// slot's cached K/V rows, read through the block table (position p of
+// slot s lives in pool block tables[s, p / bs] at offset p % bs) and
+// masked causally to positions <= positions[s] + k. Scores are
+// (q . k) / sqrt(hd) in f32, masked with -1e30; the softmax is online
+// (running max m, sum l, accumulator acc in f32); the unnormalized
+// probabilities are rounded to the value dtype before the product with V;
+// the output is acc / max(l, 1e-30) in q's dtype. int8 pools dequantize
+// each row as float(q) * scale, rounded once to q's dtype, before it is
+// used.
 //
 // What bounds it: bytes. Decode reads every visible K/V row once and does
 // 4 flops per element read (two dot products), far below the ~295
@@ -52,6 +53,14 @@
 //   query row cannot see at all merges as (m, l, acc) = (-1e30, 0, 0),
 //   which contributes nothing.
 //
+// * Row groups. Query row r of a slot masks itself to positions <=
+//   positions[s] + r, so rows 8g..8g+7 are a kw <= 8 problem at positions
+//   positions[s] + 8g. A call of any kw is one launch: the grid's x
+//   dimension runs over (row group, chunk), each row group with its own
+//   chunks, partials and arrival counter, the last group partial. A call's
+//   rows therefore come out bit for bit as the same rows would from calls
+//   of at most 8 rows at the shifted positions.
+//
 // Head widths: any hd up to 256. Rows whose bytes are a multiple of 16
 // (kVec) are read as slices through the cp.async ring; other widths (hd =
 // 8 or 24 in int8, odd hd) read each element straight from global memory
@@ -70,7 +79,7 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kStages = 4;  // ring depth per warp (8 cost more in occupancy than it saved)
 constexpr int kSlotBytes = 16;      // one lane's slice of one row, in the ring
-constexpr int kMaxKw = 8;
+constexpr int kKwGroup = 8;  // query rows a CTA holds in registers
 constexpr int kMaxHd = 256;
 constexpr int kMaxChunkBlocks = 32;  // table entries a chunk holds, one per lane
 constexpr int kMaxSmem = 48 * 1024;  // dynamic shared memory without an opt-in
@@ -146,13 +155,14 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 
 // What the kernel reads. Layouts (all contiguous; with kVec, pool rows are
 // whole 16-byte chunks and the pools 16-byte aligned):
-//   q, out        (S, kw, H, hd)             T
+//   q, out        (S, kw, H, hd)             T, any kw >= 1
 //   k_pool/v_pool (NB, bs, H, hd)            T, or int8 when kQuant
 //   k/v_scale     (NB, bs, H)                f32, read only when kQuant
 //   tables        (S, nb)                    int32
 //   positions     (S,)                       int32
-//   partials      (S, H, n_chunks, kw, 2+hd) f32 scratch: m, l, acc
-//   counters      (S, H)                     int32, zero between calls
+//   partials      (S, H, n_groups, n_chunks, min(kw, 8), 2+hd)
+//                                            f32 scratch: m, l, acc
+//   counters      (S, H, n_groups)           int32, zero between calls
 struct Params {
   const void* q;
   const void* k_pool;
@@ -164,13 +174,13 @@ struct Params {
   void* out;
   float* partials;
   int* counters;
-  int kw, H, hd, bs, nb, chunk_blocks, n_chunks;
+  int kw, H, hd, bs, nb, chunk_blocks, n_chunks, n_groups;
   float sqrt_hd;
 };
 
-// Grid (n_chunks, H, S), kThreads threads. kCpl slices per lane (2 only
-// for f32 rows of more than 32 slices); kKw: 1 for decode, 8 for up to 8
-// query rows.
+// Grid (n_groups * n_chunks, H, S), kThreads threads. kCpl slices per lane
+// (2 only for f32 rows of more than 32 slices); kKw: 1 for decode, 8 for a
+// row group of up to 8 query rows.
 template <typename T, bool kQuant, bool kVec, int kCpl, int kKw>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const Params p) {
   using Sl = Slice<T, kQuant>;
@@ -181,9 +191,15 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const Params p) 
   __shared__ float red_m[kKw], red_l[kKw], wgt[kWarps][kKw];
   __shared__ int is_last;
 
-  const int chunk = blockIdx.x, h = blockIdx.y, s = blockIdx.z;
-  const int kw = p.kw, H = p.H, hd = p.hd, bs = p.bs;
-  const int pos = p.positions[s];
+  const int chunk = blockIdx.x % p.n_chunks, grp = blockIdx.x / p.n_chunks;
+  const int h = blockIdx.y, s = blockIdx.z;
+  const int H = p.H, hd = p.hd, bs = p.bs;
+  // This CTA's row group: rows r0 .. r0 + kw - 1 of the call's p.kw, read
+  // as a call of kw rows whose first row sits at positions[s] + r0.
+  const int r0 = grp * kKwGroup;
+  const int kw = min(kKwGroup, p.kw - r0);
+  const int kst = min(kKwGroup, p.kw);  // rows a chunk's partials hold
+  const int pos = p.positions[s] + r0;
   // Positions any query row of this slot can see: [0, len).
   const int len = max(0, min(pos + kw, p.nb * bs));
   const int rows = p.chunk_blocks * bs;
@@ -209,7 +225,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const Params p) 
     for (int i = 0; i < kSl; ++i) {
       const int d = (li + (i / V) * lpr) * V + i % V;
       qv[r][i] = (r < kw && d < hd)
-                     ? to_float<T>(static_cast<const T*>(p.q)[(((size_t)s * kw + r) * H + h) * hd + d])
+                     ? to_float<T>(static_cast<const T*>(p.q)[(((size_t)s * p.kw + r0 + r) * H + h) * hd + d])
                      : 0.f;
     }
   }
@@ -422,16 +438,18 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const Params p) 
       const int r = i / hd, d = i - r * hd;
       float a = 0.f;
       for (int w = 0; w < kWarps; ++w) a += aw[(w * kKw + r) * hd + d] * wgt[w][r];
-      out[(((size_t)s * kw + r) * H + h) * hd + d] = from_float<T>(a / fmaxf(red_l[r], 1e-30f));
+      out[(((size_t)s * p.kw + r0 + r) * H + h) * hd + d] = from_float<T>(a / fmaxf(red_l[r], 1e-30f));
     }
     return;
   }
 
   // A chunk of several: write this chunk's (m, l, acc), then the last CTA
-  // of the (slot, head) to arrive merges every chunk, in chunk order.
+  // of the (slot, head, row group) to arrive merges every chunk, in chunk
+  // order.
   const int rec = 2 + hd;
-  float* base = p.partials + (size_t)(s * H + h) * p.n_chunks * kw * rec;
-  float* mine = base + (size_t)chunk * kw * rec;
+  const size_t group = ((size_t)s * H + h) * p.n_groups + grp;
+  float* base = p.partials + group * p.n_chunks * kst * rec;
+  float* mine = base + (size_t)chunk * kst * rec;
   for (int i = tid; i < kw * hd; i += kThreads) {
     const int r = i / hd, d = i - r * hd;
     float a = 0.f;
@@ -445,7 +463,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const Params p) 
   __threadfence();  // this CTA's partials before its arrival
   __syncthreads();
   if (tid == 0) {
-    int* counter = p.counters + s * H + h;
+    int* counter = p.counters + group;
     const int last = atomicAdd(counter, 1) == nch - 1;
     if (last) {
       *counter = 0;  // every chunk has arrived: zero for the next call
@@ -457,10 +475,10 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const Params p) 
   if (!is_last) return;
   if (tid < kw) {
     float mx = kNeg;
-    for (int c = 0; c < nch; ++c) mx = fmaxf(mx, __ldcg(base + ((size_t)c * kw + tid) * rec));
+    for (int c = 0; c < nch; ++c) mx = fmaxf(mx, __ldcg(base + ((size_t)c * kst + tid) * rec));
     float sum = 0.f;
     for (int c = 0; c < nch; ++c) {
-      const float* pc = base + ((size_t)c * kw + tid) * rec;
+      const float* pc = base + ((size_t)c * kst + tid) * rec;
       sum += __ldcg(pc + 1) * expf(__ldcg(pc) - mx);
     }
     red_m[tid] = mx;
@@ -471,10 +489,10 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(const Params p) 
     const int r = i / hd, d = i - r * hd;
     float a = 0.f;
     for (int c = 0; c < nch; ++c) {
-      const float* pc = base + ((size_t)c * kw + r) * rec;
+      const float* pc = base + ((size_t)c * kst + r) * rec;
       a += __ldcg(pc + 2 + d) * expf(__ldcg(pc) - red_m[r]);
     }
-    out[(((size_t)s * kw + r) * H + h) * hd + d] = from_float<T>(a / fmaxf(red_l[r], 1e-30f));
+    out[(((size_t)s * p.kw + r0 + r) * H + h) * hd + d] = from_float<T>(a / fmaxf(red_l[r], 1e-30f));
   }
 }
 
@@ -493,8 +511,8 @@ struct PagedArgs {
   const void* tables;
   const void* positions;
   void* out;
-  void* partials;  // f32, S * H * n_chunks * kw * (2 + hd)
-  void* counters;  // int32, S * H, zero
+  void* partials;  // f32, S * H * n_groups * n_chunks * min(kw, 8) * (2 + hd)
+  void* counters;  // int32, S * H * n_groups, zero
   void* stream;
   int64_t dtype;   // 0 = float32, 1 = bfloat16, 2 = float16 (q, out, plain pools)
   int64_t quant;   // 1 = int8 pools with f32 scales
@@ -527,6 +545,7 @@ int launch(const PagedArgs& a) {
   p.nb = (int)a.nb;
   p.chunk_blocks = (int)a.chunk_blocks;
   p.n_chunks = (int)((a.nb + a.chunk_blocks - 1) / a.chunk_blocks);
+  p.n_groups = (int)((a.kw + kKwGroup - 1) / kKwGroup);
   p.sqrt_hd = sqrtf((float)a.hd);
   // Dynamic shared memory: the warps' rings (kVec), then the merge area
   // over them.
@@ -538,7 +557,7 @@ int launch(const PagedArgs& a) {
   }
   if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   paged_decode_kernel<T, kQuant, kVec, kCpl, kKw>
-      <<<dim3(p.n_chunks, p.H, (unsigned)a.S), kThreads, smem,
+      <<<dim3((unsigned)(p.n_groups * p.n_chunks), p.H, (unsigned)a.S), kThreads, smem,
          static_cast<cudaStream_t>(a.stream)>>>(p);
   return (int)cudaGetLastError();
 }
@@ -552,7 +571,7 @@ int launch(const PagedArgs& a) {
 #define DTT_LAUNCH(V, C, K) return launch<T, kQuant, V, C, K>(a)
 #define DTT_KW(V, C) \
   if (a.kw == 1) DTT_LAUNCH(V, C, 1); \
-  DTT_LAUNCH(V, C, kMaxKw)
+  DTT_LAUNCH(V, C, kKwGroup)
   if (n_slices <= 32) {
     if (a.vec) { DTT_KW(true, 1); }
     DTT_KW(false, 1);
@@ -570,18 +589,21 @@ int launch(const PagedArgs& a) {
 
 extern "C" {
 
-// Limits the Python wrapper checks before it launches (read once a process).
-int dtt_paged_attention_max_kw() { return kMaxKw; }
+// The row group the wrapper sizes the scratch by, and the head-width limit
+// it checks before it launches (each read once a process).
+int dtt_paged_attention_kw_group() { return kKwGroup; }
 int dtt_paged_attention_max_hd() { return kMaxHd; }
 int dtt_paged_attention_args_bytes() { return (int)sizeof(PagedArgs); }
 
 // Paged decode over the packed arguments. Returns the cudaError_t of the
 // launch (0 = cudaSuccess).
 int dtt_paged_attention(const PagedArgs* a) {
-  if (a->S < 1 || a->S > 65535 || a->H < 1 || a->H > 65535 || a->kw < 1 || a->kw > kMaxKw ||
+  if (a->S < 1 || a->S > 65535 || a->H < 1 || a->H > 65535 || a->kw < 1 || a->kw > INT32_MAX ||
       a->hd < 1 || a->hd > kMaxHd || a->bs < 1 || a->nb < 1 || a->chunk_blocks < 1 ||
       a->chunk_blocks > kMaxChunkBlocks || a->chunk_blocks > a->nb ||
-      a->nb * a->bs > INT32_MAX)
+      a->nb * a->bs > INT32_MAX ||
+      (a->kw + kKwGroup - 1) / kKwGroup * ((a->nb + a->chunk_blocks - 1) / a->chunk_blocks) >
+          INT32_MAX)
     return (int)cudaErrorInvalidValue;
   if (a->dtype == 0) return a->quant ? launch<float, true>(*a) : launch<float, false>(*a);
   if (a->dtype == 1)

@@ -12,10 +12,11 @@ wo`` with biases ``bq, bk, bv, bo``, as in the JAX parameter tree.
 
 Paged KV (``serving.Engine``): one pool of fixed-size blocks per layer,
 shared by every slot and addressed through per-slot block tables. New
-K/V rows are scattered into the pools IN PLACE. Decode reads either
-through the gathered view (``decode_kernel="reference"``) or through the
-fused kernel (``ops.paged_attention``, ``"fused"``); prefill always reads
-through the view.
+K/V rows are scattered into the pools IN PLACE. Decode and speculative
+verification (K candidate rows a slot) read either through the gathered
+view (``decode_kernel="reference"``) or through the fused kernel
+(``ops.paged_attention``, ``"fused"``); prefill always reads through the
+view.
 """
 
 from __future__ import annotations
@@ -210,6 +211,41 @@ class MultiHeadAttention(Layer):
             ctx = self._view_attention(q, ck, cv, block_tables, visible)
         return self._out(ctx.reshape(s, 1, -1)), {"k": ck, "v": cv}
 
+    def paged_verify(self, cache, x, *, block_tables, positions,
+                     decode_kernel=paged_ops.REFERENCE):
+        """Speculative-verification attention: x (S, K, D) holds, per slot,
+        K candidate tokens at consecutive absolute positions
+        [positions[s], positions[s] + K), scored in one pass (K=1 is
+        ``paged_decode``). Each candidate's K/V row is scattered at its own
+        position and its scores are masked to positions <= its own, so
+        column j's output equals what decode would give after accepting
+        candidates 0..j-1. Rejected candidates leave stale rows that no
+        later read can see before they are overwritten."""
+        _require_causal(self)
+        s, kw, _ = x.shape
+        bs = _kv_block_size(cache["k"])
+        q, k, v = self._qkv(x, (s, kw), (s, kw))
+        abs_pos = positions.long()[:, None] + torch.arange(
+            kw, device=x.device)[None]  # (S, K)
+        blk = torch.gather(block_tables.long(), 1, abs_pos // bs)
+        off = abs_pos % bs
+        ck = _kv_scatter(cache["k"], blk, off, k)
+        cv = _kv_scatter(cache["v"], blk, off, v)
+        if decode_kernel == paged_ops.FUSED:
+            # Candidate row k of slot s masks itself to positions <=
+            # positions[s] + k inside the kernel.
+            ctx = paged_ops.paged_attention(q, ck, cv, block_tables, positions)
+        else:
+            ll = block_tables.shape[1] * bs
+            visible = (
+                torch.arange(ll, device=x.device)[None, None, :]
+                <= abs_pos[:, :, None]
+            )  # (S, K, L): candidate j attends through its own position
+            # The view-level mask is the K rows' union, positions <=
+            # positions + K - 1 (_view_attention: visible.any over rows).
+            ctx = self._view_attention(q, ck, cv, block_tables, visible)
+        return self._out(ctx.reshape(s, kw, -1)), {"k": ck, "v": cv}
+
     def paged_prefill(self, cache, x, *, block_table, start):
         """Prompt-chunk prefill for one sequence: x (1, C, D) covers
         absolute positions [start, start+C). The chunk's K/V is computed
@@ -259,6 +295,13 @@ class PositionalEmbedding(Layer):
         # Per-SLOT positions: slot s reads table row positions[s].
         rows = self.table[positions.long()]  # (S, D)
         return x + rows[:, None].to(x.dtype), cache
+
+    def paged_verify(self, cache, x, *, block_tables, positions,
+                     decode_kernel="reference"):
+        # Slot s's K candidates sit at positions[s] + 0..K-1.
+        abs_pos = positions.long()[:, None] + torch.arange(
+            x.shape[1], device=x.device)[None]
+        return x + self.table[abs_pos].to(x.dtype), cache
 
     def paged_prefill(self, cache, x, *, block_table, start):
         c = x.shape[1]

@@ -11,7 +11,7 @@ JAX tree paths (``residual_1.main.dense_1.kernel`` is
 ``residual_1/main/dense_1/kernel``).
 
 The paged-KV plumbing (``init_paged_cache``/``paged_prefill``/
-``paged_decode``) mirrors the JAX package's: caches are plain dicts of
+``paged_decode``/``paged_verify``) mirrors the JAX package's: caches are plain dicts of
 pool tensors keyed like the parameter tree. Unlike JAX, the pools are
 updated IN PLACE (each call returns the same dict), which keeps one copy
 of the KV pool in device memory.
@@ -68,6 +68,15 @@ class Layer(torch.nn.Module):
         ``positions`` (S,) int32 per-slot write/attend positions,
         ``decode_kernel`` the attention read path ("reference" or
         "fused", see ``ops.paged_attention``). Returns (output, cache)."""
+        return self(x), cache
+
+    def paged_verify(self, cache, x, *, block_tables, positions,
+                     decode_kernel="reference"):
+        """Speculative verification for a batch of SLOTS: x is (S, K, ...),
+        K draft-proposed candidate tokens per slot at consecutive absolute
+        positions [positions[s], positions[s] + K), scored in one pass
+        (K=1 is exactly ``paged_decode``). Position-independent layers
+        apply token-wise; attention and positional embeddings override."""
         return self(x), cache
 
     def paged_prefill(self, cache, x, *, block_table, start: int):
@@ -141,6 +150,18 @@ class Sequential(Layer):
                 cache[layer.name] = c
         return x, cache
 
+    def paged_verify(self, cache, x, *, block_tables, positions,
+                     decode_kernel="reference"):
+        for layer in self.layers:
+            x, c = layer.paged_verify(
+                cache.get(layer.name, {}), x,
+                block_tables=block_tables, positions=positions,
+                decode_kernel=decode_kernel,
+            )
+            if c:
+                cache[layer.name] = c
+        return x, cache
+
     def paged_prefill(self, cache, x, *, block_table, start):
         for layer in self.layers:
             x, c = layer.paged_prefill(
@@ -193,6 +214,16 @@ class Residual(Layer):
                      decode_kernel="reference"):
         self._identity_only()
         y, c = self.main.paged_decode(
+            cache.get("main", {}), x, block_tables=block_tables,
+            positions=positions, decode_kernel=decode_kernel)
+        if c:
+            cache["main"] = c
+        return self.activation(y + x), cache
+
+    def paged_verify(self, cache, x, *, block_tables, positions,
+                     decode_kernel="reference"):
+        self._identity_only()
+        y, c = self.main.paged_verify(
             cache.get("main", {}), x, block_tables=block_tables,
             positions=positions, decode_kernel=decode_kernel)
         if c:

@@ -11,11 +11,13 @@ Dispatch is by the device of the tensors, with no fallback:
 
 - CUDA tensors launch the hand-written kernel in
   ``csrc/paged_attention.cu`` (built by ``nvcc`` for ``sm_90a`` at first
-  use, into ``_build/``; see ``ops._build``), once per call. It splits
-  each (slot, head)'s visible rows into chunks of :func:`chunk_blocks`
-  pool blocks and merges the chunks in a fixed order, through a scratch
-  of arrival counters and f32 partials kept per stream between calls. A
-  failed build or launch raises.
+  use, into ``_build/``; see ``ops._build``), once per call, for any
+  number of query rows kw >= 1 (the kernel takes them in row groups of
+  8, each a kw <= 8 problem at positions shifted by the group's first
+  row). It splits each (slot, head, row group)'s visible rows into
+  chunks of :func:`chunk_blocks` pool blocks and merges the chunks in a
+  fixed order, through a scratch of arrival counters and f32 partials
+  kept per stream between calls. A failed build or launch raises.
 - CPU tensors run :func:`paged_attention_ref`, the plain version of the
   same arithmetic. On a card it is used only by tests and by
   ``chip_smoke.py`` to check the kernel.
@@ -45,10 +47,15 @@ KINDS = (REFERENCE, FUSED)
 #: f32/bf16/f16 pools) and "paged_attention_int8" (int8 pools).
 #: Incremented only where the kernel is launched.
 launches = {"paged_attention": 0, "paged_attention_int8": 0}
+#: The same launches by (variant, kw): decode reads kw = 1, a speculative
+#: verify kw = spec_k.
+launches_by_kw = {}
+
 
 def reset_launch_counts() -> None:
     for name in launches:
         launches[name] = 0
+    launches_by_kw.clear()
 
 
 # ------------------------------------------------------------ plain version
@@ -138,7 +145,7 @@ def chunk_blocks(s, h, nb, bs, sms):
 _ARGS = _build.packed(21)
 _LIB = _build.Library("paged_attention", {
     "dtt_paged_attention": _ARGS,
-    "dtt_paged_attention_max_kw": [],
+    "dtt_paged_attention_kw_group": [],
     "dtt_paged_attention_max_hd": [],
 })
 _WORKSPACE = {}  # (device index, stream) -> (counters, partials)
@@ -159,11 +166,10 @@ def _paged_attention_cuda(q, k_pool, v_pool, block_tables, positions):
         raise ValueError(f"q dtype {q.dtype} not supported (f32, bf16, f16)")
     _build.require(q, "q", dev, ndim=4)
     s, kw, h, hd = q.shape
-    max_kw = _LIB.constant("dtt_paged_attention_max_kw")
+    group = _LIB.constant("dtt_paged_attention_kw_group")
     max_hd = _LIB.constant("dtt_paged_attention_max_hd")
-    if kw > max_kw or hd > max_hd:
-        raise ValueError(f"kw={kw}, hd={hd} above the kernel's limits "
-                         f"({max_kw}, {max_hd})")
+    if hd > max_hd:
+        raise ValueError(f"hd={hd} above the kernel's limit ({max_hd})")
     if quant:
         kq, vq = k_pool[QKEY], v_pool[QKEY]
         ksc, vsc = k_pool[SKEY], v_pool[SKEY]
@@ -197,8 +203,10 @@ def _paged_attention_cuda(q, k_pool, v_pool, block_tables, positions):
     index = q.get_device()
     cb = chunk_blocks(s, h, nb, bs, _sm_count(index))
     st = _build.raw_stream(index)
-    counters, partials = _workspace(dev, st, s * h,
-                                    s * h * -(-nb // cb) * kw * (2 + hd))
+    groups = -(-kw // group)
+    counters, partials = _workspace(
+        dev, st, s * h * groups,
+        s * h * groups * -(-nb // cb) * min(kw, group) * (2 + hd))
     out = torch.empty_like(q)
     rc = _LIB.get().dtt_paged_attention(_ARGS.pack(
         q.data_ptr(), kp, vp, kscp, vscp, block_tables.data_ptr(),
@@ -206,7 +214,9 @@ def _paged_attention_cuda(q, k_pool, v_pool, block_tables, positions):
         counters.data_ptr(), st, code, quant, vec, s, kw, h, hd, bs, nb, cb))
     if rc:
         _build.check_launch(rc, "paged_attention")
-    launches["paged_attention_int8" if quant else "paged_attention"] += 1
+    name = "paged_attention_int8" if quant else "paged_attention"
+    launches[name] += 1
+    launches_by_kw[(name, kw)] = launches_by_kw.get((name, kw), 0) + 1
     return out
 
 
@@ -221,6 +231,6 @@ def paged_attention(q, k_pool, v_pool, block_tables, positions):
 
 __all__ = [
     "FUSED", "KINDS", "MAX_CHUNK_BLOCKS", "REFERENCE",
-    "chunk_blocks", "launches", "paged_attention",
+    "chunk_blocks", "launches", "launches_by_kw", "paged_attention",
     "paged_attention_ref", "paged_view", "reset_launch_counts",
 ]

@@ -183,6 +183,35 @@ _REGISTRY = {
 }
 
 
+class EmaBaseline:
+    """Exponential moving average of a host-side scalar, as the JAX
+    package's ``optim.EmaBaseline``: the serving engine's per-tenant
+    accept-rate EMA (adaptive speculative k). The first update adopts the
+    observed value outright; ``state_dict``/``load_state`` round-trip it."""
+
+    def __init__(self, decay: float = 0.9):
+        if not 0.0 <= decay < 1.0:
+            raise ValueError(f"decay must be in [0, 1); got {decay}")
+        self.decay = float(decay)
+        self.value = None  # None until the first update (cold start)
+
+    def update(self, observed: float) -> float:
+        """Fold one observation in; returns the new value."""
+        r = float(observed)
+        if self.value is None:
+            self.value = r
+        else:
+            self.value = self.decay * self.value + (1.0 - self.decay) * r
+        return self.value
+
+    def state_dict(self):
+        return {"decay": self.decay, "value": self.value}
+
+    def load_state(self, state):
+        self.decay = float(state["decay"])
+        self.value = None if state["value"] is None else float(state["value"])
+
+
 def get(name_or_opt, **kwargs) -> _Optimizer:
     """An optimizer from its name (``"sgd"``, ``"adam"``, ``"adamw"``,
     ``"fused_adam"``, ``"fused_adamw"``; ``kwargs`` go to its
@@ -215,6 +244,6 @@ def get_hyperparam(opt_state: Dict, name: str) -> float:
 
 
 __all__ = [
-    "Adam", "AdamW", "SGD", "fused_adam", "fused_adamw", "get",
+    "Adam", "AdamW", "EmaBaseline", "SGD", "fused_adam", "fused_adamw", "get",
     "get_hyperparam", "set_hyperparam",
 ]

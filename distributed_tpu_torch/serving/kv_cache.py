@@ -183,6 +183,22 @@ class PrefixStore:
                 break
         return freed
 
+    def flush(self, allocator: BlockAllocator) -> int:
+        """Drop EVERY entry (weight swaps: cached KV computed under old
+        weights must not seed new requests). Blocks shared with live
+        sequences lose only the store's reference; the sequences keep
+        decoding over their (now private) copies. Returns the entries
+        dropped."""
+        dropped = len(self._entries)
+        for block in self._entries.values():
+            allocator.decref([block])
+        self._entries.clear()
+        self.evictions += dropped
+        return dropped
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
 
 def _pool_leaves(tree, out=None):
     """Pool tensors of a paged-cache tree, in sorted-key order."""
@@ -354,6 +370,11 @@ class PagedKVCache:
 
     def utilization(self) -> float:
         return self.allocator.utilization()
+
+    @property
+    def live_blocks(self) -> int:
+        """Block references the slots hold (0 once every sequence left)."""
+        return sum(len(b) for b in self._slot_blocks)
 
 
 __all__ = [

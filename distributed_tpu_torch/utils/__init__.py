@@ -1,5 +1,6 @@
-"""Host utilities of the port: rank-stamped logging, replica checks."""
+"""Host utilities of the port: rank-stamped logging, replica checks, the
+event log and its schema, and the step timer."""
 
-from . import logging, sync_check
+from . import event_schema, events, logging, profiler, sync_check
 
-__all__ = ["logging", "sync_check"]
+__all__ = ["event_schema", "events", "logging", "profiler", "sync_check"]

@@ -2,20 +2,24 @@
 """Where the PyTorch port's serving time goes, on one NVIDIA card.
 
     python3 scripts/torch_serve_profile.py [--layers 12] [--kv-dtype int8]
+        [--spec-k 4 --draft-layers 6]
 
 Serves chip_smoke.py's workload (the GPT-2-small LM at full width, bf16
 layers, random weights from seed 0; 16 greedy requests, prompts of 32-512
 tokens, 64-128 new tokens) through ``Engine(max_slots=8, block_size=16,
-max_len=1024)`` with the fused decode kernel, three times:
+max_len=1024)`` with the fused decode kernel, three times. With
+``--spec-k``, speculatively, with chip_smoke.py's truncated-depth draft
+of ``--draft-layers`` blocks (0: the target is its own draft).
 
 1. a warm-up run;
-2. a timed run: the host wall time of every prefill and decode dispatch
-   (each ends by copying its sampled token to the host, so it includes
-   the device work), and the rest of the loop (scheduling, bookkeeping);
+2. a timed run: the engine's own spans, host seconds of every prefill,
+   draft-chain and decode/verify pass (each ends by copying its sampled
+   tokens to the host, so it includes the device work), and the rest of
+   the loop (scheduling, bookkeeping);
 3. a profiled run (``torch.profiler``, CPU and CUDA): device time by
-   kernel and the GPU spans of the prefill and decode ranges. The
-   profiler slows the host, not the device, so the device's busy share
-   is the kernels' total over the timed run's wall time.
+   kernel and the GPU spans of the engine's prefill, draft and decode
+   ranges. The profiler slows the host, not the device, so the device's
+   busy share is the kernels' total over the timed run's wall time.
 
 Prints a summary and writes the numbers to ``chiprun_out/serve_profile.json``.
 """
@@ -26,7 +30,6 @@ import os
 import sys
 import time
 
-import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -36,26 +39,17 @@ import chip_smoke  # noqa: E402  (the workload definition)
 import distributed_tpu_torch as dtt  # noqa: E402
 
 
-def timed(fn, bucket):
-    def wrapper(*args, **kwargs):
-        t = time.perf_counter()
-        out = fn(*args, **kwargs)
-        bucket.append(time.perf_counter() - t)
-        return out
-    return wrapper
-
-
-def labelled(fn, label):
-    def wrapper(*args, **kwargs):
-        with torch.profiler.record_function(label):
-            return fn(*args, **kwargs)
-    return wrapper
+SPANS = ("prefill", "draft", "decode")  # the engine's obs spans
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=chip_smoke.LM["num_layers"])
     ap.add_argument("--kv-dtype", default=None, choices=[None, "int8"])
+    ap.add_argument("--spec-k", type=int, default=None)
+    ap.add_argument("--draft-layers", type=int, default=None,
+                    help="blocks of the truncated draft (0: self-draft; "
+                         "default half the target's)")
     ap.add_argument("--out", default=os.path.join(
         ROOT, "chiprun_out", "serve_profile.json"))
     args = ap.parse_args()
@@ -68,9 +62,17 @@ def main():
         **dict(chip_smoke.LM, num_layers=args.layers)))
     model.build((chip_smoke.LM["max_len"],), seed=0)
     reqs = chip_smoke.requests(16, (32, 512), (64, 128))
+    spec = {}
+    if args.spec_k:
+        layers = (args.layers // 2 if args.draft_layers is None
+                  else args.draft_layers)
+        spec = {"spec_k": args.spec_k, "draft_model": model if layers == 0
+                else chip_smoke.truncated_draft(dtt, model, layers,
+                                                dtype="bfloat16", seed=1)}
     engine = dtt.serving.Engine(model, max_slots=8, block_size=16,
                                 max_len=chip_smoke.LM["max_len"],
-                                kv_dtype=args.kv_dtype, decode_kernel="fused")
+                                kv_dtype=args.kv_dtype, decode_kernel="fused",
+                                **spec)
 
     def run():
         t = time.perf_counter()
@@ -79,16 +81,10 @@ def main():
 
     run()  # warm-up
 
-    prefill_s, decode_s = [], []
-    plain_prefill, plain_decode = engine._prefill, engine._decode
-    engine._prefill = timed(plain_prefill, prefill_s)
-    engine._decode = timed(plain_decode, decode_s)
     wall = run()
     tel = engine.last_run_telemetry
-    other = wall - sum(prefill_s) - sum(decode_s)
+    other = wall - sum(tel.get(name, 0.0) for name in SPANS)
 
-    engine._prefill = labelled(plain_prefill, "prefill")
-    engine._decode = labelled(plain_decode, "decode")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts, acc_events=True) as prof:
@@ -104,12 +100,12 @@ def main():
                              getattr(e, "cuda_time_total", 0.0)))
 
     # Device-side events only (kernels and copies), without the GPU spans
-    # of the prefill/decode annotations: their sum is the device busy time.
+    # of the engine's ranges: their sum is the device busy time.
     cuda = torch.autograd.DeviceType.CUDA
     kernels = sorted(
         ({"name": e.key, "count": int(e.count), "device_ms": dev_us(e) / 1e3}
          for e in events
-         if e.device_type == cuda and e.key not in ("prefill", "decode")
+         if e.device_type == cuda and e.key not in SPANS
          and dev_us(e) > 0),
         key=lambda r: -r["device_ms"],
     )
@@ -118,12 +114,13 @@ def main():
     ranges = {e.key: {"count": int(e.count),
                       "device_span_ms": dev_total_us(e) / 1e3}
               for e in events
-              if e.key in ("prefill", "decode") and e.device_type == cuda}
+              if e.key in SPANS and e.device_type == cuda}
     result = {
         "device": torch.cuda.get_device_name(0),
         "card": chip_smoke.card_line(),
         "layers": args.layers,
         "kv_dtype": args.kv_dtype,
+        "speculative": tel.get("speculative"),
         "timed_run": {
             "wall_s": wall,
             "tokens_per_sec": tel["tokens_per_sec"],
@@ -131,9 +128,12 @@ def main():
             "ttft_p99_s": tel["time_to_first_token"]["p99"],
             "decode_steps": tel["decode_steps"],
             "prefill_dispatches": tel["prefill_dispatches"],
-            "prefill_s": sum(prefill_s),
-            "decode_s": sum(decode_s),
-            "decode_ms_per_step": 1e3 * float(np.mean(decode_s)),
+            "prefill_s": tel["prefill"],
+            "draft_s": tel.get("draft", 0.0),
+            "decode_s": tel["decode"],
+            "decode_ms_per_step": 1e3 * tel["decode"] / tel["decode_steps"],
+            "draft_ms_per_round": 1e3 * tel.get("draft", 0.0)
+            / tel["decode_steps"],
             "loop_other_s": other,
         },
         "profiled_run": {
@@ -148,12 +148,15 @@ def main():
     with open(args.out, "w") as f:
         json.dump(result, f, indent=1)
     t = result["timed_run"]
-    print(f"{result['card']} | layers {args.layers} kv {args.kv_dtype}")
+    print(f"{result['card']} | layers {args.layers} kv {args.kv_dtype} "
+          f"speculative {result['speculative']}")
     print(f"timed run: {wall:.3f} s, {t['tokens_per_sec']:.1f} tokens/s; "
           f"prefill {t['prefill_s']:.3f} s over {t['prefill_dispatches']} "
-          f"dispatches, decode {t['decode_s']:.3f} s over "
-          f"{t['decode_steps']} steps ({t['decode_ms_per_step']:.2f} ms/step),"
-          f" loop other {other:.3f} s")
+          f"dispatches, draft chain {t['draft_s']:.3f} s "
+          f"({t['draft_ms_per_round']:.2f} ms a round), decode/verify "
+          f"{t['decode_s']:.3f} s over {t['decode_steps']} steps "
+          f"({t['decode_ms_per_step']:.2f} ms/step), loop other "
+          f"{other:.3f} s")
     p = result["profiled_run"]
     print(f"profiled run: {prof_wall:.3f} s wall; device busy {busy_ms:.1f} "
           f"ms = {p['device_busy_share_of_timed_run']:.1%} of the timed run")

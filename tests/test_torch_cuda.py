@@ -168,6 +168,49 @@ def test_paged_attention_every_slot_at_position_1023(cuda_device, dtype, int8):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+# Any kw in one launch (row groups of 8 query rows): kw 9, 12 and 17 at
+# chunk-boundary lengths on a side stream, one launch counted, against the
+# plain version; and each row group of two or more rows bit for bit as a
+# call of its own rows at positions shifted by the group's first row (a
+# one-row call runs the kw = 1 instantiation, whose code may round apart).
+KW_WIDE = [(dtype, int8, kw)
+           for dtype, int8 in ((torch.float32, False), (torch.bfloat16, False),
+                               (torch.float16, False), (torch.bfloat16, True),
+                               (torch.float32, True))
+           for kw in (9, 12, 17)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,int8,kw", KW_WIDE)
+def test_paged_attention_any_kw_in_one_launch(cuda_device, dtype, int8, kw):
+    s, nb, bs, h = 8, 64, 16, 4
+    args = list(_inputs(cuda_device, dtype, kw, int8, s=s, nb=nb, bs=bs, h=h,
+                        seed=kw))
+    rows = _chunk_rows(s, h, nb, bs)
+    lengths = [rows, rows + 1, 2 * rows, kw, nb * bs, nb * bs, kw,
+               rows // 2 + kw]
+    args[4] = torch.tensor([n - kw for n in lengths], dtype=torch.int32,
+                           device=cuda_device)
+    key = "paged_attention_int8" if int8 else "paged_attention"
+    torch.cuda.synchronize()
+    before = paged_ops.launches[key]
+    side = torch.cuda.Stream(cuda_device)
+    with torch.cuda.stream(side):
+        got = paged_ops.paged_attention(*args)
+    assert paged_ops.launches[key] == before + 1
+    torch.cuda.synchronize()
+    want = paged_ops.paged_attention_ref(*args)
+    tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.float16: 5e-3}[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    for r0 in range(0, kw, 8):
+        if kw - r0 < 2:
+            continue
+        part = list(args)
+        part[0] = args[0][:, r0:r0 + 8].contiguous()
+        part[4] = args[4] + r0
+        assert torch.equal(got[:, r0:r0 + 8], paged_ops.paged_attention(*part))
+
+
 @pytest.mark.cuda
 def test_kernels_launch_on_the_callers_stream(cuda_device):
     """Inside ``torch.cuda.stream(s)`` the binding reads ``s``'s handle,
@@ -708,3 +751,52 @@ def test_launch_probe_matches_plain_bit_for_bit(cuda_device):
     assert probe_ops.launches["launch_probe"] == before + 1
     assert torch.equal(got.view(torch.int32),
                        probe_ops.launch_probe_ref(x).view(torch.int32))
+
+
+# ------------------------------------------- speculative serving (K1/K2)
+@pytest.mark.cuda
+@pytest.mark.parametrize("draft,spec_k,int8", [("self", 4, False),
+                                               ("cold", 4, False),
+                                               ("self", 12, False),
+                                               ("cold", 12, False),
+                                               ("self", 4, True)])
+def test_spec_engine_token_exact_on_the_card(cuda_device, draft, spec_k,
+                                             int8):
+    """f32 with TF32 off: the speculating engine's tokens equal the plain
+    engine's (both "fused"), the verify reads through the kernel (kw
+    spec_k, past one row group at 12), and no read falls back."""
+    import numpy as np
+
+    import distributed_tpu_torch as dtt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def lm(layers, seed):
+        return dtt.Model(dtt.models.transformer_lm(
+            512, num_layers=layers, d_model=64, num_heads=4, max_len=128),
+            device=cuda_device).build((16,), seed=seed)
+
+    target = lm(2, 3)
+    drafter = target if draft == "self" else lm(1, 4)
+    rng = np.random.default_rng(spec_k)
+    reqs = [(rng.integers(0, 512, (int(p),)).astype(np.int32), int(m))
+            for p, m in zip(rng.integers(4, 40, 6), rng.integers(8, 40, 6))]
+    kw = dict(max_slots=4, block_size=8, max_len=128, decode_kernel="fused",
+              kv_dtype="int8" if int8 else None)
+    plain = dtt.serving.Engine(target, **kw).run(
+        [dtt.serving.Request(p, m) for p, m in reqs])
+    key = "paged_attention_int8" if int8 else "paged_attention"
+    paged_ops.reset_launch_counts()
+    eng = dtt.serving.Engine(target, draft_model=drafter, spec_k=spec_k, **kw)
+    spec = eng.run([dtt.serving.Request(p, m) for p, m in reqs])
+    tel = eng.last_run_telemetry
+    for i, (a, b) in enumerate(zip(plain, spec)):
+        assert np.array_equal(a, b), f"request {i}"
+    rounds = tel["speculative"]["rounds"]
+    target_reads = 2 * tel["decode_steps"]  # one per layer and pass
+    draft_reads = (2 if draft == "self" else 1) * (spec_k - 1) * rounds
+    if int8:  # the draft's pool is never int8
+        assert paged_ops.launches[key] == target_reads
+        assert paged_ops.launches["paged_attention"] == draft_reads
+    else:
+        assert paged_ops.launches[key] == target_reads + draft_reads

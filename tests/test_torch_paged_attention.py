@@ -294,8 +294,8 @@ def test_kernel_wrapper_packs_its_arguments_and_reads_limits_once(monkeypatch,
         def dtt_paged_attention_args_bytes(self):
             return port_paged._ARGS.size
 
-        def dtt_paged_attention_max_kw(self):
-            calls.append("max_kw")
+        def dtt_paged_attention_kw_group(self):
+            calls.append("kw_group")
             return 8
 
         def dtt_paged_attention_max_hd(self):
@@ -313,7 +313,7 @@ def test_kernel_wrapper_packs_its_arguments_and_reads_limits_once(monkeypatch,
     port_paged.reset_launch_counts()
     outs = [port_paged._paged_attention_cuda(q, kp, vp, tables, pos)
             for _ in range(3)]
-    assert calls.count("max_kw") == 1 and calls.count("max_hd") == 1
+    assert calls.count("kw_group") == 1 and calls.count("max_hd") == 1
     bufs = [c for c in calls if isinstance(c, bytes)]
     assert len(bufs) == 3 and port_paged.launches["paged_attention"] == 3
     f = port_paged._ARGS.unpack(bufs[-1])
@@ -325,6 +325,66 @@ def test_kernel_wrapper_packs_its_arguments_and_reads_limits_once(monkeypatch,
                  3, 2, 2, 8, 4, 3, cb)
     assert partials.numel() >= 3 * 2 * -(-3 // cb) * 2 * (2 + 8)
     assert torch.equal(counters, torch.zeros(6, dtype=torch.int32))
-    with pytest.raises(ValueError, match="above the kernel's limits"):
-        port_paged._paged_attention_cuda(torch.zeros(3, 9, 2, 8), kp, vp,
+    # Any kw is one launch: kw 12 runs two row groups of 8, each with its
+    # own arrival counters and partials.
+    wide = port_paged._paged_attention_cuda(torch.zeros(3, 12, 2, 8), kp, vp,
+                                            tables, pos)
+    assert port_paged.launches["paged_attention"] == 4
+    assert port_paged.launches_by_kw == {("paged_attention", 2): 3,
+                                         ("paged_attention", 12): 1}
+    assert port_paged._ARGS.unpack(calls[-1])[15] == 12
+    counters, partials = port_paged._WORKSPACE[(None, 0xABC)]
+    assert counters.numel() >= 3 * 2 * 2
+    assert partials.numel() >= 3 * 2 * 2 * -(-3 // cb) * 8 * (2 + 8)
+    assert wide.shape == (3, 12, 2, 8)
+    assert calls.count("kw_group") == 1
+    with pytest.raises(ValueError, match="above the kernel's limit"):
+        port_paged._paged_attention_cuda(torch.zeros(3, 2, 2, 257), kp, vp,
                                          tables, pos)
+
+
+# Speculative verification reads kw = spec_k query rows a slot, any width:
+# the plain version against the JAX kernel at kw 8, 10 and 12 (past the 8
+# rows one block of the CUDA kernel holds), plain and int8 pools.
+WIDE = [
+    # (block_size, head_dim, dtype, kw, int8)
+    (4, 8, "float32", 8, False),
+    (4, 8, "float32", 10, False),
+    (8, 4, "float32", 12, False),
+    (4, 8, "bfloat16", 12, False),
+    (4, 8, "float32", 12, True),
+    (8, 8, "bfloat16", 10, True),
+]
+
+
+@pytest.mark.parametrize(
+    "bs,hd,dtype,kw,int8", WIDE,
+    ids=[f"bs{b}-hd{d}-{t}-kw{k}{'-int8' if q else ''}"
+         for b, d, t, k, q in WIDE])
+def test_ref_matches_jax_kernel_at_wide_kw(bs, hd, dtype, kw, int8):
+    case = _case(seed=bs * 100 + hd * 10 + kw, s=3, nb=5, bs=bs, h=2, hd=hd,
+                 kw=kw, int8=int8)
+    want = _jax(*case, getattr(jnp, dtype))
+    got = _port(*case, getattr(torch, dtype))
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("int8", [False, True], ids=["plain", "int8"])
+def test_row_groups_of_wide_kw_are_calls_at_shifted_positions(dtype, int8):
+    """Row r of a slot masks itself to positions <= positions + r, so rows
+    8..11 of a kw 12 call are a kw 4 call at positions + 8 (the CUDA
+    kernel's row groups): bit for bit, in the plain version too."""
+    q, kp, vp, tables, pos = _case(seed=12, s=3, nb=6, bs=4, h=2, hd=8,
+                                   kw=12, int8=int8)
+    dt = getattr(torch, dtype)
+    pool = (lambda p: {k: torch.from_numpy(v) for k, v in p.items()}
+            if isinstance(p, dict) else torch.from_numpy(p).to(dt))
+    qt, k, v = torch.from_numpy(q).to(dt), pool(kp), pool(vp)
+    tb, ps = torch.from_numpy(tables), torch.from_numpy(pos)
+    whole = port_paged.paged_attention(qt, k, v, tb, ps)
+    head = port_paged.paged_attention(qt[:, :8].contiguous(), k, v, tb, ps)
+    tail = port_paged.paged_attention(qt[:, 8:].contiguous(), k, v, tb, ps + 8)
+    assert torch.equal(whole[:, :8], head)
+    assert torch.equal(whole[:, 8:], tail)

@@ -6,6 +6,8 @@ inputs. JAX stays on the CPU (conftest), the port runs with
 ``device="cpu"``.
 """
 
+import functools
+
 import jax
 import numpy as np
 import torch
@@ -42,6 +44,31 @@ def lm_pair(vocab=64, num_layers=2, d_model=32, num_heads=2, max_len=64,
     pm = port_model(dtt.models.transformer_lm(vocab, dtype=dtype, **kw),
                     (16,), jm.params)
     return jm, pm
+
+
+def _with_table_copy(fn, *args):
+    args = list(args)
+    args[4] = np.array(args[4])  # the block-table row, copied
+    return fn(*args)
+
+
+def jax_engine(model, **kw):
+    """A JAX ``serving.Engine`` whose prefill dispatches (target and draft)
+    get a copy of their block-table row. The JAX engine passes them a view
+    of its host table and grows the table (``reserve``) right after the
+    asynchronous dispatch, which on the CPU may read the row later: under
+    load, padded prefill rows then land in newly reserved blocks, where a
+    speculative draft can read them (ROADMAP Queue 3), so its acceptance
+    counts vary from run to run (its tokens never do). The copy is the
+    table the engine means to pass."""
+    from distributed_tpu.serving import Engine
+
+    engine = Engine(model, **kw)
+    for name in ("_prefill_fn", "_draft_prefill_fn"):
+        fn = getattr(engine, name, None)
+        if fn is not None:
+            setattr(engine, name, functools.partial(_with_table_copy, fn))
+    return engine
 
 
 def as_np(x):
