@@ -186,9 +186,47 @@ s. Speculative serving and weight hot-swap through ``Engine``.
    at full width (the blocking time for 136.2M parameters, the
    ``weights_versions`` spans), and on (s2)'s model, where a request
    admitted after the swap must match a fresh engine on the new weights.
+t. The fit loop at full width. A kernel's wrapper counts where it
+   launches; a CUDA graph's replay runs the kernels without their
+   wrappers, so the profiler's trace counts those by name. (t1)
+   GPT-2-small (bf16 layers, ``fused_adam(1e-4)``, the pallas loss, batch
+   32 x 1024): (a) ``fit(grad_accum=4)`` against the same batches whole,
+   2 steps each (losses within bf16 rtol 2e-2; the updates' relative L2
+   difference within ``ACCUM_UPDATE_REL`` after each step; K3-K5 and
+   K9/K10 launched 4 times a step); (b) ``compile(steps_per_execution=
+   4)``, 8 steps with each step's forward and backward replayed from a
+   CUDA graph, against K=1 eager from the same start (losses within 2e-2,
+   parameters bit-identical; the capturing fit's launches: one warm-up
+   and one capture of each step kernel, the eager update's K11); then 8
+   replayed steps, counts zeroed just before and read just after: in the
+   trace K3-K5, K9-K11 run per step as eager, and the wrappers count K11
+   only. Then ms a step in interleaved runs of 8 steps and the card's
+   busy share (the trace's union of device ranges against the median
+   run's wall); (c) ``fit`` from an iterator at ``prefetch=2``: the
+   ``input_wait`` share. (t2) ResNet-50 (bf16, ``SGD(0.1,
+   momentum=0.9)``, batch 256, SingleDevice): K=4 against K=1 from the
+   same start, 4 steps on cuDNN's deterministic algorithms (parameters
+   and BatchNorm buffers bit-identical); K=4 fed by a
+   ``data.Pipeline`` of uint8 images at ``prefetch=2`` (the capturing
+   fit's launches, then 8 replayed steps: K12-K14 run per step as phase
+   n, no wrapper counts), against the K=1 loop on a float array with
+   inline staging, K=4 on that array, and the Pipeline staged by
+   ``next()`` and ``np.stack`` (fit's path for other iterators), in
+   interleaved runs of 12 steps with the busy share; the host-to-device
+   copy of a batch and of a K=4 stack, pageable and pinned, on the device
+   clock. (t2b) mnist_cnn (phase k's: world-1 NCCL ``DataParallel``,
+   batch 256, cuDNN's deterministic algorithms): K=8 against K=1 from the
+   same start (losses, parameters bit-identical), then ms a step in
+   interleaved runs of 32 steps with the busy share. (t3) ``generate`` at
+   GPT-2-small width in f32: 8 prompts of 128 tokens plus 128 greedy ones
+   (tokens/s; agreement with the Engine's greedy tokens for the same
+   prompts and weights, every first token equal), and a sampled run
+   (temperature 0.8, top_k 40) with its tokens in range.
 Then the kernel table as one JSON line (each row also names the CUDA
 kernel of the main path, ``kernel``, and carries its launches in phase r's
-resumed steps, ``launches_resumed``; K1/K2 also their launches in phase
+resumed steps, ``launches_resumed``, in phase t's fits that captured a
+graph, ``launches_fit``, and its runs in their 8 replayed steps from the
+trace, ``replayed_fit``; K1/K2 also their launches in phase
 s's speculative runs, ``launches_spec``, and their time by kw, ``ms_by_kw``),
 the card's name and power limit, and ``{"ok": true, "device": {...}}`` as
 the last line.
@@ -209,6 +247,11 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# Phase t1(a): GPT-2-small's update after fit(grad_accum=4) against the
+# whole batch's, relative L2 over all parameters: 0.017 and 0.015 after
+# steps 1 and 2 on an H100. A skipped or doubled update reads 1 after the
+# first step (0.5 after the second).
+ACCUM_UPDATE_REL = 0.05
 # Flash attention, (atol, rtol) per entry. bf16: rtol 2e-2 is 2.5 ulps at
 # worst (the two sides may round one output a last bit apart); atol 2e-3
 # covers entries near zero, where the bf16 probabilities' rounding at
@@ -251,6 +294,18 @@ KERNELS = {  # the CUDA kernel each row's main path launches
     "bn_stats": "bn_reduce_kernel<bf16, 8, false>",
     "bn_bwd_reduce": "bn_reduce_kernel<bf16, 8, true>",
     "launch_probe": "launch_probe_kernel",
+}
+# Each counted kernel's name in the profiler's trace (demangled), for the
+# kernels a CUDA graph's replay runs without their wrappers (phase t).
+TRACE_NAMES = {
+    "xent_fwd": r"\bxent_fwd_kernel\b", "xent_bwd": r"\bxent_bwd_kernel\b",
+    "flash_fwd": r"\bflash_fwd_wgmma_kernel\b",
+    "flash_dq": r"\bflash_dq_wgmma_kernel\b",
+    "flash_dkv": r"\bflash_dkv_wgmma_kernel\b",
+    "fused_adam": r"\bfused_adam_kernel\b",
+    "conv1x1": r"\bconv1x1_wgmma_kernel\b",
+    "bn_stats": r"\bbn_reduce_kernel<[^>]*\bfalse>",
+    "bn_bwd_reduce": r"\bbn_reduce_kernel<[^>]*\btrue>",
 }
 SOURCES = {
     "paged_attention": "paged_attention", "paged_attention_int8":
@@ -2145,6 +2200,460 @@ def phase_spec(torch, dtt, paged_ops, reqs, fused_c, small, sreqs):
     return k1 + k1_self, k2
 
 
+# ------------------------------------------------------------------ phase t
+def launch_counts(mods):
+    return {name: n for mod in mods for name, n in mod.launches.items()}
+
+
+def reset_counts(mods):
+    for mod in mods:
+        mod.reset_launch_counts()
+
+
+def wall_s(torch, run):
+    """Host seconds of ``run()``, from a synchronized card to its end."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def device_trace(torch, run):
+    """[(name, start us, end us)] of every kernel, copy and set on the
+    card in ``run()`` under ``torch.profiler`` (CUPTI; a graph replay's
+    kernels included). The spans' ``record_function`` ranges also appear
+    on the card's timeline, over the kernels they hold, so user
+    annotations are left out."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events() if e.device_type == cuda
+            and not getattr(e, "is_user_annotation", False)
+            and e.name not in ("input_wait", "dispatch", "checkpoint_wait")]
+
+
+def busy_ms(torch, run):
+    """(the card's busy ms in ``run()``, its operations): the union of the
+    time ranges of ``device_trace``."""
+    ranges = sorted((a, b) for _, a, b in device_trace(torch, run))
+    busy_us, end = 0.0, -math.inf
+    for start, stop in ranges:
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    return busy_us / 1e3, len(ranges)
+
+
+def kernel_runs(torch, run, names):
+    """{name: how often its kernel ran on the card in ``run()``}, counted
+    by ``TRACE_NAMES`` in ``device_trace``."""
+    ops = [op for op, _, _ in device_trace(torch, run)]
+    return {n: sum(bool(re.search(TRACE_NAMES[n], op)) for op in ops)
+            for n in names}
+
+
+def interleaved(torch, arms, pairs):
+    """{arm: [ms a step of each run]}: the arms' runs in turn, ``pairs``
+    times (``arms``: {name: (run, steps)})."""
+    out = {name: [] for name in arms}
+    for _ in range(pairs):
+        for name, (run, steps) in arms.items():
+            out[name].append(1e3 * wall_s(torch, run) / steps)
+    return out
+
+
+def report_arms(torch, arms, ms):
+    """Print each arm's ms a step (runs, median) and its busy share: the
+    profiled run's device ms against the median run's wall; returns
+    {arm: (median ms, busy share)}."""
+    out = {}
+    for name, (run, steps) in arms.items():
+        med = float(np.median(ms[name]))
+        dev, n = busy_ms(torch, run)
+        share = dev / steps / med
+        out[name] = (med, share)
+        print(f"  {name}: ms a step {[round(v, 3) for v in ms[name]]} "
+              f"(median {med:.3f}); busy {dev / steps:.3f} ms a step in "
+              f"{n / steps:.0f} device operations = {share:.1%}")
+    return out
+
+
+def lm_rows(n, t_len, seed=0):
+    """``n`` rows of next-token data (the phase h generator, more rows)."""
+    tok = np.random.default_rng(seed).integers(0, VOCAB, (n, t_len + 1),
+                                               dtype=np.int64)
+    return tok[:, :-1].astype(np.int32), tok[:, 1:].astype(np.int32)
+
+
+def phase_fit_lm(torch, dtt, mods, batch=32):
+    """t1: GPT-2-small's fit loop (bf16 layers, fused_adam(1e-4), pallas
+    loss, flash): (a) grad_accum=4 against the same batches whole, (b) K=4
+    (CUDA graphs) against K=1 eager from the same start, timed in
+    interleaved pairs, (c) fit from an iterator with prefetch=2."""
+    t_len = LM["max_len"]
+    x, y = lm_rows(8 * batch, t_len)
+    loss = "pallas_sparse_categorical_crossentropy"
+
+    def lm(**kw):
+        m = dtt.Model(dtt.models.transformer_lm(VOCAB, dtype="bfloat16",
+                                                **LM))
+        m.compile(optimizer=dtt.optim.fused_adam(1e-4), loss=loss,
+                  metrics=["accuracy"], **kw)
+        return m.build((t_len,), seed=0)
+
+    def fit(m, steps, **kw):
+        return m.fit(x, y, batch_size=batch, epochs=1, steps_per_epoch=steps,
+                     shuffle=False, verbose=0, **kw).history["loss"]
+
+    one, acc = lm(), lm()
+    start = {p: v.detach().float().clone() for p, v in one.params.items()}
+
+    def update_rel():
+        """||acc's update - one's|| / ||one's||, over every parameter from
+        the common start."""
+        num = den = 0.0
+        with torch.no_grad():
+            for p, s0 in start.items():
+                dw = one.params[p].float() - s0
+                num += float(((acc.params[p].float() - s0 - dw) ** 2).sum())
+                den += float((dw ** 2).sum())
+        return math.sqrt(num / den)
+
+    whole, accum, rel = [], [], []
+    per_step_whole, per_step_acc = {}, {}
+    for _ in range(2):
+        for m, losses, counts, kw in ((one, whole, per_step_whole, {}),
+                                      (acc, accum, per_step_acc,
+                                       {"grad_accum": 4})):
+            reset_counts(mods)
+            losses.append(fit(m, 1, **kw)[0])
+            for k, v in launch_counts(mods).items():
+                counts[k] = counts.get(k, 0) + v / 2
+        rel.append(update_rel())
+    del start
+    print(f"  (a) grad_accum=4 losses {accum} against the whole batches' "
+          f"{whole}; the updates' relative L2 difference after each step "
+          f"{rel}; launches a step {per_step_acc} (whole: "
+          f"{per_step_whole})")
+    if not np.allclose(accum, whole, rtol=TOL["bfloat16"]):
+        raise SystemExit("grad_accum=4 losses differ from the whole batch's")
+    if max(rel) > ACCUM_UPDATE_REL:
+        raise SystemExit(f"grad_accum=4 updates differ from the whole "
+                         f"batch's by {max(rel)} > {ACCUM_UPDATE_REL}")
+    want = {"xent_fwd": 4, "xent_bwd": 4, "flash_fwd": 4 * LM["num_layers"],
+            "flash_dq": 4 * LM["num_layers"],
+            "flash_dkv": 4 * LM["num_layers"], "fused_adam": 4}
+    if per_step_acc != want:
+        raise SystemExit(f"grad_accum launches a step {per_step_acc}, "
+                         f"expected {want}")
+    del one, acc
+    torch.cuda.empty_cache()
+
+    # (b): both from seed 0. The wrappers count where they launch: in the
+    # K=4 fit that captures, its warm-up and its capture (each one step's
+    # kernels) and the eager update; in a fit of replays, the update only,
+    # while the profiler's trace counts every kernel the replays run.
+    ref, graph = lm(), lm(steps_per_execution=4)
+    eager_losses = fit(ref, 8)
+    reset_counts(mods)
+    graph_losses = fit(graph, 8)  # the first dispatch captures the graph
+    captured = launch_counts(mods)
+    with torch.no_grad():
+        diff = max(float((a - b).abs().max()) for a, b in zip(
+            ref.params.values(), graph.params.values()))
+    print(f"  (b) K=4, graph-replayed: epoch loss {graph_losses[0]!r} over 8 "
+          f"steps against K=1 eager {eager_losses[0]!r}; parameters after "
+          f"8 steps {'bit-identical' if diff == 0 else f'differ by {diff}'}; "
+          f"{len(graph._graphs)} captured graph(s); launches in the fit "
+          f"that captured {captured}")
+    if not np.allclose(graph_losses, eager_losses, rtol=TOL["bfloat16"]):
+        raise SystemExit("K=4 graph losses differ from K=1 eager")
+    if diff != 0:
+        raise SystemExit("K=4 graph parameters differ from K=1 eager's")
+    n_l = LM["num_layers"]
+    per_step = {"xent_fwd": 1, "xent_bwd": 1, "flash_fwd": n_l,
+                "flash_dq": n_l, "flash_dkv": n_l}
+    want = dict({k: 2 * v for k, v in per_step.items()}, fused_adam=32)
+    if captured != want:
+        raise SystemExit(f"the capturing fit launched {captured}, expected "
+                         f"{want}")
+    reset_counts(mods)
+    runs = kernel_runs(torch, lambda: fit(graph, 8), want)  # replays only
+    counted = launch_counts(mods)
+    print(f"  8 more graph-replayed steps: kernels run (profiler trace) "
+          f"{runs}; the wrappers' counts {counted}")
+    want = dict({k: 8 * v for k, v in per_step.items()}, fused_adam=32)
+    if runs != want:
+        raise SystemExit(f"8 replayed steps ran {runs}, expected {want}")
+    if counted != dict({k: 0 for k in per_step}, fused_adam=32):
+        raise SystemExit(f"an eager launch in the replayed steps: {counted}")
+    # Runs of 8 steps: 2 dispatches at K=4, so the prefetch thread stages
+    # the second while the first runs, as in a long fit.
+    arms = {"K=1 eager": (lambda: fit(ref, 8), 8),
+            "K=4 graph": (lambda: fit(graph, 8), 8)}
+    timing = report_arms(torch, arms, interleaved(torch, arms, 3))
+    del graph
+    torch.cuda.empty_cache()
+
+    # (c): a plain iterator of host batches (a Pipeline feeds uint8
+    # images; tokens come as int arrays), staged two dispatches ahead.
+    def batches():
+        while True:
+            for i in range(0, x.shape[0], batch):
+                yield x[i:i + batch], y[i:i + batch]
+
+    ref.fit(batches(), epochs=1, steps_per_epoch=8, verbose=0, prefetch=2)
+    tel = ref.last_fit_telemetry
+    print(f"  (c) iterator, prefetch=2, 8 steps: input_wait "
+          f"{tel['input_wait']:.4f} s = {tel['input_wait_fraction']:.2%} "
+          f"of {tel['total_seconds']:.3f} s; dispatch "
+          f"{tel['dispatch_fraction']:.2%}; peak memory "
+          f"{tel['device_memory']['peak_bytes_in_use'] / 1e9:.2f} GB")
+    del ref
+    torch.cuda.empty_cache()
+    return captured, runs, timing
+
+
+def h2d_ms(torch, a, pinned):
+    """Device ms of copying the host array ``a`` to the card: pageable
+    (``torch.from_numpy(a).to(card)``), or from a pinned buffer with
+    ``non_blocking`` on a side stream, the copy ``data.DeviceStager``
+    makes; the median of 3 copies, each between CUDA events on its
+    stream."""
+    src = torch.from_numpy(a)
+    stream = torch.cuda.current_stream()
+    if pinned:
+        src, stream = src.pin_memory(), torch.cuda.Stream()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(stream):
+            start.record(stream)
+            src.to("cuda", non_blocking=pinned)
+            end.record(stream)
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def max_diffs(torch, a, b):
+    """(the largest |difference| of the two models' parameters, of their
+    buffers)."""
+    with torch.no_grad():
+        return tuple(max((float((u[k].float() - v[k].float()).abs().max())
+                          for k in u), default=0.0)
+                     for u, v in ((a.params, b.params), (a.state, b.state)))
+
+
+def phase_fit_resnet(torch, dtt, mods, batch=RESNET_BATCH, size=224):
+    """t2: ResNet-50 (bf16, SGD(0.1, momentum=0.9), SingleDevice): K=4
+    against K=1 from the same start (parameters and BatchNorm buffers,
+    cuDNN's deterministic algorithms); K=4 fed by a Pipeline of uint8
+    images with prefetch=2, against the K=1 loop on a float array with
+    inline staging, in interleaved runs; K=4 on the float array (the
+    graphs without the Pipeline's host cost); and the Pipeline staged by
+    next() and np.stack (fit's path for other iterators) against
+    next_k(out=) into the pinned buffers."""
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (2 * batch, size, size, 3), dtype=np.uint8)
+    labels = rng.integers(0, 1000, 2 * batch).astype(np.int32)
+    x2 = images.astype(np.float32) / 255.0
+    xf, yf = x2[:batch], labels[:batch]
+    pipe = dtt.data.Pipeline(images, labels, batch_size=batch, seed=0)
+
+    def resnet(**kw):
+        m = dtt.Model(dtt.models.resnet(50, 1000, dtype="bfloat16"))
+        m.compile(optimizer=dtt.optim.SGD(0.1, momentum=0.9),
+                  loss="sparse_categorical_crossentropy", **kw)
+        return m.build((size, size, 3), seed=0)
+
+    cudnn = torch.backends.cudnn
+    deterministic, cudnn.deterministic = cudnn.deterministic, True
+    try:
+        pair = [resnet(), resnet(steps_per_execution=4)]
+        same = [m.fit(x2, labels, batch_size=batch, epochs=1,
+                      steps_per_epoch=4, shuffle=False, verbose=0,
+                      prefetch=0).history["loss"] for m in pair]
+        pdiff, sdiff = max_diffs(torch, *pair)
+    finally:
+        cudnn.deterministic = deterministic
+    print(f"  K=4 against K=1 from the same start, 4 steps on 2 batches "
+          f"(deterministic cuDNN): loss {same[1]} against {same[0]}; "
+          f"parameters differ by {pdiff}, BN buffers by {sdiff}")
+    if pdiff or sdiff:
+        raise SystemExit("ResNet-50 K=4 differs from K=1 from the same "
+                         "start")
+    del pair
+    torch.cuda.empty_cache()
+
+    loop, fused = resnet(), resnet(steps_per_execution=4)
+
+    def run_loop(steps=4):
+        return loop.fit(xf, yf, batch_size=batch, epochs=1,
+                        steps_per_epoch=steps, shuffle=False, verbose=0,
+                        prefetch=0).history["loss"]
+
+    def run_fused(steps=4):
+        return fused.fit(pipe, epochs=1, steps_per_epoch=steps, verbose=0,
+                         prefetch=2).history["loss"]
+
+    def by_next(source, k, stacked, accum_m):
+        pairs = [next(source) for _ in range(k)]
+        return fused._stage_batch(
+            {"x": np.stack([p[0] for p in pairs]),
+             "y": np.stack([p[1] for p in pairs])}, stacked, accum_m, True)
+
+    def run_fused_next(steps):
+        fused._stage_pipeline = by_next
+        try:
+            return run_fused(steps)
+        finally:
+            del fused._stage_pipeline
+
+    run_loop(2)
+    reset_counts(mods)
+    run_fused(4)  # captures the step's graph
+    captured = launch_counts(mods)
+    per_call = mods[1].LAUNCHES_PER_CALL
+    per_step = {"conv1x1": 72, "bn_stats": 53 * per_call,
+                "bn_bwd_reduce": 53 * per_call}
+    reset_counts(mods)
+    losses = []
+    runs = kernel_runs(torch, lambda: losses.extend(run_fused(8)),
+                       per_step)  # replays only
+    counted = launch_counts(mods)
+    tel = fused.last_fit_telemetry
+    buffers = all(bool(torch.isfinite(b).all()) for b in fused.state.values())
+    print(f"  K=4 + Pipeline (prefetch=2): launches in the fit that "
+          f"captured {captured}; 8 replayed steps: loss {losses}, kernels "
+          f"run (profiler trace) {runs}, the wrappers' counts {counted}, BN "
+          f"buffers finite {buffers}, input_wait "
+          f"{tel['input_wait_fraction']:.2%} of {tel['total_seconds']:.3f} s")
+    want = {k: 2 * v for k, v in per_step.items()}
+    if captured != want:
+        raise SystemExit(f"the capturing fit launched {captured}, expected "
+                         f"{want}")
+    want = {k: 8 * v for k, v in per_step.items()}
+    if runs != want:
+        raise SystemExit(f"8 replayed steps ran {runs}, expected {want}")
+    if any(counted.values()):
+        raise SystemExit(f"an eager launch in the replayed steps: {counted}")
+    if not (np.all(np.isfinite(losses)) and buffers):
+        raise SystemExit("ResNet-50 K=4 losses or BN buffers not finite")
+
+    def run_fused_arrays(steps=4):
+        return fused.fit(xf, yf, batch_size=batch, epochs=1,
+                         steps_per_epoch=steps, shuffle=False, verbose=0,
+                         prefetch=2).history["loss"]
+
+    # Runs of 12 steps: at K=4 the prefetch thread stages dispatches 2-3
+    # while 1-2 run (a fit of one dispatch stages it inline).
+    arms = {"K=1 loop (arrays, inline staging)": (lambda: run_loop(12), 12),
+            "K=4 + Pipeline, prefetch=2": (lambda: run_fused(12), 12),
+            "K=4 + Pipeline by next() and np.stack, prefetch=2":
+                (lambda: run_fused_next(12), 12),
+            "K=4, arrays, prefetch=2": (lambda: run_fused_arrays(12), 12)}
+    timing = report_arms(torch, arms, interleaved(torch, arms, 3))
+    copies = {}
+    stacked = np.stack([xf] * 4)
+    for name, a in (("batch", xf), ("K=4 stack", stacked)):
+        for pinned in (False, True):
+            copies[(name, pinned)] = h2d_ms(torch, a, pinned)
+        mb = a.nbytes / 1e6
+        print(f"  host-to-device copy of the {name} ({mb:.1f} MB): pageable "
+              f"{copies[(name, False)]:.3f} ms, pinned on the side stream "
+              f"{copies[(name, True)]:.3f} ms (device clock)")
+    del loop, fused, stacked
+    torch.cuda.empty_cache()
+    return captured, runs, timing, copies
+
+
+def phase_fit_mnist(torch, dtt):
+    """t2b: mnist_cnn (phase k's configuration: a world-1 DataParallel
+    group, formed in-process) at K=8 against K=1, both on cuDNN's
+    deterministic algorithms (the parameters must agree bit for bit)."""
+    cudnn = torch.backends.cudnn
+    deterministic, cudnn.deterministic = cudnn.deterministic, True
+    try:
+        return fit_mnist(torch, dtt)
+    finally:
+        cudnn.deterministic = deterministic
+        dtt.cluster.shutdown()
+
+
+def fit_mnist(torch, dtt, batch=256, steps=32):
+    strategy = dtt.DataParallel()
+    x, y = dtt.data.synthetic_images(batch, (28, 28), 10, 0)
+    x = x[..., None].astype(np.float32) / 255.0
+
+    def mnist(**kw):
+        with strategy.scope():
+            m = dtt.Model(dtt.models.mnist_cnn())
+            m.compile(optimizer=dtt.optim.SGD(0.001),
+                      loss="sparse_categorical_crossentropy",
+                      metrics=["accuracy"], **kw)
+        return m.build((28, 28, 1), seed=0)
+
+    one, eight = mnist(), mnist(steps_per_execution=8)
+
+    def run(m):
+        return lambda: m.fit(x, y, batch_size=batch, epochs=1,
+                             steps_per_epoch=steps, shuffle=False, verbose=0)
+
+    ref, got = (m.fit(x, y, batch_size=batch, epochs=1, steps_per_epoch=16,
+                      shuffle=False, verbose=0).history["loss"]
+                for m in (one, eight))
+    pdiff, _ = max_diffs(torch, one, eight)
+    print(f"  16 steps from the same start: K=8 loss "
+          f"{got[0]!r}, K=1 {ref[0]!r} "
+          f"({'bit-identical' if got == ref else 'differ'}); parameters "
+          f"{'bit-identical' if pdiff == 0 else f'differ by {pdiff}'}")
+    if not np.allclose(got, ref, rtol=TOL["float32"]):
+        raise SystemExit("mnist_cnn K=8 losses differ from K=1")
+    if pdiff != 0:
+        raise SystemExit("mnist_cnn K=8 parameters differ from K=1's")
+    arms = {"K=1": (run(one), steps), "K=8": (run(eight), steps)}
+    return report_arms(torch, arms, interleaved(torch, arms, 3))
+
+
+def phase_generate(torch, dtt, n=8, t_p=128, new=128):
+    """t3: Model.generate at GPT-2-small width in f32, against the Engine's
+    greedy tokens for the same prompts and weights; tokens/s; a sampled
+    run's tokens in range."""
+    m = dtt.Model(dtt.models.transformer_lm(VOCAB, **LM)).build(
+        (LM["max_len"],), seed=0)
+    prompts = np.random.default_rng(5).integers(0, VOCAB, (n, t_p)).astype(
+        np.int32)
+    m.generate(prompts[:, :4], 2, temperature=0.0)  # warm-up
+    t = time.perf_counter()
+    greedy = m.generate(prompts, new, temperature=0.0)
+    wall = time.perf_counter() - t
+    reqs = [(p, new) for p in prompts]
+    outs, _, _ = serve(dtt, m, reqs, decode_kernel="fused")
+    share, first = agreement(list(greedy), outs, reqs)
+    sampled = m.generate(prompts, new, temperature=0.8, top_k=40, seed=1)
+    in_range = bool(sampled.min() >= 0 and sampled.max() < VOCAB)
+    print(f"  greedy: {n} x ({t_p} + {new}) tokens in {wall:.3f} s, "
+          f"{n * new / wall:.1f} tokens/s; agreement with the Engine's "
+          f"greedy tokens {share:.4f} (first tokens "
+          f"{'match' if first else 'DIFFER'}); sampled (0.8, top_k 40): "
+          f"shape {sampled.shape}, tokens in range {in_range}")
+    if greedy.shape != (n, t_p + new) or not in_range or not np.array_equal(
+            greedy[:, :t_p], prompts):
+        raise SystemExit("generate returned bad tokens")
+    if not first:
+        raise SystemExit("generate's first tokens differ from the Engine's")
+    del m
+    torch.cuda.empty_cache()
+    return n * new / wall, share
+
+
 def main():
     import torch
 
@@ -2307,6 +2816,25 @@ def main():
     rows["paged_attention"]["launches_spec"] = k1
     rows["paged_attention_int8"]["launches_spec"] = k2
 
+    print("phase t1: GPT-2-small's fit loop: grad_accum, steps_per_execution "
+          "as CUDA graphs, an iterator with prefetch")
+    t1_captured, t1_runs, _ = phase_fit_lm(torch, dtt,
+                                           (xent_ops, flash_ops, adam_ops))
+    print("phase t2: ResNet-50, K=4 + a Pipeline with prefetch=2 against the "
+          "K=1 loop (SingleDevice)")
+    t2_captured, t2_runs, _, _ = phase_fit_resnet(torch, dtt,
+                                                  (conv_ops, bn_ops))
+    print("phase t2b: mnist_cnn under DataParallel (NCCL, world 1), K=8 "
+          "against K=1")
+    phase_fit_mnist(torch, dtt)
+    print("phase t3: Model.generate at GPT-2-small width, f32, against the "
+          "Engine")
+    phase_generate(torch, dtt)
+    for name, n in dict(t1_captured, **t2_captured).items():
+        rows[name]["launches_fit"] = n
+    for name, n in dict(t1_runs, **t2_runs).items():
+        rows[name]["replayed_fit"] = n
+
     kernels = [
         {"name": name, "route": "cuda",
          "kernel": KERNELS[name],
@@ -2316,6 +2844,8 @@ def main():
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
          "launches_resumed": r.get("launches_resumed"),
+         "launches_fit": r.get("launches_fit"),
+         "replayed_fit": r.get("replayed_fit"),
          **({"launches_spec": r["launches_spec"], "ms_by_kw": r["ms_by_kw"]}
             if "ms_by_kw" in r else {})}
         for name, r in rows.items()

@@ -45,6 +45,8 @@ import torch.distributed as dist
 
 from .. import interop
 from ..interop import SEP, iter_leaf_paths
+from ..utils import event_schema as evs
+from ..utils import events as events_lib
 from ..utils import logging as dlog
 
 # Checkpointers that have started a background save, so that
@@ -148,8 +150,9 @@ def _atomic_write(path: Path, write_fn):
 
 def _data_state_of(model, step: int) -> Optional[dict]:
     """The cursor of the data source ``fit`` is reading, for the meta: None
-    when there is none. The port's ``fit`` takes host arrays only (its
-    cursor is ``model.step``), so there is no source to ask yet."""
+    when there is none (host arrays: their cursor is ``model.step``) or it
+    has no ``state_dict``. ``step`` is the step the model trained to,
+    which a prefetching fit's source may have run ahead of."""
     src = getattr(model, "_fit_source", None)
     if src is None or not hasattr(src, "state_dict"):
         return None
@@ -386,6 +389,9 @@ class Checkpointer:
                     f"Checkpointer: skipping corrupt checkpoint "
                     f"{self._path(step).name} ({type(e).__name__}: {e}); "
                     "falling back to the previous step")
+                events_lib.emit(
+                    evs.CORRUPT_CHECKPOINT_SKIPPED, step=int(step),
+                    path=str(self._path(step)), error=str(e))
         raise FileNotFoundError(
             f"No loadable checkpoints in {self.directory} "
             f"({len(steps)} candidate file(s), all corrupt)"
@@ -478,6 +484,8 @@ class Checkpointer:
             model.build(meta["input_shape"], seed=meta.get("seed", 0))
         _apply(model, flat, int(meta["step"]),
                int(meta.get("seed", model._seed)))
+        # fit() moves an iterator source to this cursor (load_state).
+        model._restored_data_state = meta.get("data_state")
         return model.step
 
     def _restore_multirank(self, model, step: Optional[int]) -> int:

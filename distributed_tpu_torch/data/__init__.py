@@ -1,5 +1,12 @@
-"""Offline datasets of the port (``datasets.py``)."""
+"""Data of the port: offline datasets (``datasets.py``), the input
+``Pipeline`` (``pipeline.py``) and the device prefetch ``fit`` stages its
+batches through (``prefetch.py``)."""
 
 from .datasets import load_cifar10, load_mnist, synthetic_images
+from .pipeline import Pipeline
+from .prefetch import DevicePrefetcher, DeviceStager
 
-__all__ = ["load_cifar10", "load_mnist", "synthetic_images"]
+__all__ = [
+    "DevicePrefetcher", "DeviceStager", "Pipeline", "load_cifar10",
+    "load_mnist", "synthetic_images",
+]

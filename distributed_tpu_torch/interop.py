@@ -32,6 +32,13 @@ optimizer           flat paths (``<p>``: a parameter's path)
 Hyperparameters optax holds and the port does not (Adam's ``eps_root``,
 ``fused_adam``'s ``weight_decay``) are written as 0, and a file where they
 are not 0 is refused.
+
+The wrappers nest these layouts as optax does: ``chain(clip, tx)`` is
+``(EmptyState(), <tx>)`` (the clip has no leaves, so ``tx``'s paths take
+the prefix ``#1/``), and ``MultiSteps`` is ``MultiStepsState``:
+``#0`` mini_step and ``#1`` gradient_step (int32), ``#2/...`` the inner
+state, ``#3/<p>`` the f32 gradient accumulator, ``#4`` the empty skip
+state. A checkpoint saved mid-accumulation resumes in either package.
 """
 
 from __future__ import annotations
@@ -130,14 +137,21 @@ def _fixed_hyperparams(tx) -> List[str]:
     return []
 
 
-def _expected_paths(tx, params) -> List[str]:
-    paths = ["#0"] + [f"#1{SEP}{k}" for k in
-                      list(tx.hyperparams) + _fixed_hyperparams(tx)]
-    for slot, prefix in _slots(tx).items():
+def _expected_paths(tx, params, prefix="") -> List[str]:
+    if isinstance(tx, optim.MultiSteps):
+        return ([f"{prefix}#0", f"{prefix}#1"]
+                + _expected_paths(tx.inner, params, f"{prefix}#2{SEP}")
+                + [f"{prefix}#3{SEP}{p}" for p in params])
+    if isinstance(tx, optim.chain):
+        return _expected_paths(tx.inner, params,
+                               f"{prefix}#{len(tx.maps)}{SEP}")
+    paths = [f"{prefix}#0"] + [f"{prefix}#1{SEP}{k}" for k in
+                               list(tx.hyperparams) + _fixed_hyperparams(tx)]
+    for slot, path in _slots(tx).items():
         if slot == "count":
-            paths.append(prefix)
+            paths.append(prefix + path)
         else:
-            paths += [f"{prefix}{SEP}{p}" for p in params]
+            paths += [f"{prefix}{path}{SEP}{p}" for p in params]
     return paths
 
 
@@ -150,8 +164,18 @@ def opt_state_to_tree(tx, opt_state: Dict, params: Dict[str, torch.Tensor]):
     """The port's optimizer state (``Model.opt_state`` of ``tx``, slots as
     lists in the order of ``params``, ``Model.params``) as optax's tree:
     ``(count, hyperparams, {}, inner)`` with the moments keyed by
-    parameter path. The moments are the state's own tensors (no copy);
-    the counts are int32 and the hyperparameters f32 numpy scalars."""
+    parameter path, nested in the wrappers' tuples. The moments are the
+    state's own tensors (no copy); the counts are int32 and the
+    hyperparameters f32 numpy scalars."""
+    if isinstance(tx, optim.MultiSteps):
+        return (np.int32(opt_state["mini_step"]),
+                np.int32(opt_state["gradient_step"]),
+                opt_state_to_tree(tx.inner, opt_state["inner_opt_state"],
+                                  params),
+                dict(zip(params, opt_state["acc_grads"])), ())
+    if isinstance(tx, optim.chain):
+        return tuple(() for _ in tx.maps) + (
+            opt_state_to_tree(tx.inner, opt_state[-1], params),)
     hp = {k: v.numpy() for k, v in opt_state["hyperparams"].items()}
     hp.update({k: np.float32(0.0) for k in _fixed_hyperparams(tx)})
     by_path = {s: dict(zip(params, opt_state[s])) for s in _slots(tx)
@@ -185,33 +209,53 @@ def opt_state_from_tree(tx, tree, params: Dict[str, torch.Tensor]) -> Dict:
             "optimizer-state paths differ: missing "
             f"{sorted(set(want) - set(flat))}, unexpected "
             f"{sorted(set(flat) - set(want))}")
+    return _state_from_flat(tx, flat, params, "")
+
+
+def _moments(flat, prefix, params):
+    """The f32 copies of the leaves ``<prefix>/<p>`` on the parameters'
+    devices, in the order of ``params``; a leaf of another shape raises."""
+    for path, p in params.items():
+        a = flat[f"{prefix}{SEP}{path}"]
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError(
+                f"{prefix}{SEP}{path}: shape {tuple(a.shape)} != the "
+                f"parameter's {tuple(p.shape)}")
+    return [torch.as_tensor(flat[f"{prefix}{SEP}{path}"]).to(
+                p.device, torch.float32, copy=True)
+            for path, p in params.items()]
+
+
+def _state_from_flat(tx, flat, params, prefix) -> Dict:
+    if isinstance(tx, optim.MultiSteps):
+        inner = _state_from_flat(tx.inner, flat, params, f"{prefix}#2{SEP}")
+        return {"mini_step": int(_scalar(flat[f"{prefix}#0"])),
+                "gradient_step": int(_scalar(flat[f"{prefix}#1"])),
+                "inner_opt_state": inner,
+                "acc_grads": _moments(flat, f"{prefix}#3", params),
+                "skip_state": ()}
+    if isinstance(tx, optim.chain):
+        n = len(tx.maps)
+        return tuple(() for _ in tx.maps) + (_state_from_flat(
+            tx.inner, flat, params, f"{prefix}#{n}{SEP}"),)
     for k in _fixed_hyperparams(tx):
-        value = _scalar(flat[f"#1{SEP}{k}"])
+        value = _scalar(flat[f"{prefix}#1{SEP}{k}"])
         if value != 0.0:
             raise ValueError(
                 f"optimizer hyperparameter {k}={value}: the port's "
                 f"{type(tx).__name__} runs with {k} 0")
     slots = _slots(tx)
-    moments = {s: prefix for s, prefix in slots.items() if s != "count"}
-    for prefix in moments.values():
-        for path, p in params.items():
-            a = flat[f"{prefix}{SEP}{path}"]
-            if tuple(a.shape) != tuple(p.shape):
-                raise ValueError(
-                    f"{prefix}{SEP}{path}: shape {tuple(a.shape)} != the "
-                    f"parameter's {tuple(p.shape)}")
+    moments = {s: prefix + path for s, path in slots.items() if s != "count"}
     state = {
-        "inject_count": int(_scalar(flat["#0"])),
-        "hyperparams": {k: torch.tensor(_scalar(flat[f"#1{SEP}{k}"]),
+        "inject_count": int(_scalar(flat[f"{prefix}#0"])),
+        "hyperparams": {k: torch.tensor(_scalar(flat[f"{prefix}#1{SEP}{k}"]),
                                         dtype=torch.float32)
                         for k in tx.hyperparams},
     }
     if "count" in slots:
-        state["count"] = int(_scalar(flat[slots["count"]]))
-    for slot, prefix in moments.items():
-        state[slot] = [torch.as_tensor(flat[f"{prefix}{SEP}{path}"]).to(
-                           p.device, torch.float32, copy=True)
-                       for path, p in params.items()]
+        state["count"] = int(_scalar(flat[prefix + slots["count"]]))
+    for slot, path in moments.items():
+        state[slot] = _moments(flat, path, params)
     return state
 
 

@@ -3,7 +3,8 @@
 Pre-LN blocks built from the same Residual/Sequential primitives as the
 JAX package, so the parameter tree paths (``residual_N/main/...``) are
 identical and weights carry across. Only dense blocks are ported; the
-MoE, pipelined, scanned and rematerialized variants raise.
+MoE, pipelined, scanned and rematerialized variants, and their options,
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -13,21 +14,34 @@ from typing import Optional
 from .. import nn
 
 
+def _unported(where: str, item: str, **options) -> None:
+    """Raise for each option that is not at the JAX default given as
+    ``name=(value, default)``: those variants are not ported yet."""
+    for name, (value, default) in options.items():
+        if value != default:
+            raise NotImplementedError(
+                f"{where}({name}=...): not yet ported (ROADMAP {item})")
+
+
 def transformer_block(
     d_model: int,
     num_heads: int,
     d_ff: int,
     *,
+    causal: bool = True,
+    moe_experts: int = 0,
     flash="auto",
     dtype=None,
 ) -> list:
     """Pre-LN block as two Residuals: [LN -> MHA] + [LN -> MLP].
-    ``flash`` passes through to MultiHeadAttention (True/False/'auto')."""
+    ``causal`` and ``flash`` pass through to MultiHeadAttention;
+    ``moe_experts`` (an nn.MoE FFN) raises."""
+    _unported("transformer_block", "1.7", moe_experts=(moe_experts, 0))
     attn = nn.Residual(
         nn.Sequential(
             [
                 nn.LayerNorm(),
-                nn.MultiHeadAttention(num_heads, causal=True, flash=flash,
+                nn.MultiHeadAttention(num_heads, causal=causal, flash=flash,
                                       dtype=dtype),
             ],
             name="main",
@@ -38,8 +52,8 @@ def transformer_block(
     mlp = nn.Residual(nn.Sequential(
         [
             nn.LayerNorm(),
-            nn.Dense(d_ff, activation="gelu", dtype=dtype),
-            nn.Dense(d_model, dtype=dtype),
+            nn.Dense(d_ff, activation="gelu", shard="col", dtype=dtype),
+            nn.Dense(d_model, shard="row", dtype=dtype),
         ],
         name="main",
     ))
@@ -54,31 +68,43 @@ def transformer_lm(
     num_heads: int = 4,
     d_ff: Optional[int] = None,
     max_len: int = 512,
+    causal: bool = True,
     moe_experts: int = 0,
+    moe_every: int = 2,
     pipeline: bool = False,
+    pipeline_schedule: str = "gpipe",
+    pipeline_interleave: int = 1,
     scan: bool = False,
+    scan_overlap: str = "auto",
     remat: bool = False,
+    remat_policy=None,
     flash="auto",
     dtype=None,
 ) -> nn.Sequential:
     """Token-in, logits-out LM: (B, T) int tokens -> (B, T, vocab).
 
+    ``causal=False`` builds a bidirectional LM (no generation then), and
     ``flash`` picks each attention layer's full-sequence path (see
-    ``nn.MultiHeadAttention``). ``moe_experts``, ``pipeline``, ``scan``
-    and ``remat`` select variants that are not ported yet and raise
-    ``NotImplementedError``."""
-    for flag, value in (("moe_experts", moe_experts), ("pipeline", pipeline),
-                        ("scan", scan), ("remat", remat)):
-        if value:
-            raise NotImplementedError(f"transformer_lm({flag}=...): not yet ported")
+    ``nn.MultiHeadAttention``). The MoE options (``moe_experts``,
+    ``moe_every``) and ``pipeline`` with its schedule options raise
+    naming ROADMAP 1.7; ``scan``, ``scan_overlap``, ``remat`` and
+    ``remat_policy`` name 1.5. Each raises only when set away from the
+    JAX default."""
+    _unported("transformer_lm", "1.7", moe_experts=(moe_experts, 0),
+              moe_every=(moe_every, 2), pipeline=(pipeline, False),
+              pipeline_schedule=(pipeline_schedule, "gpipe"),
+              pipeline_interleave=(pipeline_interleave, 1))
+    _unported("transformer_lm", "1.5", scan=(scan, False),
+              scan_overlap=(scan_overlap, "auto"), remat=(remat, False),
+              remat_policy=(remat_policy, None))
     d_ff = d_ff or 4 * d_model
     layers = [
         nn.Embedding(vocab_size, d_model, dtype=dtype),
         nn.PositionalEmbedding(max_len),
     ]
     for _ in range(num_layers):
-        layers += transformer_block(d_model, num_heads, d_ff, flash=flash,
-                                    dtype=dtype)
+        layers += transformer_block(d_model, num_heads, d_ff, causal=causal,
+                                    flash=flash, dtype=dtype)
     layers += [nn.LayerNorm(), nn.Dense(vocab_size, dtype=dtype)]
     return nn.Sequential(layers, name="transformer_lm")
 

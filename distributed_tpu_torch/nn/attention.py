@@ -71,15 +71,24 @@ def _require_causal(layer):
 
 
 class MultiHeadAttention(Layer):
-    """Multi-head self-attention over (B, T, D) inputs."""
+    """Multi-head self-attention over (B, T, D) inputs. ``head_dim``
+    (default ``d // num_heads``) sets the projections' inner width
+    ``num_heads * head_dim``; ``use_bias=False`` registers no biases (the
+    JAX layer's tree paths). ``ring_axis`` names the mesh axis the JAX
+    layer runs ring attention over under sequence parallelism; no
+    strategy of the port has one (ROADMAP 1.7), so it is kept and never
+    read, as in JAX outside such a mesh."""
 
     def __init__(
         self,
         num_heads: int,
+        head_dim: Optional[int] = None,
         *,
         causal: bool = False,
-        flash="auto",
+        use_bias: bool = True,
         dtype=None,
+        ring_axis: Optional[str] = "seq",
+        flash="auto",
         name: Optional[str] = None,
     ):
         super().__init__(name)
@@ -87,21 +96,28 @@ class MultiHeadAttention(Layer):
             raise ValueError(f"flash must be True, False or 'auto', got "
                              f"{flash!r}")
         self.num_heads = int(num_heads)
+        self.head_dim = head_dim
         self.causal = bool(causal)
+        self.use_bias = use_bias
         self.flash = flash
         self.dtype = dtype
+        self.ring_axis = ring_axis
 
     def build(self, input_shape: Shape, generator):
         d = input_shape[-1]
-        if d % self.num_heads:
+        if self.head_dim is None and d % self.num_heads:
             raise ValueError(
                 f"d_model {d} not divisible by num_heads {self.num_heads}"
             )
+        inner = self.num_heads * (self.head_dim or d // self.num_heads)
         init = initializers.glorot_uniform()
-        for w in ("wq", "wk", "wv", "wo"):
-            setattr(self, w, torch.nn.Parameter(init(generator, (d, d))))
-        for b in ("bq", "bk", "bv", "bo"):
-            setattr(self, b, torch.nn.Parameter(torch.zeros(d)))
+        for w in ("wq", "wk", "wv"):
+            setattr(self, w, torch.nn.Parameter(init(generator, (d, inner))))
+        self.wo = torch.nn.Parameter(init(generator, (inner, d)))
+        if self.use_bias:
+            for b in ("bq", "bk", "bv"):
+                setattr(self, b, torch.nn.Parameter(torch.zeros(inner)))
+            self.bo = torch.nn.Parameter(torch.zeros(d))
         return tuple(input_shape)
 
     @property
@@ -113,10 +129,12 @@ class MultiHeadAttention(Layer):
         dt = resolve_dtype(self.dtype)
         if dt is not None:
             kernel = kernel.to(dt)
-        return x @ kernel + getattr(self, b).to(x.dtype)
+        y = x @ kernel
+        return y + getattr(self, b).to(y.dtype) if self.use_bias else y
 
     def _out(self, ctx):
-        return ctx @ self.wo.to(ctx.dtype) + self.bo.to(ctx.dtype)
+        y = ctx @ self.wo.to(ctx.dtype)
+        return y + self.bo.to(y.dtype) if self.use_bias else y
 
     def _qkv(self, x, lead_q, lead_kv):
         """Cast ``x`` to the layer dtype and project it; q reshaped to
@@ -147,6 +165,35 @@ class MultiHeadAttention(Layer):
         else:
             ctx = dense_attention(q, k, v, self.causal)
         return self._out(ctx.reshape(b, t, -1))
+
+    # ------------------------------------------------- incremental decode --
+    def init_cache(self, batch, max_len, dtype, device):
+        """Dense ``(B, max_len, H, hd)`` K and V caches in the layer's
+        dtype, else the decode dtype."""
+        shape = (batch, max_len, self.num_heads, self._hd)
+        cdtype = resolve_dtype(self.dtype) or dtype
+        return {name: torch.zeros(shape, dtype=cdtype, device=device)
+                for name in ("k", "v")}
+
+    def decode(self, cache, x, *, pos):
+        """One-token attention over the dense cache, as the JAX layer's:
+        x (B, 1, D); the new K/V row is written at ``pos`` (in place),
+        f32 scores scaled by ``1/sqrt(hd)`` are masked beyond ``pos``, and
+        the softmax is cast to q's dtype before the product with V."""
+        _require_causal(self)
+        b = x.shape[0]
+        q, k, v = self._qkv(x, (b, 1), (b, 1))
+        ck, cv = cache["k"], cache["v"]
+        ck[:, pos] = k[:, 0].to(ck.dtype)
+        cv[:, pos] = v[:, 0].to(cv.dtype)
+        scores = torch.einsum(
+            "bqhd,bkhd->bhqk", q.to(torch.float32), ck.to(torch.float32)
+        ) / math.sqrt(q.shape[-1])  # (B, H, 1, Tmax)
+        visible = torch.arange(ck.shape[1], device=x.device) <= pos
+        scores = torch.where(visible, scores, NEG)
+        attn = torch.softmax(scores, dim=-1).to(q.dtype)
+        ctx = torch.einsum("bhqk,bkhd->bqhd", attn, cv.to(q.dtype))
+        return self._out(ctx.reshape(b, 1, -1)), {"k": ck, "v": cv}
 
     # ------------------------------------------- paged (block) KV cache --
     def init_paged_cache(self, num_blocks, block_size, dtype, device):
@@ -289,6 +336,17 @@ class PositionalEmbedding(Layer):
     def forward(self, x):
         t = x.shape[1]
         return x + self.table[:t][None].to(x.dtype)
+
+    def init_cache(self, batch, max_len, dtype, device):
+        if max_len > self.max_len:
+            raise ValueError(
+                f"generation length {max_len} exceeds positional table "
+                f"max_len {self.max_len}"
+            )
+        return {}
+
+    def decode(self, cache, x, *, pos):
+        return x + self.table[pos][None, None].to(x.dtype), cache
 
     def paged_decode(self, cache, x, *, block_tables, positions,
                      decode_kernel="reference"):

@@ -10,6 +10,13 @@ and register them under those names, so ``named_parameters()`` yields the
 JAX tree paths (``residual_1.main.dense_1.kernel`` is
 ``residual_1/main/dense_1/kernel``).
 
+The dense-cache decode protocol (``init_cache``/``decode``, which
+``Model.generate`` drives) is the JAX package's: x is ``(B, 1, ...)``,
+``pos`` the step's position, ``(output, new_cache)`` comes back;
+position-independent layers apply token-wise, attention and positional
+embeddings override, and layers that mix positions set ``decode_safe =
+False`` and raise. The attention cache is written in place.
+
 The paged-KV plumbing (``init_paged_cache``/``paged_prefill``/
 ``paged_decode``/``paged_verify``) mirrors the JAX package's: caches are plain dicts of
 pool tensors keyed like the parameter tree. Unlike JAX, the pools are
@@ -53,6 +60,25 @@ class Layer(torch.nn.Module):
 
     def default_name(self) -> str:
         return _camel_to_snake(type(self).__name__)
+
+    # -- incremental decode (dense KV cache, Model.generate) ----------------
+    #: True: ``forward`` treats every position independently, so the
+    #: default one-token decode below is exact. Layers that mix positions
+    #: override ``decode`` or set this False to fail loudly.
+    decode_safe = True
+
+    def init_cache(self, batch: int, max_len: int, dtype, device):
+        """Create this layer's decode cache (empty for stateless layers)."""
+        return {}
+
+    def decode(self, cache, x, *, pos: int):
+        """One autoregressive step: x is (B, 1, ...) at position ``pos``.
+        Returns (output, new_cache)."""
+        if not self.decode_safe:
+            raise NotImplementedError(
+                f"{type(self).__name__} does not support incremental "
+                "decode (generation)")
+        return self(x), cache
 
     # -- paged decode (block KV cache, serving.Engine) ----------------------
     def init_paged_cache(self, num_blocks: int, block_size: int, dtype,
@@ -130,6 +156,22 @@ class Sequential(Layer):
             x = layer(x)
         return x
 
+    def init_cache(self, batch, max_len, dtype, device):
+        caches = {}
+        for layer in self.layers:
+            c = layer.init_cache(batch, max_len, dtype, device)
+            if c:
+                caches[layer.name] = c
+        return caches
+
+    def decode(self, cache, x, *, pos):
+        new_cache = dict(cache)
+        for layer in self.layers:
+            x, c = layer.decode(cache.get(layer.name, {}), x, pos=pos)
+            if c:
+                new_cache[layer.name] = c
+        return x, new_cache
+
     def init_paged_cache(self, num_blocks, block_size, dtype, device):
         caches = {}
         for layer in self.layers:
@@ -205,6 +247,31 @@ class Residual(Layer):
         if self.shortcut is not None:
             raise NotImplementedError(
                 "Residual with a shortcut branch: paged decode not ported")
+
+    def init_cache(self, batch, max_len, dtype, device):
+        caches = {}
+        c = self.main.init_cache(batch, max_len, dtype, device)
+        if c:
+            caches["main"] = c
+        if self.shortcut is not None:
+            c = self.shortcut.init_cache(batch, max_len, dtype, device)
+            if c:
+                caches["shortcut"] = c
+        return caches
+
+    def decode(self, cache, x, *, pos):
+        y, cm = self.main.decode(cache.get("main", {}), x, pos=pos)
+        new_cache = dict(cache)
+        if cm:
+            new_cache["main"] = cm
+        if self.shortcut is not None:
+            sc, cs = self.shortcut.decode(cache.get("shortcut", {}), x,
+                                          pos=pos)
+            if cs:
+                new_cache["shortcut"] = cs
+        else:
+            sc = x
+        return self.activation(y + sc), new_cache
 
     def init_paged_cache(self, num_blocks, block_size, dtype, device):
         c = self.main.init_paged_cache(num_blocks, block_size, dtype, device)

@@ -38,4 +38,29 @@ def normal(stddev=0.01):
     return init
 
 
-__all__ = ["glorot_uniform", "normal"]
+_REGISTRY = {"glorot_uniform": glorot_uniform}
+
+
+def get(name_or_fn):
+    """An initializer by the JAX package's name, or a callable
+    ``init(generator, shape)`` as it is. The JAX names the port lacks
+    (``glorot_normal``, ``he_uniform``, ``he_normal``, ``lecun_normal``,
+    ``zeros``, ``ones``) raise ``NotImplementedError`` naming ROADMAP 1.4;
+    other names raise ``ValueError``, as in JAX."""
+    if callable(name_or_fn):
+        return name_or_fn
+    if name_or_fn in _UNPORTED:
+        raise NotImplementedError(
+            f"initializer {name_or_fn!r}: not yet ported (ROADMAP 1.4)")
+    try:
+        return _REGISTRY[name_or_fn]()
+    except KeyError:
+        raise ValueError(
+            f"Unknown initializer {name_or_fn!r}; known: "
+            f"{sorted(set(_REGISTRY) | set(_UNPORTED))}") from None
+
+
+_UNPORTED = ("glorot_normal", "he_uniform", "he_normal", "lecun_normal",
+             "zeros", "ones")
+
+__all__ = ["get", "glorot_uniform", "normal"]

@@ -78,8 +78,10 @@ def _check_padding(padding: str) -> str:
 class Conv2D(Layer):
     """2-D convolution over NHWC inputs with an HWIO kernel. A layer with
     ``use_bias=False`` registers no ``bias``, so its tree paths are the
-    JAX layer's. The kernel is drawn glorot-uniform, the JAX layer's
-    default and the only initializer its models use."""
+    JAX layer's. ``kernel_initializer`` as Dense's (``initializers.get``;
+    glorot-uniform, the JAX layer's default, is what its models use)."""
+
+    decode_safe = False  # mixes neighbouring positions
 
     def __init__(
         self,
@@ -100,17 +102,14 @@ class Conv2D(Layer):
         self.padding = _check_padding(padding)
         self.activation = activations.get(activation)
         self.use_bias = use_bias
-        if kernel_initializer != "glorot_uniform":
-            raise NotImplementedError(
-                f"Conv2D(kernel_initializer={kernel_initializer!r}): not yet "
-                "ported")
+        self.kernel_initializer = initializers.get(kernel_initializer)
         self.dtype = dtype
 
     def build(self, input_shape: Shape, generator):
         h, w, cin = input_shape
         kh, kw = self.kernel_size
         self.input_shape = tuple(input_shape)
-        self.kernel = torch.nn.Parameter(initializers.glorot_uniform()(
+        self.kernel = torch.nn.Parameter(self.kernel_initializer(
             generator, (kh, kw, cin, self.filters)))
         if self.use_bias:
             self.bias = torch.nn.Parameter(torch.zeros(self.filters))
@@ -142,25 +141,39 @@ class Conv2D(Layer):
 
 
 class Dense(Layer):
-    """Affine map on the trailing axis; works for (B, D) and (B, T, D) alike."""
+    """Affine map on the trailing axis; works for (B, D) and (B, T, D) alike.
+    ``use_bias=False`` registers no ``bias`` (the JAX layer's tree paths).
+    ``kernel_initializer``: a name the port has (``"glorot_uniform"``) or a
+    callable ``init(generator, shape)``. ``shard`` ('col'/'row') is the
+    JAX layer's tensor-parallel hint: validated and kept, read by no
+    strategy the port has (ROADMAP 1.7)."""
 
     def __init__(
         self,
         units: int,
         activation=None,
+        use_bias: bool = True,
+        kernel_initializer="glorot_uniform",
         dtype=None,
+        shard: Optional[str] = None,
         name: Optional[str] = None,
     ):
         super().__init__(name)
         self.units = int(units)
         self.activation = activations.get(activation)
+        self.use_bias = use_bias
+        self.kernel_initializer = initializers.get(kernel_initializer)
         self.dtype = dtype
+        if shard not in (None, "col", "row"):
+            raise ValueError(f"shard must be None/'col'/'row', got {shard!r}")
+        self.shard = shard
 
     def build(self, input_shape: Shape, generator):
         din = input_shape[-1]
-        self.kernel = torch.nn.Parameter(initializers.glorot_uniform()(
+        self.kernel = torch.nn.Parameter(self.kernel_initializer(
             generator, (din, self.units)))
-        self.bias = torch.nn.Parameter(torch.zeros(self.units))
+        if self.use_bias:
+            self.bias = torch.nn.Parameter(torch.zeros(self.units))
         return tuple(input_shape[:-1]) + (self.units,)
 
     def forward(self, x):
@@ -169,15 +182,20 @@ class Dense(Layer):
         if dt is not None:
             x = x.to(dt)
             kernel = kernel.to(dt)
-        y = x @ kernel + self.bias.to(x.dtype)
+        y = x @ kernel
+        if self.use_bias:
+            y = y + self.bias.to(y.dtype)
         return self.activation(y)
 
 
 class LayerNorm(Layer):
     """Normalizes the trailing axis in f32 (population variance,
-    ``epsilon`` 1e-6 — not torch's 1e-5) and casts back to ``x.dtype``."""
+    ``epsilon`` 1e-6 by default — not torch's 1e-5) and casts back to
+    ``x.dtype``."""
 
-    epsilon = 1e-6
+    def __init__(self, epsilon: float = 1e-6, name: Optional[str] = None):
+        super().__init__(name)
+        self.epsilon = float(epsilon)
 
     def build(self, input_shape: Shape, generator):
         d = input_shape[-1]
@@ -344,6 +362,8 @@ class SpaceToDepth(Layer):
     becomes one position, its entries in (row, column, channel) order, as
     the JAX layer's reshape and transpose order them."""
 
+    decode_safe = False  # mixes spatial positions
+
     def __init__(self, block_size: int = 2, name: Optional[str] = None):
         super().__init__(name)
         self.block_size = int(block_size)
@@ -369,6 +389,8 @@ class Flatten(Layer):
     """(N, ...) -> (N, prod(...)) in the input's logical (H, W, C) order,
     as the JAX layer's reshape of an NHWC array."""
 
+    decode_safe = False  # collapses all non-batch axes, including time
+
     def build(self, input_shape: Shape, generator):
         out = 1
         for d in input_shape:
@@ -392,6 +414,8 @@ class Activation(Layer):
 
 
 class _Pool2D(Layer):
+    decode_safe = False  # pooling windows span positions
+
     def __init__(self, pool_size: IntOr2 = 2, strides: Optional[IntOr2] = None,
                  padding="valid", name=None):
         super().__init__(name)
@@ -436,6 +460,8 @@ class AvgPool2D(_Pool2D):
 
 class GlobalAvgPool2D(Layer):
     """(N, H, W, C) -> (N, C): the mean over H and W."""
+
+    decode_safe = False  # reduces over spatial/temporal axes
 
     def build(self, input_shape: Shape, generator):
         return (input_shape[-1],)

@@ -17,8 +17,14 @@ and ``apply_updates``: ``mu = (1-b1)*g + b1*mu``, ``nu = (1-b2)*g*g +
 b2*nu``, ``count += 1``, ``mu_hat = mu / (1 - b1**count)``, ``nu_hat =
 nu / (1 - b2**count)``, ``p += -lr * (mu_hat / (sqrt(nu_hat + 0) +
 eps))``. ``torch.optim.Adam`` rounds differently and is not used. This is
-plain tensor code, as optax's is a tree walk and no Pallas kernel; the
-fused Adam kernel (``optim.fused_adam``) is not ported yet.
+plain tensor code, as optax's is a tree walk and no Pallas kernel;
+``fused_adam``/``fused_adamw`` run the update as the fused kernel K11.
+
+``Model.compile(grad_clip=, gradient_accumulation_steps=)`` wraps the
+optimizer as the JAX package does: ``chain(clip_by_global_norm(c), tx)``
+inside ``MultiSteps(..., every_k_schedule=N)``, with optax's arithmetic
+and optax's state layout (``interop`` writes it under optax's paths).
+``set_hyperparam``/``get_hyperparam`` reach through the wrappers.
 """
 
 from __future__ import annotations
@@ -36,7 +42,18 @@ def _f32(x) -> torch.Tensor:
     return torch.tensor(float(x), dtype=_F32)
 
 
-class _Optimizer:
+class _Transform:
+    """Base of every transform: ``init(params)`` makes its state,
+    ``update(params, grads, state)`` applies one step in place."""
+
+    def init(self, params: List[torch.Tensor]):
+        raise NotImplementedError
+
+    def update(self, params, grads, state) -> None:
+        raise NotImplementedError
+
+
+class _Optimizer(_Transform):
     """Base: hyperparameters as f32 scalars in the state, in-place update."""
 
     name = "optimizer"
@@ -177,6 +194,85 @@ class fused_adamw(AdamW):
     fused = True
 
 
+class clip_by_global_norm:
+    """optax.clip_by_global_norm: every gradient scaled by ``max_norm /
+    norm`` when the global norm ``sqrt(sum of every entry squared)`` is
+    not below ``max_norm``. A gradient map with no state, for
+    :class:`chain`; the norm stays a device scalar (no host sync)."""
+
+    def __init__(self, max_norm: float):
+        self.max_norm = float(max_norm)
+
+    @torch.no_grad()
+    def __call__(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        keep = norm < self.max_norm
+        return [torch.where(keep, g, (g / norm.to(g.dtype)) * self.max_norm)
+                for g in grads]
+
+
+class chain(_Transform):
+    """optax.chain of gradient maps (``clip_by_global_norm``) and one
+    optimizer, last. The state is optax's tuple: an empty state for each
+    map, then the optimizer's."""
+
+    def __init__(self, *transforms):
+        *self.maps, self.inner = transforms
+        if not isinstance(self.inner, _Transform) or any(
+                isinstance(t, _Transform) for t in self.maps):
+            raise ValueError("chain(...) takes gradient maps, then one "
+                             "optimizer")
+
+    def init(self, params):
+        return tuple(() for _ in self.maps) + (self.inner.init(params),)
+
+    def update(self, params, grads, state) -> None:
+        for fn in self.maps:
+            grads = fn(grads)
+        self.inner.update(params, grads, state[-1])
+
+
+class MultiSteps(_Transform):
+    """optax.MultiSteps(tx, every_k_schedule=k) with the gradient mean:
+    each call folds the gradients into a running mean (Welford's ``acc +=
+    (g - acc) / (mini_step + 1)``, in f32), and every k-th call hands the
+    mean to ``tx``, zeroes it and advances ``gradient_step``; the other
+    calls leave the parameters as they are. The state is optax's
+    ``MultiStepsState``: ``mini_step``, ``gradient_step``,
+    ``inner_opt_state``, ``acc_grads``, ``skip_state`` (empty)."""
+
+    def __init__(self, tx: _Transform, every_k_schedule: int):
+        if not isinstance(every_k_schedule, int) or every_k_schedule < 1:
+            raise ValueError("every_k_schedule must be an integer >= 1 (a "
+                             "schedule function is not ported)")
+        self.inner = tx
+        self.k = every_k_schedule
+
+    def init(self, params):
+        return {"mini_step": 0, "gradient_step": 0,
+                "inner_opt_state": self.inner.init(params),
+                "acc_grads": [torch.zeros_like(p, dtype=_F32)
+                              for p in params],
+                "skip_state": ()}
+
+    @torch.no_grad()
+    def update(self, params, grads, state) -> None:
+        acc = state["acc_grads"]
+        n = state["mini_step"]
+        # Divided by a list of scalars: a Python scalar divides by its
+        # reciprocal's product on CUDA (see the module docstring).
+        torch._foreach_add_(acc, torch._foreach_div(
+            torch._foreach_sub([g.to(_F32) for g in grads], acc),
+            [float(n + 1)] * len(acc)))
+        if n == self.k - 1:
+            self.inner.update(params, acc, state["inner_opt_state"])
+            torch._foreach_zero_(acc)
+            state["mini_step"] = 0
+            state["gradient_step"] += 1
+        else:
+            state["mini_step"] = n + 1
+
+
 _REGISTRY = {
     "sgd": SGD, "adam": Adam, "adamw": AdamW, "fused_adam": fused_adam,
     "fused_adamw": fused_adamw,
@@ -212,11 +308,11 @@ class EmaBaseline:
         self.value = None if state["value"] is None else float(state["value"])
 
 
-def get(name_or_opt, **kwargs) -> _Optimizer:
+def get(name_or_opt, **kwargs) -> _Transform:
     """An optimizer from its name (``"sgd"``, ``"adam"``, ``"adamw"``,
     ``"fused_adam"``, ``"fused_adamw"``; ``kwargs`` go to its
     constructor) or an optimizer instance as is."""
-    if isinstance(name_or_opt, _Optimizer):
+    if isinstance(name_or_opt, _Transform):
         return name_or_opt
     try:
         return _REGISTRY[str(name_or_opt).lower()](**kwargs)
@@ -226,24 +322,39 @@ def get(name_or_opt, **kwargs) -> _Optimizer:
         ) from None
 
 
+def _hyperparams(opt_state, name: str) -> Dict:
+    """The ``hyperparams`` dict holding ``name``, searched through the
+    wrappers' states (``chain``'s tuple, ``MultiSteps``' inner state)."""
+    if isinstance(opt_state, dict):
+        hp = opt_state.get("hyperparams")
+        if isinstance(hp, dict) and name in hp:
+            return hp
+        inner = opt_state.get("inner_opt_state")
+        if inner is not None:
+            return _hyperparams(inner, name)
+    elif isinstance(opt_state, tuple):
+        for sub in opt_state:
+            try:
+                return _hyperparams(sub, name)
+            except KeyError:
+                pass
+    raise KeyError(f"optimizer state carries no hyperparameter {name!r}")
+
+
 def set_hyperparam(opt_state: Dict, name: str, value) -> Dict:
     """Replace injected hyperparameter ``name`` (e.g. 'learning_rate') in
-    ``opt_state``, rounded to f32 as optax holds it; returns the state."""
-    hp = opt_state["hyperparams"]
-    if name not in hp:
-        raise KeyError(f"optimizer state carries no hyperparameter {name!r}")
-    hp[name] = _f32(value)
+    ``opt_state``, rounded to f32 as optax holds it, searching through
+    chained and accumulating states; returns the state."""
+    _hyperparams(opt_state, name)[name] = _f32(value)
     return opt_state
 
 
 def get_hyperparam(opt_state: Dict, name: str) -> float:
-    hp = opt_state["hyperparams"]
-    if name not in hp:
-        raise KeyError(f"optimizer state carries no hyperparameter {name!r}")
-    return hp[name].item()
+    return _hyperparams(opt_state, name)[name].item()
 
 
 __all__ = [
-    "Adam", "AdamW", "EmaBaseline", "SGD", "fused_adam", "fused_adamw", "get",
+    "Adam", "AdamW", "EmaBaseline", "MultiSteps", "SGD", "chain",
+    "clip_by_global_norm", "fused_adam", "fused_adamw", "get",
     "get_hyperparam", "set_hyperparam",
 ]

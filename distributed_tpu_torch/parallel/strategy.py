@@ -32,7 +32,6 @@ import contextlib
 import threading
 from typing import Dict, List, Optional, Sequence
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -43,6 +42,18 @@ _local = threading.local()
 
 def current_strategy() -> Optional["Strategy"]:
     return getattr(_local, "strategy", None)
+
+
+def _comm_row(gathered=0, grad=0) -> dict:
+    """The JAX package's ``comm_bytes_estimate`` schema: the parameter
+    gather, the gradient reduce, and the per-token activation and
+    pipeline traffic that no port strategy has yet."""
+    return {
+        "gathered_param_bytes_per_device": int(gathered),
+        "grad_reduce_bytes_per_device": int(grad),
+        "activation_reduce_bytes_per_token_per_device": 0,
+        "pipeline_hop_bytes_per_token_per_device": 0,
+    }
 
 
 class Strategy:
@@ -74,14 +85,6 @@ class Strategy:
         start = self._rank() * lb
         return start, start + lb
 
-    def put_batch(self, batch) -> torch.Tensor:
-        """This replica's rows of a host-global numpy batch, on its device
-        (every process passes the whole batch, the reference's feeding)."""
-        rows = np.asarray(batch)
-        start, stop = self.row_range(rows.shape[0])
-        return torch.from_numpy(np.ascontiguousarray(rows[start:stop])).to(
-            self.device)
-
     def _rank(self) -> int:
         return 0
 
@@ -92,6 +95,12 @@ class Strategy:
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the replicas, in place (as it is here)."""
         return t
+
+    def comm_bytes_estimate(self, params) -> dict:
+        """The JAX strategies' per-step, per-device collective estimate
+        (``last_fit_telemetry["comm_bytes_estimate"]``), with the same
+        keys: one replica moves nothing."""
+        return _comm_row()
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """``t`` replaced in place by replica ``src``'s (as it is here)."""
@@ -166,6 +175,11 @@ class DataParallel(Strategy):
             for i, piece in zip(idxs, pieces):
                 out[i] = piece.view(grads[i].shape)
         return out
+
+    def comm_bytes_estimate(self, params) -> dict:
+        # One gradient all-reduce of the whole parameter tree a step.
+        return _comm_row(grad=sum(p.numel() * p.element_size()
+                                  for p in params.values()))
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         dist.all_reduce(t, op=dist.ReduceOp.SUM)

@@ -69,12 +69,12 @@ from ..optim import EmaBaseline
 from ..training.model import Model
 from ..utils import event_schema as evs
 from ..utils import events as events_lib
+from ..utils import threefry
 from ..utils.profiler import StepTimer
 from .kv_cache import PagedKVCache
 from .scheduler import Request, Scheduler
 
 _M64 = (1 << 64) - 1
-_M32 = 0xFFFFFFFF
 
 #: Adaptive speculative-k ladder: the only verify widths an adaptive
 #: engine dispatches (0 = draft off for that tenant, plain decode).
@@ -169,35 +169,6 @@ def _token_key(sample_seed: int, index: int) -> np.ndarray:
     return np.array([x >> 32, x & 0xFFFFFFFF], np.uint32)
 
 
-def _random_bits(keys: np.ndarray, n: int, device) -> torch.Tensor:
-    """32 random bits for each of ``n`` columns of each row of ``keys``
-    ((R, 2) uint32 key data), as JAX's ``random.bits(key, (n,))`` gives
-    them: Threefry-2x32 (20 rounds) over the counters (0, j), the two
-    output words xor-ed. uint32 arithmetic in int64 lanes, masked."""
-    k = torch.from_numpy(keys.astype(np.int64)).to(device)
-    ks = (k[:, :1], k[:, 1:], k[:, :1] ^ k[:, 1:] ^ 0x1BD11BDA)
-    x0 = torch.zeros((1, n), dtype=torch.int64, device=device) + ks[0]
-    x1 = (torch.arange(n, dtype=torch.int64, device=device)[None]
-          + ks[1]) & _M32
-    for i in range(5):
-        for r in ((13, 15, 26, 6), (17, 29, 16, 24))[i % 2]:
-            x0 = (x0 + x1) & _M32
-            x1 = (((x1 << r) | (x1 >> (32 - r))) & _M32) ^ x0
-        x0 = (x0 + ks[(i + 1) % 3]) & _M32
-        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
-    return x0 ^ x1
-
-
-def _gumbel(keys: np.ndarray, n: int, device) -> torch.Tensor:
-    """JAX's ``random.gumbel(key, (n,))`` per row: uniforms in [tiny, 1)
-    from the bits' top 23 as a mantissa, then ``-log(-log(u))`` in f32."""
-    bits = _random_bits(keys, n, device)
-    u = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    tiny = torch.finfo(torch.float32).tiny
-    u = torch.clamp_min(u + tiny, tiny)
-    return -torch.log(-torch.log(u))
-
-
 def _sample_with_logprob(logits, keys, temperature, top_k):
     """Sample each row's next token and its sampling logprob: ``logits``
     (R, V), ``keys`` (R, 2) uint32 token keys. Greedy (``temperature <=
@@ -217,7 +188,8 @@ def _sample_with_logprob(logits, keys, temperature, top_k):
     if temperature <= 0.0:
         toks = torch.argmax(logits, dim=-1)
     else:
-        noise = _gumbel(np.asarray(keys), logits.shape[-1], logits.device)
+        noise = threefry.gumbel_from_bits(threefry.row_bits(
+            np.asarray(keys), logits.shape[-1], logits.device))
         toks = torch.argmax(scaled + noise, dim=-1)
     logp = logp_all.gather(1, toks[:, None])[:, 0]
     return toks, logp

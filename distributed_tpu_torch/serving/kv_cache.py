@@ -30,13 +30,13 @@ a block in place.
 from __future__ import annotations
 
 import hashlib
-import logging
 from collections import OrderedDict
 from typing import Dict, List, Optional
 
 import numpy as np
 
-logger = logging.getLogger(__name__)
+from ..utils import event_schema as evs
+from ..utils import events as events_lib
 
 
 class BlockAllocator:
@@ -258,7 +258,7 @@ class PagedKVCache:
                 self.allocator, n - self.allocator.num_free
             )
             if evicted:
-                logger.debug("prefix store evicted %d blocks", evicted)
+                events_lib.emit(evs.PREFIX_EVICT, blocks=evicted)
             grant = self.allocator.allocate(n)
         return grant
 

@@ -26,6 +26,9 @@ import torch
 from ..checkpoint import Checkpointer
 from ..checkpoint.core import _is_chief, broadcast_ints, flatten_tree
 from ..interop import iter_leaf_paths, opt_state_to_tree
+from ..obs import spans as obs_spans
+from ..utils import event_schema as evs
+from ..utils import events as events_lib
 from ..utils import logging as dlog
 from ..utils import sync_check
 
@@ -61,8 +64,9 @@ class ModelCheckpoint(Callback):
     decides), so a crashed run restarts by running the same command again.
     ``async_save=True`` saves in the background (``Checkpointer``); the
     writer is flushed at train end, so ``fit`` never returns with a write
-    in flight. ``sharded=True`` and ``buddy=`` are not ported yet and
-    raise.
+    in flight. Time blocked on restores, saves and the flush goes to the
+    active fit's ``checkpoint_wait`` span (``model.last_fit_telemetry``).
+    ``sharded=True`` and ``buddy=`` are not ported yet and raise.
     """
 
     def __init__(self, directory, *, save_freq="epoch", keep: int = 3,
@@ -85,13 +89,22 @@ class ModelCheckpoint(Callback):
         self.restore = restore
         self._last_bucket = 0  # save_freq bucket already saved (int freq)
 
+    @staticmethod
+    def _timed(model, fn):
+        """Run a checkpoint operation that may block, in the fit's
+        ``checkpoint_wait`` span (its stall timer, when a fit runs)."""
+        timer = getattr(model, "_stall_timer", None)
+        with obs_spans.span("checkpoint_wait", timer=timer):
+            return fn()
+
     def on_train_begin(self, model):
         if self.restore:
             has_ckpt = self.ckpt.latest_step() is not None
             # Every rank takes rank 0's answer: without a shared file
             # system only it has the files.
             if broadcast_ints([int(has_ckpt)])[0]:
-                step = self.ckpt.restore_into(model)
+                step = self._timed(model,
+                                   lambda: self.ckpt.restore_into(model))
                 model._resumed_step = step
                 if _is_chief():
                     dlog.info(f"ModelCheckpoint: resumed from step {step}")
@@ -107,14 +120,14 @@ class ModelCheckpoint(Callback):
         bucket = step // self.save_freq
         if bucket > self._last_bucket:
             self._last_bucket = bucket
-            self.ckpt.save(model)
+            self._timed(model, lambda: self.ckpt.save(model))
 
     def on_epoch_end(self, model, epoch, logs):
         if self.save_freq == "epoch":
-            self.ckpt.save(model)
+            self._timed(model, lambda: self.ckpt.save(model))
 
     def on_train_end(self, model, history):
-        self.ckpt.wait()
+        self._timed(model, self.ckpt.wait)
 
 
 def _metric_mode(monitor: str) -> str:
@@ -416,7 +429,7 @@ class SyncCheck(Callback):
     bit-identical on every rank of the group: the synchronous
     data-parallel invariant, checked during training. Every rank must run
     it (it is a collective); a divergence raises AssertionError naming the
-    first leaf that differs."""
+    first leaf that differs, after a ``sync_check_failed`` event."""
 
     def __init__(self, every: int = 1, include_opt_state: bool = False):
         if every < 1:
@@ -427,13 +440,21 @@ class SyncCheck(Callback):
     def on_epoch_end(self, model, epoch, logs):
         if (epoch + 1) % self.every:
             return
-        sync_check.assert_replicas_identical(model.params, "params")
-        sync_check.assert_replicas_identical(model.state, "state")
-        if self.include_opt_state:
-            tree = opt_state_to_tree(model.tx, model.opt_state, model.params)
-            sync_check.assert_replicas_identical(
-                {p: torch.as_tensor(v) for p, v in iter_leaf_paths(tree)},
-                "opt_state")
+        try:
+            sync_check.assert_replicas_identical(model.params, "params")
+            sync_check.assert_replicas_identical(model.state, "state")
+            if self.include_opt_state:
+                tree = opt_state_to_tree(model.tx, model.opt_state,
+                                         model.params)
+                sync_check.assert_replicas_identical(
+                    {p: torch.as_tensor(v) for p, v in iter_leaf_paths(tree)},
+                    "opt_state")
+        except AssertionError as e:
+            # The run still fails; the event log names the drifted leaf
+            # first, as the JAX callback's does.
+            events_lib.emit(evs.SYNC_CHECK_FAILED, epoch=int(epoch),
+                            step=int(model.step), error=str(e))
+            raise
 
 
 __all__ = [

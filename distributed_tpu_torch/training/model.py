@@ -2,7 +2,8 @@
 
 The counterpart of the JAX package's ``training/model.py``: ``build``
 creates the parameters from a seed, ``params`` exposes them under the JAX
-tree paths, ``compile``/``fit``/``evaluate`` train and score, and
+tree paths, ``compile``/``fit``/``evaluate``/``predict`` train and score,
+``generate`` samples from a token LM through the dense KV cache, and
 ``decode_dtype`` names the KV-cache dtype the serving engine uses.
 
 A model captures the strategy of the ``strategy.scope()`` it is built in
@@ -23,23 +24,47 @@ of ``model.module``) runs it in eval mode, as ``train=False``.
 A train step is forward, loss, ``torch.autograd.grad`` and the optimizer's
 in-place update. Master parameters stay f32; layers built with ``dtype=``
 cast them per call, and the gradients come back f32 through the casts, as
-in JAX. PyTorch runs eagerly, so there is no jit and no donation; the
-per-step loss and metric sums stay on the device and are fetched once per
-epoch, as the JAX loop does. The ``compile``/``fit`` options of the JAX
-package that are not ported raise ``NotImplementedError``.
+in JAX. The per-step loss and metric sums stay on the device and are
+fetched once per epoch, as the JAX loop does.
+
+The JAX loop's levers are the port's too:
+
+- ``fit(grad_accum=M)``: M microbatches a step, their gradients summed in
+  f32 and divided by M, one update; ``compile(grad_clip=,
+  gradient_accumulation_steps=)`` wrap the optimizer as optax does
+  (``optim.chain``, ``optim.MultiSteps``).
+- ``compile(steps_per_execution=K)``: K host batches stacked and copied to
+  the device once, then K steps with no host sync between them; loss and
+  metric sums accumulate on the device, and callbacks, the progress line
+  and ``model.step`` advance every K steps. On the card each step's
+  forward and backward replays a CUDA graph (``training.step_graph``) and
+  the update runs eagerly after it; on the CPU the steps run eagerly.
+- ``fit(x)`` from a batch iterator (``data.Pipeline`` or any iterator of
+  ``(x, y)``), and ``fit(prefetch=N)``: a ``data.DevicePrefetcher``
+  stages N dispatches ahead on a background thread, through pinned host
+  buffers and a side stream on the card, bit-identical at any depth.
+- The fit loop's telemetry: ``input_wait``/``dispatch``/
+  ``checkpoint_wait`` spans, ``model.last_fit_telemetry`` (the JAX
+  report's keys) and periodic ``metrics_snapshot`` events.
+
+The ``compile``/``fit`` options of the JAX package that are not ported
+raise ``NotImplementedError`` naming their ROADMAP item.
 
 ``fit`` calls its callbacks (``training.callbacks``) at the JAX package's
 hook points and honours its crash-restart contract: after a restoring
 ``ModelCheckpoint``, ``epochs`` is the total, and the epochs and steps
-already done are skipped. With no callbacks a step does what it did
-without them: no host sync and no device work is added.
+already done are skipped (an iterator source is moved to the restored
+step: its checkpointed cursor, else a seek). With no callbacks a step does
+what it did without them: no host sync and no device work is added.
 ``save_weights``/``load_weights`` write and read the JAX package's HDF5
-and npz weight files (``checkpoint``), and ``predict`` gives the logits.
+and npz weight files (``checkpoint``).
 """
 
 from __future__ import annotations
 
+import os
 import time
+import warnings
 from typing import Dict, Iterable, Optional, Sequence
 
 import numpy as np
@@ -47,13 +72,24 @@ import torch
 
 from .. import optim
 from ..checkpoint import core as ckpt
+from ..data.pipeline import Pipeline
+from ..data.prefetch import DevicePrefetcher, DeviceStager
 from ..device import resolve_device
 from ..interop import SEP
+from ..obs import registry as obs_registry
+from ..obs import spans as obs_spans
 from ..ops import losses as losses_lib
 from ..ops import metrics as metrics_lib
-from ..parallel.strategy import SingleDevice, Strategy, current_strategy
+from ..parallel.strategy import (DataParallel, SingleDevice, Strategy,
+                                 current_strategy)
+from ..utils import event_schema as evs
+from ..utils import events as events_lib
+from ..utils import logging as dlog
+from ..utils import threefry
+from ..utils.profiler import StepTimer
 from .history import History
 from .progress import ProgressLine
+from .step_graph import StepGraph
 
 
 def _index_stream(
@@ -79,21 +115,87 @@ def _index_stream(
         pass_idx += 1
 
 
-def _unported(where: str, **options) -> None:
-    """Raise for any option that is set: those paths are not ported yet."""
+def _unported(where: str, item: str, **options) -> None:
+    """Raise for any option that is set: those paths are not ported yet
+    (``item``: the ROADMAP item that ports them)."""
     for name, value in options.items():
         if value not in (None, False, (), []):
-            raise NotImplementedError(f"{where}({name}=...): not yet ported")
+            raise NotImplementedError(
+                f"{where}({name}=...): not yet ported (ROADMAP {item})")
+
+
+def _positive_int(name: str, value) -> int:
+    if not isinstance(value, (int, np.integer)) or value < 1:
+        raise ValueError(f"{name} must be an integer >= 1, got {value!r}")
+    return int(value)
+
+
+def _per_host_source(source, strategy) -> bool:
+    """True when a batch source emits only this process's rows of each
+    global batch (a ``(index, count)`` ``shard`` tuple, as
+    ``data.Pipeline(shard=...)`` sets); its count must be the number of
+    replicas, or the slices could not assemble into a whole batch."""
+    shard = getattr(source, "shard", None)
+    if not isinstance(shard, tuple):
+        return False
+    if int(shard[1]) != strategy.num_replicas_in_sync:
+        raise ValueError(
+            f"per-host-sharded data source splits each global batch "
+            f"{int(shard[1])} ways but this run has "
+            f"{strategy.num_replicas_in_sync} replica(s), so the shards "
+            "cannot assemble into a whole batch; rebuild the pipeline or "
+            "call pipeline.reshard('auto')")
+    return True
+
+
+def _host_tensor(a: np.ndarray) -> torch.Tensor:
+    """A host array as a CPU tensor, sharing its memory when it is
+    contiguous (only read: the batches are gathered from it)."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*not writable.*")
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _has_batch_norm(module) -> bool:
+    from ..nn.layers import BatchNorm
+
+    return any(isinstance(m, BatchNorm) for m in module.modules())
+
+
+def _tensor_bytes(tree) -> int:
+    """Bytes of the tensors in a nested dict/list/tuple tree."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(_tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tensor_bytes(v) for v in tree)
+    return 0
+
+
+def _device_memory(device):
+    """The allocator's ``{bytes_in_use, peak_bytes_in_use, bytes_limit}``
+    on a card; None on the CPU, as the JAX report has on XLA:CPU."""
+    if device.type != "cuda":
+        return None
+    return {
+        "bytes_in_use": int(torch.cuda.memory_allocated(device)),
+        "peak_bytes_in_use": int(torch.cuda.max_memory_allocated(device)),
+        "bytes_limit": int(torch.cuda.get_device_properties(
+            device).total_memory),
+    }
 
 
 class Model:
-    """``Model(module, device=None)``: the model on the device of the
-    ambient strategy (``strategy.scope()``), else on ``device``, where
-    ``None`` is the card; it raises ``RuntimeError`` when there is none
-    (pass ``device="cpu"``)."""
+    """``Model(module, name=None, device=None)``: the model on the device
+    of the ambient strategy (``strategy.scope()``), else on ``device``,
+    where ``None`` is the card; it raises ``RuntimeError`` when there is
+    none (pass ``device="cpu"``). ``name`` as in the JAX package
+    (default ``"model"``)."""
 
-    def __init__(self, module, *, device=None):
+    def __init__(self, module, name: Optional[str] = None, *, device=None):
         self.module = module
+        self.name = name or "model"
         # Scope-wraps-construction: capture the ambient strategy now.
         strategy = current_strategy()
         if strategy is None:
@@ -114,10 +216,17 @@ class Model:
         self.step = 0  # global optimizer step (the batch-order cursor)
         self.tx = None
         self.opt_state = None
+        self.steps_per_execution = None  # compile(steps_per_execution=K)
         self.stop_training = False  # callbacks (EarlyStopping) set this
+        self.last_fit_telemetry = None  # the stall report of the last fit
+        self._stall_timer = None  # live StepTimer of the fit in progress
+        self._fit_source = None  # the iterator fit reads (checkpoint meta)
         self._resumed_step = None  # set by a restoring Checkpointer
+        self._restored_data_state = None  # its data_state meta, if any
         self._seed = 0
         self._decode_dtype = None
+        self._graphs = {}  # captured train steps (steps_per_execution)
+        self._stager = None
 
     def build(self, input_shape: Sequence[int], seed: int = 0):
         """Create the f32 parameters for an unbatched input shape, drawn
@@ -131,6 +240,7 @@ class Model:
         self.module.eval()
         self.built = True
         self._decode_dtype = None
+        self._graphs = {}
         if self.compiled:
             self.opt_state = self.tx.init(self._param_list())
         return self
@@ -224,6 +334,9 @@ class Model:
         steps_per_execution: Optional[int] = None,
         precision=None,
         strategy=None,
+        hbm_cap_bytes: Optional[int] = None,
+        measure: bool = False,
+        auto_options: Optional[dict] = None,
         **optimizer_kwargs,
     ):
         """Set the optimizer (a name, with ``optimizer_kwargs`` for its
@@ -231,16 +344,25 @@ class Model:
         ``"pallas_sparse_categorical_crossentropy"``, or a callable) and the
         metrics. ``strategy`` (a ``parallel.Strategy``) replaces the one
         captured at construction and moves a built model to its device. A
-        built model's optimizer state starts afresh, as in JAX. Clipping,
-        accumulation, the chunked head, multi-step execution, precision
-        policies and ``strategy="auto"`` are kept for call parity with the
-        JAX package and raise ``NotImplementedError``."""
-        _unported(
-            "compile", grad_clip=grad_clip,
-            gradient_accumulation_steps=gradient_accumulation_steps,
-            head_chunks=head_chunks, steps_per_execution=steps_per_execution,
-            precision=precision, strategy=strategy == "auto",
-        )
+        built model's optimizer state starts afresh, as in JAX.
+
+        ``grad_clip``: clip the gradients' global norm before the update
+        (``optim.clip_by_global_norm``, chained before the optimizer).
+        ``gradient_accumulation_steps=N``: the mean gradient of N ``fit``
+        steps in one update every N-th step (``optim.MultiSteps`` around
+        the clip and the optimizer, as in JAX); ``model.step`` advances
+        per fit step. ``steps_per_execution=K``: K steps a dispatch (see
+        the module docstring).
+
+        Not ported, raising ``NotImplementedError``: ``head_chunks``
+        (ROADMAP 1.3), ``precision`` policies (1.5), and the auto-shard
+        planner's ``strategy="auto"``, ``hbm_cap_bytes``, ``measure`` and
+        ``auto_options`` (1.7)."""
+        _unported("compile", "1.3", head_chunks=head_chunks)
+        _unported("compile", "1.5", precision=precision)
+        _unported("compile", "1.7 (parallel/auto_shard.py)",
+                  strategy=strategy == "auto", hbm_cap_bytes=hbm_cap_bytes,
+                  measure=measure, auto_options=auto_options)
         if strategy is not None:
             if not isinstance(strategy, Strategy):
                 raise ValueError(
@@ -250,11 +372,25 @@ class Model:
             self.device = strategy.device
             if self.built:
                 self.module.to(self.device)
-        self.tx = optim.get(optimizer, **optimizer_kwargs)
+        tx = optim.get(optimizer, **optimizer_kwargs)
+        if grad_clip is not None:
+            if grad_clip <= 0:
+                raise ValueError(f"grad_clip must be > 0, got {grad_clip}")
+            tx = optim.chain(optim.clip_by_global_norm(float(grad_clip)), tx)
+        if gradient_accumulation_steps is not None:
+            n = _positive_int("gradient_accumulation_steps",
+                              gradient_accumulation_steps)
+            if n > 1:
+                tx = optim.MultiSteps(tx, every_k_schedule=n)
+        self.steps_per_execution = (
+            None if steps_per_execution is None
+            else _positive_int("steps_per_execution", steps_per_execution))
+        self.tx = tx
         self.loss_fn = losses_lib.get(loss)
         self.metric_fns = [(metrics_lib.name_of(m), metrics_lib.get(m))
                            for m in metrics]
         self.compiled = True
+        self._graphs = {}
         if self.built:
             self.opt_state = self.tx.init(self._param_list())
         return self
@@ -262,7 +398,8 @@ class Model:
     # -------------------------------------------------------- learning rate
     def set_learning_rate(self, lr: float):
         """Change the learning rate of the current optimizer state (held
-        there as an f32 hyperparameter, as optax.inject_hyperparams does)."""
+        there as an f32 hyperparameter, as optax.inject_hyperparams does;
+        found through the clip and accumulation wrappers)."""
         if self.opt_state is None:
             raise RuntimeError("compile() and build() the model first")
         self.opt_state = optim.set_hyperparam(self.opt_state,
@@ -278,20 +415,159 @@ class Model:
     def _to_device(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def _train_step(self, x, y):
-        """One optimizer step on a device batch: returns the loss (a
-        device scalar) and each metric's (sum, count)."""
+    def _grad_eval(self, x, y, accum_m: int):
+        """Forward, loss and gradients of one optimizer step on a device
+        batch: ``(loss, f32 grads, {metric: (sum, count)})``. With
+        ``accum_m > 1``, x and y carry a leading microbatch axis: the
+        microbatches' gradients are summed in f32 and divided by M, the
+        loss is the mean of their means, the metric pairs are summed (the
+        JAX ``_accum_train_step_body``)."""
+        if accum_m > 1:
+            return self._accum_grad_eval(x, y, accum_m)
         params = self._param_list()
         with self.strategy.scope():
             logits = self.module(x)
             loss = self.loss_fn(logits, y)
             grads = torch.autograd.grad(loss, params, materialize_grads=True)
-        grads = self.strategy.reduce_gradients(grads)
-        self.tx.update(params, grads, self.opt_state)
         with torch.no_grad():
             mvals = {name: fn(logits.detach(), y)
                      for name, fn in self.metric_fns}
-        return loss.detach(), mvals
+        return loss.detach(), list(grads), mvals
+
+    def _accum_grad_eval(self, xs, ys, m: int):
+        gsum, loss_sum = None, None
+        msums = {}
+        for i in range(m):
+            loss, grads, mvals = self._grad_eval(xs[i], ys[i], 1)
+            if gsum is None:
+                gsum = [g.to(torch.float32) for g in grads]
+                loss_sum = loss.to(torch.float32)
+            else:
+                torch._foreach_add_(gsum, [g.to(torch.float32)
+                                           for g in grads])
+                loss_sum = loss_sum + loss.to(torch.float32)
+            for name, (s, c) in mvals.items():
+                s0, c0 = msums.get(name, (0.0, 0.0))
+                msums[name] = (s0 + s.to(torch.float32), c0 + float(c))
+        # Divided by a list of scalars, as optax divides (see optim).
+        grads = torch._foreach_div(gsum, [float(m)] * len(gsum))
+        return loss_sum / m, grads, msums
+
+    def _apply_update(self, grads) -> None:
+        grads = self.strategy.reduce_gradients(grads)
+        self.tx.update(self._param_list(), grads, self.opt_state)
+
+    def _train_step(self, x, y, accum_m: int = 1):
+        """One optimizer step on a device batch: returns the loss (a
+        device scalar) and each metric's (sum, count)."""
+        loss, grads, mvals = self._grad_eval(x, y, accum_m)
+        self._apply_update(grads)
+        return loss, mvals
+
+    def _check_capturable(self):
+        if (isinstance(self.strategy, DataParallel)
+                and _has_batch_norm(self.module)):
+            raise NotImplementedError(
+                "steps_per_execution > 1 under DataParallel with BatchNorm "
+                "on the card: not yet ported (ROADMAP 1.6). Sync-BN's "
+                "collectives run inside the forward, which the step's CUDA "
+                "graph would capture; the port captures no NCCL call")
+
+    def _graph_grad_eval(self, x, y, accum_m: int):
+        key = (tuple(x.shape), x.dtype, tuple(y.shape), y.dtype, accum_m)
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = self._graphs[key] = StepGraph(
+                lambda a, b: self._grad_eval(a, b, accum_m), self.module,
+                x, y)
+        return graph.replay(x, y)
+
+    def _multi_step(self, xs, ys, k: int, accum_m: int):
+        """``k`` optimizer steps on a stacked device batch (``[k, batch,
+        ...]``, or ``[k*M, micro, ...]`` with accumulation) with no host
+        sync: returns the k losses' sum and the metric pairs' sums, on
+        the device (the JAX ``_get_multi_step_train_step``)."""
+        grad_eval = (self._graph_grad_eval if xs.is_cuda
+                     else self._grad_eval)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=xs.device)
+        msums = {name: (loss_sum, 0.0) for name, _ in self.metric_fns}
+        for i in range(k):
+            rows = slice(i * accum_m, (i + 1) * accum_m)
+            x, y = ((xs[i], ys[i]) if accum_m == 1
+                    else (xs[rows], ys[rows]))
+            loss, grads, mvals = grad_eval(x, y, accum_m)
+            self._apply_update(grads)
+            loss_sum = loss_sum + loss.to(torch.float32)
+            msums = {name: (s + mvals[name][0].to(torch.float32),
+                            c + float(mvals[name][1]))
+                     for name, (s, c) in msums.items()}
+        return loss_sum, msums
+
+    def _stager_for(self) -> DeviceStager:
+        if self._stager is None or self._stager.device != self.device:
+            self._stager = DeviceStager(self.device)
+        return self._stager
+
+    @staticmethod
+    def _split(buf, stacked, accum_m):
+        """A staged buffer ``(k, n, ...)`` as the step takes it: ``(n,
+        ...)`` unstacked, ``(k*M, n/M, ...)`` with accumulation (``(M,
+        n/M, ...)`` unstacked); views."""
+        if accum_m > 1:
+            return buf.view((-1, buf.shape[1] // accum_m) + buf.shape[2:])
+        return buf if stacked else buf[0]
+
+    def _stage_rows(self, arrays, idxs, stacked, accum_m):
+        """Stage rows ``idxs`` (an index array a step) of the host arrays
+        (CPU tensors): this replica's rows of each microbatch, gathered by
+        ``torch.index_select`` (threaded, without the GIL) straight into
+        the stager's buffers."""
+        stager = self._stager_for()
+        rows = []
+        for idx in idxs:
+            idx = np.asarray(idx).reshape(accum_m, -1)
+            lo, hi = self.strategy.row_range(idx.shape[1])
+            rows.append(torch.from_numpy(
+                np.ascontiguousarray(idx[:, lo:hi]).reshape(-1)))
+        batch = {}
+        for name, src in arrays.items():
+            buf = stager.host(name, (len(rows), len(rows[0]))
+                              + tuple(src.shape[1:]), src.dtype)
+            for i, r in enumerate(rows):
+                torch.index_select(src, 0, r, out=buf[i])
+            batch[name] = self._split(buf, stacked, accum_m)
+        return stager.stage(batch)
+
+    def _stage_batch(self, arrays, stacked, accum_m, per_host):
+        """Stage an iterator's host batches (``(B, ...)``, or ``(k, B,
+        ...)`` stacked): this replica's rows of each microbatch (all of a
+        per-host source's), copied into the stager's buffers."""
+        stager = self._stager_for()
+        batch = {}
+        for name, a in arrays.items():
+            t = torch.from_numpy(np.asarray(a))
+            t = t if stacked else t[None]
+            if not per_host:
+                k, n = t.shape[:2]
+                lo, hi = self.strategy.row_range(n // accum_m)
+                t = t.reshape((k, accum_m, n // accum_m) + t.shape[2:])
+                t = t[:, :, lo:hi].reshape((k, -1) + t.shape[3:])
+            buf = stager.host(name, t.shape, t.dtype)
+            buf.copy_(t)
+            batch[name] = self._split(buf, stacked, accum_m)
+        return stager.stage(batch)
+
+    def _stage_pipeline(self, source, k, stacked, accum_m):
+        """Stage ``k`` batches of a ``data.Pipeline`` that emits this
+        replica's rows: it writes them straight into the stager's
+        buffers (``next_k(out=)``)."""
+        stager = self._stager_for()
+        xs = stager.host("x", (k,) + tuple(source.batch_shape),
+                         torch.float32)
+        ys = stager.host("y", (k, source.shard_rows), torch.int32)
+        source.next_k(k, out=(xs.numpy(), ys.numpy()))
+        return stager.stage({"x": self._split(xs, stacked, accum_m),
+                             "y": self._split(ys, stacked, accum_m)})
 
     # -------------------------------------------------------------------- fit
     def fit(
@@ -308,80 +584,197 @@ class Model:
         initial_epoch: int = 0,
         seed: Optional[int] = None,
         callbacks: Sequence = (),
+        prefetch: Optional[int] = None,
         grad_accum: Optional[int] = None,
     ) -> History:
-        """Train on host arrays ``(x, y)``: ``batch_size`` rows per step
+        """Train on host arrays ``(x, y)`` or on a batch iterator ``x``
+        (``y=None``; e.g. ``data.Pipeline``, whose ``batch_size``,
+        ``steps_per_pass`` and ``batch_shape`` it reads; a plain iterator
+        needs ``steps_per_epoch``). Arrays: ``batch_size`` rows per step
         (the global batch: under ``DataParallel`` each rank takes its
         share, and it must divide evenly), ``steps_per_epoch`` steps per
         epoch (default ``len(x) // batch_size``), batches drawn in the JAX
         package's order (``shuffle``, ``seed``), continuing from
         ``model.step``. Returns a ``History`` of per-epoch means.
 
+        ``grad_accum=M`` splits each step's batch into M microbatches and
+        applies one update of their mean gradient (module docstring).
+        ``prefetch`` (default 2, or ``DTPU_PREFETCH_DEPTH``) is how many
+        dispatches a background thread stages ahead (0: inline); the
+        stream is the same at any depth, and a mid-epoch stop rewinds a
+        seekable source to the step trained. The stall report lands in
+        ``model.last_fit_telemetry``.
+
         ``callbacks`` (``training.callbacks``) are called as in the JAX
         package: ``on_train_begin`` (before the batch order is set, so a
         restoring ``ModelCheckpoint`` moves it), then per epoch
         ``on_epoch_begin``, ``on_batch_end(model, step, {"loss": device
-        scalar})`` after each step (the global batch's loss: under
+        scalar})`` after each dispatch (the global batch's loss, the
+        dispatch's per-step mean under ``steps_per_execution``; under
         ``DataParallel`` the ranks' losses are averaged for it, one
-        all-reduce a step when there are callbacks) and
+        all-reduce a dispatch when there are callbacks) and
         ``on_epoch_end(model, epoch, logs)``, and ``on_train_end(model,
         history)``; a callback that sets ``model.stop_training`` ends the
-        run after the step or epoch.
+        run after the dispatch or epoch.
         After a restore (``model._resumed_step``) with ``initial_epoch``
         0, ``epochs`` is the total: the finished epochs are skipped and
         the interrupted one runs its remaining steps.
-        ``validation_data=(x, y)`` is evaluated after each epoch and
-        logged as ``val_<name>``. A batch iterator (as ``x`` or as
-        ``validation_data``; ``validation_steps`` goes with it) and
-        ``grad_accum`` are not ported yet and raise."""
+        ``validation_data`` — ``(x, y)`` arrays, or a batch iterator read
+        for ``validation_steps`` batches (default: one pass) — is
+        evaluated after each epoch and logged as ``val_<name>``."""
         if not self.compiled:
             raise RuntimeError("Call compile() before fit()")
+        self._fit_source = None
         if y is None:
-            raise NotImplementedError(
-                "fit(x) from a batch iterator: not yet ported")
-        if hasattr(validation_data, "__next__"):
-            raise NotImplementedError(
-                "fit(validation_data=<batch iterator>): not yet ported")
-        _unported("fit", grad_accum=grad_accum)
-        x = np.asarray(x)
-        y = np.asarray(y)
-        if not self.built:
-            self.build(x.shape[1:], seed=0 if seed is None else seed)
-        n = x.shape[0]
-        if batch_size > n:
-            raise ValueError(f"batch_size {batch_size} > dataset size {n}")
-        if steps_per_epoch is None:
-            steps_per_epoch = n // batch_size
-        self.strategy.local_batch_size(batch_size)  # replica divisibility
+            if not hasattr(x, "__next__"):
+                raise ValueError(
+                    "fit(x) without y requires a batch iterator "
+                    "(e.g. distributed_tpu_torch.data.Pipeline)")
+            source = x
+            # Checkpoints taken during this fit record its cursor.
+            self._fit_source = source
+            batch_size = getattr(source, "batch_size", batch_size)
+            per_host = _per_host_source(source, self.strategy)
+            if steps_per_epoch is None:
+                steps_per_epoch = getattr(source, "steps_per_pass", None)
+                if steps_per_epoch is None:
+                    raise ValueError(
+                        "steps_per_epoch is required with a plain iterator")
+            if not self.built:
+                bshape = getattr(source, "batch_shape", None)
+                if bshape is None:
+                    raise RuntimeError(
+                        "Build the model first (model.build(input_shape)) "
+                        "when fitting from an iterator without batch_shape")
+                self.build(tuple(bshape[1:]), seed=0 if seed is None else seed)
+
+            def next_batch():
+                return next(source)
+        else:
+            source, per_host = None, False
+            x = np.asarray(x)
+            y = np.asarray(y)
+            if not self.built:
+                self.build(x.shape[1:], seed=0 if seed is None else seed)
+            n = x.shape[0]
+            if batch_size > n:
+                raise ValueError(f"batch_size {batch_size} > dataset size {n}")
+            if steps_per_epoch is None:
+                steps_per_epoch = n // batch_size
+        accum_m = 1 if grad_accum is None else _positive_int("grad_accum",
+                                                             grad_accum)
+        if batch_size % accum_m:
+            raise ValueError(
+                f"grad_accum={accum_m} must divide batch_size {batch_size} "
+                "(each optimizer step's batch splits into M equal "
+                "microbatches)")
+        self.strategy.local_batch_size(batch_size // accum_m)
+        if (validation_data is not None
+                and hasattr(validation_data, "__next__")
+                and validation_steps is None
+                and getattr(validation_data, "steps_per_pass", None) is None):
+            raise ValueError(
+                "validation_steps is required when validation_data is a "
+                "plain iterator (sources with steps_per_pass, e.g. "
+                "data.Pipeline, default to one pass)")
+        multi_k = self.steps_per_execution or 1
+        if multi_k > 1 and self.device.type == "cuda":
+            self._check_capturable()
+        if prefetch is None:
+            prefetch = int(os.environ.get("DTPU_PREFETCH_DEPTH", "2"))
+        prefetch = max(0, int(prefetch))
+        timer = StepTimer()
+        self._stall_timer = timer
         history = History()
         callbacks = list(callbacks)
         self.stop_training = False
         self._resumed_step = None
         for cb in callbacks:
             cb.on_train_begin(self)
-        # After on_train_begin: a restoring ModelCheckpoint may have moved
-        # self.step, and the batch order continues from it.
-        stream = _index_stream(n, batch_size, shuffle, seed,
-                               start_step=self.step)
+        if y is not None:
+            # After on_train_begin: a restoring ModelCheckpoint may have
+            # moved self.step, and the batch order continues from it.
+            stream = _index_stream(n, batch_size, shuffle, seed,
+                                   start_step=self.step)
+            arrays = {"x": _host_tensor(x), "y": _host_tensor(y)}
+
+        def stage(k):
+            """``k`` steps' batches on the device: ``(B, ...)`` for one
+            step, ``[k, B, ...]`` stacked; with accumulation the batch axis
+            splits into ``[M, B/M]`` (``[k*M, B/M, ...]`` stacked, as the
+            JAX loop stages it). This replica's rows of the batch axis,
+            written straight into the stager's (pinned) buffers."""
+            stacked = multi_k > 1
+            if y is not None:
+                return self._stage_rows(
+                    arrays, [next(stream) for _ in range(k)], stacked,
+                    accum_m)
+            if isinstance(source, Pipeline) and (
+                    per_host or self.strategy.num_replicas_in_sync == 1):
+                return self._stage_pipeline(source, k, stacked, accum_m)
+            if stacked:
+                pairs = [next_batch() for _ in range(k)]
+                xb = np.stack([p[0] for p in pairs])
+                yb = np.stack([p[1] for p in pairs])
+            else:
+                xb, yb = next_batch()
+            return self._stage_batch({"x": xb, "y": yb}, stacked, accum_m,
+                                     per_host)
+
         resume_offset = 0
         if self._resumed_step is not None and initial_epoch == 0:
             initial_epoch, resume_offset = divmod(self._resumed_step,
                                                   steps_per_epoch)
+            if y is None:
+                self._rewind_source(source)
         self._resumed_step = None
+        self._restored_data_state = None
         self.module.train()
         try:
-            self._fit_epochs(x, y, batch_size, epochs, steps_per_epoch,
-                             verbose, initial_epoch, resume_offset, stream,
-                             history, callbacks, validation_data)
+            self._fit_epochs(
+                epochs, steps_per_epoch, batch_size, verbose, initial_epoch,
+                resume_offset, stage, multi_k, accum_m, prefetch, source,
+                history, callbacks, validation_data, validation_steps, timer)
         finally:
             self.module.eval()
         for cb in callbacks:
+            # Before the report: a flushing ModelCheckpoint's wait counts
+            # as checkpoint_wait.
             cb.on_train_end(self, history)
+        self._finish_telemetry(timer, source)
+        self._stall_timer = None
         return history
 
-    def _fit_epochs(self, x, y, batch_size, epochs, steps_per_epoch, verbose,
-                    initial_epoch, resume_offset, stream, history, callbacks,
-                    validation_data):
+    def _rewind_source(self, source):
+        """Move an iterator source to the restored step: the checkpoint's
+        cursor (``load_state``, which checks the stream's identity), else
+        a seek, else replaying a counting iterator; a plain iterator gets
+        a warning."""
+        data_state = self._restored_data_state
+        if data_state is not None and hasattr(source, "load_state"):
+            source.load_state(data_state)
+        elif hasattr(source, "seek"):
+            source.seek(self._resumed_step)
+        elif getattr(source, "steps_emitted", None) is not None:
+            for _ in range(max(0, self._resumed_step
+                               - source.steps_emitted)):
+                next(source)
+        else:
+            dlog.warning(
+                "Resuming from a plain iterator: cannot fast-forward the "
+                "data source; batch alignment with the restored step "
+                f"({self._resumed_step}) is the caller's responsibility")
+
+    def _fit_epochs(self, epochs, steps_per_epoch, batch_size, verbose,
+                    initial_epoch, resume_offset, stage, multi_k, accum_m,
+                    prefetch, source, history, callbacks, validation_data,
+                    validation_steps, timer):
+        reps = self.strategy.num_replicas_in_sync
+        obs_reg = obs_registry.default_registry()
+        flush_every = max(
+            1, int(os.environ.get("DTPU_OBS_FLUSH_EVERY", "5") or 5))
+        self._obs_window = []  # (per-step wall, per-step own host seconds)
+        self._fit_steps_done = 0
         for epoch in range(initial_epoch, epochs):
             t0 = time.perf_counter()
             for cb in callbacks:
@@ -394,45 +787,99 @@ class Model:
             if verbose == 1:
                 bar = ProgressLine(epoch_steps,
                                    prefix=f"Epoch {epoch + 1}/{epochs}: ")
-            reps = self.strategy.num_replicas_in_sync
+            # Each dispatch's size is fixed up front ([1, ...] plain; [K,
+            # ..., tail] fused), so the producer never reads past the epoch.
+            sizes, left = [], epoch_steps
+            while left > 0:
+                sizes.append(min(multi_k, left))
+                left -= sizes[-1]
+            staged = DevicePrefetcher(stage, sizes, depth=prefetch)
             done = 0
-            while done < epoch_steps:
-                idx = next(stream)
-                loss, mvals = self._train_step(self.strategy.put_batch(x[idx]),
-                                               self.strategy.put_batch(y[idx]))
-                self.step += 1
-                done += 1
-                losses.append(loss)
-                for name, _ in self.metric_fns:
-                    msums[name].append(mvals[name])
-                if callbacks:
-                    # The global batch's loss on every rank, as in JAX.
-                    logs = {"loss": loss if reps == 1 else
-                            self.strategy.all_reduce_sum(loss.clone()) / reps}
-                    for cb in callbacks:
-                        cb.on_batch_end(self, self.step, logs)
-                if bar is not None:
-                    bar.update(done)
-                if self.stop_training:
-                    break
+            last_t = time.perf_counter()
+            try:
+                for k in sizes:
+                    with obs_spans.span("input_wait", timer=timer) as sp_in:
+                        _, batch = staged.get()
+                        batch = batch.tensors
+                    with obs_spans.span("dispatch", timer=timer) as sp_disp:
+                        if multi_k == 1:
+                            loss, mvals = self._train_step(
+                                batch["x"], batch["y"], accum_m)
+                            loss_log = loss
+                        else:
+                            loss, mvals = self._multi_step(
+                                batch["x"], batch["y"], k, accum_m)
+                            loss_log = loss / k
+                    self.step += k
+                    done += k
+                    self._fit_steps_done += k
+                    losses.append(loss)  # a step's loss, or a K-step sum
+                    for name, _ in self.metric_fns:
+                        msums[name].append(mvals[name])
+                    if callbacks:
+                        # The global batch's loss on every rank, as in JAX.
+                        logs = {"loss": loss_log if reps == 1 else
+                                self.strategy.all_reduce_sum(
+                                    loss_log.clone()) / reps}
+                        for cb in callbacks:
+                            cb.on_batch_end(self, self.step, logs)
+                    if bar is not None:
+                        bar.update(done)
+                    # The iteration's wall and own host time (wall less
+                    # the input and dispatch waits); no device value read.
+                    # The JAX loop also writes a flight record here; the
+                    # port's obs/flight waits for ROADMAP 1.8.
+                    now = time.perf_counter()
+                    wall, last_t = now - last_t, now
+                    own = max(wall - sp_in.seconds - sp_disp.seconds, 0.0)
+                    obs_reg.ring_append("fit/step_seconds", {
+                        "step": int(self.step), "k": int(k),
+                        "seconds": round(wall, 6),
+                        "self_seconds": round(own, 6)})
+                    obs_reg.counter("fit/steps", k)
+                    self._obs_window.append((wall / k, own / k))
+                    self._flush_obs_window(flush_every)
+                    if self.stop_training:
+                        break
+            finally:
+                staged.close()
+                if staged.unconsumed_steps and source is not None and (
+                        hasattr(source, "seek") and getattr(
+                            source, "steps_emitted", None) is not None):
+                    # The producer staged past a mid-epoch stop: rewind so
+                    # the source's cursor is the step actually trained.
+                    source.seek(source.steps_emitted
+                                - staged.unconsumed_steps)
             if bar is not None:
                 bar.close()
+            epoch_steps = done
             # One host sync per epoch: every loss and metric sum at once,
             # summed over the replicas (each loss is its rank's mean, so the
             # losses are divided by their number; each rank scores as many
             # elements, so the counts are multiplied by it).
-            vec = self.strategy.all_reduce_sum(torch.cat(
-                [torch.stack(losses).to(torch.float32)]
-                + [torch.stack([p[0] for p in pairs]).to(torch.float32)
-                   for pairs in msums.values()])).cpu().numpy()
-            logs = {"loss": float(np.mean(vec[:done] / reps))}
+            with obs_spans.span("dispatch", timer=timer):
+                vec = self.strategy.all_reduce_sum(torch.cat(
+                    [torch.stack(losses).to(torch.float32)]
+                    + [torch.stack([p[0] for p in pairs]).to(torch.float32)
+                       for pairs in msums.values()])).cpu().numpy()
+            n_loss = len(losses)
+            if multi_k == 1:
+                logs = {"loss": float(np.mean(vec[:n_loss] / reps))}
+            else:
+                logs = {"loss": float(np.sum(vec[:n_loss] / reps)
+                                      / max(epoch_steps, 1))}
             for i, (name, pairs) in enumerate(msums.items()):
-                s = vec[(i + 1) * done:(i + 2) * done]
+                s = vec[(i + 1) * n_loss:(i + 2) * n_loss]
                 c = np.float32(sum(float(p[1]) for p in pairs) * reps)
                 logs[name] = float(np.float32(s.sum()) / max(c, 1.0))
             if validation_data is not None:
-                val = self.evaluate(validation_data[0], validation_data[1],
-                                    batch_size=batch_size, verbose=0)
+                if hasattr(validation_data, "__next__"):
+                    val = self.evaluate(validation_data,
+                                        steps=validation_steps, verbose=0)
+                else:
+                    val = self.evaluate(validation_data[0],
+                                        validation_data[1],
+                                        batch_size=batch_size, verbose=0)
                 logs.update({f"val_{k}": v for k, v in val.items()})
             dt = time.perf_counter() - t0
             history.record(epoch, logs)
@@ -444,69 +891,109 @@ class Model:
                 parts = " - ".join(f"{k}: {v:.4f}" for k, v in logs.items())
                 print(f"Epoch {epoch + 1}/{epochs} - "
                       f"{batch_size * done} samples - {dt:.2f}s "
-                      f"({dt / done * 1000:.1f}ms/step) - {parts}")
+                      f"({dt / max(done, 1) * 1000:.1f}ms/step) - {parts}")
             if self.stop_training:
                 break
 
+    def _flush_obs_window(self, every: int, force: bool = False):
+        """Emit the steps' wall and own seconds since the last flush as a
+        ``metrics_snapshot`` event (with the registry on and an event log
+        set) every ``every`` dispatches, and at the fit's end."""
+        window = self._obs_window
+        if not window or (not force and len(window) < every):
+            return
+        if obs_registry.enabled() and events_lib.default_log() is not None:
+            events_lib.emit(
+                evs.METRICS_SNAPSHOT, rank=int(self.strategy._rank()),
+                world=int(self.strategy.num_replicas_in_sync),
+                step=int(self.step),
+                step_seconds=[round(w, 6) for w, _ in window[-64:]],
+                self_seconds=[round(s, 6) for _, s in window[-64:]])
+        window.clear()
+
+    def _finish_telemetry(self, timer, source):
+        """``last_fit_telemetry``: the stall report and the JAX report's
+        other keys (device memory, the model state's bytes, the precision
+        policy, the collective estimate, the scanned-overlap record),
+        stored in the metrics registry as ``model.fit``."""
+        report = timer.stall_report()
+        report["device_memory"] = _device_memory(self.device)
+        report["model_state_bytes_per_device"] = (
+            _tensor_bytes(self._param_list())
+            + _tensor_bytes(list(self.state.values()))
+            + _tensor_bytes(self.opt_state))
+        report["precision"] = None
+        if source is not None and getattr(source, "decode_workers",
+                                          None) is not None:
+            report["input_decode_workers"] = int(source.decode_workers)
+        report["comm_bytes_estimate"] = self.strategy.comm_bytes_estimate(
+            self.params)
+        # No scanned block stack in the port (ROADMAP 1.5): the overlap
+        # record of a model without one.
+        report["overlap"] = {"overlap": False, "exposed_comm_fraction": 1.0,
+                             "layers": 0}
+        if obs_registry.enabled() and events_lib.default_log() is not None:
+            events_lib.emit(evs.OVERLAP_REPORT, overlap=False,
+                            exposed_comm_fraction=1.0, layers=0,
+                            strategy=type(self.strategy).__name__)
+        self._flush_obs_window(1, force=True)
+        obs_reg = obs_registry.default_registry()
+        obs_reg.gauge("fit/steps_per_sec", round(
+            self._fit_steps_done / report["total_seconds"], 3))
+        obs_reg.gauge("fit/input_stall_fraction",
+                      report["input_stall_fraction"])
+        obs_reg.gauge("fit/model_state_bytes_per_device",
+                      report["model_state_bytes_per_device"])
+        for key, val in (report["device_memory"] or {}).items():
+            obs_reg.gauge(f"fit/device_memory/{key}", val)
+        self.last_fit_telemetry = obs_reg.set_report("model.fit", report)
+
     # --------------------------------------------------------------- evaluate
-    def evaluate(self, x, y=None, batch_size: int = 32, verbose: int = 1,
-                 steps: Optional[int] = None) -> Dict[str, float]:
-        """Loss and metrics over arrays ``(x, y)``, as per-element means
-        (an LM's loss is the mean over every token, as in training). The
-        last batch may be partial; it is scored as it is, with no padding
-        (PyTorch needs no static shapes), which the JAX package's masked
-        padding computes the same. Under ``DataParallel`` each rank scores
-        its rows of every batch (``batch_size`` must divide evenly) and the
-        sums are reduced across the ranks at the end. The module runs in
-        eval mode and is left in the mode it was in (``fit`` validates
-        between its epochs)."""
-        if y is None:
-            raise NotImplementedError(
-                "evaluate(x) from a batch iterator: not yet ported")
-        _unported("evaluate", steps=steps)
-        if not (self.built and self.compiled):
-            raise RuntimeError("Model must be built and compiled")
-        x = np.asarray(x)
-        y = np.asarray(y)
-        n = x.shape[0]
-        lo, hi = self.strategy.row_range(batch_size)
+    def _score(self, xb, yb, per_ex):
+        """Device sums and host counts of one batch: ``([loss, metric...],
+        [count...])``."""
+        logits = self.module(xb)
+        valid = float(yb.numel())
+        if per_ex is not None:
+            loss_sum = per_ex(logits, yb).sum()
+        else:
+            loss_sum = self.loss_fn(logits, yb) * valid
+        row_sums, row_counts = [loss_sum], [valid]
+        for name, fn in self.metric_fns:
+            scores = metrics_lib.per_example(fn)
+            if scores is not None:
+                sc = scores(logits, yb)
+                row_sums.append(sc.sum())
+                row_counts.append(float(sc.numel()))
+            else:
+                msum, mcount = fn(logits, yb)
+                row_sums.append(msum)
+                row_counts.append(float(mcount))
+        return [v.to(torch.float32) for v in row_sums], row_counts
+
+    def _eval_batches(self, batches):
+        """Sum the scores of ``batches`` (an iterable of device ``(x, y)``
+        pairs of this replica, or None for a batch that ends before its
+        rows) in eval mode, reduced over the replicas; returns the
+        per-element means."""
         per_ex = losses_lib.get_per_example(self.loss_fn)
-        sums, counts = [], []  # per batch: [loss, metric...]; sums on device
+        k = 1 + len(self.metric_fns)
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        sums, counts = [], []
         was_training = self.module.training
         self.module.eval()
         try:
             with torch.inference_mode():
-                for start in range(0, n, batch_size):
-                    rows = slice(min(start + lo, n), min(start + hi, n))
-                    if rows.start == rows.stop:  # the batch ends before us
-                        sums.append([zero] * (1 + len(self.metric_fns)))
-                        counts.append([0.0] * (1 + len(self.metric_fns)))
+                for pair in batches:
+                    if pair is None:
+                        sums.append([zero] * k)
+                        counts.append([0.0] * k)
                         continue
-                    xb = self._to_device(x[rows])
-                    yb = self._to_device(y[rows])
-                    logits = self.module(xb)
-                    valid = float(yb.numel())
-                    if per_ex is not None:
-                        loss_sum = per_ex(logits, yb).sum()
-                    else:
-                        loss_sum = self.loss_fn(logits, yb) * valid
-                    row_sums, row_counts = [loss_sum], [valid]
-                    for name, fn in self.metric_fns:
-                        scores = metrics_lib.per_example(fn)
-                        if scores is not None:
-                            sc = scores(logits, yb)
-                            row_sums.append(sc.sum())
-                            row_counts.append(float(sc.numel()))
-                        else:
-                            msum, mcount = fn(logits, yb)
-                            row_sums.append(msum)
-                            row_counts.append(float(mcount))
-                    sums.append([v.to(torch.float32) for v in row_sums])
-                    counts.append(row_counts)
+                    s, c = self._score(*pair, per_ex)
+                    sums.append(s)
+                    counts.append(c)
         finally:
             self.module.train(was_training)
-        k = 1 + len(self.metric_fns)
         vec = self.strategy.all_reduce_sum(torch.cat([
             torch.stack([v for row in sums for v in row]).to(torch.float64),
             torch.tensor([c for row in counts for c in row],
@@ -517,36 +1004,139 @@ class Model:
         out = {"loss": totals[0] / max(dens[0], 1.0)}
         for j, (name, _) in enumerate(self.metric_fns, start=1):
             out[name] = totals[j] / max(dens[j], 1.0)
-        if verbose:
-            parts = " - ".join(f"{k}: {v:.4f}" for k, v in out.items())
-            print(f"Evaluate - {x.shape[0]} samples - {parts}")
         return out
 
+    def evaluate(self, x, y=None, batch_size: int = 32, verbose: int = 1,
+                 steps: Optional[int] = None) -> Dict[str, float]:
+        """Loss and metrics over arrays ``(x, y)``, or over ``steps``
+        batches of a batch iterator ``x`` (default: the source's
+        ``steps_per_pass``; the iterator is advanced, not reset), as
+        per-element means (an LM's loss is the mean over every token, as
+        in training). The last batch of arrays may be partial; it is
+        scored as it is, with no padding (PyTorch needs no static
+        shapes), which the JAX package's masked padding computes the
+        same. Under ``DataParallel`` each rank scores its rows of every
+        batch and the sums are reduced across the ranks at the end. The
+        module runs in eval mode and is left in the mode it was in
+        (``fit`` validates between its epochs)."""
+        if y is None:
+            if hasattr(x, "__next__"):
+                return self._evaluate_iterator(x, steps=steps,
+                                               verbose=verbose)
+            raise TypeError(
+                "evaluate() needs (x, y) arrays or a batch iterator "
+                f"yielding (x, y); got {type(x).__name__} without labels")
+        if not (self.built and self.compiled):
+            raise RuntimeError("Model must be built and compiled")
+        x = np.asarray(x)
+        y = np.asarray(y)
+        n = x.shape[0]
+        lo, hi = self.strategy.row_range(batch_size)
+
+        def batches():
+            for start in range(0, n, batch_size):
+                rows = slice(min(start + lo, n), min(start + hi, n))
+                if rows.start == rows.stop:  # the batch ends before us
+                    yield None
+                else:
+                    yield (self._to_device(x[rows]), self._to_device(y[rows]))
+
+        out = self._eval_batches(batches())
+        if verbose:
+            parts = " - ".join(f"{k}: {v:.4f}" for k, v in out.items())
+            print(f"Evaluate - {n} samples - {parts}")
+        return out
+
+    def _evaluate_iterator(self, source, *, steps=None, verbose=1):
+        if not (self.built and self.compiled):
+            raise RuntimeError("Model must be built and compiled")
+        if steps is None:
+            steps = getattr(source, "steps_per_pass", None)
+            if steps is None:
+                raise ValueError(
+                    "steps is required when evaluating from a plain "
+                    "iterator (sources with steps_per_pass, e.g. "
+                    "data.Pipeline, default to one pass)")
+        per_host = _per_host_source(source, self.strategy)
+        rows = [0]
+
+        def batches():
+            for step_i in range(int(steps)):
+                try:
+                    xb, yb = next(source)
+                except StopIteration:
+                    raise ValueError(
+                        f"validation iterator exhausted after {step_i} of "
+                        f"{int(steps)} batches — a finite iterator cannot "
+                        "be re-consumed across epochs; use a repeating "
+                        "source (data.Pipeline) or pass a smaller steps/"
+                        "validation_steps") from None
+                rows[0] += np.shape(xb)[0]
+                t = self._stage_batch({"x": xb, "y": yb}, False, 1,
+                                      per_host).tensors
+                yield t["x"], t["y"]
+
+        out = self._eval_batches(batches())
+        if verbose:
+            n = rows[0] * (int(source.shard[1]) if per_host else 1)
+            parts = " - ".join(f"{k}: {v:.4f}" for k, v in out.items())
+            print(f"Evaluate - {n} samples - {parts}")
+        return out
 
     # ---------------------------------------------------------------- predict
     def predict(self, x, batch_size: int = 32,
                 steps: Optional[int] = None) -> np.ndarray:
         """The logits of every row of the host array ``x``, as f32 numpy,
         ``batch_size`` rows per forward pass in eval mode (the last batch
-        partial). Under ``DataParallel`` every rank computes all rows, so
-        each returns the whole result, as in the JAX package. Up to 16
-        batches of logits stay on the device before they are fetched. A
-        batch iterator (and ``steps``, which goes with it) is not ported
-        yet and raises."""
+        partial); or of ``steps`` batches of a batch iterator (default:
+        the source's ``steps_per_pass``; batches are ``(x, y)`` or bare
+        x, and ``batch_size`` is ignored). Under ``DataParallel`` every
+        rank computes all rows, so each returns the whole result, as in
+        the JAX package. Up to 16 batches of logits stay on the device
+        before they are fetched. A per-host-sharded source raises (its
+        ranks' logits would need a gather: ROADMAP 1.6)."""
         self._require_built()
         if hasattr(x, "__next__"):
-            raise NotImplementedError(
-                "predict(<batch iterator>): not yet ported")
-        _unported("predict", steps=steps)
-        x = np.asarray(x)
-        self.strategy.local_batch_size(batch_size)
+            if steps is None:
+                steps = getattr(x, "steps_per_pass", None)
+                if steps is None:
+                    raise ValueError(
+                        "steps is required when predicting from a plain "
+                        "iterator (sources with steps_per_pass, e.g. "
+                        "data.Pipeline, default to one pass)")
+            if isinstance(getattr(x, "shard", None), tuple):
+                raise NotImplementedError(
+                    "predict from a per-host-sharded source: not yet "
+                    "ported (ROADMAP 1.6)")
+            source = x
+
+            def host_batches():
+                for step_i in range(int(steps)):
+                    try:
+                        batch = next(source)
+                    except StopIteration:
+                        raise ValueError(
+                            f"prediction iterator exhausted after {step_i} "
+                            f"of {int(steps)} batches — pass a smaller "
+                            "steps or a repeating source (data.Pipeline)"
+                        ) from None
+                    yield np.asarray(batch[0] if isinstance(batch, tuple)
+                                     else batch)
+        else:  # steps goes with an iterator; arrays ignore it, as in JAX
+            arr = np.asarray(x)
+            self.strategy.local_batch_size(batch_size)
+
+            def host_batches():
+                for start in range(0, arr.shape[0], batch_size):
+                    yield arr[start:start + batch_size]
+
         fetched, pending = [], []
         was_training = self.module.training
         self.module.eval()
         try:
             with torch.inference_mode():
-                for start in range(0, x.shape[0], batch_size):
-                    xb = self._to_device(x[start:start + batch_size])
+                for xb in host_batches():
+                    xb = self._to_device(xb)
                     pending.append(self.module(xb).to(torch.float32))
                     if len(pending) >= 16:
                         fetched.append(pending.pop(0).cpu().numpy())
@@ -554,6 +1144,86 @@ class Model:
         finally:
             self.module.train(was_training)
         return np.concatenate(fetched, axis=0)
+
+    # --------------------------------------------------------------- generate
+    @staticmethod
+    def _sample_logits(logits, key, temperature, top_k):
+        """The JAX ``Model._sample_logits``: f32 logits, everything below
+        the k-th largest masked to -inf, then the argmax (``temperature``
+        0) or ``categorical(key, logits / temperature)``."""
+        logits = logits.to(torch.float32)
+        if top_k is not None:
+            k = min(int(top_k), logits.shape[-1])
+            kth = torch.topk(logits, k, dim=-1).values[:, -1:]
+            logits = torch.where(logits < kth, float("-inf"), logits)
+        if temperature <= 0.0:
+            return torch.argmax(logits, dim=-1)
+        # A tensor divisor: a Python scalar divides by its reciprocal's
+        # product on CUDA, and the draw must see JAX's quotient.
+        t = torch.full((), float(temperature), dtype=torch.float32,
+                       device=logits.device)
+        return threefry.categorical(key, logits / t)
+
+    def generate(self, prompt, max_new_tokens: int, *,
+                 temperature: float = 1.0, top_k: Optional[int] = None,
+                 seed: int = 0) -> np.ndarray:
+        """Autoregressive sampling from a token LM with a dense KV cache,
+        as the JAX ``Model.generate``: ``prompt`` (B, T_p) int tokens in,
+        (B, T_p + max_new_tokens) int32 numpy out. ``temperature=0`` is
+        greedy argmax; ``top_k`` keeps the k most likely tokens; ``seed``
+        keys the draw (``jax.random.PRNGKey(seed)``, split once a step:
+        sampled tokens are JAX's own). The cache holds a bucket of
+        positions (a multiple of 64, or the exact length where the
+        positional table is shorter); the prompt is teacher-forced
+        through the same cached step the sampled tokens take. The loop is
+        plain Python over the layers' ``decode``, on the model's device;
+        the tokens are fetched once at the end."""
+        self._require_built()
+        prompt = np.asarray(prompt)
+        if prompt.ndim != 2:
+            raise ValueError(
+                f"prompt must be (batch, tokens); got {prompt.shape}")
+        b, t_p = prompt.shape
+        if t_p < 1:
+            raise ValueError(
+                "prompt must contain at least one token (the decode loop is "
+                f"seeded from prompt[:, 0]); got shape {prompt.shape}")
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        if top_k is not None and int(top_k) < 1:
+            raise ValueError(f"top_k must be >= 1; got {top_k}")
+        max_len = t_p + max_new_tokens
+        bucket = max(64, -(-max_len // 64) * 64)
+        dtype = self.decode_dtype()
+        try:
+            cache = self.module.init_cache(b, bucket, dtype, self.device)
+        except ValueError:
+            # The bucket exceeds the model's capacity (a positional table
+            # shorter than it): the exact requested length instead.
+            bucket = max_len
+            cache = self.module.init_cache(b, bucket, dtype, self.device)
+        tokens = torch.from_numpy(prompt.astype(np.int64)).to(self.device)
+        key = threefry.PRNGKey(seed)
+        tok = tokens[:, 0]
+        out = []
+        was_training = self.module.training
+        self.module.eval()
+        try:
+            with torch.inference_mode():
+                for t in range(max_len - 1):
+                    logits, cache = self.module.decode(cache, tok[:, None],
+                                                       pos=t)
+                    key, sub = threefry.split(key)
+                    if t + 1 < t_p:  # teacher-forced: the prompt's token
+                        tok = tokens[:, t + 1]
+                    else:
+                        tok = self._sample_logits(logits[:, 0], sub,
+                                                  temperature, top_k)
+                    out.append(tok)
+        finally:
+            self.module.train(was_training)
+        toks = torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
+        return np.concatenate([prompt[:, :1].astype(np.int32), toks], axis=1)
 
     # ---------------------------------------------------------------- weights
     def save_weights(self, path):

@@ -1,8 +1,9 @@
 """Declared schema of the events the port emits (``utils.events``).
 
 The port's copy of the rows of the JAX package's ``utils/event_schema.py``
-for the events its serving engine emits, with the same names and the same
-field sets, so one event file reads the same with either package's tools.
+for the events it emits (the serving engine and its KV pool, the
+checkpointer, the fit loop and its callbacks), with the same names and the
+same field sets, so one event file reads the same with either package's tools.
 The transport adds ``ts``, ``event`` and ``pid`` to every record; those
 never appear here. :func:`check` holds a record to its row.
 """
@@ -17,6 +18,16 @@ SPEC_VERIFY = "spec_verify"
 DRAFT_SYNC = "draft_sync"
 SPEC_K_ADJUST = "spec_k_adjust"
 DECODE_KERNEL_SELECTED = "decode_kernel_selected"
+PREFIX_EVICT = "prefix_evict"
+
+# Checkpoints and callbacks (checkpoint/core.py, training/callbacks.py).
+CORRUPT_CHECKPOINT_SKIPPED = "corrupt_checkpoint_skipped"
+SYNC_CHECK_FAILED = "sync_check_failed"
+
+# The fit loop (training/model.py): its periodic flush, and the
+# scanned-overlap record at its end.
+METRICS_SNAPSHOT = "metrics_snapshot"
+OVERLAP_REPORT = "overlap_report"
 
 # required: keys every emit site passes; optional: keys it may attach.
 EVENTS: Dict[str, dict] = {
@@ -46,6 +57,31 @@ EVENTS: Dict[str, dict] = {
         "required": ("kernel",),
         "optional": ("backend", "interpret"),
     },
+    # The prefix store gave up refcount-1 blocks to serve an allocation.
+    PREFIX_EVICT: {
+        "required": ("blocks",),
+        "optional": ("reason",),
+    },
+    # The restore scan skipped a file that does not load.
+    CORRUPT_CHECKPOINT_SKIPPED: {
+        "required": ("step", "path"),
+        "optional": ("error",),
+    },
+    # SyncCheck found replicas that differ, just before it re-raises.
+    SYNC_CHECK_FAILED: {
+        "required": ("epoch", "step"),
+        "optional": ("error",),
+    },
+    # Per-step wall and own host seconds since the last flush.
+    METRICS_SNAPSHOT: {
+        "required": ("rank", "step_seconds"),
+        "optional": ("world", "step", "self_seconds"),
+    },
+    # Once per fit: whether a scanned stack overlapped its gathers.
+    OVERLAP_REPORT: {
+        "required": ("overlap", "exposed_comm_fraction"),
+        "optional": ("layers", "strategy"),
+    },
 }
 
 TRANSPORT_KEYS = ("ts", "event", "pid")
@@ -73,7 +109,9 @@ def check(record: dict) -> List[str]:
 
 
 __all__ = [
-    "DECODE_KERNEL_SELECTED", "DRAFT_SYNC", "EVENTS", "PREFIX_CACHE_HIT",
-    "SPEC_K_ADJUST", "SPEC_VERIFY", "check", "optional_keys",
-    "required_keys",
+    "CORRUPT_CHECKPOINT_SKIPPED", "DECODE_KERNEL_SELECTED", "DRAFT_SYNC",
+    "EVENTS", "METRICS_SNAPSHOT", "OVERLAP_REPORT", "PREFIX_CACHE_HIT",
+    "PREFIX_EVICT",
+    "SPEC_K_ADJUST", "SPEC_VERIFY", "SYNC_CHECK_FAILED", "check",
+    "optional_keys", "required_keys",
 ]

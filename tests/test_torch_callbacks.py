@@ -117,7 +117,8 @@ def test_validation_data_logs_match_jax(start):
     _close(ph, jh)
     # Validation leaves the module in train mode for the next epoch.
     assert pr == [True] * 3 and not pm.module.training
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # A plain validation iterator needs validation_steps, as in JAX.
+    with pytest.raises(ValueError, match="validation_steps"):
         pm.fit(x, y, validation_data=iter([(x, y)]), **FIT)
 
 
@@ -346,7 +347,10 @@ def test_predict_matches_jax_and_takes_a_partial_batch(start):
     assert got.shape == (50, 10) and got.dtype == np.float32
     np.testing.assert_allclose(got, np.asarray(jm.predict(x, batch_size=16)),
                                rtol=1e-5, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # A plain iterator needs steps; its batches' logits are the arrays'.
+    with pytest.raises(ValueError, match="steps is required"):
         pm.predict(iter([x]))
+    np.testing.assert_array_equal(
+        pm.predict(iter([x[:16], x[16:32]]), steps=2), got[:32])
     with pytest.raises(RuntimeError, match="not built"):
         dtt.Model(dtt.models.mnist_cnn(), device="cpu").predict(x)

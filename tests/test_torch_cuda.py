@@ -800,3 +800,167 @@ def test_spec_engine_token_exact_on_the_card(cuda_device, draft, spec_k,
         assert paged_ops.launches["paged_attention"] == draft_reads
     else:
         assert paged_ops.launches[key] == target_reads + draft_reads
+
+
+# ------------------------------------------------- the fit loop on the card
+def _tiny_lm(dev, k=None, seed=0):
+    import distributed_tpu_torch as dtt
+
+    m = dtt.Model(dtt.models.transformer_lm(
+        128, num_layers=2, d_model=64, num_heads=4, max_len=32, flash=True),
+        device=dev)
+    m.compile(optimizer=dtt.optim.fused_adam(1e-3),
+              loss="pallas_sparse_categorical_crossentropy",
+              metrics=["accuracy"], steps_per_execution=k)
+    return m.build((32,), seed=seed)
+
+
+def _tiny_resnet(dev, k=None):
+    import distributed_tpu_torch as dtt
+
+    m = dtt.Model(dtt.models.resnet(50, 10, small_inputs=True,
+                                    stage_blocks=(1, 1, 1, 1), width=16),
+                  device=dev)
+    m.compile(optimizer=dtt.optim.SGD(0.05, momentum=0.9),
+              loss="sparse_categorical_crossentropy", steps_per_execution=k)
+    return m.build((16, 16, 3))
+
+
+# Each counted kernel's name in the profiler's trace (demangled): a CUDA
+# graph's replay runs the kernels without their wrappers.
+_TRACE_NAMES = {
+    "xent_fwd": r"\bxent_fwd_kernel\b", "xent_bwd": r"\bxent_bwd_kernel\b",
+    "flash_fwd": r"\bflash_fwd_(wgmma|f32)_kernel\b",
+    "flash_dq": r"\bflash_dq_(wgmma|f32)_kernel\b",
+    "flash_dkv": r"\bflash_dkv_(wgmma|f32)_kernel\b",
+    "fused_adam": r"\bfused_adam_kernel\b",
+    "conv1x1": r"\bconv1x1_(wgmma|f32)_kernel\b",
+    "bn_stats": r"\bbn_reduce_kernel<[^>]*\bfalse>",
+    "bn_bwd_reduce": r"\bbn_reduce_kernel<[^>]*\btrue>",
+}
+
+
+def _traced_kernel_runs(run):
+    """(``run()``, {kernel: its runs on the card}) from the profiler's
+    trace (CUPTI, which sees a graph's kernels)."""
+    import re
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        out = run()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return out, {k: sum(bool(re.search(p, n)) for n in names)
+                 for k, p in _TRACE_NAMES.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("workload", ["lm", "resnet"])
+def test_graph_replayed_steps_hold_against_eager_steps(cuda_device,
+                                                        workload):
+    """f32, TF32 off, cuDNN's deterministic algorithms (its default
+    weight-gradient ones may add in any order, so two eager runs of the
+    ResNet part too): twice 6 steps at K = 3 (each step's forward and
+    backward replayed from a CUDA graph, the update eager) against K = 1
+    eager from the same start: per-epoch losses rtol 1e-6, parameters and
+    BatchNorm buffers atol 1e-6 after both. In the second run (no
+    capture) the wrappers count only the eager update's launches, and the
+    profiler's trace shows each kernel run as often as the eager run
+    launched it."""
+    import numpy as np
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _graph_against_eager(cuda_device, workload)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _graph_against_eager(cuda_device, workload):
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    if workload == "lm":
+        tok = rng.integers(0, 128, (12, 33))
+        x, y = tok[:, :-1].astype(np.int32), tok[:, 1:].astype(np.int32)
+        make, mods = _tiny_lm, (flash_ops, xent_ops, adam_ops)
+    else:
+        x = rng.standard_normal((12, 16, 16, 3)).astype(np.float32)
+        y = rng.integers(0, 10, 12).astype(np.int32)
+        make, mods = _tiny_resnet, (conv_ops, bn_ops)
+
+    def fit(m):
+        for mod in mods:
+            mod.reset_launch_counts()
+        hist = m.fit(x, y, batch_size=4, epochs=2, steps_per_epoch=3,
+                     shuffle=False, verbose=0)
+        counts = {n: c for mod in mods for n, c in mod.launches.items()}
+        return hist.history["loss"], counts
+
+    me, mg = make(cuda_device), make(cuda_device, 3)
+    (eager, _), (graph, _) = fit(me), fit(mg)  # mg's first dispatch captures
+    np.testing.assert_allclose(graph, eager, rtol=1e-6)
+    eager, ce = fit(me)
+    (graph, cg), runs = _traced_kernel_runs(lambda: fit(mg))  # replays only
+    np.testing.assert_allclose(graph, eager, rtol=1e-6)
+    assert all(ce.values())
+    assert cg == {n: c if n == "fused_adam" else 0 for n, c in ce.items()}
+    assert {n: runs[n] for n in ce} == ce
+    assert len(mg._graphs) == 1  # one capture serves every replay
+    for a, b in ((me.params, mg.params), (me.state, mg.state)):
+        for path in a:
+            torch.testing.assert_close(b[path], a[path], rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_pinned_staging_gives_the_bytes_of_a_synchronous_copy(cuda_device):
+    """The stager's pinned, non-blocking copies on its side stream (its
+    ring of pinned buffers reused many times, from another thread) equal
+    a synchronous copy of the same arrays, byte for byte."""
+    import threading
+
+    import numpy as np
+
+    from distributed_tpu_torch.data import DeviceStager
+
+    stager = DeviceStager(cuda_device)
+    rng = np.random.default_rng(1)
+    arrays = [{"x": rng.standard_normal((64, 33)).astype(np.float32),
+               "y": rng.integers(0, 9, (64,)).astype(np.int32)}
+              for _ in range(9)]
+    staged = []
+    worker = threading.Thread(
+        target=lambda: staged.extend(stager.stage(a) for a in arrays))
+    worker.start()
+    worker.join()
+    for a, s in zip(arrays, staged):
+        t = s.tensors
+        for name, host in a.items():
+            want = torch.from_numpy(host).to(cuda_device)
+            assert t[name].dtype == want.dtype
+            assert torch.equal(t[name], want), name
+
+
+@pytest.mark.cuda
+def test_generate_on_the_card_matches_its_cpu_run(cuda_device):
+    """f32, TF32 off, a tiny LM: greedy and sampled (temperature 0.8,
+    top_k 20) tokens on the card equal the CPU run's."""
+    import numpy as np
+
+    import distributed_tpu_torch as dtt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lms = [dtt.Model(dtt.models.transformer_lm(
+        97, num_layers=2, d_model=32, num_heads=2, max_len=160),
+        device=dev).build((16,), seed=3) for dev in ("cpu", cuda_device)]
+    prompt = np.random.default_rng(2).integers(0, 97, (3, 9)).astype(
+        np.int32)
+    for kw in (dict(temperature=0.0), dict(temperature=0.8, top_k=20,
+                                           seed=5)):
+        cpu, card = (m.generate(prompt, 40, **kw) for m in lms)
+        np.testing.assert_array_equal(card, cpu)

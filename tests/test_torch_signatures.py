@@ -1,0 +1,191 @@
+"""Every keyword the JAX package's entry points take, passed to the port.
+
+For each pair below the port's signature has every parameter of the JAX
+signature, and each JAX keyword, set away from its default, either works
+(the layers' forward passes then match the JAX layers' on the same
+weights at rtol 1e-5, atol 1e-6, f32) or raises ``NotImplementedError``
+("not yet ported", naming its ROADMAP item). None raises ``TypeError``.
+"""
+
+import inspect
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import distributed_tpu as dtpu
+import distributed_tpu_torch as dtt
+
+torch.set_num_threads(1)
+
+UNPORTED = NotImplementedError
+
+
+def _lm(pkg, **kw):
+    return pkg.models.transformer_lm(32, num_layers=1, d_model=16,
+                                     num_heads=2, max_len=8, **kw)
+
+
+def _model(pkg, **kw):
+    if pkg is dtt:
+        kw["device"] = "cpu"
+    return pkg.Model(_lm(pkg), **kw)
+
+
+def _compiled(**kw):
+    m = _model(dtt)
+    m.compile(optimizer="sgd", **kw)
+    return m.build((8,))
+
+
+XY = (np.zeros((4, 8), np.int32), np.zeros((4, 8), np.int32))
+
+# (JAX callable, port callable, {keyword: (value to pass, ROADMAP item
+# when it raises, or None when it works)}, call(port callable, **kw)).
+PAIRS = {
+    "transformer_lm": (
+        dtpu.models.transformer_lm, dtt.models.transformer_lm, {
+            "causal": (False, None), "moe_experts": (2, "1.7"),
+            "moe_every": (3, "1.7"), "pipeline": (True, "1.7"),
+            "pipeline_schedule": ("interleaved", "1.7"),
+            "pipeline_interleave": (2, "1.7"), "scan": (True, "1.5"),
+            "scan_overlap": ("off", "1.5"), "remat": (True, "1.5"),
+            "remat_policy": ("dots", "1.5"), "flash": (True, None),
+            "dtype": ("bfloat16", None), "d_ff": (24, None),
+            "max_len": (16, None), "num_layers": (1, None),
+            "d_model": (16, None), "num_heads": (2, None)},
+        lambda f, **kw: f(32, **{"num_layers": 1, "d_model": 16,
+                                 "num_heads": 2, **kw})),
+    "transformer_block": (
+        dtpu.models.transformer_block, dtt.models.transformer_block, {
+            "causal": (False, None), "moe_experts": (2, "1.7"),
+            "flash": (False, None), "dtype": ("bfloat16", None)},
+        lambda f, **kw: f(16, 2, 32, **kw)),
+    "Dense": (dtpu.nn.Dense, dtt.nn.Dense, {
+        "activation": ("relu", None), "use_bias": (False, None),
+        "kernel_initializer": ("he_normal", "1.4"),
+        "dtype": ("bfloat16", None), "shard": ("col", None),
+        "name": ("head", None)}, lambda f, **kw: f(4, **kw)),
+    "MultiHeadAttention": (dtpu.nn.MultiHeadAttention,
+                           dtt.nn.MultiHeadAttention, {
+        "head_dim": (8, None), "causal": (True, None),
+        "use_bias": (False, None), "dtype": ("bfloat16", None),
+        "ring_axis": (None, None), "flash": (True, None),
+        "name": ("attn", None)}, lambda f, **kw: f(2, **kw)),
+    "LayerNorm": (dtpu.nn.LayerNorm, dtt.nn.LayerNorm, {
+        "epsilon": (1e-3, None), "name": ("ln", None)},
+        lambda f, **kw: f(**kw)),
+    "Model": (dtpu.Model, dtt.Model, {"name": ("lm", None)},
+              lambda f, **kw: _model(dtt, **kw)),
+    "Model.compile": (dtpu.Model.compile, dtt.Model.compile, {
+        "grad_clip": (1.0, None), "gradient_accumulation_steps": (2, None),
+        "head_chunks": (2, "1.3"), "steps_per_execution": (2, None),
+        "precision": ("mixed_bfloat16", "1.5"), "strategy": ("auto", "1.7"),
+        "hbm_cap_bytes": (1 << 30, "1.7"), "measure": (True, "1.7"),
+        "auto_options": ({"batch_size": 4}, "1.7"),
+        "loss": ("pallas_sparse_categorical_crossentropy", None),
+        "metrics": ((), None), "optimizer": ("adam", None)},
+        lambda f, **kw: _model(dtt).compile(**kw)),
+    "Model.fit": (dtpu.Model.fit, dtt.Model.fit, {
+        "batch_size": (2, None), "epochs": (1, None),
+        "steps_per_epoch": (1, None), "validation_data": (XY, None),
+        "validation_steps": (1, None), "shuffle": (False, None),
+        "verbose": (0, None), "initial_epoch": (0, None), "seed": (3, None),
+        "callbacks": ((), None), "prefetch": (0, None),
+        "grad_accum": (2, None)},
+        lambda f, **kw: _compiled().fit(*XY, **{"verbose": 0,
+                                                 "batch_size": 2, **kw})),
+    "Model.evaluate": (dtpu.Model.evaluate, dtt.Model.evaluate, {
+        "batch_size": (2, None), "verbose": (0, None), "steps": (1, None)},
+        lambda f, **kw: _compiled().evaluate(*XY, **{"verbose": 0, **kw})),
+    "Model.predict": (dtpu.Model.predict, dtt.Model.predict, {
+        "batch_size": (2, None), "steps": (1, None)},
+        lambda f, **kw: _compiled().predict(XY[0], **kw)),
+    "Model.generate": (dtpu.Model.generate, dtt.Model.generate, {
+        "temperature": (0.5, None), "top_k": (3, None), "seed": (4, None)},
+        lambda f, **kw: _compiled().generate(XY[0][:1, :2], 2, **kw)),
+}
+
+
+def _keywords(fn):
+    return [n for n, p in inspect.signature(fn).parameters.items()
+            if n != "self" and p.kind not in (p.VAR_POSITIONAL,
+                                              p.VAR_KEYWORD)]
+
+
+@pytest.mark.parametrize("pair", sorted(PAIRS))
+def test_port_signature_has_every_jax_keyword(pair):
+    jax_fn, port_fn, probes, _ = PAIRS[pair]
+    port_kw = _keywords(port_fn)
+    missing = [k for k in _keywords(jax_fn) if k not in port_kw]
+    assert not missing, f"{pair} lacks {missing}"
+    # Every JAX keyword that has a default is probed below (``y`` goes
+    # with the data: arrays, or None with an iterator).
+    with_default = [n for n, p in inspect.signature(jax_fn).parameters.items()
+                    if p.default is not p.empty and n != "y"]
+    assert set(with_default) <= set(probes), set(with_default) - set(probes)
+
+
+CALLS = [(pair, kw) for pair in sorted(PAIRS) for kw in PAIRS[pair][2]]
+
+
+@pytest.mark.parametrize("pair,keyword", CALLS,
+                         ids=[f"{p}-{k}" for p, k in CALLS])
+def test_each_jax_keyword_works_or_raises_not_yet_ported(pair, keyword):
+    _, port_fn, probes, call = PAIRS[pair]
+    value, item = probes[keyword]
+    if item is None:
+        call(port_fn, **{keyword: value})
+        return
+    with pytest.raises(UNPORTED, match=rf"not yet ported.*ROADMAP {item}"):
+        call(port_fn, **{keyword: value})
+
+
+def _carry(jlayer, player, shape, seed=0):
+    """Build both layers on ``shape`` and give the port the JAX weights;
+    returns both layers' outputs on the same input (JAX's first)."""
+    params, state, _ = jlayer.init(jax.random.PRNGKey(seed), shape)
+    player.build(shape, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for path, v in dtt.interop.params_from_jax(
+                jax.device_get(params)).items():
+            getattr(player, path).copy_(v)
+    x = np.random.default_rng(seed).standard_normal((2,) + shape).astype(
+        np.float32)
+    want, _ = jlayer.apply(params, state, jnp.asarray(x))
+    got = player(torch.from_numpy(x))
+    return np.asarray(want), got.detach().numpy()
+
+
+@pytest.mark.parametrize("make", [
+    lambda pkg: pkg.nn.Dense(6, use_bias=False),
+    lambda pkg: pkg.nn.Dense(6, activation="gelu", shard="row"),
+    lambda pkg: pkg.nn.MultiHeadAttention(2, head_dim=8, causal=True),
+    lambda pkg: pkg.nn.MultiHeadAttention(2, use_bias=False, ring_axis=None),
+    lambda pkg: pkg.nn.LayerNorm(epsilon=1e-2),
+], ids=["dense_no_bias", "dense_shard", "mha_head_dim", "mha_no_bias",
+        "layer_norm_epsilon"])
+def test_ported_keywords_compute_as_jax(make):
+    want, got = _carry(make(dtpu), make(dtt), (5, 12))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_bidirectional_lm_matches_jax():
+    from torch_parity import lm_pair
+
+    jm, pm = lm_pair(vocab=32, num_layers=1, d_model=16, num_heads=2,
+                     max_len=16, causal=False)
+    x = np.random.default_rng(1).integers(0, 32, (2, 16)).astype(np.int32)
+    want = np.asarray(jm.predict(x, batch_size=2))
+    got = pm.predict(x, batch_size=2)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    # A token's logits see later tokens: change the last one.
+    y = x.copy()
+    y[:, -1] = (y[:, -1] + 1) % 32
+    assert not np.allclose(pm.predict(y, batch_size=2)[:, 0], got[:, 0])
+    assert pm.module.layers[2].main.layers[1].causal is False
+    assert _model(dtt, name="lm").name == "lm" == dtpu.Model(
+        _lm(dtpu), name="lm").name
+    assert _model(dtt).name == "model"

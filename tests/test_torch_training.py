@@ -162,17 +162,30 @@ def test_learning_rate_is_mutable_and_f32():
 
 @pytest.mark.parametrize("option", [
     "grad_clip", "gradient_accumulation_steps", "head_chunks",
-    "steps_per_execution", "precision", "strategy"])
+    "steps_per_execution", "precision", "strategy", "hbm_cap_bytes",
+    "measure", "auto_options"])
 def test_unported_compile_options_raise(option):
+    """The compile options no slice has ported raise "not yet ported";
+    clipping, accumulation and multi-step execution are ported now and
+    compile."""
     pm = dtt.Model(dtt.models.transformer_lm(16, num_layers=1, d_model=16,
                                              num_heads=2, max_len=8),
                    device="cpu")
-    value = {"precision": "mixed_bfloat16", "strategy": "auto"}.get(option, 2)
+    value = {"precision": "mixed_bfloat16", "strategy": "auto",
+             "measure": True, "auto_options": {"batch_size": 8}}.get(option, 2)
+    if option in ("grad_clip", "gradient_accumulation_steps",
+                  "steps_per_execution"):
+        pm.compile(optimizer="adam", **{option: value})
+        assert pm.compiled
+        return
     with pytest.raises(NotImplementedError, match="not yet ported"):
         pm.compile(optimizer="adam", **{option: value})
 
 
 def test_unported_fit_options_raise():
+    """fit before compile raises; the fit options that were unported
+    (grad_accum, an iterator, prefetch) are ported now: a plain iterator
+    needs steps_per_epoch, as in JAX."""
     pm = dtt.Model(dtt.models.transformer_lm(16, num_layers=1, d_model=16,
                                              num_heads=2, max_len=8),
                    device="cpu")
@@ -180,11 +193,9 @@ def test_unported_fit_options_raise():
         pm.fit(np.zeros((2, 8), np.int32), np.zeros((2, 8), np.int32))
     pm.compile(optimizer="adam")
     x = y = np.zeros((2, 8), np.int32)
-    for kw in (dict(grad_accum=2),):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            pm.fit(x, y, batch_size=2, verbose=0, **kw)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    pm.fit(x, y, batch_size=2, verbose=0, grad_accum=2)
+    with pytest.raises(ValueError, match="steps_per_epoch"):
         pm.fit(iter([(x, y)]))
-    # Options of the JAX fit that no port slice has taken up are unknown.
-    with pytest.raises(TypeError, match="prefetch"):
-        pm.fit(x, y, batch_size=2, verbose=0, prefetch=2)
+    pm.fit(iter([(x, y)]), steps_per_epoch=1, verbose=0)
+    pm.fit(x, y, batch_size=2, verbose=0, prefetch=2)
+    assert pm.step == 3
