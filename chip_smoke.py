@@ -222,12 +222,42 @@ t. The fit loop at full width. A kernel's wrapper counts where it
    (tokens/s; agreement with the Engine's greedy tokens for the same
    prompts and weights, every first token equal), and a sampled run
    (temperature 0.8, top_k 40) with its tokens in range.
+u. The LM's precision and memory options at full width. (u1) Long
+   context, as the JAX package's ``bench_longctx`` configures it (vocab
+   32768, 12 layers, d 768, 12 heads, bf16 layers, ``max_len=T``,
+   ``Adam(1e-4)``, the pallas loss, ``default_rng(0)`` batches; one warm-up
+   and 2 timed steps a run, counts zeroed just before the timed steps and
+   read just after, each run's peak memory its own): (a) 2 x 4096 with
+   and without ``remat=True, remat_policy="dots_with_no_batch_dims_
+   saveable"`` from the same start, and with remat as CUDA graphs (K=2):
+   ms a step, the device work of one more profiled step, peak memory,
+   flash launches a step (K3 twice a layer with remat), parameters after
+   3 steps bit-identical; (b) 2 x 4096 with ``compile(head_chunks=8)``
+   against without: losses within bf16 rtol 2e-2, K9 and K10 8 launches a
+   step, the peak's drop at least the bf16 (tokens x vocab) logits'
+   bytes; (c) 1 x 65,536 with remat and ``head_chunks=8``, then 1 x 8192
+   and 1 x 16,384 with remat: finite losses, tokens/s, MFU (3 x
+   ``_lm_fwd_flops_per_token`` at 989 TFLOP/s), peak memory. (u2) Phase
+   h's LM with no ``dtype=`` on its layers and ``fused_adam(1e-4)`` (K11
+   over the f32 masters), batch 32 x 1024, under no policy (f32), ``mixed_bfloat16`` and ``mixed_float16``: losses against
+   the f32 run (rtol 2e-2), ms a step, MFU, flash launches by dtype and
+   route (f16 on the wgmma kernels under ``mixed_float16``), the loss
+   scale (2^15, halved once for each skipped step); a forced overflow
+   (scale 2^60): parameters, moments and Adam's count unchanged, the
+   scale exactly 2^59; ``mixed_float16`` with ``steps_per_execution=4`` (CUDA graphs)
+   against K=1, 8 steps: parameters and scale bit-identical. (u3) Phase
+   c's GPT-2-small with ``quant.quantize_model``, serving phase c's 16
+   greedy requests through ``Engine(decode_kernel="fused")``: K1 once a
+   layer and decode step, token and first-token agreement with phase c,
+   the snapshot's bytes against the unquantized parameters', tokens/s;
+   ``update_weights`` takes the quantized tree and refuses f32 leaves.
 Then the kernel table as one JSON line (each row also names the CUDA
 kernel of the main path, ``kernel``, and carries its launches in phase r's
 resumed steps, ``launches_resumed``, in phase t's fits that captured a
 graph, ``launches_fit``, and its runs in their 8 replayed steps from the
 trace, ``replayed_fit``; K1/K2 also their launches in phase
-s's speculative runs, ``launches_spec``, and their time by kw, ``ms_by_kw``),
+s's speculative runs, ``launches_spec``, and their time by kw, ``ms_by_kw``;
+and its launches in phase u's sub-phases, ``launches_u1``-``launches_u3``),
 the card's name and power limit, and ``{"ok": true, "device": {...}}`` as
 the last line.
 """
@@ -2654,6 +2684,288 @@ def phase_generate(torch, dtt, n=8, t_p=128, new=128):
     return n * new / wall, share
 
 
+# ------------------------------------------------------------------ phase u
+REMAT_POLICY = "dots_with_no_batch_dims_saveable"
+PALLAS = "pallas_sparse_categorical_crossentropy"
+
+
+def flash_per_step(flash_ops, steps):
+    return {k: v / steps for k, v in flash_ops.launches.items()}
+
+
+def lm_run(torch, dtt, mods, x, y, batch, steps, t_len, *, remat=False,
+           head_chunks=None, dtype="bfloat16", precision=None,
+           optimizer=None, k=None, metrics=(), tag="", busy=False):
+    """Build ``bench_longctx``'s LM at ``t_len`` (seed 0), fit one warm-up
+    step, then ``steps`` timed steps on the same batch with the launch
+    counts zeroed just before and read just after. The peak is the run's
+    own: the allocator's peak from the build on, less what was allocated
+    before it. ``busy``: then one more step under the profiler, whose
+    device ms (the union of the trace's ranges) is printed beside the
+    timed step's. Returns (model, losses, ms a step, peak GB,
+    launches)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = dtt.Model(dtt.models.transformer_lm(
+        VOCAB, dtype=dtype, remat=remat,
+        remat_policy=REMAT_POLICY if remat else None,
+        **dict(LM, max_len=t_len)))
+    model.compile(optimizer=optimizer or dtt.optim.Adam(1e-4), loss=PALLAS,
+                  metrics=list(metrics), head_chunks=head_chunks,
+                  precision=precision, steps_per_execution=k)
+    model.build((t_len,), seed=0)
+    fit = dict(batch_size=batch, steps_per_epoch=1, shuffle=False,
+               verbose=0)
+    losses = model.fit(x, y, epochs=1, **fit).history["loss"]
+    reset_counts(mods)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    losses += model.fit(x, y, epochs=steps, **fit).history["loss"]
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t) / steps
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    counts = launch_counts(mods)
+    print(f"  {tag}: losses {[round(v, 5) for v in losses]}, {ms:.1f} ms a "
+          f"step, peak memory {peak:.2f} GB, launches a step "
+          f"{ {n: c / steps for n, c in counts.items() if c} }")
+    if busy:
+        dev, n = busy_ms(torch, lambda: model.fit(x, y, epochs=1, **fit))
+        print(f"    device work {dev:.1f} ms in {n} operations a step: "
+              f"{dev / ms:.1%} of the timed step")
+    if not all(np.isfinite(losses)):
+        raise SystemExit(f"{tag}: losses not finite: {losses}")
+    return model, losses, ms, peak, counts
+
+
+def same_params(a, b):
+    """Paths whose parameters differ in any bit between two models."""
+    pa, pb = a.params, b.params
+    return [n for n in pa if not bool((pa[n] == pb[n]).all())]
+
+
+def mfu_of(ms, tokens, t_len):
+    fwd = lm_fwd_flops_per_token(LM["num_layers"], LM["d_model"], t_len,
+                                 VOCAB)
+    return 3 * fwd * tokens / (ms / 1e3) / PEAK_FLOPS["bfloat16"]
+
+
+def phase_longctx(torch, dtt, mods):
+    """u1: bench_longctx's LM (vocab 32768, 12 layers, d 768, bf16 layers,
+    Adam(1e-4), the pallas loss): (a) remat against none at 2 x 4096, (b)
+    head_chunks=8 against none at 2 x 4096, (c) 1 x 65,536 with both.
+    Returns the (c) run's launches."""
+    steps = 2
+    x, y = lm_batch(2, 4096)
+    tokens = x.size
+    plain, l_plain, ms_plain, pk_plain, c_plain = lm_run(
+        torch, dtt, mods, x, y, 2, steps, 4096, tag="2x4096", busy=True)
+    remat, l_remat, ms_remat, pk_remat, c_remat = lm_run(
+        torch, dtt, mods, x, y, 2, steps, 4096, remat=True,
+        tag=f"2x4096 remat ({REMAT_POLICY})", busy=True)
+    n = LM["num_layers"]
+    for tag, c, fwd in (("plain", c_plain, n), ("remat", c_remat, 2 * n)):
+        got = {k: c[k] / steps for k in ("flash_fwd", "flash_dq",
+                                         "flash_dkv")}
+        if got != {"flash_fwd": fwd, "flash_dq": n, "flash_dkv": n}:
+            raise SystemExit(f"u1(a) {tag}: flash launches a step {got}")
+    diff = same_params(plain, remat)
+    print(f"  (a) remat: {ms_remat / ms_plain:.3f}x the step time, peak "
+          f"{pk_remat:.2f} GB against {pk_plain:.2f} GB; parameters after "
+          f"{1 + steps} steps bit-identical: {not diff}")
+    if diff or l_plain != l_remat:
+        raise SystemExit(f"u1(a): remat changed the result ({len(diff)} "
+                         f"leaves differ; losses {l_plain} vs {l_remat})")
+    del remat
+    # Selective checkpointing intercepts every operator on the host; a
+    # step captured as a CUDA graph (K=2) replays without that cost.
+    graphed, _, ms_graph, _, _ = lm_run(
+        torch, dtt, mods, x, y, 2, steps, 4096, remat=True, k=2,
+        tag="2x4096 remat, steps_per_execution=2 (CUDA graphs)", busy=True)
+    diff = same_params(plain, graphed)
+    print(f"  (a) remat as CUDA graphs: {ms_graph / ms_plain:.3f}x the eager "
+          f"plain step time; parameters bit-identical: {not diff}")
+    if diff:
+        raise SystemExit(f"u1(a): remat under graphs differs ({len(diff)})")
+    del graphed
+    chunk, l_chunk, ms_chunk, pk_chunk, c_chunk = lm_run(
+        torch, dtt, mods, x, y, 2, steps, 4096, head_chunks=8,
+        tag="2x4096 head_chunks=8", busy=True)
+    logits_gb = tokens * VOCAB * 2 / 1e9
+    drop = pk_plain - pk_chunk
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l_chunk, l_plain))
+    print(f"  (b) head_chunks=8: peak {pk_chunk:.2f} GB against "
+          f"{pk_plain:.2f} GB, a drop of {drop:.2f} GB = {drop / logits_gb:.2f}"
+          f" x the bf16 (tokens x vocab) logits ({logits_gb:.3f} GB); "
+          f"losses within {rel:.2e} (rtol {TOL['bfloat16']}); "
+          f"{ms_chunk / ms_plain:.3f}x the step time")
+    xent = {k: c_chunk[k] / steps for k in ("xent_fwd", "xent_bwd")}
+    if xent != {"xent_fwd": 8, "xent_bwd": 8}:
+        raise SystemExit(f"u1(b): K9/K10 launches a step {xent}, expected 8")
+    if rel > TOL["bfloat16"] or drop < logits_gb:
+        raise SystemExit(f"u1(b): losses off by {rel:.2e} or the peak fell "
+                         f"by {drop:.2f} GB only")
+    del plain, chunk
+    torch.cuda.empty_cache()
+    rows = [(1, 65536, 8), (1, 8192, None), (1, 16384, None)]
+    out = None
+    for batch, t_len, hc in rows:
+        xb, yb = lm_batch(batch, t_len)
+        model, losses, ms, peak, counts = lm_run(
+            torch, dtt, mods, xb, yb, batch, steps, t_len, remat=True,
+            head_chunks=hc, tag=f"{batch}x{t_len} remat"
+            + (f" head_chunks={hc}" if hc else ""))
+        tps = batch * t_len / (ms / 1e3)
+        print(f"  (c) {batch} x {t_len}: {tps:.0f} tokens/s, MFU "
+              f"{mfu_of(ms, batch * t_len, t_len):.4f} (3 x _lm_fwd_flops_"
+              f"per_token at 989 TFLOP/s), peak {peak:.2f} GB")
+        if out is None:
+            out = counts
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_precision(torch, dtt, mods, flash_ops, batch=32, steps=2):
+    """u2: phase h's LM with no dtype= on its layers, fused_adam(1e-4)
+    (K11 over the f32 masters), under no policy, mixed_bfloat16 and
+    mixed_float16; a forced non-finite step; K=4 graphs against K=1 under
+    mixed_float16. Returns the f16 run's launches."""
+    t_len = LM["max_len"]
+    x, y = lm_batch(batch, t_len)
+    runs = {}
+    for pol in (None, "mixed_bfloat16", "mixed_float16"):
+        model, losses, ms, peak, counts = lm_run(
+            torch, dtt, mods, x, y, batch, steps, t_len, dtype=None,
+            precision=pol, optimizer=dtt.optim.fused_adam(1e-4),
+            metrics=["accuracy"], tag=f"precision={pol}")
+        dtypes = {k: v / steps for k, v in flash_ops.dtype_launches.items()
+                  if v}
+        routes = {k: v / steps for k, v in flash_ops.route_launches.items()
+                  if v}
+        scale = dtt.optim.loss_scale_value(model.opt_state)
+        print(f"    {ms:.1f} ms a step, MFU "
+              f"{mfu_of(ms, batch * t_len, t_len):.4f}; flash launches a "
+              f"step by dtype {dtypes}, by route {routes}; loss scale "
+              f"{None if scale is None else float(scale)}")
+        runs[pol] = (model, losses, counts)
+        if pol == "mixed_float16":
+            n = LM["num_layers"]
+            want = {f"{k}/float16": n for k in ("flash_fwd", "flash_dq",
+                                                 "flash_dkv")}
+            want_r = {f"{k}/wgmma": n for k in ("flash_fwd", "flash_dq",
+                                                 "flash_dkv")}
+            if dtypes != want or routes != want_r:
+                raise SystemExit(f"u2: f16 flash launches {dtypes} "
+                                 f"{routes}, expected {want} {want_r}")
+            # 2^15, halved once for each step skipped (Adam's count stays).
+            skipped = 1 + steps - model.opt_state.inner_state["count"]
+            if float(scale) != 2.0 ** (15 - skipped):
+                raise SystemExit(f"u2: loss scale {float(scale)} after "
+                                 f"{skipped} skipped steps")
+        if pol is not None:
+            base = runs[None][1]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(losses, base))
+            print(f"    losses against the policy-free f32 run: within "
+                  f"{rel:.2e} (rtol {TOL['bfloat16']})")
+            if rel > TOL["bfloat16"]:
+                raise SystemExit(f"u2: {pol} losses off by {rel:.2e}")
+        if pol != "mixed_float16":
+            del model
+            runs[pol] = (None, losses, counts)
+        torch.cuda.empty_cache()
+    f16, _, f16_counts = runs.pop("mixed_float16")
+    # A forced non-finite step: a scale of 2^60 overflows the f16
+    # gradients; the step must leave the parameters and moments as they
+    # were and halve the scale.
+    state = f16.opt_state
+    state.scale.fill_(2.0 ** 60)
+    before = [t.clone() for t in f16._param_list()]
+    inner = state.inner_state
+    moments = [t.clone() for t in inner["mu"] + inner["nu"]]
+    count = inner["count"]
+    hist = f16.fit(x, y, batch_size=batch, epochs=1, steps_per_epoch=1,
+                   shuffle=False, verbose=0)
+    kept = all(bool((a == b).all()) for a, b in
+               zip(before + moments,
+                   f16._param_list() + inner["mu"] + inner["nu"]))
+    print(f"  forced overflow (scale 2^60): loss {hist.history['loss'][0]:.5f}"
+          f", parameters and moments unchanged: {kept}, Adam count "
+          f"{inner['count']} (was {count}), scale now 2^"
+          f"{math.log2(float(state.scale)):g}")
+    if not kept or inner["count"] != count or float(state.scale) != 2.0 ** 59:
+        raise SystemExit("u2: the non-finite step was not skipped exactly")
+    del f16, runs
+    torch.cuda.empty_cache()
+    # K=4 as CUDA graphs against K=1, mixed_float16, 8 steps.
+    xs, ys = lm_rows(8 * batch, t_len)
+    done = {}
+    for k in (1, 4):
+        model = dtt.Model(dtt.models.transformer_lm(VOCAB, **LM))
+        model.compile(optimizer=dtt.optim.fused_adam(1e-4), loss=PALLAS,
+                      metrics=["accuracy"], precision="mixed_float16",
+                      steps_per_execution=k)
+        model.build((t_len,), seed=0)
+        hist = model.fit(xs, ys, batch_size=batch, epochs=1,
+                         steps_per_epoch=8, shuffle=False, verbose=0)
+        done[k] = (model, hist.history["loss"][0],
+                   float(model.opt_state.scale))
+    diff = same_params(done[1][0], done[4][0])
+    print(f"  mixed_float16, 8 steps: K=4 (CUDA graphs) against K=1: epoch "
+          f"loss {done[4][1]:.6f} vs {done[1][1]:.6f}, scale {done[4][2]} vs "
+          f"{done[1][2]}, parameters bit-identical: {not diff}")
+    if diff or done[4][2] != done[1][2]:
+        raise SystemExit(f"u2: K=4 differs from K=1 ({len(diff)} leaves)")
+    del done
+    torch.cuda.empty_cache()
+    return f16_counts
+
+
+def phase_quant_serve(torch, dtt, paged_ops, reqs, fused_c):
+    """u3: phase c's GPT-2-small quantized to int8 weights, served with
+    the fused decode (K1) against phase c's unquantized tokens; the
+    snapshot's bytes; update_weights' dtype checks. Returns K1's
+    launches."""
+    model = dtt.Model(dtt.models.transformer_lm(
+        VOCAB, dtype="bfloat16", **LM))
+    model.build((LM["max_len"],), seed=0)
+    before = sum(t.numel() * t.element_size() for t in model.params.values())
+    dtt.quant.quantize_model(model)
+    serve(dtt, model, requests(2, (8, 16), (4, 4), seed=1))  # warm-up
+    paged_ops.reset_launch_counts()
+    engine = dtt.serving.Engine(model, max_slots=8, block_size=16,
+                                max_len=LM["max_len"], decode_kernel="fused")
+    t = time.perf_counter()
+    outs = engine.run([dtt.serving.Request(p, m) for p, m in reqs])
+    wall = time.perf_counter() - t
+    launches = dict(paged_ops.launches)
+    tel = engine.last_run_telemetry
+    report("int8 weights", tel, wall)
+    check_outputs(outs, reqs, VOCAB)
+    if launches["paged_attention"] != tel["decode_steps"] * LM["num_layers"]:
+        raise SystemExit(f"u3: K1 launches {launches}")
+    share, first = agreement(outs, fused_c, reqs)
+    after = snapshot_bytes(engine._target)
+    print(f"  int8 weights vs phase c's bf16-layer model: token agreement "
+          f"{share:.4f}, first tokens {'all' if first else 'not all'} "
+          f"equal; snapshot {after / 1e6:.1f} MB against {before / 1e6:.1f} "
+          f"MB unquantized ({before / after:.3f}x); K1 launches "
+          f"{launches['paged_attention']}")
+    engine.update_weights(dict(model.params))
+    bad = {k: (v.to(torch.float32) if v.dtype == torch.int8 else v)
+           for k, v in model.params.items()}
+    try:
+        engine.update_weights(bad)
+    except ValueError as e:
+        print(f"  update_weights: the quantized tree swaps in; f32 leaves "
+              f"raise ({str(e)[:70]}...)")
+    else:
+        raise SystemExit("u3: update_weights took f32 leaves for int8 ones")
+    del engine, model
+    torch.cuda.empty_cache()
+    return launches["paged_attention"]
+
+
 def main():
     import torch
 
@@ -2830,6 +3142,20 @@ def main():
     print("phase t3: Model.generate at GPT-2-small width, f32, against the "
           "Engine")
     phase_generate(torch, dtt)
+    print("phase u1: long context at GPT-2-small width: remat, head_chunks, "
+          "T up to 65,536")
+    u_counts = {"u1": phase_longctx(torch, dtt, (xent_ops, flash_ops))}
+    print("phase u2: precision policies on phase h's LM (no dtype= on the "
+          "layers), batch 32 x 1024")
+    u_counts["u2"] = phase_precision(torch, dtt, (xent_ops, flash_ops,
+                                                  adam_ops), flash_ops)
+    print("phase u3: int8 weights served through Engine (fused)")
+    u_counts["u3"] = {"paged_attention": phase_quant_serve(
+        torch, dtt, paged_ops, reqs, fused)}
+    for sub, counts in u_counts.items():
+        for name, n in counts.items():
+            if n:
+                rows[name][f"launches_{sub}"] = n
     for name, n in dict(t1_captured, **t2_captured).items():
         rows[name]["launches_fit"] = n
     for name, n in dict(t1_runs, **t2_runs).items():
@@ -2846,6 +3172,8 @@ def main():
          "launches_resumed": r.get("launches_resumed"),
          "launches_fit": r.get("launches_fit"),
          "replayed_fit": r.get("replayed_fit"),
+         **{f"launches_{sub}": r[f"launches_{sub}"]
+            for sub in ("u1", "u2", "u3") if f"launches_{sub}" in r},
          **({"launches_spec": r["launches_spec"], "ms_by_kw": r["ms_by_kw"]}
             if "ms_by_kw" in r else {})}
         for name, r in rows.items()

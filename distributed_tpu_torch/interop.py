@@ -39,6 +39,11 @@ the prefix ``#1/``), and ``MultiSteps`` is ``MultiStepsState``:
 ``#0`` mini_step and ``#1`` gradient_step (int32), ``#2/...`` the inner
 state, ``#3/<p>`` the f32 gradient accumulator, ``#4`` the empty skip
 state. A checkpoint saved mid-accumulation resumes in either package.
+``dynamic_loss_scaling`` (``compile(precision="mixed_float16")``), the
+outermost wrapper, is the JAX package's ``LossScaleState``: ``#0`` the
+live scale (f32), ``#1`` growth_count (int32), ``#2/...`` the inner state;
+a scaling and a non-scaling state differ in their leaf count, so crossing
+between them raises the format error, as in JAX.
 """
 
 from __future__ import annotations
@@ -75,19 +80,26 @@ def flatten_tree(tree, prefix="") -> Dict[str, np.ndarray]:
 def params_from_jax(tree) -> Dict[str, torch.Tensor]:
     """The JAX package's ``Model.params`` tree (leaves as numpy arrays,
     e.g. after ``jax.device_get``) as the port's flat ``{path: tensor}``
-    parameters, in f32 on the CPU. Load them with ``Model.load_params``."""
-    return {
-        path: torch.from_numpy(np.array(leaf, dtype=np.float32))
-        for path, leaf in flatten_tree(tree).items()
-    }
+    parameters on the CPU: floating leaves in f32, integer leaves (a
+    quantized weight's int8 ``q``; its ``scale`` is f32) as they are.
+    Load them with ``Model.load_params``."""
+    out = {}
+    for path, leaf in flatten_tree(tree).items():
+        a = np.asarray(leaf)
+        if np.issubdtype(a.dtype, np.floating) or a.dtype.kind == "V":
+            a = np.array(leaf, dtype=np.float32)
+        out[path] = torch.from_numpy(np.array(a))
+    return out
 
 
 def params_to_numpy(params) -> Dict[str, np.ndarray]:
     """The port's ``{path: tensor}`` parameters (``Model.params``) as
-    ``{path: f32 numpy array}`` on the host, under the same tree paths as
+    ``{path: numpy array}`` on the host, floating leaves in f32 and a
+    quantized weight's int8 ``q`` as int8, under the same tree paths as
     ``flatten_tree`` gives a JAX parameter tree, so the two compare leaf
-    by leaf."""
-    return {path: t.detach().to("cpu", torch.float32).numpy()
+    by leaf (``checkpoint.unflatten_tree`` nests them as JAX holds them)."""
+    return {path: (t.detach().to("cpu", torch.float32) if
+                   t.is_floating_point() else t.detach().cpu()).numpy()
             for path, t in params.items()}
 
 
@@ -138,6 +150,9 @@ def _fixed_hyperparams(tx) -> List[str]:
 
 
 def _expected_paths(tx, params, prefix="") -> List[str]:
+    if isinstance(tx, optim.dynamic_loss_scaling):
+        return ([f"{prefix}#0", f"{prefix}#1"]
+                + _expected_paths(tx.inner, params, f"{prefix}#2{SEP}"))
     if isinstance(tx, optim.MultiSteps):
         return ([f"{prefix}#0", f"{prefix}#1"]
                 + _expected_paths(tx.inner, params, f"{prefix}#2{SEP}")
@@ -167,6 +182,9 @@ def opt_state_to_tree(tx, opt_state: Dict, params: Dict[str, torch.Tensor]):
     parameter path, nested in the wrappers' tuples. The moments are the
     state's own tensors (no copy); the counts are int32 and the
     hyperparameters f32 numpy scalars."""
+    if isinstance(tx, optim.dynamic_loss_scaling):
+        return (opt_state.scale, np.int32(opt_state.growth_count),
+                opt_state_to_tree(tx.inner, opt_state.inner_state, params))
     if isinstance(tx, optim.MultiSteps):
         return (np.int32(opt_state["mini_step"]),
                 np.int32(opt_state["gradient_step"]),
@@ -227,6 +245,13 @@ def _moments(flat, prefix, params):
 
 
 def _state_from_flat(tx, flat, params, prefix) -> Dict:
+    if isinstance(tx, optim.dynamic_loss_scaling):
+        device = next(iter(params.values())).device if params else None
+        return optim.LossScaleState(
+            torch.tensor(_scalar(flat[f"{prefix}#0"]), dtype=torch.float32,
+                         device=device),
+            int(_scalar(flat[f"{prefix}#1"])),
+            _state_from_flat(tx.inner, flat, params, f"{prefix}#2{SEP}"))
     if isinstance(tx, optim.MultiSteps):
         inner = _state_from_flat(tx.inner, flat, params, f"{prefix}#2{SEP}")
         return {"mini_step": int(_scalar(flat[f"{prefix}#0"])),

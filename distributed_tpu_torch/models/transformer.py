@@ -2,8 +2,8 @@
 
 Pre-LN blocks built from the same Residual/Sequential primitives as the
 JAX package, so the parameter tree paths (``residual_N/main/...``) are
-identical and weights carry across. Only dense blocks are ported; the
-MoE, pipelined, scanned and rematerialized variants, and their options,
+identical and weights carry across. Dense blocks, with or without remat,
+are ported; the MoE, pipelined and scanned variants, and their options,
 raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -85,26 +85,35 @@ def transformer_lm(
 
     ``causal=False`` builds a bidirectional LM (no generation then), and
     ``flash`` picks each attention layer's full-sequence path (see
-    ``nn.MultiHeadAttention``). The MoE options (``moe_experts``,
-    ``moe_every``) and ``pipeline`` with its schedule options raise
-    naming ROADMAP 1.7; ``scan``, ``scan_overlap``, ``remat`` and
-    ``remat_policy`` name 1.5. Each raises only when set away from the
+    ``nn.MultiHeadAttention``). ``remat=True`` wraps every attention and
+    MLP residual in ``nn.Remat`` with ``remat_policy`` (a
+    ``jax.checkpoint_policies`` name, e.g.
+    ``"dots_with_no_batch_dims_saveable"``): the same numerics and tree
+    paths, the block activations recomputed in the backward. The MoE
+    options (``moe_experts``, ``moe_every``) and ``pipeline`` with its
+    schedule options raise naming ROADMAP 1.7; ``scan`` and
+    ``scan_overlap`` name 1.5b. Each raises only when set away from the
     JAX default."""
     _unported("transformer_lm", "1.7", moe_experts=(moe_experts, 0),
               moe_every=(moe_every, 2), pipeline=(pipeline, False),
               pipeline_schedule=(pipeline_schedule, "gpipe"),
               pipeline_interleave=(pipeline_interleave, 1))
-    _unported("transformer_lm", "1.5", scan=(scan, False),
-              scan_overlap=(scan_overlap, "auto"), remat=(remat, False),
-              remat_policy=(remat_policy, None))
+    _unported("transformer_lm", "1.5b", scan=(scan, False),
+              scan_overlap=(scan_overlap, "auto"))
+    if remat:
+        nn.remat.resolve_policy(remat_policy)  # fail fast on a bad name
     d_ff = d_ff or 4 * d_model
     layers = [
         nn.Embedding(vocab_size, d_model, dtype=dtype),
         nn.PositionalEmbedding(max_len),
     ]
     for _ in range(num_layers):
-        layers += transformer_block(d_model, num_heads, d_ff, causal=causal,
-                                    flash=flash, dtype=dtype)
+        block = transformer_block(d_model, num_heads, d_ff, causal=causal,
+                                  flash=flash, dtype=dtype)
+        if remat:
+            block = [nn.Remat(residual, policy=remat_policy)
+                     for residual in block]
+        layers += block
     layers += [nn.LayerNorm(), nn.Dense(vocab_size, dtype=dtype)]
     return nn.Sequential(layers, name="transformer_lm")
 

@@ -8,7 +8,10 @@ by ``sqrt(head_dim)``, the (T, T) scores formed) or flash attention
 (``ops.flash_attention``: scores multiplied by ``1/sqrt(head_dim)``, the
 CUDA kernels on a card, their plain versions on the CPU).
 Projections are 2-D ``(d, heads*head_dim)`` kernels named ``wq, wk, wv,
-wo`` with biases ``bq, bk, bv, bo``, as in the JAX parameter tree.
+wo`` with biases ``bq, bk, bv, bo``, as in the JAX parameter tree. Every
+path that reads a weight (forward, decode, paged decode, verify and
+prefill) takes it through ``Layer._weight``: cast to the ambient policy's
+compute dtype, and dequantized first when it is int8 (``quant``).
 
 Paged KV (``serving.Engine``): one pool of fixed-size blocks per layer,
 shared by every slot and addressed through per-slot block tables. New
@@ -125,16 +128,22 @@ class MultiHeadAttention(Layer):
         return self.wq.shape[1] // self.num_heads
 
     def _proj(self, x, w, b):
-        kernel = getattr(self, w)
+        # int8 weights dequantize here (f32), then the compute-dtype cast.
+        kernel = self._weight(w)
         dt = resolve_dtype(self.dtype)
         if dt is not None:
             kernel = kernel.to(dt)
         y = x @ kernel
-        return y + getattr(self, b).to(y.dtype) if self.use_bias else y
+        return y + self._weight(b).to(y.dtype) if self.use_bias else y
 
     def _out(self, ctx):
-        y = ctx @ self.wo.to(ctx.dtype)
-        return y + self.bo.to(y.dtype) if self.use_bias else y
+        y = ctx @ self._weight("wo").to(ctx.dtype)
+        return y + self._weight("bo").to(y.dtype) if self.use_bias else y
+
+    def _cache_dtype(self, dtype):
+        """The KV cache's dtype: the layer's own ``dtype=``, else the
+        engine's or ``generate``'s (the model's decode dtype)."""
+        return dtype if self.dtype is None else resolve_dtype(self.dtype)
 
     def _qkv(self, x, lead_q, lead_kv):
         """Cast ``x`` to the layer dtype and project it; q reshaped to
@@ -171,7 +180,7 @@ class MultiHeadAttention(Layer):
         """Dense ``(B, max_len, H, hd)`` K and V caches in the layer's
         dtype, else the decode dtype."""
         shape = (batch, max_len, self.num_heads, self._hd)
-        cdtype = resolve_dtype(self.dtype) or dtype
+        cdtype = self._cache_dtype(dtype)
         return {name: torch.zeros(shape, dtype=cdtype, device=device)
                 for name in ("k", "v")}
 
@@ -208,7 +217,7 @@ class MultiHeadAttention(Layer):
                 }
                 for name in ("k", "v")
             }
-        cdtype = resolve_dtype(self.dtype) or dtype
+        cdtype = self._cache_dtype(dtype)
         return {
             name: torch.zeros(shape, dtype=cdtype, device=device)
             for name in ("k", "v")
@@ -335,7 +344,7 @@ class PositionalEmbedding(Layer):
 
     def forward(self, x):
         t = x.shape[1]
-        return x + self.table[:t][None].to(x.dtype)
+        return x + self._weight("table")[:t][None].to(x.dtype)
 
     def init_cache(self, batch, max_len, dtype, device):
         if max_len > self.max_len:
@@ -346,12 +355,12 @@ class PositionalEmbedding(Layer):
         return {}
 
     def decode(self, cache, x, *, pos):
-        return x + self.table[pos][None, None].to(x.dtype), cache
+        return x + self._weight("table")[pos][None, None].to(x.dtype), cache
 
     def paged_decode(self, cache, x, *, block_tables, positions,
                      decode_kernel="reference"):
         # Per-SLOT positions: slot s reads table row positions[s].
-        rows = self.table[positions.long()]  # (S, D)
+        rows = self._weight("table")[positions.long()]  # (S, D)
         return x + rows[:, None].to(x.dtype), cache
 
     def paged_verify(self, cache, x, *, block_tables, positions,
@@ -359,7 +368,7 @@ class PositionalEmbedding(Layer):
         # Slot s's K candidates sit at positions[s] + 0..K-1.
         abs_pos = positions.long()[:, None] + torch.arange(
             x.shape[1], device=x.device)[None]
-        return x + self.table[abs_pos].to(x.dtype), cache
+        return x + self._weight("table")[abs_pos].to(x.dtype), cache
 
     def paged_prefill(self, cache, x, *, block_table, start):
         c = x.shape[1]
@@ -368,7 +377,8 @@ class PositionalEmbedding(Layer):
                 f"positions [{start}, {start + c}) exceed max_len "
                 f"{self.max_len}"
             )
-        return x + self.table[start:start + c][None].to(x.dtype), cache
+        return (x + self._weight("table")[start:start + c][None].to(x.dtype),
+                cache)
 
 
 __all__ = ["MultiHeadAttention", "PositionalEmbedding"]

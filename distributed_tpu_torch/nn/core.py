@@ -32,8 +32,11 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from . import activations
+from .. import precision
+from ..quant import QKEY, SKEY, QuantizedWeight, maybe_dequantize
 
 Shape = Tuple[int, ...]
+SEP = "/"
 
 
 def _camel_to_snake(name: str) -> str:
@@ -60,6 +63,36 @@ class Layer(torch.nn.Module):
 
     def default_name(self) -> str:
         return _camel_to_snake(type(self).__name__)
+
+    def dtype_hints(self):
+        """The layer's explicit compute dtype (``dtype=``), nested as the
+        parameter tree by the containers; None/{} for no override. The
+        JAX ``Policy.cast_to_compute`` skips the marked subtrees."""
+        return getattr(self, "dtype", None)
+
+    def _compute_leaf(self, name: str):
+        """Leaf ``name`` as the JAX step's ``Policy.cast_to_compute`` hands
+        it to this layer: under an ambient policy that casts, and with no
+        ``dtype=`` of the layer's own, a floating leaf in the compute dtype
+        (a quantized weight, as a ``{"q", "scale"}`` dict: its scale cast,
+        its int8 payload as it is); else the stored leaf. The cast is made here, inside the step, from
+        the f32 master, so gradients come back f32 through it."""
+        w = getattr(self, name)
+        if isinstance(w, QuantizedWeight):
+            w = {QKEY: w.q, SKEY: w.scale}
+        pol = precision.current_policy()
+        if (pol is None or not pol.needs_compute_cast
+                or getattr(self, "dtype", None) is not None):
+            return w
+        cd = pol.compute_dtype
+        if isinstance(w, dict):
+            return {QKEY: w[QKEY], SKEY: w[SKEY].to(cd)}
+        return precision.cast_floating(w, cd)
+
+    def _weight(self, name: str):
+        """:meth:`_compute_leaf`, dequantized when it is int8 (the multiply
+        in f32, as the JAX layers' ``maybe_dequantize``)."""
+        return maybe_dequantize(self._compute_leaf(name))
 
     # -- incremental decode (dense KV cache, Model.generate) ----------------
     #: True: ``forward`` treats every position independently, so the
@@ -152,9 +185,15 @@ class Sequential(Layer):
         return shape
 
     def forward(self, x):
+        return apply_layers(self.layers, x)
+
+    def dtype_hints(self):
+        hints = {}
         for layer in self.layers:
-            x = layer(x)
-        return x
+            h = layer.dtype_hints()
+            if h is not None and h != {}:
+                hints[layer.name] = h
+        return hints
 
     def init_cache(self, batch, max_len, dtype, device):
         caches = {}
@@ -215,6 +254,39 @@ class Sequential(Layer):
         return x, cache
 
 
+def apply_layers(layers, x):
+    """Apply ``layers`` in order: the one implementation Sequential's
+    forward and the chunked-head train and eval paths (``compile(
+    head_chunks=)``, which apply a Sequential's body without its head)
+    share, as the JAX package's ``apply_layers``. The port's layers hold
+    their own state and draw no RNG, so it is the plain composition."""
+    for layer in layers:
+        x = layer(x)
+    return x
+
+
+def param_tree(module) -> Dict[str, torch.Tensor]:
+    """``{tree path: tensor}`` of a module's parameters, and of the
+    ``q``/``scale`` buffers of its quantized weights (``quant``), paths as
+    in the JAX tree (``residual_1/main/dense/kernel/q``)."""
+    tree = {n.replace(".", SEP): p for n, p in module.named_parameters()}
+    for name, sub in module.named_modules():
+        if isinstance(sub, QuantizedWeight):
+            for leaf in (QKEY, SKEY):
+                tree[f"{name.replace('.', SEP)}{SEP}{leaf}"] = getattr(
+                    sub, leaf)
+    return tree
+
+
+def state_tree(module) -> Dict[str, torch.Tensor]:
+    """``{tree path: buffer}`` of a module's state (BatchNorm's running
+    statistics): every buffer but the quantized weights' payloads."""
+    quant = {name for name, sub in module.named_modules()
+             if isinstance(sub, QuantizedWeight)}
+    return {n.replace(".", SEP): b for n, b in module.named_buffers()
+            if n.rpartition(".")[0] not in quant}
+
+
 class Residual(Layer):
     """Skip connection: ``y = activation(main(x) + shortcut(x))``, the
     shortcut the identity by default, as the JAX package's Residual. The
@@ -242,6 +314,14 @@ class Residual(Layer):
     def forward(self, x):
         sc = x if self.shortcut is None else self.shortcut(x)
         return self.activation(self.main(x) + sc)
+
+    def dtype_hints(self):
+        hints = {}
+        for key, branch in (("main", self.main), ("shortcut", self.shortcut)):
+            h = None if branch is None else branch.dtype_hints()
+            if h is not None and h != {}:
+                hints[key] = h
+        return hints
 
     def _identity_only(self):
         if self.shortcut is not None:
@@ -306,4 +386,5 @@ class Residual(Layer):
         return self.activation(y + x), cache
 
 
-__all__ = ["Layer", "NameScope", "Residual", "Sequential", "Shape"]
+__all__ = ["Layer", "NameScope", "Residual", "Sequential", "Shape",
+           "apply_layers", "param_tree", "state_tree"]

@@ -2,7 +2,10 @@
 
 Parameters are stored in f32; a layer built with ``dtype=`` casts its input
 and its parameters to that dtype on every call (the JAX layers' per-layer
-override). Layouts are the JAX package's: a Dense kernel is
+override), and under a precision policy (``precision.Policy.scope``) a
+layer without one computes in the policy's compute dtype from its leaves
+cast there (``Layer._weight``). A weight may be int8 (``quant``): it is
+dequantized where it is read. Layouts are the JAX package's: a Dense kernel is
 ``(din, units)`` and applies as ``x @ kernel``; a Conv2D kernel is HWIO
 ``(kh, kw, cin, filters)``, so a JAX tree loads with no transposes.
 Activations between layers stay NHWC; a convolution or pooling views them
@@ -36,6 +39,7 @@ from ..ops import bn_reduce
 from ..ops.conv1x1 import conv1x1_apply
 from ..parallel.strategy import current_strategy
 from ..precision import resolve_dtype
+from ..quant import QKEY, SKEY
 
 IntOr2 = Union[int, Tuple[int, int]]
 
@@ -117,7 +121,7 @@ class Conv2D(Layer):
                 _conv_out(w, kw, self.strides[1], self.padding), self.filters)
 
     def forward(self, x):
-        kernel = self.kernel
+        kernel = self._weight("kernel")
         dt = resolve_dtype(self.dtype)
         if dt is not None:
             x = x.to(dt)
@@ -136,7 +140,7 @@ class Conv2D(Layer):
             y = F.conv2d(xn, kernel.permute(3, 2, 0, 1), stride=self.strides)
             y = y.permute(0, 2, 3, 1)
         if self.use_bias:
-            y = y + self.bias.to(y.dtype)
+            y = y + self._weight("bias").to(y.dtype)
         return self.activation(y)
 
 
@@ -177,14 +181,16 @@ class Dense(Layer):
         return tuple(input_shape[:-1]) + (self.units,)
 
     def forward(self, x):
-        kernel = self.kernel
+        # A quantized kernel dequantizes here (f32), then the layer's own
+        # dtype handling applies as if it were the f32 kernel.
+        kernel = self._weight("kernel")
         dt = resolve_dtype(self.dtype)
         if dt is not None:
             x = x.to(dt)
             kernel = kernel.to(dt)
         y = x @ kernel
         if self.use_bias:
-            y = y + self.bias.to(y.dtype)
+            y = y + self._weight("bias").to(y.dtype)
         return self.activation(y)
 
 
@@ -208,7 +214,7 @@ class LayerNorm(Layer):
         mean = xf.mean(dim=-1, keepdim=True)
         var = (xf - mean).square().mean(dim=-1, keepdim=True)
         y = (xf - mean) * torch.rsqrt(var + self.epsilon)
-        y = y * self.scale + self.bias
+        y = y * self._weight("scale") + self._weight("bias")
         return y.to(x.dtype)
 
 
@@ -309,9 +315,10 @@ class BatchNorm(Layer):
         return tuple(input_shape)
 
     def forward(self, x):
+        scale, bias = self._weight("scale"), self._weight("bias")
         if not self.training:
-            return _bn_normalize(x, self.mean, self.var, self.scale,
-                                 self.bias, self.epsilon)
+            return _bn_normalize(x, self.mean, self.var, scale, bias,
+                                 self.epsilon)
         strategy = current_strategy()
         c = x.shape[-1]
         x2d = x.reshape(-1, c)
@@ -333,8 +340,8 @@ class BatchNorm(Layer):
             m = self.momentum
             self.mean.copy_(m * self.mean + (1 - m) * mean)
             self.var.copy_(m * self.var + (1 - m) * var)
-        return _BatchNormFn.apply(x, mean, var, self.scale, self.bias,
-                                  self.epsilon, strategy)
+        return _BatchNormFn.apply(x, mean, var, scale, bias, self.epsilon,
+                                  strategy)
 
 
 class Embedding(Layer):
@@ -351,9 +358,14 @@ class Embedding(Layer):
 
     def forward(self, x):
         # Gather, then cast only the gathered rows: the same values as
-        # casting the whole table first, without the table-sized copy.
-        rows = self.table[x.long()]
+        # casting the whole table first, without the table-sized copy. An
+        # int8 table gathers its int8 rows and dequantizes only those.
+        table = self._compute_leaf("table")
         dt = resolve_dtype(self.dtype)
+        if isinstance(table, dict):
+            rows = table[QKEY][x.long()].to(torch.float32) * table[SKEY]
+        else:
+            rows = table[x.long()]
         return rows if dt is None else rows.to(dt)
 
 

@@ -30,7 +30,8 @@ Dispatch is by the device of the tensors, with no fallback: CUDA tensors
 launch the kernels (a failed build or launch raises), CPU tensors run
 :func:`flash_fwd_ref` / :func:`flash_bwd_ref`, the plain versions of the
 same arithmetic, dense over the full (T, T) scores. ``launches`` counts
-each kernel's launches, ``route_launches`` the same per route.
+each kernel's launches, ``route_launches`` the same per route and
+``dtype_launches`` per input dtype.
 """
 
 from __future__ import annotations
@@ -52,12 +53,16 @@ launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 #: The same launches by route (see :func:`flash_route`).
 route_launches = {f"{k}/{r}": 0 for k in launches
                   for r in ("wgmma", "cuda_core")}
+#: The same launches by input dtype (``"flash_fwd/float16"``): a precision
+#: policy's compute dtype reaches the kernels.
+dtype_launches = {f"{k}/{t}": 0 for k in launches
+                  for t in ("float32", "bfloat16", "float16")}
 #: The widest head the kernels take (the widest wgmma tile).
 MAX_D = 256
 
 
 def reset_launch_counts() -> None:
-    for counts in (launches, route_launches):
+    for counts in (launches, route_launches, dtype_launches):
         for name in counts:
             counts[name] = 0
 
@@ -233,6 +238,7 @@ def _launch(kernel, route, width, tensors, outs, causal, d):
     _build.check_launch(rc, kernel)
     launches[kernel] += 1
     route_launches[f"{kernel}/{route}"] += 1
+    dtype_launches[f"{kernel}/{str(q.dtype).replace('torch.', '')}"] += 1
 
 
 def _unpad(x, d):
@@ -324,7 +330,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
 
 
 __all__ = [
-    "MAX_D", "dense_attention", "flash_attention", "flash_bwd",
+    "MAX_D", "dense_attention", "dtype_launches", "flash_attention",
+    "flash_bwd",
     "flash_bwd_ref", "flash_delta", "flash_fwd", "flash_fwd_ref",
     "flash_route", "launches", "reset_launch_counts", "route_launches",
 ]

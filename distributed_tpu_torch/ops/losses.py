@@ -2,7 +2,8 @@
 
 The JAX package's ``ops/losses.py`` for the sparse cross-entropy that the
 LM trains with: ``sparse_categorical_crossentropy`` (whole-batch mean),
-its per-example form for masked evaluation, and ``get`` by name. Losses
+its per-example form for masked evaluation, the loss object
+``SparseCategoricalCrossentropy``, and ``get`` by name. Losses
 compute in f32 whatever the activation dtype. The fused loss registers
 under its JAX name, ``"pallas_sparse_categorical_crossentropy"``, lazily
 on first ``get``, as there.
@@ -33,6 +34,21 @@ def _per_example_sparse_cce(logits, labels):
     return -_picked(_log_probs(logits, True), labels)
 
 
+class SparseCategoricalCrossentropy:
+    """The loss object form, ``SparseCategoricalCrossentropy(from_logits=
+    True)``: called as the mean loss; ``get_per_example`` gives its
+    per-example form (``from_logits=False`` takes the log of the clipped
+    probabilities first), which masked evaluation and the chunked head
+    (``compile(head_chunks=)``) sum."""
+
+    def __init__(self, from_logits: bool = True):
+        self.from_logits = from_logits
+
+    def __call__(self, logits, labels):
+        return sparse_categorical_crossentropy(logits, labels,
+                                               self.from_logits)
+
+
 _REGISTRY = {
     "sparse_categorical_crossentropy": sparse_categorical_crossentropy,
 }
@@ -47,6 +63,12 @@ PALLAS_NAME = "pallas_sparse_categorical_crossentropy"
 
 def get_per_example(loss_fn):
     """Per-example variant of a known loss, or None for custom callables."""
+    if isinstance(loss_fn, SparseCategoricalCrossentropy):
+        if loss_fn.from_logits:
+            return _per_example_sparse_cce
+        return lambda logits, labels: _per_example_sparse_cce(
+            torch.log(torch.clamp(logits.to(torch.float32), 1e-9, 1.0)),
+            labels)
     return _PER_EXAMPLE.get(loss_fn)
 
 
@@ -73,5 +95,6 @@ def get(name_or_fn):
 
 
 __all__ = [
-    "PALLAS_NAME", "get", "get_per_example", "sparse_categorical_crossentropy",
+    "PALLAS_NAME", "SparseCategoricalCrossentropy", "get", "get_per_example",
+    "sparse_categorical_crossentropy",
 ]

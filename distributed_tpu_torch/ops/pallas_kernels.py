@@ -155,12 +155,30 @@ def _check_classes(c: int):
         )
 
 
+@torch.library.custom_op("dtt::xent_fwd", mutates_args=())
+def _xent_fwd_op(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """:func:`xent_fwd` as an operator of the dispatcher, so selective
+    checkpointing sees it: the chunked head (``compile(head_chunks=)``)
+    keeps its (N,) losses and recomputes only the logits, and the
+    recompute launches no K9."""
+    return xent_fwd(logits, labels)
+
+
+@_xent_fwd_op.register_fake
+def _(logits, labels):
+    return logits.new_empty((logits.shape[0],), dtype=torch.float32)
+
+
+#: The operator whose outputs a checkpoint may keep (``nn.remat``).
+XENT_FWD_OP = torch.ops.dtt.xent_fwd.default
+
+
 class _FusedXent(torch.autograd.Function):
     @staticmethod
     def forward(ctx, logits, labels):
         _check_classes(logits.shape[-1])
         ctx.save_for_backward(logits, labels)
-        return xent_fwd(logits, labels)
+        return torch.ops.dtt.xent_fwd(logits, labels)
 
     @staticmethod
     def backward(ctx, g):
@@ -218,7 +236,7 @@ def per_example_pallas_xent(logits, labels):
 
 
 __all__ = [
-    "MAX_FUSED_CLASSES", "fused_softmax_xent", "launches",
+    "MAX_FUSED_CLASSES", "XENT_FWD_OP", "fused_softmax_xent", "launches",
     "pallas_sparse_categorical_crossentropy", "per_example_pallas_xent",
     "reset_launch_counts", "xent_bwd", "xent_bwd_ref", "xent_fwd",
     "xent_fwd_ref",

@@ -25,6 +25,8 @@ optimizer as the JAX package does: ``chain(clip_by_global_norm(c), tx)``
 inside ``MultiSteps(..., every_k_schedule=N)``, with optax's arithmetic
 and optax's state layout (``interop`` writes it under optax's paths).
 ``set_hyperparam``/``get_hyperparam`` reach through the wrappers.
+``compile(precision="mixed_float16")`` wraps the result, outermost, in
+``dynamic_loss_scaling`` (its state ``LossScaleState``), as there.
 """
 
 from __future__ import annotations
@@ -273,6 +275,87 @@ class MultiSteps(_Transform):
             state["mini_step"] = n + 1
 
 
+class LossScaleState:
+    """State of :func:`dynamic_loss_scaling`, optax's ``LossScaleState``
+    fields: ``scale`` (the live scale, an f32 device scalar changed in
+    place, so a CUDA graph that captured the loss's product with it reads
+    the new value at every replay), ``growth_count`` (finite steps since
+    the scale last changed) and ``inner_state`` (the wrapped transform's).
+    Outermost, as in the JAX package: ``interop`` writes it as optax's
+    tuple (``#0`` scale, ``#1`` count, ``#2/...`` the inner state)."""
+
+    __slots__ = ("scale", "growth_count", "inner_state")
+
+    def __init__(self, scale, growth_count, inner_state):
+        self.scale = scale
+        self.growth_count = growth_count
+        self.inner_state = inner_state
+
+
+class dynamic_loss_scaling(_Transform):
+    """Dynamic loss scaling around ``inner``, the JAX package's wrapper
+    (float16 training). The model's step multiplies the loss by
+    ``state.scale`` before the backward, so the gradients here are scaled.
+    ``update``: unscale them (times ``1 / scale``, in f32), check every
+    entry is finite, and then
+
+    - finite: apply ``inner`` to the unscaled gradients; after
+      ``growth_interval`` finite steps in a row the scale grows by
+      ``factor``;
+    - not finite: skip the step — parameters, moments and counts stay as
+      they were — and the scale shrinks by ``factor`` (not below
+      ``min_scale``).
+
+    JAX computes both branches and selects element by element; the port's
+    update is in place and its counts are host integers, so the check is
+    read on the host (one device-to-host read a step, as
+    ``torch.amp.GradScaler`` reads its own) and the skipped branch never
+    runs: the same result."""
+
+    def __init__(self, inner, *, init_scale: float = 2.0 ** 15,
+                 growth_interval: int = 2000, factor: float = 2.0,
+                 min_scale: float = 1.0):
+        self.inner = get(inner)
+        self.init_scale = float(init_scale)
+        self.growth_interval = int(growth_interval)
+        self.factor = float(factor)
+        self.min_scale = float(min_scale)
+
+    def init(self, params):
+        device = params[0].device if params else None
+        return LossScaleState(
+            torch.tensor(self.init_scale, dtype=_F32, device=device), 0,
+            self.inner.init(params))
+
+    @torch.no_grad()
+    def update(self, params, grads, state: LossScaleState) -> None:
+        scale = state.scale
+        inv = torch.ones_like(scale) / scale
+        unscaled = [(g.to(_F32) * inv).to(g.dtype) for g in grads]
+        finite = torch.stack([torch.isfinite(g).all() for g in unscaled])
+        factor = torch.full_like(scale, self.factor)
+        if bool(finite.all()):
+            self.inner.update(params, unscaled, state.inner_state)
+            grown = state.growth_count + 1
+            if grown >= self.growth_interval:
+                scale.copy_(scale * factor)
+                state.growth_count = 0
+            else:
+                state.growth_count = grown
+        else:
+            scale.copy_(torch.clamp_min(scale / factor, self.min_scale))
+            state.growth_count = 0
+
+
+def loss_scale_value(opt_state):
+    """The live loss scale (a device scalar) of an optimizer state built
+    through :func:`dynamic_loss_scaling`, which is always outermost; None
+    when no loss scaling is active."""
+    if isinstance(opt_state, LossScaleState):
+        return opt_state.scale
+    return None
+
+
 _REGISTRY = {
     "sgd": SGD, "adam": Adam, "adamw": AdamW, "fused_adam": fused_adam,
     "fused_adamw": fused_adamw,
@@ -325,6 +408,8 @@ def get(name_or_opt, **kwargs) -> _Transform:
 def _hyperparams(opt_state, name: str) -> Dict:
     """The ``hyperparams`` dict holding ``name``, searched through the
     wrappers' states (``chain``'s tuple, ``MultiSteps``' inner state)."""
+    if isinstance(opt_state, LossScaleState):
+        return _hyperparams(opt_state.inner_state, name)
     if isinstance(opt_state, dict):
         hp = opt_state.get("hyperparams")
         if isinstance(hp, dict) and name in hp:
@@ -354,7 +439,8 @@ def get_hyperparam(opt_state: Dict, name: str) -> float:
 
 
 __all__ = [
-    "Adam", "AdamW", "EmaBaseline", "MultiSteps", "SGD", "chain",
-    "clip_by_global_norm", "fused_adam", "fused_adamw", "get",
-    "get_hyperparam", "set_hyperparam",
+    "Adam", "AdamW", "EmaBaseline", "LossScaleState", "MultiSteps", "SGD",
+    "chain", "clip_by_global_norm", "dynamic_loss_scaling", "fused_adam",
+    "fused_adamw", "get", "get_hyperparam", "loss_scale_value",
+    "set_hyperparam",
 ]

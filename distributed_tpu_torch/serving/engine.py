@@ -52,6 +52,7 @@ queue depth, the per-request ``weights_versions`` spans, and the
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import time
 from typing import List, Optional, Sequence as SequenceT
@@ -59,7 +60,7 @@ from typing import List, Optional, Sequence as SequenceT
 import numpy as np
 import torch
 
-from ..interop import SEP
+from ..nn.core import param_tree
 from ..nn.attention import PositionalEmbedding
 from ..obs import registry as obs_registry
 from ..obs import spans as obs_spans
@@ -102,8 +103,9 @@ def _ladder_k(accept_ema: float) -> int:
 
 def _served_tree(module) -> dict:
     """``{tree path: parameter}`` of a served module, paths as
-    ``Model.params`` gives them."""
-    return {name.replace(".", SEP): p for name, p in module.named_parameters()}
+    ``Model.params`` gives them (a quantized weight's ``q`` and ``scale``
+    buffers included)."""
+    return param_tree(module)
 
 
 def _snapshot(module):
@@ -236,7 +238,14 @@ class _Served:
         self.module = _snapshot(model.module)
         self.params = _served_tree(self.module)
         self.device = model.device
+        self.precision = model.precision
         self.kv: Optional[PagedKVCache] = None
+
+    def _scope(self):
+        """The served model's precision policy: its layers compute in the
+        policy's dtype, as in ``Model.generate``."""
+        return (contextlib.nullcontext() if self.precision is None
+                else self.precision.scope())
 
     def tensor(self, a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -245,10 +254,11 @@ class _Served:
                 temperature, top_k):
         """One prompt chunk for one sequence: KV scattered into its
         blocks, and the next token sampled from position ``last_idx``."""
-        out, self.kv.caches = self.module.paged_prefill(
-            self.kv.caches, self.tensor(tokens),
-            block_table=self.tensor(block_table), start=int(start),
-        )
+        with self._scope():
+            out, self.kv.caches = self.module.paged_prefill(
+                self.kv.caches, self.tensor(tokens),
+                block_table=self.tensor(block_table), start=int(start),
+            )
         tok, logp = _sample_with_logprob(
             out[0, last_idx:last_idx + 1], key[None], temperature, top_k)
         return int(tok[0]), float(logp[0])
@@ -262,12 +272,13 @@ class _Served:
         kw = {"block_tables": self.tensor(block_tables),
               "positions": self.tensor(positions),
               "decode_kernel": decode_kernel}
-        if t.dim() == 1:
-            logits, self.kv.caches = self.module.paged_decode(
-                self.kv.caches, t[:, None], **kw)
-        else:
-            logits, self.kv.caches = self.module.paged_verify(
-                self.kv.caches, t, **kw)
+        with self._scope():
+            if t.dim() == 1:
+                logits, self.kv.caches = self.module.paged_decode(
+                    self.kv.caches, t[:, None], **kw)
+            else:
+                logits, self.kv.caches = self.module.paged_verify(
+                    self.kv.caches, t, **kw)
         toks, logp = _sample_with_logprob(
             logits.reshape(-1, logits.shape[-1]),
             np.asarray(keys).reshape(-1, 2), temperature, top_k)

@@ -62,6 +62,7 @@ and npz weight files (``checkpoint``).
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 import warnings
@@ -71,15 +72,19 @@ import numpy as np
 import torch
 
 from .. import optim
+from .. import precision as precision_lib
+from .. import quant as quant_lib
 from ..checkpoint import core as ckpt
 from ..data.pipeline import Pipeline
 from ..data.prefetch import DevicePrefetcher, DeviceStager
 from ..device import resolve_device
-from ..interop import SEP
+from ..nn.core import apply_layers, param_tree, state_tree
+from ..nn.remat import checkpoint as remat_checkpoint
 from ..obs import registry as obs_registry
 from ..obs import spans as obs_spans
 from ..ops import losses as losses_lib
 from ..ops import metrics as metrics_lib
+from ..ops.pallas_kernels import XENT_FWD_OP
 from ..parallel.strategy import (DataParallel, SingleDevice, Strategy,
                                  current_strategy)
 from ..utils import event_schema as evs
@@ -122,6 +127,18 @@ def _unported(where: str, item: str, **options) -> None:
         if value not in (None, False, (), []):
             raise NotImplementedError(
                 f"{where}({name}=...): not yet ported (ROADMAP {item})")
+
+
+def _split_head(module):
+    """(body layers, head layer) of a Sequential: the chunked head
+    (``compile(head_chunks=C)``) applies the last layer per token chunk."""
+    layers = getattr(module, "layers", None)
+    if not layers or len(layers) < 2:
+        raise ValueError(
+            "head_chunks needs a Sequential module with >= 2 layers (body + "
+            "a tokenwise head as the LAST layer); got "
+            f"{type(module).__name__}")
+    return layers[:-1], layers[-1]
 
 
 def _positive_int(name: str, value) -> int:
@@ -227,6 +244,9 @@ class Model:
         self._decode_dtype = None
         self._graphs = {}  # captured train steps (steps_per_execution)
         self._stager = None
+        self.precision = None  # compile(precision=...): a dtype Policy
+        self.head_chunks = None  # compile(head_chunks=C)
+        self._dtype_hints = {}  # the layers' own dtype= (set by build)
 
     def build(self, input_shape: Sequence[int], seed: int = 0):
         """Create the f32 parameters for an unbatched input shape, drawn
@@ -238,6 +258,7 @@ class Model:
         self.module.build(self.input_shape, generator)
         self.module.to(self.device)
         self.module.eval()
+        self._dtype_hints = self.module.dtype_hints()
         self.built = True
         self._decode_dtype = None
         self._graphs = {}
@@ -252,12 +273,11 @@ class Model:
     @property
     def params(self) -> Dict[str, torch.Tensor]:
         """``{tree path: parameter}``, paths as in the JAX package
-        (``residual_1/main/dense_1/kernel``)."""
+        (``residual_1/main/dense_1/kernel``); a quantized weight
+        (``quant.quantize_model``) as its ``.../kernel/q`` and
+        ``.../kernel/scale`` buffers."""
         self._require_built()
-        return {
-            name.replace(".", SEP): p
-            for name, p in self.module.named_parameters()
-        }
+        return param_tree(self.module)
 
     def _param_list(self):
         return list(self.params.values())
@@ -274,10 +294,7 @@ class Model:
         running ``mean`` and ``var``) under the JAX package's state paths
         (``residual/main/batch_norm/mean``); empty for a stateless model."""
         self._require_built()
-        return {
-            name.replace(".", SEP): b
-            for name, b in self.module.named_buffers()
-        }
+        return state_tree(self.module)
 
     @staticmethod
     def _check_tree(own, new, what):
@@ -312,10 +329,13 @@ class Model:
         self._copy_into(self.state, state, "state")
 
     def decode_dtype(self) -> torch.dtype:
-        """KV-cache / activation dtype for decode: the dtype of the logits
-        (there is no precision policy yet), found by one forward pass of
-        a single token. Memoized per build/load."""
+        """KV-cache / activation dtype for decode, shared by ``generate``
+        and ``serving.Engine``: under a precision policy its compute
+        dtype; without one the dtype of the logits, found by one forward
+        pass of a single token. Memoized per build/compile/load."""
         self._require_built()
+        if self._decode_dtype is None and self.precision is not None:
+            self._decode_dtype = self.precision.compute_dtype
         if self._decode_dtype is None:
             with torch.inference_mode():
                 x = torch.zeros((1, 1), dtype=torch.int64, device=self.device)
@@ -354,12 +374,28 @@ class Model:
         per fit step. ``steps_per_execution=K``: K steps a dispatch (see
         the module docstring).
 
-        Not ported, raising ``NotImplementedError``: ``head_chunks``
-        (ROADMAP 1.3), ``precision`` policies (1.5), and the auto-shard
+        ``precision``: a mixed-precision policy (``"float32"``,
+        ``"mixed_bfloat16"``, ``"mixed_float16"`` or a
+        ``precision.Policy``). Parameters and optimizer state stay f32
+        masters; inside each step the layers without a ``dtype=`` of their
+        own compute in the policy's dtype from leaves cast there, the
+        gradients come back f32 through the casts, and the logits are cast
+        to the output dtype for the loss. ``mixed_float16`` wraps the
+        optimizer, outermost, in ``optim.dynamic_loss_scaling``: the loss
+        is multiplied by the live scale before the backward, and a step
+        with a non-finite gradient is skipped. ``generate`` and the Engine
+        then keep their KV in the compute dtype.
+
+        ``head_chunks=C``: for a Sequential whose last layer is a tokenwise
+        head (the LM's), ``fit`` and ``evaluate`` run the body once and the
+        head and the loss over C chunks of the tokens, each under
+        ``torch.utils.checkpoint``, so no more than one chunk's logits are
+        alive, forward or backward. C must divide each batch's tokens; the
+        head must hold no state.
+
+        Not ported, raising ``NotImplementedError``: the auto-shard
         planner's ``strategy="auto"``, ``hbm_cap_bytes``, ``measure`` and
-        ``auto_options`` (1.7)."""
-        _unported("compile", "1.3", head_chunks=head_chunks)
-        _unported("compile", "1.5", precision=precision)
+        ``auto_options`` (ROADMAP 1.7)."""
         _unported("compile", "1.7 (parallel/auto_shard.py)",
                   strategy=strategy == "auto", hbm_cap_bytes=hbm_cap_bytes,
                   measure=measure, auto_options=auto_options)
@@ -382,6 +418,19 @@ class Model:
                               gradient_accumulation_steps)
             if n > 1:
                 tx = optim.MultiSteps(tx, every_k_schedule=n)
+        self.precision = precision_lib.get(precision)
+        if self.precision is not None and self.precision.loss_scaling:
+            # Outermost: the step reads the scale from the state, and the
+            # wrapper unscales and checks the gradients before the clip,
+            # the accumulation and the optimizer see them.
+            tx = optim.dynamic_loss_scaling(
+                tx, init_scale=self.precision.initial_loss_scale,
+                growth_interval=self.precision.loss_scale_growth_interval,
+                factor=self.precision.loss_scale_factor)
+        if head_chunks is not None:
+            _positive_int("head_chunks", head_chunks)
+            _split_head(self.module)  # fail fast on unsuitable modules
+        self.head_chunks = int(head_chunks) if head_chunks else None
         self.steps_per_execution = (
             None if steps_per_execution is None
             else _positive_int("steps_per_execution", steps_per_execution))
@@ -391,9 +440,24 @@ class Model:
                            for m in metrics]
         self.compiled = True
         self._graphs = {}
+        self._decode_dtype = None
         if self.built:
             self.opt_state = self.tx.init(self._param_list())
         return self
+
+    def _policy_scope(self):
+        """The precision policy's scope (``compile(precision=)``), or
+        nothing without one."""
+        if self.precision is None:
+            return contextlib.nullcontext()
+        return self.precision.scope()
+
+    def _logits(self, x):
+        """The module's logits, cast to the policy's output dtype."""
+        logits = self.module(x)
+        if self.precision is not None:
+            logits = self.precision.cast_output(logits)
+        return logits
 
     # -------------------------------------------------------- learning rate
     def set_learning_rate(self, lr: float):
@@ -415,37 +479,118 @@ class Model:
     def _to_device(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def _grad_eval(self, x, y, accum_m: int):
+    def _grad_eval(self, x, y, accum_m: int, scale=None):
         """Forward, loss and gradients of one optimizer step on a device
         batch: ``(loss, f32 grads, {metric: (sum, count)})``. With
         ``accum_m > 1``, x and y carry a leading microbatch axis: the
         microbatches' gradients are summed in f32 and divided by M, the
         loss is the mean of their means, the metric pairs are summed (the
-        JAX ``_accum_train_step_body``)."""
+        JAX ``_accum_train_step_body``). ``scale`` (the live loss scale, a
+        device scalar, under ``mixed_float16``): the gradients are those
+        of ``loss * scale``; the loss returned is unscaled."""
         if accum_m > 1:
-            return self._accum_grad_eval(x, y, accum_m)
+            return self._accum_grad_eval(x, y, accum_m, scale)
         params = self._param_list()
-        with self.strategy.scope():
-            logits = self.module(x)
-            loss = self.loss_fn(logits, y)
-            grads = torch.autograd.grad(loss, params, materialize_grads=True)
-        with torch.no_grad():
-            mvals = {name: fn(logits.detach(), y)
-                     for name, fn in self.metric_fns}
+        with self.strategy.scope(), self._policy_scope():
+            if self.head_chunks and self.head_chunks > 1:
+                loss, mvals = self._chunked_train_loss(x, y)
+            else:
+                logits = self._logits(x)
+                loss = self.loss_fn(logits, y)
+                with torch.no_grad():
+                    mvals = {name: fn(logits.detach(), y)
+                             for name, fn in self.metric_fns}
+            scaled = loss if scale is None else loss * scale
+            grads = torch.autograd.grad(scaled, params,
+                                        materialize_grads=True)
         return loss.detach(), list(grads), mvals
 
-    def _accum_grad_eval(self, xs, ys, m: int):
-        gsum, loss_sum = None, None
+    def _chunked_head(self, h, y, weights):
+        """The head, the loss and the metrics over ``head_chunks`` chunks
+        of the flattened tokens (the JAX ``_chunked_head_scan``): each
+        chunk under ``torch.utils.checkpoint`` when training, so one
+        chunk's logits at most are alive, forward or backward; the fused
+        loss's per-token values are kept, so its recompute redoes the
+        head's product only (K9 once a chunk, K10 once). ``weights``
+        (per token, or None: all count). Without gradients (evaluate) the
+        chunks run plainly. Returns the weighted loss sum and
+        each metric's weighted score sum, device f32 scalars."""
+        c = self.head_chunks
+        _, head = _split_head(self.module)
+        if state_tree(head):
+            raise ValueError("head_chunks requires a STATELESS head layer; "
+                             f"{head.name!r} carries state")
+        if h.dim() < 2:
+            raise ValueError("head_chunks expects token activations (..., "
+                             f"D); got shape {tuple(h.shape)}")
+        d = h.shape[-1]
+        n_tok = h.numel() // d
+        if n_tok % c:
+            raise ValueError(f"head_chunks={c} must divide the token count "
+                             f"{n_tok} (= batch x seq)")
+        hf = h.reshape(c, n_tok // c, d)
+        yf = y.reshape(c, n_tok // c)
+        wf = (torch.ones((c, n_tok // c), dtype=torch.float32,
+                         device=h.device) if weights is None
+              else weights.reshape(c, n_tok // c).to(torch.float32))
+        loss_fn, metric_fns = self.loss_fn, tuple(self.metric_fns)
+        per_ex = losses_lib.get_per_example(loss_fn)
+
+        def chunk(h_i, y_i, w_i):
+            logits = head(h_i)
+            if per_ex is not None:
+                elems = per_ex(logits, y_i)
+                lsum = torch.sum(elems * w_i.to(elems.dtype))
+            else:
+                # No per-example form: the chunk's mean weighted by its
+                # valid count (exact when nothing is padded).
+                lsum = loss_fn(logits, y_i) * torch.sum(w_i)
+            msums = []
+            with torch.no_grad():
+                for _, fn in metric_fns:
+                    scores = metrics_lib.per_example(fn)
+                    if scores is not None:
+                        s = scores(logits, y_i)
+                        msums.append(torch.sum(s * w_i.to(s.dtype)))
+                    else:
+                        s, n = fn(logits, y_i)
+                        msums.append(s * torch.sum(w_i) / max(float(n), 1.0))
+            return (lsum.to(torch.float32),
+                    *(m.to(torch.float32) for m in msums))
+
+        total = None
+        for i in range(c):
+            args = (hf[i], yf[i], wf[i])
+            out = (remat_checkpoint(chunk, *args, save=(XENT_FWD_OP,))
+                   if torch.is_grad_enabled() else chunk(*args))
+            # Summed chunk by chunk in f32, as the JAX scan's carry.
+            total = out if total is None else tuple(
+                a + b for a, b in zip(total, out))
+        return total[0], list(total[1:])
+
+    def _chunked_train_loss(self, x, y):
+        """The chunked train objective: the body once, then
+        :meth:`_chunked_head`; the loss is the token mean."""
+        body, _ = _split_head(self.module)
+        h = apply_layers(body, x)
+        loss_sum, msums = self._chunked_head(h, y, None)
+        n_tok = float(y.numel())
+        loss = loss_sum / n_tok
+        mvals = {name: (s.detach(), n_tok)
+                 for (name, _), s in zip(self.metric_fns, msums)}
+        return loss, mvals
+
+    def _accum_grad_eval(self, xs, ys, m: int, scale=None):
+        # f32 accumulators whatever the gradients' dtype, as the JAX
+        # package's precision.grad_accum_init makes them.
+        gsum = precision_lib.grad_accum_init(self._param_list())
+        precision_lib.assert_f32_accumulator(gsum)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=xs.device)
         msums = {}
         for i in range(m):
-            loss, grads, mvals = self._grad_eval(xs[i], ys[i], 1)
-            if gsum is None:
-                gsum = [g.to(torch.float32) for g in grads]
-                loss_sum = loss.to(torch.float32)
-            else:
-                torch._foreach_add_(gsum, [g.to(torch.float32)
-                                           for g in grads])
-                loss_sum = loss_sum + loss.to(torch.float32)
+            loss, grads, mvals = self._grad_eval(xs[i], ys[i], 1, scale)
+            torch._foreach_add_(gsum, [g.to(torch.float32) for g in grads])
+            loss_sum = loss_sum + loss.to(torch.float32)
             for name, (s, c) in mvals.items():
                 s0, c0 = msums.get(name, (0.0, 0.0))
                 msums[name] = (s0 + s.to(torch.float32), c0 + float(c))
@@ -460,7 +605,8 @@ class Model:
     def _train_step(self, x, y, accum_m: int = 1):
         """One optimizer step on a device batch: returns the loss (a
         device scalar) and each metric's (sum, count)."""
-        loss, grads, mvals = self._grad_eval(x, y, accum_m)
+        loss, grads, mvals = self._grad_eval(
+            x, y, accum_m, optim.loss_scale_value(self.opt_state))
         self._apply_update(grads)
         return loss, mvals
 
@@ -473,14 +619,16 @@ class Model:
                 "collectives run inside the forward, which the step's CUDA "
                 "graph would capture; the port captures no NCCL call")
 
-    def _graph_grad_eval(self, x, y, accum_m: int):
+    def _graph_grad_eval(self, x, y, accum_m: int, scale=None):
         key = (tuple(x.shape), x.dtype, tuple(y.shape), y.dtype, accum_m)
         graph = self._graphs.get(key)
         if graph is None:
+            # The loss scale is a static input: copied in before each
+            # replay, never a host float frozen at capture.
             graph = self._graphs[key] = StepGraph(
-                lambda a, b: self._grad_eval(a, b, accum_m), self.module,
-                x, y)
-        return graph.replay(x, y)
+                lambda a, b, s: self._grad_eval(a, b, accum_m, s),
+                self.module, x, y, scale)
+        return graph.replay(x, y, scale)
 
     def _multi_step(self, xs, ys, k: int, accum_m: int):
         """``k`` optimizer steps on a stacked device batch (``[k, batch,
@@ -495,7 +643,8 @@ class Model:
             rows = slice(i * accum_m, (i + 1) * accum_m)
             x, y = ((xs[i], ys[i]) if accum_m == 1
                     else (xs[rows], ys[rows]))
-            loss, grads, mvals = grad_eval(x, y, accum_m)
+            loss, grads, mvals = grad_eval(
+                x, y, accum_m, optim.loss_scale_value(self.opt_state))
             self._apply_update(grads)
             loss_sum = loss_sum + loss.to(torch.float32)
             msums = {name: (s + mvals[name][0].to(torch.float32),
@@ -624,6 +773,12 @@ class Model:
         evaluated after each epoch and logged as ``val_<name>``."""
         if not self.compiled:
             raise RuntimeError("Call compile() before fit()")
+        if self.built and quant_lib.is_quantized(self.module):
+            raise RuntimeError(
+                "model parameters are int8-quantized (quant.quantize_model)"
+                " — quantized weights carry no gradients, so fit() is "
+                "unavailable. Serve with generate()/predict()/serving."
+                "Engine, or restore the f32 checkpoint to keep training.")
         self._fit_source = None
         if y is None:
             if not hasattr(x, "__next__"):
@@ -922,7 +1077,8 @@ class Model:
             _tensor_bytes(self._param_list())
             + _tensor_bytes(list(self.state.values()))
             + _tensor_bytes(self.opt_state))
-        report["precision"] = None
+        report["precision"] = (None if self.precision is None
+                               else self.precision.name)
         if source is not None and getattr(source, "decode_workers",
                                           None) is not None:
             report["input_decode_workers"] = int(source.decode_workers)
@@ -949,10 +1105,13 @@ class Model:
         self.last_fit_telemetry = obs_reg.set_report("model.fit", report)
 
     # --------------------------------------------------------------- evaluate
-    def _score(self, xb, yb, per_ex):
+    def _score(self, xb, yb, rows=None, *, per_ex):
         """Device sums and host counts of one batch: ``([loss, metric...],
-        [count...])``."""
-        logits = self.module(xb)
+        [count...])``. ``rows``: the batch's valid rows when it was padded
+        (the chunked head's last batch), else all count."""
+        if self.head_chunks and self.head_chunks > 1:
+            return self._score_chunked(xb, yb, rows)
+        logits = self._logits(xb)
         valid = float(yb.numel())
         if per_ex is not None:
             loss_sum = per_ex(logits, yb).sum()
@@ -971,10 +1130,24 @@ class Model:
                 row_counts.append(float(mcount))
         return [v.to(torch.float32) for v in row_sums], row_counts
 
+    def _score_chunked(self, xb, yb, rows):
+        """:meth:`_score` through the chunked head: the body once, then the
+        head, the loss and the metrics per chunk of tokens, the padded
+        rows weighted 0 (the JAX ``_get_chunked_eval_step``)."""
+        n = yb.shape[0]
+        rows = n if rows is None else rows
+        mask = (torch.arange(n, device=yb.device) < rows).to(torch.float32)
+        w = mask.reshape((n,) + (1,) * (yb.dim() - 1)).expand(yb.shape)
+        body, _ = _split_head(self.module)
+        h = apply_layers(body, xb)
+        loss_sum, msums = self._chunked_head(h, yb, w)
+        valid = float(rows * (yb.numel() // max(n, 1)))
+        return ([loss_sum] + msums), [valid] * (1 + len(msums))
+
     def _eval_batches(self, batches):
         """Sum the scores of ``batches`` (an iterable of device ``(x, y)``
-        pairs of this replica, or None for a batch that ends before its
-        rows) in eval mode, reduced over the replicas; returns the
+        pairs of this replica, ``(x, y, valid rows)`` for a padded one, or
+        None for a batch that ends before its rows) in eval mode, reduced over the replicas; returns the
         per-element means."""
         per_ex = losses_lib.get_per_example(self.loss_fn)
         k = 1 + len(self.metric_fns)
@@ -983,13 +1156,13 @@ class Model:
         was_training = self.module.training
         self.module.eval()
         try:
-            with torch.inference_mode():
+            with torch.inference_mode(), self._policy_scope():
                 for pair in batches:
                     if pair is None:
                         sums.append([zero] * k)
                         counts.append([0.0] * k)
                         continue
-                    s, c = self._score(*pair, per_ex)
+                    s, c = self._score(*pair, per_ex=per_ex)
                     sums.append(s)
                     counts.append(c)
         finally:
@@ -1032,9 +1205,25 @@ class Model:
         y = np.asarray(y)
         n = x.shape[0]
         lo, hi = self.strategy.row_range(batch_size)
+        chunked = bool(self.head_chunks and self.head_chunks > 1)
 
         def batches():
             for start in range(0, n, batch_size):
+                if chunked:
+                    # The chunks split the batch's tokens: pad a short
+                    # batch to batch_size with its last row, weighted 0,
+                    # as the JAX package pads every batch.
+                    xb, yb = x[start:start + batch_size], y[start:start
+                                                             + batch_size]
+                    valid = xb.shape[0]
+                    if valid < batch_size:
+                        pad = batch_size - valid
+                        xb = np.concatenate([xb, np.repeat(xb[-1:], pad, 0)])
+                        yb = np.concatenate([yb, np.repeat(yb[-1:], pad, 0)])
+                    yield (self._to_device(xb[lo:hi]),
+                           self._to_device(yb[lo:hi]),
+                           min(max(valid - lo, 0), hi - lo))
+                    continue
                 rows = slice(min(start + lo, n), min(start + hi, n))
                 if rows.start == rows.stop:  # the batch ends before us
                     yield None
@@ -1134,10 +1323,10 @@ class Model:
         was_training = self.module.training
         self.module.eval()
         try:
-            with torch.inference_mode():
+            with torch.inference_mode(), self._policy_scope():
                 for xb in host_batches():
                     xb = self._to_device(xb)
-                    pending.append(self.module(xb).to(torch.float32))
+                    pending.append(self._logits(xb).to(torch.float32))
                     if len(pending) >= 16:
                         fetched.append(pending.pop(0).cpu().numpy())
                 fetched += [o.cpu().numpy() for o in pending]
@@ -1209,7 +1398,7 @@ class Model:
         was_training = self.module.training
         self.module.eval()
         try:
-            with torch.inference_mode():
+            with torch.inference_mode(), self._policy_scope():
                 for t in range(max_len - 1):
                     logits, cache = self.module.decode(cache, tok[:, None],
                                                        pos=t)

@@ -30,26 +30,30 @@ profiler's trace shows each kernel a replay runs, by name.
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 
 class StepGraph:
-    """``grad_eval(x, y) -> (loss, grads, metric pairs)`` captured on the
-    shapes and dtypes of ``x`` and ``y`` (CUDA tensors). :meth:`replay`
-    copies new inputs into the static ones, replays, and returns the
-    static outputs (overwritten by the next replay)."""
+    """``grad_eval(*inputs) -> (loss, grads, metric pairs)`` captured on the
+    shapes and dtypes of ``inputs`` (CUDA tensors, or None for an input
+    the step does not take: ``x``, ``y`` and the live loss scale of
+    ``compile(precision="mixed_float16")``). :meth:`replay` copies new
+    inputs into the static ones, replays, and returns the static outputs
+    (overwritten by the next replay). The loss scale is such an input, a
+    device tensor copied in before every replay: a host float would be
+    frozen into the graph at its captured value."""
 
     def __init__(self, grad_eval: Callable, module: torch.nn.Module,
-                 x: torch.Tensor, y: torch.Tensor):
-        device = x.device
-        self.x, self.y = x.clone(), y.clone()
+                 *inputs: Optional[torch.Tensor]):
+        device = inputs[0].device
+        self.inputs = [None if t is None else t.clone() for t in inputs]
         saved = [b.detach().clone() for b in module.buffers()]
         side = torch.cuda.Stream(device=device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
-            grad_eval(self.x, self.y)  # warm-up, eager
+            grad_eval(*self.inputs)  # warm-up, eager
             with torch.no_grad():
                 for b, v in zip(module.buffers(), saved):
                     b.copy_(v)
@@ -58,12 +62,13 @@ class StepGraph:
         # copies, event waits) while this thread captures.
         with torch.cuda.graph(self.graph, stream=side,
                               capture_error_mode="thread_local"):
-            self.outputs: Tuple = grad_eval(self.x, self.y)
+            self.outputs: Tuple = grad_eval(*self.inputs)
         torch.cuda.current_stream(device).wait_stream(side)
 
-    def replay(self, x: torch.Tensor, y: torch.Tensor) -> Tuple:
-        self.x.copy_(x)
-        self.y.copy_(y)
+    def replay(self, *inputs: Optional[torch.Tensor]) -> Tuple:
+        for static, t in zip(self.inputs, inputs):
+            if static is not None:
+                static.copy_(t)
         self.graph.replay()
         return self.outputs
 

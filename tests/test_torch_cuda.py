@@ -964,3 +964,157 @@ def test_generate_on_the_card_matches_its_cpu_run(cuda_device):
                                            seed=5)):
         cpu, card = (m.generate(prompt, 40, **kw) for m in lms)
         np.testing.assert_array_equal(card, cpu)
+
+
+# ----------------------------------------- precision, remat, head chunks --
+def _lm_run(dev, k=None, steps=2, batch=4, t_len=512, **kw):
+    """A 2-layer LM (vocab 256, d 64, 2 heads, flash) fitted ``steps``
+    steps on seeded tokens, launch counts zeroed before; returns the
+    model, its losses and the launches. ``kw``: ``transformer_lm``'s
+    ``dtype``/``remat``/``remat_policy`` and ``compile``'s
+    ``precision``/``head_chunks``."""
+    import numpy as np
+
+    import distributed_tpu_torch as dtt
+
+    lm_kw = {n: kw.pop(n) for n in ("dtype", "remat", "remat_policy")
+             if n in kw}
+    tok = np.random.default_rng(0).integers(0, 256, (batch * steps,
+                                                     t_len + 1))
+    x, y = tok[:, :-1].astype(np.int32), tok[:, 1:].astype(np.int32)
+    m = dtt.Model(dtt.models.transformer_lm(
+        256, num_layers=2, d_model=64, num_heads=2, max_len=t_len,
+        flash=True, **lm_kw), device=dev)
+    m.compile(optimizer=dtt.optim.Adam(1e-3),
+              loss="pallas_sparse_categorical_crossentropy",
+              steps_per_execution=k, **kw)
+    m.build((t_len,), seed=0)
+    for mod in (flash_ops, xent_ops):
+        mod.reset_launch_counts()
+    hist = m.fit(x, y, batch_size=batch, epochs=1, steps_per_epoch=steps,
+                 shuffle=False, verbose=0)
+    counts = dict(flash_ops.launches, **xent_ops.launches)
+    return m, hist.history["loss"], counts
+
+
+def _same_bits(a, b):
+    pa, pb = a.params, b.params
+    return [n for n in pa if not torch.equal(pa[n], pb[n])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", [None, "nothing_saveable",
+                                    "dots_with_no_batch_dims_saveable"])
+def test_remat_recomputes_the_flash_forward_and_keeps_the_bits(cuda_device,
+                                                               policy):
+    """bf16 layers: remat's parameters after 2 steps are the plain run's
+    bit for bit (the kernels are deterministic, the recompute runs them on
+    the same stream); K3 runs twice a layer a step, K4/K5 once."""
+    plain, lp, cp = _lm_run(cuda_device, dtype="bfloat16")
+    remat, lr, cr = _lm_run(cuda_device, dtype="bfloat16", remat=True,
+                            remat_policy=policy)
+    assert lr == lp and not _same_bits(plain, remat)
+    assert (cp["flash_fwd"], cp["flash_dq"], cp["flash_dkv"]) == (4, 4, 4)
+    assert (cr["flash_fwd"], cr["flash_dq"], cr["flash_dkv"]) == (8, 4, 4)
+
+
+@pytest.mark.cuda
+def test_remat_under_cuda_graphs_matches_eager(cuda_device):
+    """remat with K=2 steps a dispatch (each step's forward, backward and
+    recompute captured into a graph on the capture's side stream) against
+    K=1 eager from the same start: the same bits."""
+    kw = dict(dtype="bfloat16", remat=True,
+              remat_policy="dots_with_no_batch_dims_saveable")
+    eager, _, _ = _lm_run(cuda_device, steps=4, **kw)
+    graph, _, _ = _lm_run(cuda_device, k=2, steps=4, **kw)
+    assert not _same_bits(eager, graph)
+
+
+@pytest.mark.cuda
+def test_head_chunks_launch_the_loss_once_a_chunk(cuda_device):
+    """f32, TF32 off: head_chunks=4 launches K9 and K10 four times a step,
+    and its losses hold the unchunked run's to rtol 1e-5."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, lp, cp = _lm_run(cuda_device)
+    _, lc, cc = _lm_run(cuda_device, head_chunks=4)
+    assert (cp["xent_fwd"], cp["xent_bwd"]) == (2, 2)
+    assert (cc["xent_fwd"], cc["xent_bwd"]) == (8, 8)
+    for a, b in zip(lc, lp):
+        assert abs(a - b) <= 1e-5 * abs(b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,dtype", [("mixed_bfloat16", "bfloat16"),
+                                          ("mixed_float16", "float16")])
+def test_policy_reaches_the_flash_kernels_in_its_dtype(cuda_device, policy,
+                                                       dtype):
+    """Layers with no dtype= under a policy compute in its dtype: every
+    flash launch takes the policy's dtype on the wgmma route; the losses
+    are finite."""
+    _, losses, counts = _lm_run(cuda_device, precision=policy)
+    want = {f"{k}/{dtype}": 4 for k in ("flash_fwd", "flash_dq",
+                                         "flash_dkv")}
+    got = {k: n for k, n in flash_ops.dtype_launches.items() if n}
+    assert got == want
+    assert all(flash_ops.route_launches[f"{k}/wgmma"] == 4
+               for k in ("flash_fwd", "flash_dq", "flash_dkv"))
+    import math
+    assert all(math.isfinite(v) for v in losses)
+
+
+@pytest.mark.cuda
+def test_loss_scale_is_a_graph_input_not_a_frozen_float(cuda_device):
+    """mixed_float16: K=2 as CUDA graphs against K=1 eager, 4 steps: the
+    same bits and the same scale. Then the live scale is set to 2^60 on
+    the graph model: the replayed steps overflow, are skipped (parameters
+    and Adam's count unchanged) and halve the scale each time, which a
+    scale frozen into the graph at its captured 2^15 would not."""
+    eager, _, _ = _lm_run(cuda_device, steps=4, precision="mixed_float16")
+    graph, _, _ = _lm_run(cuda_device, k=2, steps=4,
+                          precision="mixed_float16")
+    assert not _same_bits(eager, graph)
+    assert float(eager.opt_state.scale) == float(graph.opt_state.scale)
+    import numpy as np
+
+    state = graph.opt_state
+    before = {n: t.clone() for n, t in graph.params.items()}
+    count = state.inner_state["count"]
+    state.scale.fill_(2.0 ** 60)
+    tok = np.random.default_rng(1).integers(0, 256, (8, 513))
+    graph.fit(tok[:, :-1].astype(np.int32), tok[:, 1:].astype(np.int32),
+              batch_size=4, epochs=1, steps_per_epoch=2, shuffle=False,
+              verbose=0)
+    assert float(state.scale) == 2.0 ** 58
+    assert state.inner_state["count"] == count
+    assert all(torch.equal(before[n], t) for n, t in graph.params.items())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_quantized_engine_fused_matches_reference_on_the_card(cuda_device,
+                                                              kv_dtype):
+    """An f32 LM with int8 weights (quant.quantize_model), TF32 off, on the
+    card: the Engine's fused decode (K1/K2) gives the reference read's
+    tokens, greedy and sampled, as phase d holds the unquantized model;
+    K1 (or K2) launched."""
+    import numpy as np
+
+    import distributed_tpu_torch as dtt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m = dtt.Model(dtt.models.transformer_lm(
+        97, num_layers=2, d_model=32, num_heads=2, max_len=64),
+        device=cuda_device).build((16,), seed=3)
+    dtt.quant.quantize_model(m)
+    rng = np.random.default_rng(4)
+    reqs = [dtt.serving.Request(rng.integers(0, 97, (int(n),)).astype(
+        np.int32), 8, seed=i) for i, n in enumerate(rng.integers(3, 20, 5))]
+    for temp in (0.0, 0.8):
+        paged_ops.reset_launch_counts()
+        outs = [dtt.serving.Engine(
+            m, max_slots=2, block_size=8, max_len=64, kv_dtype=kv_dtype,
+            temperature=temp, decode_kernel=kind).run(reqs)
+            for kind in ("reference", "fused")]
+        assert sum(paged_ops.launches.values()) > 0
+        for a, b in zip(*outs):
+            np.testing.assert_array_equal(b, a)

@@ -50,9 +50,10 @@ PAIRS = {
             "causal": (False, None), "moe_experts": (2, "1.7"),
             "moe_every": (3, "1.7"), "pipeline": (True, "1.7"),
             "pipeline_schedule": ("interleaved", "1.7"),
-            "pipeline_interleave": (2, "1.7"), "scan": (True, "1.5"),
-            "scan_overlap": ("off", "1.5"), "remat": (True, "1.5"),
-            "remat_policy": ("dots", "1.5"), "flash": (True, None),
+            "pipeline_interleave": (2, "1.7"), "scan": (True, "1.5b"),
+            "scan_overlap": ("off", "1.5b"), "remat": (True, None),
+            "remat_policy": ("dots_with_no_batch_dims_saveable", None),
+            "flash": (True, None),
             "dtype": ("bfloat16", None), "d_ff": (24, None),
             "max_len": (16, None), "num_layers": (1, None),
             "d_model": (16, None), "num_heads": (2, None)},
@@ -81,8 +82,8 @@ PAIRS = {
               lambda f, **kw: _model(dtt, **kw)),
     "Model.compile": (dtpu.Model.compile, dtt.Model.compile, {
         "grad_clip": (1.0, None), "gradient_accumulation_steps": (2, None),
-        "head_chunks": (2, "1.3"), "steps_per_execution": (2, None),
-        "precision": ("mixed_bfloat16", "1.5"), "strategy": ("auto", "1.7"),
+        "head_chunks": (2, None), "steps_per_execution": (2, None),
+        "precision": ("mixed_bfloat16", None), "strategy": ("auto", "1.7"),
         "hbm_cap_bytes": (1 << 30, "1.7"), "measure": (True, "1.7"),
         "auto_options": ({"batch_size": 4}, "1.7"),
         "loss": ("pallas_sparse_categorical_crossentropy", None),

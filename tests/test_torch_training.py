@@ -166,15 +166,15 @@ def test_learning_rate_is_mutable_and_f32():
     "measure", "auto_options"])
 def test_unported_compile_options_raise(option):
     """The compile options no slice has ported raise "not yet ported";
-    clipping, accumulation and multi-step execution are ported now and
-    compile."""
+    clipping, accumulation, multi-step execution, the chunked head and
+    the precision policies are ported now and compile."""
     pm = dtt.Model(dtt.models.transformer_lm(16, num_layers=1, d_model=16,
                                              num_heads=2, max_len=8),
                    device="cpu")
     value = {"precision": "mixed_bfloat16", "strategy": "auto",
              "measure": True, "auto_options": {"batch_size": 8}}.get(option, 2)
     if option in ("grad_clip", "gradient_accumulation_steps",
-                  "steps_per_execution"):
+                  "steps_per_execution", "head_chunks", "precision"):
         pm.compile(optimizer="adam", **{option: value})
         assert pm.compiled
         return
