@@ -251,13 +251,42 @@ u. The LM's precision and memory options at full width. (u1) Long
    layer and decode step, token and first-token agreement with phase c,
    the snapshot's bytes against the unquantized parameters', tokens/s;
    ``update_weights`` takes the quantized tree and refuses f32 leaves.
+v. Weight-stacked blocks (``nn.ScannedBlocks``), each model against its
+   unrolled twin given the same parameters restacked (launch counts
+   zeroed before each scanned run and read after it): (v1) phase h's
+   GPT-2-small LM with ``scan=True``: parameters after 3 eager steps bit
+   for bit (or the first leaf that differs named, failing past the bf16
+   tolerance), K3-K5 12 times and K9/K10 once a step in both, ms a step
+   in interleaved pairs with the busy share, the count of parameter
+   tensors and the device operations of one optimizer update; then
+   ``scan=True, remat=True`` with ``dots_with_no_batch_dims_saveable`` at
+   K=2 graphs against K=1 eager, bit for bit, ms a step and peak memory.
+   (v2) Both served phase c's 16 greedy requests plus two repeats of a
+   256-token prompt (copy-on-write in the prefix cache), fused, bf16 and
+   int8 KV: token-exact, tokens/s, K1/K2 once a layer and decode step on
+   the vector read path at every block's pool slice; both again with
+   ``spec_k=4`` and each its own draft: scanned token-exact against
+   unrolled (in bf16 a verify's rows round apart from one-row decodes, so
+   against plain only the agreement is printed).
+   (v3) ResNet-50 ``scan_stages=True`` (bf16, SGD(0.1, momentum=0.9),
+   batch 256, cuDNN deterministic): losses, parameters and BatchNorm
+   buffers after 3 steps (the first difference named), K12/K13/K14
+   72/53/53 a step, ms a step. (v4) K9/K10 at (128, 1000) bf16 against
+   their plain versions, then ``vit_base(scan=True)`` (bf16 layers,
+   ``fused_adamw(1e-3)``, the pallas loss, 128 uint8 images): parameters
+   after 2 steps, K9/K10/K11 once a step, images/s, MFU (3 x
+   ``vit_fwd_flops`` at 989 TFLOP/s), peak memory. (v5) Dropout(0.1)
+   after each of 2 scanned GPT-2-small-width blocks: the mask drawn on
+   the card equals the CPU's, and K=4 graphs equal K=1 eager bit for bit
+   after 8 steps.
 Then the kernel table as one JSON line (each row also names the CUDA
 kernel of the main path, ``kernel``, and carries its launches in phase r's
 resumed steps, ``launches_resumed``, in phase t's fits that captured a
 graph, ``launches_fit``, and its runs in their 8 replayed steps from the
 trace, ``replayed_fit``; K1/K2 also their launches in phase
 s's speculative runs, ``launches_spec``, and their time by kw, ``ms_by_kw``;
-and its launches in phase u's sub-phases, ``launches_u1``-``launches_u3``),
+and its launches in phase u's sub-phases, ``launches_u1``-``launches_u3``,
+and in phase v's scanned runs, ``launches_v``),
 the card's name and power limit, and ``{"ok": true, "device": {...}}`` as
 the last line.
 """
@@ -2966,6 +2995,442 @@ def phase_quant_serve(torch, dtt, paged_ops, reqs, fused_c):
     return launches["paged_attention"]
 
 
+# ------------------------------------------------------------- phase v
+def restack_blocks(tree, num_layers):
+    """An unrolled LM's or ViT's ``{path: tensor}`` tree as its
+    ``scan=True`` twin's: ``residual_{2i}``/``residual_{2i+1}`` stacked
+    into ``scanned_blocks/blocks/residual`` and ``.../residual_1``."""
+    import torch
+
+    out, per = {}, {}
+    for path, t in tree.items():
+        head, _, rest = path.partition("/")
+        if not head.startswith("residual"):
+            out[path] = t
+            continue
+        i = 0 if head == "residual" else int(head.split("_")[1])
+        slot = "residual" if i % 2 == 0 else "residual_1"
+        per.setdefault(f"scanned_blocks/blocks/{slot}/{rest}", {})[
+            i // 2] = t
+    for path, d in per.items():
+        out[path] = torch.stack([d[i] for i in range(num_layers)])
+    return out
+
+
+def restack_resnet(tree, blocks=(3, 4, 6, 3)):
+    """An unrolled ResNet's tree as ``scan_stages=True``'s: stage s's first
+    block ``residual_{first}`` becomes ``residual_{s}`` and its tail blocks
+    stack into ``scanned_blocks_{s}/blocks``."""
+    import torch
+
+    def name(base, i):
+        return base if i == 0 else f"{base}_{i}"
+
+    out, per, first = {}, {}, 0
+    where = {}
+    for s, n in enumerate(blocks):
+        where[first] = (name("residual", s), None)
+        for j in range(1, n):
+            where[first + j] = (name("scanned_blocks", s) + "/blocks", j - 1)
+        first += n
+    for path, t in tree.items():
+        head, _, rest = path.partition("/")
+        if not head.startswith("residual"):
+            out[path] = t
+            continue
+        i = 0 if head == "residual" else int(head.split("_")[1])
+        new, j = where[i]
+        if j is None:
+            out[f"{new}/{rest}"] = t
+        else:
+            per.setdefault(f"{new}/{rest}", {})[j] = t
+    for path, d in per.items():
+        out[path] = torch.stack([d[j] for j in range(len(d))])
+    return out
+
+
+def first_difference(torch, a, b):
+    """(path, largest |difference|) of the first leaf, in ``a``'s order,
+    where two ``{path: tensor}`` trees differ in any bit; None when none
+    does."""
+    with torch.no_grad():
+        for path, t in a.items():
+            u = b[path]
+            if not torch.equal(t, u):
+                return path, float((t.float() - u.float()).abs().max())
+    return None
+
+
+def say_same(tag, diff):
+    print(f"  {tag}: " + ("bit-identical" if diff is None else
+                          f"first difference at {diff[0]}, largest "
+                          f"|difference| {diff[1]:.3e}"))
+
+
+def phase_scan_lm(torch, dtt, mods, paged_ops, reqs, batch=32, steps=3):
+    """v1 and v2: bench_transformer_lm's LM (GPT-2-small width, bf16
+    layers, Adam(1e-4), the pallas loss, batch 32 x 1024), scan=True
+    against the unrolled LM given the same parameters restacked: 3 eager
+    steps, timed in interleaved pairs; parameter tensors and the
+    optimizer's launches a step; then both served (v2), and scan=True
+    with remat at K=2 graphs against eager. Returns the scanned runs'
+    launches."""
+    t_len, layers = LM["max_len"], LM["num_layers"]
+    x, y = lm_batch(batch, t_len)
+    fit = dict(batch_size=batch, steps_per_epoch=1, shuffle=False,
+               verbose=0)
+
+    def make(scan, k=None, **kw):
+        m = dtt.Model(dtt.models.transformer_lm(
+            VOCAB, dtype="bfloat16", scan=scan, **kw, **LM))
+        m.compile(optimizer=dtt.optim.Adam(1e-4), loss=PALLAS,
+                  metrics=["accuracy"], steps_per_execution=k)
+        return m.build((t_len,), seed=0)
+
+    un, sc = make(False), make(True)
+    sc.load_params(restack_blocks(un.params, layers))
+    reset_counts(mods)
+    lu = un.fit(x, y, epochs=steps, **fit).history["loss"]
+    cu = launch_counts(mods)
+    reset_counts(mods)
+    ls = sc.fit(x, y, epochs=steps, **fit).history["loss"]
+    counts = launch_counts(mods)
+    print(f"  losses unrolled {lu}, scanned {ls}")
+    diff = first_difference(torch, restack_blocks(un.params, layers),
+                            sc.params)
+    say_same(f"parameters after {steps} eager steps, scanned against "
+             "unrolled", diff)
+    per_step = {n: c / steps for n, c in counts.items() if c}
+    print(f"  launches a step: scanned {per_step}, unrolled "
+          f"{ {n: c / steps for n, c in cu.items() if c} }")
+    want = {"xent_fwd": 1, "xent_bwd": 1, "flash_fwd": layers,
+            "flash_dq": layers, "flash_dkv": layers}
+    if per_step != want or cu != counts:
+        raise SystemExit(f"v1: launches a step {per_step}, expected {want}")
+    if diff is not None and diff[1] > TOL["bfloat16"]:
+        raise SystemExit("v1: scanned and unrolled parameters part")
+    arms = {"unrolled": (lambda: un.fit(x, y, epochs=2, **fit), 2),
+            "scanned": (lambda: sc.fit(x, y, epochs=2, **fit), 2)}
+    report_arms(torch, arms, interleaved(torch, arms, 3))
+
+    grads = {}
+    for tag, m in (("unrolled", un), ("scanned", sc)):
+        ps = m._param_list()
+        grads[tag] = [torch.zeros_like(p) for p in ps]
+    print(f"  parameter tensors: unrolled {len(un.params)}, scanned "
+          f"{len(sc.params)}")
+
+    print("phase v2: the scanned LM served against the unrolled one, "
+          "Engine(8 slots, block 16), fused, prefix cache")
+    sc.load_params(restack_blocks(un.params, layers))
+    # A 256-token prompt (16 whole blocks) first and again last: the last
+    # adopts its cached blocks and copies the 16th on write.
+    head = np.random.default_rng(7).integers(0, VOCAB, t_len // 4).astype(
+        np.int32)
+    vreqs = [(head, 32)] + list(reqs) + [(head.copy(), 40)]
+    for kv in (None, "int8"):
+        outs = {}
+        for tag, m in (("unrolled", un), ("scanned", sc)):
+            paged_ops.reset_launch_counts()
+            eng = dtt.serving.Engine(m, max_slots=8, block_size=16,
+                                     max_len=t_len, decode_kernel="fused",
+                                     prefix_cache=True, kv_dtype=kv)
+            t = time.perf_counter()
+            outs[tag] = eng.run([dtt.serving.Request(p, n)
+                                 for p, n in vreqs])
+            wall = time.perf_counter() - t
+            tel = eng.last_run_telemetry
+            key = "paged_attention_int8" if kv else "paged_attention"
+            launched = paged_ops.launches[key]
+            report(f"{tag} {kv or 'bf16'} KV", tel, wall)
+            print(f"    {key} {launched / tel['decode_steps']:.1f} launches "
+                  f"a decode step, by read path "
+                  f"{dict(paged_ops.launches_by_path)}, copy-on-write "
+                  f"{eng.kv.cow_copies}")
+            if tag == "scanned":
+                counts[key] = counts.get(key, 0) + launched
+                pool = eng.kv.caches["scanned_blocks"]["stacked"][
+                    "residual"]["main"]["multi_head_attention"]["k"]
+                pool = pool["q"] if isinstance(pool, dict) else pool
+                row = pool.shape[-1] * pool.element_size()
+                paths = ["vector" if pool[i].data_ptr() % 16 == 0
+                         and row % 16 == 0 else "scalar"
+                         for i in range(layers)]
+                print(f"    the read path of each block's pool slice: "
+                      f"{paths}")
+                if (eng.kv.cow_copies == 0 or launched
+                        != tel["decode_steps"] * layers
+                        or ("scalar" in {p for _, p in
+                                         paged_ops.launches_by_path})):
+                    raise SystemExit("v2: no copy-on-write, or K1/K2 not "
+                                     "once a layer and step on the vector "
+                                     "path")
+            check_outputs(outs[tag], vreqs, VOCAB)
+            del eng
+        exact = all(np.array_equal(a, b)
+                    for a, b in zip(outs["unrolled"], outs["scanned"]))
+        print(f"  {kv or 'bf16'} KV: scanned token-exact against unrolled: "
+              f"{exact}")
+        if not exact:
+            raise SystemExit(f"v2: scanned serving differs ({kv} KV)")
+        if kv is None:
+            plain = outs["scanned"]
+    # In bf16 a verify's K rows round apart from K one-row decodes (other
+    # GEMM shapes), so greedy speculative tokens may part from plain ones
+    # at a near-tie; the scanned LM's must equal the unrolled LM's.
+    spec_outs = {}
+    for tag, m in (("unrolled", un), ("scanned", sc)):
+        paged_ops.reset_launch_counts()
+        spec = dtt.serving.Engine(m, max_slots=8, block_size=16,
+                                  max_len=t_len, decode_kernel="fused",
+                                  draft_model=m, spec_k=4)
+        t = time.perf_counter()
+        spec_outs[tag] = spec.run([dtt.serving.Request(p, n)
+                                   for p, n in vreqs])
+        wall = time.perf_counter() - t
+        tel = spec.last_run_telemetry
+        share, _ = agreement(spec_outs[tag], plain, vreqs)
+        print(f"  {tag} spec_k 4, self-draft: {tel['generated_tokens']} "
+              f"tokens in {wall:.3f} s, accept rate "
+              f"{tel['speculative']['accept_rate']}, launches by kw "
+              f"{launches_by_kw(paged_ops)}; token agreement with the "
+              f"scanned plain run {share:.4f}")
+        if tag == "scanned":
+            counts["paged_attention"] += paged_ops.launches["paged_attention"]
+        del spec
+    exact = all(np.array_equal(a, b) for a, b in zip(spec_outs["unrolled"],
+                                                     spec_outs["scanned"]))
+    print(f"  speculative: scanned token-exact against unrolled: {exact}")
+    if not exact:
+        raise SystemExit("v2: speculative scanned serving differs")
+
+    for tag, m in (("unrolled", un), ("scanned", sc)):
+        ps = m._param_list()
+        ops = device_trace(torch, lambda: m.tx.update(ps, grads[tag],
+                                                      m.opt_state))
+        print(f"  {tag}: the optimizer's update is {len(ops)} device "
+              f"operations a step over {len(ps)} parameter tensors")
+    del un, sc, grads
+    torch.cuda.empty_cache()
+
+    print("  scan=True, remat=True, remat_policy=dots_with_no_batch_dims_"
+          "saveable: K=2 graphs against K=1 eager, 4 steps")
+    eager = make(True, remat=True, remat_policy=REMAT_POLICY)
+    eager.fit(x, y, epochs=4, **fit)
+    params_eager = {k: v.clone() for k, v in eager.params.items()}
+    del eager
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    graph = make(True, k=2, remat=True, remat_policy=REMAT_POLICY)
+    reset_counts(mods)
+    graph.fit(x, y, epochs=1, batch_size=batch, steps_per_epoch=4,
+              shuffle=False, verbose=0)
+    for n, c in launch_counts(mods).items():
+        counts[n] = counts.get(n, 0) + c
+    diff = first_difference(torch, params_eager, graph.params)
+    say_same("remat K=2 graphs against K=1 eager", diff)
+    ms = 1e3 * wall_s(torch, lambda: graph.fit(
+        x, y, epochs=1, batch_size=batch, steps_per_epoch=4, shuffle=False,
+        verbose=0)) / 4
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    print(f"  remat K=2: {ms:.1f} ms a step, MFU "
+          f"{mfu_of(ms, batch * t_len, t_len):.4f}, peak memory {peak:.2f} GB")
+    if diff is not None:
+        raise SystemExit("v1: remat graphs differ from eager")
+    del graph, params_eager
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_scan_resnet(torch, dtt, mods, batch=RESNET_BATCH, size=224,
+                      steps=3):
+    """v3: ResNet-50 (bf16, SGD(0.1, momentum=0.9), SingleDevice) with
+    scan_stages=True against the unrolled ResNet-50 given the same
+    parameters and BatchNorm state restacked, cuDNN deterministic: losses,
+    parameters and buffers after 3 steps, ms a step, K12-K14 launches."""
+    x, y = resnet_batch(batch, size)
+    fit = dict(batch_size=batch, steps_per_epoch=1, shuffle=False,
+               verbose=0, prefetch=0)
+
+    def make(**kw):
+        m = dtt.Model(dtt.models.resnet(50, 1000, dtype="bfloat16", **kw))
+        m.compile(optimizer=dtt.optim.SGD(0.1, momentum=0.9),
+                  loss="sparse_categorical_crossentropy")
+        return m.build((size, size, 3), seed=0)
+
+    cudnn = torch.backends.cudnn
+    deterministic, cudnn.deterministic = cudnn.deterministic, True
+    try:
+        un, sc = make(), make(scan_stages=True)
+        sc.load_params(restack_resnet(un.params))
+        sc.load_state(restack_resnet(un.state))
+        lu = un.fit(x, y, epochs=steps, **fit).history["loss"]
+        reset_counts(mods)
+        ls = sc.fit(x, y, epochs=steps, **fit).history["loss"]
+        counts = launch_counts(mods)
+    finally:
+        cudnn.deterministic = deterministic
+    print(f"  losses unrolled {lu}, scanned {ls}")
+    say_same("parameters", first_difference(
+        torch, restack_resnet(un.params), sc.params))
+    diff = first_difference(torch, restack_resnet(un.state), sc.state)
+    say_same("BatchNorm buffers", diff)
+    per_step = {n: c / steps for n, c in counts.items() if c}
+    print(f"  launches a step {per_step}; parameter tensors unrolled "
+          f"{len(un.params)}, scanned {len(sc.params)}")
+    if per_step != {"conv1x1": 72, "bn_stats": 53, "bn_bwd_reduce": 53}:
+        raise SystemExit(f"v3: K12/K13/K14 launches a step {per_step}")
+    if not np.allclose(ls, lu, rtol=TOL["bfloat16"]):
+        raise SystemExit("v3: scanned and unrolled losses part")
+    arms = {"unrolled": (lambda: un.fit(x, y, epochs=2, **fit), 2),
+            "scanned": (lambda: sc.fit(x, y, epochs=2, **fit), 2)}
+    ms = interleaved(torch, arms, 2)
+    for name, runs in ms.items():
+        print(f"  {name}: ms a step {[round(v, 2) for v in runs]} (median "
+              f"{float(np.median(runs)):.2f}), "
+              f"{batch / float(np.median(runs)) * 1e3:.0f} images/s")
+    del un, sc
+    torch.cuda.empty_cache()
+    return counts
+
+
+def vit_fwd_flops(d, layers, tokens, patch, classes):
+    """Matmul FLOPs of one ViT forward per image: the patch embedding
+    (2 x patch^2 x 3 x d a token), per block qkv and the projection
+    (8 d^2 a token), the MLP (16 d^2, d_ff = 4d) and attention's scores
+    and values (4 x tokens x d a token), and the head (2 d classes)."""
+    per_token = 2 * patch * patch * 3 * d + layers * (
+        24 * d * d + 4 * tokens * d)
+    return tokens * per_token + 2 * d * classes
+
+
+def phase_scan_vit(torch, dtt, mods, xent_ops, batch=128, steps=2):
+    """v4: K9/K10 at (128, 1000) against their plain versions, then
+    vit_base(scan=True) (ViT-B/16, 224, bf16 layers, fused_adamw(1e-3),
+    the pallas loss) on 128 seeded uint8 images against the unrolled
+    ViT-B/16 restacked: parameters after 2 steps, images/s, peak memory,
+    MFU."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(13)
+    logits = (2 * torch.randn((batch, 1000), generator=g, device=dev)).to(
+        torch.bfloat16)
+    labels = torch.randint(0, 1000, (batch,), generator=g, device=dev)
+    gout = torch.full((batch,), 1.0 / batch, device=dev)
+    errf = max_err(xent_ops.xent_fwd(logits, labels),
+                   xent_ops.xent_fwd_ref(logits, labels))
+    want = xent_ops.xent_bwd_ref(logits, labels, gout).float()
+    diff = (xent_ops.xent_bwd(logits, labels, gout).float() - want).abs()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30)))
+                     - 7)
+    worst = float((diff / ulp).max())
+    print(f"  K9 at (128, 1000) bf16: max_abs_err {errf:.3e} (limit 1e-4); "
+          f"K10: worst entry {worst:.2f} of its own bf16 ulp (limit 1)")
+    if errf > 1e-4 or worst > 1:
+        raise SystemExit("v4: K9/K10 disagree with their plain versions at "
+                         "1,000 classes")
+    rng = np.random.default_rng(0)
+    x = rng.integers(0, 256, (batch, 224, 224, 3), dtype=np.uint8)
+    y = rng.integers(0, 1000, (batch,)).astype(np.int32)
+    fit = dict(batch_size=batch, steps_per_epoch=1, shuffle=False,
+               verbose=0)
+
+    def make(scan):
+        m = dtt.Model(dtt.models.vit_base(1000, dtype="bfloat16",
+                                          scan=scan))
+        m.compile(optimizer=dtt.optim.fused_adamw(1e-3), loss=PALLAS,
+                  metrics=["accuracy"])
+        return m.build((224, 224, 3), seed=0)
+
+    un, sc = make(False), make(True)
+    sc.load_params(restack_blocks(un.params, 12))
+    lu = un.fit(x, y, epochs=steps, **fit).history["loss"]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(mods)
+    ls = sc.fit(x, y, epochs=steps, **fit).history["loss"]
+    counts = launch_counts(mods)
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    print(f"  losses unrolled {lu}, scanned {ls}")
+    diff = first_difference(torch, restack_blocks(un.params, 12), sc.params)
+    say_same(f"parameters after {steps} steps, scanned against unrolled",
+             diff)
+    per_step = {n: c / steps for n, c in counts.items() if c}
+    print(f"  launches a step {per_step}; parameter tensors unrolled "
+          f"{len(un.params)}, scanned {len(sc.params)}")
+    if per_step != {"xent_fwd": 1, "xent_bwd": 1, "fused_adam": 1}:
+        raise SystemExit(f"v4: launches a step {per_step}")
+    if diff is not None and diff[1] > TOL["bfloat16"]:
+        raise SystemExit("v4: scanned and unrolled parameters part")
+    arms = {"unrolled": (lambda: un.fit(x, y, epochs=2, **fit), 2),
+            "scanned": (lambda: sc.fit(x, y, epochs=2, **fit), 2)}
+    res = report_arms(torch, arms, interleaved(torch, arms, 3))
+    flops = vit_fwd_flops(768, 12, 196, 16, 1000)
+    for name, (ms, _) in res.items():
+        ips = batch / (ms / 1e3)
+        print(f"  {name}: {ips:.0f} images/s, MFU "
+              f"{3 * flops * ips / PEAK_FLOPS['bfloat16']:.4f} (3 x "
+              f"{flops / 1e9:.2f} GFLOP an image at 989 TFLOP/s)")
+    print(f"  scanned peak memory {peak:.2f} GB")
+    del un, sc
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_scan_dropout(torch, dtt, mods, batch=8, steps=8):
+    """v5: a 2-block ScannedBlocks of GPT-2-small-width transformer blocks,
+    each followed by Dropout(0.1), trained by fit: the mask drawn on the
+    card against the CPU's, K=4 graphs against K=1 eager bit for bit."""
+    threefry = dtt.utils.threefry
+    key = threefry.fold_in(threefry.PRNGKey(1), 3)
+    shape = (batch, LM["max_len"], LM["d_model"])
+    card = threefry.bernoulli(threefry.device_key(key, "cuda"), 0.9, shape,
+                              "cuda")
+    cpu = threefry.bernoulli(key, 0.9, shape, "cpu")
+    same = bool(torch.equal(card.cpu(), cpu))
+    print(f"  mask of {card.numel()} elements on the card equals the CPU's: "
+          f"{same}; kept {float(card.float().mean()):.5f} (keep 0.9)")
+    if not same:
+        raise SystemExit("v5: the card's dropout mask differs from the CPU's")
+    nn = dtt.nn
+    d, heads = LM["d_model"], LM["num_heads"]
+
+    def make(k):
+        blocks = nn.ScannedBlocks(lambda: nn.Sequential(
+            dtt.models.transformer_block(d, heads, 4 * d, dtype="bfloat16")
+            + [nn.Dropout(0.1)]), 2)
+        module = nn.Sequential([
+            nn.Embedding(VOCAB, d, dtype="bfloat16"),
+            nn.PositionalEmbedding(LM["max_len"]), blocks, nn.LayerNorm(),
+            nn.Dense(VOCAB, dtype="bfloat16")])
+        m = dtt.Model(module)
+        m.compile(optimizer=dtt.optim.Adam(1e-4), loss=PALLAS,
+                  steps_per_execution=k)
+        return m.build((LM["max_len"],), seed=0)
+
+    x, y = lm_batch(batch, LM["max_len"])
+    x = np.concatenate([x] * 2)
+    y = np.concatenate([y] * 2)
+    fit = dict(batch_size=batch, epochs=1, steps_per_epoch=steps,
+               shuffle=True, seed=0, verbose=0)
+    eager, graph = make(None), make(4)
+    le = eager.fit(x, y, **fit).history["loss"]
+    reset_counts(mods)
+    lg = graph.fit(x, y, **fit).history["loss"]
+    counts = launch_counts(mods)
+    diff = first_difference(torch, eager.params, graph.params)
+    print(f"  epoch loss K=1 {le}, K=4 {lg}")
+    say_same(f"parameters after {steps} steps, K=4 graphs against K=1 eager",
+             diff)
+    if diff is not None:
+        raise SystemExit("v5: dropout under graphs differs from eager")
+    del eager, graph
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     import torch
 
@@ -3152,6 +3617,23 @@ def main():
     print("phase u3: int8 weights served through Engine (fused)")
     u_counts["u3"] = {"paged_attention": phase_quant_serve(
         torch, dtt, paged_ops, reqs, fused)}
+    v_mods = (xent_ops, flash_ops, adam_ops, conv_ops, bn_ops, paged_ops)
+    print("phase v1: GPT-2-small LM, scan=True against unrolled, bf16 "
+          "layers, Adam(1e-4), pallas loss, batch 32 x 1024")
+    v = phase_scan_lm(torch, dtt, v_mods, paged_ops, reqs)
+    print("phase v3: ResNet-50 scan_stages=True against unrolled, bf16, "
+          "SGD(0.1, momentum=0.9), batch 256 x 224x224")
+    more = [phase_scan_resnet(torch, dtt, v_mods)]
+    print("phase v4: ViT-B/16 scan=True against unrolled, bf16 layers, "
+          "fused_adamw(1e-3), pallas loss, batch 128 x 224x224 uint8")
+    more.append(phase_scan_vit(torch, dtt, v_mods, xent_ops))
+    print("phase v5: Dropout(0.1) after each of 2 scanned GPT-2-small "
+          "blocks: the card's mask, K=4 graphs against K=1")
+    more.append(phase_scan_dropout(torch, dtt, v_mods))
+    for counts in more:
+        for name, n in counts.items():
+            v[name] = v.get(name, 0) + n
+    u_counts["v"] = v
     for sub, counts in u_counts.items():
         for name, n in counts.items():
             if n:
@@ -3173,7 +3655,7 @@ def main():
          "launches_fit": r.get("launches_fit"),
          "replayed_fit": r.get("replayed_fit"),
          **{f"launches_{sub}": r[f"launches_{sub}"]
-            for sub in ("u1", "u2", "u3") if f"launches_{sub}" in r},
+            for sub in ("u1", "u2", "u3", "v") if f"launches_{sub}" in r},
          **({"launches_spec": r["launches_spec"], "ms_by_kw": r["ms_by_kw"]}
             if "ms_by_kw" in r else {})}
         for name, r in rows.items()

@@ -27,7 +27,21 @@ optimizer           flat paths (``<p>``: a parameter's path)
                     ``#3/#0/#1/<p>`` (mu), ``#3/#0/#2/<p>`` (nu)
 ``fused_adam[w]``   ``#0``, ``#1/{b1,b2,eps,learning_rate,weight_decay}``,
                     ``#3/#0`` int32, ``#3/#1/<p>`` (mu), ``#3/#2/<p>`` (nu)
+``RMSprop``         ``#0``, ``#1/{decay,eps,initial_scale,learning_rate,
+                    momentum}``, ``#3/#0/#0/<p>`` (nu), ``#3/#2/#0/<p>``
+                    (the momentum trace)
+``Adagrad``         ``#0``, ``#1/{eps,initial_accumulator_value,
+                    learning_rate}``, ``#3/#0/#0/<p>`` (sum of squares)
+``Lamb``            ``#0``, ``#1/{b1,b2,eps,eps_root,learning_rate,
+                    weight_decay}``, ``#3/#0/#0`` int32 (count),
+                    ``#3/#0/#1/<p>`` (mu), ``#3/#0/#2/<p>`` (nu)
+``sgd_with_cosine`` ``#0/#0/<p>`` (trace), ``#1/#0`` int32 (the
+                    schedule's count): plain optax.sgd, not injected
 ==================  ======================================================
+
+A hyperparameter driven by a schedule adds its schedule's step count,
+``#2/<name>/#0`` (int32), as inject_hyperparams keeps it; it equals the
+update count.
 
 Hyperparameters optax holds and the port does not (Adam's ``eps_root``,
 ``fused_adam``'s ``weight_decay``) are written as 0, and a file where they
@@ -136,6 +150,12 @@ def _slots(tx) -> Dict[str, str]:
         base = "#3" if tx.fused else "#3/#0"
         return {"count": f"{base}/#0", "mu": f"{base}/#1",
                 "nu": f"{base}/#2"}
+    if isinstance(tx, optim.Lamb):
+        return {"count": "#3/#0/#0", "mu": "#3/#0/#1", "nu": "#3/#0/#2"}
+    if isinstance(tx, optim.RMSprop):
+        return {"nu": "#3/#0/#0", "trace": "#3/#2/#0"}
+    if isinstance(tx, optim.Adagrad):
+        return {"sum_of_squares": "#3/#0/#0"}
     raise ValueError(f"no optax layout for the optimizer {tx!r}")
 
 
@@ -160,8 +180,12 @@ def _expected_paths(tx, params, prefix="") -> List[str]:
     if isinstance(tx, optim.chain):
         return _expected_paths(tx.inner, params,
                                f"{prefix}#{len(tx.maps)}{SEP}")
+    if isinstance(tx, optim.sgd_with_cosine):
+        return ([f"{prefix}#0{SEP}#0{SEP}{p}" for p in params]
+                + [f"{prefix}#1{SEP}#0"])
     paths = [f"{prefix}#0"] + [f"{prefix}#1{SEP}{k}" for k in
                                list(tx.hyperparams) + _fixed_hyperparams(tx)]
+    paths += [f"{prefix}#2{SEP}{k}{SEP}#0" for k in tx.schedules]
     for slot, path in _slots(tx).items():
         if slot == "count":
             paths.append(prefix + path)
@@ -194,18 +218,26 @@ def opt_state_to_tree(tx, opt_state: Dict, params: Dict[str, torch.Tensor]):
     if isinstance(tx, optim.chain):
         return tuple(() for _ in tx.maps) + (
             opt_state_to_tree(tx.inner, opt_state[-1], params),)
+    if isinstance(tx, optim.sgd_with_cosine):
+        return ((dict(zip(params, opt_state["trace"])),),
+                (np.int32(opt_state["count"]),))
     hp = {k: v.numpy() for k, v in opt_state["hyperparams"].items()}
     hp.update({k: np.float32(0.0) for k in _fixed_hyperparams(tx)})
     by_path = {s: dict(zip(params, opt_state[s])) for s in _slots(tx)
                if s != "count"}
-    if "trace" in by_path:
+    if isinstance(tx, optim.RMSprop):
+        inner = ((by_path["nu"],), (), (by_path["trace"],))
+    elif isinstance(tx, optim.Adagrad):
+        inner = ((by_path["sum_of_squares"],), ())
+    elif "trace" in by_path:
         inner = ((by_path["trace"],),)
     elif "mu" in by_path:
         adam = (np.int32(opt_state["count"]), by_path["mu"], by_path["nu"])
-        inner = adam if tx.fused else (adam,)
+        inner = adam if getattr(tx, "fused", False) else (adam,)
     else:
         inner = ()
-    return (np.int32(opt_state["inject_count"]), hp, {}, inner)
+    sched = {k: (np.int32(opt_state["inject_count"]),) for k in tx.schedules}
+    return (np.int32(opt_state["inject_count"]), hp, sched, inner)
 
 
 def opt_state_from_tree(tx, tree, params: Dict[str, torch.Tensor]) -> Dict:
@@ -263,6 +295,9 @@ def _state_from_flat(tx, flat, params, prefix) -> Dict:
         n = len(tx.maps)
         return tuple(() for _ in tx.maps) + (_state_from_flat(
             tx.inner, flat, params, f"{prefix}#{n}{SEP}"),)
+    if isinstance(tx, optim.sgd_with_cosine):
+        return {"trace": _moments(flat, f"{prefix}#0{SEP}#0", params),
+                "count": int(_scalar(flat[f"{prefix}#1{SEP}#0"]))}
     for k in _fixed_hyperparams(tx):
         value = _scalar(flat[f"{prefix}#1{SEP}{k}"])
         if value != 0.0:
@@ -277,6 +312,8 @@ def _state_from_flat(tx, flat, params, prefix) -> Dict:
                                         dtype=torch.float32)
                         for k in tx.hyperparams},
     }
+    if tx.schedules:
+        state["scheduled"] = tuple(tx.schedules)
     if "count" in slots:
         state["count"] = int(_scalar(flat[prefix + slots["count"]]))
     for slot, path in moments.items():

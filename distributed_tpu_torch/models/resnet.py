@@ -10,8 +10,11 @@ parameter and state paths are the JAX package's.
 
 On the card the 1x1 convolutions (36 in ResNet-50) run through kernel K12
 and BatchNorm's reductions (53 layers) through K13/K14; under
-``DataParallel`` BatchNorm is sync-BN. ``scan_stages=True`` (ScannedBlocks)
-is not ported yet and raises.
+``DataParallel`` BatchNorm is sync-BN. ``scan_stages=True`` stacks each
+stage's tail blocks (all but its first, which changes the shape) in one
+``nn.ScannedBlocks``: BatchNorm's running statistics become stacked
+(S, C) buffers, updated per block in place, sync-BN under
+``DataParallel`` as before.
 """
 
 from __future__ import annotations
@@ -91,9 +94,6 @@ def resnet(
 ) -> nn.Sequential:
     if depth not in _CONFIGS:
         raise ValueError(f"Unsupported depth {depth}; known: {sorted(_CONFIGS)}")
-    if scan_stages:
-        raise NotImplementedError(
-            "resnet(scan_stages=True) (ScannedBlocks): not yet ported")
     kind, default_blocks = _CONFIGS[depth]
     blocks = tuple(stage_blocks) if stage_blocks is not None else default_blocks
     base = _basic_block if kind == "basic" else _bottleneck_block
@@ -131,8 +131,13 @@ def resnet(
         project = first_strides != 1 or in_ch != filters * expansion
         layers.append(make(filters, first_strides, project, dtype))
         in_ch = filters * expansion
-        for _ in range(n_blocks - 1):
-            layers.append(make(filters, 1, False, dtype))
+        tail = n_blocks - 1
+        if tail > 0 and scan_stages:
+            layers.append(nn.ScannedBlocks(
+                lambda f=filters: make(f, 1, False, dtype), tail))
+        else:
+            for _ in range(tail):
+                layers.append(make(filters, 1, False, dtype))
 
     layers += [nn.GlobalAvgPool2D(), nn.Dense(num_classes, dtype=dtype)]
     return nn.Sequential(layers, name=f"resnet{depth}")

@@ -1,10 +1,12 @@
 """Decoder-only Transformer language model.
 
 Pre-LN blocks built from the same Residual/Sequential primitives as the
-JAX package, so the parameter tree paths (``residual_N/main/...``) are
-identical and weights carry across. Dense blocks, with or without remat,
-are ported; the MoE, pipelined and scanned variants, and their options,
-raise ``NotImplementedError`` naming their ROADMAP item.
+JAX package, so the parameter tree paths (``residual_N/main/...``, and
+``scanned_blocks/blocks/residual/main/...`` stacked) are identical and
+weights carry across. Dense blocks, unrolled or weight-stacked
+(``scan=True``), with or without remat, are ported; the MoE and
+pipelined variants, and their options, raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -89,17 +91,26 @@ def transformer_lm(
     MLP residual in ``nn.Remat`` with ``remat_policy`` (a
     ``jax.checkpoint_policies`` name, e.g.
     ``"dots_with_no_batch_dims_saveable"``): the same numerics and tree
-    paths, the block activations recomputed in the backward. The MoE
-    options (``moe_experts``, ``moe_every``) and ``pipeline`` with its
-    schedule options raise naming ROADMAP 1.7; ``scan`` and
-    ``scan_overlap`` name 1.5b. Each raises only when set away from the
-    JAX default."""
+    paths, the block activations recomputed in the backward.
+    ``scan=True`` stacks the blocks in one ``nn.ScannedBlocks`` (each
+    block a ``Sequential`` of the two residuals, wrapped whole in
+    ``nn.Remat`` under ``remat``): one (L, ...) tensor per leaf, served
+    and generated through stacked caches. ``scan_overlap`` is its
+    ``overlap`` (``"require"`` raises: the port has no FSDP gather,
+    ROADMAP 1.7). The MoE options (``moe_experts``, ``moe_every``) and
+    ``pipeline`` with its schedule options raise naming ROADMAP 1.7, only
+    when set away from the JAX default; MoE or ``pipeline`` with ``scan``
+    raise JAX's ``ValueError`` first."""
+    if pipeline or scan:
+        if moe_experts:
+            raise ValueError(
+                "pipeline/scan block stacking does not support MoE blocks")
+        if pipeline and scan:
+            raise ValueError("pipeline and scan are mutually exclusive")
     _unported("transformer_lm", "1.7", moe_experts=(moe_experts, 0),
               moe_every=(moe_every, 2), pipeline=(pipeline, False),
               pipeline_schedule=(pipeline_schedule, "gpipe"),
               pipeline_interleave=(pipeline_interleave, 1))
-    _unported("transformer_lm", "1.5b", scan=(scan, False),
-              scan_overlap=(scan_overlap, "auto"))
     if remat:
         nn.remat.resolve_policy(remat_policy)  # fail fast on a bad name
     d_ff = d_ff or 4 * d_model
@@ -107,7 +118,16 @@ def transformer_lm(
         nn.Embedding(vocab_size, d_model, dtype=dtype),
         nn.PositionalEmbedding(max_len),
     ]
-    for _ in range(num_layers):
+    if scan:
+        def make_block():
+            block = nn.Sequential(transformer_block(
+                d_model, num_heads, d_ff, causal=causal, flash=flash,
+                dtype=dtype))
+            return nn.Remat(block, policy=remat_policy) if remat else block
+
+        layers.append(nn.ScannedBlocks(make_block, num_layers,
+                                       overlap=scan_overlap))
+    for _ in range(0 if scan else num_layers):
         block = transformer_block(d_model, num_heads, d_ff, causal=causal,
                                   flash=flash, dtype=dtype)
         if remat:

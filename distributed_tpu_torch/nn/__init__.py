@@ -1,19 +1,25 @@
-"""Layers of the port (the subset its slices run: the LM, the CNNs and
-ResNet), and ``Remat``, the rematerializing wrapper."""
+"""Layers of the port (the subset its slices run: the LM, the CNNs,
+ResNet and ViT), ``Remat``, the rematerializing wrapper, and
+``ScannedBlocks``, the weight-stacked block stack."""
 
 from . import activations, initializers
 from .attention import MultiHeadAttention, PositionalEmbedding
-from .core import Layer, NameScope, Residual, Sequential, apply_layers
+from .core import (
+    Lambda, Layer, NameScope, Residual, Sequential, apply_layers,
+    current_rng, rng_scope,
+)
 from .layers import (
-    Activation, AvgPool2D, BatchNorm, Conv2D, Dense, Embedding, Flatten,
-    GlobalAvgPool2D, LayerNorm, MaxPool2D, SpaceToDepth,
+    Activation, AvgPool2D, BatchNorm, Conv2D, Dense, Dropout, Embedding,
+    Flatten, GlobalAvgPool2D, LayerNorm, MaxPool2D, SpaceToDepth,
 )
 from .remat import Remat
+from .scan import STACKED_POOL_KEY, ScannedBlocks
 
 __all__ = [
-    "Activation", "AvgPool2D", "BatchNorm", "Conv2D", "Dense", "Embedding",
-    "Flatten", "GlobalAvgPool2D", "Layer", "LayerNorm", "MaxPool2D",
-    "MultiHeadAttention", "NameScope", "PositionalEmbedding", "Remat",
-    "Residual", "Sequential", "SpaceToDepth", "activations", "apply_layers",
-    "initializers",
+    "Activation", "AvgPool2D", "BatchNorm", "Conv2D", "Dense", "Dropout",
+    "Embedding", "Flatten", "GlobalAvgPool2D", "Lambda", "Layer",
+    "LayerNorm", "MaxPool2D", "MultiHeadAttention", "NameScope",
+    "PositionalEmbedding", "Remat", "Residual", "STACKED_POOL_KEY",
+    "ScannedBlocks", "Sequential", "SpaceToDepth", "activations",
+    "apply_layers", "current_rng", "initializers", "rng_scope",
 ]

@@ -17,6 +17,17 @@ position-independent layers apply token-wise, attention and positional
 embeddings override, and layers that mix positions set ``decode_safe =
 False`` and raise. The attention cache is written in place.
 
+Randomness (Dropout) follows the JAX package's rng routing. The JAX
+``apply`` takes an ``rng`` argument; here the key is ambient, a
+thread-local set by :func:`rng_scope` (``Model.fit`` sets the step's key
+around the train step) and read by :func:`current_rng`. A container
+hands its children keys as the JAX containers do: ``Sequential`` (and
+:func:`apply_layers`) splits its key once across the layers that need an
+rng (``needs_rng``), in order, ``Residual`` splits it in two (main, then
+shortcut), and ``ScannedBlocks`` into one stream per block; a layer that
+needs no rng sees none. So a mask drawn by the port equals the JAX
+layer's bit for bit (``utils.threefry``).
+
 The paged-KV plumbing (``init_paged_cache``/``paged_prefill``/
 ``paged_decode``/``paged_verify``) mirrors the JAX package's: caches are plain dicts of
 pool tensors keyed like the parameter tree. Unlike JAX, the pools are
@@ -26,7 +37,9 @@ of the KV pool in device memory.
 
 from __future__ import annotations
 
+import contextlib
 import re
+import threading
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -34,9 +47,41 @@ import torch
 from . import activations
 from .. import precision
 from ..quant import QKEY, SKEY, QuantizedWeight, maybe_dequantize
+from ..utils import threefry
 
 Shape = Tuple[int, ...]
 SEP = "/"
+
+_RNG = threading.local()
+
+
+def current_rng():
+    """The ambient rng key (numpy key data or a ``(2,)`` int64 device
+    tensor, ``utils.threefry``) set by :func:`rng_scope`; None outside
+    one."""
+    return getattr(_RNG, "key", None)
+
+
+@contextlib.contextmanager
+def rng_scope(key):
+    """Make ``key`` the ambient rng of the layers called inside (None: no
+    rng, as a JAX ``apply(..., rng=None)``)."""
+    prev = current_rng()
+    _RNG.key = key
+    try:
+        yield key
+    finally:
+        _RNG.key = prev
+
+
+def needs_rng(layer) -> bool:
+    return bool(getattr(layer, "needs_rng", False))
+
+
+def _call_with_rng(layer, x, key):
+    """``layer(x)`` with ``key`` as the ambient rng."""
+    with rng_scope(key):
+        return layer(x)
 
 
 def _camel_to_snake(name: str) -> str:
@@ -93,6 +138,10 @@ class Layer(torch.nn.Module):
         """:meth:`_compute_leaf`, dequantized when it is int8 (the multiply
         in f32, as the JAX layers' ``maybe_dequantize``)."""
         return maybe_dequantize(self._compute_leaf(name))
+
+    #: True for a layer that draws random numbers in training (Dropout);
+    #: containers report whether any child does.
+    needs_rng = False
 
     # -- incremental decode (dense KV cache, Model.generate) ----------------
     #: True: ``forward`` treats every position independently, so the
@@ -187,6 +236,10 @@ class Sequential(Layer):
     def forward(self, x):
         return apply_layers(self.layers, x)
 
+    @property
+    def needs_rng(self) -> bool:
+        return any(needs_rng(layer) for layer in self.layers)
+
     def dtype_hints(self):
         hints = {}
         for layer in self.layers:
@@ -258,10 +311,20 @@ def apply_layers(layers, x):
     """Apply ``layers`` in order: the one implementation Sequential's
     forward and the chunked-head train and eval paths (``compile(
     head_chunks=)``, which apply a Sequential's body without its head)
-    share, as the JAX package's ``apply_layers``. The port's layers hold
-    their own state and draw no RNG, so it is the plain composition."""
+    share, as the JAX package's ``apply_layers``. The ambient rng is split
+    once across the layers that need one, in order (JAX's routing); the
+    others are called with no rng scope of their own."""
+    rng = current_rng()
+    users = [layer for layer in layers if needs_rng(layer)]
+    keys = (threefry.split(rng, len(users))
+            if rng is not None and users else None)
+    j = 0
     for layer in layers:
-        x = layer(x)
+        if needs_rng(layer):
+            x = _call_with_rng(layer, x, None if keys is None else keys[j])
+            j += 1
+        else:
+            x = layer(x)
     return x
 
 
@@ -311,9 +374,27 @@ class Residual(Layer):
             )
         return out
 
+    @property
+    def needs_rng(self) -> bool:
+        return needs_rng(self.main) or (self.shortcut is not None
+                                        and needs_rng(self.shortcut))
+
     def forward(self, x):
-        sc = x if self.shortcut is None else self.shortcut(x)
-        return self.activation(self.main(x) + sc)
+        if not self.needs_rng:
+            sc = x if self.shortcut is None else self.shortcut(x)
+            return self.activation(self.main(x) + sc)
+        # JAX's Residual: split(rng, 2), main takes the first key and the
+        # shortcut the second, each only when it needs one.
+        rng = current_rng()
+        keys = None if rng is None else threefry.split(rng, 2)
+        y = _call_with_rng(self.main, x, None if keys is None
+                           or not needs_rng(self.main) else keys[0])
+        if self.shortcut is None:
+            sc = x
+        else:
+            sc = _call_with_rng(self.shortcut, x, None if keys is None
+                                or not needs_rng(self.shortcut) else keys[1])
+        return self.activation(y + sc)
 
     def dtype_hints(self):
         hints = {}
@@ -386,5 +467,31 @@ class Residual(Layer):
         return self.activation(y + x), cache
 
 
-__all__ = ["Layer", "NameScope", "Residual", "Sequential", "Shape",
-           "apply_layers", "param_tree", "state_tree"]
+class Lambda(Layer):
+    """Wrap a stateless function ``fn(x) -> y`` of torch tensors. The
+    output shape is ``output_shape`` when given, else inferred at
+    ``build`` by running ``fn`` on a ``meta`` tensor of the input shape
+    (no data, no device work), as the JAX layer's ``eval_shape``."""
+
+    # The function is opaque: it may mix positions (a mean over time), so
+    # one-token decode cannot be assumed exact.
+    decode_safe = False
+
+    def __init__(self, fn, output_shape=None, name: Optional[str] = None):
+        super().__init__(name)
+        self.fn = fn
+        self._output_shape = output_shape
+
+    def build(self, input_shape, generator):
+        if self._output_shape is not None:
+            return tuple(self._output_shape)
+        probe = torch.empty((1,) + tuple(input_shape), device="meta")
+        return tuple(self.fn(probe).shape[1:])
+
+    def forward(self, x):
+        return self.fn(x)
+
+
+__all__ = ["Lambda", "Layer", "NameScope", "Residual", "Sequential", "Shape",
+           "apply_layers", "current_rng", "needs_rng", "param_tree",
+           "rng_scope", "state_tree"]

@@ -34,12 +34,13 @@ import torch
 import torch.nn.functional as F
 
 from . import activations, initializers
-from .core import Layer, Shape
+from .core import Layer, Shape, current_rng
 from ..ops import bn_reduce
 from ..ops.conv1x1 import conv1x1_apply
 from ..parallel.strategy import current_strategy
 from ..precision import resolve_dtype
 from ..quant import QKEY, SKEY
+from ..utils import threefry
 
 IntOr2 = Union[int, Tuple[int, int]]
 
@@ -147,8 +148,8 @@ class Conv2D(Layer):
 class Dense(Layer):
     """Affine map on the trailing axis; works for (B, D) and (B, T, D) alike.
     ``use_bias=False`` registers no ``bias`` (the JAX layer's tree paths).
-    ``kernel_initializer``: a name the port has (``"glorot_uniform"``) or a
-    callable ``init(generator, shape)``. ``shard`` ('col'/'row') is the
+    ``kernel_initializer``: a JAX initializer name (``nn.initializers``)
+    or a callable ``init(generator, shape)``. ``shard`` ('col'/'row') is the
     JAX layer's tensor-parallel hint: validated and kept, read by no
     strategy the port has (ROADMAP 1.7)."""
 
@@ -192,6 +193,39 @@ class Dense(Layer):
         if self.use_bias:
             y = y + self._weight("bias").to(y.dtype)
         return self.activation(y)
+
+
+class Dropout(Layer):
+    """Inverted dropout, as the JAX layer: in training each element is
+    kept with probability ``keep = 1 - rate`` (``jax.random.bernoulli``
+    on the layer's key, drawn bit for bit by ``utils.threefry``) and
+    scaled by ``1 / keep``, else zeroed. The identity in eval mode or at
+    rate 0; in training without an ambient rng it raises. The key may be
+    a device tensor (``Model.fit``'s step key), so the mask is computed on
+    the input's device and a CUDA graph replays it with the key of each
+    step."""
+
+    needs_rng = True
+
+    def __init__(self, rate: float, name: Optional[str] = None):
+        super().__init__(name)
+        self.rate = float(rate)
+
+    def build(self, input_shape: Shape, generator):
+        return tuple(input_shape)
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        rng = current_rng()
+        if rng is None:
+            raise ValueError("Dropout needs an rng when train=True")
+        keep = 1.0 - self.rate
+        mask = threefry.bernoulli(rng, keep, tuple(x.shape), x.device)
+        # JAX divides by the weakly typed keep cast to x's dtype; a tensor
+        # divisor (a Python one is a product by its reciprocal on CUDA).
+        kept = x / torch.full((), keep, dtype=x.dtype, device=x.device)
+        return torch.where(mask, kept, torch.zeros_like(kept)).to(x.dtype)
 
 
 class LayerNorm(Layer):
@@ -483,6 +517,7 @@ class GlobalAvgPool2D(Layer):
 
 
 __all__ = [
-    "Activation", "AvgPool2D", "BatchNorm", "Conv2D", "Dense", "Embedding",
+    "Activation", "AvgPool2D", "BatchNorm", "Conv2D", "Dense", "Dropout",
+    "Embedding",
     "Flatten", "GlobalAvgPool2D", "LayerNorm", "MaxPool2D", "SpaceToDepth",
 ]

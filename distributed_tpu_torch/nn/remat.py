@@ -34,12 +34,18 @@ are not "dots with no batch dims" in JAX either), so they recompute under
 every policy but ``everything_saveable``. Any other name raises
 ``ValueError``.
 
-The recompute runs in the backward, where the ambient precision policy and
-strategy of the forward are not set (the autograd engine may run it on
-another thread), so :func:`checkpoint` re-enters both around the function.
-It preserves no RNG state: no layer of the port draws random numbers, and
-reading the card's generator is not allowed inside a CUDA graph capture
-(``compile(steps_per_execution=K)``).
+The recompute runs in the backward, where the ambient precision policy,
+strategy and rng key of the forward are not set (the autograd engine may
+run it on another thread), so :func:`checkpoint` re-enters all three
+around the function. Dropout's mask is a function of that key
+(``utils.threefry``), so the recompute draws the forward's mask. No
+generator state is kept: reading the card's generator is not allowed
+inside a CUDA graph capture (``compile(steps_per_execution=K)``).
+
+Inside ``nn.ScannedBlocks`` a ``Remat`` template is not called as a
+module: the stack passes each block's weight slices to :func:`checkpoint`
+as inputs (the recompute must see block i's weights, not the template's),
+through :meth:`Remat.checkpointed`.
 """
 
 from __future__ import annotations
@@ -53,7 +59,7 @@ import torch.utils.checkpoint as torch_ckpt
 
 from .. import precision
 from ..parallel.strategy import current_strategy
-from .core import Layer
+from .core import Layer, current_rng, needs_rng, rng_scope
 
 _MM = ("mm", "addmm")
 _BMM = ("bmm", "baddbmm")
@@ -105,6 +111,7 @@ def checkpoint(fn, *args, policy=None, save=()):
         return fn(*args)
     saved = tuple(saved) + tuple(save)
     pol, strategy = precision.current_policy(), current_strategy()
+    rng = current_rng()
 
     def run(*a):
         with contextlib.ExitStack() as stack:
@@ -112,6 +119,7 @@ def checkpoint(fn, *args, policy=None, save=()):
                 stack.enter_context(pol.scope())
             if strategy is not None:
                 stack.enter_context(strategy.scope())
+            stack.enter_context(rng_scope(rng))
             return fn(*a)
 
     kw = {"context_fn": functools.partial(_saving, saved)} if saved else {}
@@ -155,6 +163,10 @@ class Remat(Layer):
     def decode_safe(self):
         return self.inner.decode_safe
 
+    @property
+    def needs_rng(self):
+        return needs_rng(self.inner)
+
     def default_name(self) -> str:
         return self.inner.default_name()
 
@@ -172,6 +184,14 @@ class Remat(Layer):
         if not torch.is_grad_enabled():
             return self.inner(x)
         return checkpoint(self.inner, x, policy=self.policy)
+
+    def checkpointed(self, fn, x, *leaves):
+        """``fn(x, *leaves)`` under this wrapper's remat policy, the leaves
+        passed to the checkpoint as inputs, so the recompute reads the
+        same tensors (``nn.ScannedBlocks``: one block's slices)."""
+        if not torch.is_grad_enabled():
+            return fn(x, *leaves)
+        return checkpoint(fn, x, *leaves, policy=self.policy)
 
     # No remat at decode: one-token steps have nothing worth dropping.
     def init_cache(self, batch, max_len, dtype, device):

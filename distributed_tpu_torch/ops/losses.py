@@ -1,10 +1,12 @@
 """Loss functions: the stock paths and the fused (pallas-named) loss.
 
-The JAX package's ``ops/losses.py`` for the sparse cross-entropy that the
-LM trains with: ``sparse_categorical_crossentropy`` (whole-batch mean),
-its per-example form for masked evaluation, the loss object
-``SparseCategoricalCrossentropy``, and ``get`` by name. Losses
-compute in f32 whatever the activation dtype. The fused loss registers
+The JAX package's ``ops/losses.py``: ``sparse_categorical_crossentropy``
+(whole-batch mean, the LM's loss), ``categorical_crossentropy`` (one-hot
+targets), ``mean_squared_error`` (``"mse"``) and
+``cross_entropy_with_ignore`` (token CE masking ``ignore_index``), the
+per-example forms masked evaluation and the chunked head sum, the loss
+object ``SparseCategoricalCrossentropy``, and ``get`` by the JAX names.
+Losses compute in f32 whatever the activation dtype. The fused loss registers
 under its JAX name, ``"pallas_sparse_categorical_crossentropy"``, lazily
 on first ``get``, as there.
 """
@@ -30,8 +32,44 @@ def sparse_categorical_crossentropy(logits, labels, from_logits: bool = True):
     return -_picked(_log_probs(logits, from_logits), labels).mean()
 
 
+def categorical_crossentropy(logits, onehot, from_logits: bool = True):
+    """Mean cross-entropy against one-hot (or soft) targets ``(..., C)``;
+    ``from_logits=False`` takes the log of the clipped probabilities (no
+    renormalization, as the JAX loss)."""
+    x = logits.to(torch.float32)
+    logp = (torch.log_softmax(x, dim=-1) if from_logits
+            else torch.log(torch.clamp(x, 1e-9, 1.0)))
+    return -torch.mean(torch.sum(onehot * logp, dim=-1))
+
+
+def mean_squared_error(pred, target):
+    """Mean of the squared differences over every element, in f32."""
+    return torch.mean(torch.square(pred.to(torch.float32) - target))
+
+
+def cross_entropy_with_ignore(logits, labels, ignore_index: int = -100):
+    """Token cross-entropy that masks out ``ignore_index`` labels: the sum
+    over the kept tokens divided by their count (at least 1)."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    ignored = labels == ignore_index
+    safe = torch.where(ignored, torch.zeros_like(labels), labels)
+    mask = (~ignored).to(torch.float32)
+    return -torch.sum(_picked(logp, safe) * mask) / torch.clamp_min(
+        torch.sum(mask), 1.0)
+
+
 def _per_example_sparse_cce(logits, labels):
     return -_picked(_log_probs(logits, True), labels)
+
+
+def _per_example_cce(logits, onehot):
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return -torch.sum(onehot * logp, dim=-1)
+
+
+def _per_example_mse(pred, target):
+    d = torch.square(pred.to(torch.float32) - target)
+    return torch.mean(d.reshape(d.shape[0], -1), dim=-1)
 
 
 class SparseCategoricalCrossentropy:
@@ -51,11 +89,16 @@ class SparseCategoricalCrossentropy:
 
 _REGISTRY = {
     "sparse_categorical_crossentropy": sparse_categorical_crossentropy,
+    "categorical_crossentropy": categorical_crossentropy,
+    "mse": mean_squared_error,
+    "mean_squared_error": mean_squared_error,
 }
 
 # Per-example forms, used for exact masked evaluation.
 _PER_EXAMPLE = {
     sparse_categorical_crossentropy: _per_example_sparse_cce,
+    categorical_crossentropy: _per_example_cce,
+    mean_squared_error: _per_example_mse,
 }
 
 PALLAS_NAME = "pallas_sparse_categorical_crossentropy"
@@ -95,6 +138,7 @@ def get(name_or_fn):
 
 
 __all__ = [
-    "PALLAS_NAME", "SparseCategoricalCrossentropy", "get", "get_per_example",
-    "sparse_categorical_crossentropy",
+    "PALLAS_NAME", "SparseCategoricalCrossentropy", "categorical_crossentropy",
+    "cross_entropy_with_ignore", "get", "get_per_example",
+    "mean_squared_error", "sparse_categorical_crossentropy",
 ]

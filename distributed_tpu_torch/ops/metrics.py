@@ -21,9 +21,36 @@ def accuracy(logits, labels):
     return scores.sum(), float(scores.numel())
 
 
+def _top_k_scores(k):
+    def scores(logits, labels):
+        # JAX's top k: the last k of a STABLE ascending argsort, so among
+        # tied logits the higher class index is taken (torch.topk promises
+        # no order on ties).
+        topk = torch.argsort(logits, dim=-1, stable=True)[..., -k:]
+        hit = torch.any(topk == labels[..., None].to(topk.dtype), dim=-1)
+        return hit.to(torch.float32)
+
+    return scores
+
+
+def top_k_accuracy(k: int):
+    """The share of rows whose label is among the ``k`` largest logits
+    (the JAX ``top_k_accuracy``; ``"top_5_accuracy"`` by name)."""
+    sc = _top_k_scores(k)
+
+    def metric(logits, labels):
+        s = sc(logits, labels)
+        return s.sum(), float(s.numel())
+
+    metric.__name__ = f"top_{k}_accuracy"
+    metric.per_example = sc
+    return metric
+
+
 accuracy.per_example = _accuracy_scores
 
-_REGISTRY = {"accuracy": accuracy, "acc": accuracy}
+_REGISTRY = {"accuracy": accuracy, "acc": accuracy,
+             "top_5_accuracy": top_k_accuracy(5)}
 
 
 def get(name_or_fn):
@@ -48,4 +75,4 @@ def name_of(name_or_fn) -> str:
     return getattr(name_or_fn, "__name__", "metric")
 
 
-__all__ = ["accuracy", "get", "name_of", "per_example"]
+__all__ = ["accuracy", "get", "name_of", "per_example", "top_k_accuracy"]

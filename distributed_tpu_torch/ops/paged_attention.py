@@ -50,12 +50,17 @@ launches = {"paged_attention": 0, "paged_attention_int8": 0}
 #: The same launches by (variant, kw): decode reads kw = 1, a speculative
 #: verify kw = spec_k.
 launches_by_kw = {}
+#: The same launches by (variant, read path): "vector" reads whole 16-byte
+#: chunks, "scalar" element by element (a head width or a pool address
+#: off 16 bytes, e.g. a stacked pool's slice).
+launches_by_path = {}
 
 
 def reset_launch_counts() -> None:
     for name in launches:
         launches[name] = 0
     launches_by_kw.clear()
+    launches_by_path.clear()
 
 
 # ------------------------------------------------------------ plain version
@@ -217,6 +222,8 @@ def _paged_attention_cuda(q, k_pool, v_pool, block_tables, positions):
     name = "paged_attention_int8" if quant else "paged_attention"
     launches[name] += 1
     launches_by_kw[(name, kw)] = launches_by_kw.get((name, kw), 0) + 1
+    path = (name, "vector" if vec else "scalar")
+    launches_by_path[path] = launches_by_path.get(path, 0) + 1
     return out
 
 
@@ -231,6 +238,7 @@ def paged_attention(q, k_pool, v_pool, block_tables, positions):
 
 __all__ = [
     "FUSED", "KINDS", "MAX_CHUNK_BLOCKS", "REFERENCE",
-    "chunk_blocks", "launches", "launches_by_kw", "paged_attention",
+    "chunk_blocks", "launches", "launches_by_kw", "launches_by_path",
+    "paged_attention",
     "paged_attention_ref", "paged_view", "reset_launch_counts",
 ]

@@ -27,12 +27,37 @@ and optax's state layout (``interop`` writes it under optax's paths).
 ``set_hyperparam``/``get_hyperparam`` reach through the wrappers.
 ``compile(precision="mixed_float16")`` wraps the result, outermost, in
 ``dynamic_loss_scaling`` (its state ``LossScaleState``), as there.
+
+``RMSprop``, ``Adagrad`` and ``Lamb`` are the JAX package's
+``inject_hyperparams`` of ``optax.rmsprop``/``adagrad``/``lamb``, with
+optax's arithmetic (its source, 0.2.6): RMSprop ``nu = (1-decay)*g*g +
+decay*nu``, ``u = rsqrt(nu + eps) * g`` (eps inside the root),
+``u *= -lr``, then the momentum trace ``t = u + momentum*t`` (kept at
+momentum 0 too), ``p += t``; Adagrad's accumulator starts at
+``initial_accumulator_value`` (0.1) and ``u = rsqrt(s + eps) * g`` where
+``s > 0``, else 0; Lamb is Adam (its own ``eps`` 1e-6) plus
+``weight_decay * p``, scaled by the trust ratio ``||p|| / ||u||``, which
+is 1 where either norm is 0. inject_hyperparams holds every numeric
+default of the factory as well (RMSprop's ``initial_scale``, Adagrad's
+``initial_accumulator_value``, Lamb's ``eps`` and ``eps_root``), so the
+state does too.
+
+Schedules (``cosine_schedule``, ``exponential_schedule``: optax's
+warmup-cosine and exponential decays, in f32 as optax computes them) are
+callables of the step count; given as an optimizer's ``learning_rate``
+they are evaluated at the update's count before each update, as
+inject_hyperparams does, and the value is kept in the state.
+``sgd_with_cosine`` is the JAX package's plain (not injected)
+``optax.sgd`` over a cosine schedule.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List
 
+import math
+
+import numpy as np
 import torch
 
 from ..ops import fused_update
@@ -42,6 +67,78 @@ _F32 = torch.float32
 
 def _f32(x) -> torch.Tensor:
     return torch.tensor(float(x), dtype=_F32)
+
+
+# ------------------------------------------------------------- schedules
+# optax's schedules on an int32 step count, evaluated in f32 in optax's
+# order of operations (numpy float32 scalars).
+_N32 = np.float32
+
+
+def _linear(init_value, end_value, steps):
+    def schedule(count):
+        if steps <= 0:
+            return _N32(init_value)
+        c = min(max(int(count), 0), steps)
+        frac = _N32(1) - _N32(c) / _N32(steps)
+        return _N32(_N32(init_value) - _N32(end_value)) * frac + _N32(
+            end_value)
+
+    return schedule
+
+
+def _cosine(init_value, decay_steps, alpha=0.0):
+    if not decay_steps > 0:
+        raise ValueError("The cosine_decay_schedule requires positive "
+                         f"decay_steps, got decay_steps={decay_steps}.")
+
+    def schedule(count):
+        c = np.minimum(_N32(count), _N32(decay_steps))
+        cos = _N32(0.5) * (_N32(1) + np.cos(_N32(math.pi) * c
+                                            / _N32(decay_steps)))
+        decayed = _N32(1 - alpha) * cos + _N32(alpha)
+        return _N32(init_value) * decayed
+
+    return schedule
+
+
+def _exponential(init_value, transition_steps, decay_rate):
+    def schedule(count):
+        if transition_steps <= 0 or decay_rate == 0:
+            return _N32(init_value)
+        p = _N32(int(count)) / _N32(transition_steps)
+        if int(count) <= 0:
+            return _N32(init_value)
+        return _N32(init_value) * np.power(_N32(decay_rate), p)
+
+    return schedule
+
+
+def _join(first, second, boundary):
+    def schedule(count):
+        return first(count) if count < boundary else second(count - boundary)
+
+    return schedule
+
+
+def cosine_schedule(learning_rate: float, steps: int, warmup: int = 0):
+    """Warmup-then-cosine decay: optax's ``warmup_cosine_decay_schedule(0,
+    learning_rate, max(warmup, 1), max(steps, warmup + 1))``; pass it as
+    any optimizer's ``learning_rate``."""
+    w = max(warmup, 1)
+    return _join(_linear(0.0, learning_rate, w),
+                 _cosine(learning_rate, max(steps, warmup + 1) - w), w)
+
+
+def exponential_schedule(learning_rate: float, decay_rate: float,
+                         decay_steps: int, warmup: int = 0):
+    """``learning_rate * decay_rate ** (step / decay_steps)``, after a
+    linear warmup from 0 over ``warmup`` steps when given (optax's
+    ``exponential_decay`` / ``warmup_exponential_decay_schedule``)."""
+    decay = _exponential(learning_rate, decay_steps, decay_rate)
+    if warmup:
+        return _join(_linear(0.0, learning_rate, warmup), decay, warmup)
+    return decay
 
 
 class _Transform:
@@ -56,17 +153,24 @@ class _Transform:
 
 
 class _Optimizer(_Transform):
-    """Base: hyperparameters as f32 scalars in the state, in-place update."""
+    """Base: hyperparameters as f32 scalars in the state, in-place update.
+    A callable hyperparameter (a schedule) is evaluated at the update's
+    count before each update and its value kept in the state, as
+    ``optax.inject_hyperparams`` does."""
 
     name = "optimizer"
 
     def __init__(self, **hyperparams):
         self.hyperparams = hyperparams
+        self.schedules = {k: v for k, v in hyperparams.items()
+                          if callable(v)}
 
     def init(self, params: List[torch.Tensor]) -> Dict:
         state = {"inject_count": 0,
-                 "hyperparams": {k: _f32(v) for k, v in
-                                 self.hyperparams.items()}}
+                 "hyperparams": {k: _f32(v(0) if callable(v) else v)
+                                 for k, v in self.hyperparams.items()}}
+        if self.schedules:
+            state["scheduled"] = tuple(self.schedules)
         state.update(self._init_slots(params))
         return state
 
@@ -77,6 +181,8 @@ class _Optimizer(_Transform):
     def update(self, params: List[torch.Tensor], grads: List[torch.Tensor],
                state: Dict) -> None:
         """One step: ``params`` and the state's slots change in place."""
+        for k, fn in self.schedules.items():
+            state["hyperparams"][k] = _f32(fn(state["inject_count"]))
         state["inject_count"] += 1
         self._apply(params, grads, state)
 
@@ -194,6 +300,134 @@ class fused_adamw(AdamW):
 
     name = "fused_adamw"
     fused = True
+
+
+class RMSprop(_Optimizer):
+    """optax.rmsprop under inject_hyperparams (module docstring): ``nu``
+    starts at ``initial_scale`` (0), the momentum trace at 0."""
+
+    name = "rmsprop"
+
+    def __init__(self, learning_rate: float = 0.001, decay: float = 0.9,
+                 momentum: float = 0.0, eps: float = 1e-7):
+        super().__init__(learning_rate=learning_rate, decay=decay, eps=eps,
+                         initial_scale=0.0, momentum=momentum)
+
+    def _init_slots(self, params):
+        init = _f32(self.hyperparams["initial_scale"]).item()
+        return {"nu": [torch.full_like(p, init, dtype=_F32) for p in params],
+                "trace": [torch.zeros_like(p, dtype=_F32) for p in params]}
+
+    def _apply(self, params, grads, state):
+        hp = state["hyperparams"]
+        decay = hp["decay"]
+        c = (_f32(1.0) - decay).item()
+        g = [x.to(_F32) for x in grads]
+        nu = state["nu"]
+        torch._foreach_mul_(nu, decay.item())
+        torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(g, g),
+                                                   c))
+        upd = torch._foreach_add(nu, hp["eps"].item())
+        torch._foreach_rsqrt_(upd)
+        torch._foreach_mul_(upd, g)
+        torch._foreach_mul_(upd, (-hp["learning_rate"]).item())
+        trace = state["trace"]
+        torch._foreach_mul_(trace, hp["momentum"].item())
+        torch._foreach_add_(trace, upd)
+        torch._foreach_add_(params, trace)
+
+
+class Adagrad(_Optimizer):
+    """optax.adagrad under inject_hyperparams: ``s += g*g`` from
+    ``initial_accumulator_value``, ``u = rsqrt(s + eps) * g`` where ``s >
+    0`` (else 0), ``p += u * -lr``."""
+
+    name = "adagrad"
+
+    def __init__(self, learning_rate: float = 0.001, eps: float = 1e-7):
+        super().__init__(learning_rate=learning_rate, eps=eps,
+                         initial_accumulator_value=0.1)
+
+    def _init_slots(self, params):
+        init = _f32(self.hyperparams["initial_accumulator_value"]).item()
+        return {"sum_of_squares": [torch.full_like(p, init, dtype=_F32)
+                                   for p in params]}
+
+    def _apply(self, params, grads, state):
+        hp = state["hyperparams"]
+        eps, neg_lr = hp["eps"].item(), (-hp["learning_rate"]).item()
+        for p, g, acc in zip(params, grads, state["sum_of_squares"]):
+            g = g.to(_F32)
+            acc.add_(g * g)
+            inv = torch.where(acc > 0, torch.rsqrt(acc + eps),
+                              torch.zeros_like(acc))
+            p.add_((inv * g) * neg_lr)
+
+
+class Lamb(_Optimizer):
+    """optax.lamb under inject_hyperparams: Adam's moments and bias
+    correction (``eps`` 1e-6, ``eps_root`` 0), ``u += weight_decay * p``,
+    ``u *= ||p|| / ||u||`` (1 where either norm is 0), ``p += u * -lr``."""
+
+    name = "lamb"
+
+    def __init__(self, learning_rate: float = 0.001,
+                 weight_decay: float = 0.0, b1: float = 0.9,
+                 b2: float = 0.999):
+        super().__init__(learning_rate=learning_rate, b1=b1, b2=b2,
+                         eps=1e-6, eps_root=0.0, weight_decay=weight_decay)
+
+    def _init_slots(self, params):
+        return Adam._init_slots(self, params)
+
+    def _apply(self, params, grads, state):
+        s = Adam._scalars(self, state)
+        g = [x.to(_F32) for x in grads]
+        mus, nus = state["mu"], state["nu"]
+        torch._foreach_mul_(mus, s.b1)
+        torch._foreach_add_(mus, torch._foreach_mul(g, s.c1))
+        torch._foreach_mul_(nus, s.b2)
+        torch._foreach_add_(nus, torch._foreach_mul(torch._foreach_mul(g, g),
+                                                    s.c2))
+        mu_hat = torch._foreach_div(mus, [s.bc1] * len(mus))
+        den = torch._foreach_div(nus, [s.bc2] * len(nus))
+        torch._foreach_add_(den, state["hyperparams"]["eps_root"].item())
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, s.eps)
+        upd = torch._foreach_div(mu_hat, den)
+        torch._foreach_add_(upd, torch._foreach_mul(params, s.wd))
+        for p, u in zip(params, upd):
+            pn, un = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+            ratio = torch.where((pn == 0) | (un == 0), torch.ones_like(pn),
+                                pn / un)
+            p.add_((u * ratio) * s.neg_lr)
+
+
+class sgd_with_cosine(_Transform):
+    """The JAX package's ``sgd_with_cosine``: plain ``optax.sgd`` (not
+    injected) over :func:`cosine_schedule`: the trace ``t = g +
+    momentum * t``, then ``p += -schedule(count) * t``. Its state is
+    optax's: the trace, then the schedule's step count."""
+
+    name = "sgd_with_cosine"
+
+    def __init__(self, learning_rate: float, steps: int, warmup: int = 0,
+                 momentum: float = 0.9):
+        self.schedule = cosine_schedule(learning_rate, steps, warmup)
+        self.momentum = float(momentum)
+
+    def init(self, params):
+        return {"trace": [torch.zeros_like(p, dtype=_F32) for p in params],
+                "count": 0}
+
+    @torch.no_grad()
+    def update(self, params, grads, state) -> None:
+        trace = state["trace"]
+        torch._foreach_mul_(trace, _f32(self.momentum).item())
+        torch._foreach_add_(trace, [g.to(_F32) for g in grads])
+        step = float(-self.schedule(state["count"]))
+        torch._foreach_add_(params, torch._foreach_mul(trace, step))
+        state["count"] += 1
 
 
 class clip_by_global_norm:
@@ -358,7 +592,8 @@ def loss_scale_value(opt_state):
 
 _REGISTRY = {
     "sgd": SGD, "adam": Adam, "adamw": AdamW, "fused_adam": fused_adam,
-    "fused_adamw": fused_adamw,
+    "fused_adamw": fused_adamw, "rmsprop": RMSprop, "adagrad": Adagrad,
+    "lamb": Lamb,
 }
 
 
@@ -393,8 +628,9 @@ class EmaBaseline:
 
 def get(name_or_opt, **kwargs) -> _Transform:
     """An optimizer from its name (``"sgd"``, ``"adam"``, ``"adamw"``,
-    ``"fused_adam"``, ``"fused_adamw"``; ``kwargs`` go to its
-    constructor) or an optimizer instance as is."""
+    ``"fused_adam"``, ``"fused_adamw"``, ``"rmsprop"``, ``"adagrad"``,
+    ``"lamb"``; ``kwargs`` go to its constructor) or an optimizer instance
+    as is."""
     if isinstance(name_or_opt, _Transform):
         return name_or_opt
     try:
@@ -429,9 +665,27 @@ def _hyperparams(opt_state, name: str) -> Dict:
 def set_hyperparam(opt_state: Dict, name: str, value) -> Dict:
     """Replace injected hyperparameter ``name`` (e.g. 'learning_rate') in
     ``opt_state``, rounded to f32 as optax holds it, searching through
-    chained and accumulating states; returns the state."""
+    chained and accumulating states; returns the state. A schedule-driven
+    hyperparameter raises ValueError (the schedule would overwrite it),
+    as in the JAX package."""
+    _scheduled(opt_state, name)
     _hyperparams(opt_state, name)[name] = _f32(value)
     return opt_state
+
+
+def _scheduled(opt_state, name: str) -> None:
+    if isinstance(opt_state, LossScaleState):
+        return _scheduled(opt_state.inner_state, name)
+    if isinstance(opt_state, tuple):
+        for sub in opt_state:
+            _scheduled(sub, name)
+    elif isinstance(opt_state, dict):
+        if name in opt_state.get("scheduled", ()):
+            raise ValueError(
+                f"hyperparameter {name!r} is driven by a schedule; it "
+                "cannot be set")
+        if "inner_opt_state" in opt_state:
+            _scheduled(opt_state["inner_opt_state"], name)
 
 
 def get_hyperparam(opt_state: Dict, name: str) -> float:
@@ -439,8 +693,9 @@ def get_hyperparam(opt_state: Dict, name: str) -> float:
 
 
 __all__ = [
-    "Adam", "AdamW", "EmaBaseline", "LossScaleState", "MultiSteps", "SGD",
-    "chain", "clip_by_global_norm", "dynamic_loss_scaling", "fused_adam",
-    "fused_adamw", "get", "get_hyperparam", "loss_scale_value",
-    "set_hyperparam",
+    "Adagrad", "Adam", "AdamW", "EmaBaseline", "Lamb", "LossScaleState",
+    "MultiSteps", "RMSprop", "SGD", "chain", "clip_by_global_norm",
+    "cosine_schedule", "dynamic_loss_scaling", "exponential_schedule",
+    "fused_adam", "fused_adamw", "get", "get_hyperparam", "loss_scale_value",
+    "set_hyperparam", "sgd_with_cosine",
 ]

@@ -24,7 +24,11 @@ divergence inside a shared block is copy-on-write (:meth:`_copy_block`).
 
 The bookkeeping is the JAX package's ``serving/kv_cache.py``; here the
 pools are torch tensors on the model's device, and copy-on-write copies
-a block in place.
+a block in place. Pools below a ``"stacked"`` key (``nn.ScannedBlocks``'
+:data:`~distributed_tpu_torch.nn.scan.STACKED_POOL_KEY`) carry a leading
+(S, ...) axis, one slice per block, so their pool-block axis is 1:
+copy-on-write copies along it and ``bytes_per_block`` skips it and counts
+the S slices.
 """
 
 from __future__ import annotations
@@ -200,15 +204,23 @@ class PrefixStore:
         return len(self._entries)
 
 
-def _pool_leaves(tree, out=None):
-    """Pool tensors of a paged-cache tree, in sorted-key order."""
+# nn.scan.STACKED_POOL_KEY, spelled out so this module's imports stay
+# numpy-only: pools below a dict key with this name carry a leading
+# (S, ...) block-stack axis, so the pool-block axis is 1, not 0.
+_STACKED_POOL_KEY = "stacked"
+
+
+def _pool_leaves(tree, out=None, stacked=False):
+    """``(pool tensor, stacked)`` pairs of a paged-cache tree, in
+    sorted-key order (``stacked``: the leaf sits below a
+    ``_STACKED_POOL_KEY`` subtree)."""
     if out is None:
         out = []
     if isinstance(tree, dict):
         for k in sorted(tree):
-            _pool_leaves(tree[k], out)
+            _pool_leaves(tree[k], out, stacked or k == _STACKED_POOL_KEY)
     else:
-        out.append(tree)
+        out.append((tree, stacked))
     return out
 
 
@@ -327,8 +339,11 @@ class PagedKVCache:
             return False
         new = grant[0]
         old = self._slot_blocks[slot][index]
-        for pool in _pool_leaves(self.caches):
-            pool[new] = pool[old]
+        for pool, stacked in _pool_leaves(self.caches):
+            if stacked:
+                pool[:, new] = pool[:, old]
+            else:
+                pool[new] = pool[old]
         self._slot_blocks[slot][index] = new
         self.block_tables[slot, index] = new
         self.allocator.decref([old])
@@ -362,11 +377,13 @@ class PagedKVCache:
 
     def bytes_per_block(self) -> int:
         """Device bytes one pool block occupies across every layer leaf
-        (quantized pools count q + scale)."""
-        return int(sum(
-            leaf.element_size() * leaf[0].numel()
-            for leaf in _pool_leaves(self.caches)
-        ))
+        (quantized pools count q + scale); a stacked pool's block is its S
+        slices' (the block axis 1 skipped, S multiplied back in)."""
+        total = 0
+        for leaf, stacked in _pool_leaves(self.caches):
+            per = leaf[:, 0] if stacked else leaf[0]
+            total += leaf.element_size() * per.numel()
+        return int(total)
 
     def utilization(self) -> float:
         return self.allocator.utilization()

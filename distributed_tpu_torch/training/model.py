@@ -45,7 +45,15 @@ The JAX loop's levers are the port's too:
   buffers and a side stream on the card, bit-identical at any depth.
 - The fit loop's telemetry: ``input_wait``/``dispatch``/
   ``checkpoint_wait`` spans, ``model.last_fit_telemetry`` (the JAX
-  report's keys) and periodic ``metrics_snapshot`` events.
+  report's keys, the scanned stack's ``overlap`` record among them) and
+  periodic ``metrics_snapshot`` events.
+- Randomness: a module that draws random numbers (``nn.Dropout``) gets
+  the JAX step key, ``fold_in(PRNGKey(seed + 1), step)`` (``seed`` the
+  build's), microbatch i of ``grad_accum`` ``fold_in(key, i)``, and step
+  i of a K-step dispatch ``fold_in(PRNGKey(seed + 1), step0 + i)``: the
+  masks are JAX's at every K. The key is held in a device tensor copied
+  in before each step, so a captured step graph reads the step's key at
+  every replay.
 
 The ``compile``/``fit`` options of the JAX package that are not ported
 raise ``NotImplementedError`` naming their ROADMAP item.
@@ -78,8 +86,11 @@ from ..checkpoint import core as ckpt
 from ..data.pipeline import Pipeline
 from ..data.prefetch import DevicePrefetcher, DeviceStager
 from ..device import resolve_device
-from ..nn.core import apply_layers, param_tree, state_tree
+from ..nn.core import (apply_layers, needs_rng, param_tree, rng_scope,
+                       state_tree)
 from ..nn.remat import checkpoint as remat_checkpoint
+from ..nn.scan import (ScannedBlocks, clear_overlap_trace,
+                       last_overlap_trace)
 from ..obs import registry as obs_registry
 from ..obs import spans as obs_spans
 from ..ops import losses as losses_lib
@@ -174,9 +185,15 @@ def _host_tensor(a: np.ndarray) -> torch.Tensor:
 
 
 def _has_batch_norm(module) -> bool:
+    """True when a BatchNorm runs in ``module``, in a scanned block's
+    template too (it is not a registered child)."""
     from ..nn.layers import BatchNorm
 
-    return any(isinstance(m, BatchNorm) for m in module.modules())
+    for m in module.modules():
+        if isinstance(m, BatchNorm) or (isinstance(m, ScannedBlocks)
+                                        and _has_batch_norm(m.block)):
+            return True
+    return False
 
 
 def _tensor_bytes(tree) -> int:
@@ -247,6 +264,8 @@ class Model:
         self.precision = None  # compile(precision=...): a dtype Policy
         self.head_chunks = None  # compile(head_chunks=C)
         self._dtype_hints = {}  # the layers' own dtype= (set by build)
+        self._rng_key = None  # the step's key on the device (Dropout)
+        self._overlap_record = None  # this model's last scanned record
 
     def build(self, input_shape: Sequence[int], seed: int = 0):
         """Create the f32 parameters for an unbatched input shape, drawn
@@ -479,7 +498,20 @@ class Model:
     def _to_device(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def _grad_eval(self, x, y, accum_m: int, scale=None):
+    def _step_key(self, step: int):
+        """The step's key, ``fold_in(PRNGKey(seed + 1), step)`` (the JAX
+        ``_step_rng``), copied into the model's device key tensor, which
+        it returns; None for a module that draws no random numbers."""
+        if not needs_rng(self.module):
+            return None
+        key = threefry.fold_in(threefry.PRNGKey(self._seed + 1), step)
+        if self._rng_key is None or self._rng_key.device != self.device:
+            self._rng_key = torch.zeros(2, dtype=torch.int64,
+                                        device=self.device)
+        self._rng_key.copy_(torch.from_numpy(key.astype(np.int64)))
+        return self._rng_key
+
+    def _grad_eval(self, x, y, accum_m: int, scale=None, rng=None):
         """Forward, loss and gradients of one optimizer step on a device
         batch: ``(loss, f32 grads, {metric: (sum, count)})``. With
         ``accum_m > 1``, x and y carry a leading microbatch axis: the
@@ -487,11 +519,13 @@ class Model:
         loss is the mean of their means, the metric pairs are summed (the
         JAX ``_accum_train_step_body``). ``scale`` (the live loss scale, a
         device scalar, under ``mixed_float16``): the gradients are those
-        of ``loss * scale``; the loss returned is unscaled."""
+        of ``loss * scale``; the loss returned is unscaled. ``rng``: the
+        step's key (a device tensor) for the layers that draw random
+        numbers, microbatch i's ``fold_in(rng, i)``."""
         if accum_m > 1:
-            return self._accum_grad_eval(x, y, accum_m, scale)
+            return self._accum_grad_eval(x, y, accum_m, scale, rng)
         params = self._param_list()
-        with self.strategy.scope(), self._policy_scope():
+        with self.strategy.scope(), self._policy_scope(), rng_scope(rng):
             if self.head_chunks and self.head_chunks > 1:
                 loss, mvals = self._chunked_train_loss(x, y)
             else:
@@ -580,7 +614,7 @@ class Model:
                  for (name, _), s in zip(self.metric_fns, msums)}
         return loss, mvals
 
-    def _accum_grad_eval(self, xs, ys, m: int, scale=None):
+    def _accum_grad_eval(self, xs, ys, m: int, scale=None, rng=None):
         # f32 accumulators whatever the gradients' dtype, as the JAX
         # package's precision.grad_accum_init makes them.
         gsum = precision_lib.grad_accum_init(self._param_list())
@@ -588,7 +622,9 @@ class Model:
         loss_sum = torch.zeros((), dtype=torch.float32, device=xs.device)
         msums = {}
         for i in range(m):
-            loss, grads, mvals = self._grad_eval(xs[i], ys[i], 1, scale)
+            loss, grads, mvals = self._grad_eval(
+                xs[i], ys[i], 1, scale,
+                None if rng is None else threefry.fold_in(rng, i))
             torch._foreach_add_(gsum, [g.to(torch.float32) for g in grads])
             loss_sum = loss_sum + loss.to(torch.float32)
             for name, (s, c) in mvals.items():
@@ -606,7 +642,8 @@ class Model:
         """One optimizer step on a device batch: returns the loss (a
         device scalar) and each metric's (sum, count)."""
         loss, grads, mvals = self._grad_eval(
-            x, y, accum_m, optim.loss_scale_value(self.opt_state))
+            x, y, accum_m, optim.loss_scale_value(self.opt_state),
+            self._step_key(self.step))
         self._apply_update(grads)
         return loss, mvals
 
@@ -619,16 +656,16 @@ class Model:
                 "collectives run inside the forward, which the step's CUDA "
                 "graph would capture; the port captures no NCCL call")
 
-    def _graph_grad_eval(self, x, y, accum_m: int, scale=None):
+    def _graph_grad_eval(self, x, y, accum_m: int, scale=None, rng=None):
         key = (tuple(x.shape), x.dtype, tuple(y.shape), y.dtype, accum_m)
         graph = self._graphs.get(key)
         if graph is None:
-            # The loss scale is a static input: copied in before each
-            # replay, never a host float frozen at capture.
+            # The loss scale and the step key are static inputs: copied in
+            # before each replay, never host values frozen at capture.
             graph = self._graphs[key] = StepGraph(
-                lambda a, b, s: self._grad_eval(a, b, accum_m, s),
-                self.module, x, y, scale)
-        return graph.replay(x, y, scale)
+                lambda a, b, s, r: self._grad_eval(a, b, accum_m, s, r),
+                self.module, x, y, scale, rng)
+        return graph.replay(x, y, scale, rng)
 
     def _multi_step(self, xs, ys, k: int, accum_m: int):
         """``k`` optimizer steps on a stacked device batch (``[k, batch,
@@ -644,7 +681,8 @@ class Model:
             x, y = ((xs[i], ys[i]) if accum_m == 1
                     else (xs[rows], ys[rows]))
             loss, grads, mvals = grad_eval(
-                x, y, accum_m, optim.loss_scale_value(self.opt_state))
+                x, y, accum_m, optim.loss_scale_value(self.opt_state),
+                self._step_key(self.step + i))
             self._apply_update(grads)
             loss_sum = loss_sum + loss.to(torch.float32)
             msums = {name: (s + mvals[name][0].to(torch.float32),
@@ -884,6 +922,7 @@ class Model:
                 self._rewind_source(source)
         self._resumed_step = None
         self._restored_data_state = None
+        clear_overlap_trace()
         self.module.train()
         try:
             self._fit_epochs(
@@ -1084,14 +1123,29 @@ class Model:
             report["input_decode_workers"] = int(source.decode_workers)
         report["comm_bytes_estimate"] = self.strategy.comm_bytes_estimate(
             self.params)
-        # No scanned block stack in the port (ROADMAP 1.5): the overlap
-        # record of a model without one.
-        report["overlap"] = {"overlap": False, "exposed_comm_fraction": 1.0,
-                             "layers": 0}
+        # The scanned stack's record of this fit's last forward on this
+        # thread (nn.scan.last_overlap_trace), read as the JAX report reads
+        # its trace-time record; the port has no FSDP gather to overlap
+        # (ROADMAP 1.7), so "active" is False and the fraction 1.0.
+        record = last_overlap_trace()
+        if record is None:
+            record = self._overlap_record
+        else:
+            self._overlap_record = record
+        layers = int(record["layers"]) if record else 0
+        active = bool(record and record["active"])
+        report["overlap"] = {
+            "overlap": active,
+            "exposed_comm_fraction": (round(1.0 / layers, 6)
+                                      if active and layers else 1.0),
+            "layers": layers,
+        }
         if obs_registry.enabled() and events_lib.default_log() is not None:
-            events_lib.emit(evs.OVERLAP_REPORT, overlap=False,
-                            exposed_comm_fraction=1.0, layers=0,
-                            strategy=type(self.strategy).__name__)
+            events_lib.emit(
+                evs.OVERLAP_REPORT, overlap=report["overlap"]["overlap"],
+                exposed_comm_fraction=report["overlap"][
+                    "exposed_comm_fraction"],
+                layers=layers, strategy=type(self.strategy).__name__)
         self._flush_obs_window(1, force=True)
         obs_reg = obs_registry.default_registry()
         obs_reg.gauge("fit/steps_per_sec", round(

@@ -5,11 +5,13 @@ on) draws every random array from a key of two uint32 words:
 
 - ``PRNGKey(seed)`` is ``[0, seed mod 2**32]``;
 - ``split(key, n)``: row i is the pair of words Threefry gives for the
-  counter ``(0, i)``;
+  counter ``(0, i)``, and ``fold_in(key, d)`` the pair for ``(0, d)``
+  (so ``split(key, n)[i]`` is ``fold_in(key, i)``);
 - ``bits(key, shape)``: element e of the flattened shape is the xor of the
   two words Threefry gives for the counter ``(e >> 32, e mod 2**32)``;
-- ``uniform`` puts a bits' top 23 into a float's mantissa, and ``gumbel``
-  is ``-log(-log(u))`` over uniforms in ``[tiny, 1)``;
+- ``uniform`` puts a bits' top 23 into a float's mantissa (``[1, 2)``)
+  and subtracts 1, ``bernoulli(key, p, shape)`` is ``uniform < p``, and
+  ``gumbel`` is ``-log(-log(u))`` over uniforms in ``[tiny, 1)``;
 - ``categorical(key, logits)`` is the argmax of ``logits + gumbel(key,
   logits.shape)``: ONE key for the whole array.
 
@@ -18,6 +20,13 @@ The serving engine draws a row at a time from each token's own key
 key a step (``categorical``). uint32 arithmetic runs in int64 lanes,
 masked, so the same code serves numpy arrays (the host's keys) and torch
 tensors (the card's noise).
+
+A key may also be a device tensor (``(2,)`` int64 holding the two words,
+:func:`device_key`): ``fold_in``, ``split``, ``bits``, ``uniform`` and
+``bernoulli`` then compute on that device from the tensor, with no host
+read, so a CUDA graph that captured them reads whatever key was copied
+into the tensor before its replay (the train step's key, which
+``Model.fit`` refreshes every step).
 """
 
 from __future__ import annotations
@@ -51,22 +60,75 @@ def PRNGKey(seed: int) -> np.ndarray:
     return np.array([0, int(seed) & _M32], np.uint32)
 
 
-def split(key, num: int = 2) -> np.ndarray:
-    """``jax.random.split(key, num)``'s key data, ``(num, 2)`` uint32."""
+def split(key, num: int = 2):
+    """``jax.random.split(key, num)``'s key data, ``(num, 2)``: uint32
+    numpy for host key data, an int64 tensor on a device key's device."""
+    if isinstance(key, torch.Tensor):
+        j = torch.arange(num, dtype=torch.int64, device=key.device)
+        y0, y1 = threefry2x32(key[0], key[1], torch.zeros_like(j), j)
+        return torch.stack([y0, y1], dim=1)
     k = np.asarray(key, np.uint32).astype(np.int64)
     y0, y1 = threefry2x32(k[0], k[1], np.zeros(num, np.int64),
                           np.arange(num, dtype=np.int64))
     return np.stack([y0, y1], axis=1).astype(np.uint32)
 
 
+def device_key(key, device) -> torch.Tensor:
+    """Key data (numpy, or a tensor) as a ``(2,)`` int64 tensor on
+    ``device``."""
+    if isinstance(key, torch.Tensor):
+        return key.to(device=device, dtype=torch.int64)
+    return torch.from_numpy(
+        np.asarray(key, np.uint32).astype(np.int64)).to(device)
+
+
+def _words(key):
+    """The two key words: Python ints for host key data, 0-d int64
+    tensors for a device key."""
+    if isinstance(key, torch.Tensor):
+        return key[0], key[1]
+    k = np.asarray(key, np.uint32).astype(np.int64)
+    return int(k[0]), int(k[1])
+
+
+def fold_in(key, data: int):
+    """``jax.random.fold_in(key, data)``'s key data: the Threefry words of
+    the counter ``(0, data mod 2**32)``. Host key data gives uint32 numpy,
+    a device key an int64 tensor on its device."""
+    k0, k1 = _words(key)
+    y0, y1 = threefry2x32(k0, k1, 0, int(data) & _M32)
+    if isinstance(key, torch.Tensor):
+        return torch.stack([y0, y1])
+    return np.array([y0, y1], np.uint32)
+
+
 def bits(key, shape, device) -> torch.Tensor:
     """``jax.random.bits(key, shape)`` (uint32 values in an int64 tensor
     on ``device``): one key for the whole array."""
-    k = np.asarray(key, np.uint32).astype(np.int64)
+    k0, k1 = _words(key)
     n = int(np.prod(shape, dtype=np.int64))
     e = torch.arange(n, dtype=torch.int64, device=device)
-    y0, y1 = threefry2x32(int(k[0]), int(k[1]), e >> 32, e & _M32)
+    y0, y1 = threefry2x32(k0, k1, e >> 32, e & _M32)
     return (y0 ^ y1).reshape(shape)
+
+
+def uniform_from_bits(b: torch.Tensor) -> torch.Tensor:
+    """JAX's f32 ``uniform`` in ``[0, 1)`` from its bits: the top 23 as
+    the mantissa of a float in ``[1, 2)``, minus 1."""
+    return ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+
+
+def uniform(key, shape, device) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)`` (f32, ``[0, 1)``)."""
+    return uniform_from_bits(bits(key, shape, device))
+
+
+def bernoulli(key, p: float, shape, device) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)``: ``uniform < p``, with
+    ``p`` an f32 as JAX holds it (a bool tensor)."""
+    # A fill on the device, no host copy: safe inside a graph capture.
+    pf = torch.full((), float(p), dtype=torch.float32, device=device)
+    return uniform(key, shape, device) < pf
 
 
 def row_bits(keys, n: int, device) -> torch.Tensor:
@@ -82,7 +144,7 @@ def gumbel_from_bits(b: torch.Tensor) -> torch.Tensor:
     """JAX's f32 ``gumbel`` ("low" mode) from its bits: uniforms in
     ``[tiny, 1)`` from the top 23 bits as a mantissa, then
     ``-log(-log(u))``."""
-    u = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    u = uniform_from_bits(b)
     tiny = torch.finfo(torch.float32).tiny
     u = torch.clamp_min(u + tiny, tiny)
     return -torch.log(-torch.log(u))
@@ -96,6 +158,7 @@ def categorical(key, logits: torch.Tensor) -> torch.Tensor:
 
 
 __all__ = [
-    "PRNGKey", "bits", "categorical", "gumbel_from_bits", "row_bits",
-    "split", "threefry2x32",
+    "PRNGKey", "bernoulli", "bits", "categorical", "device_key", "fold_in",
+    "gumbel_from_bits", "row_bits", "split", "threefry2x32",
+    "uniform", "uniform_from_bits",
 ]

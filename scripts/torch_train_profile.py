@@ -12,7 +12,10 @@ same under a world-1 ``DataParallel`` with ``fused_adamw(3e-4)``);
 ``mnist_cnn`` and ``cifar_cnn`` are phase k's (world-1 ``DataParallel``,
 global batch 256, TF32 off); ``resnet50`` is phase n (ResNet-50 in bf16 as
 the JAX package's ``bench_resnet50`` configures it, world-1
-``DataParallel``, global batch 256 at 224x224, ``SGD(0.1, momentum=0.9)``).
+``DataParallel``, global batch 256 at 224x224, ``SGD(0.1, momentum=0.9)``);
+``vit_base`` is phase v4 (ViT-B/16 with ``scan=True``, bf16 layers, 128
+seeded uint8 images at 224x224, 1,000 classes, ``fused_adamw(1e-3)``,
+the pallas loss, ``SingleDevice``).
 Two warm-up steps, a timed run of ``--steps``
 steps (host clock, ending in a synchronize), then the same number of
 steps under ``torch.profiler`` (CPU and CUDA): device time by kernel,
@@ -49,6 +52,7 @@ GROUPS = (
         "nchwToNhwc", "nhwcToNchw", "direct_copy", "CatArrayBatchedCopy")),
     ("convolution (cuDNN)", ("conv", "Conv", "wgrad", "dgrad", "implicit")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "Gemm", "xmma", "cutlass")),
+    ("softmax", ("softmax", "Softmax")),
     ("optimizer (foreach)", ("multi_tensor_apply", "foreach")),
     ("all-reduce (NCCL)", ("nccl",)),
 )
@@ -65,7 +69,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", default="lm",
                     choices=("lm", "lm_dp", "mnist_cnn", "cifar_cnn",
-                             "resnet50"))
+                             "resnet50", "vit_base"))
     ap.add_argument("--layers", type=int, default=chip_smoke.LM["num_layers"])
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default=None, help="write the numbers as JSON")
@@ -83,6 +87,13 @@ def main():
         module = dtt.models.transformer_lm(chip_smoke.VOCAB, dtype="bfloat16",
                                            **lm)
         input_shape = (t_len,)
+        loss = "pallas_sparse_categorical_crossentropy"
+    elif args.workload == "vit_base":
+        batch, rng = 128, np.random.default_rng(0)
+        x = rng.integers(0, 256, (batch, 224, 224, 3), dtype=np.uint8)
+        y = rng.integers(0, 1000, (batch,)).astype(np.int32)
+        module = dtt.models.vit_base(1000, dtype="bfloat16", scan=True)
+        input_shape = (224, 224, 3)
         loss = "pallas_sparse_categorical_crossentropy"
     elif args.workload == "resnet50":
         batch = chip_smoke.RESNET_BATCH
@@ -105,8 +116,9 @@ def main():
                  "lm_dp": dtt.optim.fused_adamw(3e-4, weight_decay=0.01),
                  "mnist_cnn": dtt.optim.SGD(0.001),
                  "cifar_cnn": dtt.optim.SGD(0.01, momentum=0.9),
-                 "resnet50": dtt.optim.SGD(0.1, momentum=0.9)}[args.workload]
-    strategy = (dtt.SingleDevice() if args.workload == "lm"
+                 "resnet50": dtt.optim.SGD(0.1, momentum=0.9),
+                 "vit_base": dtt.optim.fused_adamw(1e-3)}[args.workload]
+    strategy = (dtt.SingleDevice() if args.workload in ("lm", "vit_base")
                 else dtt.DataParallel())
     with strategy.scope():
         model = dtt.Model(module)
@@ -132,10 +144,13 @@ def main():
         return float(getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0.0)))
 
+    # The fit loop's spans (record_function ranges) also show on the
+    # card's timeline, over the kernels they hold: left out.
+    spans = ("input_wait", "dispatch", "checkpoint_wait")
     kernels = sorted(
         ({"name": e.key, "count": int(e.count), "device_ms": dev_us(e) / 1e3}
          for e in prof.key_averages()
-         if e.device_type == cuda and dev_us(e) > 0),
+         if e.device_type == cuda and dev_us(e) > 0 and e.key not in spans),
         key=lambda r: -r["device_ms"],
     )
     busy_ms = sum(k["device_ms"] for k in kernels)

@@ -160,8 +160,12 @@ def test_conv2d_kernel_initializers_and_bf16_1x1():
                                 conv.kernel.reshape(64, 4).bfloat16())
     assert y.dtype == torch.bfloat16
     assert torch.equal(y.reshape(-1, 4), want)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        dtt.nn.Conv2D(4, 1, kernel_initializer="he_normal")
+    # he_normal is ported: a normal truncated at 2 sigma, sigma =
+    # sqrt(2 / fan_in) / 0.8796 (fan_in 64 here).
+    he = dtt.nn.Conv2D(4, 1, kernel_initializer="he_normal")
+    he.build((3, 3, 64), torch.Generator().manual_seed(0))
+    sigma = (2 / 64) ** 0.5 / 0.87962566103423978
+    assert float(he.kernel.detach().abs().max()) <= 2 * sigma
 
 
 def test_space_to_depth_matches_jax():

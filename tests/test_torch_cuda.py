@@ -1118,3 +1118,95 @@ def test_quantized_engine_fused_matches_reference_on_the_card(cuda_device,
         assert sum(paged_ops.launches.values()) > 0
         for a, b in zip(*outs):
             np.testing.assert_array_equal(b, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8,nb,bs,h,hd", [
+    (False, 8, 16, 4, 64), (True, 8, 16, 4, 64),
+    # An odd-sized int8 pool: 7 blocks of 5 rows of 3 heads of 16, so a
+    # layer's slice is 1,680 bytes apart: whole 16-byte chunks, as every
+    # vector-read head width makes it (hd * itemsize a multiple of 16).
+    (True, 7, 5, 3, 16), (False, 7, 5, 3, 24)])
+def test_paged_attention_on_stacked_pool_slices(cuda_device, int8, nb, bs,
+                                                h, hd):
+    """K1/K2 on slice i of a stacked (S, NB, bs, H, hd) pool, as a
+    ScannedBlocks layer's paged hook hands it: each slice against its
+    plain version, and the read path the wrapper chose, which is the
+    vector one at every slice."""
+    s_blocks, slots = 3, 2
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    shape = (s_blocks, nb, bs, h, hd)
+    kp = torch.randn(shape, generator=g, device=cuda_device)
+    vp = torch.randn(shape, generator=g, device=cuda_device)
+    dtype = torch.float32 if int8 else torch.bfloat16
+    if int8:
+        def quant(pool):
+            amax = pool.abs().amax(dim=-1, keepdim=True)
+            scale = torch.where(amax > 0, amax / 127.0, 1.0)
+            return {"q": torch.clamp(torch.round(pool / scale), -127,
+                                     127).to(torch.int8), "scale": scale}
+        kp, vp = quant(kp), quant(vp)
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    q = torch.randn((slots, 1, h, hd), generator=g, device=cuda_device).to(
+        dtype)
+    tables = torch.tensor([[1, 2, 3], [4, 5, 6]], dtype=torch.int32,
+                          device=cuda_device)
+    positions = torch.tensor([3 * bs - 1, bs + 1], dtype=torch.int32,
+                             device=cuda_device)
+    key = "paged_attention_int8" if int8 else "paged_attention"
+    for i in range(s_blocks):
+        ki = {k: v[i] for k, v in kp.items()} if int8 else kp[i]
+        vi = {k: v[i] for k, v in vp.items()} if int8 else vp[i]
+        paged_ops.reset_launch_counts()
+        got = paged_ops.paged_attention(q, ki, vi, tables, positions)
+        want = paged_ops.paged_attention_ref(q, ki, vi, tables, positions)
+        torch.cuda.synchronize()
+        vec = hd * (1 if int8 else 2) % 16 == 0
+        assert paged_ops.launches_by_path == {
+            (key, "vector" if vec else "scalar"): 1}, (i, paged_ops.launches_by_path)
+        tol = 2e-5 if int8 else 2e-2
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_scanned_engine_fused_matches_unrolled_on_the_card(cuda_device,
+                                                           kv_dtype):
+    """A scan=True LM served on the card through the stacked pools (f32,
+    TF32 off) gives the unrolled LM's tokens on the same weights, fused and
+    reference; K1 (or K2) launched once a layer and decode step."""
+    import numpy as np
+
+    import distributed_tpu_torch as dtt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = dict(num_layers=3, d_model=32, num_heads=2, max_len=64)
+    un = dtt.Model(dtt.models.transformer_lm(97, **kw),
+                   device=cuda_device).build((16,), seed=3)
+    sc = dtt.Model(dtt.models.transformer_lm(97, scan=True, **kw),
+                   device=cuda_device).build((16,), seed=3)
+    # The same generator draws the blocks in the same order: the stacked
+    # leaves are the unrolled layers' leaves.
+    stacked = sc.params["scanned_blocks/blocks/residual/main/"
+                        "multi_head_attention/wq"]
+    assert torch.equal(stacked[1], un.params[
+        "residual_2/main/multi_head_attention/wq"])
+    rng = np.random.default_rng(4)
+    reqs = [dtt.serving.Request(rng.integers(0, 97, (int(n),)).astype(
+        np.int32), 8) for n in rng.integers(3, 20, 5)]
+    outs = {}
+    for name, m in (("unrolled", un), ("scanned", sc)):
+        for kind in ("reference", "fused"):
+            paged_ops.reset_launch_counts()
+            eng = dtt.serving.Engine(m, max_slots=2, block_size=8,
+                                     max_len=64, kv_dtype=kv_dtype,
+                                     decode_kernel=kind)
+            outs[name, kind] = eng.run(reqs)
+            if kind == "fused":
+                steps = eng.last_run_telemetry["decode_steps"]
+                assert sum(paged_ops.launches.values()) == 3 * steps
+    for key, got in outs.items():
+        for a, b in zip(outs["unrolled", "reference"], got):
+            np.testing.assert_array_equal(b, a, err_msg=str(key))

@@ -82,9 +82,12 @@ def test_default_device_is_the_card_and_never_falls_back():
 
 
 def test_unported_variants_raise():
-    for flag in ("moe_experts", "pipeline", "scan"):
+    for flag in ("moe_experts", "pipeline"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             dtt.models.transformer_lm(16, **{flag: 1})
+    # scan is ported: the blocks stack in one ScannedBlocks.
+    assert isinstance(dtt.models.transformer_lm(16, scan=True).layers[2],
+                      dtt.nn.ScannedBlocks)
     # remat is ported: the LM builds with it.
     assert isinstance(dtt.models.transformer_lm(16, remat=True).layers[2],
                       dtt.nn.Remat)

@@ -200,3 +200,46 @@ def test_fit_raises_and_update_weights_checks_dtypes(quantized):
              if k.endswith("/q")}
     with pytest.raises(ValueError, match="structure does not match"):
         eng.update_weights(plain)
+
+
+def test_engine_int8_under_policy_matches_jax():
+    """int8 weights served under ``mixed_bfloat16``. The JAX Engine casts
+    the tree for compute (``_cast_for_compute``: the scales to bf16 too)
+    AND runs its dispatches inside the policy's scope (``Model._scoped``),
+    so a layer without ``dtype=`` dequantizes in f32 and multiplies in
+    bf16; the port's Engine enters the same scope. Greedy tokens equal
+    JAX's up to a bf16 tie (as the bf16 tests above), and each logprob of
+    the agreeing prefix lies within 2 bf16 ulps at 4.0 (2**-4) of JAX's:
+    XLA keeps fused bf16 chains at f32, the port rounds each operation."""
+    jm, pm = lm_pair(vocab=V, num_layers=2, d_model=32, num_heads=2,
+                     max_len=T)
+    jm.compile(optimizer="adam", loss="sparse_categorical_crossentropy",
+               precision="mixed_bfloat16")
+    pm.compile(optimizer="adam", loss="sparse_categorical_crossentropy",
+               precision="mixed_bfloat16")
+    dtpu.quant.quantize_model(jm)
+    dtt.quant.quantize_model(pm)
+    reqs = _requests(seed=3)
+    kw = dict(max_slots=2, block_size=8, max_len=T, temperature=0.0)
+    jeng = jax_engine(jm, **kw)
+    want = jeng.run([dtpu.serving.Request(p, m) for p, m in reqs],
+                    return_logprobs=True)
+    jrows = jeng.last_run_telemetry["requests"]
+    worst = 0.0
+    for kind in ("reference", "fused"):
+        eng = dtt.serving.Engine(pm, decode_kernel=kind, **kw)
+        got = eng.run([dtt.serving.Request(p, m) for p, m in reqs],
+                      return_logprobs=True)
+        rows = eng.last_run_telemetry["requests"]
+        for i, ((prompt, _), w, g) in enumerate(zip(reqs, want, got)):
+            w = np.asarray(w)
+            same = len(w) if np.array_equal(w, g) else int(np.argmax(w != g))
+            if same < len(w):
+                assert same >= prompt.size and _tie_at(jm, w, same), (
+                    f"{kind} request {i}: port {list(g)} != jax {list(w)} "
+                    f"at {same}, no bf16 tie")
+            n = same - prompt.size
+            diff = np.abs(np.asarray(rows[i]["logprobs"][:n])
+                          - np.asarray(jrows[i]["logprobs"][:n]))
+            worst = max(worst, float(diff.max(initial=0.0)))
+    assert worst <= 2.0 ** -4, worst

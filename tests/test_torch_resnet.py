@@ -152,5 +152,16 @@ def test_resnet50_parameter_tree_is_the_jax_packages():
     convs = [m for m in model.module.modules()
              if isinstance(m, dtt.nn.Conv2D) and m.kernel_size == (1, 1)]
     assert len(convs) == 36
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        dtt.models.resnet(50, scan_stages=True)
+    # scan_stages is ported: each stage's tail stacks in a ScannedBlocks,
+    # the JAX package's tree (fewer leaves, the same parameter count).
+    scanned = dtt.Model(dtt.models.resnet50(1000, scan_stages=True),
+                        device="cpu").build((224, 224, 3))
+    params, state, _ = jax.eval_shape(
+        lambda: dtpu.models.resnet50(1000, scan_stages=True).init(
+            jax.random.PRNGKey(0), (224, 224, 3)))
+    for got, tree in ((scanned.params, params), (scanned.state, state)):
+        want = {p: tuple(leaf.shape)
+                for p, leaf in dtt.interop.iter_leaf_paths(tree)}
+        assert {p: tuple(t.shape) for p, t in got.items()} == want
+    assert scanned.num_params == model.num_params
+    assert len(scanned.params) < len(model.params)

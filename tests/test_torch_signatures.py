@@ -50,8 +50,8 @@ PAIRS = {
             "causal": (False, None), "moe_experts": (2, "1.7"),
             "moe_every": (3, "1.7"), "pipeline": (True, "1.7"),
             "pipeline_schedule": ("interleaved", "1.7"),
-            "pipeline_interleave": (2, "1.7"), "scan": (True, "1.5b"),
-            "scan_overlap": ("off", "1.5b"), "remat": (True, None),
+            "pipeline_interleave": (2, "1.7"), "scan": (True, None),
+            "scan_overlap": ("off", None), "remat": (True, None),
             "remat_policy": ("dots_with_no_batch_dims_saveable", None),
             "flash": (True, None),
             "dtype": ("bfloat16", None), "d_ff": (24, None),
@@ -66,7 +66,7 @@ PAIRS = {
         lambda f, **kw: f(16, 2, 32, **kw)),
     "Dense": (dtpu.nn.Dense, dtt.nn.Dense, {
         "activation": ("relu", None), "use_bias": (False, None),
-        "kernel_initializer": ("he_normal", "1.4"),
+        "kernel_initializer": ("he_normal", None),
         "dtype": ("bfloat16", None), "shard": ("col", None),
         "name": ("head", None)}, lambda f, **kw: f(4, **kw)),
     "MultiHeadAttention": (dtpu.nn.MultiHeadAttention,
@@ -107,6 +107,48 @@ PAIRS = {
     "Model.generate": (dtpu.Model.generate, dtt.Model.generate, {
         "temperature": (0.5, None), "top_k": (3, None), "seed": (4, None)},
         lambda f, **kw: _compiled().generate(XY[0][:1, :2], 2, **kw)),
+    "resnet": (dtpu.models.resnet, dtt.models.resnet, {
+        "depth": (18, None), "num_classes": (10, None), "small_inputs": (True, None),
+        "stage_blocks": ((1, 2, 1, 1), None), "width": (16, None),
+        "stem": ("space_to_depth", None), "scan_stages": (True, None),
+        "bn_shift": ("data", None), "dtype": ("bfloat16", None)},
+        lambda f, **kw: f(**{"depth": 50, **kw})),
+    "vit": (dtpu.models.vit, dtt.models.vit, {
+        "num_classes": (10, None), "image_size": (32, None),
+        "patch_size": (8, None), "num_layers": (2, None),
+        "d_model": (32, None), "num_heads": (2, None), "d_ff": (16, None),
+        "remat": (True, None), "scan": (True, None),
+        "dtype": ("bfloat16", None)}, lambda f, **kw: f(**kw)),
+    "ScannedBlocks": (dtpu.nn.ScannedBlocks, dtt.nn.ScannedBlocks, {
+        "overlap": ("off", None), "name": ("stack", None)},
+        lambda f, **kw: f(lambda: dtt.nn.Sequential([dtt.nn.Dense(4)]), 2,
+                          **kw)),
+    "Dropout": (dtpu.nn.Dropout, dtt.nn.Dropout, {"name": ("drop", None)},
+                lambda f, **kw: f(0.1, **kw)),
+    "Lambda": (dtpu.nn.Lambda, dtt.nn.Lambda, {
+        "output_shape": ((4,), None), "name": ("lam", None)},
+        lambda f, **kw: f(lambda x: x, **kw)),
+    "RMSprop": (dtpu.optim.RMSprop, dtt.optim.RMSprop, {
+        "learning_rate": (0.01, None), "decay": (0.8, None),
+        "momentum": (0.9, None), "eps": (1e-6, None)},
+        lambda f, **kw: f(**kw)),
+    "Adagrad": (dtpu.optim.Adagrad, dtt.optim.Adagrad, {
+        "learning_rate": (0.01, None), "eps": (1e-6, None)},
+        lambda f, **kw: f(**kw)),
+    "Lamb": (dtpu.optim.Lamb, dtt.optim.Lamb, {
+        "learning_rate": (0.01, None), "weight_decay": (0.1, None),
+        "b1": (0.8, None), "b2": (0.99, None)}, lambda f, **kw: f(**kw)),
+    "cosine_schedule": (dtpu.optim.cosine_schedule,
+                        dtt.optim.cosine_schedule, {"warmup": (2, None)},
+                        lambda f, **kw: f(0.1, 10, **kw)(3)),
+    "exponential_schedule": (dtpu.optim.exponential_schedule,
+                             dtt.optim.exponential_schedule,
+                             {"warmup": (2, None)},
+                             lambda f, **kw: f(0.1, 0.5, 2, **kw)(3)),
+    "sgd_with_cosine": (dtpu.optim.sgd_with_cosine,
+                        dtt.optim.sgd_with_cosine, {
+                            "warmup": (2, None), "momentum": (0.5, None)},
+                        lambda f, **kw: f(0.1, 10, **kw)),
 }
 
 
