@@ -279,6 +279,26 @@ v. Weight-stacked blocks (``nn.ScannedBlocks``), each model against its
    after each of 2 scanned GPT-2-small-width blocks: the mask drawn on
    the card equals the CPU's, and K=4 graphs equal K=1 eager bit for bit
    after 8 steps.
+w. The sharded data-parallel strategies over an NCCL group of world 1
+   (launch counts zeroed before each run and read after it). (w1) Phase
+   l's GPT-2-small (bf16 layers, ``fused_adamw(3e-4, weight_decay=0.01)``,
+   the pallas loss, batch 32 x 1024) under ``DataParallel``,
+   ``ZeroDataParallel`` and ``FSDP`` from seed 0, 3 steps each:
+   parameters and optimizer state bit for bit against DataParallel's,
+   K3-K5 12 times and K9/K10/K11 once a step (K11 over the blocks of the
+   shard path), the model-state bytes a card, ms a step in interleaved
+   runs of 2 steps with the busy share. (w2) ``scan=True`` under FSDP
+   with ``scan_overlap="require"`` against ``"off"``: bit for bit after
+   3 steps, the overlap report active over 12 layers (1/12 exposed), ms
+   a step in interleaved runs. (w3) Phase u2's LM (no ``dtype=`` on the
+   layers, ``fused_adam(1e-4)``, batch 8 x 1024) under FSDP, one step
+   under ``mixed_bfloat16`` and one in f32: the gathers move bf16 and f32
+   respectively, and ``gathered_param_bytes_per_device`` halves.
+   (w4) ``ShardedCheckpointer`` on w1's FSDP LM at batch 8 x 1024: a
+   save after 2 steps, sync and async (blocking ms, MB on disk, the
+   restore's seconds); a fresh model restores it and runs steps 3-4 bit
+   for bit as the uninterrupted run; a DataParallel model restores the
+   async directory bit for bit.
 Then the kernel table as one JSON line (each row also names the CUDA
 kernel of the main path, ``kernel``, and carries its launches in phase r's
 resumed steps, ``launches_resumed``, in phase t's fits that captured a
@@ -286,7 +306,8 @@ graph, ``launches_fit``, and its runs in their 8 replayed steps from the
 trace, ``replayed_fit``; K1/K2 also their launches in phase
 s's speculative runs, ``launches_spec``, and their time by kw, ``ms_by_kw``;
 and its launches in phase u's sub-phases, ``launches_u1``-``launches_u3``,
-and in phase v's scanned runs, ``launches_v``),
+in phase v's scanned runs, ``launches_v``, and in phase w's sharded runs,
+``launches_w``),
 the card's name and power limit, and ``{"ok": true, "device": {...}}`` as
 the last line.
 """
@@ -1898,8 +1919,7 @@ def host_state(dtt, model):
     from distributed_tpu_torch.checkpoint import core as ckpt
     return ckpt.flatten_tree({
         "params": model.params, "state": model.state,
-        "opt_state": dtt.interop.opt_state_to_tree(
-            model.tx, model.opt_state, model.params)})
+        "opt_state": model._opt_tree("full")})
 
 
 def differing(a, b):
@@ -3431,6 +3451,245 @@ def phase_scan_dropout(torch, dtt, mods, batch=8, steps=8):
     return counts
 
 
+# ------------------------------------------------------------------ phase w
+def nccl_world1(dtt):
+    """Phase k's NCCL group of world 1, from a one-worker DTPU_CONFIG."""
+    port = dtt.cluster.free_port()
+    os.environ["DTPU_CONFIG"] = dtt.cluster.ClusterSpec(
+        workers=[f"127.0.0.1:{port}"], index=0).to_json()
+    return dtt.cluster.initialize(timeout=120)
+
+
+def full_state(dtt, model):
+    """``{path: tensor}`` clones of a model's whole parameters and
+    optimizer state (gathered where a strategy shards them), on the card
+    (the optimizer's host scalars as CPU tensors)."""
+    import torch
+
+    out = {f"params/{k}": v.detach().clone()
+           for k, v in model.params.items()}
+    for k, v in dtt.interop.iter_leaf_paths(model._opt_tree("full")):
+        out[f"opt_state/{k}"] = (v.detach().clone()
+                                 if isinstance(v, torch.Tensor)
+                                 else torch.as_tensor(np.asarray(v)))
+    return out
+
+
+def w_lm(dtt, strategy, batch_len, optimizer=None, precision=None, **kw):
+    """Phase l's GPT-2-small LM (bf16 layers unless ``kw`` says other)
+    under ``strategy``, ``fused_adamw(3e-4, weight_decay=0.01)``, the
+    pallas loss, built from seed 0."""
+    lm_kw = dict(LM, dtype="bfloat16")
+    lm_kw.update(kw)
+    with strategy.scope():
+        model = dtt.Model(dtt.models.transformer_lm(VOCAB, **lm_kw))
+        model.compile(optimizer=optimizer or dtt.optim.fused_adamw(
+            3e-4, weight_decay=0.01), loss=PALLAS, metrics=[],
+            precision=precision)
+    return model.build((batch_len,), seed=0)
+
+
+def w_fit(model, x, y, batch, steps):
+    return model.fit(x, y, batch_size=batch, epochs=steps, steps_per_epoch=1,
+                     shuffle=False, verbose=0).history["loss"]
+
+
+def phase_sharded(torch, dtt, mods, batch=32, steps=3):
+    """w1 and w2: GPT-2-small (bf16 layers, fused_adamw, the pallas loss,
+    batch 32 x 1024) under DataParallel, ZeroDataParallel and FSDP over an
+    NCCL group of world 1, from the same seed: parameters and optimizer
+    state bit for bit after 3 steps, the launches of those steps (counts
+    zeroed just before, read just after), ms a step in interleaved runs
+    of 2 steps with the busy share, and each one's model-state bytes; then
+    scan=True under FSDP with scan_overlap "require" against "off"."""
+    t_len = LM["max_len"]
+    x, y = lm_batch(batch, t_len)
+    names = ("DataParallel", "ZeroDataParallel", "FSDP")
+    strategies = [dtt.DataParallel(), dtt.ZeroDataParallel(), dtt.FSDP()]
+    models, states, counts, bytes_ = {}, {}, {}, {}
+    for name, strategy in zip(names, strategies):
+        model = w_lm(dtt, strategy, t_len)
+        reset_counts(mods)
+        losses = w_fit(model, x, y, batch, steps)
+        torch.cuda.synchronize()
+        counts[name] = launch_counts(mods)
+        tel = model.last_fit_telemetry
+        bytes_[name] = tel["model_state_bytes_per_device"]
+        print(f"  {name}: losses {[round(v, 5) for v in losses]}, model "
+              f"state {bytes_[name] / 1e9:.4f} GB a card, comm estimate "
+              f"{tel['comm_bytes_estimate']}")
+        if not all(np.isfinite(losses)):
+            raise SystemExit(f"{name}: losses not finite: {losses}")
+        states[name] = full_state(dtt, model)
+        models[name] = model
+    for name in names[1:]:
+        diff = first_difference(torch, states["DataParallel"], states[name])
+        say_same(f"{name} against DataParallel, params and optimizer state",
+                 diff)
+        if diff is not None:
+            raise SystemExit(f"{name} differs from DataParallel at world 1")
+    states.clear()
+    leaves = len(models["FSDP"].live_params())
+    per_update = math.ceil(leaves / 64)
+    want = {"xent_fwd": 1, "xent_bwd": 1, "flash_fwd": LM["num_layers"],
+            "flash_dq": LM["num_layers"], "flash_dkv": LM["num_layers"],
+            "fused_adam": per_update}
+    for name in names:
+        per_step = {k: counts[name][k] / steps for k in want}
+        print(f"  {name}: launches a step {per_step} (K11 over {leaves} "
+              f"{'blocks' if name != 'DataParallel' else 'leaves'})")
+        if per_step != want:
+            raise SystemExit(f"{name}: launches a step {per_step}, "
+                             f"expected {want}")
+    arms = {name: (lambda m=models[name]: w_fit(m, x, y, batch, 2), 2)
+            for name in names}
+    report_arms(torch, arms, interleaved(torch, arms, 3))
+    launches = counts["FSDP"]
+    models.clear()
+    torch.cuda.empty_cache()
+
+    print("phase w2: scan=True under FSDP, scan_overlap 'require' against "
+          "'off', 3 steps")
+    fsdp = strategies[2]
+    scanned = {mode: w_lm(dtt, fsdp, t_len, scan=True, scan_overlap=mode)
+               for mode in ("require", "off")}
+    traces = {}
+    for mode, model in scanned.items():
+        reset_counts(mods)
+        w_fit(model, x, y, batch, steps)
+        torch.cuda.synchronize()
+        c = launch_counts(mods)
+        for k, v in c.items():
+            launches[k] = launches.get(k, 0) + v
+        traces[mode] = model.last_fit_telemetry["overlap"]
+        print(f"  {mode}: overlap report {traces[mode]}, flash_fwd "
+              f"{c['flash_fwd'] / steps:.0f} a step")
+    diff = first_difference(torch, full_state(dtt, scanned["require"]),
+                            full_state(dtt, scanned["off"]))
+    say_same("overlapped scan against plain scan after 3 steps", diff)
+    layers = LM["num_layers"]
+    if diff is not None or traces["require"] != {
+            "overlap": True, "exposed_comm_fraction": round(1 / layers, 6),
+            "layers": layers} or traces["off"]["overlap"]:
+        raise SystemExit("the overlapped scan differs from the plain one, "
+                         "or its overlap report is wrong")
+    arms = {f"scan_overlap={mode}": (lambda m=m: w_fit(m, x, y, batch, 2), 2)
+            for mode, m in scanned.items()}
+    report_arms(torch, arms, interleaved(torch, arms, 3))
+    scanned.clear()
+    torch.cuda.empty_cache()
+    return launches, bytes_
+
+
+def phase_sharded_bf16(torch, dtt, mods, batch=8):
+    """w3: phase u2's LM (no dtype= on the layers, fused_adam(1e-4))
+    under FSDP, one step under mixed_bfloat16 and one in f32: the dtypes
+    the gathers move, and the estimate's gathered bytes."""
+    from distributed_tpu_torch.parallel import collectives
+
+    t_len = LM["max_len"]
+    x, y = lm_batch(batch, t_len)
+    fsdp = dtt.FSDP()
+    seen, est = {}, {}
+    orig = collectives._gather_into
+    counts = {}
+    for policy in ("mixed_bfloat16", None):
+        dtypes = set()
+
+        def spy(t, layout, async_op=False, dtypes=dtypes):
+            dtypes.add(str(t.dtype).replace("torch.", ""))
+            return orig(t, layout, async_op)
+
+        model = w_lm(dtt, fsdp, t_len, dtype=None, precision=policy,
+                     optimizer=dtt.optim.fused_adam(1e-4))
+        collectives._gather_into = spy
+        reset_counts(mods)
+        try:
+            losses = w_fit(model, x, y, batch, 1)
+        finally:
+            collectives._gather_into = orig
+        for k, v in launch_counts(mods).items():
+            counts[k] = counts.get(k, 0) + v
+        tag = policy or "float32"
+        seen[tag] = sorted(dtypes)
+        est[tag] = model.last_fit_telemetry["comm_bytes_estimate"][
+            "gathered_param_bytes_per_device"]
+        print(f"  {tag}: loss {losses[0]:.5f}, gathers move {seen[tag]}, "
+              f"gathered_param_bytes_per_device {est[tag]}")
+        del model
+        torch.cuda.empty_cache()
+    if seen["mixed_bfloat16"] != ["bfloat16"] or seen["float32"] != [
+            "float32"] or 2 * est["mixed_bfloat16"] != est["float32"]:
+        raise SystemExit("mixed_bfloat16 under FSDP does not gather bf16 "
+                         "or does not halve the gathered bytes")
+    return counts
+
+
+def dir_mb(path):
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file()) / 1e6
+
+
+def phase_sharded_ckpt(torch, dtt, mods, batch=8):
+    """w4: ShardedCheckpointer on the FSDP LM (phase w1's, batch 8 x 1024)
+    mid-fit: run A fits 2 steps, saves (sync, then async: the blocking
+    ms of each, the MB on disk), fits 2 more; run B restores A's step 2
+    (seconds) and fits steps 3-4 (counts zeroed just before, read just
+    after): bit for bit A's; a DataParallel model restores the same
+    directory: A's step-2 state bit for bit."""
+    import tempfile
+    from pathlib import Path
+
+    t_len = LM["max_len"]
+    x, y = lm_batch(batch, t_len, seed=2)
+    fsdp = dtt.FSDP()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        a = w_lm(dtt, fsdp, t_len)
+        w_fit(a, x, y, batch, 2)
+        at2 = full_state(dtt, a)
+        ck = dtt.ShardedCheckpointer(tmp / "sync")
+        block = {}
+        block["sync"] = 1e3 * wall_s(torch, lambda: ck.save(a))
+        ack = dtt.ShardedCheckpointer(tmp / "async", async_save=True)
+        block["async"] = 1e3 * wall_s(torch, lambda: ack.save(a))
+        t = time.perf_counter()
+        ack.wait()
+        drain = time.perf_counter() - t
+        mb = dir_mb(tmp / "sync" / "ckpt-2")
+        a.fit(x, y, batch_size=batch, epochs=4, steps_per_epoch=1,
+              initial_epoch=2, shuffle=False, verbose=0)
+        end_a = full_state(dtt, a)
+        del a
+        torch.cuda.empty_cache()
+        b = w_lm(dtt, fsdp, t_len)
+        restore_s = wall_s(torch, lambda: ck.restore_into(b))
+        restored = first_difference(torch, at2, full_state(dtt, b))
+        reset_counts(mods)
+        b.fit(x, y, batch_size=batch, epochs=4, steps_per_epoch=1,
+              initial_epoch=2, shuffle=False, verbose=0)
+        torch.cuda.synchronize()
+        counts = launch_counts(mods)
+        resumed = first_difference(torch, end_a, full_state(dtt, b))
+        del b
+        torch.cuda.empty_cache()
+        c = w_lm(dtt, dtt.DataParallel(), t_len)
+        dtt.ShardedCheckpointer(tmp / "async").restore_into(c)
+        into_dp = first_difference(torch, at2, full_state(dtt, c))
+        del c
+        torch.cuda.empty_cache()
+    print(f"  save at step 2: {mb:.1f} MB on disk (one rank's blocks and "
+          f"the manifest); blocking ms sync {block['sync']:.1f}, async "
+          f"{block['async']:.1f} (the writer then {drain:.2f} s to its "
+          f"commit); restore {restore_s:.2f} s")
+    say_same("restored state against A's step 2", restored)
+    say_same("resumed steps 3-4 against the uninterrupted run", resumed)
+    say_same("the async save restored under DataParallel against A's step "
+             "2", into_dp)
+    if restored is not None or resumed is not None or into_dp is not None:
+        raise SystemExit("the sharded checkpoint did not resume bit for bit")
+    return counts
+
+
 def main():
     import torch
 
@@ -3634,6 +3893,23 @@ def main():
         for name, n in counts.items():
             v[name] = v.get(name, 0) + n
     u_counts["v"] = v
+    w_mods = (xent_ops, flash_ops, adam_ops)
+    print(f"phase w1: GPT-2-small under DataParallel, ZeroDataParallel and "
+          f"FSDP (NCCL, world 1), bf16 layers, fused_adamw, batch 32 x "
+          f"1024 | {card_line()}")
+    nccl_world1(dtt)
+    w, _ = phase_sharded(torch, dtt, w_mods)
+    print("phase w3: phase u2's LM under FSDP, mixed_bfloat16 against "
+          "float32: the gathers' dtype and bytes")
+    more = [phase_sharded_bf16(torch, dtt, w_mods)]
+    print("phase w4: ShardedCheckpointer on the FSDP LM mid-fit, batch 8 x "
+          "1024")
+    more.append(phase_sharded_ckpt(torch, dtt, w_mods))
+    dtt.cluster.shutdown()
+    for counts in more:
+        for name, n in counts.items():
+            w[name] = w.get(name, 0) + n
+    u_counts["w"] = w
     for sub, counts in u_counts.items():
         for name, n in counts.items():
             if n:
@@ -3655,7 +3931,8 @@ def main():
          "launches_fit": r.get("launches_fit"),
          "replayed_fit": r.get("replayed_fit"),
          **{f"launches_{sub}": r[f"launches_{sub}"]
-            for sub in ("u1", "u2", "u3", "v") if f"launches_{sub}" in r},
+            for sub in ("u1", "u2", "u3", "v", "w")
+            if f"launches_{sub}" in r},
          **({"launches_spec": r["launches_spec"], "ms_by_kw": r["ms_by_kw"]}
             if "ms_by_kw" in r else {})}
         for name, r in rows.items()

@@ -31,6 +31,11 @@ Ported so far:
   ``fused_adamw``, whose update is the fused Adam kernel
   (``csrc/fused_adam.cu``);
 - ResNet with sync-BN (``csrc/conv1x1.cu``, ``csrc/bn_reduce.cu``);
+- the sharded data-parallel strategies: ``ZeroDataParallel`` (ZeRO-1)
+  and ``FullyShardedDataParallel``/``FSDP`` (ZeRO-3), with the layers'
+  compute-dtype gathers and the scanned stack's one-layer-ahead gather,
+  and ``ShardedCheckpointer`` (one file of blocks per rank, the JAX
+  package's directory format);
 - checkpoints and model retrieval: ``Checkpointer``, ``export_hdf5``/
   ``import_hdf5`` and ``checkpoint.artifact_encode``/``artifact_decode``
   (files either package reads), ``Model.save_weights``/``load_weights``/
@@ -42,16 +47,21 @@ from . import (
     checkpoint, cluster, data, interop, launch, models, nn, obs, ops, optim,
     parallel, precision, quant, serving, utils,
 )
-from .checkpoint import Checkpointer, export_hdf5, import_hdf5
+from .checkpoint import (Checkpointer, ShardedCheckpointer, export_hdf5,
+                         import_hdf5)
 from .device import resolve_device
-from .parallel import DataParallel, MultiWorkerMirroredStrategy, SingleDevice
+from .parallel import (FSDP, DataParallel, FullyShardedDataParallel,
+                       MultiWorkerMirroredStrategy, SingleDevice,
+                       ZeroDataParallel)
 from .training import callbacks
 from .training.history import History
 from .training.model import Model
 
 __all__ = [
-    "Checkpointer", "DataParallel", "History", "Model",
-    "MultiWorkerMirroredStrategy", "SingleDevice", "callbacks", "checkpoint",
+    "Checkpointer", "DataParallel", "FSDP", "FullyShardedDataParallel",
+    "History", "Model", "MultiWorkerMirroredStrategy",
+    "ShardedCheckpointer", "SingleDevice", "ZeroDataParallel", "callbacks",
+    "checkpoint",
     "cluster", "data", "export_hdf5", "import_hdf5", "interop", "launch",
     "models", "nn", "obs", "ops", "optim", "parallel", "precision", "quant",
     "resolve_device", "serving", "utils",

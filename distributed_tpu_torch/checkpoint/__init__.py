@@ -10,9 +10,12 @@ from .core import (
     save_npz,
     wait_all_async,
 )
+from .sharded import ShardCorruptionError, ShardedCheckpointer
 
 __all__ = [
     "Checkpointer",
+    "ShardCorruptionError",
+    "ShardedCheckpointer",
     "artifact_decode",
     "artifact_encode",
     "export_hdf5",

@@ -21,8 +21,13 @@ optimizer state is written under optax's (``interop.opt_state_to_tree``),
 so the flat paths, dtypes and meta keys are the JAX package's.
 
 Writes are chief-only (rank 0 of the ``torch.distributed`` group when one
-is initialized): every rank holds the whole replica, so nothing has to be
-gathered first. ``h5py`` is imported by the HDF5 functions only, so the
+is initialized). Under ``DataParallel`` every rank holds the whole
+replica; under ``ZeroDataParallel`` and ``FSDP`` a save first gathers the
+full leaves, parameters and optimizer state alike (every rank calls
+``save``: the gathers are collectives), and a restore places each full
+leaf into this rank's block under the live strategy, so a file moves
+between strategies and world sizes (``checkpoint/sharded.py`` writes
+blocks instead). ``h5py`` is imported by the HDF5 functions only, so the
 package imports without it.
 """
 
@@ -413,12 +418,12 @@ class Checkpointer:
         step = int(model.step if step is None else step)
         path = self._path(step)
         self.wait()
-        if not _is_chief():
-            return path
+        # Full leaves on every rank (gathered where they are sharded).
         tree = {"params": model.params, "state": model.state}
         if model.opt_state is not None:
-            tree["opt_state"] = interop.opt_state_to_tree(
-                model.tx, model.opt_state, model.params)
+            tree["opt_state"] = model._opt_tree("full")
+        if not _is_chief():
+            return path
         meta = {"step": step, "seed": int(model._seed),
                 "input_shape": list(model.input_shape or ())}
         dstate = _data_state_of(model, step)
@@ -502,11 +507,7 @@ class Checkpointer:
                 "other ranks take the shapes from it (fit() builds before "
                 "the callbacks run, so ModelCheckpoint(restore=True) "
                 "satisfies this)")
-        template = {"params": model.params, "state": model.state,
-                    "opt_state": interop.opt_state_to_tree(
-                        model.tx, model.opt_state, model.params)}
-        want = {p: (tuple(v.shape), torch.as_tensor(v).dtype)
-                for p, v in iter_leaf_paths(template)}
+        want = _full_specs(model)
         sections = ("params", "state", "opt_state")
         flat, error = None, None
         header = [-1, 0, 0, 0, 0, 0]
@@ -551,6 +552,18 @@ class Checkpointer:
         return model.step
 
 
+def _full_specs(model) -> Dict[str, Any]:
+    """``{path: (full shape, torch dtype)}`` of every leaf a checkpoint of
+    ``model`` holds (no gather: the shapes come from the layouts)."""
+    template = {"params": {p: torch.empty(s, dtype=t.dtype, device="meta")
+                           for (p, s), t in zip(
+                               model._param_shapes().items(),
+                               model._param_list())},
+                "state": model.state, "opt_state": model._opt_tree("meta")}
+    return {p: (tuple(v.shape), torch.as_tensor(v).dtype)
+            for p, v in iter_leaf_paths(template)}
+
+
 def _without_opt(want: Dict[str, Any]) -> Dict[str, Any]:
     return {p: v for p, v in want.items()
             if not p.startswith("opt_state" + SEP)}
@@ -581,20 +594,15 @@ def _broadcast_leaves(want, flat) -> Dict[str, torch.Tensor]:
 def _apply(model, flat, step: int, seed: int) -> None:
     """Load a checkpoint's flat leaves (``params/...``, ``state/...`` and,
     when the model is compiled and the file has them, ``opt_state/...``)
-    into ``model``: everything is checked (paths, shapes, the optimizer's
-    format) before anything is copied."""
+    into ``model``, full leaves placed under its live strategy: everything
+    is checked (paths, shapes, the optimizer's format) before anything is
+    copied."""
     params, state = _section(flat, "params"), _section(flat, "state")
-    model._check_tree(model.params, params, "parameter")
+    model._check_tree(model._param_shapes(), params, "parameter")
     model._check_tree(model.state, state, "state")
-    opt_state = None
     opt_flat = _section(flat, "opt_state")
-    if model.compiled and opt_flat:
-        opt_state = interop.opt_state_from_tree(model.tx, opt_flat,
-                                                model.params)
-    model.load_params(params)
-    model.load_state(state)
-    if opt_state is not None:
-        model.opt_state = opt_state
+    interop.place(model, params=params, state=state,
+                  opt_state=opt_flat if model.compiled and opt_flat else None)
     model.step = step
     model._seed = seed
     model._resumed_step = step

@@ -53,6 +53,14 @@ the prefix ``#1/``), and ``MultiSteps`` is ``MultiStepsState``:
 ``#0`` mini_step and ``#1`` gradient_step (int32), ``#2/...`` the inner
 state, ``#3/<p>`` the f32 gradient accumulator, ``#4`` the empty skip
 state. A checkpoint saved mid-accumulation resumes in either package.
+
+Under a sharded strategy (``ZeroDataParallel``, ``FSDP``) a rank holds
+blocks of the leaves. ``Model.load_params`` places full parameters into
+this rank's blocks, ``opt_state_from_tree(..., layouts=)`` places full
+optimizer leaves the same way (or takes blocks read for this rank,
+``blocks=True``), and :func:`place` does both for a model at once: the
+way JAX parameters and optimizer state, as numpy, reach a sharded port
+model.
 ``dynamic_loss_scaling`` (``compile(precision="mixed_float16")``), the
 outermost wrapper, is the JAX package's ``LossScaleState``: ``#0`` the
 live scale (f32), ``#1`` growth_count (int32), ``#2/...`` the inner state;
@@ -240,7 +248,8 @@ def opt_state_to_tree(tx, opt_state: Dict, params: Dict[str, torch.Tensor]):
     return (np.int32(opt_state["inject_count"]), hp, sched, inner)
 
 
-def opt_state_from_tree(tx, tree, params: Dict[str, torch.Tensor]) -> Dict:
+def opt_state_from_tree(tx, tree, params: Dict[str, torch.Tensor],
+                        layouts=None, blocks: bool = False) -> Dict:
     """The port's optimizer state for ``tx`` from optax's tree (as
     ``opt_state_to_tree`` writes it, or the flat ``{path: leaf}`` of a
     checkpoint of either package: any nesting whose leaf paths are
@@ -249,7 +258,13 @@ def opt_state_from_tree(tx, tree, params: Dict[str, torch.Tensor]) -> Dict:
     package's format error when the leaf count differs, and ValueError
     for other paths, a moment of another shape or a fixed
     hyperparameter that is not 0. The state is built aside, so nothing
-    changes on an error."""
+    changes on an error.
+
+    ``layouts`` (``{parameter path: collectives.Layout or None}``, a
+    sharded model's ``opt_layouts``): each moment is this rank's block of
+    the full leaf in the tree (whose shape is checked against the
+    layout's), or with ``blocks=True`` the tree already holds this rank's
+    blocks."""
     flat = dict(iter_leaf_paths(tree))
     want = _expected_paths(tx, params)
     if len(flat) != len(want):
@@ -259,44 +274,81 @@ def opt_state_from_tree(tx, tree, params: Dict[str, torch.Tensor]) -> Dict:
             "optimizer-state paths differ: missing "
             f"{sorted(set(want) - set(flat))}, unexpected "
             f"{sorted(set(flat) - set(want))}")
-    return _state_from_flat(tx, flat, params, "")
+    return _state_from_flat(tx, flat, params, "",
+                            (layouts or {}, bool(blocks)))
 
 
-def _moments(flat, prefix, params):
+def _moments(flat, prefix, params, placing):
     """The f32 copies of the leaves ``<prefix>/<p>`` on the parameters'
-    devices, in the order of ``params``; a leaf of another shape raises."""
+    devices, in the order of ``params`` (each this rank's block where
+    ``placing`` gives the parameter a layout); a leaf of another shape
+    raises."""
+    layouts, blocks = placing
+    out = []
     for path, p in params.items():
         a = flat[f"{prefix}{SEP}{path}"]
-        if tuple(a.shape) != tuple(p.shape):
+        lay = layouts.get(path)
+        if lay is None:
+            want = tuple(p.shape)
+        else:
+            want = lay.block_shape if blocks else lay.shape
+        if tuple(a.shape) != want:
             raise ValueError(
                 f"{prefix}{SEP}{path}: shape {tuple(a.shape)} != the "
-                f"parameter's {tuple(p.shape)}")
-    return [torch.as_tensor(flat[f"{prefix}{SEP}{path}"]).to(
-                p.device, torch.float32, copy=True)
-            for path, p in params.items()]
+                f"parameter's {want}")
+        if lay is not None and not blocks:
+            a = a[lay.index()]
+        out.append(torch.as_tensor(a).to(p.device, torch.float32,
+                                         copy=True).contiguous())
+    return out
 
 
-def _state_from_flat(tx, flat, params, prefix) -> Dict:
+def place(model, params=None, opt_state=None, state=None) -> None:
+    """Load full leaves, as numpy or tensors, into ``model`` under its
+    live strategy: ``params`` (``{path: leaf}``, e.g. ``flatten_tree`` of
+    a JAX ``Model.params``) into this rank's blocks (``load_params``),
+    ``state`` into the state buffers, and ``opt_state`` (optax's tree or
+    its flat ``{path: leaf}``, e.g. a JAX ``Model.opt_state`` after
+    ``jax.device_get``) into the optimizer state, each statistic this
+    rank's block where the strategy shards it."""
+    opt = None
+    if opt_state is not None:  # built aside: an error changes nothing
+        opt = opt_state_from_tree(model.tx, opt_state, model.live_params(),
+                                  layouts=model.opt_layouts)
+    if params is not None:
+        model.load_params({k: torch.as_tensor(np.asarray(v))
+                           for k, v in params.items()})
+    if state is not None:
+        model.load_state({k: torch.as_tensor(np.asarray(v))
+                          for k, v in state.items()})
+    if opt is not None:
+        model.opt_state = opt
+
+
+def _state_from_flat(tx, flat, params, prefix, placing) -> Dict:
     if isinstance(tx, optim.dynamic_loss_scaling):
         device = next(iter(params.values())).device if params else None
         return optim.LossScaleState(
             torch.tensor(_scalar(flat[f"{prefix}#0"]), dtype=torch.float32,
                          device=device),
             int(_scalar(flat[f"{prefix}#1"])),
-            _state_from_flat(tx.inner, flat, params, f"{prefix}#2{SEP}"))
+            _state_from_flat(tx.inner, flat, params, f"{prefix}#2{SEP}",
+                             placing))
     if isinstance(tx, optim.MultiSteps):
-        inner = _state_from_flat(tx.inner, flat, params, f"{prefix}#2{SEP}")
+        inner = _state_from_flat(tx.inner, flat, params, f"{prefix}#2{SEP}",
+                                 placing)
         return {"mini_step": int(_scalar(flat[f"{prefix}#0"])),
                 "gradient_step": int(_scalar(flat[f"{prefix}#1"])),
                 "inner_opt_state": inner,
-                "acc_grads": _moments(flat, f"{prefix}#3", params),
+                "acc_grads": _moments(flat, f"{prefix}#3", params, placing),
                 "skip_state": ()}
     if isinstance(tx, optim.chain):
         n = len(tx.maps)
         return tuple(() for _ in tx.maps) + (_state_from_flat(
-            tx.inner, flat, params, f"{prefix}#{n}{SEP}"),)
+            tx.inner, flat, params, f"{prefix}#{n}{SEP}", placing),)
     if isinstance(tx, optim.sgd_with_cosine):
-        return {"trace": _moments(flat, f"{prefix}#0{SEP}#0", params),
+        return {"trace": _moments(flat, f"{prefix}#0{SEP}#0", params,
+                                  placing),
                 "count": int(_scalar(flat[f"{prefix}#1{SEP}#0"]))}
     for k in _fixed_hyperparams(tx):
         value = _scalar(flat[f"{prefix}#1{SEP}{k}"])
@@ -317,12 +369,12 @@ def _state_from_flat(tx, flat, params, prefix) -> Dict:
     if "count" in slots:
         state["count"] = int(_scalar(flat[prefix + slots["count"]]))
     for slot, path in moments.items():
-        state[slot] = _moments(flat, path, params)
+        state[slot] = _moments(flat, path, params, placing)
     return state
 
 
 __all__ = [
     "SEP", "flatten_tree", "iter_leaf_paths", "opt_state_from_tree",
-    "opt_state_to_tree", "params_from_jax", "params_to_numpy",
+    "opt_state_to_tree", "params_from_jax", "params_to_numpy", "place",
     "state_from_jax", "state_to_numpy",
 ]

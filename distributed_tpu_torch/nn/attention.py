@@ -34,8 +34,9 @@ from .core import Layer, Shape
 from ..ops import paged_attention as paged_ops
 from ..ops._common import NEG
 from ..ops.flash_attention import dense_attention, flash_attention
+from ..parallel.collectives import layout_of
 from ..precision import resolve_dtype
-from ..quant import _QMAX, QKEY, SKEY
+from ..quant import _QMAX, QKEY, SKEY, QuantizedWeight
 
 
 def _kv_block_size(pool) -> int:
@@ -125,7 +126,13 @@ class MultiHeadAttention(Layer):
 
     @property
     def _hd(self) -> int:
-        return self.wq.shape[1] // self.num_heads
+        # The full projection's width: a stored leaf may be a block of it
+        # (FSDP), or an int8 payload.
+        w = self.wq
+        t = w.q if isinstance(w, QuantizedWeight) else w
+        lay = layout_of(t)
+        return (lay.shape if lay is not None else tuple(t.shape))[1] \
+            // self.num_heads
 
     def _proj(self, x, w, b):
         # int8 weights dequantize here (f32), then the compute-dtype cast.

@@ -46,6 +46,7 @@ import torch
 
 from . import activations
 from .. import precision
+from ..parallel.collectives import gather, layout_of
 from ..quant import QKEY, SKEY, QuantizedWeight, maybe_dequantize
 from ..utils import threefry
 
@@ -84,6 +85,20 @@ def _call_with_rng(layer, x, key):
         return layer(x)
 
 
+def _gathered(w, layout):
+    """A sharded leaf gathered (by the ambient strategy's
+    ``constrain_compute_params`` inside a scope; the layout names the
+    group's blocks either way); any other leaf as it is."""
+    if layout is None:
+        return w
+    from ..parallel.strategy import current_strategy
+
+    strategy = current_strategy()
+    if strategy is None:
+        return gather(w, layout)
+    return strategy.constrain_compute_params(w, layout)
+
+
 def _camel_to_snake(name: str) -> str:
     # Conv2D -> conv2d, MaxPool2D -> max_pool2d (split only at lower->Upper).
     return re.sub(r"(?<=[a-z])(?=[A-Z])", "_", name).lower()
@@ -120,11 +135,24 @@ class Layer(torch.nn.Module):
         it to this layer: under an ambient policy that casts, and with no
         ``dtype=`` of the layer's own, a floating leaf in the compute dtype
         (a quantized weight, as a ``{"q", "scale"}`` dict: its scale cast,
-        its int8 payload as it is); else the stored leaf. The cast is made here, inside the step, from
-        the f32 master, so gradients come back f32 through it."""
+        its int8 payload as it is); else the stored leaf. The cast is made
+        here, inside the step, from the f32 master, so gradients come back
+        f32 through it. A leaf stored sharded (FSDP) is then gathered by
+        the ambient strategy (``constrain_compute_params``), after the
+        cast, so a bf16 policy moves bf16; a quantized weight gathers both
+        parts."""
         w = getattr(self, name)
         if isinstance(w, QuantizedWeight):
-            w = {QKEY: w.q, SKEY: w.scale}
+            layouts = {QKEY: layout_of(w.q), SKEY: layout_of(w.scale)}
+            w = self.compute_cast({QKEY: w.q, SKEY: w.scale})
+            return {k: _gathered(v, layouts[k]) for k, v in w.items()}
+        return _gathered(self.compute_cast(w), layout_of(w))
+
+    def compute_cast(self, w):
+        """``w`` (a stored leaf, or a quantized weight's ``{"q",
+        "scale"}``) cast as :meth:`_compute_leaf` casts it: to the ambient
+        policy's compute dtype unless the layer has a ``dtype=`` of its
+        own."""
         pol = precision.current_policy()
         if (pol is None or not pol.needs_compute_cast
                 or getattr(self, "dtype", None) is not None):

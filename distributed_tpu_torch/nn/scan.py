@@ -35,10 +35,20 @@ Decode: the dense caches (``Model.generate``) stack as ``{"blocks": (S,
 ...)}`` (:data:`STACKED_POOL_KEY`, the pool-block axis then 1); each
 block's hook reads and writes its own slice in place.
 
-The JAX stack can double-buffer an FSDP gather behind the scan
-(``overlap``); the port has no FSDP (ROADMAP 1.7), so ``"auto"`` and
-``"off"`` run the plain body and ``"require"`` raises the JAX package's
-``ValueError`` for a strategy without a gather.
+Under FSDP the stacked leaves are stored sharded (``parallel.
+collectives``): a leaf split on a block axis (dim > 0) gives each slice
+split on the dimension before it, gathered by an all-gather; a leaf split
+on the stacked axis itself leaves each slice whole on one rank, and its
+"gather" is a broadcast from that rank (the JAX rule places it the same
+way). Each slice is cast to the policy's compute dtype before it is
+gathered, so bf16 goes over the wire. ``overlap`` is the JAX option: with
+``"auto"`` or ``"require"`` under a strategy whose ``overlap_spec``
+gives a gather, slice i+1's gather is issued before slice i's compute
+(the JAX double-buffered body), asynchronously, and waited for before
+its use; with ``"off"`` each gather is issued just before its slice is
+used. The values are the same either way. ``"require"`` raises the JAX
+package's ``ValueError`` under a strategy without a gather, and
+``last_overlap_trace()`` records whether the overlap was active.
 """
 
 from __future__ import annotations
@@ -51,6 +61,8 @@ import torch
 
 from .core import Layer, Shape, current_rng, rng_scope
 from .remat import Remat
+from ..parallel import collectives
+from ..parallel.collectives import Layout, layout_of
 from ..quant import QuantizedWeight
 from ..utils import threefry
 
@@ -210,7 +222,7 @@ class ScannedBlocks(Layer):
                     torch.empty_like(slots[attr], device="meta"),
                     requires_grad=False) if kind == "param"
                     else torch.empty_like(slots[attr], device="meta"))
-                self._bindings.append((name, kind, slots, attr))
+                self._bindings.append((name, kind, slots, attr, mod))
         return shape
 
     # ------------------------------------------------------------ slices
@@ -218,7 +230,7 @@ class ScannedBlocks(Layer):
         """The stacked leaves in binding order; raises when their leading
         axes differ (a quantized stack's shared scales, as JAX's scan)."""
         leaves, sizes, quantized = [], [], False
-        for name, kind, _, _ in self._bindings:
+        for name, kind, _, _, _ in self._bindings:
             mod, attr = _owner(self.blocks, name, create=False)
             sub = mod._modules.get(attr)
             if isinstance(sub, QuantizedWeight):
@@ -227,7 +239,8 @@ class ScannedBlocks(Layer):
                 leaves.append(sub)
                 continue
             t = (mod._parameters if kind == "param" else mod._buffers)[attr]
-            sizes.append(t.shape[0])
+            lay = layout_of(t)  # a block's leaf: its full stack's size
+            sizes.append((lay.shape if lay is not None else t.shape)[0])
             leaves.append(t)
         if any(s != self.num_blocks for s in sizes):
             raise ValueError(
@@ -249,15 +262,60 @@ class ScannedBlocks(Layer):
         one ``unbind`` each, buffers as indexed views."""
         cols = [torch.unbind(t, 0) if kind == "param"
                 else [t[i] for i in range(self.num_blocks)]
-                for (_, kind, _, _), t in zip(self._bindings,
-                                              self._stacked())]
+                for (_, kind, _, _, _), t in zip(self._bindings,
+                                                 self._stacked())]
         return [[c[i] for c in cols] for i in range(self.num_blocks)]
+
+    def _fetcher(self, stacked, start):
+        """``fetch(i)``: block i's leaves as ``collectives.Pending``s, for
+        stacked leaves of which some are stored sharded. Each parameter's
+        local part is unbound once; slice i is cast to the compute dtype
+        by its layer (``Layer.compute_cast``) and then gathered: by
+        ``start`` (the strategy's gather) when the leaf is split on a
+        block axis, by a broadcast from its rank when it is split on the
+        stacked axis. Buffers (replicated) are indexed views."""
+        cols = []
+        for (_, kind, _, _, mod), t in zip(self._bindings, stacked):
+            lay = layout_of(t)
+            local = torch.unbind(t, 0) if kind == "param" else None
+            cols.append((kind, mod, t, lay, local))
+
+        def fetch(i):
+            out = []
+            for kind, mod, t, lay, local in cols:
+                if kind != "param":
+                    out.append(collectives.Pending(t[i]))
+                elif lay is None:
+                    out.append(start(mod.compute_cast(local[i]), None))
+                elif lay.dim > 0:
+                    sub = Layout(lay.shape[1:], lay.dim - 1, lay.n, lay.rank)
+                    out.append(start(mod.compute_cast(local[i]), sub))
+                else:
+                    per = lay.size
+                    owner = i // per
+                    mine = local[i % per] if lay.rank == owner else local[0]
+                    out.append(collectives.start_owner_copy(
+                        mod.compute_cast(mine), owner, lay.shape[1:]))
+            return out
+
+        return fetch
+
+    def _iter_slices(self):
+        """Block by block, its leaves (gathered where they are stored
+        sharded), for the decode paths."""
+        stacked = self._stacked()
+        if not any(layout_of(t) is not None for t in stacked):
+            yield from self._slices()
+            return
+        fetch = self._fetcher(stacked, collectives.start_gather)
+        for i in range(self.num_blocks):
+            yield [p.wait() for p in fetch(i)]
 
     @contextlib.contextmanager
     def _swapped(self, leaves):
         saved = []
         try:
-            for (_, _, slots, attr), t in zip(self._bindings, leaves):
+            for (_, _, slots, attr, _), t in zip(self._bindings, leaves):
                 saved.append((slots, attr, slots[attr]))
                 slots[attr] = t
             yield
@@ -267,15 +325,17 @@ class ScannedBlocks(Layer):
 
     # ----------------------------------------------------------- forward
     def forward(self, x):
-        if self.overlap == "require":
-            from ..parallel.strategy import current_strategy
+        from ..parallel.strategy import current_strategy
 
-            strat = current_strategy()
+        strat = current_strategy()
+        gather = None if strat is None else strat.overlap_spec()
+        if self.overlap == "require" and gather is None:
             raise ValueError(
                 "ScannedBlocks(overlap='require') needs an ambient "
                 "strategy with an overlap_spec gather (the FSDP family); "
                 f"got {type(strat).__name__ if strat else None}")
-        _overlap_trace.record = {"layers": self.num_blocks, "active": False}
+        active = gather is not None and self.overlap != "off"
+        _overlap_trace.record = {"layers": self.num_blocks, "active": active}
         rng = current_rng()
         keys = (threefry.split(rng, self.num_blocks)
                 if rng is not None else None)
@@ -286,18 +346,34 @@ class ScannedBlocks(Layer):
             with self._swapped(leaves):
                 return inner(h)
 
-        for i, leaves in enumerate(self._slices()):
+        stacked = self._stacked()
+        fetch = None
+        if active or any(layout_of(t) is not None for t in stacked):
+            fetch = self._fetcher(stacked, gather or collectives.start_gather)
+            pending = fetch(0)
+        else:
+            slices = self._slices()
+        for i in range(self.num_blocks):
+            if fetch is None:
+                leaves = slices[i]
+            else:
+                leaves = [p.wait() for p in pending]
+                if i + 1 < self.num_blocks and active:
+                    # Slice i+1's gather goes out before slice i's compute.
+                    pending = fetch(i + 1)
             with rng_scope(None if keys is None else keys[i]):
                 y = (self.block.checkpointed(body, x, *leaves) if remat
                      else body(x, *leaves))
             x = y.to(x.dtype)
+            if fetch is not None and not active and i + 1 < self.num_blocks:
+                pending = fetch(i + 1)
         return x
 
     # ------------------------------------------------- incremental decode
     def _stack_cache(self, make, key):
         """A template cache (made under block 0's slices) broadcast to S
         blocks, under ``key``; {} for a block that caches nothing."""
-        with torch.no_grad(), self._swapped(self._slices()[0]):
+        with torch.no_grad(), self._swapped(next(self._iter_slices())):
             c0 = make()
         if not list(_tree_leaves(c0)):
             return {}
@@ -311,7 +387,7 @@ class ScannedBlocks(Layer):
         in place (``nn.core``), so block i's rows land in its slice."""
         stacked = cache.get(key, {})
         step = getattr(self.block, step_name)
-        for i, leaves in enumerate(self._slices()):
+        for i, leaves in enumerate(self._iter_slices()):
             with self._swapped(leaves):
                 y, _ = step(_tree_map(lambda l: l[i], stacked), x, **kw)
             x = y.to(x.dtype)

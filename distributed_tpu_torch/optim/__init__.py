@@ -49,13 +49,24 @@ they are evaluated at the update's count before each update, as
 inject_hyperparams does, and the value is kept in the state.
 ``sgd_with_cosine`` is the JAX package's plain (not injected)
 ``optax.sgd`` over a cosine schedule.
+
+Under the sharded strategies (``parallel.strategy``) an update receives
+each rank's blocks of the sharded leaves. The quantities that span a leaf
+or the whole tree, the clip's global norm, Lamb's trust ratio and the loss
+scale's finite check, are then made from per-leaf partial sums that the
+strategy sums over the ranks, a replicated leaf counted once
+(:func:`leaf_reduction`, :func:`_leaf_sums`); without a reduction the
+sums are the local ones, the same arithmetic. The state's per-parameter
+slots (``trace``, ``mu``, ``nu``, ``sum_of_squares``, ``acc_grads``) are
+lists in the parameters' order, which :func:`map_slots` walks.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
-
+import contextlib
 import math
+import threading
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -67,6 +78,47 @@ _F32 = torch.float32
 
 def _f32(x) -> torch.Tensor:
     return torch.tensor(float(x), dtype=_F32)
+
+
+_REDUCTION = threading.local()
+
+
+@contextlib.contextmanager
+def leaf_reduction(reduce):
+    """Within the block, ``reduce(values) -> values`` sums per-leaf
+    partials (0-d tensors, one per leaf of the update's lists) over the
+    ranks that hold the leaves' blocks (``parallel.strategy``)."""
+    prev = getattr(_REDUCTION, "fn", None)
+    _REDUCTION.fn = reduce
+    try:
+        yield
+    finally:
+        _REDUCTION.fn = prev
+
+
+def _leaf_sums(values: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Per-leaf partial sums, summed over the ranks under a
+    :func:`leaf_reduction` (as they are without one)."""
+    fn = getattr(_REDUCTION, "fn", None)
+    return values if fn is None or not values else fn(values)
+
+
+def map_slots(state, fn):
+    """A copy of an optimizer state with every per-parameter slot list
+    replaced by ``[fn(i, t) for i, t in enumerate(slot)]`` (i: the
+    parameter's index), through the wrappers' states; the counts,
+    hyperparameters and the loss scale are kept as they are."""
+    if isinstance(state, LossScaleState):
+        return LossScaleState(state.scale, state.growth_count,
+                              map_slots(state.inner_state, fn))
+    if isinstance(state, tuple):
+        return tuple(map_slots(sub, fn) for sub in state)
+    if isinstance(state, dict):
+        return {k: ([fn(i, t) for i, t in enumerate(v)]
+                    if isinstance(v, list) else
+                    map_slots(v, fn) if k == "inner_opt_state" else v)
+                for k, v in state.items()}
+    return state
 
 
 # ------------------------------------------------------------- schedules
@@ -396,8 +448,13 @@ class Lamb(_Optimizer):
         torch._foreach_add_(den, s.eps)
         upd = torch._foreach_div(mu_hat, den)
         torch._foreach_add_(upd, torch._foreach_mul(params, s.wd))
-        for p, u in zip(params, upd):
-            pn, un = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+        # Each leaf's norms from its squares' sum (optax's safe_norm),
+        # summed over the ranks' blocks under a sharded strategy.
+        sq = _leaf_sums([torch.sum(p * p) for p in params]
+                        + [torch.sum(u * u) for u in upd])
+        for p, u, ps, us in zip(params, upd, sq[:len(params)],
+                                sq[len(params):]):
+            pn, un = torch.sqrt(ps), torch.sqrt(us)
             ratio = torch.where((pn == 0) | (un == 0), torch.ones_like(pn),
                                 pn / un)
             p.add_((u * ratio) * s.neg_lr)
@@ -441,7 +498,7 @@ class clip_by_global_norm:
 
     @torch.no_grad()
     def __call__(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        norm = torch.sqrt(sum(_leaf_sums([torch.sum(g * g) for g in grads])))
         keep = norm < self.max_norm
         return [torch.where(keep, g, (g / norm.to(g.dtype)) * self.max_norm)
                 for g in grads]
@@ -566,9 +623,12 @@ class dynamic_loss_scaling(_Transform):
         scale = state.scale
         inv = torch.ones_like(scale) / scale
         unscaled = [(g.to(_F32) * inv).to(g.dtype) for g in grads]
-        finite = torch.stack([torch.isfinite(g).all() for g in unscaled])
+        # Non-finite entries per leaf, summed over the ranks' blocks, so
+        # that every rank takes the same branch.
+        bad = sum(_leaf_sums([(~torch.isfinite(g)).sum().to(_F32)
+                              for g in unscaled]))
         factor = torch.full_like(scale, self.factor)
-        if bool(finite.all()):
+        if not bool(bad):
             self.inner.update(params, unscaled, state.inner_state)
             grown = state.growth_count + 1
             if grown >= self.growth_interval:
@@ -696,6 +756,6 @@ __all__ = [
     "Adagrad", "Adam", "AdamW", "EmaBaseline", "Lamb", "LossScaleState",
     "MultiSteps", "RMSprop", "SGD", "chain", "clip_by_global_norm",
     "cosine_schedule", "dynamic_loss_scaling", "exponential_schedule",
-    "fused_adam", "fused_adamw", "get", "get_hyperparam", "loss_scale_value",
-    "set_hyperparam", "sgd_with_cosine",
+    "fused_adam", "fused_adamw", "get", "get_hyperparam", "leaf_reduction",
+    "loss_scale_value", "map_slots", "set_hyperparam", "sgd_with_cosine",
 ]

@@ -1,4 +1,4 @@
-"""Distribution strategies: ``SingleDevice`` and ``DataParallel``.
+"""Distribution strategies: ``SingleDevice``, ``DataParallel``, ZeRO-1 and FSDP.
 
 The counterpart of the JAX package's ``parallel/strategy.py``, with its
 contract: a ``Model`` built inside ``strategy.scope()`` is distributed
@@ -24,6 +24,33 @@ hooks ``.grad`` accumulation, which the port's ``torch.autograd.grad``
 step never does. ``DataParallel()`` outside a process group forms a
 world-1 group on its device, so the all-reduce is one code path whatever
 the number of ranks.
+
+The sharded strategies keep the JAX package's placement rule
+(``_largest_divisible_spec``: a leaf is split on its largest dimension
+that the number of ranks divides, the first such on a tie; scalars and
+awkward shapes stay whole) and give each rank block r, the index range
+``[r*b, (r+1)*b)`` of that dimension (``collectives.Layout``):
+
+- ``ZeroDataParallel`` (ZeRO-1): parameters replicated, every optimizer
+  statistic with ndim >= 1 sharded. The gradients are all-reduced as
+  under ``DataParallel``; each rank updates its block of every sharded
+  leaf (K11 runs over the blocks) and the updated blocks are all-gathered
+  into the replicated parameters, one bucket per dtype.
+- ``FullyShardedDataParallel`` (ZeRO-3 over ``"fsdp"``) and ``FSDP``
+  (over ``"data"``): parameters and their statistics sharded. A layer
+  gathers a leaf where it reads it, after the compute cast
+  (``nn.core.Layer._compute_leaf``: ``constrain_compute_params``), so a
+  bf16 policy moves bf16; the gather's backward reduce-scatters the
+  gradient to the blocks, which are then divided by N as ``DataParallel``
+  divides, and replicated leaves go through ``DataParallel``'s
+  all-reduce. ``overlap_spec`` hands ``nn.ScannedBlocks`` the gather's
+  asynchronous form, so slice i+1's gather is issued before slice i's
+  compute.
+
+The optimizer's quantities that span a leaf or the tree (the clip's
+global norm, Lamb's trust ratio, the loss scale's finite check) are summed
+over the ranks' blocks, a replicated leaf counted once
+(``optim.leaf_reduction``).
 """
 
 from __future__ import annotations
@@ -36,12 +63,35 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
+from . import collectives
+from .collectives import Layout
 
 _local = threading.local()
 
 
 def current_strategy() -> Optional["Strategy"]:
     return getattr(_local, "strategy", None)
+
+
+def _largest_divisible_spec(shape, n: int) -> Optional[int]:
+    """The JAX package's ZeRO placement rule: the largest dimension of
+    ``shape`` that ``n`` divides (the first such on a tie), or None for a
+    scalar or a shape with no such dimension (kept whole)."""
+    best, best_size = None, 0
+    for d, size in enumerate(shape):
+        if size % n == 0 and size > best_size:
+            best, best_size = d, size
+    return best
+
+
+def _leaf_comm_bytes(leaf, compute_dtype=None) -> int:
+    """Bytes one leaf moves in a collective at ``compute_dtype`` (floating
+    leaves only; an int8 payload keeps its byte), as the JAX
+    ``_leaf_comm_bytes``."""
+    dtype = leaf.dtype
+    if compute_dtype is not None and dtype.is_floating_point:
+        dtype = compute_dtype
+    return int(leaf.numel()) * dtype.itemsize
 
 
 def _comm_row(gathered=0, grad=0) -> dict:
@@ -96,15 +146,65 @@ class Strategy:
         """``t`` summed over the replicas, in place (as it is here)."""
         return t
 
-    def comm_bytes_estimate(self, params) -> dict:
+    def comm_bytes_estimate(self, params, compute_dtype=None) -> dict:
         """The JAX strategies' per-step, per-device collective estimate
         (``last_fit_telemetry["comm_bytes_estimate"]``), with the same
-        keys: one replica moves nothing."""
+        keys, from the full leaves' shapes and dtypes (``params``: any
+        tensors of those, ``meta`` ones included), floating leaves priced
+        at ``compute_dtype`` where a policy gives one: one replica moves
+        nothing."""
         return _comm_row()
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """``t`` replaced in place by replica ``src``'s (as it is here)."""
         return t
+
+    # -- placement (the sharded strategies override) ------------------------
+    def param_layout(self, shape) -> Optional[Layout]:
+        """This rank's block of a parameter of full ``shape``, or None:
+        the parameter is stored whole."""
+        return None
+
+    def opt_layout(self, shape) -> Optional[Layout]:
+        """This rank's block of an optimizer statistic of full ``shape``
+        (one per parameter, of its shape), or None: stored whole."""
+        return None
+
+    def init_opt_state(self, tx, params):
+        """``tx``'s state, built on the tensors the update reads
+        (``params``: each parameter's block where its statistics are
+        sharded)."""
+        return tx.init(params)
+
+    def constrain_compute_params(self, w, layout: Optional[Layout]):
+        """A leaf as a layer computes with it, from its stored (and
+        compute-cast) form: gathered when it is stored sharded. The JAX
+        hook pins the compute-dtype copy to the masters' sharding so that
+        the gathers move compute-dtype bytes; here the gather itself runs
+        after the cast."""
+        return collectives.gather_leaf(w, layout)
+
+    def overlap_spec(self):
+        """The scanned stack's one-layer-ahead gather
+        (``nn.ScannedBlocks(overlap=)``): a callable ``(leaf, layout) ->
+        collectives.Pending``, or None where the parameters are resident
+        (no gather to overlap)."""
+        return None
+
+    def opt_state_sharding(self, opt_state: Dict[str, torch.Tensor]):
+        """``{path: layout or None}`` for a flat optimizer-state tree of
+        full leaves (``{path: tensor or array}``, optax's paths): where
+        each leaf's block lives under this strategy (a scalar stays
+        whole), as the JAX ``opt_state_sharding``."""
+        return {p: (self.opt_layout(tuple(a.shape))
+                    if len(getattr(a, "shape", ())) >= 1 else None)
+                for p, a in opt_state.items()}
+
+    def apply_update(self, tx, params, grads, opt_state,
+                     opt_layouts: Sequence[Optional[Layout]]) -> None:
+        """One optimizer step on the live parameters: the gradients
+        averaged over the replicas, then ``tx``'s in-place update."""
+        tx.update(params, self.reduce_gradients(grads), opt_state)
 
 
 class SingleDevice(Strategy):
@@ -131,6 +231,8 @@ class DataParallel(Strategy):
     ``device="cpu"`` for a gloo group on the CPU. Without a process group
     it forms one of world size 1 on ``device`` (NCCL on the card, gloo on
     the CPU)."""
+
+    axis = "data"
 
     def __init__(self, device=None):
         self.device = _cuda_for_rank(resolve_device(device))
@@ -162,24 +264,46 @@ class DataParallel(Strategy):
         """Sum over the ranks, divided by their number: one flat bucket per
         dtype, one all-reduce each; the gradients come back as views of
         the buckets."""
+        return self._bucket_mean(grads, [True] * len(grads))
+
+    def _bucket_mean(self, grads, summed: Sequence[bool]):
+        """The one division path of every data-parallel strategy: the
+        gradients, one flat bucket per (dtype, kind), all-reduced where
+        ``summed[i]`` is False (a sharded gradient arrives summed by the
+        gather's reduce-scatter) and divided by the number of ranks."""
         n = self.num_replicas_in_sync
         out: List[Optional[torch.Tensor]] = [None] * len(grads)
-        groups: Dict[torch.dtype, List[int]] = {}
+        groups: Dict[tuple, List[int]] = {}
         for i, g in enumerate(grads):
-            groups.setdefault(g.dtype, []).append(i)
-        for idxs in groups.values():
+            groups.setdefault((g.dtype, bool(summed[i])), []).append(i)
+        for (_, reduce), idxs in groups.items():
             flat = torch.cat([grads[i].reshape(-1) for i in idxs])
-            dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+            if reduce:
+                dist.all_reduce(flat, op=dist.ReduceOp.SUM)
             flat.div_(n)
             pieces = flat.split([grads[i].numel() for i in idxs])
             for i, piece in zip(idxs, pieces):
                 out[i] = piece.view(grads[i].shape)
         return out
 
-    def comm_bytes_estimate(self, params) -> dict:
-        # One gradient all-reduce of the whole parameter tree a step.
-        return _comm_row(grad=sum(p.numel() * p.element_size()
+    def comm_bytes_estimate(self, params, compute_dtype=None) -> dict:
+        # One gradient all-reduce of the whole parameter tree a step, at
+        # the compute dtype under a policy (the cotangents it moves).
+        return _comm_row(grad=sum(_leaf_comm_bytes(p, compute_dtype)
                                   for p in params.values()))
+
+    @property
+    def mesh(self):
+        """The strategy's 1-D ``DeviceMesh`` over the default group, its
+        axis named ``self.axis`` (``parallel.mesh.make_mesh``), made on
+        first use."""
+        if getattr(self, "_mesh", None) is None:
+            from .mesh import make_mesh
+
+            self._mesh = make_mesh(
+                {self.axis: self.num_replicas_in_sync},
+                device_type=self.device.type)
+        return self._mesh
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         dist.all_reduce(t, op=dist.ReduceOp.SUM)
@@ -194,7 +318,125 @@ class DataParallel(Strategy):
 MultiWorkerMirroredStrategy = DataParallel
 
 
+class _Sharded(DataParallel):
+    """The placement rule over this group's ranks, shared by ZeRO-1 and
+    FSDP."""
+
+    def _layout(self, shape) -> Optional[Layout]:
+        shape = tuple(int(s) for s in shape)
+        n = self.num_replicas_in_sync
+        d = _largest_divisible_spec(shape, n)
+        return None if d is None else Layout(shape, d, n, self._rank())
+
+    def opt_layout(self, shape) -> Optional[Layout]:
+        return self._layout(shape)
+
+    def _leaf_reducer(self, layouts: Sequence[Optional[Layout]]):
+        replicated = [lay is None for lay in layouts]
+        return lambda values: collectives.leaf_sums(values, replicated)
+
+
+class ZeroDataParallel(_Sharded):
+    """ZeRO-1 data parallelism: parameters replicated, optimizer state
+    sharded over the ranks (Rajbhandari et al., 2020, stage 1), as the
+    JAX ``ZeroDataParallel``.
+
+    The forward and backward are ``DataParallel``'s (the same rows, the
+    same all-reduced gradient); only the update is partitioned: each rank
+    keeps its block of every statistic with ndim >= 1 (a leaf of an
+    awkward shape whole), updates its block of each parameter, and the
+    updated blocks are all-gathered into the replicated parameters. With
+    Adam the model state per card drops from 3x the parameters to (1 +
+    2/N)x."""
+
+    def apply_update(self, tx, params, grads, opt_state, opt_layouts):
+        from .. import optim
+
+        grads = self.reduce_gradients(grads)
+        blocks, gblocks = [], []
+        for p, g, lay in zip(params, grads, opt_layouts):
+            if lay is None:
+                blocks.append(p)
+                gblocks.append(g)
+            else:
+                blocks.append(p.detach()[lay.index()].contiguous())
+                gblocks.append(g[lay.index()].contiguous())
+        with optim.leaf_reduction(self._leaf_reducer(opt_layouts)):
+            tx.update(blocks, gblocks, opt_state)
+        idx = [i for i, lay in enumerate(opt_layouts) if lay is not None]
+        if idx:
+            collectives.all_gather_blocks(
+                [params[i].detach() for i in idx], [blocks[i] for i in idx],
+                [opt_layouts[i] for i in idx])
+
+    def comm_bytes_estimate(self, params, compute_dtype=None) -> dict:
+        # DP's gradient all-reduce plus the all-gather of the updated
+        # blocks, which are f32 masters whatever the policy.
+        out = super().comm_bytes_estimate(params, compute_dtype)
+        out["gathered_param_bytes_per_device"] = sum(
+            _leaf_comm_bytes(p) for p in params.values()
+            if p.dim() >= 1 and self._layout(p.shape) is not None)
+        return out
+
+
+class FullyShardedDataParallel(_Sharded):
+    """ZeRO-3 fully sharded data parallelism over the ``"fsdp"`` axis, as
+    the JAX ``FullyShardedDataParallel``: every parameter and its
+    optimizer statistics sharded on the leaf's largest divisible
+    dimension, the batch split over the same ranks. A layer gathers each
+    leaf where it reads it (after the compute cast) and the gather's
+    backward reduce-scatters the gradient to the blocks; the update runs
+    on the blocks. Per-card parameter memory is O(total / N)."""
+
+    def __init__(self, device=None, *, axis: str = "fsdp"):
+        super().__init__(device)
+        self.axis = axis
+
+    def param_layout(self, shape) -> Optional[Layout]:
+        return self._layout(shape)
+
+    def overlap_spec(self):
+        return collectives.start_gather
+
+    def apply_update(self, tx, params, grads, opt_state, opt_layouts):
+        from .. import optim
+
+        # Sharded gradients arrive summed by the reduce-scatter; they are
+        # divided by N in the same bucket code that divides the
+        # all-reduced replicated ones (DataParallel's division).
+        grads = self._bucket_mean(grads, [lay is None for lay in opt_layouts])
+        with optim.leaf_reduction(self._leaf_reducer(opt_layouts)):
+            tx.update(params, grads, opt_state)
+
+    def comm_bytes_estimate(self, params, compute_dtype=None) -> dict:
+        # ZeRO-3: one gather of every sharded parameter (counted once; the
+        # backward's re-gather under remat repeats it) and the gradients'
+        # reduce-scatter, both at the compute dtype under a policy.
+        gathered = sum(_leaf_comm_bytes(p, compute_dtype)
+                       for p in params.values()
+                       if p.dim() >= 1 and self._layout(p.shape) is not None)
+        grad = sum(_leaf_comm_bytes(p, compute_dtype)
+                   for p in params.values())
+        return _comm_row(gathered=gathered, grad=grad)
+
+
+class FSDP(FullyShardedDataParallel):
+    """ZeRO-3 over the ``"data"`` axis, as the JAX ``FSDP``: the same
+    mechanics as ``FullyShardedDataParallel``, the shard axis named as
+    the batch axis (one device group gives both the data parallelism and
+    the parameter sharding).
+
+    - ``DataParallel``:       params 1x,   opt 1x per card
+    - ``ZeroDataParallel``:   params 1x,   opt 1/N per card (ZeRO-1)
+    - ``FSDP``:               params 1/N,  opt 1/N per card (ZeRO-3)
+    """
+
+    def __init__(self, device=None, *, axis: str = "data"):
+        super().__init__(device, axis=axis)
+
+
 __all__ = [
-    "DataParallel", "MultiWorkerMirroredStrategy", "SingleDevice", "Strategy",
-    "current_strategy",
+    "DataParallel", "FSDP", "FullyShardedDataParallel",
+    "MultiWorkerMirroredStrategy", "SingleDevice", "Strategy",
+    "ZeroDataParallel", "current_strategy",
 ]

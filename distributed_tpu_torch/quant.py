@@ -151,12 +151,17 @@ def quantize_model(model, *, min_ndim: int = 2):
     each floating parameter with ``ndim >= min_ndim`` becomes a
     :class:`QuantizedWeight` on its device. The captured step graphs and
     the memoized decode dtype are dropped, and so is the optimizer state
-    (int8 weights train nothing; ``fit`` raises). Returns the model."""
+    (int8 weights train nothing; ``fit`` raises). Under FSDP each weight
+    is gathered whole first (its per-channel scales span every row), and
+    ``q`` and ``scale`` are then stored as this rank's blocks by the
+    placement rule on their own shapes (every rank calls it). Returns
+    the model."""
     if not model.built:
         raise RuntimeError("Build the model (or restore a checkpoint) "
                            "before quantizing")
     if is_quantized(model.module):
         raise ValueError("model is already int8-quantized")
+    model._unlayout_params()
     with torch.no_grad():
         for layer in list(model.module.modules()):
             for name, p in list(layer.named_parameters(recurse=False)):
@@ -165,6 +170,7 @@ def quantize_model(model, *, min_ndim: int = 2):
                 qd = quantize_leaf(p)
                 delattr(layer, name)
                 setattr(layer, name, QuantizedWeight(qd[QKEY], qd[SKEY]))
+    model._layout_params()
     model._graphs = {}
     model._decode_dtype = None
     model.opt_state = None

@@ -66,6 +66,7 @@ from ..obs import registry as obs_registry
 from ..obs import spans as obs_spans
 from ..ops import paged_attention as paged_ops
 from ..ops._common import round_up
+from ..parallel.collectives import layout_of, mark
 from ..optim import EmaBaseline
 from ..training.model import Model
 from ..utils import event_schema as evs
@@ -108,10 +109,21 @@ def _served_tree(module) -> dict:
     return param_tree(module)
 
 
-def _snapshot(module):
-    """An engine-owned copy of ``module``: its parameters and buffers
-    copied on their device, detached and without grad."""
-    snap = copy.deepcopy(module)
+def _snapshot(model):
+    """An engine-owned copy of ``model.module``: its parameters and
+    buffers copied on their device, detached and without grad. A model
+    built under FSDP is served whole, as the JAX Engine serves the full
+    arrays: its leaves are gathered (every rank builds the engine) and the
+    copy holds them, unsharded."""
+    live = model.live_params()
+    full = (model.params if any(layout_of(t) is not None
+                                for t in live.values()) else None)
+    snap = copy.deepcopy(model.module)
+    if full is not None:
+        with torch.no_grad():
+            for path, t in param_tree(snap).items():
+                t.data = full[path].detach().clone()
+                mark(t, None)
     for p in snap.parameters():
         p.requires_grad_(False)
         p.grad = None
@@ -235,7 +247,7 @@ class _Served:
     engine)."""
 
     def __init__(self, model: Model):
-        self.module = _snapshot(model.module)
+        self.module = _snapshot(model)
         self.params = _served_tree(self.module)
         self.device = model.device
         self.precision = model.precision

@@ -23,9 +23,9 @@ from pathlib import Path
 
 import torch
 
-from ..checkpoint import Checkpointer
+from ..checkpoint import Checkpointer, ShardedCheckpointer
 from ..checkpoint.core import _is_chief, broadcast_ints, flatten_tree
-from ..interop import iter_leaf_paths, opt_state_to_tree
+from ..interop import iter_leaf_paths
 from ..obs import spans as obs_spans
 from ..utils import event_schema as evs
 from ..utils import events as events_lib
@@ -66,25 +66,26 @@ class ModelCheckpoint(Callback):
     writer is flushed at train end, so ``fit`` never returns with a write
     in flight. Time blocked on restores, saves and the flush goes to the
     active fit's ``checkpoint_wait`` span (``model.last_fit_telemetry``).
-    ``sharded=True`` and ``buddy=`` are not ported yet and raise.
+    ``sharded=True`` saves through a ``ShardedCheckpointer`` (each rank
+    writes its own blocks; the JAX package's directory format), and its
+    async commit is deferred to the next save or the train-end flush.
+    ``buddy=`` (and ``buddy_refresh_every``) is not ported yet and
+    raises.
     """
 
     def __init__(self, directory, *, save_freq="epoch", keep: int = 3,
                  restore: bool = False, sharded: bool = False,
-                 async_save: bool = False, buddy=None):
-        if sharded:
+                 async_save: bool = False, buddy=None,
+                 buddy_refresh_every: int = 1):
+        if buddy is not None or buddy_refresh_every != 1:
             raise NotImplementedError(
-                "ModelCheckpoint(sharded=True): not yet ported (ROADMAP "
-                "Queue 1.7: checkpoint/sharded.py, with the sharded "
-                "strategies)")
-        if buddy is not None:
-            raise NotImplementedError(
-                "ModelCheckpoint(buddy=...): not yet ported (ROADMAP Queue "
+                "ModelCheckpoint(buddy=...): not yet ported (ROADMAP "
                 "1.8: the diskless recovery tier, with resilience/)")
         if save_freq != "epoch" and not (
                 isinstance(save_freq, int) and save_freq > 0):
             raise ValueError("save_freq must be 'epoch' or a positive int")
-        self.ckpt = Checkpointer(directory, keep=keep, async_save=async_save)
+        cls = ShardedCheckpointer if sharded else Checkpointer
+        self.ckpt = cls(directory, keep=keep, async_save=async_save)
         self.save_freq = save_freq
         self.restore = restore
         self._last_bucket = 0  # save_freq bucket already saved (int freq)
@@ -444,8 +445,7 @@ class SyncCheck(Callback):
             sync_check.assert_replicas_identical(model.params, "params")
             sync_check.assert_replicas_identical(model.state, "state")
             if self.include_opt_state:
-                tree = opt_state_to_tree(model.tx, model.opt_state,
-                                         model.params)
+                tree = model._opt_tree("full")
                 sync_check.assert_replicas_identical(
                     {p: torch.as_tensor(v) for p, v in iter_leaf_paths(tree)},
                     "opt_state")

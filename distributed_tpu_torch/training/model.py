@@ -14,6 +14,16 @@ over the ranks (one all-reduce per dtype) before the optimizer; the
 epoch's losses and metric sums are reduced across the ranks at its one
 host sync. Every rank builds the same parameters from the same seed.
 
+Under ``ZeroDataParallel`` the optimizer state holds each rank's block of
+every statistic, and the update runs on the blocks (the strategy's
+``apply_update``); under ``FullyShardedDataParallel``/``FSDP`` the
+parameters themselves are stored as blocks (``build`` places them, and
+``live_params`` gives them), gathered by each layer as it reads them.
+``params``, ``save_weights``, the checkpoints and the Engine's snapshot
+gather full leaves (every rank calls them: the gather is a collective),
+and ``load_params``, ``interop.place`` and the restores place full leaves
+into this rank's blocks.
+
 A model with state (BatchNorm's running statistics) keeps it in buffers,
 ``state`` exposes them under the JAX state paths and ``load_state`` loads
 them. ``fit`` runs the module in train mode (the JAX ``apply``'s
@@ -79,7 +89,7 @@ from typing import Dict, Iterable, Optional, Sequence
 import numpy as np
 import torch
 
-from .. import optim
+from .. import interop, optim
 from .. import precision as precision_lib
 from .. import quant as quant_lib
 from ..checkpoint import core as ckpt
@@ -96,13 +106,14 @@ from ..obs import spans as obs_spans
 from ..ops import losses as losses_lib
 from ..ops import metrics as metrics_lib
 from ..ops.pallas_kernels import XENT_FWD_OP
-from ..parallel.strategy import (DataParallel, SingleDevice, Strategy,
-                                 current_strategy)
+from ..parallel.collectives import gather_full, layout_of, mark
+from ..parallel.strategy import (DataParallel, FullyShardedDataParallel,
+                                 SingleDevice, Strategy, current_strategy)
 from ..utils import event_schema as evs
 from ..utils import events as events_lib
 from ..utils import logging as dlog
 from ..utils import threefry
-from ..utils.profiler import StepTimer
+from ..utils.profiler import StepTimer, tree_bytes_per_device
 from .history import History
 from .progress import ProgressLine
 from .step_graph import StepGraph
@@ -196,15 +207,19 @@ def _has_batch_norm(module) -> bool:
     return False
 
 
-def _tensor_bytes(tree) -> int:
-    """Bytes of the tensors in a nested dict/list/tuple tree."""
-    if isinstance(tree, torch.Tensor):
-        return tree.numel() * tree.element_size()
-    if isinstance(tree, dict):
-        return sum(_tensor_bytes(v) for v in tree.values())
-    if isinstance(tree, (list, tuple)):
-        return sum(_tensor_bytes(v) for v in tree)
-    return 0
+def _full_shape(t) -> tuple:
+    """A stored leaf's full shape (a block's leaf's, under FSDP)."""
+    lay = layout_of(t)
+    return lay.shape if lay is not None else tuple(t.shape)
+
+
+def _opt_view(t, layout):
+    """The tensor the optimizer updates for a parameter ``t`` whose
+    statistics take ``layout``: ``t`` itself where it is stored so (or
+    whole), else a view of its block (ZeRO-1)."""
+    if layout is None or layout_of(t) == layout:
+        return t
+    return t.detach()[layout.index()]
 
 
 def _device_memory(device):
@@ -218,6 +233,16 @@ def _device_memory(device):
         "bytes_limit": int(torch.cuda.get_device_properties(
             device).total_memory),
     }
+
+
+class _LocalLeaf:
+    """One statistic as this rank holds it: its tensor and its layout
+    (None: whole), a leaf of ``Model._opt_tree("local")``."""
+
+    __slots__ = ("tensor", "layout")
+
+    def __init__(self, tensor, layout):
+        self.tensor, self.layout = tensor, layout
 
 
 class Model:
@@ -277,13 +302,40 @@ class Model:
         self.module.build(self.input_shape, generator)
         self.module.to(self.device)
         self.module.eval()
+        self._layout_params()
         self._dtype_hints = self.module.dtype_hints()
         self.built = True
         self._decode_dtype = None
         self._graphs = {}
         if self.compiled:
-            self.opt_state = self.tx.init(self._param_list())
+            self._init_opt_state()
         return self
+
+    def _layout_params(self) -> None:
+        """Store each parameter as this rank's block where the strategy
+        shards parameters (FSDP), marked with its layout."""
+        with torch.no_grad():
+            for t in param_tree(self.module).values():
+                if layout_of(t) is None:
+                    lay = self.strategy.param_layout(tuple(t.shape))
+                    if lay is not None:
+                        t.data = lay.block(t.data)
+                        mark(t, lay)
+
+    def _unlayout_params(self) -> None:
+        """Gather every block-stored parameter back to its full leaf (a
+        collective: every rank calls it)."""
+        with torch.no_grad():
+            for t in param_tree(self.module).values():
+                lay = layout_of(t)
+                if lay is not None:
+                    t.data = gather_full(t.data, lay).contiguous()
+                    mark(t, None)
+
+    def _init_opt_state(self) -> None:
+        self.opt_state = self.strategy.init_opt_state(
+            self.tx, [_opt_view(t, lay) for t, lay in zip(
+                self._param_list(), self._opt_layout_list())])
 
     def _require_built(self):
         if not self.built:
@@ -294,18 +346,64 @@ class Model:
         """``{tree path: parameter}``, paths as in the JAX package
         (``residual_1/main/dense_1/kernel``); a quantized weight
         (``quant.quantize_model``) as its ``.../kernel/q`` and
-        ``.../kernel/scale`` buffers."""
+        ``.../kernel/scale`` buffers. Under FSDP each leaf is gathered
+        whole, a copy (every rank must ask: the gather is a collective);
+        :meth:`live_params` gives the stored blocks."""
+        tree = self.live_params()
+        if not any(layout_of(t) is not None for t in tree.values()):
+            return tree
+        return {p: gather_full(t, layout_of(t)) for p, t in tree.items()}
+
+    def live_params(self) -> Dict[str, torch.Tensor]:
+        """``{tree path: the stored tensor}``: the parameters themselves,
+        each rank's block of a leaf the strategy shards (FSDP; its layout
+        is ``parallel.collectives.layout_of(t)``)."""
         self._require_built()
         return param_tree(self.module)
 
     def _param_list(self):
-        return list(self.params.values())
+        return list(self.live_params().values())
+
+    def _param_shapes(self) -> Dict[str, tuple]:
+        """``{tree path: full shape}`` of the parameters."""
+        return {p: _full_shape(t) for p, t in self.live_params().items()}
+
+    def _opt_layout_list(self):
+        return [self.strategy.opt_layout(_full_shape(t))
+                for t in self._param_list()]
+
+    @property
+    def opt_layouts(self) -> Dict[str, object]:
+        """``{parameter path: this rank's block of the parameter's
+        optimizer statistics (a collectives.Layout), or None: whole}``."""
+        return dict(zip(self.live_params(), self._opt_layout_list()))
+
+    def _opt_tree(self, kind: str = "full"):
+        """optax's tree of the optimizer state
+        (``interop.opt_state_to_tree``), each statistic as: ``"full"``
+        the whole leaf (gathered, a collective, where it is sharded);
+        ``"meta"`` a ``meta`` tensor of the whole leaf's shape and dtype;
+        ``"local"`` ``(this rank's tensor, its layout or None)``."""
+        lays = self._opt_layout_list()
+        if kind == "full":
+            def fn(i, t):
+                return gather_full(t, lays[i])
+        elif kind == "meta":
+            def fn(i, t):
+                shape = lays[i].shape if lays[i] is not None else t.shape
+                return torch.empty(shape, dtype=t.dtype, device="meta")
+        else:
+            def fn(i, t):
+                return _LocalLeaf(t, lays[i])
+        return interop.opt_state_to_tree(
+            self.tx, optim.map_slots(self.opt_state, fn), self.live_params())
 
     @property
     def num_params(self) -> int:
         if not self.built:
             raise ValueError("Model not built")
-        return sum(p.numel() for p in self.params.values())
+        return sum(int(np.prod(s, dtype=np.int64))
+                   for s in self._param_shapes().values())
 
     @property
     def state(self) -> Dict[str, torch.Tensor]:
@@ -318,7 +416,7 @@ class Model:
     @staticmethod
     def _check_tree(own, new, what):
         """Raise ValueError unless ``new`` has exactly ``own``'s paths, each
-        of its shape."""
+        of its shape (``own``: tensors, or full shapes)."""
         if set(own) != set(new):
             raise ValueError(
                 f"{what} paths differ: missing {sorted(set(own) - set(new))}, "
@@ -326,8 +424,9 @@ class Model:
             )
         for path, t in own.items():
             shape = tuple(new[path].shape)
-            if shape != tuple(t.shape):
-                raise ValueError(f"{path}: shape {shape} != {tuple(t.shape)}")
+            want = tuple(t) if isinstance(t, tuple) else tuple(t.shape)
+            if shape != want:
+                raise ValueError(f"{path}: shape {shape} != {want}")
 
     @classmethod
     def _copy_into(cls, own, new, what):
@@ -338,8 +437,15 @@ class Model:
 
     def load_params(self, params: Dict[str, torch.Tensor]) -> None:
         """Copy ``{tree path: tensor}`` (e.g. ``interop.params_from_jax``)
-        into the parameters. Paths and shapes must match exactly."""
-        self._copy_into(self.params, params, "parameter")
+        into the parameters, each into this rank's block where it is
+        stored sharded. Paths and full shapes must match exactly."""
+        own = self.live_params()
+        self._check_tree(self._param_shapes(), params, "parameter")
+        with torch.no_grad():
+            for path, t in own.items():
+                new = torch.as_tensor(params[path])
+                lay = layout_of(t)
+                t.copy_(new if lay is None else new[lay.index()])
         self._decode_dtype = None
 
     def load_state(self, state: Dict[str, torch.Tensor]) -> None:
@@ -423,10 +529,15 @@ class Model:
                 raise ValueError(
                     "strategy must be None or a parallel.Strategy instance; "
                     f"got {strategy!r}")
+            if self.built:
+                # Leave the old strategy's placement (a collective of its
+                # group), then take the new one's.
+                self._unlayout_params()
             self.strategy = strategy
             self.device = strategy.device
             if self.built:
                 self.module.to(self.device)
+                self._layout_params()
         tx = optim.get(optimizer, **optimizer_kwargs)
         if grad_clip is not None:
             if grad_clip <= 0:
@@ -461,7 +572,7 @@ class Model:
         self._graphs = {}
         self._decode_dtype = None
         if self.built:
-            self.opt_state = self.tx.init(self._param_list())
+            self._init_opt_state()
         return self
 
     def _policy_scope(self):
@@ -635,8 +746,12 @@ class Model:
         return loss_sum / m, grads, msums
 
     def _apply_update(self, grads) -> None:
-        grads = self.strategy.reduce_gradients(grads)
-        self.tx.update(self._param_list(), grads, self.opt_state)
+        """The strategy's update: ``DataParallel`` averages the gradients
+        and updates in place; ZeRO-1 updates each rank's blocks and
+        all-gathers them; FSDP divides the reduce-scattered blocks and
+        updates them (``Strategy.apply_update``)."""
+        self.strategy.apply_update(self.tx, self._param_list(), grads,
+                                   self.opt_state, self._opt_layout_list())
 
     def _train_step(self, x, y, accum_m: int = 1):
         """One optimizer step on a device batch: returns the loss (a
@@ -648,6 +763,12 @@ class Model:
         return loss, mvals
 
     def _check_capturable(self):
+        if isinstance(self.strategy, FullyShardedDataParallel):
+            raise NotImplementedError(
+                "steps_per_execution > 1 under FSDP on the card: not yet "
+                "ported (ROADMAP 1.3a). The forward gathers every sharded "
+                "parameter, which the step's CUDA graph would capture; the "
+                "port captures no NCCL call")
         if (isinstance(self.strategy, DataParallel)
                 and _has_batch_norm(self.module)):
             raise NotImplementedError(
@@ -1112,21 +1233,25 @@ class Model:
         stored in the metrics registry as ``model.fit``."""
         report = timer.stall_report()
         report["device_memory"] = _device_memory(self.device)
-        report["model_state_bytes_per_device"] = (
-            _tensor_bytes(self._param_list())
-            + _tensor_bytes(list(self.state.values()))
-            + _tensor_bytes(self.opt_state))
+        # Measured from what this rank holds (blocks where sharded), the
+        # largest over the ranks, as the JAX report's tree_bytes_per_device.
+        report["model_state_bytes_per_device"] = tree_bytes_per_device(
+            self._param_list(), list(self.state.values()),
+            self.opt_state)["max_bytes_per_device"]
         report["precision"] = (None if self.precision is None
                                else self.precision.name)
         if source is not None and getattr(source, "decode_workers",
                                           None) is not None:
             report["input_decode_workers"] = int(source.decode_workers)
         report["comm_bytes_estimate"] = self.strategy.comm_bytes_estimate(
-            self.params)
+            {p: torch.empty(s, dtype=t.dtype, device="meta") for (p, s), t
+             in zip(self._param_shapes().items(), self._param_list())},
+            compute_dtype=(None if self.precision is None
+                           else self.precision.compute_dtype))
         # The scanned stack's record of this fit's last forward on this
         # thread (nn.scan.last_overlap_trace), read as the JAX report reads
-        # its trace-time record; the port has no FSDP gather to overlap
-        # (ROADMAP 1.7), so "active" is False and the fraction 1.0.
+        # its trace-time record: with the FSDP gather overlapped, only
+        # layer 0's gather is exposed (1/L), else all of them (1.0).
         record = last_overlap_trace()
         if record is None:
             record = self._overlap_record
@@ -1477,10 +1602,18 @@ class Model:
         checkpoints."""
         self._require_built()
         tree = {"params": self.params, "state": self.state}
+        if self._sharded() and not ckpt._is_chief():
+            return None  # the gather above is every rank's; rank 0 writes
         path = str(path)
         if path.endswith(".npz"):
             return ckpt.save_npz(path, tree)
         return ckpt.export_hdf5(path, tree)
+
+    def _sharded(self) -> bool:
+        """True when this rank holds blocks of any leaf (parameters or
+        optimizer state)."""
+        return any(lay is not None for lay in self._opt_layout_list()) or any(
+            layout_of(t) is not None for t in self._param_list())
 
     def load_weights(self, path):
         """Load a ``save_weights`` file of either package (HDF5, or npz by
@@ -1503,7 +1636,7 @@ class Model:
         else:
             params, state = tree, None
         params = ckpt.flatten_tree(params)
-        self._check_tree(self.params, params, "parameter")
+        self._check_tree(self._param_shapes(), params, "parameter")
         if state is not None:
             state = ckpt.flatten_tree(state)
             self._check_tree(self.state, state, "state")
@@ -1511,7 +1644,7 @@ class Model:
         if state is not None:
             self.load_state(state)
         if self.compiled:
-            self.opt_state = self.tx.init(self._param_list())
+            self._init_opt_state()
         return self
 
 

@@ -1,6 +1,11 @@
-"""Stall accounting: the port's copy of the JAX package's ``StepTimer``
+"""Stall accounting and model-state bytes: the port's copies of the JAX
+package's ``StepTimer`` and ``tree_bytes_per_device``
 (``distributed_tpu/utils/profiler.py``; that module imports JAX, so only
-the class is copied here, and of it what the serving engine uses).
+these are copied here, and of the timer what the serving engine uses).
+
+``tree_bytes_per_device`` measures live tensors: each rank counts the
+bytes it holds (a sharded leaf's block, a replicated leaf whole), and the
+ranks' counts are gathered, one per card.
 
 Stall accounting: ``attribute(category, seconds)`` accrues wall time into
 named buckets (the serving engine's ``queue_wait``, ``prefill``,
@@ -16,7 +21,46 @@ from __future__ import annotations
 
 import time
 
+import torch
+import torch.distributed as dist
+
 from ..obs import registry as obs_registry
+
+
+def _held_bytes(tree) -> int:
+    """Bytes of the tensors in a nested dict/list/tuple tree (or an
+    object with ``__slots__``, as the loss scale's state)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(_held_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_held_bytes(v) for v in tree)
+    slots = getattr(type(tree), "__slots__", None)
+    if slots:
+        return sum(_held_bytes(getattr(tree, k)) for k in slots)
+    return 0
+
+
+def tree_bytes_per_device(*trees) -> dict:
+    """Per-card resident bytes of trees of live tensors, as the JAX
+    ``tree_bytes_per_device``: this rank's bytes (a sharded leaf's block,
+    a replicated leaf whole; host numbers skipped), gathered from every
+    rank of the default process group when one is formed. Returns
+    ``{"max_bytes_per_device", "total_bytes", "devices"}``."""
+    mine = sum(_held_bytes(t) for t in trees)
+    if not dist.is_initialized():
+        return {"max_bytes_per_device": mine, "total_bytes": mine,
+                "devices": 1}
+    n = dist.get_world_size()
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend() == "nccl" else torch.device("cpu"))
+    per = torch.zeros(n, dtype=torch.int64, device=dev)
+    per[dist.get_rank()] = mine
+    dist.all_reduce(per, op=dist.ReduceOp.SUM)
+    per = per.tolist()
+    return {"max_bytes_per_device": int(max(per)),
+            "total_bytes": int(sum(per)), "devices": n}
 
 
 class StepTimer:

@@ -2,6 +2,7 @@
 """Data-parallel training across the cards of one host, through the launcher.
 
     python3 scripts/torch_dp_scaling.py [--num-workers 1 4] [--timeout 900]
+        [--strategy dp zero1 fsdp]
 
 For each worker count N, starts N processes with the port's
 ``launch.LocalLauncher`` (one per card, each with its own DTPU_CONFIG).
@@ -27,9 +28,19 @@ BatchNorm's statistics those of the global batch, summed in another
 order) and 2e-3 (the LM's bf16 layers round partial gradients at other
 places).
 
-Prints, per N and model, steps/s, images or tokens per second (in all and
-per card), the all-reduce's ms, and one JSON line; exits non-zero when a
-worker fails, the replicas differ or the losses disagree.
+``--strategy`` picks the strategies, each run in turn for every N:
+``dp`` (``DataParallel``: every model above), ``zero1``
+(``ZeroDataParallel``) and ``fsdp`` (``FSDP``); the sharded two train the
+LM only (its timed run and its parity run at one global batch for every
+N), which is where their memory shows: each row also carries the model
+state a card holds (``model_state_bytes_per_device`` of ``fit``'s
+telemetry, the largest over the ranks).
+
+Prints, per strategy, N and model, steps/s, images or tokens per second
+(in all and per card), the all-reduce's ms, the model state a card holds
+and its ratio to ``dp``'s at the same N where both ran, and one JSON
+line; exits non-zero when a worker fails, the replicas differ or the
+losses disagree.
 """
 
 import argparse
@@ -47,9 +58,11 @@ CNN_RUN = {"mnist_cnn": (256, 10, 100), "cifar_cnn": (256, 5, 50),
 LM_RUN = (32, 2, 5)
 # The same global batch at every N: (model, global batch, loss rtol).
 PARITY = (("mnist_cnn", 256, 1e-5), ("small_resnet", 32, 1e-4), ("lm", 32, 2e-3))
+STRATEGIES = {"dp": "DataParallel", "zero1": "ZeroDataParallel",
+              "fsdp": "FSDP"}
 
 
-def worker():
+def worker(strategy_name="dp"):
     import numpy as np
     import torch
 
@@ -60,7 +73,8 @@ def worker():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     spec = dtt.cluster.initialize(timeout=300)
-    strategy = dtt.DataParallel()
+    strategy = getattr(dtt, STRATEGIES[strategy_name])()
+    sharded = strategy_name != "dp"
     n = strategy.num_replicas_in_sync
     rows = {}
 
@@ -94,7 +108,9 @@ def worker():
         rows[name] = {"steps_per_s": sps, "unit": unit,
                       "per_s": sps * batch * per_row,
                       "loss": hist.history["loss"],
-                      "allreduce_ms": allreduce_ms(model.num_params)}
+                      "allreduce_ms": allreduce_ms(model.num_params),
+                      "model_state_bytes_per_device": model.last_fit_telemetry[
+                          "model_state_bytes_per_device"]}
 
     def setup(name, batch, seed=0):
         """(model, x, y) of one configuration at a global batch."""
@@ -141,6 +157,8 @@ def worker():
         return model, x, y
 
     for name, (per_card, warmup, steps) in CNN_RUN.items():
+        if sharded:
+            break
         model, x, y = setup(name, per_card * n)
         run(name, model, x, y, per_card * n, warmup, 1, steps, "images", 1)
         del model
@@ -151,6 +169,8 @@ def worker():
     del model
     parity = {}
     for name, batch, _ in PARITY:
+        if sharded and name != "lm":
+            continue
         model, x, y = setup(name, batch, seed=1)
         parity[name] = model.fit(x, y, batch_size=batch, epochs=3,
                                  steps_per_epoch=1, shuffle=False,
@@ -167,10 +187,12 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--num-workers", type=int, nargs="+", default=[1, 4])
     ap.add_argument("--timeout", type=float, default=900.0)
+    ap.add_argument("--strategy", nargs="+", default=["dp"],
+                    choices=sorted(STRATEGIES))
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        worker()
+        worker(args.strategy[0])
         return 0
     import torch
 
@@ -184,36 +206,61 @@ def main():
     env = {"PYTHONPATH": os.pathsep.join(
         p for p in (ROOT, os.environ.get("PYTHONPATH")) if p)}
     out, failed = {}, False
-    for n in args.num_workers:
-        results = dtt.launch.LocalLauncher(env_extra=env).run(
-            [sys.executable, os.path.abspath(__file__), "--worker"], n,
-            timeout=args.timeout)
-        for r in results:
-            if not r.ok:
-                failed = True
-                print(f"N={n} worker {r.index} FAILED ({r.error})\n{r.log_tail}")
-        if failed:
+    for strat in args.strategy:
+        out[strat] = run_strategy(dtt, env, args, strat)
+        if out[strat] is None:
+            failed = True
             break
-        rows, parity = results[0].value["rows"], results[0].value["parity"]
-        out[n] = {"devices": [r.value["device"] for r in results],
-                  "rows": rows, "parity": parity}
-        for name, row in rows.items():
-            total = row["per_s"]
-            print(f"N={n} {name:9s} {row['steps_per_s']:8.3f} steps/s, "
-                  f"{total:12.1f} {row['unit']}/s "
-                  f"({total / n:12.1f} per card), all-reduce of the "
-                  f"gradients {row['allreduce_ms']:.3f} ms, replicas "
-                  f"bit-identical, losses {[round(v, 5) for v in row['loss']]}")
-        first = out[args.num_workers[0]]["parity"]
-        for name, batch, rtol in PARITY:
-            rel = max(abs(a - b) / abs(b)
-                      for a, b in zip(parity[name], first[name]))
-            print(f"N={n} {name:9s} at global batch {batch}: losses "
-                  f"{parity[name]}, max relative difference from "
-                  f"N={args.num_workers[0]} {rel:.3e} (limit {rtol:g})")
-            failed |= rel > rtol
+        for n, res in out[strat].items():
+            dp = out.get("dp", {}).get(n)
+            for name, row in res["rows"].items():
+                total = row["per_s"]
+                state = row["model_state_bytes_per_device"]
+                vs = ""
+                if dp is not None and name in dp["rows"]:
+                    ref = dp["rows"][name]
+                    vs = (f" ({state / ref['model_state_bytes_per_device']:.4f}"
+                          f" of dp's; per-card rate "
+                          f"{total / ref['per_s']:.4f} of dp's)")
+                print(f"{strat} N={n} {name:9s} {row['steps_per_s']:8.3f} "
+                      f"steps/s, {total:12.1f} {row['unit']}/s "
+                      f"({total / n:12.1f} per card), all-reduce of the "
+                      f"gradients {row['allreduce_ms']:.3f} ms, model state "
+                      f"{state / 1e9:.4f} GB a card{vs}, losses "
+                      f"{[round(v, 5) for v in row['loss']]}")
+            first = out[strat][args.num_workers[0]]["parity"]
+            for name, batch, rtol in PARITY:
+                if name not in res["parity"]:
+                    continue
+                rel = max(abs(a - b) / abs(b)
+                          for a, b in zip(res["parity"][name], first[name]))
+                print(f"{strat} N={n} {name:9s} at global batch {batch}: "
+                      f"losses {res['parity'][name]}, max relative "
+                      f"difference from N={args.num_workers[0]} {rel:.3e} "
+                      f"(limit {rtol:g})")
+                failed |= rel > rtol
     print(json.dumps(out))
     return 1 if failed else 0
+
+
+def run_strategy(dtt, env, args, strat):
+    """{N: {"devices", "rows", "parity"}} of one strategy at every worker
+    count, or None when a worker failed (its log printed)."""
+    res = {}
+    for n in args.num_workers:
+        results = dtt.launch.LocalLauncher(env_extra=env).run(
+            [sys.executable, os.path.abspath(__file__), "--worker",
+             "--strategy", strat], n, timeout=args.timeout)
+        bad = [r for r in results if not r.ok]
+        for r in bad:
+            print(f"{strat} N={n} worker {r.index} FAILED ({r.error})\n"
+                  f"{r.log_tail}")
+        if bad:
+            return None
+        res[n] = {"devices": [r.value["device"] for r in results],
+                  "rows": results[0].value["rows"],
+                  "parity": results[0].value["parity"]}
+    return res
 
 
 if __name__ == "__main__":

@@ -1210,3 +1210,118 @@ def test_scanned_engine_fused_matches_unrolled_on_the_card(cuda_device,
     for key, got in outs.items():
         for a, b in zip(outs["unrolled", "reference"], got):
             np.testing.assert_array_equal(b, a, err_msg=str(key))
+
+
+# ------------------------------- sharded strategies' collectives (NCCL, 1)
+@pytest.fixture
+def nccl_world1(cuda_device):
+    """A world-1 NCCL group (``FSDP()`` forms one), shut down after."""
+    import distributed_tpu_torch as dtt
+
+    strategy = dtt.FSDP()
+    yield strategy
+    dtt.cluster.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,dim", [((64, 48), 0), ((64, 48), 1),
+                                       ((4, 6, 8), 1)])
+def test_gather_functions_world1_nccl(nccl_world1, dtype, shape, dim):
+    """At world 1 the gather's forward is the block itself, its backward
+    (the reduce-scatter, a sum of one) the cotangent itself; the same for
+    the asynchronous form, the owner's broadcast and the no-grad gathers,
+    bit for bit."""
+    from distributed_tpu_torch.parallel import collectives
+
+    lay = collectives.Layout(shape, dim, 1, 0)
+    g = torch.Generator(device=nccl_world1.device).manual_seed(dim)
+    x = torch.randn(shape, generator=g, device=nccl_world1.device).to(dtype)
+    dy = torch.randn(shape, generator=g, device=nccl_world1.device).to(dtype)
+    for start in (lambda t: collectives.gather(t, lay),
+                  lambda t: collectives.start_gather(t, lay).wait(),
+                  lambda t: collectives.start_owner_copy(t, 0, shape).wait()):
+        leaf = x.clone().requires_grad_()
+        y = start(leaf)
+        assert y.dtype == dtype and torch.equal(y, x)
+        (dx,) = torch.autograd.grad(y, leaf, dy)
+        assert torch.equal(dx, dy)
+    assert torch.equal(collectives.gather_full(x, lay), x)
+    out = torch.empty_like(x)
+    collectives.all_gather_blocks([out], [x], [lay])
+    assert torch.equal(out, x)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wd", [0.0, 0.01])
+def test_fused_adam_over_shard_blocks_bit_for_bit(cuda_device, wd):
+    """K11 over rank blocks of sharded leaves (2 ranks' layouts, blocks on
+    dims 0 and 1, contiguous copies as ZeRO-1 and FSDP hand it) equals its
+    plain version bit for bit, and each block equals that block of the
+    whole leaves' update."""
+    from distributed_tpu_torch.parallel.collectives import Layout
+    from distributed_tpu_torch.parallel.strategy import \
+        _largest_divisible_spec
+
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    shapes = [(768, 3072), (3072, 768), (768,), (12, 64, 96), (10,)]
+    whole = [[torch.randn(s, generator=g, device=cuda_device) * scale
+              for s in shapes] for scale in (1.0, 1e-2, 1e-3)]
+    whole.append([torch.rand(s, generator=g, device=cuda_device) * 1e-5
+                  for s in shapes])
+    s = adam_ops.AdamScalars(*(float(torch.tensor(v)) for v in (
+        -1e-3, 0.9, 0.999, 1 - 0.9, 1 - 0.999, 1e-8, wd, 1 - 0.9,
+        1 - 0.999)))
+    full = [[t.clone() for t in role] for role in whole]
+    adam_ops.adam_update_ref(full[0], full[1], full[2], full[3], s)
+    for rank in (0, 1):
+        lays = [Layout(sh, d, 2, rank) if d is not None else None
+                for sh in shapes for d in [_largest_divisible_spec(sh, 2)]]
+        blocks = [[t.clone() if lay is None else lay.block(t)
+                   for t, lay in zip(role, lays)] for role in whole]
+        plain = [[t.clone() for t in role] for role in blocks]
+        before = adam_ops.launches["fused_adam"]
+        adam_ops.adam_update(blocks[0], blocks[1], blocks[2], blocks[3], s)
+        adam_ops.adam_update_ref(plain[0], plain[1], plain[2], plain[3], s)
+        torch.cuda.synchronize()
+        assert adam_ops.launches["fused_adam"] == before + 1
+        for role in (0, 2, 3):
+            for got, want, ref, lay in zip(blocks[role], plain[role],
+                                           full[role], lays):
+                assert torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32))
+                ref = ref if lay is None else ref[lay.index()]
+                assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_steps_per_execution_under_sharded_strategies(nccl_world1):
+    """ZeRO-1 keeps its collectives in the eager update, so K=2 steps as
+    CUDA graphs give K=1's parameters bit for bit; under FSDP the forward
+    gathers, which a graph would capture, so K > 1 raises naming 1.3a."""
+    import numpy as np
+
+    import distributed_tpu_torch as dtt
+
+    x = np.random.default_rng(0).integers(0, 64, (8, 33))
+    x, y = x[:, :-1].astype(np.int32), x[:, 1:].astype(np.int32)
+
+    def model(strategy, k):
+        with strategy.scope():
+            m = dtt.Model(dtt.models.transformer_lm(
+                64, num_layers=2, d_model=32, num_heads=2, max_len=32))
+            m.compile(optimizer=dtt.optim.fused_adam(1e-3), metrics=[],
+                      steps_per_execution=k)
+        return m.build((32,), seed=0)
+
+    zero = dtt.ZeroDataParallel()
+    params = []
+    for k in (1, 2):
+        m = model(zero, k)
+        m.fit(x, y, batch_size=8, epochs=1, steps_per_epoch=4, verbose=0)
+        params.append({n: t.clone() for n, t in m.params.items()})
+    assert all(torch.equal(params[0][n], params[1][n]) for n in params[0])
+    with pytest.raises(NotImplementedError, match="ROADMAP 1.3a"):
+        model(nccl_world1, 2).fit(x, y, batch_size=8, epochs=1,
+                                  steps_per_epoch=2, verbose=0)

@@ -70,6 +70,25 @@ def test_no_jax_or_reference_import_in_source(path):
     assert not hits, f"{path} imports {hits}"
 
 
+def test_sharded_strategy_modules_are_checked():
+    """The sharded strategies' modules and the scaling script that runs
+    them on 4 cards are among the sources checked above and the modules
+    imported with JAX blocked."""
+    checked = {str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")} | {
+        str(p.relative_to(ROOT)) for p in (ROOT / "scripts").glob(
+            "torch_*.py")}
+    for path in ("distributed_tpu_torch/parallel/mesh.py",
+                 "distributed_tpu_torch/parallel/collectives.py",
+                 "distributed_tpu_torch/parallel/strategy.py",
+                 "distributed_tpu_torch/checkpoint/sharded.py",
+                 "scripts/torch_dp_scaling.py"):
+        assert path in checked, path
+    for name in ("distributed_tpu_torch.parallel.mesh",
+                 "distributed_tpu_torch.parallel.collectives",
+                 "distributed_tpu_torch.checkpoint.sharded"):
+        assert name in _port_modules(), name
+
+
 def test_default_device_is_the_card_and_never_falls_back():
     if torch.cuda.is_available():
         pytest.skip("a card is present: device=None resolves to it")
@@ -78,6 +97,10 @@ def test_default_device_is_the_card_and_never_falls_back():
                                             num_heads=2, max_len=8))
     with pytest.raises(RuntimeError, match="cuda"):
         dtt.resolve_device(None)
+    for strategy in (dtt.ZeroDataParallel, dtt.FullyShardedDataParallel,
+                     dtt.FSDP):
+        with pytest.raises(RuntimeError, match="cuda"):
+            strategy()
     assert dtt.resolve_device("cpu") == torch.device("cpu")
 
 

@@ -136,11 +136,29 @@ def test_scanned_blocks_validations():
     with pytest.raises(NotImplementedError):
         sb.decode(sb.init_cache(1, 4, torch.float32, "cpu"),
                   torch.zeros((1, 1, 8)), pos=0)
-    # No FSDP gather in the port: "require" raises JAX's error.
+    # "require" without a strategy that gathers raises JAX's error; under
+    # FSDP (a world-1 group here) it runs, its gathers overlapped, and
+    # gives the plain stack's output.
     req = dtt.nn.ScannedBlocks(_bn_block(dtt), 2, overlap="require")
-    req.build((8,), torch.Generator())
+    req.build((8,), torch.Generator().manual_seed(1))
+    req.eval()
     with pytest.raises(ValueError, match="overlap_spec gather"):
         req(torch.zeros((4, 8)))
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (4, 8)).astype(np.float32))
+    with torch.no_grad():
+        off = dtt.nn.ScannedBlocks(_bn_block(dtt), 2, overlap="off")
+        off.build((8,), torch.Generator().manual_seed(1))
+        off.eval()
+        plain = off(x)
+        try:
+            with dtt.FSDP(device="cpu").scope():
+                got = req(x)
+                assert dtt.nn.scan.last_overlap_trace() == {
+                    "layers": 2, "active": True}
+        finally:
+            dtt.cluster.shutdown()
+    assert torch.equal(got, plain)
     # The stacked dtype hints pass through one level down.
     bf = dtt.nn.ScannedBlocks(lambda: dtt.nn.Sequential(
         [dtt.nn.Dense(8, dtype="bfloat16")]), 2)

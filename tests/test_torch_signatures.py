@@ -17,6 +17,8 @@ import torch
 
 import distributed_tpu as dtpu
 import distributed_tpu_torch as dtt
+from distributed_tpu.parallel import mesh as jax_mesh
+from distributed_tpu.training import callbacks as jcb
 
 torch.set_num_threads(1)
 
@@ -41,6 +43,15 @@ def _compiled(**kw):
 
 
 XY = (np.zeros((4, 8), np.int32), np.zeros((4, 8), np.int32))
+
+
+def _in_world1_group(f, **kw):
+    """``f(device_type="cpu", **kw)`` inside a world-1 gloo group."""
+    dtt.DataParallel(device="cpu")
+    try:
+        return f(device_type="cpu", **kw)
+    finally:
+        dtt.cluster.shutdown()
 
 # (JAX callable, port callable, {keyword: (value to pass, ROADMAP item
 # when it raises, or None when it works)}, call(port callable, **kw)).
@@ -123,6 +134,19 @@ PAIRS = {
         "overlap": ("off", None), "name": ("stack", None)},
         lambda f, **kw: f(lambda: dtt.nn.Sequential([dtt.nn.Dense(4)]), 2,
                           **kw)),
+    "ModelCheckpoint": (jcb.ModelCheckpoint, dtt.callbacks.ModelCheckpoint, {
+        "save_freq": (2, None), "keep": (2, None), "restore": (True, None),
+        "sharded": (True, None), "async_save": (True, None),
+        "buddy": (True, "1.8"), "buddy_refresh_every": (2, "1.8")},
+        lambda f, **kw: f("ckpt_dir", **kw)),
+    "ShardedCheckpointer": (dtpu.ShardedCheckpointer,
+                            dtt.ShardedCheckpointer, {
+        "keep": (2, None), "async_save": (True, None)},
+        lambda f, **kw: f("ckpt_dir", **kw)),
+    "make_mesh": (jax_mesh.make_mesh, dtt.parallel.make_mesh, {
+        "axis_sizes": ({"fsdp": 1}, None), "devices": ([0], "1.7"),
+        "dcn_axis": ("data", "1.7"), "slice_ids": ([0], "1.7")},
+        lambda f, **kw: _in_world1_group(f, **kw)),
     "Dropout": (dtpu.nn.Dropout, dtt.nn.Dropout, {"name": ("drop", None)},
                 lambda f, **kw: f(0.1, **kw)),
     "Lambda": (dtpu.nn.Lambda, dtt.nn.Lambda, {
