@@ -299,6 +299,18 @@ w. The sharded data-parallel strategies over an NCCL group of world 1
    restore's seconds); a fresh model restores it and runs steps 3-4 bit
    for bit as the uninterrupted run; a DataParallel model restores the
    async directory bit for bit.
+x. Tensor and sequence parallelism over the same NCCL group of world 1.
+   (x1) Phase l's GPT-2-small (bf16 layers, ``fused_adamw``, the pallas
+   loss, batch 32 x 1024) under ``DataParallel``,
+   ``DataTensorParallel(model_parallel=1)`` and ``DataSeqParallel(
+   seq_parallel=1)`` with ring and with Ulysses attention, from seed 0,
+   3 steps each: parameters and optimizer state bit for bit against
+   DataParallel's, K3-K5 12 times and K9/K10/K11 once a step, ms a step
+   in interleaved runs of 2 steps with the busy share. (x2)
+   ``ops.ring_attention`` (B 2, T 4,096, H 12, D 64, f32, causal and not)
+   and its q, k, v gradients against the plain dense attention over the
+   world-1 group, with both forwards' ms, and the Ulysses exchange's
+   round trip bit for bit.
 Then the kernel table as one JSON line (each row also names the CUDA
 kernel of the main path, ``kernel``, and carries its launches in phase r's
 resumed steps, ``launches_resumed``, in phase t's fits that captured a
@@ -306,8 +318,9 @@ graph, ``launches_fit``, and its runs in their 8 replayed steps from the
 trace, ``replayed_fit``; K1/K2 also their launches in phase
 s's speculative runs, ``launches_spec``, and their time by kw, ``ms_by_kw``;
 and its launches in phase u's sub-phases, ``launches_u1``-``launches_u3``,
-in phase v's scanned runs, ``launches_v``, and in phase w's sharded runs,
-``launches_w``),
+in phase v's scanned runs, ``launches_v``, in phase w's sharded runs,
+``launches_w``, and in phase x1's tensor- and sequence-parallel runs,
+``launches_x``),
 the card's name and power limit, and ``{"ok": true, "device": {...}}`` as
 the last line.
 """
@@ -3690,6 +3703,166 @@ def phase_sharded_ckpt(torch, dtt, mods, batch=8):
     return counts
 
 
+# ------------------------------------------------------------------ phase x
+def phase_tp_sp(torch, dtt, mods, batch=32, steps=3):
+    """x1: phase l's GPT-2-small (bf16 layers, fused_adamw, the pallas
+    loss, batch 32 x 1024) under DataParallel, DataTensorParallel(
+    model_parallel=1) and DataSeqParallel(seq_parallel=1), ring and
+    ulysses, over an NCCL group of world 1, from seed 0: parameters and
+    optimizer state bit for bit against DataParallel's after 3 steps,
+    the launches of those steps (counts zeroed just before, read just
+    after), and ms a step in interleaved runs of 2 steps with the busy
+    share. DataTensorParallel(1) must store every hinted leaf as a block
+    of its one-rank model line and call Megatron's pair over it (the
+    layers reach ``copy_to_group``/``reduce_from_group`` through their
+    module, where they are counted here); at seq 1 attention takes the
+    flash branch, as JAX's ``_ring_config`` sends a seq axis of size 1.
+    Returns the launches of the tensor- and sequence-parallel runs."""
+    from distributed_tpu_torch.parallel import collectives
+    from distributed_tpu_torch.parallel.collectives import layout_of
+
+    t_len = LM["max_len"]
+    x, y = lm_batch(batch, t_len)
+    pair = {"copy_to_group": 0, "reduce_from_group": 0}
+    originals = {k: getattr(collectives, k) for k in pair}
+
+    def counted(name):
+        def call(*args, **kw):
+            pair[name] += 1
+            return originals[name](*args, **kw)
+        return call
+
+    for k in pair:
+        setattr(collectives, k, counted(k))
+    try:
+        return tp_sp_runs(torch, dtt, mods, x, y, batch, steps, pair,
+                          layout_of)
+    finally:
+        for k, fn in originals.items():
+            setattr(collectives, k, fn)
+
+
+def tp_sp_runs(torch, dtt, mods, x, y, batch, steps, pair, layout_of):
+    """Phase x1's runs (``phase_tp_sp``), ``pair`` the Megatron calls."""
+    t_len = LM["max_len"]
+    strategies = {
+        "DataParallel": dtt.DataParallel(),
+        "DataTensorParallel(1)": dtt.DataTensorParallel(model_parallel=1),
+        "DataSeqParallel(1, ring)": dtt.DataSeqParallel(seq_parallel=1),
+        "DataSeqParallel(1, ulysses)": dtt.DataSeqParallel(
+            seq_parallel=1, attention="ulysses"),
+    }
+    models, counts, launches, base = {}, {}, {}, None
+    for name, strategy in strategies.items():
+        model = w_lm(dtt, strategy, t_len)
+        lays = [layout_of(p) for p in model.live_params().values()]
+        blocks = sum(lay is not None and lay.axis == "model" and lay.n == 1
+                     for lay in lays)
+        for k in pair:
+            pair[k] = 0
+        reset_counts(mods)
+        losses = w_fit(model, x, y, batch, steps)
+        torch.cuda.synchronize()
+        counts[name] = launch_counts(mods)
+        calls = {k: v / steps for k, v in pair.items()}
+        # Each layer: wq/wk/wv, bq/bk/bv, wo, the MLP's col kernel and
+        # bias and its row kernel; attention's and the MLP's inputs
+        # copied to the line, wo's and the row kernel's outputs reduced.
+        tp = name.startswith("DataTensorParallel")
+        want_blocks = 10 * LM["num_layers"] if tp else 0
+        want_calls = 2 * LM["num_layers"] if tp else 0
+        print(f"  {name}: {blocks} leaves stored as blocks of a one-rank "
+              f"model line, Megatron calls a step {calls}")
+        if blocks != want_blocks or set(calls.values()) != {want_calls}:
+            raise SystemExit(
+                f"{name}: {blocks} model-line blocks and Megatron calls "
+                f"{calls} a step, expected {want_blocks} and {want_calls}")
+        if name != "DataParallel":
+            for k, v in counts[name].items():
+                launches[k] = launches.get(k, 0) + v
+        tel = model.last_fit_telemetry
+        print(f"  {name}: losses {[round(v, 5) for v in losses]}, model "
+              f"state {tel['model_state_bytes_per_device'] / 1e9:.4f} GB a "
+              f"card, mesh {getattr(strategy, 'axis_sizes', None)}")
+        if not all(np.isfinite(losses)):
+            raise SystemExit(f"{name}: losses not finite: {losses}")
+        state = full_state(dtt, model)
+        if base is None:
+            base = state
+        else:
+            diff = first_difference(torch, base, state)
+            say_same(f"{name} against DataParallel, params and optimizer "
+                     "state", diff)
+            if diff is not None:
+                raise SystemExit(f"{name} differs from DataParallel at "
+                                 "world 1")
+        models[name] = model
+    base = None
+    leaves = len(models["DataParallel"].live_params())
+    want = {"xent_fwd": 1, "xent_bwd": 1, "flash_fwd": LM["num_layers"],
+            "flash_dq": LM["num_layers"], "flash_dkv": LM["num_layers"],
+            "fused_adam": math.ceil(leaves / 64)}
+    for name in strategies:
+        per_step = {k: counts[name][k] / steps for k in want}
+        print(f"  {name}: launches a step {per_step}")
+        if per_step != want:
+            raise SystemExit(f"{name}: launches a step {per_step}, "
+                             f"expected {want}")
+    arms = {name: (lambda m=models[name]: w_fit(m, x, y, batch, 2), 2)
+            for name in strategies}
+    report_arms(torch, arms, interleaved(torch, arms, 3))
+    models.clear()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ring_ops(torch, dtt, b=2, t=4096, h=12, d=64):
+    """x2: ``ops.ring_attention`` (naive and the causal default) and the
+    Ulysses exchange on CUDA tensors over the NCCL world-1 group: the
+    ring's output and its q, k, v gradients against the plain dense
+    attention (f32, atol 2e-5 per entry), the exchange's round trip bit
+    for bit, and the ring's ms against the dense path's."""
+    from distributed_tpu_torch.ops.flash_attention import dense_attention
+    from distributed_tpu_torch.ops.ring_attention import ring_attention
+    from distributed_tpu_torch.parallel import collectives
+
+    mesh = dtt.parallel.make_mesh({"data": 1, "seq": 1})
+    group = mesh.get_group("seq")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, cot = (torch.randn((b, t, h, d), device="cuda", generator=g)
+                    for _ in range(4))
+    for causal in (False, True):
+        qs, ks, vs = (a.clone().requires_grad_() for a in (q, k, v))
+        out = ring_attention(qs, ks, vs, mesh=mesh, causal=causal)
+        (out * cot).sum().backward()
+        qd, kd, vd = (a.clone().requires_grad_() for a in (q, k, v))
+        ref = dense_attention(qd, kd, vd, causal)
+        (ref * cot).sum().backward()
+        errs = [max_err(out, ref)] + [max_err(a.grad, r.grad) for a, r in
+                                      ((qs, qd), (ks, kd), (vs, vd))]
+        with torch.no_grad():
+            ring_ms = cuda_ms(torch, lambda i: ring_attention(
+                q, k, v, mesh=mesh, causal=causal), 5)
+            dense_ms = cuda_ms(torch, lambda i: dense_attention(
+                q, k, v, causal), 5)
+        print(f"  ring (1 rank) causal={causal}: max |out - dense| "
+              f"{errs[0]:.3e}, grads {[f'{e:.3e}' for e in errs[1:]]}; "
+              f"{ring_ms:.3f} ms forward against dense {dense_ms:.3f} ms "
+              f"(B={b}, T={t}, H={h}, D={d}, f32)")
+        if max(errs) > TOL["float32"]:
+            raise SystemExit(f"ring attention differs from dense: {errs}")
+        del qs, ks, vs, qd, kd, vd, out, ref
+    heads = collectives.ulysses_to_heads(q, group)
+    back = collectives.ulysses_to_seq(heads, group)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(heads, q) and torch.equal(back, q))
+    print(f"  Ulysses exchange over the world-1 NCCL group: (B, T, H, D) "
+          f"round trip bit for bit: {same}")
+    if not same:
+        raise SystemExit("the Ulysses exchange changed its input")
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
 
@@ -3905,11 +4078,18 @@ def main():
     print("phase w4: ShardedCheckpointer on the FSDP LM mid-fit, batch 8 x "
           "1024")
     more.append(phase_sharded_ckpt(torch, dtt, w_mods))
-    dtt.cluster.shutdown()
     for counts in more:
         for name, n in counts.items():
             w[name] = w.get(name, 0) + n
     u_counts["w"] = w
+    print(f"phase x1: GPT-2-small under DataTensorParallel(model_parallel=1)"
+          f" and DataSeqParallel(seq_parallel=1), ring and ulysses, against "
+          f"DataParallel (NCCL, world 1), batch 32 x 1024 | {card_line()}")
+    u_counts["x"] = phase_tp_sp(torch, dtt, w_mods)
+    print("phase x2: ring attention and the Ulysses exchange on CUDA tensors "
+          "over the world-1 group, against dense attention")
+    phase_ring_ops(torch, dtt)
+    dtt.cluster.shutdown()
     for sub, counts in u_counts.items():
         for name, n in counts.items():
             if n:
@@ -3931,7 +4111,7 @@ def main():
          "launches_fit": r.get("launches_fit"),
          "replayed_fit": r.get("replayed_fit"),
          **{f"launches_{sub}": r[f"launches_{sub}"]
-            for sub in ("u1", "u2", "u3", "v", "w")
+            for sub in ("u1", "u2", "u3", "v", "w", "x")
             if f"launches_{sub}" in r},
          **({"launches_spec": r["launches_spec"], "ms_by_kw": r["ms_by_kw"]}
             if "ms_by_kw" in r else {})}

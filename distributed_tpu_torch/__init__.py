@@ -36,6 +36,12 @@ Ported so far:
   compute-dtype gathers and the scanned stack's one-layer-ahead gather,
   and ``ShardedCheckpointer`` (one file of blocks per rank, the JAX
   package's directory format);
+- tensor and sequence parallelism over multi-axis meshes
+  (``parallel.make_mesh``): ``DataTensorParallel`` (Megatron column and
+  row blocks over the "model" axis, from the layers' ``sharding_hints``)
+  and ``DataSeqParallel`` (the sequence split over "seq", attention by
+  ring, ``ops.ring_attention``, naive or zigzag, or by Ulysses'
+  all-to-alls around flash attention);
 - checkpoints and model retrieval: ``Checkpointer``, ``export_hdf5``/
   ``import_hdf5`` and ``checkpoint.artifact_encode``/``artifact_decode``
   (files either package reads), ``Model.save_weights``/``load_weights``/
@@ -50,7 +56,9 @@ from . import (
 from .checkpoint import (Checkpointer, ShardedCheckpointer, export_hdf5,
                          import_hdf5)
 from .device import resolve_device
-from .parallel import (FSDP, DataParallel, FullyShardedDataParallel,
+from .parallel import (FSDP, CompositeParallel, DataExpertParallel,
+                       DataParallel, DataPipelineParallel, DataSeqParallel,
+                       DataTensorParallel, FullyShardedDataParallel,
                        MultiWorkerMirroredStrategy, SingleDevice,
                        ZeroDataParallel)
 from .training import callbacks
@@ -58,7 +66,9 @@ from .training.history import History
 from .training.model import Model
 
 __all__ = [
-    "Checkpointer", "DataParallel", "FSDP", "FullyShardedDataParallel",
+    "Checkpointer", "CompositeParallel", "DataExpertParallel",
+    "DataParallel", "DataPipelineParallel", "DataSeqParallel",
+    "DataTensorParallel", "FSDP", "FullyShardedDataParallel",
     "History", "Model", "MultiWorkerMirroredStrategy",
     "ShardedCheckpointer", "SingleDevice", "ZeroDataParallel", "callbacks",
     "checkpoint",

@@ -11,11 +11,12 @@ directory format, so the two packages read each other's checkpoints:
 
 - **Save.** Every rank writes the blocks it owns into its own
   ``proc-<rank>.npz``: its block of each sharded leaf (parameters under
-  FSDP, optimizer statistics under ZeRO-1 and FSDP) and, on rank 0, each
-  replicated leaf whole, so each unique block is written once. No rank
-  gathers a full leaf. Each block carries a CRC32. The optimizer state is
-  written under optax's paths (``interop.opt_state_to_tree``), as the
-  npz ``Checkpointer`` writes it.
+  FSDP, optimizer statistics under ZeRO-1 and FSDP, Megatron blocks
+  under ``DataTensorParallel`` by the first rank of each data line) and,
+  on rank 0, each replicated leaf whole, so each unique block is written
+  once. No rank gathers a full leaf. Each block carries a CRC32. The
+  optimizer state is written under optax's paths
+  (``interop.opt_state_to_tree``), as the npz ``Checkpointer`` writes it.
 - **Commit.** ``manifest.json`` is written by rank 0 after every rank's
   write has landed (one all-reduce of the writers' outcomes doubles as
   the barrier); a directory without one is an aborted save and
@@ -151,10 +152,14 @@ def extract_blocks(model, rank: int):
     every rank)."""
     blocks: Dict[str, Any] = {}
     meta: Dict[str, dict] = {}
+    # A block split over a mesh axis (tensor parallelism) is held alike
+    # by every rank of its data line: the line's first rank writes it.
+    first_of_line = model.strategy._rank() == 0
     for path, shape, data, lay in _leaves(model):
         meta[path] = {"shape": list(shape), "dtype": _np_dtype(data).name}
         if lay is not None:
-            blocks[_block_key(path, lay.starts, lay.block_shape)] = data
+            if lay.axis is None or first_of_line:
+                blocks[_block_key(path, lay.starts, lay.block_shape)] = data
         elif rank == 0:
             blocks[_block_key(path, (0,) * len(shape), shape)] = data
     return blocks, meta

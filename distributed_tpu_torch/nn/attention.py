@@ -7,6 +7,14 @@ chosen by ``flash`` as in the JAX layer: dense attention (scores divided
 by ``sqrt(head_dim)``, the (T, T) scores formed) or flash attention
 (``ops.flash_attention``: scores multiplied by ``1/sqrt(head_dim)``, the
 CUDA kernels on a card, their plain versions on the CPU).
+Under a sequence-parallel strategy (a seq mesh axis larger than 1) the
+full-sequence pass runs across the ranks instead, as the JAX layer's
+dispatch: ring attention (``ops.ring_attention``) or Ulysses (two
+all-to-alls around flash attention over the whole sequence for a block
+of heads). Under ``DataTensorParallel`` the layer projects this rank's
+heads from its column blocks of ``wq``/``wk``/``wv`` (heads ``[r*H/tp,
+(r+1)*H/tp)``: the inner width is head-major), attends over them, and
+all-reduces ``wo``'s row-block product before ``bo``.
 Projections are 2-D ``(d, heads*head_dim)`` kernels named ``wq, wk, wv,
 wo`` with biases ``bq, bk, bv, bo``, as in the JAX parameter tree. Every
 path that reads a weight (forward, decode, paged decode, verify and
@@ -30,11 +38,13 @@ from typing import Optional
 import torch
 
 from . import initializers
-from .core import Layer, Shape
+from .core import Layer, Shape, tp_layout
 from ..ops import paged_attention as paged_ops
 from ..ops._common import NEG
 from ..ops.flash_attention import dense_attention, flash_attention
+from ..parallel import collectives
 from ..parallel.collectives import layout_of
+from ..parallel.strategy import current_strategy
 from ..precision import resolve_dtype
 from ..quant import _QMAX, QKEY, SKEY, QuantizedWeight
 
@@ -78,10 +88,10 @@ class MultiHeadAttention(Layer):
     """Multi-head self-attention over (B, T, D) inputs. ``head_dim``
     (default ``d // num_heads``) sets the projections' inner width
     ``num_heads * head_dim``; ``use_bias=False`` registers no biases (the
-    JAX layer's tree paths). ``ring_axis`` names the mesh axis the JAX
-    layer runs ring attention over under sequence parallelism; no
-    strategy of the port has one (ROADMAP 1.7), so it is kept and never
-    read, as in JAX outside such a mesh."""
+    JAX layer's tree paths). ``ring_axis`` names the mesh axis the layer
+    runs ring or Ulysses attention over when the ambient strategy's mesh
+    has it larger than 1 (``DataSeqParallel``); None keeps the
+    one-rank paths even then."""
 
     def __init__(
         self,
@@ -143,8 +153,10 @@ class MultiHeadAttention(Layer):
         y = x @ kernel
         return y + self._weight(b).to(y.dtype) if self.use_bias else y
 
-    def _out(self, ctx):
+    def _out(self, ctx, tp=None):
         y = ctx @ self._weight("wo").to(ctx.dtype)
+        if tp is not None:  # wo's row blocks: partial sums, then bo once
+            y = collectives.reduce_from_group(y, tp.group)
         return y + self._weight("bo").to(y.dtype) if self.use_bias else y
 
     def _cache_dtype(self, dtype):
@@ -158,7 +170,8 @@ class MultiHeadAttention(Layer):
         dt = resolve_dtype(self.dtype)
         if dt is not None:
             x = x.to(dt)
-        hd = (self.num_heads, self._hd)
+        # -1 heads: a tensor-parallel rank projects its block of them.
+        hd = (-1, self._hd)
         return (
             self._proj(x, "wq", "bq").reshape(*lead_q, *hd),
             self._proj(x, "wk", "bk").reshape(*lead_kv, *hd),
@@ -173,14 +186,72 @@ class MultiHeadAttention(Layer):
             return x.shape[1] >= 512 and x.is_cuda
         return bool(self.flash)
 
-    def forward(self, x):
-        b, t, _ = x.shape
-        q, k, v = self._qkv(x, (b, t), (b, t))
-        if self._use_flash(x):
+    def sharding_hints(self):
+        hints = {"wq": "col", "wk": "col", "wv": "col", "wo": "row"}
+        if self.use_bias:
+            hints.update(bq="col", bk="col", bv="col")
+        return hints
+
+    def _ring_config(self):
+        """``(strategy, mode)`` when the ambient strategy splits the
+        sequence over ``ring_axis`` (size > 1), mode "ring" or "ulysses";
+        else None."""
+        if self.ring_axis is None:
+            return None
+        strategy = current_strategy()
+        sizes = getattr(strategy, "axis_sizes", {})
+        if sizes.get(self.ring_axis, 1) <= 1:
+            return None
+        return strategy, getattr(strategy, "seq_attention", "ring")
+
+    def _ulysses_attention(self, q, k, v, strategy):
+        """All-to-all sequence parallelism (DeepSpeed-Ulysses): (B, T/s,
+        H, D) blocks -> (B, T, H/s, D), attention over the whole sequence
+        for this rank's heads (flash where ``_use_flash`` takes it, so
+        memory stays O(T*D)), and back."""
+        group = strategy.mesh.get_group(self.ring_axis)
+        n = strategy.axis_sizes[self.ring_axis]
+        if self.num_heads % n:
+            raise ValueError(
+                f"Ulysses attention shards heads over the {self.ring_axis!r}"
+                f" axis: num_heads {self.num_heads} not divisible by its "
+                f"size {n}")
+        q, k, v = (collectives.ulysses_to_heads(a, group) for a in (q, k, v))
+        if self._use_flash(q):
             ctx = flash_attention(q, k, v, causal=self.causal)
         else:
             ctx = dense_attention(q, k, v, self.causal)
-        return self._out(ctx.reshape(b, t, -1))
+        return collectives.ulysses_to_seq(ctx, group)
+
+    def forward(self, x):
+        b, t, _ = x.shape
+        tp = tp_layout(self, "wq")
+        if tp is not None:
+            if self.num_heads % tp.n:
+                raise ValueError(
+                    f"num_heads {self.num_heads} not divisible by the "
+                    f"model axis size {tp.n}")
+            dt = resolve_dtype(self.dtype)
+            x = collectives.copy_to_group(x if dt is None else x.to(dt),
+                                          tp.group)
+        q, k, v = self._qkv(x, (b, t), (b, t))
+        ring = self._ring_config()
+        if ring is not None:
+            strategy, mode = ring
+            if mode == "ulysses":
+                ctx = self._ulysses_attention(q, k, v, strategy)
+            else:
+                from ..ops.ring_attention import ring_attention
+
+                ctx = ring_attention(q, k, v, mesh=strategy.mesh,
+                                     seq_axis=self.ring_axis,
+                                     batch_axis=strategy.axis,
+                                     causal=self.causal)
+        elif self._use_flash(x):
+            ctx = flash_attention(q, k, v, causal=self.causal)
+        else:
+            ctx = dense_attention(q, k, v, self.causal)
+        return self._out(ctx.reshape(b, t, -1), tp)
 
     # ------------------------------------------------- incremental decode --
     def init_cache(self, batch, max_len, dtype, device):
@@ -350,8 +421,14 @@ class PositionalEmbedding(Layer):
         return tuple(input_shape)
 
     def forward(self, x):
+        # Under sequence parallelism a rank holds positions [off, off+t).
         t = x.shape[1]
-        return x + self._weight("table")[:t][None].to(x.dtype)
+        strategy = current_strategy()
+        off = 0 if strategy is None else strategy.seq_offset(t)
+        if off + t > self.max_len:
+            raise ValueError(
+                f"positions [{off}, {off + t}) exceed max_len {self.max_len}")
+        return x + self._weight("table")[off:off + t][None].to(x.dtype)
 
     def init_cache(self, batch, max_len, dtype, device):
         if max_len > self.max_len:

@@ -99,6 +99,25 @@ def _gathered(w, layout):
     return strategy.constrain_compute_params(w, layout)
 
 
+def tp_layout(layer, name: str):
+    """The layout of leaf ``name`` of ``layer`` when the layer computes
+    with its block of it (Megatron tensor parallelism: the ambient
+    strategy's ``computes_block``), else None (the leaf is whole, or is
+    gathered where it is read)."""
+    w = getattr(layer, name)
+    if isinstance(w, QuantizedWeight):
+        w = w.q
+    lay = layout_of(w)
+    if lay is None:
+        return None
+    from ..parallel.strategy import current_strategy
+
+    strategy = current_strategy()
+    if strategy is None or not strategy.computes_block(lay):
+        return None
+    return lay
+
+
 def _camel_to_snake(name: str) -> str:
     # Conv2D -> conv2d, MaxPool2D -> max_pool2d (split only at lower->Upper).
     return re.sub(r"(?<=[a-z])(?=[A-Z])", "_", name).lower()
@@ -129,6 +148,13 @@ class Layer(torch.nn.Module):
         parameter tree by the containers; None/{} for no override. The
         JAX ``Policy.cast_to_compute`` skips the marked subtrees."""
         return getattr(self, "dtype", None)
+
+    def sharding_hints(self) -> Dict[str, str]:
+        """Tensor-parallel roles of this layer's parameters, as the JAX
+        layer's: parameter name -> "col" (split the output dimension over
+        the model axis) or "row" (split the input dimension); containers
+        nest them as the parameter tree. Empty: replicated."""
+        return {}
 
     def _compute_leaf(self, name: str):
         """Leaf ``name`` as the JAX step's ``Policy.cast_to_compute`` hands
@@ -254,6 +280,16 @@ class Sequential(Layer):
         for layer in self.layers:
             layer.name = scope.assign(layer)
             self.add_module(layer.name, layer)
+        # Megatron's pairing, decided here for both layers: a
+        # column-parallel product whose next layer is a row-parallel one
+        # hands it its feature block without a gather (``feeds_row``), and
+        # that layer takes the block as it is (``takes_block``) instead of
+        # splitting a whole input.
+        for a, b in zip(self.layers, self.layers[1:]):
+            if getattr(a, "shard", None) == "col" and \
+                    getattr(b, "shard", None) == "row":
+                a.feeds_row = True
+                b.takes_block = True
 
     def build(self, input_shape, generator):
         shape = tuple(input_shape)
@@ -273,6 +309,14 @@ class Sequential(Layer):
         for layer in self.layers:
             h = layer.dtype_hints()
             if h is not None and h != {}:
+                hints[layer.name] = h
+        return hints
+
+    def sharding_hints(self):
+        hints = {}
+        for layer in self.layers:
+            h = layer.sharding_hints()
+            if h:
                 hints[layer.name] = h
         return hints
 
@@ -432,6 +476,14 @@ class Residual(Layer):
                 hints[key] = h
         return hints
 
+    def sharding_hints(self):
+        hints = {}
+        for key, branch in (("main", self.main), ("shortcut", self.shortcut)):
+            h = None if branch is None else branch.sharding_hints()
+            if h:
+                hints[key] = h
+        return hints
+
     def _identity_only(self):
         if self.shortcut is not None:
             raise NotImplementedError(
@@ -522,4 +574,4 @@ class Lambda(Layer):
 
 __all__ = ["Lambda", "Layer", "NameScope", "Residual", "Sequential", "Shape",
            "apply_layers", "current_rng", "needs_rng", "param_tree",
-           "rng_scope", "state_tree"]
+           "rng_scope", "state_tree", "tp_layout"]

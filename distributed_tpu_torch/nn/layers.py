@@ -34,9 +34,10 @@ import torch
 import torch.nn.functional as F
 
 from . import activations, initializers
-from .core import Layer, Shape, current_rng
+from .core import Layer, Shape, current_rng, tp_layout
 from ..ops import bn_reduce
 from ..ops.conv1x1 import conv1x1_apply
+from ..parallel import collectives
 from ..parallel.strategy import current_strategy
 from ..precision import resolve_dtype
 from ..quant import QKEY, SKEY
@@ -150,8 +151,20 @@ class Dense(Layer):
     ``use_bias=False`` registers no ``bias`` (the JAX layer's tree paths).
     ``kernel_initializer``: a JAX initializer name (``nn.initializers``)
     or a callable ``init(generator, shape)``. ``shard`` ('col'/'row') is the
-    JAX layer's tensor-parallel hint: validated and kept, read by no
-    strategy the port has (ROADMAP 1.7)."""
+    JAX layer's tensor-parallel hint (``sharding_hints``): under
+    ``DataTensorParallel`` a "col" layer computes this rank's block of the
+    output features from its kernel's column block (its input through
+    ``copy_to_group``; the block is gathered whole unless the next layer
+    of its ``Sequential`` is a "row" one, ``feeds_row``), and a "row"
+    layer multiplies its feature block (the "col" layer's output where
+    ``Sequential`` paired them, ``takes_block``; else its block of the
+    whole input) by its kernel's row block and all-reduces the partial
+    sums before the bias."""
+
+    #: Set by ``Sequential`` on a "col" layer followed by a "row" one, and
+    #: on that "row" layer.
+    feeds_row = False
+    takes_block = False
 
     def __init__(
         self,
@@ -173,6 +186,17 @@ class Dense(Layer):
             raise ValueError(f"shard must be None/'col'/'row', got {shard!r}")
         self.shard = shard
 
+    def sharding_hints(self):
+        # 'col' splits the output features (the bias with them); 'row'
+        # the input features, whose partial products are summed before
+        # the replicated bias.
+        if self.shard is None:
+            return {}
+        hints = {"kernel": self.shard}
+        if self.use_bias and self.shard == "col":
+            hints["bias"] = "col"
+        return hints
+
     def build(self, input_shape: Shape, generator):
         din = input_shape[-1]
         self.kernel = torch.nn.Parameter(self.kernel_initializer(
@@ -184,15 +208,25 @@ class Dense(Layer):
     def forward(self, x):
         # A quantized kernel dequantizes here (f32), then the layer's own
         # dtype handling applies as if it were the f32 kernel.
+        tp = tp_layout(self, "kernel")
         kernel = self._weight("kernel")
         dt = resolve_dtype(self.dtype)
         if dt is not None:
             x = x.to(dt)
             kernel = kernel.to(dt)
+        if tp is not None and self.shard == "col":
+            x = collectives.copy_to_group(x, tp.group)
+        elif tp is not None and not self.takes_block:
+            x = collectives.split_last(x, tp.n, tp.rank, tp.group)
         y = x @ kernel
+        if tp is not None and self.shard == "row":
+            y = collectives.reduce_from_group(y, tp.group)
         if self.use_bias:
             y = y + self._weight("bias").to(y.dtype)
-        return self.activation(y)
+        y = self.activation(y)
+        if tp is not None and self.shard == "col" and not self.feeds_row:
+            y = collectives.gather_last(y, tp.n, tp.rank, tp.group)
+        return y
 
 
 class Dropout(Layer):
@@ -220,6 +254,12 @@ class Dropout(Layer):
         rng = current_rng()
         if rng is None:
             raise ValueError("Dropout needs an rng when train=True")
+        strategy = current_strategy()
+        if getattr(strategy, "tp", 1) > 1 or getattr(strategy, "sp", 1) > 1:
+            raise NotImplementedError(
+                "Dropout under a model or seq mesh axis: not yet ported "
+                "(ROADMAP 1.7): the mask is JAX's full-shape draw, of which "
+                "this rank would keep its slice")
         keep = 1.0 - self.rate
         mask = threefry.bernoulli(rng, keep, tuple(x.shape), x.device)
         # JAX divides by the weakly typed keep cast to x's dtype; a tensor
@@ -287,7 +327,7 @@ class _BatchNormFn(torch.autograd.Function):
         total, n = local, x2d.shape[0]
         if ctx.strategy is not None:
             total = ctx.strategy.all_reduce_sum(local.clone())
-            n *= ctx.strategy.num_replicas_in_sync
+            n *= ctx.strategy.num_batch_shards
         xhat = (x.float() - mean) * inv0
         dx = (scale * inv0) * (dy.float() - total[0] / n
                                - xhat * (total[1] / n))
@@ -367,7 +407,7 @@ class BatchNorm(Layer):
             n = x2d.shape[0]
             if strategy is not None:
                 sums = strategy.all_reduce_sum(sums)
-                n *= strategy.num_replicas_in_sync
+                n *= strategy.num_batch_shards
             m1, m2 = sums[0] / n, sums[1] / n
             mean = shift + m1
             var = torch.clamp_min(m2 - m1.square(), 0.0)

@@ -173,6 +173,9 @@ class Remat(Layer):
     def dtype_hints(self):
         return self.inner.dtype_hints()
 
+    def sharding_hints(self):
+        return self.inner.sharding_hints()
+
     def train(self, mode: bool = True):
         self.inner.training = mode
         return super().train(mode)

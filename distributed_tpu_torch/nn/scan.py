@@ -62,7 +62,7 @@ import torch
 from .core import Layer, Shape, current_rng, rng_scope
 from .remat import Remat
 from ..parallel import collectives
-from ..parallel.collectives import Layout, layout_of
+from ..parallel.collectives import layout_of
 from ..quant import QuantizedWeight
 from ..utils import threefry
 
@@ -195,6 +195,22 @@ class ScannedBlocks(Layer):
         h = self.block.dtype_hints()
         return {"blocks": h} if h is not None and h != {} else {}
 
+    def sharding_hints(self):
+        # The template's roles behind the stack axis: "col" still names
+        # the last dimension, "row" (dim 0 of a block's leaf) becomes
+        # "row1"; roles that would split the stack axis itself raise.
+        def shift(h):
+            if isinstance(h, dict):
+                return {k: shift(v) for k, v in h.items()}
+            if h in ("expert", "pipe"):
+                raise ValueError(
+                    f"ScannedBlocks cannot stack blocks with {h!r}-role "
+                    "params (MoE expert stacks / nested pipeline stages)")
+            return "row1" if h == "row" else h
+
+        inner = shift(self.block.sharding_hints())
+        return {"blocks": inner} if inner else {}
+
     def train(self, mode: bool = True):
         self.block.train(mode)
         return super().train(mode)
@@ -266,14 +282,17 @@ class ScannedBlocks(Layer):
                                                  self._stacked())]
         return [[c[i] for c in cols] for i in range(self.num_blocks)]
 
-    def _fetcher(self, stacked, start):
+    def _fetcher(self, stacked, start, strategy=None):
         """``fetch(i)``: block i's leaves as ``collectives.Pending``s, for
         stacked leaves of which some are stored sharded. Each parameter's
         local part is unbound once; slice i is cast to the compute dtype
         by its layer (``Layer.compute_cast``) and then gathered: by
         ``start`` (the strategy's gather) when the leaf is split on a
         block axis, by a broadcast from its rank when it is split on the
-        stacked axis. Buffers (replicated) are indexed views."""
+        stacked axis. A leaf the ``strategy`` computes with as its block
+        (tensor parallelism) is not gathered: slice i is block i's block,
+        marked with its layout one dimension down, which its layer reads.
+        Buffers (replicated) are indexed views."""
         cols = []
         for (_, kind, _, _, mod), t in zip(self._bindings, stacked):
             lay = layout_of(t)
@@ -287,8 +306,13 @@ class ScannedBlocks(Layer):
                     out.append(collectives.Pending(t[i]))
                 elif lay is None:
                     out.append(start(mod.compute_cast(local[i]), None))
+                elif lay.dim > 0 and strategy is not None and \
+                        strategy.computes_block(lay):
+                    out.append(collectives.Pending(collectives.mark(
+                        local[i], lay._replace(shape=lay.shape[1:],
+                                               dim=lay.dim - 1))))
                 elif lay.dim > 0:
-                    sub = Layout(lay.shape[1:], lay.dim - 1, lay.n, lay.rank)
+                    sub = lay._replace(shape=lay.shape[1:], dim=lay.dim - 1)
                     out.append(start(mod.compute_cast(local[i]), sub))
                 else:
                     per = lay.size
@@ -349,7 +373,8 @@ class ScannedBlocks(Layer):
         stacked = self._stacked()
         fetch = None
         if active or any(layout_of(t) is not None for t in stacked):
-            fetch = self._fetcher(stacked, gather or collectives.start_gather)
+            fetch = self._fetcher(stacked, gather or collectives.start_gather,
+                                  strat)
             pending = fetch(0)
         else:
             slices = self._slices()

@@ -5,7 +5,12 @@ from . import collectives, mesh
 from .mesh import batch_sharding, make_mesh, replicated
 from .strategy import (
     FSDP,
+    CompositeParallel,
+    DataExpertParallel,
     DataParallel,
+    DataPipelineParallel,
+    DataSeqParallel,
+    DataTensorParallel,
     FullyShardedDataParallel,
     MultiWorkerMirroredStrategy,
     SingleDevice,
@@ -15,7 +20,12 @@ from .strategy import (
 )
 
 __all__ = [
+    "CompositeParallel",
+    "DataExpertParallel",
     "DataParallel",
+    "DataPipelineParallel",
+    "DataSeqParallel",
+    "DataTensorParallel",
     "FSDP",
     "FullyShardedDataParallel",
     "MultiWorkerMirroredStrategy",

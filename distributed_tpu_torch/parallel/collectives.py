@@ -2,8 +2,9 @@
 
 The JAX package shards a leaf with a ``NamedSharding`` and lets GSPMD
 insert the all-gathers and reduce-scatters; here they are explicit,
-over the default ``torch.distributed`` group (NCCL on the card, gloo on
-the CPU), one process per card.
+over a ``torch.distributed`` group (NCCL on the card, gloo on the CPU),
+one process per card: the default group, or the group of a mesh axis
+(``Layout.group``, e.g. the ``"model"`` line of a data x model mesh).
 
 A sharded leaf is described by its :class:`Layout`: the full shape, the
 dimension it is split on and this rank's block, the contiguous index
@@ -31,6 +32,24 @@ it.
 - :func:`gather_full` and :func:`all_gather_blocks` gather without
   autograd (exports, checkpoints, ZeRO-1's updated blocks).
 
+Tensor and sequence parallelism add the differentiable collectives the
+JAX package gets from GSPMD and ``shard_map``:
+
+- Megatron's pair over the model group (Shoeybi et al., 2019):
+  :func:`copy_to_group` (identity forward, all-reduce backward: the input
+  of a column-parallel product) and :func:`reduce_from_group` (all-reduce
+  forward, identity backward: the output of a row-parallel product);
+  :func:`gather_last`/:func:`split_last` move an activation between its
+  feature block and the whole (a column output no row product takes, a
+  whole input to a row product).
+- :func:`ppermute`, ``lax.ppermute``: each rank sends to its
+  permutation partner and receives from its own (zeros where no one
+  sends), the backward sending the cotangent along the inverse.
+- :func:`ulysses_to_heads`/:func:`ulysses_to_seq`: the all-to-all that
+  trades a sequence block with all heads for the whole sequence with a
+  block of heads, (B, T/s, H, D) <-> (B, T, H/s, D), each the other's
+  backward.
+
 Every buffer is flat: gloo takes the concatenated form of
 ``all_gather_into_tensor``/``reduce_scatter_tensor`` only. A collective
 that fails raises; nothing here falls back to a full leaf.
@@ -56,12 +75,16 @@ _reduce_scatter_flat = getattr(dist, "reduce_scatter_single", None) or \
 class Layout(NamedTuple):
     """One rank's block of a sharded leaf: ``shape`` the full shape,
     ``dim`` the shard dimension, ``n`` the number of ranks and ``rank``
-    this one."""
+    this one's index among them; ``group`` the process group they form
+    (None: the default group) and ``axis`` the mesh axis it lines
+    (None: the strategy's one axis)."""
 
     shape: Tuple[int, ...]
     dim: int
     n: int
     rank: int
+    group: object = None
+    axis: Optional[str] = None
 
     @property
     def size(self) -> int:
@@ -126,14 +149,15 @@ def _split(full: torch.Tensor, layout: Layout) -> torch.Tensor:
 
 def _gather_into(x: torch.Tensor, layout: Layout, async_op: bool = False):
     buf = x.new_empty((layout.n * x.numel(),))
-    work = _all_gather(buf, x.contiguous().reshape(-1), async_op=async_op)
+    work = _all_gather(buf, x.contiguous().reshape(-1), group=layout.group,
+                       async_op=async_op)
     return buf, work
 
 
 def _reduce_scatter(g: torch.Tensor, layout: Layout) -> torch.Tensor:
     out = g.new_empty(layout.block_shape)
     _reduce_scatter_flat(out.view(-1), _split(g, layout),
-                         op=dist.ReduceOp.SUM)
+                         op=dist.ReduceOp.SUM, group=layout.group)
     return out
 
 
@@ -191,7 +215,7 @@ class _GatherStart(torch.autograd.Function):
         lay = ctx.layout
         out = g.new_empty(lay.block_shape)
         _reduce_scatter_flat(out.view(-1), g.contiguous(),
-                             op=dist.ReduceOp.SUM)
+                             op=dist.ReduceOp.SUM, group=lay.group)
         return out, None, None
 
 
@@ -260,12 +284,12 @@ def all_gather_blocks(fulls: Sequence[torch.Tensor],
     all-gathered once (ZeRO-1's updated parameters)."""
     groups: dict = {}
     for i, b in enumerate(blocks):
-        groups.setdefault(b.dtype, []).append(i)
+        groups.setdefault((b.dtype, layouts[i].group), []).append(i)
     for idxs in groups.values():
         flat = torch.cat([blocks[i].reshape(-1) for i in idxs])
         n = layouts[idxs[0]].n
         out = flat.new_empty((n * flat.numel(),))
-        _all_gather(out, flat)
+        _all_gather(out, flat, group=layouts[idxs[0]].group)
         per_rank = out.view(n, flat.numel())
         off = 0
         for i in idxs:
@@ -280,21 +304,218 @@ def all_gather_blocks(fulls: Sequence[torch.Tensor],
             off += k
 
 
-def leaf_sums(values: List[torch.Tensor],
-              replicated: Sequence[bool]) -> List[torch.Tensor]:
+def leaf_sums(values: List[torch.Tensor], replicated: Sequence[bool],
+              group=None) -> List[torch.Tensor]:
     """Per-leaf partial sums (0-d tensors, one per leaf of an update's
-    list) summed over the ranks, a replicated leaf's counted once (rank
-    0's): one all-reduce of the stacked values."""
+    list) summed over the ranks of ``group`` (None: the default group),
+    a replicated leaf's counted once (the group's rank 0's): one
+    all-reduce of the stacked values."""
     t = torch.stack(values)
-    if dist.get_rank() != 0 and any(replicated):
+    if dist.get_rank(group) != 0 and any(replicated):
         mask = torch.tensor(list(replicated), device=t.device)
         t = torch.where(mask, torch.zeros_like(t), t)
-    dist.all_reduce(t, op=dist.ReduceOp.SUM)
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return list(t.unbind())
 
 
+# --------------------------------------------- tensor and sequence parallel
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    t = t.contiguous().clone()
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return t
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as it is; its gradient summed over ``group`` (Megatron's
+    f: the replicated input of a column-parallel product, whose ranks
+    each hold part of its gradient)."""
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group``; the gradient passed as it is
+    (Megatron's g: the partial products of a row-parallel product)."""
+    return _ReduceFromGroup.apply(x, group)
+
+
+def _last_layout(x: torch.Tensor, n: int, rank: int, group) -> Layout:
+    """The layout of ``x``'s feature block (its last dimension) among
+    ``n`` ranks: the full activation's shape, split on the last dim."""
+    full = tuple(x.shape[:-1]) + (x.shape[-1] * n,)
+    return Layout(full, len(full) - 1, n, rank, group)
+
+
+class _GatherLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, n, rank, group):
+        lay = _last_layout(x, n, rank, group)
+        ctx.layout = lay
+        buf, _ = _gather_into(x, lay)
+        return _merge(buf, lay)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.layout.index()].contiguous(), None, None, None
+
+
+class _SplitLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, n, rank, group):
+        k = x.shape[-1] // n
+        ctx.args = (n, rank, group)
+        return x[..., rank * k:(rank + 1) * k].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        n, rank, group = ctx.args
+        lay = _last_layout(g, n, rank, group)
+        buf, _ = _gather_into(g, lay)
+        return _merge(buf, lay), None, None, None
+
+
+def gather_last(x: torch.Tensor, n: int, rank: int, group) -> torch.Tensor:
+    """The whole activation from this rank's block of its last dimension
+    (rank ``rank`` of ``n`` in ``group``); the gradient's own block comes
+    back (the cotangent is the same on every rank of the group)."""
+    return _GatherLast.apply(x, n, rank, group)
+
+
+def split_last(x: torch.Tensor, n: int, rank: int, group) -> torch.Tensor:
+    """This rank's block of ``x``'s last dimension; the gradient is
+    all-gathered back to the whole (every rank's block of it)."""
+    return _SplitLast.apply(x, n, rank, group)
+
+
+def _global(group, r: int) -> int:
+    return r if group is None else dist.get_global_rank(group, r)
+
+
+def _permute(x: torch.Tensor, perm, group) -> torch.Tensor:
+    """One ``lax.ppermute``: send ``x`` to this rank's destination in
+    ``perm`` (``(source, dest)`` group ranks), receive from its source;
+    zeros where no pair names this rank as a destination."""
+    me = dist.get_rank(group)
+    dst = [d for s, d in perm if s == me]
+    src = [s for s, d in perm if d == me]
+    x = x.contiguous()
+    out = torch.zeros_like(x)
+    ops = []
+    if src and src[0] == me:
+        out.copy_(x)
+    elif src:
+        ops.append(dist.P2POp(dist.irecv, out, _global(group, src[0]),
+                              group=group))
+    if dst and dst[0] != me:
+        ops.append(dist.P2POp(dist.isend, x, _global(group, dst[0]),
+                              group=group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return out
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, perm, group):
+        ctx.perm, ctx.group = perm, group
+        return _permute(x, perm, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse = [(d, s) for s, d in ctx.perm]
+        return _permute(g, inverse, ctx.group), None, None
+
+
+def ppermute(x: torch.Tensor, perm, group=None) -> torch.Tensor:
+    """``lax.ppermute(x, axis, perm)`` over ``group``: ``perm`` lists
+    ``(source, dest)`` pairs of group ranks; a rank no pair sends to gets
+    zeros. Differentiable: the cotangent travels the inverse pairs."""
+    return _PPermute.apply(x, tuple(tuple(p) for p in perm), group)
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    """``all_to_all_single`` of ``x`` (s, ...) over ``group``: chunk j to
+    rank j, chunk j of the result from rank j."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def _to_heads(x: torch.Tensor, group) -> torch.Tensor:
+    s = dist.get_world_size(group)
+    b, tl, h, d = x.shape
+    chunks = x.reshape(b, tl, s, h // s, d).permute(2, 0, 1, 3, 4)
+    got = _exchange(chunks, group)  # (s, B, T/s, H/s, D), j: T block j
+    return got.permute(1, 0, 2, 3, 4).reshape(b, s * tl, h // s, d)
+
+
+def _to_seq(x: torch.Tensor, group) -> torch.Tensor:
+    s = dist.get_world_size(group)
+    b, t, hs, d = x.shape
+    chunks = x.reshape(b, s, t // s, hs, d).permute(1, 0, 2, 3, 4)
+    got = _exchange(chunks, group)  # (s, B, T/s, H/s, D), j: heads block j
+    return got.permute(1, 2, 0, 3, 4).reshape(b, t // s, s * hs, d)
+
+
+class _ToHeads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _to_heads(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _to_seq(g, ctx.group), None
+
+
+class _ToSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _to_seq(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _to_heads(g, ctx.group), None
+
+
+def ulysses_to_heads(x: torch.Tensor, group) -> torch.Tensor:
+    """(B, T/s, H, D) sequence blocks -> (B, T, H/s, D) head blocks over
+    the ``s`` ranks of ``group`` (DeepSpeed-Ulysses' first all-to-all):
+    rank j ends with heads ``[j*H/s, (j+1)*H/s)`` of every position."""
+    return _ToHeads.apply(x, group)
+
+
+def ulysses_to_seq(x: torch.Tensor, group) -> torch.Tensor:
+    """The inverse exchange, (B, T, H/s, D) -> (B, T/s, H, D)."""
+    return _ToSeq.apply(x, group)
+
+
 __all__ = [
-    "Layout", "Pending", "all_gather_blocks", "gather", "gather_full",
-    "gather_leaf", "layout_of", "leaf_sums", "mark", "start_gather",
-    "start_owner_copy",
+    "Layout", "Pending", "all_gather_blocks", "copy_to_group", "gather",
+    "gather_full", "gather_last", "gather_leaf", "layout_of", "leaf_sums",
+    "mark", "ppermute", "reduce_from_group", "split_last", "start_gather",
+    "start_owner_copy", "ulysses_to_heads", "ulysses_to_seq",
 ]

@@ -107,8 +107,8 @@ from ..ops import losses as losses_lib
 from ..ops import metrics as metrics_lib
 from ..ops.pallas_kernels import XENT_FWD_OP
 from ..parallel.collectives import gather_full, layout_of, mark
-from ..parallel.strategy import (DataParallel, FullyShardedDataParallel,
-                                 SingleDevice, Strategy, current_strategy)
+from ..parallel.strategy import (SingleDevice, Strategy, current_strategy,
+                                 role_of)
 from ..utils import event_schema as evs
 from ..utils import events as events_lib
 from ..utils import logging as dlog
@@ -313,11 +313,20 @@ class Model:
 
     def _layout_params(self) -> None:
         """Store each parameter as this rank's block where the strategy
-        shards parameters (FSDP), marked with its layout."""
+        shards parameters (FSDP; tensor parallelism by the layers'
+        ``sharding_hints`` roles), marked with its layout."""
+        hints = self.module.sharding_hints()
+        # An int8 weight's q and scale take no role: stored whole under
+        # tensor parallelism (its layer then computes with the whole).
+        quant = {name.replace(".", "/") for name, sub in
+                 self.module.named_modules()
+                 if isinstance(sub, quant_lib.QuantizedWeight)}
         with torch.no_grad():
-            for t in param_tree(self.module).values():
+            for path, t in param_tree(self.module).items():
                 if layout_of(t) is None:
-                    lay = self.strategy.param_layout(tuple(t.shape))
+                    role = (None if path.rpartition("/")[0] in quant
+                            else role_of(path, hints))
+                    lay = self.strategy.param_layout(tuple(t.shape), role)
                     if lay is not None:
                         t.data = lay.block(t.data)
                         mark(t, lay)
@@ -369,7 +378,7 @@ class Model:
         return {p: _full_shape(t) for p, t in self.live_params().items()}
 
     def _opt_layout_list(self):
-        return [self.strategy.opt_layout(_full_shape(t))
+        return [self.strategy.opt_layout(_full_shape(t), layout_of(t))
                 for t in self._param_list()]
 
     @property
@@ -763,19 +772,9 @@ class Model:
         return loss, mvals
 
     def _check_capturable(self):
-        if isinstance(self.strategy, FullyShardedDataParallel):
-            raise NotImplementedError(
-                "steps_per_execution > 1 under FSDP on the card: not yet "
-                "ported (ROADMAP 1.3a). The forward gathers every sharded "
-                "parameter, which the step's CUDA graph would capture; the "
-                "port captures no NCCL call")
-        if (isinstance(self.strategy, DataParallel)
-                and _has_batch_norm(self.module)):
-            raise NotImplementedError(
-                "steps_per_execution > 1 under DataParallel with BatchNorm "
-                "on the card: not yet ported (ROADMAP 1.6). Sync-BN's "
-                "collectives run inside the forward, which the step's CUDA "
-                "graph would capture; the port captures no NCCL call")
+        why = self.strategy.forward_collectives(_has_batch_norm(self.module))
+        if why is not None:
+            raise NotImplementedError(why)
 
     def _graph_grad_eval(self, x, y, accum_m: int, scale=None, rng=None):
         key = (tuple(x.shape), x.dtype, tuple(y.shape), y.dtype, accum_m)
@@ -839,6 +838,7 @@ class Model:
                 np.ascontiguousarray(idx[:, lo:hi]).reshape(-1)))
         batch = {}
         for name, src in arrays.items():
+            src = self.strategy.shard_seq(src)
             buf = stager.host(name, (len(rows), len(rows[0]))
                               + tuple(src.shape[1:]), src.dtype)
             for i, r in enumerate(rows):
@@ -854,6 +854,7 @@ class Model:
         batch = {}
         for name, a in arrays.items():
             t = torch.from_numpy(np.asarray(a))
+            t = self.strategy.shard_seq(t, 2 if stacked else 1)
             t = t if stacked else t[None]
             if not per_host:
                 k, n = t.shape[:2]
@@ -1084,7 +1085,7 @@ class Model:
                     initial_epoch, resume_offset, stage, multi_k, accum_m,
                     prefetch, source, history, callbacks, validation_data,
                     validation_steps, timer):
-        reps = self.strategy.num_replicas_in_sync
+        reps = self.strategy.num_batch_shards
         obs_reg = obs_registry.default_registry()
         flush_every = max(
             1, int(os.environ.get("DTPU_OBS_FLUSH_EVERY", "5") or 5))
@@ -1247,7 +1248,8 @@ class Model:
             {p: torch.empty(s, dtype=t.dtype, device="meta") for (p, s), t
              in zip(self._param_shapes().items(), self._param_list())},
             compute_dtype=(None if self.precision is None
-                           else self.precision.compute_dtype))
+                           else self.precision.compute_dtype),
+            hints=self.module.sharding_hints())
         # The scanned stack's record of this fit's last forward on this
         # thread (nn.scan.last_overlap_trace), read as the JAX report reads
         # its trace-time record: with the FSDP gather overlapped, only
@@ -1335,7 +1337,8 @@ class Model:
         was_training = self.module.training
         self.module.eval()
         try:
-            with torch.inference_mode(), self._policy_scope():
+            with torch.inference_mode(), self.strategy.scope(), \
+                    self._policy_scope():
                 for pair in batches:
                     if pair is None:
                         sums.append([zero] * k)
@@ -1380,8 +1383,8 @@ class Model:
                 f"yielding (x, y); got {type(x).__name__} without labels")
         if not (self.built and self.compiled):
             raise RuntimeError("Model must be built and compiled")
-        x = np.asarray(x)
-        y = np.asarray(y)
+        x = self.strategy.shard_seq(np.asarray(x))
+        y = self.strategy.shard_seq(np.asarray(y))
         n = x.shape[0]
         lo, hi = self.strategy.row_range(batch_size)
         chunked = bool(self.head_chunks and self.head_chunks > 1)

@@ -2,7 +2,7 @@
 """Data-parallel training across the cards of one host, through the launcher.
 
     python3 scripts/torch_dp_scaling.py [--num-workers 1 4] [--timeout 900]
-        [--strategy dp zero1 fsdp]
+        [--strategy dp zero1 fsdp tp2 tp4 sp_ring sp_ulysses]
 
 For each worker count N, starts N processes with the port's
 ``launch.LocalLauncher`` (one per card, each with its own DTPU_CONFIG).
@@ -29,12 +29,33 @@ order) and 2e-3 (the LM's bf16 layers round partial gradients at other
 places).
 
 ``--strategy`` picks the strategies, each run in turn for every N:
-``dp`` (``DataParallel``: every model above), ``zero1``
-(``ZeroDataParallel``) and ``fsdp`` (``FSDP``); the sharded two train the
-LM only (its timed run and its parity run at one global batch for every
-N), which is where their memory shows: each row also carries the model
-state a card holds (``model_state_bytes_per_device`` of ``fit``'s
-telemetry, the largest over the ranks).
+``dp`` (``DataParallel``), ``zero1`` (``ZeroDataParallel``), ``fsdp``
+(``FSDP``), ``tp2`` and ``tp4`` (``DataTensorParallel(model_parallel=2
+or 4)``: 32 x 1024 tokens a data rank, so data 2 or 1 on 4 cards). All
+but ``dp`` train the LM only (its timed run and its parity run at one
+global batch for every N), which is where their memory shows; ``dp``
+trains every model above when it is listed alone, and the LM only, as
+the others' baseline, when it is listed with them. Each row also carries
+the model state a card holds (``model_state_bytes_per_device`` of
+``fit``'s telemetry, the largest over the ranks). A strategy skips an N
+its split axis does not divide, and its parity losses are held to
+``dp``'s at the first N where it ran. Under ``tp2``/``tp4`` the
+replicated leaves must stay bit-identical across the ranks too.
+
+``sp_ring`` and ``sp_ulysses`` (``DataSeqParallel(seq_parallel=N)``,
+ring with the zigzag schedule or Ulysses) train ``bench_longctx``'s LM
+as chip_smoke.py's phase u1 configures it (GPT-2 width, vocab 32,768,
+bf16 layers, remat with ``dots_with_no_batch_dims_saveable``,
+``head_chunks=8``, ``Adam(1e-4)``, the pallas loss) at 1 x T tokens: T
+65,536 first, with the same run on one card under ``DataParallel`` as
+the reference (N=1), then doubling from 131,072 (up to ``SP_MAX``)
+until a run fails, or halving below 65,536 when that one fails. Each T
+is one group of workers (a failed one is killed after ``SP_TIMEOUT``
+seconds); each row gives ms a step, tokens/s, the peak memory a card and
+the losses. The losses are compared at the shortest T at which a mode
+first ran, where the one-card reference and every other mode also run:
+each mode's must match the reference's within 2e-3 (the bf16 layers) and
+the other mode's.
 
 Prints, per strategy, N and model, steps/s, images or tokens per second
 (in all and per card), the all-reduce's ms, the model state a card holds
@@ -58,23 +79,85 @@ CNN_RUN = {"mnist_cnn": (256, 10, 100), "cifar_cnn": (256, 5, 50),
 LM_RUN = (32, 2, 5)
 # The same global batch at every N: (model, global batch, loss rtol).
 PARITY = (("mnist_cnn", 256, 1e-5), ("small_resnet", 32, 1e-4), ("lm", 32, 2e-3))
-STRATEGIES = {"dp": "DataParallel", "zero1": "ZeroDataParallel",
-              "fsdp": "FSDP"}
+STRATEGIES = {"dp": ("DataParallel", {}),
+              "zero1": ("ZeroDataParallel", {}), "fsdp": ("FSDP", {}),
+              "tp2": ("DataTensorParallel", {"model_parallel": 2}),
+              "tp4": ("DataTensorParallel", {"model_parallel": 4}),
+              "sp_ring": ("DataSeqParallel", {}),
+              "sp_ulysses": ("DataSeqParallel", {"attention": "ulysses"})}
+SP = ("sp_ring", "sp_ulysses")
+# The long-context LM's first T, and its timed steps after one warm-up;
+# the longest T the search tries, and the seconds a group of workers at
+# one T may take.
+SP_FIRST, SP_STEPS = 65536, 2
+SP_MAX, SP_TIMEOUT = 524288, 420.0
 
 
-def worker(strategy_name="dp"):
+def split_of(strat):
+    """The size of a strategy's split axis (1 for the data-parallel
+    family, which any N divides)."""
+    return STRATEGIES[strat][1].get("model_parallel", 1)
+
+
+def sp_worker(strat, t_len):
+    """One long-context run at 1 x ``t_len`` under ``strat`` (an SP mode
+    over every card, or ``dp`` on one card): 1 warm-up and ``SP_STEPS``
+    timed steps; reports ms a step, the losses and the peak memory."""
+    import torch
+
+    import chip_smoke
+    import distributed_tpu_torch as dtt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # A rank that runs out of memory leaves the others in a collective:
+    # the group's watchdog ends them after this many seconds.
+    spec = dtt.cluster.initialize(timeout=90)
+    if strat in SP:
+        strategy = dtt.DataSeqParallel(
+            seq_parallel=torch.distributed.get_world_size(),
+            **STRATEGIES[strat][1])
+    else:
+        strategy = dtt.DataParallel()
+    x, y = chip_smoke.lm_batch(1, t_len)
+    torch.cuda.reset_peak_memory_stats()
+    with strategy.scope():
+        model = dtt.Model(dtt.models.transformer_lm(
+            chip_smoke.VOCAB, dtype="bfloat16", remat=True,
+            remat_policy=chip_smoke.REMAT_POLICY,
+            **dict(chip_smoke.LM, max_len=t_len)))
+        model.compile(optimizer=dtt.optim.Adam(1e-4), loss=chip_smoke.PALLAS,
+                      metrics=[], head_chunks=8)
+    model.build((t_len,), seed=0)
+    fit = dict(batch_size=1, steps_per_epoch=1, shuffle=False, verbose=0)
+    losses = model.fit(x, y, epochs=1, **fit).history["loss"]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    losses += model.fit(x, y, epochs=SP_STEPS, **fit).history["loss"]
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t) / SP_STEPS
+    peak = torch.tensor([torch.cuda.max_memory_allocated() / 1e9],
+                        device=strategy.device)
+    torch.distributed.all_reduce(peak, op=torch.distributed.ReduceOp.MAX)
+    dtt.launch.report_result({"rank": spec.index, "ms": ms,
+                              "losses": losses, "peak_gb": float(peak),
+                              "tokens_per_s": t_len / (ms / 1e3)})
+    dtt.cluster.shutdown()
+
+
+def worker(strategy_name="dp", lm_only=True):
     import numpy as np
     import torch
 
     import chip_smoke
     import distributed_tpu_torch as dtt
+    from distributed_tpu_torch.parallel.collectives import layout_of
     from distributed_tpu_torch.utils import sync_check
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     spec = dtt.cluster.initialize(timeout=300)
-    strategy = getattr(dtt, STRATEGIES[strategy_name])()
-    sharded = strategy_name != "dp"
+    cls, kw = STRATEGIES[strategy_name]
+    strategy = getattr(dtt, cls)(**kw)
     n = strategy.num_replicas_in_sync
     rows = {}
 
@@ -104,6 +187,10 @@ def worker(strategy_name="dp"):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         sync_check.assert_model_replicas_identical(model)
+        if strategy_name in ("tp2", "tp4"):
+            sync_check.assert_replicas_identical({
+                k: v for k, v in model.live_params().items()
+                if layout_of(v) is None}, "replicated leaves")
         sps = epochs * steps / wall
         rows[name] = {"steps_per_s": sps, "unit": unit,
                       "per_s": sps * batch * per_row,
@@ -157,7 +244,7 @@ def worker(strategy_name="dp"):
         return model, x, y
 
     for name, (per_card, warmup, steps) in CNN_RUN.items():
-        if sharded:
+        if lm_only:
             break
         model, x, y = setup(name, per_card * n)
         run(name, model, x, y, per_card * n, warmup, 1, steps, "images", 1)
@@ -169,7 +256,7 @@ def worker(strategy_name="dp"):
     del model
     parity = {}
     for name, batch, _ in PARITY:
-        if sharded and name != "lm":
+        if lm_only and name != "lm":
             continue
         model, x, y = setup(name, batch, seed=1)
         parity[name] = model.fit(x, y, batch_size=batch, epochs=3,
@@ -190,9 +277,15 @@ def main():
     ap.add_argument("--strategy", nargs="+", default=["dp"],
                     choices=sorted(STRATEGIES))
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--seq-len", type=int, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        worker(args.strategy[0])
+        if args.seq_len:
+            sp_worker(args.strategy[0], args.seq_len)
+        else:
+            # The first strategy listed is the worker's; dp trains every
+            # model only when nothing else is listed.
+            worker(args.strategy[0], args.strategy != ["dp"])
         return 0
     import torch
 
@@ -206,29 +299,34 @@ def main():
     env = {"PYTHONPATH": os.pathsep.join(
         p for p in (ROOT, os.environ.get("PYTHONPATH")) if p)}
     out, failed = {}, False
+    sp = [strat for strat in args.strategy if strat in SP]
     for strat in args.strategy:
+        if strat in SP:
+            continue
         out[strat] = run_strategy(dtt, env, args, strat)
         if out[strat] is None:
             failed = True
-            break
+            continue
+        base = out.get("dp") or out[strat]
         for n, res in out[strat].items():
-            dp = out.get("dp", {}).get(n)
+            dp = base.get(n)
             for name, row in res["rows"].items():
                 total = row["per_s"]
                 state = row["model_state_bytes_per_device"]
                 vs = ""
                 if dp is not None and name in dp["rows"]:
-                    ref = dp["rows"][name]
-                    vs = (f" ({state / ref['model_state_bytes_per_device']:.4f}"
-                          f" of dp's; per-card rate "
-                          f"{total / ref['per_s']:.4f} of dp's)")
+                    dp_row = dp["rows"][name]
+                    ratio = state / dp_row["model_state_bytes_per_device"]
+                    vs = (f" ({ratio:.4f} of dp's; per-card rate "
+                          f"{total / dp_row['per_s']:.4f} of dp's)")
                 print(f"{strat} N={n} {name:9s} {row['steps_per_s']:8.3f} "
                       f"steps/s, {total:12.1f} {row['unit']}/s "
                       f"({total / n:12.1f} per card), all-reduce of the "
                       f"gradients {row['allreduce_ms']:.3f} ms, model state "
                       f"{state / 1e9:.4f} GB a card{vs}, losses "
                       f"{[round(v, 5) for v in row['loss']]}")
-            first = out[strat][args.num_workers[0]]["parity"]
+            ref_n = min(base)
+            first = base[ref_n]["parity"]
             for name, batch, rtol in PARITY:
                 if name not in res["parity"]:
                     continue
@@ -236,11 +334,89 @@ def main():
                           for a, b in zip(res["parity"][name], first[name]))
                 print(f"{strat} N={n} {name:9s} at global batch {batch}: "
                       f"losses {res['parity'][name]}, max relative "
-                      f"difference from N={args.num_workers[0]} {rel:.3e} "
+                      f"difference from N={ref_n} {rel:.3e} "
                       f"(limit {rtol:g})")
                 failed |= rel > rtol
+    if sp:
+        out["sp"] = run_sp(dtt, env, args.num_workers[-1], sp)
+        failed |= out["sp"]["failed"]
     print(json.dumps(out))
     return 1 if failed else 0
+
+
+def sp_launch(dtt, env, strat, n, t_len):
+    """One long-context group: the rank-0 row, or None (the failure
+    printed) when a worker failed or was killed after ``SP_TIMEOUT``."""
+    t = time.perf_counter()
+    results = dtt.launch.LocalLauncher(env_extra=env).run(
+        [sys.executable, os.path.abspath(__file__), "--worker",
+         "--strategy", strat, "--seq-len", str(t_len)], n,
+        timeout=SP_TIMEOUT)
+    bad = [r for r in results if not r.ok]
+    if bad:
+        tail = bad[0].log_tail.strip().splitlines()[-3:]
+        print(f"{strat} N={n} T={t_len}: FAILED after "
+              f"{time.perf_counter() - t:.0f} s ({bad[0].error}): "
+              + " | ".join(tail))
+        return None
+    row = results[0].value
+    print(f"{strat} N={n} T={t_len}: {row['ms']:.1f} ms a step, "
+          f"{row['tokens_per_s']:.1f} tokens/s, peak {row['peak_gb']:.2f} GB "
+          f"a card, losses {[round(v, 5) for v in row['losses']]}")
+    return row
+
+
+def run_sp(dtt, env, n, modes):
+    """The long-context rows on ``n`` cards: the one-card reference at
+    SP_FIRST, each mode there, then the longest T that fits (doubling
+    above SP_FIRST, halving below it); then the shortest T where a mode
+    first ran, with the reference and every other mode run there too
+    where they have not. The losses are compared at every T where the
+    reference ran; a mode missing at that shortest T fails the run."""
+    refs = {SP_FIRST: sp_launch(dtt, env, "dp", 1, SP_FIRST)}
+    rows, first = {}, {}
+    for mode in modes:
+        got = rows[mode] = {SP_FIRST: sp_launch(dtt, env, mode, n, SP_FIRST)}
+        step = 2 if got[SP_FIRST] is not None else 0.5
+        t_len = int(SP_FIRST * step)
+        while 4096 <= t_len <= SP_MAX:
+            got[t_len] = sp_launch(dtt, env, mode, n, t_len)
+            if (got[t_len] is None) == (step == 2):
+                break
+            t_len = int(t_len * step)
+        fits = [t for t, r in got.items() if r is not None]
+        print(f"{mode} N={n}: the longest T that ran: "
+              f"{max(fits) if fits else None} (tried {sorted(got)})")
+        first[mode] = (SP_FIRST if got[SP_FIRST] is not None
+                       else max(fits) if fits else None)
+    failed = any(t is None for t in first.values())
+    if not failed:
+        t_cmp = min(first.values())
+        if t_cmp not in refs:
+            refs[t_cmp] = sp_launch(dtt, env, "dp", 1, t_cmp)
+        for mode in modes:
+            if t_cmp not in rows[mode]:
+                rows[mode][t_cmp] = sp_launch(dtt, env, mode, n, t_cmp)
+        for t in sorted(refs):
+            at = dict({"one card": refs[t]},
+                      **{m: rows[m].get(t) for m in modes})
+            for mode in modes:
+                for other, against in at.items():
+                    if other == mode:
+                        continue
+                    if at[mode] is None or against is None:
+                        failed |= t == t_cmp
+                        continue
+                    rel = max(abs(a - b) / abs(b) for a, b in
+                              zip(at[mode]["losses"], against["losses"]))
+                    print(f"{mode} at T={t}: losses within {rel:.3e} of "
+                          f"{other}'s (limit 2e-3)")
+                    failed |= rel > 2e-3
+    out = {mode: {str(t): r for t, r in sorted(got.items())}
+           for mode, got in rows.items()}
+    out["reference"] = {str(t): r for t, r in sorted(refs.items())}
+    out["failed"] = failed
+    return out
 
 
 def run_strategy(dtt, env, args, strat):
@@ -248,9 +424,13 @@ def run_strategy(dtt, env, args, strat):
     count, or None when a worker failed (its log printed)."""
     res = {}
     for n in args.num_workers:
+        if n % split_of(strat):
+            continue
         results = dtt.launch.LocalLauncher(env_extra=env).run(
             [sys.executable, os.path.abspath(__file__), "--worker",
-             "--strategy", strat], n, timeout=args.timeout)
+             "--strategy", strat,
+             *[other for other in args.strategy if other != strat]], n,
+            timeout=args.timeout)
         bad = [r for r in results if not r.ok]
         for r in bad:
             print(f"{strat} N={n} worker {r.index} FAILED ({r.error})\n"

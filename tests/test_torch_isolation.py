@@ -81,11 +81,13 @@ def test_sharded_strategy_modules_are_checked():
                  "distributed_tpu_torch/parallel/collectives.py",
                  "distributed_tpu_torch/parallel/strategy.py",
                  "distributed_tpu_torch/checkpoint/sharded.py",
+                 "distributed_tpu_torch/ops/ring_attention.py",
                  "scripts/torch_dp_scaling.py"):
         assert path in checked, path
     for name in ("distributed_tpu_torch.parallel.mesh",
                  "distributed_tpu_torch.parallel.collectives",
-                 "distributed_tpu_torch.checkpoint.sharded"):
+                 "distributed_tpu_torch.checkpoint.sharded",
+                 "distributed_tpu_torch.ops.ring_attention"):
         assert name in _port_modules(), name
 
 

@@ -53,6 +53,21 @@ def _in_world1_group(f, **kw):
     finally:
         dtt.cluster.shutdown()
 
+def _world1_strategy(f, split, **kw):
+    """``f(device="cpu", **kw)`` (a TP or SP strategy, its ``split`` axis
+    of size 1) inside a world-1 gloo group; ``mesh="world1_mesh"`` passes
+    a data x ``split`` mesh of that group."""
+    dtt.DataParallel(device="cpu")
+    try:
+        if kw.get("mesh") == "world1_mesh":
+            kw["mesh"] = dtt.parallel.make_mesh({"data": 1, split: 1},
+                                                device_type="cpu")
+        size = "model_parallel" if split == "model" else "seq_parallel"
+        return f(device="cpu", **{size: 1, **kw})
+    finally:
+        dtt.cluster.shutdown()
+
+
 # (JAX callable, port callable, {keyword: (value to pass, ROADMAP item
 # when it raises, or None when it works)}, call(port callable, **kw)).
 PAIRS = {
@@ -144,9 +159,35 @@ PAIRS = {
         "keep": (2, None), "async_save": (True, None)},
         lambda f, **kw: f("ckpt_dir", **kw)),
     "make_mesh": (jax_mesh.make_mesh, dtt.parallel.make_mesh, {
-        "axis_sizes": ({"fsdp": 1}, None), "devices": ([0], "1.7"),
-        "dcn_axis": ("data", "1.7"), "slice_ids": ([0], "1.7")},
+        "axis_sizes": ({"fsdp": 1}, None), "devices": ([0], None),
+        "dcn_axis": ("data", None), "slice_ids": ([0], None)},
         lambda f, **kw: _in_world1_group(f, **kw)),
+    "DataTensorParallel": (dtpu.DataTensorParallel, dtt.DataTensorParallel, {
+        "devices": ([0], None), "mesh": ("world1_mesh", None),
+        "model_parallel": (1, None), "axis": ("fsdp", None),
+        "model_axis": ("seq", None)},
+        lambda f, **kw: _world1_strategy(f, "model", **kw)),
+    "DataSeqParallel": (dtpu.DataSeqParallel, dtt.DataSeqParallel, {
+        "devices": ([0], None), "mesh": ("world1_mesh", None),
+        "seq_parallel": (1, None), "axis": ("fsdp", None),
+        "seq_axis": ("model", None), "attention": ("ulysses", None)},
+        lambda f, **kw: _world1_strategy(f, "seq", **kw)),
+    "DataPipelineParallel": (dtpu.DataPipelineParallel,
+                             dtt.DataPipelineParallel, {
+        "devices": ([0], "1.7"), "mesh": (None, "1.7"),
+        "pipeline_parallel": (1, "1.7"), "num_microbatches": (2, "1.7"),
+        "axis": ("fsdp", "1.7"), "pipe_axis": ("seq", "1.7")},
+        lambda f, **kw: f(device="cpu", **kw)),
+    "DataExpertParallel": (dtpu.DataExpertParallel, dtt.DataExpertParallel, {
+        "devices": ([0], "1.7"), "mesh": (None, "1.7"),
+        "expert_parallel": (1, "1.7"), "axis": ("fsdp", "1.7"),
+        "expert_axis": ("seq", "1.7")},
+        lambda f, **kw: f(device="cpu", **kw)),
+    "CompositeParallel": (dtpu.CompositeParallel, dtt.CompositeParallel, {
+        "axes": ({"data": 1}, "1.7"), "devices": ([0], "1.7"),
+        "mesh": (None, "1.7"), "num_microbatches": (2, "1.7"),
+        "seq_attention": ("ulysses", "1.7")},
+        lambda f, **kw: f(device="cpu", **kw)),
     "Dropout": (dtpu.nn.Dropout, dtt.nn.Dropout, {"name": ("drop", None)},
                 lambda f, **kw: f(0.1, **kw)),
     "Lambda": (dtpu.nn.Lambda, dtt.nn.Lambda, {

@@ -78,7 +78,7 @@ def as_np(x):
     return np.asarray(x).astype(np.float32)
 
 
-# ------------------------------------------------- two gloo ranks on the CPU
+# ------------------------------------------------- n gloo ranks on the CPU
 ROOT = __import__("pathlib").Path(__file__).resolve().parents[1]
 
 # Shared top of the two-rank worker scripts of the sharded-strategy tests:
@@ -174,19 +174,24 @@ def mnist_data(n=256):
     return x[..., None].astype(np.float32) / 255.0, y.astype(np.int32)
 
 
-def run_pair(tmp, source, *args, timeout=120):
-    """Run the worker script ``source`` on 2 ranks through the port's
+def run_ranks(n, tmp, source, *args, timeout=120):
+    """Run the worker script ``source`` on ``n`` ranks through the port's
     launcher; returns ``{rank: reported value}``."""
     import sys
 
     script = tmp / "worker.py"
     script.write_text(source)
     launcher = dtt.launch.LocalLauncher(env_extra={"PYTHONPATH": str(ROOT)})
-    rows = launcher.run([sys.executable, str(script), *map(str, args)], 2,
+    rows = launcher.run([sys.executable, str(script), *map(str, args)], n,
                         timeout=timeout)
     for r in rows:
         assert r.ok, f"worker {r.index}: {r.error}\n{r.log_tail}"
     return {r.index: r.value for r in rows}
+
+
+def run_pair(tmp, source, *args, timeout=120):
+    """:func:`run_ranks` on 2 ranks."""
+    return run_ranks(2, tmp, source, *args, timeout=timeout)
 
 
 def shard_shapes(tree, prefix):
