@@ -311,6 +311,30 @@ x. Tensor and sequence parallelism over the same NCCL group of world 1.
    and its q, k, v gradients against the plain dense attention over the
    world-1 group, with both forwards' ms, and the Ulysses exchange's
    round trip bit for bit.
+y. Pipeline and expert parallelism over the same NCCL group of world 1.
+   (y1) The MoE LM at GPT-2-small widths (``moe_experts=8, moe_every=2``:
+   6 MoE blocks, top-2, capacity factor 1.25, groups of 1,024; bf16
+   layers, ``fused_adamw``, the pallas loss, batch 8 x 1024, seed 0) under
+   ``DataParallel`` and ``DataExpertParallel(expert_parallel=1)``, 3
+   steps each: parameters and optimizer state bit for bit, the loss, the
+   aux loss and the share of dropped choices, K3-K5 12 times and
+   K9/K10/K11 once a step, the f/g calls over the one-rank expert line
+   (12 ``copy_to_group``, 6 ``reduce_from_group`` a step under EP, none
+   under DP), ms a step in interleaved runs with the busy share, and the
+   device ms of the 6 MoE layers (one timed alone, forward and backward)
+   against the attention kernels' in a traced step. Then ``generate`` 8
+   prompts and serve them with 8 more through the Engine and K1 (the
+   token agreement printed: bf16 near-ties); a 2-layer f32 twin at
+   capacity factor 4 (no drop in the Engine's prefill) served
+   token-exact to ``generate``. (y2) GPT-2-small with ``pipeline=True``
+   under ``DataPipelineParallel(pipeline_parallel=1)`` (the sequential
+   scan, as JAX at pipe 1) at batch 32 x 1024: bit for bit its
+   ``scan=True`` twin under ``DataParallel`` after 3 steps, the launches,
+   ms a step; the Engine serves it off the pipe mesh through K1 with the
+   twin's tokens. (y3) ``CompositeParallel({"data": 1})`` bit for bit
+   ``DataParallel`` on phase l's LM. One card cannot run the live
+   schedule or split the experts: ``scripts/torch_dp_scaling.py`` does,
+   on 4 cards.
 Then the kernel table as one JSON line (each row also names the CUDA
 kernel of the main path, ``kernel``, and carries its launches in phase r's
 resumed steps, ``launches_resumed``, in phase t's fits that captured a
@@ -319,12 +343,14 @@ trace, ``replayed_fit``; K1/K2 also their launches in phase
 s's speculative runs, ``launches_spec``, and their time by kw, ``ms_by_kw``;
 and its launches in phase u's sub-phases, ``launches_u1``-``launches_u3``,
 in phase v's scanned runs, ``launches_v``, in phase w's sharded runs,
-``launches_w``, and in phase x1's tensor- and sequence-parallel runs,
-``launches_x``),
+``launches_w``, in phase x1's tensor- and sequence-parallel runs,
+``launches_x``, and in phase y's MoE, pipelined and composite runs,
+``launches_y``),
 the card's name and power limit, and ``{"ok": true, "device": {...}}`` as
 the last line.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -3718,11 +3744,23 @@ def phase_tp_sp(torch, dtt, mods, batch=32, steps=3):
     module, where they are counted here); at seq 1 attention takes the
     flash branch, as JAX's ``_ring_config`` sends a seq axis of size 1.
     Returns the launches of the tensor- and sequence-parallel runs."""
-    from distributed_tpu_torch.parallel import collectives
     from distributed_tpu_torch.parallel.collectives import layout_of
 
     t_len = LM["max_len"]
     x, y = lm_batch(batch, t_len)
+    with megatron_pair_counted() as pair:
+        return tp_sp_runs(torch, dtt, mods, x, y, batch, steps, pair,
+                          layout_of)
+
+
+@contextlib.contextmanager
+def megatron_pair_counted():
+    """Count the calls of Megatron's f/g pair (``copy_to_group``,
+    ``reduce_from_group``), which the layers reach through their module:
+    yields ``{name: calls}``, the module's functions wrapped until the
+    block ends."""
+    from distributed_tpu_torch.parallel import collectives
+
     pair = {"copy_to_group": 0, "reduce_from_group": 0}
     originals = {k: getattr(collectives, k) for k in pair}
 
@@ -3735,8 +3773,7 @@ def phase_tp_sp(torch, dtt, mods, batch=32, steps=3):
     for k in pair:
         setattr(collectives, k, counted(k))
     try:
-        return tp_sp_runs(torch, dtt, mods, x, y, batch, steps, pair,
-                          layout_of)
+        yield pair
     finally:
         for k, fn in originals.items():
             setattr(collectives, k, fn)
@@ -3861,6 +3898,253 @@ def phase_ring_ops(torch, dtt, b=2, t=4096, h=12, d=64):
     if not same:
         raise SystemExit("the Ulysses exchange changed its input")
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ phase y
+MOE = dict(moe_experts=8, moe_every=2)
+
+
+def moe_routing(dtt, model):
+    """(share of the routed choices dropped by capacity, the aux loss
+    summed over the MoE layers) of a model's last training forward."""
+    layers = [m for m in model.module.modules()
+              if isinstance(m, dtt.nn.MoE)]
+    kept = sum(float(m.routed[0]) for m in layers)
+    total = sum(float(m.routed[1]) for m in layers)
+    aux = sum(float(v) for k, v in model.state.items()
+              if k.endswith("aux_loss"))
+    return 1.0 - kept / max(total, 1.0), aux
+
+
+def moe_layer_ms(torch, dtt, batch, t_len):
+    """Device ms of one of y1's MoE layers (bf16, 8 experts, hidden
+    3,072), forward and backward on a (batch, T, 768) input, alone."""
+    d = LM["d_model"]
+    layer = dtt.nn.MoE(8, 4 * d, dtype="bfloat16")
+    layer.build((t_len, d), torch.Generator().manual_seed(0))
+    layer.to("cuda").train()
+    x = torch.randn(batch, t_len, d, device="cuda", dtype=torch.bfloat16,
+                    requires_grad=True)
+
+    def step(_):
+        layer(x).float().sum().backward()
+
+    return cuda_ms(torch, step, 5)
+
+
+def per_step_want(model):
+    leaves = len(model.live_params())
+    return {"xent_fwd": 1, "xent_bwd": 1, "flash_fwd": LM["num_layers"],
+            "flash_dq": LM["num_layers"], "flash_dkv": LM["num_layers"],
+            "fused_adam": math.ceil(leaves / 64)}
+
+
+def check_per_step(name, counts, want, steps):
+    per_step = {k: counts[k] / steps for k in want}
+    print(f"  {name}: launches a step {per_step}")
+    if per_step != want:
+        raise SystemExit(f"{name}: launches a step {per_step}, expected "
+                         f"{want}")
+
+
+def phase_moe(torch, dtt, mods, paged_ops, batch=8, steps=3):
+    """y1 (see the module docstring). Returns the launches of the EP run,
+    the generate and the Engine's."""
+    with megatron_pair_counted() as pair:
+        return moe_runs(torch, dtt, mods, paged_ops, batch, steps, pair)
+
+
+def moe_runs(torch, dtt, mods, paged_ops, batch, steps, pair):
+    """Phase y1's runs (``phase_moe``), ``pair`` the f/g calls."""
+    t_len = LM["max_len"]
+    x, y = lm_batch(batch, t_len)
+    n_moe = LM["num_layers"] // MOE["moe_every"]
+    strategies = {
+        "DataParallel": dtt.DataParallel(),
+        "DataExpertParallel(1)": dtt.DataExpertParallel(expert_parallel=1),
+    }
+    models, counts, base = {}, {}, None
+    for name, strategy in strategies.items():
+        model = w_lm(dtt, strategy, t_len, **MOE)
+        if base is None:
+            n = sum(math.prod(s) for s in model._param_shapes().values())
+            moe = next(m for m in model.module.modules()
+                       if isinstance(m, dtt.nn.MoE))
+            print(f"  {n / 1e6:.1f}M parameters, {n_moe} MoE blocks, "
+                  f"capacity {moe._capacity(1024)} a group of 1,024")
+        for k in pair:
+            pair[k] = 0
+        reset_counts(mods)
+        losses = w_fit(model, x, y, batch, steps)
+        torch.cuda.synchronize()
+        counts[name] = launch_counts(mods)
+        calls = {k: v / steps for k, v in pair.items()}
+        ep = name.startswith("DataExpert")
+        want_calls = ({"copy_to_group": 2 * n_moe,
+                       "reduce_from_group": n_moe} if ep else
+                      {"copy_to_group": 0, "reduce_from_group": 0})
+        dropped, aux = moe_routing(dtt, model)
+        print(f"  {name}: losses {[round(v, 5) for v in losses]}, aux loss "
+              f"{aux:.6f}, dropped {dropped:.4f} of the routed choices, "
+              f"f/g calls over the expert line a step {calls}")
+        if calls != want_calls:
+            raise SystemExit(f"{name}: f/g calls {calls}, expected "
+                             f"{want_calls}")
+        if not all(np.isfinite(losses)) or not np.isfinite(aux):
+            raise SystemExit(f"{name}: losses {losses}, aux {aux}")
+        state = full_state(dtt, model)
+        state.update({f"state/{k}": v.detach().clone()
+                      for k, v in model.state.items()})
+        if base is None:
+            base = state
+        else:
+            diff = first_difference(torch, base, state)
+            say_same(f"{name} against DataParallel, params, optimizer "
+                     "state and aux losses", diff)
+            if diff is not None:
+                raise SystemExit(f"{name} differs from DataParallel")
+        models[name] = model
+        check_per_step(name, counts[name], per_step_want(model), steps)
+    base = None
+    arms = {name: (lambda m=models[name]: w_fit(m, x, y, batch, 2), 2)
+            for name in strategies}
+    report_arms(torch, arms, interleaved(torch, arms, 3))
+    dp = models["DataParallel"]
+    trace = device_trace(torch, lambda: w_fit(dp, x, y, batch, 1))
+    attn = sum(b - a for op, a, b in trace
+               if re.search(r"flash_(fwd|dq|dkv)_wgmma_kernel", op)) / 1e3
+    step_ms = sum(b - a for _, a, b in trace) / 1e3
+    moe_ms = n_moe * moe_layer_ms(torch, dtt, batch, t_len)
+    print(f"  a traced step: device {step_ms:.3f} ms, attention kernels "
+          f"{attn:.3f} ms; the {n_moe} MoE layers (one timed alone, "
+          f"forward and backward) {moe_ms:.3f} ms")
+    models.clear()
+    prompts = np.random.default_rng(5).integers(0, VOCAB, (8, 64)).astype(
+        np.int32)
+    t = time.perf_counter()
+    gen = dp.generate(prompts, 64, temperature=0.0)
+    print(f"  generate: 8 x (64 + 64) tokens in "
+          f"{time.perf_counter() - t:.2f} s")
+    reqs = ([(prompts[i], 64) for i in range(8)]
+            + requests(8, (32, 256), (32, 64), seed=6))
+    paged_ops.reset_launch_counts()
+    outs, tel, wall = serve(dtt, dp, reqs, decode_kernel="fused")
+    k1 = paged_ops.launches["paged_attention"]
+    report("MoE LM, fused", tel, wall)
+    check_outputs(outs, reqs, VOCAB)
+    if k1 != tel["decode_steps"] * LM["num_layers"]:
+        raise SystemExit(f"K1 launched {k1} times in {tel['decode_steps']} "
+                         "decode steps")
+    share, _ = agreement([np.asarray(g) for g in gen], outs[:8], reqs[:8])
+    print(f"  Engine vs generate (bf16): token agreement {share:.4f}; K1 "
+          f"launches {k1}")
+    del dp
+    torch.cuda.empty_cache()
+    small = dtt.Model(dtt.models.transformer_lm(
+        VOCAB, **dict(LM, num_layers=2), **MOE))
+    small.build((t_len,), seed=1)
+    for m in small.module.modules():
+        if isinstance(m, dtt.nn.MoE):
+            m.capacity_factor = m.num_experts / m.top_k  # nothing drops
+    sp = prompts[:4, :32]
+    sgen = small.generate(sp, 32, temperature=0.0)
+    souts, _, _ = serve(dtt, small, [(sp[i], 32) for i in range(4)],
+                        decode_kernel="fused")
+    exact = all(np.array_equal(np.asarray(a), b) for a, b in zip(sgen, souts))
+    print(f"  2 layers, f32: Engine token-exact to generate: {exact}")
+    if not exact:
+        raise SystemExit("the f32 MoE LM's Engine and generate differ")
+    out = dict(counts["DataExpertParallel(1)"])
+    out["paged_attention"] = k1
+    return out
+
+
+def phase_pipe(torch, dtt, mods, paged_ops, reqs, batch=32, steps=3):
+    """y2 (see the module docstring). Returns the pipelined run's
+    launches and the Engine's K1 launches."""
+    t_len = LM["max_len"]
+    x, y = lm_batch(batch, t_len)
+    runs = {
+        "DataPipelineParallel(1)": (
+            dtt.DataPipelineParallel(pipeline_parallel=1),
+            dict(pipeline=True)),
+        "scan=True twin, DataParallel": (dtt.DataParallel(), dict(scan=True)),
+    }
+    models, counts, base = {}, {}, None
+    for name, (strategy, kw) in runs.items():
+        model = w_lm(dtt, strategy, t_len, **kw)
+        reset_counts(mods)
+        losses = w_fit(model, x, y, batch, steps)
+        torch.cuda.synchronize()
+        counts[name] = launch_counts(mods)
+        print(f"  {name}: losses {[round(v, 5) for v in losses]}")
+        if not all(np.isfinite(losses)):
+            raise SystemExit(f"{name}: losses not finite: {losses}")
+        state = {k.replace("pipelined_blocks/", "scanned_blocks/"): v
+                 for k, v in full_state(dtt, model).items()}
+        if base is None:
+            base = state
+        else:
+            diff = first_difference(torch, base, state)
+            say_same("the pipelined LM against its scan twin, params and "
+                     "optimizer state", diff)
+            if diff is not None:
+                raise SystemExit("the pipelined LM differs from its scan "
+                                 "twin at pipe 1")
+        check_per_step(name, counts[name], per_step_want(model), steps)
+        models[name] = model
+    base = None
+    arms = {name: (lambda m=models[name]: w_fit(m, x, y, batch, 2), 2)
+            for name in runs}
+    report_arms(torch, arms, interleaved(torch, arms, 3))
+    served = {}
+    for name, model in models.items():
+        paged_ops.reset_launch_counts()
+        served[name], tel, wall = serve(dtt, model, reqs[:8],
+                                        decode_kernel="fused")
+        k1 = paged_ops.launches["paged_attention"]
+        report(name, tel, wall)
+        check_outputs(served[name], reqs[:8], VOCAB)
+        if name.startswith("DataPipeline"):
+            out = dict(counts[name])
+            out["paged_attention"] = k1
+    same = all(np.array_equal(a, b) for a, b in zip(*served.values()))
+    print(f"  the Engine serves the pipelined LM off the pipe mesh with the "
+          f"twin's tokens: {same}; K1 launches {out['paged_attention']}")
+    if not same:
+        raise SystemExit("the pipelined LM's Engine tokens differ from the "
+                         "scan twin's")
+    models.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_composite(torch, dtt, mods, batch=32, steps=3):
+    """y3: ``CompositeParallel({"data": 1})`` against ``DataParallel`` on
+    phase l's LM, bit for bit after 3 steps. Returns its launches."""
+    t_len = LM["max_len"]
+    x, y = lm_batch(batch, t_len)
+    states, counts = {}, {}
+    for name, strategy in (("DataParallel", dtt.DataParallel()),
+                           ('CompositeParallel({"data": 1})',
+                            dtt.CompositeParallel({"data": 1}))):
+        model = w_lm(dtt, strategy, t_len)
+        reset_counts(mods)
+        losses = w_fit(model, x, y, batch, steps)
+        torch.cuda.synchronize()
+        counts[name] = launch_counts(mods)
+        print(f"  {name}: losses {[round(v, 5) for v in losses]}")
+        check_per_step(name, counts[name], per_step_want(model), steps)
+        states[name] = full_state(dtt, model)
+        del model
+    diff = first_difference(torch, *states.values())
+    say_same("CompositeParallel against DataParallel, params and optimizer "
+             "state", diff)
+    if diff is not None:
+        raise SystemExit("CompositeParallel differs from DataParallel")
+    states.clear()
+    torch.cuda.empty_cache()
+    return counts['CompositeParallel({"data": 1})']
 
 
 def main():
@@ -4089,6 +4373,22 @@ def main():
     print("phase x2: ring attention and the Ulysses exchange on CUDA tensors "
           "over the world-1 group, against dense attention")
     phase_ring_ops(torch, dtt)
+    y_mods = (xent_ops, flash_ops, adam_ops)
+    print(f"phase y1: the MoE LM at GPT-2-small widths (8 experts every 2nd "
+          f"block) under DataParallel and DataExpertParallel(1) (NCCL, world "
+          f"1), bf16 layers, fused_adamw, batch 8 x 1024 | {card_line()}")
+    y = phase_moe(torch, dtt, y_mods, paged_ops)
+    print("phase y2: GPT-2-small pipeline=True under DataPipelineParallel(1) "
+          "against its scan=True twin, batch 32 x 1024; the Engine off the "
+          "pipe mesh")
+    more = [phase_pipe(torch, dtt, y_mods, paged_ops, reqs)]
+    print('phase y3: CompositeParallel({"data": 1}) against DataParallel on '
+          "phase l's LM")
+    more.append(phase_composite(torch, dtt, y_mods))
+    for counts in more:
+        for name, n in counts.items():
+            y[name] = y.get(name, 0) + n
+    u_counts["y"] = y
     dtt.cluster.shutdown()
     for sub, counts in u_counts.items():
         for name, n in counts.items():
@@ -4111,7 +4411,7 @@ def main():
          "launches_fit": r.get("launches_fit"),
          "replayed_fit": r.get("replayed_fit"),
          **{f"launches_{sub}": r[f"launches_{sub}"]
-            for sub in ("u1", "u2", "u3", "v", "w", "x")
+            for sub in ("u1", "u2", "u3", "v", "w", "x", "y")
             if f"launches_{sub}" in r},
          **({"launches_spec": r["launches_spec"], "ms_by_kw": r["ms_by_kw"]}
             if "ms_by_kw" in r else {})}

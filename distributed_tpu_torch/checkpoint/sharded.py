@@ -152,14 +152,13 @@ def extract_blocks(model, rank: int):
     every rank)."""
     blocks: Dict[str, Any] = {}
     meta: Dict[str, dict] = {}
-    # A block split over a mesh axis (tensor parallelism) is held alike
-    # by every rank of its data line: the line's first rank writes it.
-    first_of_line = model.strategy._rank() == 0
+    # A block split over some mesh axes (tensor parallelism) is held
+    # alike by every rank of the others: the first of them writes it.
     for path, shape, data, lay in _leaves(model):
         meta[path] = {"shape": list(shape), "dtype": _np_dtype(data).name}
         if lay is not None:
-            if lay.axis is None or first_of_line:
-                blocks[_block_key(path, lay.starts, lay.block_shape)] = data
+            if model.strategy.writes_block(lay):
+                blocks[_block_key(path, lay.starts, lay.local_shape)] = data
         elif rank == 0:
             blocks[_block_key(path, (0,) * len(shape), shape)] = data
     return blocks, meta

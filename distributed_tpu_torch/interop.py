@@ -291,7 +291,7 @@ def _moments(flat, prefix, params, placing):
         if lay is None:
             want = tuple(p.shape)
         else:
-            want = lay.block_shape if blocks else lay.shape
+            want = lay.local_shape if blocks else lay.shape
         if tuple(a.shape) != want:
             raise ValueError(
                 f"{prefix}{SEP}{path}: shape {tuple(a.shape)} != the "

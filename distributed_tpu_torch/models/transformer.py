@@ -1,12 +1,12 @@
 """Decoder-only Transformer language model.
 
 Pre-LN blocks built from the same Residual/Sequential primitives as the
-JAX package, so the parameter tree paths (``residual_N/main/...``, and
-``scanned_blocks/blocks/residual/main/...`` stacked) are identical and
-weights carry across. Dense blocks, unrolled or weight-stacked
-(``scan=True``), with or without remat, are ported; the MoE and
-pipelined variants, and their options, raise ``NotImplementedError``
-naming their ROADMAP item.
+JAX package, so the parameter tree paths (``residual_N/main/...``,
+``scanned_blocks/blocks/residual/main/...`` stacked and
+``pipelined_blocks/blocks/...`` pipelined) are identical and weights
+carry across. Dense or MoE blocks (every ``moe_every``-th FFN an
+``nn.MoE``), unrolled, weight-stacked (``scan=True``) or pipelined
+(``pipeline=True``), with or without remat.
 """
 
 from __future__ import annotations
@@ -14,15 +14,6 @@ from __future__ import annotations
 from typing import Optional
 
 from .. import nn
-
-
-def _unported(where: str, item: str, **options) -> None:
-    """Raise for each option that is not at the JAX default given as
-    ``name=(value, default)``: those variants are not ported yet."""
-    for name, (value, default) in options.items():
-        if value != default:
-            raise NotImplementedError(
-                f"{where}({name}=...): not yet ported (ROADMAP {item})")
 
 
 def transformer_block(
@@ -35,10 +26,10 @@ def transformer_block(
     flash="auto",
     dtype=None,
 ) -> list:
-    """Pre-LN block as two Residuals: [LN -> MHA] + [LN -> MLP].
+    """Pre-LN block as two Residuals: [LN -> MHA] + [LN -> MLP-or-MoE].
     ``causal`` and ``flash`` pass through to MultiHeadAttention;
-    ``moe_experts`` (an nn.MoE FFN) raises."""
-    _unported("transformer_block", "1.7", moe_experts=(moe_experts, 0))
+    ``moe_experts > 0`` swaps the dense MLP for an ``nn.MoE`` with that
+    many experts (expert-parallel under ``DataExpertParallel``)."""
     attn = nn.Residual(
         nn.Sequential(
             [
@@ -49,17 +40,18 @@ def transformer_block(
             name="main",
         )
     )
-    # Flat layer list (not nested in a named container): the param tree
-    # paths residual_N/main/{dense,dense_1} are a checkpoint format.
-    mlp = nn.Residual(nn.Sequential(
-        [
+    if moe_experts:
+        ffn = [nn.LayerNorm(), nn.MoE(moe_experts, d_ff, dtype=dtype)]
+    else:
+        # Flat layer list (not nested in a named container): the param
+        # tree paths residual_N/main/{dense,dense_1} are a checkpoint
+        # format.
+        ffn = [
             nn.LayerNorm(),
             nn.Dense(d_ff, activation="gelu", shard="col", dtype=dtype),
             nn.Dense(d_model, shard="row", dtype=dtype),
-        ],
-        name="main",
-    ))
-    return [attn, mlp]
+        ]
+    return [attn, nn.Residual(nn.Sequential(ffn, name="main"))]
 
 
 def transformer_lm(
@@ -96,21 +88,19 @@ def transformer_lm(
     block a ``Sequential`` of the two residuals, wrapped whole in
     ``nn.Remat`` under ``remat``): one (L, ...) tensor per leaf, served
     and generated through stacked caches. ``scan_overlap`` is its
-    ``overlap`` (``"require"`` raises: the port has no FSDP gather,
-    ROADMAP 1.7). The MoE options (``moe_experts``, ``moe_every``) and
-    ``pipeline`` with its schedule options raise naming ROADMAP 1.7, only
-    when set away from the JAX default; MoE or ``pipeline`` with ``scan``
-    raise JAX's ``ValueError`` first."""
+    ``overlap``. ``pipeline=True`` stacks them in an
+    ``nn.PipelinedBlocks`` (``pipeline_schedule``/``pipeline_interleave``
+    its ``schedule``/``interleave``), pipelined over the pipe line under
+    ``DataPipelineParallel`` and a sequential scan otherwise.
+    ``moe_experts > 0`` makes every ``moe_every``-th block's FFN an
+    ``nn.MoE``. MoE with ``scan`` or ``pipeline``, and ``scan`` with
+    ``pipeline``, raise JAX's ``ValueError``."""
     if pipeline or scan:
         if moe_experts:
             raise ValueError(
                 "pipeline/scan block stacking does not support MoE blocks")
         if pipeline and scan:
             raise ValueError("pipeline and scan are mutually exclusive")
-    _unported("transformer_lm", "1.7", moe_experts=(moe_experts, 0),
-              moe_every=(moe_every, 2), pipeline=(pipeline, False),
-              pipeline_schedule=(pipeline_schedule, "gpipe"),
-              pipeline_interleave=(pipeline_interleave, 1))
     if remat:
         nn.remat.resolve_policy(remat_policy)  # fail fast on a bad name
     d_ff = d_ff or 4 * d_model
@@ -118,18 +108,24 @@ def transformer_lm(
         nn.Embedding(vocab_size, d_model, dtype=dtype),
         nn.PositionalEmbedding(max_len),
     ]
-    if scan:
+    if scan or pipeline:
         def make_block():
             block = nn.Sequential(transformer_block(
                 d_model, num_heads, d_ff, causal=causal, flash=flash,
                 dtype=dtype))
             return nn.Remat(block, policy=remat_policy) if remat else block
 
-        layers.append(nn.ScannedBlocks(make_block, num_layers,
-                                       overlap=scan_overlap))
-    for _ in range(0 if scan else num_layers):
+        layers.append(
+            nn.PipelinedBlocks(make_block, num_layers,
+                               schedule=pipeline_schedule,
+                               interleave=pipeline_interleave)
+            if pipeline else
+            nn.ScannedBlocks(make_block, num_layers, overlap=scan_overlap))
+    for i in range(0 if scan or pipeline else num_layers):
+        moe = (moe_experts if moe_experts and i % moe_every == moe_every - 1
+               else 0)
         block = transformer_block(d_model, num_heads, d_ff, causal=causal,
-                                  flash=flash, dtype=dtype)
+                                  moe_experts=moe, flash=flash, dtype=dtype)
         if remat:
             block = [nn.Remat(residual, policy=remat_policy)
                      for residual in block]

@@ -1,6 +1,7 @@
 """Layers of the port (the subset its slices run: the LM, the CNNs,
-ResNet and ViT), ``Remat``, the rematerializing wrapper, and
-``ScannedBlocks``, the weight-stacked block stack."""
+ResNet and ViT), ``Remat``, the rematerializing wrapper,
+``ScannedBlocks``, the weight-stacked block stack, ``PipelinedBlocks``,
+its pipelined form, and ``MoE``, the mixture-of-experts layer."""
 
 from . import activations, initializers
 from .attention import MultiHeadAttention, PositionalEmbedding
@@ -12,14 +13,16 @@ from .layers import (
     Activation, AvgPool2D, BatchNorm, Conv2D, Dense, Dropout, Embedding,
     Flatten, GlobalAvgPool2D, LayerNorm, MaxPool2D, SpaceToDepth,
 )
+from .moe import MoE
+from .pipeline import PipelinedBlocks
 from .remat import Remat
 from .scan import STACKED_POOL_KEY, ScannedBlocks
 
 __all__ = [
     "Activation", "AvgPool2D", "BatchNorm", "Conv2D", "Dense", "Dropout",
     "Embedding", "Flatten", "GlobalAvgPool2D", "Lambda", "Layer",
-    "LayerNorm", "MaxPool2D", "MultiHeadAttention", "NameScope",
-    "PositionalEmbedding", "Remat", "Residual", "STACKED_POOL_KEY",
+    "LayerNorm", "MaxPool2D", "MoE", "MultiHeadAttention", "NameScope",
+    "PipelinedBlocks", "PositionalEmbedding", "Remat", "Residual", "STACKED_POOL_KEY",
     "ScannedBlocks", "Sequential", "SpaceToDepth", "activations",
     "apply_layers", "current_rng", "initializers", "rng_scope",
 ]

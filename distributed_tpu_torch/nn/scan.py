@@ -118,12 +118,15 @@ def _owner(root: torch.nn.Module, dotted: str, create: bool):
 
 
 def init_stacked_blocks(block_fn, template, num_blocks, input_shape,
-                        generator):
+                        generator, *, require_stateless=False,
+                        container="ScannedBlocks"):
     """Build ``num_blocks`` fresh blocks (the template first) and stack
     their parameters and buffers with a leading (S, ...) axis, as the JAX
-    ``init_stacked_blocks``. Returns the stacked leaves as a tree of plain
-    modules under the template's paths, and the leaf names (parameters,
-    then buffers), for :class:`ScannedBlocks` to bind."""
+    ``init_stacked_blocks`` (``require_stateless``: a block with buffers
+    raises its error, as ``PipelinedBlocks`` requires). Returns the
+    stacked leaves as a tree of plain modules under the template's paths,
+    and the leaf names (parameters, then buffers), for
+    :class:`ScannedBlocks` to bind."""
     shape = tuple(input_shape)
     blocks = []
     for i in range(num_blocks):
@@ -131,15 +134,21 @@ def init_stacked_blocks(block_fn, template, num_blocks, input_shape,
         # template must not accumulate names.
         block = template if i == 0 else block_fn()
         out = block.build(shape, generator)
+        state = [n for n, _ in block.named_buffers()]
+        if require_stateless and state:
+            raise ValueError(
+                f"{container} requires stateless blocks (got state keys "
+                f"{state}); running stats can't ride a microbatch "
+                "schedule")
         if tuple(out) != shape:
             raise ValueError(
-                f"ScannedBlocks blocks must preserve shape: {shape} -> "
+                f"{container} blocks must preserve shape: {shape} -> "
                 f"{tuple(out)}")
         blocks.append(block)
     params = [n for n, _ in template.named_parameters()]
     if not params:
         raise ValueError(
-            "ScannedBlocks requires parameterized blocks (the template "
+            f"{container} requires parameterized blocks (the template "
             "block has no params); wrap param-free layers directly in "
             "a Sequential instead")
     buffers = [n for n, _ in template.named_buffers()]
@@ -164,6 +173,7 @@ class ScannedBlocks(Layer):
     docstring)."""
 
     decode_safe = False  # decode is overridden: the template's, per block
+    _stack_options: Dict = {}
 
     def __init__(self, block_fn: Callable[[], Layer], num_blocks: int, *,
                  overlap: str = "auto", name: Optional[str] = None):
@@ -225,7 +235,8 @@ class ScannedBlocks(Layer):
                 "only a Remat around the whole block is ported (its "
                 "checkpoint takes the block's slices as inputs)")
         stack, params, buffers = init_stacked_blocks(
-            self.block_fn, self.block, self.num_blocks, shape, generator)
+            self.block_fn, self.block, self.num_blocks, shape, generator,
+            **self._stack_options)
         self.blocks = stack
         # The template's slots, swapped per block; its own leaves become
         # shape-only placeholders.
@@ -277,10 +288,10 @@ class ScannedBlocks(Layer):
         """Per block, its slice of every stacked leaf: parameters through
         one ``unbind`` each, buffers as indexed views."""
         cols = [torch.unbind(t, 0) if kind == "param"
-                else [t[i] for i in range(self.num_blocks)]
+                else [t[i] for i in range(t.shape[0])]
                 for (_, kind, _, _, _), t in zip(self._bindings,
                                                  self._stacked())]
-        return [[c[i] for c in cols] for i in range(self.num_blocks)]
+        return [[c[i] for c in cols] for i in range(len(cols[0]))]
 
     def _fetcher(self, stacked, start, strategy=None):
         """``fetch(i)``: block i's leaves as ``collectives.Pending``s, for
@@ -319,16 +330,22 @@ class ScannedBlocks(Layer):
                     owner = i // per
                     mine = local[i % per] if lay.rank == owner else local[0]
                     out.append(collectives.start_owner_copy(
-                        mod.compute_cast(mine), owner, lay.shape[1:]))
+                        mod.compute_cast(mine), owner, lay.shape[1:],
+                        lay.group))
             return out
 
         return fetch
+
+    @staticmethod
+    def _resident(stacked) -> bool:
+        """True when every block's slices are in this rank's leaves."""
+        return not any(layout_of(t) is not None for t in stacked)
 
     def _iter_slices(self):
         """Block by block, its leaves (gathered where they are stored
         sharded), for the decode paths."""
         stacked = self._stacked()
-        if not any(layout_of(t) is not None for t in stacked):
+        if self._resident(stacked):
             yield from self._slices()
             return
         fetch = self._fetcher(stacked, collectives.start_gather)
@@ -372,7 +389,7 @@ class ScannedBlocks(Layer):
 
         stacked = self._stacked()
         fetch = None
-        if active or any(layout_of(t) is not None for t in stacked):
+        if active or not self._resident(stacked):
             fetch = self._fetcher(stacked, gather or collectives.start_gather,
                                   strat)
             pending = fetch(0)

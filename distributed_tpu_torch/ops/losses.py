@@ -50,12 +50,19 @@ def mean_squared_error(pred, target):
 def cross_entropy_with_ignore(logits, labels, ignore_index: int = -100):
     """Token cross-entropy that masks out ``ignore_index`` labels: the sum
     over the kept tokens divided by their count (at least 1)."""
+    total, count = _ce_ignore_sum_count(logits, labels, ignore_index)
+    return total / torch.clamp_min(count, 1.0)
+
+
+def _ce_ignore_sum_count(logits, labels, ignore_index: int = -100):
+    """``cross_entropy_with_ignore`` as ``(sum over the kept tokens,
+    their count)``: a ratio whose divisor depends on the data, so a
+    data-parallel step divides each rank's sum by the global count."""
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     ignored = labels == ignore_index
     safe = torch.where(ignored, torch.zeros_like(labels), labels)
     mask = (~ignored).to(torch.float32)
-    return -torch.sum(_picked(logp, safe) * mask) / torch.clamp_min(
-        torch.sum(mask), 1.0)
+    return -torch.sum(_picked(logp, safe) * mask), torch.sum(mask)
 
 
 def _per_example_sparse_cce(logits, labels):
@@ -104,6 +111,18 @@ _PER_EXAMPLE = {
 PALLAS_NAME = "pallas_sparse_categorical_crossentropy"
 
 
+# Ratio losses as (sum, count) pairs (``get_sum_count``).
+_SUM_COUNT = {cross_entropy_with_ignore: _ce_ignore_sum_count}
+
+
+def get_sum_count(loss_fn):
+    """The ``(sum, count)`` form of a known ratio loss (its divisor, the
+    count, depends on the data), or None. ``Model`` divides each rank's
+    sum by the global count; a callable of the user's may return such a
+    pair itself (``Model._rank_loss``)."""
+    return _SUM_COUNT.get(loss_fn)
+
+
 def get_per_example(loss_fn):
     """Per-example variant of a known loss, or None for custom callables."""
     if isinstance(loss_fn, SparseCategoricalCrossentropy):
@@ -139,6 +158,6 @@ def get(name_or_fn):
 
 __all__ = [
     "PALLAS_NAME", "SparseCategoricalCrossentropy", "categorical_crossentropy",
-    "cross_entropy_with_ignore", "get", "get_per_example",
+    "cross_entropy_with_ignore", "get", "get_per_example", "get_sum_count",
     "mean_squared_error", "sparse_categorical_crossentropy",
 ]

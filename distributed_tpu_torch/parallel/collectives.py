@@ -77,7 +77,14 @@ class Layout(NamedTuple):
     ``dim`` the shard dimension, ``n`` the number of ranks and ``rank``
     this one's index among them; ``group`` the process group they form
     (None: the default group) and ``axis`` the mesh axis it lines
-    (None: the strategy's one axis)."""
+    (None: the strategy's one axis).
+
+    ``sub``: a second split of this block (a Layout whose ``shape`` is
+    :attr:`block_shape`, on another dimension and another line), for a
+    leaf split over two mesh axes at once (``CompositeParallel``'s ZeRO-3
+    overlay on a Megatron block): the rank then stores ``sub``'s block,
+    :attr:`local_shape`. :meth:`levels` lists the single splits, the
+    stored one first; the gathers take them in that order."""
 
     shape: Tuple[int, ...]
     dim: int
@@ -85,6 +92,7 @@ class Layout(NamedTuple):
     rank: int
     group: object = None
     axis: Optional[str] = None
+    sub: Optional["Layout"] = None
 
     @property
     def size(self) -> int:
@@ -93,23 +101,44 @@ class Layout(NamedTuple):
 
     @property
     def block_shape(self) -> Tuple[int, ...]:
+        """The shape of this split's block (before ``sub``)."""
         s = list(self.shape)
         s[self.dim] = self.size
         return tuple(s)
 
     @property
+    def local_shape(self) -> Tuple[int, ...]:
+        """The shape of the block this rank stores."""
+        return self.block_shape if self.sub is None else self.sub.local_shape
+
+    def single(self) -> "Layout":
+        """This split alone (``sub`` dropped)."""
+        return self if self.sub is None else self._replace(sub=None)
+
+    def levels(self) -> List["Layout"]:
+        """The single splits, innermost (the stored block's) first."""
+        inner = [] if self.sub is None else self.sub.levels()
+        return inner + [self.single()]
+
+    @property
     def starts(self) -> Tuple[int, ...]:
-        """The block's offset in the full leaf, per dimension."""
+        """The stored block's offset in the full leaf, per dimension."""
         s = [0] * len(self.shape)
         s[self.dim] = self.rank * self.size
+        if self.sub is not None:
+            s = [a + b for a, b in zip(s, self.sub.starts)]
         return tuple(s)
 
     def index(self, rank: Optional[int] = None) -> tuple:
-        """Slices of rank ``rank``'s block (this rank's by default), for a
-        full tensor or numpy array."""
+        """Slices of rank ``rank``'s block (this rank's by default; with a
+        ``sub``, this rank's stored block), for a full tensor or numpy
+        array."""
         r = self.rank if rank is None else rank
         sl = [slice(None)] * len(self.shape)
         sl[self.dim] = slice(r * self.size, (r + 1) * self.size)
+        if self.sub is not None and rank is None:
+            st, ln = self.starts, self.local_shape
+            sl = [slice(a, a + b) for a, b in zip(st, ln)]
         return tuple(sl)
 
     def block(self, full: torch.Tensor) -> torch.Tensor:
@@ -181,8 +210,13 @@ def gather(x: torch.Tensor, layout: Layout) -> torch.Tensor:
 
 
 def gather_leaf(x, layout: Optional[Layout]):
-    """:func:`gather` for a sharded leaf; a replicated one as it is."""
-    return x if layout is None else gather(x, layout)
+    """:func:`gather` for a sharded leaf (each split of a two-axis one in
+    turn); a replicated one as it is."""
+    if layout is None:
+        return x
+    for lay in layout.levels():
+        x = gather(x, lay)
+    return x
 
 
 class Pending:
@@ -240,28 +274,32 @@ class _OwnerCopy(torch.autograd.Function):
     takes part in the reduce."""
 
     @staticmethod
-    def forward(ctx, x, owner, shape, holder):
-        ctx.owner = owner
-        if dist.get_rank() == owner:
+    def forward(ctx, x, owner, shape, holder, group):
+        ctx.owner, ctx.group = owner, group
+        if dist.get_rank(group) == owner:
             buf = x.detach().contiguous().clone()
         else:
             buf = x.new_empty(shape)
-        holder.work = dist.broadcast(buf, src=owner, async_op=True)
+        holder.work = dist.broadcast(buf, src=_global(group, owner),
+                                     group=group, async_op=True)
         return buf
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.reduce(g, dst=ctx.owner, op=dist.ReduceOp.SUM)
-        return (g if dist.get_rank() == ctx.owner else None), None, None, None
+        dist.reduce(g, dst=_global(ctx.group, ctx.owner),
+                    op=dist.ReduceOp.SUM, group=ctx.group)
+        mine = dist.get_rank(ctx.group) == ctx.owner
+        return (g if mine else None), None, None, None, None
 
 
 def start_owner_copy(x: torch.Tensor, owner: int,
-                     shape: Sequence[int]) -> Pending:
-    """Rank ``owner``'s ``x`` (of ``shape``) on every rank, issued now and
+                     shape: Sequence[int], group=None) -> Pending:
+    """Rank ``owner``'s ``x`` (of ``shape``) on every rank of ``group``
+    (None: the default group; ``owner`` a rank of it), issued now and
     waited for at ``Pending.wait()``."""
     holder = _Holder()
-    buf = _OwnerCopy.apply(x, int(owner), tuple(shape), holder)
+    buf = _OwnerCopy.apply(x, int(owner), tuple(shape), holder, group)
     return Pending(buf, holder.work)
 
 
@@ -271,8 +309,11 @@ def gather_full(block: torch.Tensor, layout: Optional[Layout]) -> torch.Tensor:
     replicated leaf as it is)."""
     if layout is None:
         return block
-    buf, _ = _gather_into(block.detach(), layout)
-    return _merge(buf, layout)
+    out = block.detach()
+    for lay in layout.levels():
+        buf, _ = _gather_into(out, lay)
+        out = _merge(buf, lay)
+    return out
 
 
 @torch.no_grad()
@@ -437,21 +478,85 @@ def _permute(x: torch.Tensor, perm, group) -> torch.Tensor:
 
 class _PPermute(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, perm, group):
+    def forward(ctx, x, perm, group, anchor):
         ctx.perm, ctx.group = perm, group
         return _permute(x, perm, group)
 
     @staticmethod
     def backward(ctx, g):
         inverse = [(d, s) for s, d in ctx.perm]
-        return _permute(g, inverse, ctx.group), None, None
+        return _permute(g, inverse, ctx.group), None, None, None
 
 
-def ppermute(x: torch.Tensor, perm, group=None) -> torch.Tensor:
+def ppermute(x: torch.Tensor, perm, group=None,
+             anchor: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``lax.ppermute(x, axis, perm)`` over ``group``: ``perm`` lists
     ``(source, dest)`` pairs of group ranks; a rank no pair sends to gets
-    zeros. Differentiable: the cotangent travels the inverse pairs."""
-    return _PPermute.apply(x, tuple(tuple(p) for p in perm), group)
+    zeros. Differentiable: the cotangent travels the inverse pairs.
+
+    ``anchor``: a tensor every rank's backward reaches (e.g. an empty
+    view of a parameter) that puts this hop in every rank's backward even
+    where ``x`` needs no gradient on some rank (a pipeline's bubble tick
+    on an input without one), so that its partner's backward hop is
+    matched."""
+    return _PPermute.apply(x, tuple(tuple(p) for p in perm), group, anchor)
+
+
+def _move_chunks(x: torch.Tensor, routes, group) -> torch.Tensor:
+    """``out[j] = chunk i of rank s`` for each ``(s, i, d, j)`` in
+    ``routes`` whose ``d`` is this rank (``x``: this rank's chunks,
+    ``(c, ...)``): the chunks one rank sends another go in one message,
+    in increasing ``i``."""
+    me = dist.get_rank(group)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    sends: dict = {}
+    recvs: dict = {}
+    for s, i, d, j in routes:
+        if s == me and d == me:
+            out[j] = x[i]
+        elif s == me:
+            sends.setdefault(d, []).append(i)
+        elif d == me:
+            recvs.setdefault(s, []).append(j)
+    ops, landing = [], []
+    for peer in sorted(set(sends) | set(recvs)):
+        if peer in recvs:
+            buf = x.new_empty((len(recvs[peer]),) + tuple(x.shape[1:]))
+            ops.append(dist.P2POp(dist.irecv, buf, _global(group, peer),
+                                  group=group))
+            landing.append((buf, recvs[peer]))
+        if peer in sends:
+            payload = x[sends[peer]].contiguous()
+            ops.append(dist.P2POp(dist.isend, payload, _global(group, peer),
+                                  group=group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    for buf, js in landing:
+        out[js] = buf
+    return out
+
+
+class _MoveChunks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, routes, group):
+        ctx.routes, ctx.group = routes, group
+        return _move_chunks(x, routes, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        back = tuple((d, j, s, i) for s, i, d, j in ctx.routes)
+        return _move_chunks(g, back, ctx.group), None, None
+
+
+def move_chunks(x: torch.Tensor, routes, group=None) -> torch.Tensor:
+    """Chunks of dimension 0 moved between the ranks of ``group``:
+    ``routes`` lists ``(source rank, its chunk, dest rank, the chunk's
+    place there)`` (every rank passes the same list, which covers every
+    place of every rank once). Differentiable: the cotangent's chunks
+    travel the routes back (the interleaved pipeline's stage chunks)."""
+    return _MoveChunks.apply(x, tuple(tuple(r) for r in routes), group)
 
 
 def _exchange(x: torch.Tensor, group) -> torch.Tensor:
@@ -516,6 +621,7 @@ def ulysses_to_seq(x: torch.Tensor, group) -> torch.Tensor:
 __all__ = [
     "Layout", "Pending", "all_gather_blocks", "copy_to_group", "gather",
     "gather_full", "gather_last", "gather_leaf", "layout_of", "leaf_sums",
-    "mark", "ppermute", "reduce_from_group", "split_last", "start_gather",
+    "mark", "move_chunks", "ppermute", "reduce_from_group", "split_last",
+    "start_gather",
     "start_owner_copy", "ulysses_to_heads", "ulysses_to_seq",
 ]

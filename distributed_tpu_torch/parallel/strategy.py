@@ -1,4 +1,4 @@
-"""Distribution strategies: ``SingleDevice``, ``DataParallel``, ZeRO-1, FSDP, TP and SP.
+"""Distribution strategies, from ``SingleDevice`` to ``CompositeParallel``.
 
 The counterpart of the JAX package's ``parallel/strategy.py``, with its
 contract: a ``Model`` built inside ``strategy.scope()`` is distributed
@@ -57,9 +57,16 @@ axes (``parallel.mesh``; data x model, data x seq): the layers'
 ``sharding_hints`` roles lay a leaf out on the model axis (Megatron's
 column and row blocks, which the layers compute with, not gather), and
 the batch's second dimension splits over the seq axis, with ring or
-Ulysses attention across it. ``DataPipelineParallel``,
-``DataExpertParallel`` and ``CompositeParallel`` keep the JAX names and
-raise "not yet ported".
+Ulysses attention across it. ``DataExpertParallel`` splits the MoE's
+expert stacks over an expert line, ``DataPipelineParallel`` a pipelined
+stack's stages over a pipe line (``nn.pipeline``), and
+``CompositeParallel`` resolves every role on one n-axis mesh.
+
+A loss whose divisor depends on the data (``losses.
+cross_entropy_with_ignore``, a ``(sum, count)`` loss, the MoE's
+load-balance term) is taken against the global count, one all-reduce
+over the batch group (``Model._rank_loss``), so every strategy trains the
+JAX step's global objective.
 """
 
 from __future__ import annotations
@@ -103,16 +110,15 @@ def _leaf_comm_bytes(leaf, compute_dtype=None) -> int:
     return int(leaf.numel()) * dtype.itemsize
 
 
-def _comm_row(gathered=0, grad=0, act_per_token=0) -> dict:
+def _comm_row(gathered=0, grad=0, act_per_token=0, hop_per_token=0) -> dict:
     """The JAX package's ``comm_bytes_estimate`` schema: the parameter
     gather, the gradient reduce, the per-token activation reduce (tensor
-    parallelism), and the pipeline traffic that no port strategy has
-    yet."""
+    parallelism) and the per-token stage hops (pipeline parallelism)."""
     return {
         "gathered_param_bytes_per_device": int(gathered),
         "grad_reduce_bytes_per_device": int(grad),
         "activation_reduce_bytes_per_token_per_device": int(act_per_token),
-        "pipeline_hop_bytes_per_token_per_device": 0,
+        "pipeline_hop_bytes_per_token_per_device": int(hop_per_token),
     }
 
 
@@ -147,6 +153,19 @@ class Strategy:
 
     def _rank(self) -> int:
         return 0
+
+    def row_line(self):
+        """``(R, r)``: how many ranks hold distinct rows of a batch and
+        this rank's index among them, for the layers whose statistics run
+        over the global token order (``nn.MoE``'s routing groups)."""
+        n = int(self.num_replicas_in_sync)
+        if self.num_batch_shards > n:
+            raise NotImplementedError(
+                "the global token order under sequence parallelism: not "
+                "yet ported (ROADMAP 1.7). A sequence split interleaves "
+                "each row's tokens across ranks, and nn.MoE's routing "
+                "groups run over the global token order")
+        return n, (int(self._rank()) if n > 1 else 0)
 
     def reduce_gradients(self, grads: Sequence[torch.Tensor]):
         """The gradients averaged over the replicas (as they are here)."""
@@ -189,13 +208,33 @@ class Strategy:
         """``t`` replaced in place by replica ``src``'s (as it is here)."""
         return t
 
-    def forward_collectives(self, batch_norm: bool) -> Optional[str]:
+    def all_gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """``(R, *t.shape)``: ``t`` of each of the R ranks that hold
+        distinct rows of a batch, in row order (``t[None]`` here)."""
+        return t[None]
+
+    def writes_block(self, layout: Layout) -> bool:
+        """True when this rank writes its block of a leaf stored as
+        ``layout`` to a sharded checkpoint: every block of a line split
+        once, a block held alike along the batch line by its first
+        rank."""
+        return layout.axis is None or self._rank() == 0
+
+    def forward_collectives(self, batch_norm: bool,
+                            moe: bool = False) -> Optional[str]:
         """Why a CUDA graph of a training step (``steps_per_execution >
         1`` on the card) cannot be taken under this strategy: the
         collectives its forward issues, and the ROADMAP item that would
         let a graph capture them; None where the forward issues none (the
         gradients' reduce runs in the update, outside the graph).
-        ``batch_norm``: a BatchNorm runs in the model."""
+        ``batch_norm``: a BatchNorm runs in the model; ``moe``: an
+        ``nn.MoE`` does."""
+        if moe and self.num_batch_shards > 1:
+            return ("steps_per_execution > 1 with an nn.MoE under data "
+                    "parallelism on the card: not yet ported (ROADMAP "
+                    "1.3a). The routing's statistics are reduced over the "
+                    "ranks in the forward, which the step's CUDA graph "
+                    "would capture; the port captures no NCCL call")
         return None
 
     # -- placement (the sharded strategies override) ------------------------
@@ -279,11 +318,41 @@ class DataParallel(Strategy):
     ``device=None`` is this rank's card (it raises without one); pass
     ``device="cpu"`` for a gloo group on the CPU. Without a process group
     it forms one of world size 1 on ``device`` (NCCL on the card, gloo on
-    the CPU)."""
+    the CPU). ``devices`` (ranks), ``mesh`` (a one-axis
+    ``parallel.make_mesh`` mesh) and ``axis`` are the JAX constructor's:
+    they must span every rank of the group in rank order (a subset, or
+    a mesh of more axes, raises "not yet ported", ROADMAP 1.7b)."""
 
     axis = "data"
+    _mesh = None
 
-    def __init__(self, device=None):
+    def __init__(self, devices=None, *, mesh=None, axis: str = "data",
+                 device=None):
+        self._form_group(device)
+        self.axis = axis
+        world = dist.get_world_size()
+        name = type(self).__name__
+        if devices is not None and [int(d) for d in devices] != list(
+                range(world)):
+            raise NotImplementedError(
+                f"{name}(devices={list(devices)}) on a group of {world} "
+                "ranks: a strategy over a subset or a reordering of the "
+                "ranks is not yet ported (ROADMAP 1.7b)")
+        if mesh is not None:
+            names = tuple(mesh.mesh_dim_names or ())
+            if axis not in names:
+                raise ValueError(f"Mesh {names} has no axis {axis!r}")
+            if len(names) != 1 or mesh.mesh.flatten().tolist() != list(
+                    range(world)):
+                raise NotImplementedError(
+                    f"{name}(mesh=) over the axes {names} of "
+                    f"{mesh.size()} of {world} ranks: only a one-axis mesh "
+                    "over every rank in rank order is ported; the others "
+                    "are not yet ported (ROADMAP 1.7b)")
+            self._mesh = mesh
+            self._batch_group = mesh.get_group(axis)
+
+    def _form_group(self, device) -> None:
         self.device = _cuda_for_rank(resolve_device(device))
         backend = "nccl" if self.device.type == "cuda" else "gloo"
         if not dist.is_initialized():
@@ -291,8 +360,8 @@ class DataParallel(Strategy):
                                     rank=0, world_size=1)
         elif dist.get_backend() != backend:
             raise ValueError(
-                f"DataParallel on {self.device} needs a {backend} process "
-                f"group; the default group is {dist.get_backend()}")
+                f"{type(self).__name__} on {self.device} needs a {backend} "
+                f"process group; the default group is {dist.get_backend()}")
 
     @property
     def num_replicas_in_sync(self) -> int:
@@ -315,21 +384,29 @@ class DataParallel(Strategy):
         the buckets."""
         return self._bucket_mean(grads, [True] * len(grads))
 
-    def _bucket_mean(self, grads, summed: Sequence[bool]):
+    def _bucket_mean(self, grads, reduce: Sequence):
         """The one division path of every data-parallel strategy: the
-        gradients, one flat bucket per (dtype, kind), all-reduced where
-        ``summed[i]`` is False (a sharded gradient arrives summed by the
-        gather's reduce-scatter) and divided by the number of ranks."""
+        gradients, one flat bucket per (dtype, kind), each all-reduced as
+        ``reduce[i]`` says (True: over the batch group; False: not, a
+        sharded gradient arrives summed by the gather's reduce-scatter; a
+        process group: over that group) and divided by the number of
+        batch shards.
+
+        A loss whose divisor depends on the data (a ratio loss, the MoE's
+        load-balance term) is taken per rank as ``N x`` its share of the
+        global objective (``Model._rank_loss``), so this division gives
+        the sum of the shares' gradients: the global objective's."""
         n = self.num_batch_shards
         out: List[Optional[torch.Tensor]] = [None] * len(grads)
         groups: Dict[tuple, List[int]] = {}
         for i, g in enumerate(grads):
-            groups.setdefault((g.dtype, bool(summed[i])), []).append(i)
-        for (_, reduce), idxs in groups.items():
+            groups.setdefault((g.dtype, reduce[i]), []).append(i)
+        for (_, over), idxs in groups.items():
             flat = torch.cat([grads[i].reshape(-1) for i in idxs])
-            if reduce:
+            if over is not False:
                 dist.all_reduce(flat, op=dist.ReduceOp.SUM,
-                                group=self._batch_group)
+                                group=self._batch_group if over is True
+                                else over)
             flat.div_(n)
             pieces = flat.split([grads[i].numel() for i in idxs])
             for i, piece in zip(idxs, pieces):
@@ -364,13 +441,26 @@ class DataParallel(Strategy):
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self._batch_group)
         return t
 
+    def all_gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        group = self._rows_group()
+        n = dist.get_world_size(group)
+        out = t.new_empty((n * t.numel(),))
+        collectives._all_gather(out, t.contiguous().reshape(-1), group=group)
+        return out.view((n,) + tuple(t.shape))
+
+    def _rows_group(self):
+        """The group of the ranks that hold distinct rows (the batch
+        group, less a sequence split)."""
+        return self._batch_group
+
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         dist.broadcast(t, src=src)
         return t
 
-    def forward_collectives(self, batch_norm: bool) -> Optional[str]:
+    def forward_collectives(self, batch_norm: bool,
+                            moe: bool = False) -> Optional[str]:
         if not batch_norm:
-            return None
+            return super().forward_collectives(batch_norm, moe)
         return ("steps_per_execution > 1 under DataParallel with BatchNorm "
                 "on the card: not yet ported (ROADMAP 1.6). Sync-BN's "
                 "collectives run inside the forward, which the step's CUDA "
@@ -452,9 +542,9 @@ class FullyShardedDataParallel(_Sharded):
     backward reduce-scatters the gradient to the blocks; the update runs
     on the blocks. Per-card parameter memory is O(total / N)."""
 
-    def __init__(self, device=None, *, axis: str = "fsdp"):
-        super().__init__(device)
-        self.axis = axis
+    def __init__(self, devices=None, *, mesh=None, axis: str = "fsdp",
+                 device=None):
+        super().__init__(devices, mesh=mesh, axis=axis, device=device)
 
     def param_layout(self, shape, role=None) -> Optional[Layout]:
         return self._layout(shape)
@@ -462,7 +552,8 @@ class FullyShardedDataParallel(_Sharded):
     def overlap_spec(self):
         return collectives.start_gather
 
-    def forward_collectives(self, batch_norm: bool) -> Optional[str]:
+    def forward_collectives(self, batch_norm: bool,
+                            moe: bool = False) -> Optional[str]:
         return ("steps_per_execution > 1 under FSDP on the card: not yet "
                 "ported (ROADMAP 1.3a). The forward gathers every sharded "
                 "parameter, which the step's CUDA graph would capture; the "
@@ -502,8 +593,9 @@ class FSDP(FullyShardedDataParallel):
     - ``FSDP``:               params 1/N,  opt 1/N per card (ZeRO-3)
     """
 
-    def __init__(self, device=None, *, axis: str = "data"):
-        super().__init__(device, axis=axis)
+    def __init__(self, devices=None, *, mesh=None, axis: str = "data",
+                 device=None):
+        super().__init__(devices, mesh=mesh, axis=axis, device=device)
 
 
 # ----------------------------------------------- tensor and sequence parallel
@@ -546,7 +638,7 @@ class _HintedParallel(DataParallel):
 
     def __init__(self, devices, mesh, axis, split_axis, split, keyword,
                  device):
-        super().__init__(device)
+        self._form_group(device)
         if mesh is None:
             from .mesh import make_mesh
 
@@ -594,11 +686,32 @@ class _HintedParallel(DataParallel):
     def opt_layout(self, shape, param_layout=None) -> Optional[Layout]:
         return param_layout
 
-    def forward_collectives(self, batch_norm: bool) -> Optional[str]:
+    def constrain_compute_params(self, w, layout: Optional[Layout]):
+        # Gather each split the layer does not compute with (the fsdp
+        # split of a two-axis leaf), up to the one it does.
+        if layout is None:
+            return w
+        for level in layout.levels():
+            if self.computes_block(level):
+                break
+            w = collectives.gather(w, level)
+        return w
+
+    def apply_update(self, tx, params, grads, opt_state, opt_layouts):
+        from .. import optim
+
+        grads = self.reduce_gradients(grads)
+        with optim.leaf_reduction(
+                lambda values: _line_sums(values, opt_layouts)):
+            tx.update(params, grads, opt_state)
+
+    def forward_collectives(self, batch_norm: bool,
+                            moe: bool = False) -> Optional[str]:
         return (f"steps_per_execution > 1 under {type(self).__name__} on the"
-                " card: not yet ported (ROADMAP 1.3a). The forward's tensor- "
-                "and sequence-parallel collectives would be captured by the "
-                "step's CUDA graph; the port captures no NCCL call")
+                " card: not yet ported (ROADMAP 1.3a). The forward's tensor-, "
+                "sequence-, expert- and pipeline-parallel collectives would "
+                "be captured by the step's CUDA graph; the port captures no "
+                "NCCL call")
 
     def opt_state_sharding(self, opt_state):
         raise NotImplementedError(
@@ -659,11 +772,6 @@ class DataTensorParallel(_HintedParallel):
 
     def computes_block(self, layout: Layout) -> bool:
         return layout.axis == self.model_axis
-
-    def constrain_compute_params(self, w, layout: Optional[Layout]):
-        if layout is not None and self.computes_block(layout):
-            return w
-        return collectives.gather_leaf(w, layout)
 
     def apply_update(self, tx, params, grads, opt_state, opt_layouts):
         from .. import optim
@@ -760,36 +868,379 @@ class DataSeqParallel(_HintedParallel):
         return a[tuple(sl)]
 
 
-def _unported_strategy(name: str, what: str):
-    raise NotImplementedError(f"{name} ({what}): not yet ported (ROADMAP 1.7)")
+def _line_sums(values: List[torch.Tensor],
+               layouts: Sequence[Optional[Layout]]) -> List[torch.Tensor]:
+    """Per-leaf partial sums (0-d tensors, one per leaf of an update's
+    lists) summed over every line a leaf's blocks split over (each split
+    of a two-axis layout in turn); a whole leaf's as it is. The norms
+    that span leaves (``grad_clip``, Lamb, the loss scale's check) under
+    the hinted strategies (``optim.leaf_reduction``)."""
+    t = torch.stack(values)
+    lines: Dict[str, tuple] = {}
+    for i, lay in enumerate(layouts):
+        for level in ([] if lay is None else lay.levels()):
+            if level.n > 1:
+                lines.setdefault(level.axis, (level.group, []))[1].append(i)
+    for group, idx in lines.values():
+        part = t[idx].contiguous()
+        dist.all_reduce(part, op=dist.ReduceOp.SUM, group=group)
+        t = t.index_copy(0, torch.tensor(idx, device=t.device), part)
+    return list(t.unbind())
 
 
-class DataPipelineParallel(Strategy):
-    """The JAX ``DataPipelineParallel``'s name and signature; building one
-    raises "not yet ported" (ROADMAP 1.7, with ``nn/pipeline.py``)."""
+def _stage_layout(shape, axis, n, rank, group) -> Layout:
+    """Dim 0 of a pipelined stack over the pipe line, with the JAX
+    ``_check_pipe_divisible`` error."""
+    if shape[0] % n:
+        raise ValueError(
+            f"{shape[0]} pipelined blocks not divisible by {axis}={n} "
+            "stages")
+    return Layout(shape, 0, n, rank, group, axis)
 
-    def __init__(self, devices=None, *, mesh=None, pipeline_parallel=2,
-                 num_microbatches=None, axis="data", pipe_axis="pipe",
+
+def _pipe_comm(params, hints, n, data, m, compute_dtype):
+    """The JAX ``DataPipelineParallel.comm_bytes_estimate``: the gradient
+    all-reduce over the data line moves what a rank holds (a 1/n stage
+    slice of a "pipe" stack), and the schedule hops one microbatch of
+    activations per sending tick: ``width x itemsize x (M+n-2) / M`` per
+    token, ``width`` the smallest ``shape[1]`` of the stacks' leaves of 3
+    or more dimensions."""
+    grad, width = 0, None
+    for path, p in params.items():
+        piped = role_of(path, hints or {}) == "pipe" and n > 1
+        nbytes = _leaf_comm_bytes(p, compute_dtype)
+        if data > 1:
+            grad += nbytes // n if piped else nbytes
+        if piped and p.dim() >= 3:
+            w = int(p.shape[1])
+            width = w if width is None else min(width, w)
+    hop = 0
+    if width is not None and n > 1:
+        dt = compute_dtype if compute_dtype is not None else torch.float32
+        hop = width * dt.itemsize * (m + n - 2) // m
+    return _comm_row(grad=grad, hop_per_token=hop)
+
+
+class DataExpertParallel(_HintedParallel):
+    """Data x expert parallelism, as the JAX ``DataExpertParallel``: the
+    batch's rows split over ``axis`` ("data") and replicated along
+    ``expert_axis`` ("expert", ``expert_parallel`` ranks); the MoE's
+    expert stacks (``nn.MoE``'s (E, ...) leaves, role "expert") split on
+    dim 0 over the expert line, so a rank holds E/ep experts. Every other
+    leaf is replicated.
+
+    Where JAX lets GSPMD shard the dispatch and combine, the layer runs
+    Megatron's pair over the expert line: its tokens and gates go in
+    through ``copy_to_group`` (the backward sums their gradients over the
+    line), the rank's experts run on the whole dispatch buffer, and the
+    partial combine is summed by ``reduce_from_group``. With
+    ``expert_parallel=1`` the expert leaves are blocks of a one-rank line
+    and the pair runs over it. The gradients are all-reduced over the
+    data line only."""
+
+    def __init__(self, devices=None, *, mesh=None, expert_parallel: int = 2,
+                 axis: str = "data", expert_axis: str = "expert",
                  device=None):
-        _unported_strategy("DataPipelineParallel", "nn/pipeline.py")
+        super().__init__(devices, mesh, axis, expert_axis,
+                         int(expert_parallel), "expert_parallel", device)
+        if expert_axis not in self.axis_sizes:
+            raise ValueError(
+                f"Mesh {tuple(self.axis_sizes)} has no axis {expert_axis!r}")
+        self.expert_axis = expert_axis
+        self.ep, self.ep_rank, self.ep_group = self._axis_line(expert_axis)
+
+    def param_layout(self, shape, role=None) -> Optional[Layout]:
+        shape = tuple(int(s) for s in shape)
+        if role != "expert" or not shape:
+            return None
+        if shape[0] % self.ep:
+            raise ValueError(
+                f"{shape[0]} experts not divisible by "
+                f"{self.expert_axis}={self.ep}")
+        return Layout(shape, 0, self.ep, self.ep_rank, self.ep_group,
+                      self.expert_axis)
+
+    def computes_block(self, layout: Layout) -> bool:
+        return layout.axis == self.expert_axis
 
 
-class DataExpertParallel(Strategy):
-    """The JAX ``DataExpertParallel``'s name and signature; building one
-    raises "not yet ported" (ROADMAP 1.7, with ``nn/moe.py``)."""
+class DataPipelineParallel(_HintedParallel):
+    """Data x pipeline parallelism, as the JAX ``DataPipelineParallel``:
+    the batch's rows split over ``axis`` ("data"); an
+    ``nn.PipelinedBlocks`` stack (role "pipe") split on its stage axis
+    over ``pipe_axis`` ("pipe", ``pipeline_parallel`` ranks), so a rank
+    holds S/pp consecutive blocks, and run by the GPipe (or interleaved)
+    schedule over ``num_microbatches`` microbatches (default: the pipe
+    size), the activations hopping rank to rank (``nn/pipeline.py``).
+    The other leaves (embeddings, the head) are replicated and computed
+    on every pipe rank; every gradient is all-reduced over the data line
+    only. At ``pipeline_parallel=1`` the stack runs as the sequential
+    scan, as in JAX."""
 
-    def __init__(self, devices=None, *, mesh=None, expert_parallel=2,
-                 axis="data", expert_axis="expert", device=None):
-        _unported_strategy("DataExpertParallel", "nn/moe.py")
+    def __init__(self, devices=None, *, mesh=None,
+                 pipeline_parallel: int = 2,
+                 num_microbatches: Optional[int] = None, axis: str = "data",
+                 pipe_axis: str = "pipe", device=None):
+        super().__init__(devices, mesh, axis, pipe_axis,
+                         int(pipeline_parallel), "pipeline_parallel", device)
+        if pipe_axis not in self.axis_sizes:
+            raise ValueError(
+                f"Mesh {tuple(self.axis_sizes)} has no axis {pipe_axis!r}")
+        self.pipe_axis = pipe_axis
+        self.pp, self.pp_rank, self.pp_group = self._axis_line(pipe_axis)
+        if num_microbatches is None:
+            num_microbatches = self.pp
+        if num_microbatches < 1:
+            raise ValueError(
+                f"num_microbatches must be >= 1, got {num_microbatches}")
+        self.num_microbatches = int(num_microbatches)
+
+    def param_layout(self, shape, role=None) -> Optional[Layout]:
+        if role != "pipe":
+            return None
+        return _stage_layout(tuple(int(s) for s in shape), self.pipe_axis,
+                             self.pp, self.pp_rank, self.pp_group)
+
+    def computes_block(self, layout: Layout) -> bool:
+        return layout.axis == self.pipe_axis
+
+    def comm_bytes_estimate(self, params, compute_dtype=None,
+                            hints=None) -> dict:
+        return _pipe_comm(params, hints, self.pp, self.axis_sizes[self.axis],
+                          self.num_microbatches, compute_dtype)
 
 
-class CompositeParallel(Strategy):
-    """The JAX ``CompositeParallel``'s name and signature; building one
-    raises "not yet ported" (ROADMAP 1.7)."""
+class CompositeParallel(_HintedParallel):
+    """Every canonical axis on one mesh at once, as the JAX
+    ``CompositeParallel``: ``axes`` (e.g. ``{"data": 2, "model": 2,
+    "pipe": 2}``) or an n-axis ``mesh``. The roles resolve together
+    (``_role_spec``): "col"/"row"/"row1" over "model", "expert" and
+    "pipe" on dim 0 over their lines, and with an "fsdp" axis the ZeRO-3
+    overlay on the largest free dimension that the fsdp size divides (a
+    pipelined stack excluded): a leaf split over "model" and "fsdp" is a
+    two-axis ``Layout`` (the fsdp split of the Megatron block). The
+    batch's rows split over ("data", "fsdp"), the sequence over "seq"
+    with ring or Ulysses attention as under ``DataSeqParallel``.
+
+    The combinations the JAX package's tests run are ported: data x
+    model x pipe, fsdp x model, data x seq and data x fsdp x pipe, and
+    every mesh whose axes are a subset of one of them; the others raise
+    "not yet ported" (ROADMAP 1.7)."""
+
+    #: axes that shard batch rows (in canonical mesh order)
+    BATCH_AXES = ("data", "fsdp")
+    _PORTED = ({"data", "model", "pipe"}, {"fsdp", "model"},
+               {"data", "seq"}, {"data", "fsdp", "pipe"})
 
     def __init__(self, axes=None, devices=None, *, mesh=None,
-                 num_microbatches=None, seq_attention="ring", device=None):
-        _unported_strategy("CompositeParallel", "every axis on one mesh")
+                 num_microbatches: Optional[int] = None,
+                 seq_attention: str = "ring", device=None):
+        from .mesh import AXES, make_mesh
+
+        self._form_group(device)
+        if mesh is None:
+            if not axes:
+                raise ValueError(
+                    "CompositeParallel needs axis sizes, e.g. "
+                    "CompositeParallel({'data': 2, 'model': 2, 'pipe': 2})")
+            mesh = make_mesh(dict(axes), device_type=self.device.type,
+                             devices=devices)
+        names = tuple(mesh.mesh_dim_names or ())
+        unknown = set(names) - set(AXES)
+        if unknown:
+            raise ValueError(
+                f"Mesh axes {sorted(unknown)} are not canonical {AXES}")
+        row_axes = [a for a in self.BATCH_AXES if a in names]
+        if not row_axes:
+            raise ValueError(
+                "CompositeParallel needs at least one batch axis "
+                f"({self.BATCH_AXES}) in the mesh; got {names}")
+        if seq_attention not in ("ring", "ulysses"):
+            raise ValueError(
+                f"attention must be 'ring' or 'ulysses', got "
+                f"{seq_attention!r}")
+        if mesh.size() != dist.get_world_size():
+            raise ValueError(
+                f"a CompositeParallel mesh spans every rank of the process "
+                f"group: {mesh.size()} of {dist.get_world_size()}")
+        self._mesh = mesh
+        self.axis = row_axes[0]
+        self._row_axes = tuple(row_axes)
+        self.axis_sizes = {a: int(mesh.size(i)) for i, a in enumerate(names)}
+        split = {a for a, n in self.axis_sizes.items() if n > 1}
+        if not any(split <= ported for ported in self._PORTED):
+            raise NotImplementedError(
+                f"CompositeParallel over {sorted(split)}: not yet ported "
+                "(ROADMAP 1.7); the ported combinations are data x model x "
+                "pipe, fsdp x model, data x seq and data x fsdp x pipe")
+
+        def present(name):
+            return name if self.axis_sizes.get(name, 1) > 1 else None
+
+        self.model_axis = present("model")
+        self.pipe_axis = present("pipe")
+        self.seq_axis = present("seq")
+        self.expert_axis = present("expert")
+        self.fsdp_axis = present("fsdp")
+        self.seq_attention = seq_attention
+        if num_microbatches is None:
+            num_microbatches = (self.axis_sizes[self.pipe_axis]
+                                if self.pipe_axis else 1)
+        if num_microbatches < 1:
+            raise ValueError(
+                f"num_microbatches must be >= 1, got {num_microbatches}")
+        self.num_microbatches = int(num_microbatches)
+        coords = {a: int(mesh.get_local_rank(a)) for a in names}
+        self._coords = coords
+        # The row group (data x fsdp) and the batch group (rows x seq):
+        # one group per combination of the other axes' coordinates,
+        # formed by every rank in the same order.
+        self._rows = self._sub_group(self._row_axes)
+        self._batch_group = self._sub_group(
+            self._row_axes + ((self.seq_axis,) if self.seq_axis else ()))
+        # A gradient of an fsdp block arrives summed over the fsdp line
+        # (the gather's reduce-scatter): the rest of the batch group sums
+        # it (apply_update).
+        rest = tuple(a for a in self._row_axes + (
+            (self.seq_axis,) if self.seq_axis else ())
+            if a != self.fsdp_axis)
+        self._rest_group = (self._sub_group(rest) if rest and self.fsdp_axis
+                            else None)
+        if self.seq_axis:
+            self.sp, self.sp_rank, self.sp_group = self._axis_line("seq")
+        if self.model_axis:
+            self.tp, self.tp_rank, self.tp_group = self._axis_line("model")
+        if self.device.type == "cuda":
+            for a in names:
+                if self.axis_sizes[a] > 1:
+                    t = torch.zeros(1, device=self.device)
+                    dist.all_reduce(t, group=mesh.get_group(a))
+
+    def _sub_group(self, axes):
+        """The process group of this rank's ranks that differ only in
+        ``axes`` (a sub-mesh, flattened in mesh order)."""
+        names = tuple(self._mesh.mesh_dim_names)
+        if len(axes) == 1:
+            return self._mesh.get_group(axes[0])
+        grid = self._mesh.mesh
+        keep = [names.index(a) for a in axes]
+        other = [i for i in range(len(names)) if i not in keep]
+        moved = grid.permute(*other, *keep).reshape(
+            -1, int(torch.tensor([grid.shape[i] for i in keep]).prod()))
+        mine = None
+        for row in moved.tolist():
+            g = dist.new_group(row)
+            if dist.get_rank() in row:
+                mine = g
+        return mine
+
+    @property
+    def num_replicas_in_sync(self) -> int:
+        n = 1
+        for a in self._row_axes:
+            n *= self.axis_sizes[a]
+        return n
+
+    @property
+    def row_axes(self) -> tuple:
+        return self._row_axes
+
+    @property
+    def num_batch_shards(self) -> int:
+        return self.num_replicas_in_sync * (self.sp if self.seq_axis else 1)
+
+    def _rank(self) -> int:
+        r = 0
+        for a in self._row_axes:
+            r = r * self.axis_sizes[a] + self._coords[a]
+        return r
+
+    def _rows_group(self):
+        return self._rows
+
+    def seq_offset(self, t_local: int) -> int:
+        return self.sp_rank * int(t_local) if self.seq_axis else 0
+
+    def shard_seq(self, a, dim: int = 1):
+        if not self.seq_axis:
+            return a
+        return DataSeqParallel.shard_seq(self, a, dim)
+
+    # -- placement ----------------------------------------------------------
+    def _role_split(self, role, shape):
+        """(dim, axis) of the JAX ``_role_spec``'s role split, or None."""
+        nd = len(shape)
+        if role in ("col", "row") and self.model_axis and nd >= 1:
+            return (nd - 1 if role == "col" else 0), self.model_axis
+        if role == "row1" and self.model_axis and nd >= 2:
+            return 1, self.model_axis
+        if role == "expert" and self.expert_axis and nd >= 1:
+            return 0, self.expert_axis
+        if role == "pipe" and self.pipe_axis and nd >= 1:
+            return 0, self.pipe_axis
+        return None
+
+    def _line(self, axis, shape, dim) -> Layout:
+        n, rank, group = self._axis_line(axis)
+        if axis == self.pipe_axis:
+            return _stage_layout(shape, axis, n, rank, group)
+        if shape[dim] % n:
+            raise ValueError(
+                f"leaf of shape {shape}: dimension {dim} ({shape[dim]}) not "
+                f"divisible by {axis}={n}")
+        return Layout(shape, dim, n, rank, group, axis)
+
+    def param_layout(self, shape, role=None) -> Optional[Layout]:
+        shape = tuple(int(s) for s in shape)
+        split = self._role_split(role, shape)
+        lay = None if split is None else self._line(split[1], shape,
+                                                    split[0])
+        if self.fsdp_axis and role != "pipe":
+            n = self.axis_sizes[self.fsdp_axis]
+            taken = None if split is None else split[0]
+            best, best_size = None, 0
+            for d, size in enumerate(shape):
+                if d != taken and size % n == 0 and size > best_size:
+                    best, best_size = d, size
+            if best is not None:
+                inner_shape = shape if lay is None else lay.block_shape
+                fs = self._line(self.fsdp_axis, inner_shape, best)
+                lay = fs if lay is None else lay._replace(sub=fs)
+        return lay
+
+    def computes_block(self, layout: Layout) -> bool:
+        return layout.axis in (self.model_axis, self.expert_axis,
+                               self.pipe_axis)
+
+    def writes_block(self, layout: Layout) -> bool:
+        mine = {lv.axis for lv in layout.levels()}
+        return all(c == 0 for a, c in self._coords.items() if a not in mine)
+
+    def apply_update(self, tx, params, grads, opt_state, opt_layouts):
+        from .. import optim
+
+        # An fsdp block's gradient is all-reduced over the rest of the
+        # batch group, every other over the whole batch group; then all
+        # are divided by the number of shards.
+        def kind(lay):
+            if lay is None or not any(lv.axis == self.fsdp_axis
+                                      for lv in lay.levels()):
+                return True
+            return self._rest_group if self._rest_group is not None \
+                else False
+
+        grads = self._bucket_mean(grads, [kind(lay) for lay in opt_layouts])
+        with optim.leaf_reduction(
+                lambda values: _line_sums(values, opt_layouts)):
+            tx.update(params, grads, opt_state)
+
+    def comm_bytes_estimate(self, params, compute_dtype=None,
+                            hints=None) -> dict:
+        if self.pipe_axis:
+            return _pipe_comm(params, hints, self.axis_sizes[self.pipe_axis],
+                              self.num_replicas_in_sync,
+                              self.num_microbatches, compute_dtype)
+        return super().comm_bytes_estimate(params, compute_dtype, hints)
 
 
 __all__ = [

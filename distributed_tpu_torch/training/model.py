@@ -98,6 +98,9 @@ from ..data.prefetch import DevicePrefetcher, DeviceStager
 from ..device import resolve_device
 from ..nn.core import (apply_layers, needs_rng, param_tree, rng_scope,
                        state_tree)
+from ..nn import moe as moe_lib
+from ..nn.pipeline import (PipelinedBlocks, clear_pipeline_trace,
+                           last_pipeline_trace)
 from ..nn.remat import checkpoint as remat_checkpoint
 from ..nn.scan import (ScannedBlocks, clear_overlap_trace,
                        last_overlap_trace)
@@ -649,8 +652,9 @@ class Model:
             if self.head_chunks and self.head_chunks > 1:
                 loss, mvals = self._chunked_train_loss(x, y)
             else:
+                self._clear_aux()
                 logits = self._logits(x)
-                loss = self.loss_fn(logits, y)
+                loss = self._rank_loss(logits, y) + self._aux_sum()
                 with torch.no_grad():
                     mvals = {name: fn(logits.detach(), y)
                              for name, fn in self.metric_fns}
@@ -658,6 +662,38 @@ class Model:
             grads = torch.autograd.grad(scaled, params,
                                         materialize_grads=True)
         return loss.detach(), list(grads), mvals
+
+    def _rank_loss(self, logits, y):
+        """This rank's loss as the step differentiates it: the loss
+        function's value, except for a loss whose divisor depends on the
+        data (``losses.get_sum_count`` knows it, e.g.
+        ``cross_entropy_with_ignore``, or a callable that returns a
+        ``(sum, count)`` pair): then this rank's sum over the GLOBAL
+        count, one all-reduce over the batch group, times the number of
+        batch shards N, so the strategy's mean of the ranks' gradients is
+        the gradient of the global ratio the JAX step takes (and the
+        ranks' losses average to it)."""
+        ratio = losses_lib.get_sum_count(self.loss_fn)
+        out = (ratio if ratio is not None else self.loss_fn)(logits, y)
+        if not isinstance(out, tuple):
+            return out
+        total, count = out
+        n = self.strategy.num_batch_shards
+        count = count.detach().to(torch.float32).reshape(1)
+        if n > 1:
+            count = self.strategy.all_reduce_sum(count.clone())
+        return total * n / torch.clamp_min(count[0], 1.0)
+
+    def _clear_aux(self) -> None:
+        for m in self.module.modules():
+            if isinstance(m, moe_lib.MoE):
+                m.aux_term = None
+
+    def _aux_sum(self):
+        """The auxiliary objectives the forward left (the MoE layers'
+        load-balance terms, the JAX ``_aux_loss_sum``), or 0."""
+        terms = moe_lib.aux_terms(self.module)
+        return sum(terms) if terms else 0.0
 
     def _chunked_head(self, h, y, weights):
         """The head, the loss and the metrics over ``head_chunks`` chunks
@@ -726,10 +762,11 @@ class Model:
         """The chunked train objective: the body once, then
         :meth:`_chunked_head`; the loss is the token mean."""
         body, _ = _split_head(self.module)
+        self._clear_aux()
         h = apply_layers(body, x)
         loss_sum, msums = self._chunked_head(h, y, None)
         n_tok = float(y.numel())
-        loss = loss_sum / n_tok
+        loss = loss_sum / n_tok + self._aux_sum()
         mvals = {name: (s.detach(), n_tok)
                  for (name, _), s in zip(self.metric_fns, msums)}
         return loss, mvals
@@ -772,7 +809,8 @@ class Model:
         return loss, mvals
 
     def _check_capturable(self):
-        why = self.strategy.forward_collectives(_has_batch_norm(self.module))
+        why = self.strategy.forward_collectives(
+            _has_batch_norm(self.module), moe=moe_lib.has_moe(self.module))
         if why is not None:
             raise NotImplementedError(why)
 
@@ -1045,6 +1083,7 @@ class Model:
         self._resumed_step = None
         self._restored_data_state = None
         clear_overlap_trace()
+        clear_pipeline_trace()
         self.module.train()
         try:
             self._fit_epochs(
@@ -1273,6 +1312,31 @@ class Model:
                 exposed_comm_fraction=report["overlap"][
                     "exposed_comm_fraction"],
                 layers=layers, strategy=type(self.strategy).__name__)
+        # The pipelined stack's schedule record (nn.pipeline), read as the
+        # JAX report reads its trace-time record.
+        ptrace = last_pipeline_trace()
+        if ptrace is None:
+            ptrace = getattr(self, "_pipeline_record", None)
+        else:
+            self._pipeline_record = ptrace
+        if ptrace is not None:
+            report["pipeline"] = dict(ptrace)
+            if obs_registry.enabled() and \
+                    events_lib.default_log() is not None:
+                events_lib.emit(
+                    evs.PIPELINE_SCHEDULE_SELECTED,
+                    schedule=ptrace["schedule"],
+                    interleave=ptrace["interleave"],
+                    num_stages=ptrace["num_stages"],
+                    num_microbatches=ptrace["num_microbatches"],
+                    strategy=type(self.strategy).__name__)
+                events_lib.emit(
+                    evs.BUBBLE_REPORT,
+                    bubble_fraction=ptrace["bubble_fraction"],
+                    ticks=ptrace["ticks"], schedule=ptrace["schedule"],
+                    interleave=ptrace["interleave"],
+                    num_stages=ptrace["num_stages"],
+                    num_microbatches=ptrace["num_microbatches"])
         self._flush_obs_window(1, force=True)
         obs_reg = obs_registry.default_registry()
         obs_reg.gauge("fit/steps_per_sec", round(
@@ -1287,29 +1351,67 @@ class Model:
 
     # --------------------------------------------------------------- evaluate
     def _score(self, xb, yb, rows=None, *, per_ex):
-        """Device sums and host counts of one batch: ``([loss, metric...],
+        """Device sums and host counts of one batch: ``([loss, the ratio
+        loss's count or None, the aux terms or None, metric...],
         [count...])``. ``rows``: the batch's valid rows when it was padded
-        (the chunked head's last batch), else all count."""
+        (the last batch of a chunked head, an MoE or a pipelined model,
+        as the JAX step pads), else all count. The MoE layers' aux terms
+        are weighted by the valid count, as in JAX."""
         if self.head_chunks and self.head_chunks > 1:
             return self._score_chunked(xb, yb, rows)
-        logits = self._logits(xb)
-        valid = float(yb.numel())
+        n = yb.shape[0]
+        mask = None
+        if rows is not None:
+            mask = (torch.arange(n, device=yb.device) < rows).to(
+                torch.float32)
+        self._clear_aux()
+        weights = (moe_lib.sample_weights(mask) if mask is not None
+                   and per_ex is not None else contextlib.nullcontext())
+        with weights:
+            logits = self._logits(xb)
+
+        def weighted(elems):
+            if mask is None:
+                return elems.sum(), float(elems.numel())
+            w = mask.reshape((n,) + (1,) * (elems.dim() - 1)).expand(
+                elems.shape).to(elems.dtype)
+            return (elems * w).sum(), float(rows * (elems.numel() // n))
+
+        per_row = yb.numel() // max(n, 1)
+        valid = float((n if rows is None else rows) * per_row)
+        ratio_count = None
         if per_ex is not None:
-            loss_sum = per_ex(logits, yb).sum()
+            loss_sum, counted = weighted(per_ex(logits, yb))
+            if mask is not None:
+                valid = counted
         else:
-            loss_sum = self.loss_fn(logits, yb) * valid
-        row_sums, row_counts = [loss_sum], [valid]
+            out = (losses_lib.get_sum_count(self.loss_fn)
+                   or self.loss_fn)(logits, yb)
+            if isinstance(out, tuple):
+                # A ratio: its sums and counts over the ranks make the
+                # global batch's ratio, weighted by the batch's valid
+                # count (``_eval_batches``).
+                loss_sum, ratio_count = out[0], out[1].to(torch.float32)
+            else:
+                loss_sum = out * valid
+        row_sums, row_counts = [loss_sum, ratio_count,
+                                self._aux_weighted(valid)], [valid]
         for name, fn in self.metric_fns:
             scores = metrics_lib.per_example(fn)
             if scores is not None:
-                sc = scores(logits, yb)
-                row_sums.append(sc.sum())
-                row_counts.append(float(sc.numel()))
+                sc, cnt = weighted(scores(logits, yb))
+                row_sums.append(sc)
+                row_counts.append(cnt)
             else:
                 msum, mcount = fn(logits, yb)
+                if mask is not None:
+                    ex = float(rows)
+                    msum = msum * ex / max(float(mcount), 1.0)
+                    mcount = ex
                 row_sums.append(msum)
                 row_counts.append(float(mcount))
-        return [v.to(torch.float32) for v in row_sums], row_counts
+        return [None if v is None else v.to(torch.float32)
+                for v in row_sums], row_counts
 
     def _score_chunked(self, xb, yb, rows):
         """:meth:`_score` through the chunked head: the body once, then the
@@ -1320,10 +1422,23 @@ class Model:
         mask = (torch.arange(n, device=yb.device) < rows).to(torch.float32)
         w = mask.reshape((n,) + (1,) * (yb.dim() - 1)).expand(yb.shape)
         body, _ = _split_head(self.module)
-        h = apply_layers(body, xb)
+        self._clear_aux()
+        weights = (moe_lib.sample_weights(mask) if losses_lib.
+                   get_per_example(self.loss_fn) is not None
+                   else contextlib.nullcontext())
+        with weights:
+            h = apply_layers(body, xb)
         loss_sum, msums = self._chunked_head(h, yb, w)
         valid = float(rows * (yb.numel() // max(n, 1)))
-        return ([loss_sum] + msums), [valid] * (1 + len(msums))
+        return ([loss_sum, None, self._aux_weighted(valid)] + msums), \
+            [valid] * (1 + len(msums))
+
+    def _aux_weighted(self, valid):
+        """The MoE layers' aux terms of the last forward times the valid
+        count (JAX's ``_aux_loss_sum(state) * valid``), or None: a slot of
+        its own, added after a ratio loss is formed (``_eval_batches``)."""
+        aux = self._aux_sum()
+        return aux * valid if torch.is_tensor(aux) else None
 
     def _eval_batches(self, batches):
         """Sum the scores of ``batches`` (an iterable of device ``(x, y)``
@@ -1341,7 +1456,7 @@ class Model:
                     self._policy_scope():
                 for pair in batches:
                     if pair is None:
-                        sums.append([zero] * k)
+                        sums.append([zero, None, None] + [zero] * (k - 1))
                         counts.append([0.0] * k)
                         continue
                     s, c = self._score(*pair, per_ex=per_ex)
@@ -1349,13 +1464,25 @@ class Model:
                     counts.append(c)
         finally:
             self.module.train(was_training)
+        rows = [[v if v is not None else zero for v in row] for row in sums]
         vec = self.strategy.all_reduce_sum(torch.cat([
-            torch.stack([v for row in sums for v in row]).to(torch.float64),
+            torch.stack([v for row in rows for v in row]).to(torch.float64),
             torch.tensor([c for row in counts for c in row],
                          dtype=torch.float64, device=self.device),
-        ])).cpu().numpy().reshape(2, -1, k)
-        totals = [sum(float(v) for v in vec[0, :, j]) for j in range(k)]
-        dens = [sum(float(c) for c in vec[1, :, j]) for j in range(k)]
+        ])).cpu().numpy()
+        nb = len(rows)
+        vals = vec[:nb * (k + 2)].reshape(nb, k + 2)
+        dens_b = vec[nb * (k + 2):].reshape(nb, k)
+        ratio = any(row[1] is not None for row in sums)
+        for b in range(nb):
+            if ratio or vals[b, 1] > 0:
+                # The global batch's ratio times its valid count.
+                vals[b, 0] *= dens_b[b, 0] / max(vals[b, 1], 1.0)
+        # The aux terms join after the ratio is formed, as in JAX.
+        vals[:, 0] += vals[:, 2]
+        vals = np.delete(vals, (1, 2), axis=1)
+        totals = [sum(float(v) for v in vals[:, j]) for j in range(k)]
+        dens = [sum(float(c) for c in dens_b[:, j]) for j in range(k)]
         out = {"loss": totals[0] / max(dens[0], 1.0)}
         for j, (name, _) in enumerate(self.metric_fns, start=1):
             out[name] = totals[j] / max(dens[j], 1.0)
@@ -1387,14 +1514,19 @@ class Model:
         y = self.strategy.shard_seq(np.asarray(y))
         n = x.shape[0]
         lo, hi = self.strategy.row_range(batch_size)
-        chunked = bool(self.head_chunks and self.head_chunks > 1)
+        # The chunks split the batch's tokens, an MoE routes the batch's
+        # tokens in groups, a pipeline splits its rows into microbatches,
+        # and a loss without a per-example form is taken over the whole
+        # batch: those score a short last batch padded to batch_size with
+        # its last row, weighted 0, as the JAX package pads every batch.
+        padded = bool(self.head_chunks and self.head_chunks > 1) or any(
+            isinstance(m, (moe_lib.MoE, PipelinedBlocks))
+            for m in self.module.modules()) or (
+            losses_lib.get_per_example(self.loss_fn) is None)
 
         def batches():
             for start in range(0, n, batch_size):
-                if chunked:
-                    # The chunks split the batch's tokens: pad a short
-                    # batch to batch_size with its last row, weighted 0,
-                    # as the JAX package pads every batch.
+                if padded:
                     xb, yb = x[start:start + batch_size], y[start:start
                                                              + batch_size]
                     valid = xb.shape[0]

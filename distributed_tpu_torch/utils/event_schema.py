@@ -28,6 +28,8 @@ SYNC_CHECK_FAILED = "sync_check_failed"
 # scanned-overlap record at its end.
 METRICS_SNAPSHOT = "metrics_snapshot"
 OVERLAP_REPORT = "overlap_report"
+PIPELINE_SCHEDULE_SELECTED = "pipeline_schedule_selected"
+BUBBLE_REPORT = "bubble_report"
 
 # required: keys every emit site passes; optional: keys it may attach.
 EVENTS: Dict[str, dict] = {
@@ -82,6 +84,18 @@ EVENTS: Dict[str, dict] = {
         "required": ("overlap", "exposed_comm_fraction"),
         "optional": ("layers", "strategy"),
     },
+    # Per-FIT: which pipeline microbatch schedule the PipelinedBlocks
+    # stack ran (gpipe | interleaved) and its static shape.
+    PIPELINE_SCHEDULE_SELECTED: {
+        "required": ("schedule", "interleave"),
+        "optional": ("num_stages", "num_microbatches", "strategy"),
+    },
+    # Per-FIT: the schedule's analytic idle fraction, (n-1)/ticks.
+    BUBBLE_REPORT: {
+        "required": ("bubble_fraction", "ticks"),
+        "optional": ("schedule", "interleave", "num_stages",
+                     "num_microbatches"),
+    },
 }
 
 TRANSPORT_KEYS = ("ts", "event", "pid")
@@ -110,7 +124,8 @@ def check(record: dict) -> List[str]:
 
 __all__ = [
     "CORRUPT_CHECKPOINT_SKIPPED", "DECODE_KERNEL_SELECTED", "DRAFT_SYNC",
-    "EVENTS", "METRICS_SNAPSHOT", "OVERLAP_REPORT", "PREFIX_CACHE_HIT",
+    "BUBBLE_REPORT", "EVENTS", "METRICS_SNAPSHOT", "OVERLAP_REPORT",
+    "PIPELINE_SCHEDULE_SELECTED", "PREFIX_CACHE_HIT",
     "PREFIX_EVICT",
     "SPEC_K_ADJUST", "SPEC_VERIFY", "SYNC_CHECK_FAILED", "check",
     "optional_keys", "required_keys",

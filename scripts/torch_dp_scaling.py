@@ -2,7 +2,8 @@
 """Data-parallel training across the cards of one host, through the launcher.
 
     python3 scripts/torch_dp_scaling.py [--num-workers 1 4] [--timeout 900]
-        [--strategy dp zero1 fsdp tp2 tp4 sp_ring sp_ulysses]
+        [--strategy dp zero1 fsdp tp2 tp4 sp_ring sp_ulysses pp2 pp4 pp2i
+                    ep2 ep4 composite]
 
 For each worker count N, starts N processes with the port's
 ``launch.LocalLauncher`` (one per card, each with its own DTPU_CONFIG).
@@ -42,6 +43,20 @@ its split axis does not divide, and its parity losses are held to
 ``dp``'s at the first N where it ran. Under ``tp2``/``tp4`` the
 replicated leaves must stay bit-identical across the ranks too.
 
+The pipeline, expert and composite strategies train the LM only, and
+each runs its own one-card form at N=1 (the same model and global
+batch, the split axis of size 1), to which its losses at N are held
+(2e-3): ``pp2`` (``DataPipelineParallel(pipeline_parallel=2)``, GPipe,
+M = 4), ``pp4`` (pipe 4, M = 8) and ``pp2i`` (pipe 2, the interleaved
+schedule with v = 2, M = 4) train the LM with ``pipeline=True`` (its 12
+blocks stacked; at pipe 1 the sequential scan); ``ep2`` and ``ep4``
+(``DataExpertParallel(expert_parallel=2 or 4)``) chip_smoke.py's phase-y1
+MoE LM (8 experts in every second block); ``composite``
+(``CompositeParallel({"fsdp": 2, "model": 2})``) the LM. 32 x 1024
+tokens a data rank. Their rows add the peak memory a card and the
+pipeline's bubble fraction or the share of the routed choices the
+experts' capacity dropped.
+
 ``sp_ring`` and ``sp_ulysses`` (``DataSeqParallel(seq_parallel=N)``,
 ring with the zigzag schedule or Ulysses) train ``bench_longctx``'s LM
 as chip_smoke.py's phase u1 configures it (GPT-2 width, vocab 32,768,
@@ -66,6 +81,7 @@ losses disagree.
 
 import argparse
 import json
+import math
 import os
 import sys
 import time
@@ -84,8 +100,29 @@ STRATEGIES = {"dp": ("DataParallel", {}),
               "tp2": ("DataTensorParallel", {"model_parallel": 2}),
               "tp4": ("DataTensorParallel", {"model_parallel": 4}),
               "sp_ring": ("DataSeqParallel", {}),
-              "sp_ulysses": ("DataSeqParallel", {"attention": "ulysses"})}
+              "sp_ulysses": ("DataSeqParallel", {"attention": "ulysses"}),
+              "pp2": ("DataPipelineParallel",
+                      {"pipeline_parallel": 2, "num_microbatches": 4}),
+              "pp4": ("DataPipelineParallel",
+                      {"pipeline_parallel": 4, "num_microbatches": 8}),
+              "pp2i": ("DataPipelineParallel",
+                       {"pipeline_parallel": 2, "num_microbatches": 4}),
+              "ep2": ("DataExpertParallel", {"expert_parallel": 2}),
+              "ep4": ("DataExpertParallel", {"expert_parallel": 4}),
+              "composite": ("CompositeParallel",
+                            {"axes": {"fsdp": 2, "model": 2}})}
 SP = ("sp_ring", "sp_ulysses")
+# The strategies that run their own one-card form at N=1 (the keywords
+# that make the split axis 1 there) and the LM's keywords each trains.
+ONE_CARD = {"pp2": {"pipeline_parallel": 1}, "pp4": {"pipeline_parallel": 1},
+            "pp2i": {"pipeline_parallel": 1},
+            "ep2": {"expert_parallel": 1}, "ep4": {"expert_parallel": 1},
+            "composite": {"axes": {"fsdp": 1, "model": 1}}}
+LM_KW = {"pp2": {"pipeline": True}, "pp4": {"pipeline": True},
+         "pp2i": {"pipeline": True, "pipeline_schedule": "interleaved",
+                  "pipeline_interleave": 2},
+         "ep2": {"moe_experts": 8, "moe_every": 2},
+         "ep4": {"moe_experts": 8, "moe_every": 2}}
 # The long-context LM's first T, and its timed steps after one warm-up;
 # the longest T the search tries, and the seconds a group of workers at
 # one T may take.
@@ -96,7 +133,11 @@ SP_MAX, SP_TIMEOUT = 524288, 420.0
 def split_of(strat):
     """The size of a strategy's split axis (1 for the data-parallel
     family, which any N divides)."""
-    return STRATEGIES[strat][1].get("model_parallel", 1)
+    kw = STRATEGIES[strat][1]
+    for key in ("model_parallel", "pipeline_parallel", "expert_parallel"):
+        if key in kw:
+            return kw[key]
+    return math.prod(kw.get("axes", {}).values()) or 1
 
 
 def sp_worker(strat, t_len):
@@ -157,6 +198,8 @@ def worker(strategy_name="dp", lm_only=True):
     torch.backends.cudnn.allow_tf32 = False
     spec = dtt.cluster.initialize(timeout=300)
     cls, kw = STRATEGIES[strategy_name]
+    if torch.distributed.get_world_size() < split_of(strategy_name):
+        kw = dict(kw, **ONE_CARD[strategy_name])
     strategy = getattr(dtt, cls)(**kw)
     n = strategy.num_replicas_in_sync
     rows = {}
@@ -181,30 +224,47 @@ def worker(strategy_name="dp", lm_only=True):
                   shuffle=False, verbose=0)
         torch.cuda.synchronize()
         torch.distributed.barrier()
+        torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         hist = model.fit(x, y, batch_size=batch, epochs=epochs,
                          steps_per_epoch=steps, shuffle=False, verbose=0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         sync_check.assert_model_replicas_identical(model)
-        if strategy_name in ("tp2", "tp4"):
+        if strategy_name not in ("dp", "zero1", "fsdp"):
             sync_check.assert_replicas_identical({
                 k: v for k, v in model.live_params().items()
                 if layout_of(v) is None}, "replicated leaves")
+        peak = torch.tensor([torch.cuda.max_memory_allocated() / 1e9],
+                            device=strategy.device)
+        torch.distributed.all_reduce(peak, op=torch.distributed.ReduceOp.MAX)
         sps = epochs * steps / wall
+        tel = model.last_fit_telemetry
         rows[name] = {"steps_per_s": sps, "unit": unit,
                       "per_s": sps * batch * per_row,
                       "loss": hist.history["loss"],
                       "allreduce_ms": allreduce_ms(model.num_params),
-                      "model_state_bytes_per_device": model.last_fit_telemetry[
-                          "model_state_bytes_per_device"]}
+                      "model_state_bytes_per_device": tel[
+                          "model_state_bytes_per_device"],
+                      "peak_gb": float(peak)}
+        if "pipeline" in tel:
+            rows[name]["bubble_fraction"] = tel["pipeline"]["bubble_fraction"]
+        if LM_KW.get(strategy_name, {}).get("moe_experts"):
+            # Over the global batch: every rank's (kept, routed) choices
+            # (an expert line's ranks hold the same rows, which scales
+            # both sums alike).
+            routed = torch.stack([m.routed for m in model.module.modules()
+                                  if isinstance(m, dtt.nn.MoE)]).sum(0)
+            torch.distributed.all_reduce(routed)
+            rows[name]["dropped_share"] = float(1 - routed[0] / routed[1])
 
     def setup(name, batch, seed=0):
         """(model, x, y) of one configuration at a global batch."""
         if name == "lm":
             x, y = chip_smoke.lm_batch(batch, chip_smoke.LM["max_len"])
             module = dtt.models.transformer_lm(
-                chip_smoke.VOCAB, dtype="bfloat16", **chip_smoke.LM)
+                chip_smoke.VOCAB, dtype="bfloat16", **chip_smoke.LM,
+                **LM_KW.get(strategy_name, {}))
             opt = dtt.optim.fused_adamw(3e-4, weight_decay=0.01)
             loss, shape = ("pallas_sparse_categorical_crossentropy",
                            (chip_smoke.LM["max_len"],))
@@ -307,9 +367,12 @@ def main():
         if out[strat] is None:
             failed = True
             continue
-        base = out.get("dp") or out[strat]
+        base = (out[strat] if strat in ONE_CARD else
+                out.get("dp") or out[strat])
         for n, res in out[strat].items():
-            dp = base.get(n)
+            # The same N's dp row; a one-card form's own N=1 row.
+            dp = base.get(min(base) if strat in ONE_CARD else n)
+            cards = n if strat in ONE_CARD else 1
             for name, row in res["rows"].items():
                 total = row["per_s"]
                 state = row["model_state_bytes_per_device"]
@@ -317,13 +380,18 @@ def main():
                 if dp is not None and name in dp["rows"]:
                     dp_row = dp["rows"][name]
                     ratio = state / dp_row["model_state_bytes_per_device"]
-                    vs = (f" ({ratio:.4f} of dp's; per-card rate "
-                          f"{total / dp_row['per_s']:.4f} of dp's)")
+                    of = "one card's" if strat in ONE_CARD else "dp's"
+                    vs = (f" ({ratio:.4f} of {of}; per-card rate "
+                          f"{total / cards / dp_row['per_s']:.4f} of {of})")
+                extra = "".join(
+                    f", {key} {row[key]:.6f}" for key in
+                    ("peak_gb", "bubble_fraction", "dropped_share")
+                    if key in row)
                 print(f"{strat} N={n} {name:9s} {row['steps_per_s']:8.3f} "
                       f"steps/s, {total:12.1f} {row['unit']}/s "
                       f"({total / n:12.1f} per card), all-reduce of the "
                       f"gradients {row['allreduce_ms']:.3f} ms, model state "
-                      f"{state / 1e9:.4f} GB a card{vs}, losses "
+                      f"{state / 1e9:.4f} GB a card{vs}{extra}, losses "
                       f"{[round(v, 5) for v in row['loss']]}")
             ref_n = min(base)
             first = base[ref_n]["parity"]
@@ -424,7 +492,7 @@ def run_strategy(dtt, env, args, strat):
     count, or None when a worker failed (its log printed)."""
     res = {}
     for n in args.num_workers:
-        if n % split_of(strat):
+        if n % split_of(strat) and not (n == 1 and strat in ONE_CARD):
             continue
         results = dtt.launch.LocalLauncher(env_extra=env).run(
             [sys.executable, os.path.abspath(__file__), "--worker",

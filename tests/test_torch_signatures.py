@@ -54,16 +54,65 @@ def _in_world1_group(f, **kw):
         dtt.cluster.shutdown()
 
 def _world1_strategy(f, split, **kw):
-    """``f(device="cpu", **kw)`` (a TP or SP strategy, its ``split`` axis
-    of size 1) inside a world-1 gloo group; ``mesh="world1_mesh"`` passes
-    a data x ``split`` mesh of that group."""
+    """``f(device="cpu", **kw)`` (a TP, SP, PP or EP strategy, its
+    ``split`` axis of size 1) inside a world-1 gloo group;
+    ``mesh="world1_mesh"`` passes a data x ``split`` mesh of that
+    group."""
     dtt.DataParallel(device="cpu")
     try:
         if kw.get("mesh") == "world1_mesh":
             kw["mesh"] = dtt.parallel.make_mesh({"data": 1, split: 1},
                                                 device_type="cpu")
-        size = "model_parallel" if split == "model" else "seq_parallel"
+        size = {"model": "model_parallel", "seq": "seq_parallel",
+                "pipe": "pipeline_parallel",
+                "expert": "expert_parallel"}[split]
         return f(device="cpu", **{size: 1, **kw})
+    finally:
+        dtt.cluster.shutdown()
+
+
+def _schedule_pair(kw, prefix="pipeline_"):
+    """The keywords an interleaved schedule option needs beside it (JAX
+    raises for ``interleave`` without ``schedule="interleaved"`` and the
+    other way round); ``pipeline=True`` for the LM's."""
+    out = {}
+    if f"{prefix}schedule" in kw:
+        out[f"{prefix}interleave"] = 2
+    if f"{prefix}interleave" in kw:
+        out[f"{prefix}schedule"] = "interleaved"
+    if out and prefix:
+        out["pipeline"] = True
+    return out
+
+
+def _world1_composite(f, **kw):
+    """``CompositeParallel`` inside a world-1 gloo group, over ``{"data":
+    1}`` (or a mesh of those axes)."""
+    dtt.DataParallel(device="cpu")
+    try:
+        if kw.get("mesh") == "world1_mesh":
+            kw["mesh"] = dtt.parallel.make_mesh({"data": 1, "pipe": 1},
+                                                device_type="cpu")
+        elif "axes" not in kw:
+            kw["axes"] = {"data": 1}
+        return f(device="cpu", **kw)
+    finally:
+        dtt.cluster.shutdown()
+
+
+def _world1_data(f, **kw):
+    """A data-parallel strategy inside a world-1 gloo group;
+    ``mesh="world1_data"``/``"world1_fsdp"`` pass a one-axis mesh of that
+    group (its axis given as ``axis``)."""
+    dtt.DataParallel(device="cpu")
+    try:
+        if isinstance(kw.get("mesh"), str):
+            axis = "fsdp" if kw["mesh"] == "world1_fsdp" else "data"
+            kw["mesh"] = dtt.parallel.make_mesh({axis: 1}, device_type="cpu")
+            kw["axis"] = axis
+        elif "axis" in kw:
+            pass
+        return f(device="cpu", **kw)
     finally:
         dtt.cluster.shutdown()
 
@@ -73,10 +122,10 @@ def _world1_strategy(f, split, **kw):
 PAIRS = {
     "transformer_lm": (
         dtpu.models.transformer_lm, dtt.models.transformer_lm, {
-            "causal": (False, None), "moe_experts": (2, "1.7"),
-            "moe_every": (3, "1.7"), "pipeline": (True, "1.7"),
-            "pipeline_schedule": ("interleaved", "1.7"),
-            "pipeline_interleave": (2, "1.7"), "scan": (True, None),
+            "causal": (False, None), "moe_experts": (2, None),
+            "moe_every": (3, None), "pipeline": (True, None),
+            "pipeline_schedule": ("interleaved", None),
+            "pipeline_interleave": (2, None), "scan": (True, None),
             "scan_overlap": ("off", None), "remat": (True, None),
             "remat_policy": ("dots_with_no_batch_dims_saveable", None),
             "flash": (True, None),
@@ -84,10 +133,11 @@ PAIRS = {
             "max_len": (16, None), "num_layers": (1, None),
             "d_model": (16, None), "num_heads": (2, None)},
         lambda f, **kw: f(32, **{"num_layers": 1, "d_model": 16,
-                                 "num_heads": 2, **kw})),
+                                 "num_heads": 2, **_schedule_pair(kw),
+                                 **kw})),
     "transformer_block": (
         dtpu.models.transformer_block, dtt.models.transformer_block, {
-            "causal": (False, None), "moe_experts": (2, "1.7"),
+            "causal": (False, None), "moe_experts": (2, None),
             "flash": (False, None), "dtype": ("bfloat16", None)},
         lambda f, **kw: f(16, 2, 32, **kw)),
     "Dense": (dtpu.nn.Dense, dtt.nn.Dense, {
@@ -174,20 +224,52 @@ PAIRS = {
         lambda f, **kw: _world1_strategy(f, "seq", **kw)),
     "DataPipelineParallel": (dtpu.DataPipelineParallel,
                              dtt.DataPipelineParallel, {
-        "devices": ([0], "1.7"), "mesh": (None, "1.7"),
-        "pipeline_parallel": (1, "1.7"), "num_microbatches": (2, "1.7"),
-        "axis": ("fsdp", "1.7"), "pipe_axis": ("seq", "1.7")},
-        lambda f, **kw: f(device="cpu", **kw)),
+        "devices": ([0], None), "mesh": ("world1_mesh", None),
+        "pipeline_parallel": (1, None), "num_microbatches": (2, None),
+        "axis": ("fsdp", None), "pipe_axis": ("seq", None)},
+        lambda f, **kw: _world1_strategy(f, "pipe", **kw)),
     "DataExpertParallel": (dtpu.DataExpertParallel, dtt.DataExpertParallel, {
-        "devices": ([0], "1.7"), "mesh": (None, "1.7"),
-        "expert_parallel": (1, "1.7"), "axis": ("fsdp", "1.7"),
-        "expert_axis": ("seq", "1.7")},
-        lambda f, **kw: f(device="cpu", **kw)),
+        "devices": ([0], None), "mesh": ("world1_mesh", None),
+        "expert_parallel": (1, None), "axis": ("fsdp", None),
+        "expert_axis": ("seq", None)},
+        lambda f, **kw: _world1_strategy(f, "expert", **kw)),
     "CompositeParallel": (dtpu.CompositeParallel, dtt.CompositeParallel, {
-        "axes": ({"data": 1}, "1.7"), "devices": ([0], "1.7"),
-        "mesh": (None, "1.7"), "num_microbatches": (2, "1.7"),
-        "seq_attention": ("ulysses", "1.7")},
-        lambda f, **kw: f(device="cpu", **kw)),
+        "axes": ({"data": 1}, None), "devices": ([0], None),
+        "mesh": ("world1_mesh", None), "num_microbatches": (2, None),
+        "seq_attention": ("ulysses", None)},
+        lambda f, **kw: _world1_composite(f, **kw)),
+    "DataParallel": (dtpu.DataParallel, dtt.DataParallel, {
+        "devices": ([0], None), "mesh": ("world1_data", None),
+        "axis": ("fsdp", None)},
+        lambda f, **kw: _world1_data(f, **kw)),
+    "ZeroDataParallel": (dtpu.ZeroDataParallel, dtt.ZeroDataParallel, {
+        "devices": ([0], None), "mesh": ("world1_data", None),
+        "axis": ("fsdp", None)},
+        lambda f, **kw: _world1_data(f, **kw)),
+    "FullyShardedDataParallel": (dtpu.FullyShardedDataParallel,
+                                 dtt.FullyShardedDataParallel, {
+        "devices": ([0], None), "mesh": ("world1_fsdp", None),
+        "axis": ("data", None)},
+        lambda f, **kw: _world1_data(f, **kw)),
+    "FSDP": (dtpu.FSDP, dtt.FSDP, {
+        "devices": ([0], None), "mesh": ("world1_data", None),
+        "axis": ("fsdp", None)},
+        lambda f, **kw: _world1_data(f, **kw)),
+    "MultiWorkerMirroredStrategy": (
+        dtpu.MultiWorkerMirroredStrategy, dtt.MultiWorkerMirroredStrategy, {
+            "devices": ([0], None), "mesh": ("world1_data", None),
+            "axis": ("fsdp", None)},
+        lambda f, **kw: _world1_data(f, **kw)),
+    "MoE": (dtpu.nn.MoE, dtt.nn.MoE, {
+        "top_k": (1, None), "capacity_factor": (2.0, None),
+        "group_size": (8, None), "activation": ("relu", None),
+        "aux_loss_weight": (0.1, None), "dtype": ("bfloat16", None),
+        "name": ("experts", None)}, lambda f, **kw: f(4, 8, **kw)),
+    "PipelinedBlocks": (dtpu.nn.PipelinedBlocks, dtt.nn.PipelinedBlocks, {
+        "schedule": ("interleaved", None), "interleave": (2, None),
+        "name": ("stack", None)},
+        lambda f, **kw: f(lambda: dtt.nn.Sequential([dtt.nn.Dense(4)]), 4,
+                          **{**_schedule_pair(kw, ""), **kw})),
     "Dropout": (dtpu.nn.Dropout, dtt.nn.Dropout, {"name": ("drop", None)},
                 lambda f, **kw: f(0.1, **kw)),
     "Lambda": (dtpu.nn.Lambda, dtt.nn.Lambda, {
