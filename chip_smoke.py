@@ -335,6 +335,26 @@ y. Pipeline and expert parallelism over the same NCCL group of world 1.
    ``DataParallel`` on phase l's LM. One card cannot run the live
    schedule or split the experts: ``scripts/torch_dp_scaling.py`` does,
    on 4 cards.
+z. The auto-shard planner and the gang launcher's restart and liveness.
+   (z1) Phase l's GPT-2-small (bf16 layers, ``fused_adamw``, the pallas
+   loss, batch 32 x 1024) compiled with ``strategy="auto"``: each
+   candidate's label and estimated seconds a step, the pruned ones, the
+   choice and its tie-break; 3 steps (counts zeroed just before, read
+   just after), bit for bit the same configuration set by hand
+   (strategy, precision, ``steps_per_execution``, ``fit(grad_accum=)``);
+   the state a card holds against the plan's bytes less the optimizer
+   scalars the port keeps on the host (named). Then ``measure=True,
+   top_k=3``: each shortlisted candidate's measured seconds a step beside
+   its estimate, and the committed one the fastest measured; an
+   ``hbm_cap_bytes`` below the card's state raises ``ValueError`` naming
+   the pruned labels. (z2) ``scripts/torch_restart.py`` on this card:
+   the 2-block LM at GPT-2-small width (batch 8 x 1024) under
+   ``run_with_restart``, its one worker dying with ``os._exit`` at step
+   5, resumed by ``ModelCheckpoint(restore=True)`` bit for bit the
+   uninterrupted run, with the restore's seconds and the seconds from
+   the relaunch to the first step; then a worker that stops itself
+   (SIGSTOP) after its first beats, killed by ``liveness_timeout``, with
+   the seconds from the stop to the kill.
 Then the kernel table as one JSON line (each row also names the CUDA
 kernel of the main path, ``kernel``, and carries its launches in phase r's
 resumed steps, ``launches_resumed``, in phase t's fits that captured a
@@ -344,8 +364,8 @@ s's speculative runs, ``launches_spec``, and their time by kw, ``ms_by_kw``;
 and its launches in phase u's sub-phases, ``launches_u1``-``launches_u3``,
 in phase v's scanned runs, ``launches_v``, in phase w's sharded runs,
 ``launches_w``, in phase x1's tensor- and sequence-parallel runs,
-``launches_x``, and in phase y's MoE, pipelined and composite runs,
-``launches_y``),
+``launches_x``, in phase y's MoE, pipelined and composite runs,
+``launches_y``, and in phase z1's auto-compiled run, ``launches_z``),
 the card's name and power limit, and ``{"ok": true, "device": {...}}`` as
 the last line.
 """
@@ -364,6 +384,7 @@ import numpy as np
 
 # H100 SXM, NVIDIA's data sheet: HBM bandwidth and dense peak rates.
 HBM_BYTES_PER_S = 3.35e12
+ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # Phase t1(a): GPT-2-small's update after fit(grad_accum=4) against the
@@ -4147,6 +4168,150 @@ def phase_composite(torch, dtt, mods, batch=32, steps=3):
     return counts['CompositeParallel({"data": 1})']
 
 
+# ------------------------------------------------------------------ phase z
+def host_leaves(plan):
+    """{optax path: bytes} of the optimizer leaves the plan prices (as the
+    JAX planner does) that the port holds as no tensor: its counts (host
+    integers) and the hyperparameters it fixes."""
+    return {path: int(np.asarray(leaf).itemsize)
+            for path, leaf in plan._ctx["abstracts"]["opt"]
+            if isinstance(leaf, np.generic)}
+
+
+def held_bytes(dtt, model):
+    from distributed_tpu_torch.utils.profiler import tree_bytes_per_device
+
+    return tree_bytes_per_device(model._param_list(),
+                                 list(model.state.values()),
+                                 model.opt_state)["max_bytes_per_device"]
+
+
+def phase_auto(torch, dtt, mods, batch=32, steps=3):
+    """z1: compile(strategy="auto") on phase l's LM; returns its launches."""
+    t_len = LM["max_len"]
+    x, y = lm_batch(batch, t_len)
+
+    def lm(**compile_kw):
+        model = dtt.Model(dtt.models.transformer_lm(
+            VOCAB, dtype="bfloat16", **LM))
+        model.compile(optimizer=dtt.optim.fused_adamw(3e-4, weight_decay=0.01),
+                      loss=PALLAS, metrics=[], **compile_kw)
+        return model
+
+    auto = lm(strategy="auto", auto_options=dict(batch_size=batch))
+    t = time.perf_counter()
+    auto.build((t_len,), seed=0)
+    plan = auto.last_plan
+    print(f"  planned and built in {time.perf_counter() - t:.2f} s: "
+          f"{plan.devices} device(s), backend {plan.backend}, "
+          f"{plan.n_params} params")
+    for row in plan.candidates:
+        print(f"    {row['label']:36s} est {row['est_step_seconds']:.6f} s a "
+              f"step, state {row['state_bytes_per_device']} B, "
+              f"activations {row['activation_bytes_per_device']} B")
+    for row in plan.pruned:
+        print(f"    pruned {row['label']}: {row['reason']}")
+    cfg = plan.chosen["config"]
+    print(f"  chose {plan.chosen['label']} (tie_break {plan.tie_break})")
+    if plan.backend != "gpu" or cfg["strategy"] != "single_device":
+        raise SystemExit(f"one card: expected a single_device plan for the "
+                         f"card, got {plan.chosen['label']} on "
+                         f"{plan.backend}")
+    host = host_leaves(plan)
+    held = held_bytes(dtt, auto)
+    print(f"  state a card: held {held} B, planned "
+          f"{plan.chosen['state_bytes_per_device']} B, of which {host} "
+          f"({sum(host.values())} B) the port keeps on the host")
+    if plan.chosen["state_bytes_per_device"] - sum(host.values()) != held:
+        raise SystemExit("the committed model's state differs from the plan")
+    reset_counts(mods)
+    losses = auto.fit(x, y, batch_size=batch, epochs=1, steps_per_epoch=steps,
+                      shuffle=False, verbose=0).history["loss"]
+    torch.cuda.synchronize()
+    counts = launch_counts(mods)
+    print(f"  auto: losses {losses}, launches {counts}")
+    if auto.last_fit_telemetry["plan"]["chosen"]["label"] != \
+            plan.chosen["label"]:
+        raise SystemExit("last_fit_telemetry lacks the plan")
+    for name in ("flash_fwd", "flash_dq", "flash_dkv", "xent_fwd", "xent_bwd",
+                 "fused_adam"):
+        if not counts.get(name):
+            raise SystemExit(f"the auto-compiled fit never launched {name}")
+    state = full_state(dtt, auto)
+    del auto
+    torch.cuda.empty_cache()
+    k = cfg["steps_per_execution"]
+    with dtt.SingleDevice().scope():
+        hand = lm(precision=cfg["precision"],
+                  steps_per_execution=k if k > 1 else None)
+    hand.build((t_len,), seed=0)
+    hand_losses = hand.fit(
+        x, y, batch_size=batch, epochs=1, steps_per_epoch=steps,
+        shuffle=False, verbose=0,
+        grad_accum=cfg["grad_accum"] if cfg["grad_accum"] > 1 else None,
+    ).history["loss"]
+    diff = first_difference(torch, state, full_state(dtt, hand))
+    say_same(f"auto against the same configuration by hand (losses "
+             f"{hand_losses}), params and optimizer state", diff)
+    if diff is not None or hand_losses != losses:
+        raise SystemExit("the auto-compiled model differs from the hand one")
+    del hand
+    torch.cuda.empty_cache()
+
+    measured = lm(strategy="auto", measure=True,
+                  auto_options=dict(batch_size=batch, top_k=3))
+    t = time.perf_counter()
+    measured.build((t_len,), seed=0)
+    mplan = measured.last_plan
+    est = {r["label"]: r["est_step_seconds"] for r in mplan.candidates}
+    print(f"  measure=True, top_k=3: planned in "
+          f"{time.perf_counter() - t:.1f} s, tie_break {mplan.tie_break}")
+    for row in mplan.measured:
+        print(f"    {row['label']:36s} measured {row['seconds_per_step']} s a "
+              f"step, estimated {est[row['label']]:.6f} s")
+    timed = [r for r in mplan.measured if r["seconds_per_step"] is not None]
+    fastest = min(timed, key=lambda r: r["seconds_per_step"])
+    print(f"  committed {mplan.chosen['label']}")
+    if mplan.tie_break != "measured" or len(mplan.measured) != 3 or \
+            mplan.chosen["config"] != fastest["config"]:
+        raise SystemExit("measure=True did not commit the fastest measured "
+                         "candidate")
+    del measured
+    torch.cuda.empty_cache()
+
+    cap = plan.chosen["state_bytes_per_device"] // 2
+    try:
+        lm(strategy="auto", hbm_cap_bytes=cap,
+           auto_options=dict(batch_size=batch)).build((t_len,), seed=0)
+    except ValueError as e:
+        print(f"  hbm_cap_bytes={cap}: ValueError: {str(e)[:240]}...")
+        if "single_device" not in str(e):
+            raise SystemExit("the cap's error names no pruned label")
+    else:
+        raise SystemExit(f"hbm_cap_bytes={cap} committed a plan")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_restart(torch):
+    """z2: scripts/torch_restart.py on this card, restart then liveness."""
+    script = os.path.join(ROOT, "scripts", "torch_restart.py")
+    out = {}
+    for mode in ([], ["--liveness"]):
+        run = subprocess.run(
+            [sys.executable, script, "--num-workers", "1", "--timeout", "300",
+             *mode], capture_output=True, text=True, timeout=600)
+        lines = run.stdout.strip().splitlines()
+        for line in lines[:-1]:
+            print(f"  {line}")
+        if run.returncode != 0 or not lines:
+            print(run.stderr[-3000:])
+            raise SystemExit(f"scripts/torch_restart.py {' '.join(mode)} "
+                             f"failed ({run.returncode})")
+        out.update(json.loads(lines[-1]))
+    return out
+
+
 def main():
     import torch
 
@@ -4390,6 +4555,14 @@ def main():
             y[name] = y.get(name, 0) + n
     u_counts["y"] = y
     dtt.cluster.shutdown()
+    z_mods = (xent_ops, flash_ops, adam_ops)
+    print(f"phase z1: compile(strategy=\"auto\") on phase l's GPT-2-small, "
+          f"batch 32 x 1024: the plan, 3 steps against the same configuration "
+          f"by hand, measure=True, a cap | {card_line()}")
+    u_counts["z"] = phase_auto(torch, dtt, z_mods)
+    print("phase z2: run_with_restart and liveness on this card "
+          "(scripts/torch_restart.py --num-workers 1)")
+    phase_restart(torch)
     for sub, counts in u_counts.items():
         for name, n in counts.items():
             if n:
@@ -4411,7 +4584,7 @@ def main():
          "launches_fit": r.get("launches_fit"),
          "replayed_fit": r.get("replayed_fit"),
          **{f"launches_{sub}": r[f"launches_{sub}"]
-            for sub in ("u1", "u2", "u3", "v", "w", "x", "y")
+            for sub in ("u1", "u2", "u3", "v", "w", "x", "y", "z")
             if f"launches_{sub}" in r},
          **({"launches_spec": r["launches_spec"], "ms_by_kw": r["ms_by_kw"]}
             if "ms_by_kw" in r else {})}

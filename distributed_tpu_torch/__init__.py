@@ -46,7 +46,11 @@ Ported so far:
   ``import_hdf5`` and ``checkpoint.artifact_encode``/``artifact_decode``
   (files either package reads), ``Model.save_weights``/``load_weights``/
   ``predict``, and ``fit``'s ``callbacks`` (``ModelCheckpoint`` resumes a
-  run that died) and ``validation_data``.
+  run that died) and ``validation_data``;
+- the auto-shard planner (``compile(strategy="auto")``,
+  ``parallel.plan_sharding``) and the gang launcher's restart, liveness,
+  ssh and elastic-world seams (``launch.run_with_restart``,
+  ``launch.SSHLauncher``, ``launch.heartbeat``).
 """
 
 from . import (

@@ -8,6 +8,7 @@ from .init import (
     is_initialized,
     process_count,
     process_index,
+    reset_for_relaunch,
     shutdown,
 )
 from .net import check_reachable, free_port, my_ip, preflight
@@ -20,6 +21,7 @@ __all__ = [
     "initialize",
     "is_initialized",
     "shutdown",
+    "reset_for_relaunch",
     "is_chief",
     "barrier",
     "process_index",

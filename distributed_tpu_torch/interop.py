@@ -303,6 +303,13 @@ def _moments(flat, prefix, params, placing):
     return out
 
 
+def _as_tensor(v) -> torch.Tensor:
+    """A leaf as a tensor: a tensor as it is, on its own device (a
+    multi-rank restore broadcasts the leaves on the card), else numpy's."""
+    return v if isinstance(v, torch.Tensor) else torch.as_tensor(
+        np.asarray(v))
+
+
 def place(model, params=None, opt_state=None, state=None) -> None:
     """Load full leaves, as numpy or tensors, into ``model`` under its
     live strategy: ``params`` (``{path: leaf}``, e.g. ``flatten_tree`` of
@@ -316,11 +323,9 @@ def place(model, params=None, opt_state=None, state=None) -> None:
         opt = opt_state_from_tree(model.tx, opt_state, model.live_params(),
                                   layouts=model.opt_layouts)
     if params is not None:
-        model.load_params({k: torch.as_tensor(np.asarray(v))
-                           for k, v in params.items()})
+        model.load_params({k: _as_tensor(v) for k, v in params.items()})
     if state is not None:
-        model.load_state({k: torch.as_tensor(np.asarray(v))
-                          for k, v in state.items()})
+        model.load_state({k: _as_tensor(v) for k, v in state.items()})
     if opt is not None:
         model.opt_state = opt
 

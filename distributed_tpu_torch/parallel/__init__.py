@@ -1,7 +1,9 @@
 """Distribution strategies of the port (``strategy.py``), the collectives
-of a sharded leaf (``collectives.py``) and device meshes (``mesh.py``)."""
+of a sharded leaf (``collectives.py``), device meshes (``mesh.py``) and
+the auto-shard planner (``auto_shard.py``)."""
 
-from . import collectives, mesh
+from . import auto_shard, collectives, mesh
+from .auto_shard import Candidate, Feasibility, Plan, plan_sharding
 from .mesh import batch_sharding, make_mesh, replicated
 from .strategy import (
     FSDP,
@@ -20,6 +22,7 @@ from .strategy import (
 )
 
 __all__ = [
+    "Candidate",
     "CompositeParallel",
     "DataExpertParallel",
     "DataParallel",
@@ -27,15 +30,19 @@ __all__ = [
     "DataSeqParallel",
     "DataTensorParallel",
     "FSDP",
+    "Feasibility",
     "FullyShardedDataParallel",
     "MultiWorkerMirroredStrategy",
+    "Plan",
     "SingleDevice",
     "Strategy",
     "ZeroDataParallel",
+    "auto_shard",
     "batch_sharding",
     "collectives",
     "current_strategy",
     "make_mesh",
     "mesh",
+    "plan_sharding",
     "replicated",
 ]

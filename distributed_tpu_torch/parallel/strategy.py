@@ -122,6 +122,61 @@ def _comm_row(gathered=0, grad=0, act_per_token=0, hop_per_token=0) -> dict:
     }
 
 
+# The strategies' collective estimates as functions of the full leaves and
+# the mesh's sizes, so that the auto-shard planner prices a candidate
+# without building its strategy (which would form process groups).
+def _dp_comm(params, compute_dtype=None) -> dict:
+    # One gradient all-reduce of the whole parameter tree a step, at the
+    # compute dtype under a policy (the cotangents it moves).
+    return _comm_row(grad=sum(_leaf_comm_bytes(p, compute_dtype)
+                              for p in params.values()))
+
+
+def _sharded_leaf(p, n: int) -> bool:
+    """True when the placement rule splits leaf ``p`` over ``n`` ranks."""
+    return p.dim() >= 1 and _largest_divisible_spec(
+        tuple(p.shape), n) is not None
+
+
+def _zero1_comm(params, compute_dtype, n: int) -> dict:
+    # DP's gradient all-reduce plus the all-gather of the updated blocks,
+    # which are f32 masters whatever the policy.
+    out = _dp_comm(params, compute_dtype)
+    out["gathered_param_bytes_per_device"] = sum(
+        _leaf_comm_bytes(p) for p in params.values() if _sharded_leaf(p, n))
+    return out
+
+
+def _fsdp_comm(params, compute_dtype, n: int) -> dict:
+    # ZeRO-3: one gather of every sharded parameter (counted once; the
+    # backward's re-gather under remat repeats it) and the gradients'
+    # reduce-scatter, both at the compute dtype under a policy.
+    gathered = sum(_leaf_comm_bytes(p, compute_dtype)
+                   for p in params.values() if _sharded_leaf(p, n))
+    grad = sum(_leaf_comm_bytes(p, compute_dtype) for p in params.values())
+    return _comm_row(gathered=gathered, grad=grad)
+
+
+def _tp_comm(params, compute_dtype, hints, tp: int, data: int) -> dict:
+    """Megatron traffic, as the JAX estimate: the gradient all-reduce over
+    the data line moves what a rank holds (a 1/tp block of a split leaf;
+    without ``hints``, DP's whole tree), and each row-parallel product
+    adds a forward and a backward all-reduce of its (tokens, width)
+    output, priced per token; no weight is gathered."""
+    grad = act = 0
+    for path, p in params.items():
+        role = role_of(path, hints or {})
+        nbytes = _leaf_comm_bytes(p, compute_dtype)
+        split = tp > 1 and _role_dim(role, p.dim()) is not None
+        if data > 1:
+            grad += nbytes // tp if split else nbytes
+        if role in ("row", "row1") and tp > 1:
+            dt = compute_dtype if compute_dtype is not None else p.dtype
+            stack = int(p.shape[0]) if role == "row1" else 1
+            act += 2 * stack * int(p.shape[-1]) * dt.itemsize
+    return _comm_row(grad=grad, act_per_token=act)
+
+
 class Strategy:
     """Base strategy: one replica on ``self.device``, nothing to reduce."""
 
@@ -229,7 +284,17 @@ class Strategy:
         gradients' reduce runs in the update, outside the graph).
         ``batch_norm``: a BatchNorm runs in the model; ``moe``: an
         ``nn.MoE`` does."""
-        if moe and self.num_batch_shards > 1:
+        return self.capture_blocker(
+            batch_norm, moe, self.num_batch_shards if moe else 1)
+
+    @classmethod
+    def capture_blocker(cls, batch_norm: bool, moe: bool,
+                        batch_shards: int) -> Optional[str]:
+        """:meth:`forward_collectives` of an instance of this class whose
+        batch splits ``batch_shards`` ways (read for an MoE only), without
+        building one (the auto-shard planner's pruning rule on the
+        card)."""
+        if moe and batch_shards > 1:
             return ("steps_per_execution > 1 with an nn.MoE under data "
                     "parallelism on the card: not yet ported (ROADMAP "
                     "1.3a). The routing's statistics are reduced over the "
@@ -415,10 +480,7 @@ class DataParallel(Strategy):
 
     def comm_bytes_estimate(self, params, compute_dtype=None,
                             hints=None) -> dict:
-        # One gradient all-reduce of the whole parameter tree a step, at
-        # the compute dtype under a policy (the cotangents it moves).
-        return _comm_row(grad=sum(_leaf_comm_bytes(p, compute_dtype)
-                                  for p in params.values()))
+        return _dp_comm(params, compute_dtype)
 
     @property
     def mesh(self):
@@ -457,10 +519,11 @@ class DataParallel(Strategy):
         dist.broadcast(t, src=src)
         return t
 
-    def forward_collectives(self, batch_norm: bool,
-                            moe: bool = False) -> Optional[str]:
+    @classmethod
+    def capture_blocker(cls, batch_norm: bool, moe: bool,
+                        batch_shards: int) -> Optional[str]:
         if not batch_norm:
-            return super().forward_collectives(batch_norm, moe)
+            return super().capture_blocker(batch_norm, moe, batch_shards)
         return ("steps_per_execution > 1 under DataParallel with BatchNorm "
                 "on the card: not yet ported (ROADMAP 1.6). Sync-BN's "
                 "collectives run inside the forward, which the step's CUDA "
@@ -524,13 +587,7 @@ class ZeroDataParallel(_Sharded):
 
     def comm_bytes_estimate(self, params, compute_dtype=None,
                             hints=None) -> dict:
-        # DP's gradient all-reduce plus the all-gather of the updated
-        # blocks, which are f32 masters whatever the policy.
-        out = super().comm_bytes_estimate(params, compute_dtype)
-        out["gathered_param_bytes_per_device"] = sum(
-            _leaf_comm_bytes(p) for p in params.values()
-            if p.dim() >= 1 and self._layout(p.shape) is not None)
-        return out
+        return _zero1_comm(params, compute_dtype, self.num_replicas_in_sync)
 
 
 class FullyShardedDataParallel(_Sharded):
@@ -552,8 +609,9 @@ class FullyShardedDataParallel(_Sharded):
     def overlap_spec(self):
         return collectives.start_gather
 
-    def forward_collectives(self, batch_norm: bool,
-                            moe: bool = False) -> Optional[str]:
+    @classmethod
+    def capture_blocker(cls, batch_norm: bool, moe: bool,
+                        batch_shards: int) -> Optional[str]:
         return ("steps_per_execution > 1 under FSDP on the card: not yet "
                 "ported (ROADMAP 1.3a). The forward gathers every sharded "
                 "parameter, which the step's CUDA graph would capture; the "
@@ -571,15 +629,7 @@ class FullyShardedDataParallel(_Sharded):
 
     def comm_bytes_estimate(self, params, compute_dtype=None,
                             hints=None) -> dict:
-        # ZeRO-3: one gather of every sharded parameter (counted once; the
-        # backward's re-gather under remat repeats it) and the gradients'
-        # reduce-scatter, both at the compute dtype under a policy.
-        gathered = sum(_leaf_comm_bytes(p, compute_dtype)
-                       for p in params.values()
-                       if p.dim() >= 1 and self._layout(p.shape) is not None)
-        grad = sum(_leaf_comm_bytes(p, compute_dtype)
-                   for p in params.values())
-        return _comm_row(gathered=gathered, grad=grad)
+        return _fsdp_comm(params, compute_dtype, self.num_replicas_in_sync)
 
 
 class FSDP(FullyShardedDataParallel):
@@ -705,9 +755,10 @@ class _HintedParallel(DataParallel):
                 lambda values: _line_sums(values, opt_layouts)):
             tx.update(params, grads, opt_state)
 
-    def forward_collectives(self, batch_norm: bool,
-                            moe: bool = False) -> Optional[str]:
-        return (f"steps_per_execution > 1 under {type(self).__name__} on the"
+    @classmethod
+    def capture_blocker(cls, batch_norm: bool, moe: bool,
+                        batch_shards: int) -> Optional[str]:
+        return (f"steps_per_execution > 1 under {cls.__name__} on the"
                 " card: not yet ported (ROADMAP 1.3a). The forward's tensor-, "
                 "sequence-, expert- and pipeline-parallel collectives would "
                 "be captured by the step's CUDA graph; the port captures no "
@@ -786,25 +837,8 @@ class DataTensorParallel(_HintedParallel):
 
     def comm_bytes_estimate(self, params, compute_dtype=None,
                             hints=None) -> dict:
-        """Megatron traffic, as the JAX estimate: the gradient all-reduce
-        over the data line moves what a rank holds (a 1/tp block of a
-        split leaf; without ``hints``, DP's whole tree), and each
-        row-parallel product adds a forward and a backward all-reduce of
-        its (tokens, width) output, priced per token; no weight is
-        gathered."""
-        tp, data = self.tp, self.axis_sizes[self.axis]
-        grad = act = 0
-        for path, p in params.items():
-            role = role_of(path, hints or {})
-            nbytes = _leaf_comm_bytes(p, compute_dtype)
-            split = tp > 1 and _role_dim(role, p.dim()) is not None
-            if data > 1:
-                grad += nbytes // tp if split else nbytes
-            if role in ("row", "row1") and tp > 1:
-                dt = compute_dtype if compute_dtype is not None else p.dtype
-                stack = int(p.shape[0]) if role == "row1" else 1
-                act += 2 * stack * int(p.shape[-1]) * dt.itemsize
-        return _comm_row(grad=grad, act_per_token=act)
+        return _tp_comm(params, compute_dtype, hints, self.tp,
+                        self.axis_sizes[self.axis])
 
 
 class DataSeqParallel(_HintedParallel):

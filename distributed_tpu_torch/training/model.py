@@ -65,6 +65,15 @@ The JAX loop's levers are the port's too:
   in before each step, so a captured step graph reads the step's key at
   every replay.
 
+``compile(strategy="auto")`` hands the choice of strategy, precision,
+``steps_per_execution`` and the default ``fit(grad_accum=)`` to the
+auto-shard planner (``parallel.auto_shard``), which runs at ``build``,
+before the parameters exist (or at once, on a built model).
+
+The fit, epoch and evaluate loops call ``launch.heartbeat()`` (throttled;
+a no-op outside a gang) where the JAX loops do, so a launcher's
+``liveness_timeout`` finds a worker that stopped making progress.
+
 The ``compile``/``fit`` options of the JAX package that are not ported
 raise ``NotImplementedError`` naming their ROADMAP item.
 
@@ -96,6 +105,7 @@ from ..checkpoint import core as ckpt
 from ..data.pipeline import Pipeline
 from ..data.prefetch import DevicePrefetcher, DeviceStager
 from ..device import resolve_device
+from ..launch.core import heartbeat as _gang_heartbeat
 from ..nn.core import (apply_layers, needs_rng, param_tree, rng_scope,
                        state_tree)
 from ..nn import moe as moe_lib
@@ -143,15 +153,6 @@ def _index_stream(
             yield order[start : start + batch]
         within = 0
         pass_idx += 1
-
-
-def _unported(where: str, item: str, **options) -> None:
-    """Raise for any option that is set: those paths are not ported yet
-    (``item``: the ROADMAP item that ports them)."""
-    for name, value in options.items():
-        if value not in (None, False, (), []):
-            raise NotImplementedError(
-                f"{where}({name}=...): not yet ported (ROADMAP {item})")
 
 
 def _split_head(module):
@@ -225,6 +226,11 @@ def _opt_view(t, layout):
     return t.detach()[layout.index()]
 
 
+def _synchronize(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def _device_memory(device):
     """The allocator's ``{bytes_in_use, peak_bytes_in_use, bytes_limit}``
     on a card; None on the CPU, as the JAX report has on XLA:CPU."""
@@ -294,6 +300,9 @@ class Model:
         self._dtype_hints = {}  # the layers' own dtype= (set by build)
         self._rng_key = None  # the step's key on the device (Dropout)
         self._overlap_record = None  # this model's last scanned record
+        self.last_plan = None  # auto_shard.Plan of compile(strategy="auto")
+        self._auto_shard = None  # the planner's options, set by compile()
+        self._auto_grad_accum = None  # the plan's fit(grad_accum=) default
 
     def build(self, input_shape: Sequence[int], seed: int = 0):
         """Create the f32 parameters for an unbatched input shape, drawn
@@ -302,6 +311,11 @@ class Model:
         generator = torch.Generator().manual_seed(int(seed))
         self.input_shape = tuple(int(d) for d in input_shape)
         self._seed = int(seed)
+        if self._auto_shard is not None and self.compiled:
+            # compile(strategy="auto"): choose the strategy, precision and
+            # K before the parameters exist; the planner prices the
+            # candidates from shapes alone.
+            self._commit_auto_plan()
         self.module.build(self.input_shape, generator)
         self.module.to(self.device)
         self.module.eval()
@@ -530,26 +544,47 @@ class Model:
         alive, forward or backward. C must divide each batch's tokens; the
         head must hold no state.
 
-        Not ported, raising ``NotImplementedError``: the auto-shard
-        planner's ``strategy="auto"``, ``hbm_cap_bytes``, ``measure`` and
-        ``auto_options`` (ROADMAP 1.7)."""
-        _unported("compile", "1.7 (parallel/auto_shard.py)",
-                  strategy=strategy == "auto", hbm_cap_bytes=hbm_cap_bytes,
-                  measure=measure, auto_options=auto_options)
-        if strategy is not None:
-            if not isinstance(strategy, Strategy):
-                raise ValueError(
-                    "strategy must be None or a parallel.Strategy instance; "
-                    f"got {strategy!r}")
-            if self.built:
-                # Leave the old strategy's placement (a collective of its
-                # group), then take the new one's.
-                self._unlayout_params()
-            self.strategy = strategy
-            self.device = strategy.device
-            if self.built:
-                self.module.to(self.device)
-                self._layout_params()
+        ``strategy="auto"``: the auto-shard planner
+        (``parallel.auto_shard.plan_sharding``) picks the fastest feasible
+        strategy, precision, ``steps_per_execution`` and default
+        ``fit(grad_accum=)`` for the model on the ranks of the process
+        group; it runs at ``build`` (at once on a built model, whose
+        parameters then move to the winner's placement). A ``precision``
+        or ``steps_per_execution`` given here is pinned: the planner keeps
+        it. ``hbm_cap_bytes`` prunes the candidates whose state and
+        activations a card would not hold, ``measure=True`` times the
+        shortlist with real steps before committing, and ``auto_options``
+        passes the planner's other arguments (``batch_size``,
+        ``precisions``, ``grad_accums``, ``steps_per_execution``,
+        ``include_tp``, ``include_pp``, ``top_k``, ``devices``). The plan
+        is ``model.last_plan``, ``last_fit_telemetry["plan"]`` and an
+        ``auto_shard_plan`` event. A plain recompile drops a pending plan."""
+        if strategy is None:
+            # A plain recompile keeps the current strategy but drops any
+            # pending plan (and its fit-default grad_accum): the new
+            # optimizer or loss invalidates the old decision.
+            self._auto_shard = None
+            self._auto_grad_accum = None
+            self.last_plan = None
+        elif isinstance(strategy, str) and strategy == "auto":
+            self._auto_shard = {
+                "hbm_cap_bytes": hbm_cap_bytes,
+                "measure": bool(measure),
+                "pinned_precision": precision is not None,
+                "pinned_k": steps_per_execution is not None,
+                **(dict(auto_options) if auto_options else {}),
+            }
+            self.last_plan = None
+            self._auto_grad_accum = None
+        elif isinstance(strategy, Strategy):
+            self._auto_shard = None
+            self._auto_grad_accum = None
+            self.last_plan = None
+            self._take_strategy(strategy)
+        else:
+            raise ValueError(
+                "strategy must be None, the string 'auto', or a "
+                f"parallel.Strategy instance; got {strategy!r}")
         tx = optim.get(optimizer, **optimizer_kwargs)
         if grad_clip is not None:
             if grad_clip <= 0:
@@ -584,8 +619,142 @@ class Model:
         self._graphs = {}
         self._decode_dtype = None
         if self.built:
+            if self._auto_shard is not None:
+                # Already built: plan now and move the live parameters to
+                # the winner's placement.
+                self._commit_auto_plan()
             self._init_opt_state()
         return self
+
+    def _take_strategy(self, strategy) -> None:
+        """Make ``strategy`` the model's; a built model's parameters leave
+        the old strategy's placement (a collective of its group) and take
+        the new one's, on its device."""
+        if self.built:
+            self._unlayout_params()
+        self.strategy = strategy
+        self.device = strategy.device
+        if self.built:
+            self.module.to(self.device)
+            self._layout_params()
+
+    # -------------------------------------------------------- auto sharding
+    def _commit_auto_plan(self):
+        """Run the auto-shard planner (``compile(strategy="auto")``) and
+        commit its winner: the strategy (built on every rank, in the same
+        order), the precision policy, ``steps_per_execution`` and the
+        default ``fit(grad_accum=)``. The Plan is kept on
+        ``self.last_plan``, summarized into ``last_fit_telemetry["plan"]``
+        and emitted as an ``auto_shard_plan`` event. A built model's
+        parameters move to the winner's placement."""
+        from ..parallel import auto_shard as auto_lib
+
+        cfg = dict(self._auto_shard)
+        measure = cfg.pop("measure", False)
+        hbm_cap = cfg.pop("hbm_cap_bytes", None)
+        pinned_precision = cfg.pop("pinned_precision", False)
+        pinned_k = cfg.pop("pinned_k", False)
+        if pinned_precision and "precisions" not in cfg:
+            cfg["precisions"] = (
+                self.precision.name if self.precision is not None else None,)
+        if pinned_k and "steps_per_execution" not in cfg:
+            cfg["steps_per_execution"] = (self.steps_per_execution or 1,)
+        devices = cfg.get("devices")
+        device = None if self.device.type == "cuda" else self.device
+        plan = auto_lib.plan_sharding(
+            self.module, self.input_shape, tx=self.tx, hbm_cap_bytes=hbm_cap,
+            measure=measure,
+            measure_fn=self._measure_candidate if measure else None,
+            seed=self._seed, device=device, **cfg)
+        chosen = plan.chosen_candidate()
+        self._take_strategy(chosen.build_strategy(devices, device=device))
+        if not pinned_k:
+            self.steps_per_execution = (
+                chosen.steps_per_execution
+                if chosen.steps_per_execution > 1 else None)
+        current = self.precision.name if self.precision is not None else None
+        if chosen.precision != current:
+            # Only reachable when the precision was not pinned at compile,
+            # so the optimizer carries no loss-scaling wrapper yet.
+            self.precision = precision_lib.get(chosen.precision)
+            if self.precision is not None and self.precision.loss_scaling:
+                self.tx = optim.dynamic_loss_scaling(
+                    self.tx, init_scale=self.precision.initial_loss_scale,
+                    growth_interval=(
+                        self.precision.loss_scale_growth_interval),
+                    factor=self.precision.loss_scale_factor)
+        self._auto_grad_accum = (
+            chosen.grad_accum if chosen.grad_accum > 1 else None)
+        self.last_plan = plan
+        self._graphs = {}
+        self._decode_dtype = None
+        summary = plan.summary()
+        events_lib.emit(evs.AUTO_SHARD_PLAN, **summary)
+        if self.strategy._rank() == 0:
+            dlog.info(
+                f"auto-shard: chose {plan.chosen['label']} "
+                f"(est {plan.chosen['est_step_seconds']:.4f}s/step, "
+                f"{plan.chosen['state_bytes_per_device']} state B/dev; "
+                f"{len(plan.candidates)} feasible, {len(plan.pruned)} "
+                f"pruned, tie_break={plan.tie_break})")
+        return plan
+
+    def _measure_candidate(self, cand, ctx, steps: int = 3):
+        """Seconds a step of one shortlisted candidate, from real steps:
+        a model of a fresh copy of the module under the candidate's
+        strategy, precision, ``steps_per_execution`` and ``grad_accum``,
+        built from this model's seed, trains on a batch of zeros (the
+        planner's probe dtype, int32 labels of the logits' shape): one
+        warm-up dispatch (kernel builds, the CUDA graph's capture), then
+        ``steps`` steps through ``fit``, ended by a synchronize. Every
+        rank runs every candidate in the same order; the seconds are the
+        largest over the ranks (one all-reduce), so every rank commits the
+        same winner. The candidate's tensors are freed before the next.
+        Returns None, with a warning, when the candidate cannot be timed."""
+        import copy
+
+        import torch.distributed as dist
+
+        device = None if self.device.type == "cuda" else self.device
+        tx = self.tx
+        if isinstance(tx, optim.dynamic_loss_scaling):
+            tx = tx.inner  # compile re-adds it where the precision needs it
+        b, k = ctx["batch_size"], cand.steps_per_execution
+        x = np.zeros((b,) + tuple(self.input_shape),
+                     torch.empty((), dtype=ctx["x_dtype"]).numpy().dtype)
+        y = np.zeros(ctx["logits_shape"][:-1], np.int32)
+        secs = float("inf")
+        trial = None
+        try:
+            strat = cand.build_strategy(ctx["devices"], device=device)
+            with strat.scope():
+                trial = Model(copy.deepcopy(self.module))
+            trial.compile(optimizer=tx, loss=self.loss_fn,
+                          metrics=[fn for _, fn in self.metric_fns],
+                          precision=cand.precision,
+                          steps_per_execution=k if k > 1 else None)
+            trial.build(self.input_shape, seed=self._seed)
+            fit = dict(batch_size=b, epochs=1, shuffle=False, verbose=0,
+                       prefetch=0, grad_accum=cand.grad_accum)
+            trial.fit(x, y, steps_per_epoch=min(k, steps), **fit)
+            _synchronize(trial.device)
+            t0 = time.perf_counter()
+            trial.fit(x, y, steps_per_epoch=steps, **fit)
+            _synchronize(trial.device)
+            secs = (time.perf_counter() - t0) / steps
+        except Exception as e:  # a candidate that cannot run here
+            dlog.warning(f"auto-shard: could not measure {cand.label()}: {e}")
+        finally:
+            del trial
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dev = (torch.device("cuda", torch.cuda.current_device())
+                   if dist.get_backend() == "nccl" else torch.device("cpu"))
+            t = torch.tensor([secs], dtype=torch.float64, device=dev)
+            dist.all_reduce(t, op=dist.ReduceOp.MAX)
+            secs = float(t.item())
+        return None if secs == float("inf") else secs
 
     def _policy_scope(self):
         """The precision policy's scope (``compile(precision=)``), or
@@ -1014,6 +1183,10 @@ class Model:
                 raise ValueError(f"batch_size {batch_size} > dataset size {n}")
             if steps_per_epoch is None:
                 steps_per_epoch = n // batch_size
+        if grad_accum is None:
+            # compile(strategy="auto") may have planned an accumulation
+            # factor; an explicit fit argument still wins.
+            grad_accum = self._auto_grad_accum
         accum_m = 1 if grad_accum is None else _positive_int("grad_accum",
                                                              grad_accum)
         if batch_size % accum_m:
@@ -1168,6 +1341,10 @@ class Model:
                     self.step += k
                     done += k
                     self._fit_steps_done += k
+                    # Liveness beat for a gang launcher (throttled; a no-op
+                    # outside a gang): one a dispatch, so a K-step CUDA
+                    # graph dispatch beats once.
+                    _gang_heartbeat()
                     losses.append(loss)  # a step's loss, or a K-step sum
                     for name, _ in self.metric_fns:
                         msums[name].append(mvals[name])
@@ -1217,6 +1394,9 @@ class Model:
                     [torch.stack(losses).to(torch.float32)]
                     + [torch.stack([p[0] for p in pairs]).to(torch.float32)
                        for pairs in msums.values()])).cpu().numpy()
+            # The epoch's host sync is where the queued work catches up:
+            # beat again so the epoch's end starts freshly armed.
+            _gang_heartbeat()
             n_loss = len(losses)
             if multi_k == 1:
                 logs = {"loss": float(np.mean(vec[:n_loss] / reps))}
@@ -1240,6 +1420,10 @@ class Model:
             history.record(epoch, logs)
             for cb in callbacks:
                 cb.on_epoch_end(self, epoch, logs)
+                # A checkpoint write can be slow: beat between callbacks
+                # (liveness_timeout must still exceed any single blocking
+                # operation, see launch.LocalLauncher.run).
+                _gang_heartbeat()
             if self.stop_training:
                 epochs = epoch + 1  # for the epoch counter printed below
             if verbose:
@@ -1337,6 +1521,9 @@ class Model:
                     interleave=ptrace["interleave"],
                     num_stages=ptrace["num_stages"],
                     num_microbatches=ptrace["num_microbatches"])
+        # The auto-shard decision rides with every fit it governed.
+        if self.last_plan is not None:
+            report["plan"] = self.last_plan.summary()
         self._flush_obs_window(1, force=True)
         obs_reg = obs_registry.default_registry()
         obs_reg.gauge("fit/steps_per_sec", round(
@@ -1462,6 +1649,7 @@ class Model:
                     s, c = self._score(*pair, per_ex=per_ex)
                     sums.append(s)
                     counts.append(c)
+                    _gang_heartbeat()
         finally:
             self.module.train(was_training)
         rows = [[v if v is not None else zero for v in row] for row in sums]

@@ -31,7 +31,11 @@ OVERLAP_REPORT = "overlap_report"
 PIPELINE_SCHEDULE_SELECTED = "pipeline_schedule_selected"
 BUBBLE_REPORT = "bubble_report"
 
-# required: keys every emit site passes; optional: keys it may attach.
+# compile(strategy="auto") (training/model.py).
+AUTO_SHARD_PLAN = "auto_shard_plan"
+
+# required: keys every emit site passes; optional: keys it may attach;
+# extra: True for an open payload (the producer spreads a whole record).
 EVENTS: Dict[str, dict] = {
     PREFIX_CACHE_HIT: {
         "required": ("request_id", "cached_tokens"),
@@ -96,6 +100,12 @@ EVENTS: Dict[str, dict] = {
         "optional": ("schedule", "interleave", "num_stages",
                      "num_microbatches"),
     },
+    AUTO_SHARD_PLAN: {
+        # The whole Plan.summary() dict: the planner's own schema.
+        "required": (),
+        "optional": (),
+        "extra": True,
+    },
 }
 
 TRANSPORT_KEYS = ("ts", "event", "pid")
@@ -109,6 +119,10 @@ def optional_keys(name: str) -> Tuple[str, ...]:
     return tuple(EVENTS[name].get("optional", ()))
 
 
+def allows_extra(name: str) -> bool:
+    return bool(EVENTS[name].get("extra", False))
+
+
 def check(record: dict) -> List[str]:
     """What is wrong with one event record against its row: an undeclared
     event, a missing required key, an undeclared key. Empty when it
@@ -118,15 +132,16 @@ def check(record: dict) -> List[str]:
         return [f"undeclared event {kind!r}"]
     keys = set(record) - set(TRANSPORT_KEYS)
     req, opt = set(required_keys(kind)), set(optional_keys(kind))
+    undeclared = [] if allows_extra(kind) else sorted(keys - req - opt)
     return ([f"{kind}: missing {k!r}" for k in sorted(req - keys)]
-            + [f"{kind}: undeclared {k!r}" for k in sorted(keys - req - opt)])
+            + [f"{kind}: undeclared {k!r}" for k in undeclared])
 
 
 __all__ = [
-    "CORRUPT_CHECKPOINT_SKIPPED", "DECODE_KERNEL_SELECTED", "DRAFT_SYNC",
+    "AUTO_SHARD_PLAN", "CORRUPT_CHECKPOINT_SKIPPED", "DECODE_KERNEL_SELECTED", "DRAFT_SYNC",
     "BUBBLE_REPORT", "EVENTS", "METRICS_SNAPSHOT", "OVERLAP_REPORT",
     "PIPELINE_SCHEDULE_SELECTED", "PREFIX_CACHE_HIT",
     "PREFIX_EVICT",
     "SPEC_K_ADJUST", "SPEC_VERIFY", "SYNC_CHECK_FAILED", "check",
-    "optional_keys", "required_keys",
+    "allows_extra", "optional_keys", "required_keys",
 ]

@@ -72,6 +72,21 @@ first ran, where the one-card reference and every other mode also run:
 each mode's must match the reference's within 2e-3 (the bf16 layers) and
 the other mode's.
 
+``auto`` compiles the LM (32 x 1024 tokens a card, ``fused_adamw``, the
+pallas loss) with ``strategy="auto"`` over the N ranks, three times:
+uncapped, with ``hbm_cap_bytes`` halfway between the smallest need
+(state and activations) of DP's and of FSDP's rows (at N > 1: the
+planner's need adds its activation proxy to the state, and a cap on the
+state alone leaves no candidate), and with ``measure=True, top_k=3``
+(every rank must commit the same candidate). Each trains 2 + 5 one-step
+epochs under its plan; its row adds the chosen label, the tie-break, the
+planning seconds, the plan's state bytes a card and what a card holds
+(which must equal the plan's bytes less the optimizer scalars the port
+keeps on the host, and less the f32 accumulator the JAX planner prices
+for ``grad_accum > 1``, which the port's fit holds only during a step),
+and the tokens/s a card against ``dp``'s at the same N when ``dp`` is
+listed.
+
 Prints, per strategy, N and model, steps/s, images or tokens per second
 (in all and per card), the all-reduce's ms, the model state a card holds
 and its ratio to ``dp``'s at the same N where both ran, and one JSON
@@ -110,7 +125,8 @@ STRATEGIES = {"dp": ("DataParallel", {}),
               "ep2": ("DataExpertParallel", {"expert_parallel": 2}),
               "ep4": ("DataExpertParallel", {"expert_parallel": 4}),
               "composite": ("CompositeParallel",
-                            {"axes": {"fsdp": 2, "model": 2}})}
+                            {"axes": {"fsdp": 2, "model": 2}}),
+              "auto": ("auto", {})}
 SP = ("sp_ring", "sp_ulysses")
 # The strategies that run their own one-card form at N=1 (the keywords
 # that make the split axis 1 there) and the LM's keywords each trains.
@@ -182,6 +198,99 @@ def sp_worker(strat, t_len):
     dtt.launch.report_result({"rank": spec.index, "ms": ms,
                               "losses": losses, "peak_gb": float(peak),
                               "tokens_per_s": t_len / (ms / 1e3)})
+    dtt.cluster.shutdown()
+
+
+def auto_worker():
+    """The three auto-compiled LM runs of one worker (module docstring)."""
+    import dataclasses
+
+    import torch
+
+    import chip_smoke
+    import distributed_tpu_torch as dtt
+    from distributed_tpu_torch.parallel import auto_shard
+    from distributed_tpu_torch.utils import sync_check
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spec = dtt.cluster.initialize(timeout=300)
+    n = torch.distributed.get_world_size()
+    per_card, warmup, steps = LM_RUN
+    batch, t_len = per_card * n, chip_smoke.LM["max_len"]
+    x, y = chip_smoke.lm_batch(batch, t_len)
+    device = torch.device("cuda", torch.cuda.current_device())
+
+    def lm(**compile_kw):
+        model = dtt.Model(dtt.models.transformer_lm(
+            chip_smoke.VOCAB, dtype="bfloat16", **chip_smoke.LM))
+        model.compile(optimizer=dtt.optim.fused_adamw(3e-4, weight_decay=0.01),
+                      loss=chip_smoke.PALLAS, metrics=["accuracy"],
+                      strategy="auto", **compile_kw)
+        return model
+
+    runs = {"lm_auto": {}, "lm_auto_measured": {
+        "measure": True, "auto_options": {"batch_size": batch, "top_k": 3}}}
+    if n > 1:
+        pre = auto_shard.plan_sharding(
+            dtt.models.transformer_lm(chip_smoke.VOCAB, dtype="bfloat16",
+                                      **chip_smoke.LM), (t_len,),
+            tx=dtt.optim.fused_adamw(3e-4, weight_decay=0.01),
+            batch_size=batch)
+        need = {}
+        for r in pre.candidates:
+            v = r["state_bytes_per_device"] + r["activation_bytes_per_device"]
+            kind = r["config"]["strategy"]
+            need[kind] = min(need.get(kind, v), v)
+        runs["lm_auto_capped"] = {"hbm_cap_bytes": (need["dp"]
+                                                    + need["fsdp"]) // 2}
+    rows = {}
+    for name, kw in runs.items():
+        kw.setdefault("auto_options", {"batch_size": batch})
+        model = lm(**kw)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.build((t_len,), seed=0)
+        plan_s = time.perf_counter() - t
+        plan = model.last_plan
+        model.fit(x, y, batch_size=batch, epochs=warmup, steps_per_epoch=1,
+                  shuffle=False, verbose=0)
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        hist = model.fit(x, y, batch_size=batch, epochs=steps,
+                         steps_per_epoch=1, shuffle=False, verbose=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        sync_check.assert_model_replicas_identical(model)
+        peak = torch.tensor([torch.cuda.max_memory_allocated() / 1e9],
+                            device=device)
+        torch.distributed.all_reduce(peak, op=torch.distributed.ReduceOp.MAX)
+        host = chip_smoke.host_leaves(plan)
+        cand = plan.chosen_candidate()
+        accum_bytes = plan.chosen["state_bytes_per_device"] - \
+            auto_shard._state_bytes(dataclasses.replace(cand, grad_accum=1),
+                                    n, plan._ctx["abstracts"])
+        sps = steps / wall
+        rows[name] = {
+            "steps_per_s": sps, "unit": "tokens", "per_s": sps * batch * t_len,
+            "loss": hist.history["loss"],
+            "model_state_bytes_per_device": model.last_fit_telemetry[
+                "model_state_bytes_per_device"],
+            "peak_gb": float(peak), "label": plan.chosen["label"],
+            "config": plan.chosen["config"], "tie_break": plan.tie_break,
+            "plan_seconds": plan_s,
+            "planned_state": plan.chosen["state_bytes_per_device"],
+            "host_bytes": host, "accum_bytes": accum_bytes,
+            "hbm_cap_bytes": plan.hbm_cap_bytes, "measured": plan.measured,
+            "estimates": {r["label"]: r["est_step_seconds"]
+                          for r in plan.candidates},
+            "pruned": len(plan.pruned)}
+        del model
+        torch.cuda.empty_cache()
+    dtt.launch.report_result({"rank": spec.index, "world": n,
+                              "device": str(device), "rows": rows,
+                              "parity": {}})
     dtt.cluster.shutdown()
 
 
@@ -342,6 +451,8 @@ def main():
     if args.worker:
         if args.seq_len:
             sp_worker(args.strategy[0], args.seq_len)
+        elif args.strategy[0] == "auto":
+            auto_worker()
         else:
             # The first strategy listed is the worker's; dp trains every
             # model only when nothing else is listed.
@@ -364,6 +475,9 @@ def main():
         if strat in SP:
             continue
         out[strat] = run_strategy(dtt, env, args, strat)
+        if strat == "auto":
+            failed |= out[strat] is None or report_auto(out)
+            continue
         if out[strat] is None:
             failed = True
             continue
@@ -410,6 +524,43 @@ def main():
         failed |= out["sp"]["failed"]
     print(json.dumps(out))
     return 1 if failed else 0
+
+
+def report_auto(out):
+    """Print the auto rows beside dp's LM row at the same N; True when a
+    card's state is not the plan's or the ranks committed differently."""
+    failed = False
+    for n, res in out["auto"].items():
+        dp = (out.get("dp") or {}).get(n)
+        for name, row in res["rows"].items():
+            want = (row["planned_state"] - sum(row["host_bytes"].values())
+                    - row["accum_bytes"])
+            held = row["model_state_bytes_per_device"]
+            vs = ""
+            if dp is not None and "lm" in dp["rows"]:
+                vs = (f", {row['per_s'] / dp['rows']['lm']['per_s']:.4f} of "
+                      f"dp's tokens/s a card")
+            print(f"auto N={n} {name}: chose {row['label']} "
+                  f"(tie_break {row['tie_break']}, planned in "
+                  f"{row['plan_seconds']:.2f} s, cap {row['hbm_cap_bytes']}, "
+                  f"{row['pruned']} pruned); {row['steps_per_s']:.3f} steps/s,"
+                  f" {row['per_s'] / n:.1f} tokens/s a card{vs}; state a "
+                  f"card {held} B held, {row['planned_state']} B planned "
+                  f"(less {sum(row['host_bytes'].values())} B of host "
+                  f"scalars {sorted(row['host_bytes'])} and "
+                  f"{row['accum_bytes']} B of accumulator: {want} B); peak "
+                  f"{row['peak_gb']:.2f} GB; losses "
+                  f"{[round(v, 5) for v in row['loss']]}")
+            if row["measured"]:
+                for m in row["measured"]:
+                    print(f"    measured {m['label']:36s} "
+                          f"{m['seconds_per_step']} s a step, estimated "
+                          f"{row['estimates'][m['label']]:.6f} s")
+            failed |= held != want
+        same = all(c == res["committed"][0] for c in res["committed"])
+        print(f"auto N={n}: every rank committed the same candidates: {same}")
+        failed |= not same
+    return failed
 
 
 def sp_launch(dtt, env, strat, n, t_len):
@@ -507,7 +658,9 @@ def run_strategy(dtt, env, args, strat):
             return None
         res[n] = {"devices": [r.value["device"] for r in results],
                   "rows": results[0].value["rows"],
-                  "parity": results[0].value["parity"]}
+                  "parity": results[0].value["parity"],
+                  "committed": [{name: row.get("config") for name, row in
+                                 r.value["rows"].items()} for r in results]}
     return res
 
 

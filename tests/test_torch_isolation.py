@@ -114,8 +114,12 @@ def test_unported_variants_raise():
                       dtt.nn.PipelinedBlocks)
     # What the port still lacks raises "not yet ported".
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        dtt.Model(dtt.models.transformer_lm(16), device="cpu").compile(
-            strategy="auto")
+        dtt.callbacks.ModelCheckpoint("ckpt", buddy=True)
+    # The auto-shard planner is ported: compile(strategy="auto") keeps a
+    # pending plan for build.
+    auto = dtt.Model(dtt.models.transformer_lm(16), device="cpu").compile(
+        strategy="auto")
+    assert auto._auto_shard is not None and auto.last_plan is None
     # scan is ported: the blocks stack in one ScannedBlocks.
     assert isinstance(dtt.models.transformer_lm(16, scan=True).layers[2],
                       dtt.nn.ScannedBlocks)

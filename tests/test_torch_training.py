@@ -165,21 +165,20 @@ def test_learning_rate_is_mutable_and_f32():
     "steps_per_execution", "precision", "strategy", "hbm_cap_bytes",
     "measure", "auto_options"])
 def test_unported_compile_options_raise(option):
-    """The compile options no slice has ported raise "not yet ported";
-    clipping, accumulation, multi-step execution, the chunked head and
-    the precision policies are ported now and compile."""
+    """Every compile option of the JAX package is ported now and
+    compiles: clipping, accumulation, multi-step execution, the chunked
+    head, the precision policies and the auto-shard planner's
+    (``strategy="auto"`` keeps a plan for build; ``hbm_cap_bytes``,
+    ``measure`` and ``auto_options`` without it are ignored, as in
+    JAX)."""
     pm = dtt.Model(dtt.models.transformer_lm(16, num_layers=1, d_model=16,
                                              num_heads=2, max_len=8),
                    device="cpu")
     value = {"precision": "mixed_bfloat16", "strategy": "auto",
              "measure": True, "auto_options": {"batch_size": 8}}.get(option, 2)
-    if option in ("grad_clip", "gradient_accumulation_steps",
-                  "steps_per_execution", "head_chunks", "precision"):
-        pm.compile(optimizer="adam", **{option: value})
-        assert pm.compiled
-        return
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        pm.compile(optimizer="adam", **{option: value})
+    pm.compile(optimizer="adam", **{option: value})
+    assert pm.compiled
+    assert (pm._auto_shard is not None) == (option == "strategy")
 
 
 def test_unported_fit_options_raise():
