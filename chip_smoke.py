@@ -212,7 +212,7 @@ t. The fit loop at full width. A kernel's wrapper counts where it
    n, no wrapper counts), against the K=1 loop on a float array with
    inline staging, K=4 on that array, and the Pipeline staged by
    ``next()`` and ``np.stack`` (fit's path for other iterators), in
-   interleaved runs of 12 steps with the busy share; the host-to-device
+   interleaved runs of 8 steps (two an arm) with the busy share; the host-to-device
    copy of a batch and of a K=4 stack, pageable and pinned, on the device
    clock. (t2b) mnist_cnn (phase k's: world-1 NCCL ``DataParallel``,
    batch 256, cuDNN's deterministic algorithms): K=8 against K=1 from the
@@ -261,13 +261,13 @@ v. Weight-stacked blocks (``nn.ScannedBlocks``), each model against its
    tensors and the device operations of one optimizer update; then
    ``scan=True, remat=True`` with ``dots_with_no_batch_dims_saveable`` at
    K=2 graphs against K=1 eager, bit for bit, ms a step and peak memory.
-   (v2) Both served phase c's 16 greedy requests plus two repeats of a
-   256-token prompt (copy-on-write in the prefix cache), fused, bf16 and
-   int8 KV: token-exact, tokens/s, K1/K2 once a layer and decode step on
-   the vector read path at every block's pool slice; both again with
-   ``spec_k=4`` and each its own draft: scanned token-exact against
-   unrolled (in bf16 a verify's rows round apart from one-row decodes, so
-   against plain only the agreement is printed).
+   (v2) Both served the first 8 of phase c's 16 greedy requests plus two
+   repeats of a 256-token prompt (copy-on-write in the prefix cache),
+   fused, bf16 and int8 KV: token-exact, tokens/s, K1/K2 once a layer
+   and decode step on the vector read path at every block's pool slice;
+   both again with ``spec_k=4`` and each its own draft: scanned
+   token-exact against unrolled (in bf16 a verify's rows round apart
+   from one-row decodes, so against plain only the agreement is printed).
    (v3) ResNet-50 ``scan_stages=True`` (bf16, SGD(0.1, momentum=0.9),
    batch 256, cuDNN deterministic): losses, parameters and BatchNorm
    buffers after 3 steps (the first difference named), K12/K13/K14
@@ -354,7 +354,22 @@ z. The auto-shard planner and the gang launcher's restart and liveness.
    uninterrupted run, with the restore's seconds and the seconds from
    the relaunch to the first step; then a worker that stops itself
    (SIGSTOP) after its first beats, killed by ``liveness_timeout``, with
-   the seconds from the stop to the kill.
+   the seconds from the stop to the kill. (z3)
+   ``scripts/torch_restart.py --supervise`` on this card (its three
+   cases one after another): the same LM under ``python -m
+   distributed_tpu_torch.launch --supervise`` with
+   ``ModelCheckpoint(sharded=True, restore=True, save_freq=3, buddy=)``
+   (the asynchronous refresh: a snapshot on the card, the copy to the
+   host on the writer thread), a ``PreemptionHandler`` and
+   ``FaultInjector.from_env()``, the buddy store a ``ram_dir`` under ``/dev/shm`` (its free space and the bytes
+   the store holds printed): a kill at step 5 resumed from the buddy
+   tier at step 5 with 0 disk block reads, a SIGTERM that exits 75 and
+   restarts without spending budget, a corrupt checkpoint (buddy tier
+   off) that falls back to the previous disk step, each bit for bit the
+   uninterrupted run (z2's); the ``recovery`` rows (detect, gang re-form,
+   restore, first step) and the postmortem of the kill's event log
+   (``python -m distributed_tpu_torch.obs.cli``, the flight dump's tail);
+   the kill's resumed worker's launches of K3-K5 and K9-K11.
 Then the kernel table as one JSON line (each row also names the CUDA
 kernel of the main path, ``kernel``, and carries its launches in phase r's
 resumed steps, ``launches_resumed``, in phase t's fits that captured a
@@ -365,7 +380,8 @@ and its launches in phase u's sub-phases, ``launches_u1``-``launches_u3``,
 in phase v's scanned runs, ``launches_v``, in phase w's sharded runs,
 ``launches_w``, in phase x1's tensor- and sequence-parallel runs,
 ``launches_x``, in phase y's MoE, pipelined and composite runs,
-``launches_y``, and in phase z1's auto-compiled run, ``launches_z``),
+``launches_y``, in phase z1's auto-compiled run, ``launches_z``, and in
+phase z3's resumed worker, ``launches_z3``),
 the card's name and power limit, and ``{"ok": true, "device": {...}}`` as
 the last line.
 """
@@ -378,6 +394,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2691,14 +2708,14 @@ def phase_fit_resnet(torch, dtt, mods, batch=RESNET_BATCH, size=224):
                          steps_per_epoch=steps, shuffle=False, verbose=0,
                          prefetch=2).history["loss"]
 
-    # Runs of 12 steps: at K=4 the prefetch thread stages dispatches 2-3
-    # while 1-2 run (a fit of one dispatch stages it inline).
-    arms = {"K=1 loop (arrays, inline staging)": (lambda: run_loop(12), 12),
-            "K=4 + Pipeline, prefetch=2": (lambda: run_fused(12), 12),
+    # Runs of 8 steps: at K=4 the prefetch thread stages dispatch 2 while
+    # 1 runs (a fit of one dispatch stages it inline); two runs an arm.
+    arms = {"K=1 loop (arrays, inline staging)": (lambda: run_loop(8), 8),
+            "K=4 + Pipeline, prefetch=2": (lambda: run_fused(8), 8),
             "K=4 + Pipeline by next() and np.stack, prefetch=2":
-                (lambda: run_fused_next(12), 12),
-            "K=4, arrays, prefetch=2": (lambda: run_fused_arrays(12), 12)}
-    timing = report_arms(torch, arms, interleaved(torch, arms, 3))
+                (lambda: run_fused_next(8), 8),
+            "K=4, arrays, prefetch=2": (lambda: run_fused_arrays(8), 8)}
+    timing = report_arms(torch, arms, interleaved(torch, arms, 2))
     copies = {}
     stacked = np.stack([xf] * 4)
     for name, a in (("batch", xf), ("K=4 stack", stacked)):
@@ -3204,10 +3221,11 @@ def phase_scan_lm(torch, dtt, mods, paged_ops, reqs, batch=32, steps=3):
           "Engine(8 slots, block 16), fused, prefix cache")
     sc.load_params(restack_blocks(un.params, layers))
     # A 256-token prompt (16 whole blocks) first and again last: the last
-    # adopts its cached blocks and copies the 16th on write.
+    # adopts its cached blocks and copies the 16th on write. Between them
+    # the first half of phase c's requests.
     head = np.random.default_rng(7).integers(0, VOCAB, t_len // 4).astype(
         np.int32)
-    vreqs = [(head, 32)] + list(reqs) + [(head.copy(), 40)]
+    vreqs = [(head, 32)] + list(reqs[:len(reqs) // 2]) + [(head.copy(), 40)]
     for kv in (None, "int8"):
         outs = {}
         for tag, m in (("unrolled", un), ("scanned", sc)):
@@ -4312,6 +4330,36 @@ def phase_restart(torch):
     return out
 
 
+def phase_supervise(torch, reference):
+    """z3: scripts/torch_restart.py --supervise on this card, held to z2's
+    uninterrupted run (``reference``: its result values; the same LM,
+    data and optimizer); returns the kill case's resumed worker's kernel
+    launches."""
+    script = os.path.join(ROOT, "scripts", "torch_restart.py")
+    fd, ref_path = tempfile.mkstemp(suffix=".json")
+    with os.fdopen(fd, "w") as f:
+        json.dump(reference, f)
+    run = subprocess.run(
+        [sys.executable, script, "--supervise", "--num-workers", "1",
+         "--timeout", "300", "--reference", ref_path],
+        capture_output=True, text=True, timeout=900)
+    os.unlink(ref_path)
+    lines = run.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(f"  {line}")
+    if run.returncode != 0 or not lines:
+        print(run.stderr[-3000:])
+        raise SystemExit(f"scripts/torch_restart.py --supervise failed "
+                         f"({run.returncode})")
+    out = json.loads(lines[-1])["supervise"]
+    counts = out["cases"]["kill"]["launches"]
+    for name in ("flash_fwd", "flash_dq", "flash_dkv", "xent_fwd", "xent_bwd",
+                 "fused_adam"):
+        if not counts.get(name):
+            raise SystemExit(f"the supervised worker never launched {name}")
+    return counts
+
+
 def main():
     import torch
 
@@ -4562,7 +4610,12 @@ def main():
     u_counts["z"] = phase_auto(torch, dtt, z_mods)
     print("phase z2: run_with_restart and liveness on this card "
           "(scripts/torch_restart.py --num-workers 1)")
-    phase_restart(torch)
+    restarted = phase_restart(torch)
+    print(f"phase z3: the supervisor, the buddy tier, preemption and a "
+          f"corrupt checkpoint on this card (scripts/torch_restart.py "
+          f"--supervise --num-workers 1) | {card_line()}")
+    u_counts["z3"] = phase_supervise(
+        torch, restarted["restart"]["uninterrupted"])
     for sub, counts in u_counts.items():
         for name, n in counts.items():
             if n:
@@ -4584,7 +4637,7 @@ def main():
          "launches_fit": r.get("launches_fit"),
          "replayed_fit": r.get("replayed_fit"),
          **{f"launches_{sub}": r[f"launches_{sub}"]
-            for sub in ("u1", "u2", "u3", "v", "w", "x", "y", "z")
+            for sub in ("u1", "u2", "u3", "v", "w", "x", "y", "z", "z3")
             if f"launches_{sub}" in r},
          **({"launches_spec": r["launches_spec"], "ms_by_kw": r["ms_by_kw"]}
             if "ms_by_kw" in r else {})}

@@ -50,7 +50,13 @@ Ported so far:
 - the auto-shard planner (``compile(strategy="auto")``,
   ``parallel.plan_sharding``) and the gang launcher's restart, liveness,
   ssh and elastic-world seams (``launch.run_with_restart``,
-  ``launch.SSHLauncher``, ``launch.heartbeat``).
+  ``launch.SSHLauncher``, ``launch.heartbeat``);
+- resilience: the supervisor with its restart, preemption and elastic
+  policies, fault injection and the buddy-redundancy recovery tier
+  (``resilience``, ``ModelCheckpoint(buddy=)``, ``python -m
+  distributed_tpu_torch.launch --supervise``), and the rest of ``obs``
+  (the flight recorder, cross-rank aggregation, the exporters and the
+  postmortem CLI).
 """
 
 from . import (
@@ -66,6 +72,7 @@ from .parallel import (FSDP, CompositeParallel, DataExpertParallel,
                        MultiWorkerMirroredStrategy, SingleDevice,
                        ZeroDataParallel)
 from .training import callbacks
+from . import resilience  # after training and checkpoint: builds on both
 from .training.history import History
 from .training.model import Model
 
@@ -78,5 +85,6 @@ __all__ = [
     "checkpoint",
     "cluster", "data", "export_hdf5", "import_hdf5", "interop", "launch",
     "models", "nn", "obs", "ops", "optim", "parallel", "precision", "quant",
+    "resilience",
     "resolve_device", "serving", "utils",
 ]

@@ -34,6 +34,13 @@ directory format, so the two packages read each other's checkpoints:
   auto-restore (``step=None``) skips that step and falls back to the
   previous one, agreed by every rank, and a named step raises.
 
+The block machinery is shared with the buddy-redundancy tier
+(``resilience/redundancy.py``): its in-memory mirrors hold exactly the
+blocks :func:`extract_blocks` gives a save, and :func:`restore_from_index`
+reassembles them through the same overlap reader a disk restore uses.
+``read_stats`` counts every block read from DISK (the ``proc-*.npz``
+reader only), which is how a buddy restore shows zero disk reads.
+
 The directory must be visible to every rank (a shared file system).
 """
 
@@ -62,6 +69,10 @@ from .core import (_ASYNC_CHECKPOINTERS, _atomic_write, _comm_device,
                    broadcast_ints)
 
 CRC_KEY = "__crc__"
+
+# Every block read from a proc-*.npz lands here; a restore from the buddy
+# tier's RAM mirrors reads none.
+read_stats = {"block_reads": 0, "block_bytes": 0}
 _KEY_RE = re.compile(r"^(?P<path>.*)@(?P<starts>[\d,]*)@(?P<shape>[\d,]*)$")
 
 
@@ -252,6 +263,8 @@ class _BlockIndex:
                 f"CRC mismatch for block {key!r} in {self._files[fi]}: "
                 f"stored {int(want)}, computed {block_crc(data)}; the block "
                 "is corrupt on disk", path=self._files[fi], key=key)
+        read_stats["block_reads"] += 1
+        read_stats["block_bytes"] += int(data.nbytes)
         return data
 
     def close(self):
@@ -260,7 +273,7 @@ class _BlockIndex:
         self._handles.clear()
 
 
-def _assemble(index: _BlockIndex, path: str, shape, dtype, region):
+def _assemble(index, path: str, shape, dtype, region):
     """The ``region`` (slices of the full leaf) of leaf ``path``, from the
     saved blocks that overlap it (decided from their keys; only those are
     read). Returns ``(array, largest block's bytes)``."""
@@ -291,10 +304,13 @@ def _assemble(index: _BlockIndex, path: str, shape, dtype, region):
     return out, biggest
 
 
-def _read_all(model, index: _BlockIndex, manifest: dict):
+def _read_all(model, index, manifest: dict):
     """This rank's region of every leaf of ``model``'s checkpoint, read
     and checked: ``({path: array}, has the file an optimizer state, the
-    largest block's bytes)``. Nothing of the model changes."""
+    largest block's bytes)``. Nothing of the model changes. ``index`` is
+    anything with ``blocks`` (``{leaf path: [(starts, shape, handle,
+    key)]}``) and ``read(handle, key)``: the disk's ``_BlockIndex`` or the
+    buddy tier's mirror index."""
     leaves_meta = manifest["leaves"]
     step = int(manifest["step"])
     has_opt = any(p.startswith("opt_state/") for p in leaves_meta)
@@ -346,6 +362,20 @@ def _apply_read(model, got: Dict[str, np.ndarray], manifest: dict) -> int:
     # fit() moves an iterator source to this cursor (load_state).
     model._restored_data_state = manifest.get("data_state")
     return step
+
+
+def restore_from_index(model, index, manifest: dict) -> Tuple[int, int]:
+    """Load ``model`` (built from the manifest first if it is not) from a
+    block index: the disk's ``_BlockIndex`` or the buddy tier's in-memory
+    mirror index, through the same overlap reassembly, so a restore from
+    RAM reshards across world sizes and strategies as a disk one does.
+    ``manifest`` carries ``step``, ``seed``, ``input_shape`` and
+    ``leaves`` (and may carry ``data_state``). Returns ``(step, the
+    largest block's bytes)``. Nothing is agreed with the other ranks."""
+    if not model.built:
+        model.build(manifest["input_shape"], seed=manifest.get("seed", 0))
+    got, _, biggest = _read_all(model, index, manifest)
+    return _apply_read(model, got, manifest), biggest
 
 
 class ShardedCheckpointer:
@@ -534,4 +564,4 @@ class ShardedCheckpointer:
 
 
 __all__ = ["ShardCorruptionError", "ShardedCheckpointer", "block_crc",
-           "extract_blocks"]
+           "extract_blocks", "read_stats", "restore_from_index"]

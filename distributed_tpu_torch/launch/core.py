@@ -135,6 +135,41 @@ def _tail(path: Path, max_bytes: int = 4096) -> str:
         return ""
 
 
+# What a gloo collective raises in a worker whose peer died (or whose peer
+# exited after one did): on the CPU a survivor's collective fails at once
+# instead of blocking (as NCCL's does) until the gang kill. Gloo's errors
+# name the source of its TCP transport, so no other backend's text can
+# match.
+_GLOO_TRANSPORT = "gloo/transport/"
+_PEER_LOST = ("Connection closed by peer", "Connection reset by peer",
+              "Broken pipe")
+
+
+def _gloo_lost_peer(log_tail: str) -> bool:
+    """Whether a worker's log holds gloo's lost-peer error: a line of
+    gloo's TCP transport that says the connection to a peer is gone."""
+    return any(_GLOO_TRANSPORT in line and any(m in line for m in _PEER_LOST)
+               for line in log_tail.splitlines())
+
+
+def _mark_lost_peers(results: List[WorkerResult]) -> List[WorkerResult]:
+    """Rows of workers of a gloo gang that exited on their own only
+    because a peer died (their log holds gloo's lost-peer error) become
+    collateral (``gang_killed``), as the same workers blocked in an NCCL
+    collective would be, so that the supervisor blames the rank that
+    died. An NCCL gang's survivors block until the gang kill, so no row
+    of theirs matches. Kept as they are when every failed worker lost a
+    peer (no rank to blame)."""
+    lost = [r for r in results if r.disposition == "exited" and not r.ok
+            and _gloo_lost_peer(r.log_tail)]
+    if not lost or len(lost) == sum(not r.ok for r in results):
+        return results
+    for r in lost:
+        r.error = f"{r.error}: a peer failed (its collective lost the peer)"
+        r.disposition = "gang_killed"
+    return results
+
+
 class LocalLauncher:
     """Spawn N worker processes on this machine (one per card of a host,
     or a gloo gang on the CPU). Gang semantics: all start together; on any
@@ -273,7 +308,7 @@ class LocalLauncher:
             time.sleep(0.05)
         for proc, log in procs:
             log.close()
-        return [r for r in results if r is not None]
+        return _mark_lost_peers([r for r in results if r is not None])
 
 
 class SSHLauncher:
@@ -484,7 +519,7 @@ class SSHLauncher:
                     disposition=disposition,
                 )
             )
-        return results
+        return _mark_lost_peers(results)
 
 
 def launch_local(argv: Sequence[str], num_workers: int, **kw) -> List[WorkerResult]:

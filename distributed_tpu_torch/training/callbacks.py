@@ -19,6 +19,7 @@ from __future__ import annotations
 import inspect
 import math
 import os
+import time
 from pathlib import Path
 
 import torch
@@ -31,6 +32,7 @@ from ..utils import event_schema as evs
 from ..utils import events as events_lib
 from ..utils import logging as dlog
 from ..utils import sync_check
+from ..utils.logging import rank_world
 
 
 class Callback:
@@ -69,18 +71,30 @@ class ModelCheckpoint(Callback):
     ``sharded=True`` saves through a ``ShardedCheckpointer`` (each rank
     writes its own blocks; the JAX package's directory format), and its
     async commit is deferred to the next save or the train-end flush.
-    ``buddy=`` (and ``buddy_refresh_every``) is not ported yet and
-    raises.
+
+    ``buddy=`` arms the diskless recovery tier (requires ``sharded=True``):
+    a ``resilience.BuddyRedundancy``, a ``BuddyStore`` or a path to one,
+    or ``True`` to read the supervisor-exported ``DTPU_BUDDY_STORE``.
+    Each time the step counter crosses a multiple of
+    ``buddy_refresh_every`` the rank mirrors its blocks into the RAM
+    store; ``restore=True`` then picks the tier per recovery, decided by
+    rank 0 and broadcast: buddy (RAM, zero disk reads) when the mirror
+    set is complete and at least as new as the disk's newest step, the
+    sharded disk checkpoint otherwise, from scratch with neither. It emits
+    ``restore_begin``/``restore_end`` (the tier and the disk blocks read)
+    and, at the first step after, ``post_restore_step``, which the
+    supervisor's ``recovery`` rows read.
     """
 
     def __init__(self, directory, *, save_freq="epoch", keep: int = 3,
                  restore: bool = False, sharded: bool = False,
                  async_save: bool = False, buddy=None,
                  buddy_refresh_every: int = 1):
-        if buddy is not None or buddy_refresh_every != 1:
-            raise NotImplementedError(
-                "ModelCheckpoint(buddy=...): not yet ported (ROADMAP "
-                "1.8: the diskless recovery tier, with resilience/)")
+        if buddy is not None and not sharded:
+            raise ValueError(
+                "buddy= needs sharded=True: the mirror encoding is the "
+                "sharded block layout, and the disk fallback tier is "
+                "the ShardedCheckpointer")
         if save_freq != "epoch" and not (
                 isinstance(save_freq, int) and save_freq > 0):
             raise ValueError("save_freq must be 'epoch' or a positive int")
@@ -89,6 +103,25 @@ class ModelCheckpoint(Callback):
         self.save_freq = save_freq
         self.restore = restore
         self._last_bucket = 0  # save_freq bucket already saved (int freq)
+        # Imported here: resilience.faults imports this module for the
+        # Callback base.
+        if buddy is None or buddy is False:
+            self._buddy = None
+        else:
+            from ..resilience.redundancy import BuddyRedundancy
+
+            if buddy is True:
+                self._buddy = BuddyRedundancy.from_env()  # None when unset
+            elif isinstance(buddy, BuddyRedundancy):
+                self._buddy = buddy
+            else:  # a BuddyStore or a path
+                self._buddy = BuddyRedundancy(buddy)
+        if int(buddy_refresh_every) < 1:
+            raise ValueError(
+                f"buddy_refresh_every must be >= 1, got {buddy_refresh_every}")
+        self.buddy_refresh_every = int(buddy_refresh_every)
+        self._last_refresh_bucket = 0
+        self._post_restore_pending = False  # emit one post_restore_step
 
     @staticmethod
     def _timed(model, fn):
@@ -98,8 +131,59 @@ class ModelCheckpoint(Callback):
         with obs_spans.span("checkpoint_wait", timer=timer):
             return fn()
 
+    def _select_tier(self):
+        """``(tier, step)`` of this recovery, the same on every rank: rank
+        0's view of the store and the checkpoint directory decides and is
+        broadcast (a split decision would put the ranks' collectives out
+        of step)."""
+        from ..resilience.redundancy import select_restore_tier
+
+        codes = {"buddy": 0, "disk": 1, "restart": 2}
+        tier, step = select_restore_tier(self._buddy, self.ckpt)
+        code, got = broadcast_ints([codes[tier],
+                                    -1 if step is None else int(step)])
+        tier = {v: k for k, v in codes.items()}[code]
+        return tier, None if got < 0 else got
+
+    def _restore_tiered(self, model):
+        """The buddy-aware restore: pick the tier, restore, and emit the
+        events the supervisor's recovery rows read."""
+        from ..checkpoint import sharded as sharded_lib
+
+        tier, step = self._select_tier()
+        if tier == "restart":
+            return  # neither tier has state: train from scratch
+        rank = rank_world()[0]
+        attempt = os.environ.get("DTPU_ATTEMPT")
+        events_lib.emit(evs.RESTORE_BEGIN, tier=tier, rank=rank,
+                        attempt=int(attempt) if attempt else None)
+        reads0 = dict(sharded_lib.read_stats)
+        t0 = time.perf_counter()
+        if tier == "buddy":
+            step = self._timed(
+                model, lambda: self._buddy.restore_into(model, step))
+        else:
+            # restore_into runs its own corrupt-skip scan; the step it
+            # lands on (possibly a fallback) is the one reported.
+            step = self._timed(model, lambda: self.ckpt.restore_into(model))
+        events_lib.emit(
+            evs.RESTORE_END, tier=tier, step=int(step), rank=rank,
+            seconds=round(time.perf_counter() - t0, 4),
+            disk_block_reads=(sharded_lib.read_stats["block_reads"]
+                              - reads0["block_reads"]),
+            disk_block_bytes=(sharded_lib.read_stats["block_bytes"]
+                              - reads0["block_bytes"]),
+            attempt=int(attempt) if attempt else None)
+        model._resumed_step = step
+        self._post_restore_pending = True
+        if _is_chief():
+            dlog.info(f"ModelCheckpoint: resumed from step {step} via the "
+                      f"{tier} tier")
+
     def on_train_begin(self, model):
-        if self.restore:
+        if self.restore and self._buddy is not None:
+            self._restore_tiered(model)
+        elif self.restore:
             has_ckpt = self.ckpt.latest_step() is not None
             # Every rank takes rank 0's answer: without a shared file
             # system only it has the files.
@@ -114,8 +198,24 @@ class ModelCheckpoint(Callback):
         # earlier fit's).
         if isinstance(self.save_freq, int):
             self._last_bucket = model.step // self.save_freq
+        # The refresh cadence follows the same crossing rule.
+        if self._buddy is not None:
+            self._last_refresh_bucket = model.step // self.buddy_refresh_every
 
     def on_batch_end(self, model, step, logs):
+        if self._post_restore_pending:
+            # The first step after a tiered restore: the end of the
+            # recovery rows' recompile span.
+            self._post_restore_pending = False
+            events_lib.emit(evs.POST_RESTORE_STEP, step=int(step),
+                            rank=rank_world()[0])
+        if self._buddy is not None:
+            bucket = step // self.buddy_refresh_every
+            if bucket > self._last_refresh_bucket:
+                self._last_refresh_bucket = bucket
+                # A failed refresh degrades to a warning, never stops
+                # training.
+                self._buddy.refresh(model, step)
         if not isinstance(self.save_freq, int):
             return
         bucket = step // self.save_freq
@@ -128,7 +228,13 @@ class ModelCheckpoint(Callback):
             self._timed(model, lambda: self.ckpt.save(model))
 
     def on_train_end(self, model, history):
+        # Flush the background writers before fit returns: a run that
+        # exits right after leaves a committed newest step and mirror.
         self._timed(model, self.ckpt.wait)
+        if self._buddy is not None:
+            self._timed(model, self._buddy.wait)
+            # The tier's price rides the fit telemetry.
+            model._redundancy_report = self._buddy.report(model)
 
 
 def _metric_mode(monitor: str) -> str:

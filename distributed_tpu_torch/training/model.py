@@ -55,8 +55,9 @@ The JAX loop's levers are the port's too:
   buffers and a side stream on the card, bit-identical at any depth.
 - The fit loop's telemetry: ``input_wait``/``dispatch``/
   ``checkpoint_wait`` spans, ``model.last_fit_telemetry`` (the JAX
-  report's keys, the scanned stack's ``overlap`` record among them) and
-  periodic ``metrics_snapshot`` events.
+  report's keys, the scanned stack's ``overlap`` record among them),
+  periodic ``metrics_snapshot`` events, and one flight-recorder record a
+  dispatch (``obs.flight``), dumped if the step loop dies.
 - Randomness: a module that draws random numbers (``nn.Dropout``) gets
   the JAX step key, ``fold_in(PRNGKey(seed + 1), step)`` (``seed`` the
   build's), microbatch i of ``grad_accum`` ``fold_in(key, i)``, and step
@@ -114,6 +115,7 @@ from ..nn.pipeline import (PipelinedBlocks, clear_pipeline_trace,
 from ..nn.remat import checkpoint as remat_checkpoint
 from ..nn.scan import (ScannedBlocks, clear_overlap_trace,
                        last_overlap_trace)
+from ..obs import flight as obs_flight
 from ..obs import registry as obs_registry
 from ..obs import spans as obs_spans
 from ..ops import losses as losses_lib
@@ -1299,6 +1301,7 @@ class Model:
                     validation_steps, timer):
         reps = self.strategy.num_batch_shards
         obs_reg = obs_registry.default_registry()
+        obs_rec = obs_flight.default_recorder()
         flush_every = max(
             1, int(os.environ.get("DTPU_OBS_FLUSH_EVERY", "5") or 5))
         self._obs_window = []  # (per-step wall, per-step own host seconds)
@@ -1358,9 +1361,8 @@ class Model:
                     if bar is not None:
                         bar.update(done)
                     # The iteration's wall and own host time (wall less
-                    # the input and dispatch waits); no device value read.
-                    # The JAX loop also writes a flight record here; the
-                    # port's obs/flight waits for ROADMAP 1.8.
+                    # the input and dispatch waits): one flight record and
+                    # one ring entry a dispatch; no device value read.
                     now = time.perf_counter()
                     wall, last_t = now - last_t, now
                     own = max(wall - sp_in.seconds - sp_disp.seconds, 0.0)
@@ -1368,11 +1370,24 @@ class Model:
                         "step": int(self.step), "k": int(k),
                         "seconds": round(wall, 6),
                         "self_seconds": round(own, 6)})
+                    obs_rec.record(
+                        "step", step=int(self.step), k=int(k),
+                        seconds=round(wall, 6),
+                        input_wait_s=round(sp_in.seconds, 6),
+                        dispatch_s=round(sp_disp.seconds, 6),
+                        self_s=round(own, 6))
                     obs_reg.counter("fit/steps", k)
                     self._obs_window.append((wall / k, own / k))
                     self._flush_obs_window(flush_every)
                     if self.stop_training:
                         break
+            except SystemExit:
+                raise  # a deliberate exit (preemption): its own dump ran
+            except BaseException as e:
+                # The step loop died: leave the black box behind (a no-op
+                # unless a dump location is configured).
+                obs_flight.dump(reason=f"exception:{type(e).__name__}")
+                raise
             finally:
                 staged.close()
                 if staged.unconsumed_steps and source is not None and (
@@ -1418,6 +1433,9 @@ class Model:
                 logs.update({f"val_{k}": v for k, v in val.items()})
             dt = time.perf_counter() - t0
             history.record(epoch, logs)
+            obs_rec.record("epoch_end", epoch=int(epoch),
+                           steps=int(epoch_steps), seconds=round(dt, 4),
+                           loss=round(float(logs["loss"]), 6))
             for cb in callbacks:
                 cb.on_epoch_end(self, epoch, logs)
                 # A checkpoint write can be slow: beat between callbacks
@@ -1442,9 +1460,9 @@ class Model:
         if not window or (not force and len(window) < every):
             return
         if obs_registry.enabled() and events_lib.default_log() is not None:
+            rank, world = dlog.rank_world()
             events_lib.emit(
-                evs.METRICS_SNAPSHOT, rank=int(self.strategy._rank()),
-                world=int(self.strategy.num_replicas_in_sync),
+                evs.METRICS_SNAPSHOT, rank=int(rank), world=int(world),
                 step=int(self.step),
                 step_seconds=[round(w, 6) for w, _ in window[-64:]],
                 self_seconds=[round(s, 6) for _, s in window[-64:]])
@@ -1462,6 +1480,11 @@ class Model:
         report["model_state_bytes_per_device"] = tree_bytes_per_device(
             self._param_list(), list(self.state.values()),
             self.opt_state)["max_bytes_per_device"]
+        # The buddy tier's price (ModelCheckpoint(buddy=) sets it at train
+        # end): the mirror bytes beside the state bytes they insure.
+        red = getattr(self, "_redundancy_report", None)
+        if red is not None:
+            report["redundancy"] = red
         report["precision"] = (None if self.precision is None
                                else self.precision.name)
         if source is not None and getattr(source, "decode_workers",

@@ -2,8 +2,9 @@
 
 The port's copy of the rows of the JAX package's ``utils/event_schema.py``
 for the events it emits (the serving engine and its KV pool, the
-checkpointer, the fit loop and its callbacks), with the same names and the
-same field sets, so one event file reads the same with either package's tools.
+checkpointer, the fit loop and its callbacks, the supervisor, the fault
+injector, the preemption handler, the buddy-redundancy tier and the flight
+recorder), with the same names and the same field sets, so one event file reads the same with either package's tools.
 The transport adds ``ts``, ``event`` and ``pid`` to every record; those
 never appear here. :func:`check` holds a record to its row.
 """
@@ -11,6 +12,33 @@ never appear here. :func:`check` holds a record to its row.
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
+
+# Supervisor lifecycle (resilience/supervisor.py).
+ATTEMPT_START = "attempt_start"
+ATTEMPT_END = "attempt_end"
+RESTART = "restart"
+RUN_COMPLETE = "run_complete"
+BUDGET_EXHAUSTED = "budget_exhausted"
+PREEMPTION_CAP_EXHAUSTED = "preemption_cap_exhausted"
+RESIZE_CAP_EXHAUSTED = "resize_cap_exhausted"
+GANG_RESIZE = "gang_resize"
+RECOVERY = "recovery"
+RANK_SKEW = "rank_skew"
+STRAGGLER = "straggler"
+BUDDY_SEGMENTS_INVALIDATED = "buddy_segments_invalidated"
+
+# The workers' side of it (callbacks, faults, preemption, redundancy).
+FAULT_INJECTED = "fault_injected"
+PREEMPTED = "preempted"
+RESTORE_BEGIN = "restore_begin"
+RESTORE_END = "restore_end"
+POST_RESTORE_STEP = "post_restore_step"
+FIRST_STEP = "first_step"
+BUDDY_REFRESH = "buddy_refresh"
+BUDDY_REFRESH_FAILED = "buddy_refresh_failed"
+
+# The flight recorder (obs/flight.py).
+FLIGHT_DUMP = "flight_dump"
 
 # Serving (serving/engine.py).
 PREFIX_CACHE_HIT = "prefix_cache_hit"
@@ -37,6 +65,100 @@ AUTO_SHARD_PLAN = "auto_shard_plan"
 # required: keys every emit site passes; optional: keys it may attach;
 # extra: True for an open payload (the producer spreads a whole record).
 EVENTS: Dict[str, dict] = {
+    ATTEMPT_START: {
+        "required": ("attempt", "world_size"),
+        "optional": ("restarts_used", "preemptions", "resizes"),
+    },
+    ATTEMPT_END: {
+        "required": ("attempt", "ok", "world_size"),
+        "optional": ("duration", "failed_ranks", "exit_codes"),
+    },
+    RESTART: {
+        "required": ("attempt", "reason"),
+        "optional": ("world_size", "delay", "restarts_used", "preemptions",
+                     "resizes", "resume_step", "marker_step"),
+    },
+    RUN_COMPLETE: {
+        "required": ("attempts",),
+        "optional": ("restarts_used", "preemptions", "resizes",
+                     "world_size"),
+    },
+    BUDGET_EXHAUSTED: {
+        "required": ("restarts_used",),
+        "optional": ("max_restarts",),
+    },
+    PREEMPTION_CAP_EXHAUSTED: {
+        "required": ("preemptions",),
+        "optional": (),
+    },
+    RESIZE_CAP_EXHAUSTED: {
+        "required": ("resizes",),
+        "optional": ("wanted_world",),
+    },
+    GANG_RESIZE: {
+        "required": ("from_world", "to_world", "reason", "trigger"),
+        "optional": ("lost_ranks", "attempt"),
+    },
+    # One per restart boundary: the time to recover, split.
+    RECOVERY: {
+        "required": ("failed_attempt", "recovered_attempt"),
+        "optional": ("flight_dumps", "detect_s", "gang_reform_s",
+                     "restore_s", "recompile_s", "restore_tier",
+                     "restore_step", "disk_block_reads",
+                     "total_to_first_step_s"),
+    },
+    RANK_SKEW: {
+        "required": ("ranks", "world", "gang_median_step_s", "max_skew",
+                     "slowest_rank"),
+        "optional": (),
+    },
+    STRAGGLER: {
+        "required": ("rank", "skew", "median_step_s", "gang_median_step_s",
+                     "threshold", "world"),
+        "optional": (),
+    },
+    BUDDY_SEGMENTS_INVALIDATED: {
+        "required": ("ranks",),
+        "optional": (),
+    },
+    FAULT_INJECTED: {
+        "required": ("mode", "step"),
+        "optional": ("replica", "slow_seconds"),
+    },
+    PREEMPTED: {
+        "required": ("step",),
+        "optional": ("exit_code",),
+    },
+    RESTORE_BEGIN: {
+        "required": ("tier", "rank"),
+        "optional": ("attempt",),
+    },
+    RESTORE_END: {
+        "required": ("tier", "step", "rank", "seconds"),
+        "optional": ("disk_block_reads", "disk_block_bytes", "attempt"),
+    },
+    POST_RESTORE_STEP: {
+        "required": ("step", "rank"),
+        "optional": (),
+    },
+    # Read by recovery_rows for streams without post_restore_step; no
+    # producer in either package.
+    FIRST_STEP: {
+        "required": (),
+        "optional": ("step", "rank"),
+    },
+    BUDDY_REFRESH: {
+        "required": ("step", "rank"),
+        "optional": ("world",),
+    },
+    BUDDY_REFRESH_FAILED: {
+        "required": ("step", "rank"),
+        "optional": ("error",),
+    },
+    FLIGHT_DUMP: {
+        "required": ("path",),
+        "optional": ("reason", "rank", "records", "attempt"),
+    },
     PREFIX_CACHE_HIT: {
         "required": ("request_id", "cached_tokens"),
         "optional": ("blocks", "cow"),
@@ -138,6 +260,12 @@ def check(record: dict) -> List[str]:
 
 
 __all__ = [
+    "ATTEMPT_END", "ATTEMPT_START", "BUDDY_REFRESH", "BUDDY_REFRESH_FAILED",
+    "BUDDY_SEGMENTS_INVALIDATED", "BUDGET_EXHAUSTED", "FAULT_INJECTED",
+    "FIRST_STEP", "FLIGHT_DUMP", "GANG_RESIZE", "POST_RESTORE_STEP",
+    "PREEMPTED", "PREEMPTION_CAP_EXHAUSTED", "RANK_SKEW", "RECOVERY",
+    "RESIZE_CAP_EXHAUSTED", "RESTART", "RESTORE_BEGIN", "RESTORE_END",
+    "RUN_COMPLETE", "STRAGGLER",
     "AUTO_SHARD_PLAN", "CORRUPT_CHECKPOINT_SKIPPED", "DECODE_KERNEL_SELECTED", "DRAFT_SYNC",
     "BUBBLE_REPORT", "EVENTS", "METRICS_SNAPSHOT", "OVERLAP_REPORT",
     "PIPELINE_SCHEDULE_SELECTED", "PREFIX_CACHE_HIT",

@@ -1,5 +1,6 @@
 """Stall accounting and model-state bytes: the port's copies of the JAX
-package's ``StepTimer`` and ``tree_bytes_per_device``
+package's ``StepTimer``, ``tree_bytes_per_device`` and
+``redundancy_report``
 (``distributed_tpu/utils/profiler.py``; that module imports JAX, so only
 these are copied here, and of the timer what the serving engine uses).
 
@@ -20,6 +21,7 @@ synchronization.
 from __future__ import annotations
 
 import time
+from typing import Optional
 
 import torch
 import torch.distributed as dist
@@ -63,6 +65,27 @@ def tree_bytes_per_device(*trees) -> dict:
             "total_bytes": int(sum(per)), "devices": n}
 
 
+def redundancy_report(state_bytes: int, mirror_host_bytes: int,
+                      world: Optional[int] = None) -> dict:
+    """Price the buddy-redundancy tier's memory, measured not asserted:
+    ``state_bytes`` is the model state this rank holds (its blocks where
+    sharded) and ``mirror_host_bytes`` the bytes its store segment holds
+    (its own shard's RAM copy + the ring buddy's mirror).
+    ``overhead_ratio`` is (state + mirror) / state: about 1 + 1/N for 1/N
+    ZeRO/FSDP shards, more for replicated strategies. Rides in
+    ``model.last_fit_telemetry["redundancy"]`` when the tier is armed."""
+    state = int(state_bytes)
+    mirror = int(mirror_host_bytes)
+    return {
+        "state_bytes": state,
+        "mirror_host_bytes": mirror,
+        "overhead_ratio": (
+            round((state + mirror) / state, 4) if state > 0 else None
+        ),
+        "world": int(world) if world is not None else None,
+    }
+
+
 class StepTimer:
     """Wall time attributed to named stall categories over the timer's
     lifetime."""
@@ -102,4 +125,4 @@ class StepTimer:
         return out
 
 
-__all__ = ["StepTimer"]
+__all__ = ["StepTimer", "redundancy_report", "tree_bytes_per_device"]

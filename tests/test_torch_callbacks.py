@@ -134,15 +134,17 @@ def test_checkpoint_epoch_and_step_saves(tmp_path):
     with pytest.raises(ValueError, match="save_freq"):
         pcb.ModelCheckpoint(tmp_path, save_freq=0)
     # sharded=True saves per-rank block files (checkpoint/sharded.py);
-    # buddy= waits for ROADMAP 1.8.
+    # buddy= needs them (tests/test_torch_redundancy.py).
     cb = pcb.ModelCheckpoint(tmp_path / "sh", sharded=True, save_freq=3)
     assert isinstance(cb.ckpt, dtt.ShardedCheckpointer)
     _port().fit(x, y, callbacks=[cb], **dict(FIT, epochs=1,
                                              steps_per_epoch=4))
     assert cb.ckpt.all_steps() == [3]
     assert (tmp_path / "sh" / "ckpt-3" / "proc-0.npz").exists()
-    with pytest.raises(NotImplementedError, match="not yet ported.*1.8"):
+    with pytest.raises(ValueError, match="buddy= needs sharded=True"):
         pcb.ModelCheckpoint(tmp_path, buddy=True)
+    with pytest.raises(ValueError, match="buddy_refresh_every"):
+        pcb.ModelCheckpoint(tmp_path, sharded=True, buddy_refresh_every=0)
 
 
 @pytest.mark.parametrize("save_freq,first_epochs,steps", [

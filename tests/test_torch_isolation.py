@@ -91,6 +91,26 @@ def test_sharded_strategy_modules_are_checked():
         assert name in _port_modules(), name
 
 
+def test_resilience_and_obs_modules_are_checked():
+    """resilience/, the new obs/ modules and the restart script that drives
+    them on the cards are among the sources checked above and the modules
+    imported with JAX blocked."""
+    checked = {str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")} | {
+        str(p.relative_to(ROOT)) for p in (ROOT / "scripts").glob(
+            "torch_*.py")}
+    names = ["resilience", "resilience.policy", "resilience.markers",
+             "resilience.elastic", "resilience.faults",
+             "resilience.preemption", "resilience.supervisor",
+             "resilience.redundancy", "obs.flight", "obs.aggregate",
+             "obs.export", "obs.cli"]
+    for name in names:
+        path = "distributed_tpu_torch/" + name.replace(".", "/")
+        path += "/__init__.py" if name == "resilience" else ".py"
+        assert path in checked, path
+        assert f"distributed_tpu_torch.{name}" in _port_modules(), name
+    assert "scripts/torch_restart.py" in checked
+
+
 def test_default_device_is_the_card_and_never_falls_back():
     if torch.cuda.is_available():
         pytest.skip("a card is present: device=None resolves to it")
@@ -112,8 +132,8 @@ def test_unported_variants_raise():
     assert isinstance(moe.layers[3].main.layers[1], dtt.nn.MoE)
     assert isinstance(dtt.models.transformer_lm(16, pipeline=True).layers[2],
                       dtt.nn.PipelinedBlocks)
-    # What the port still lacks raises "not yet ported".
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # The buddy tier is ported: it needs the sharded layout, as in JAX.
+    with pytest.raises(ValueError, match="sharded=True"):
         dtt.callbacks.ModelCheckpoint("ckpt", buddy=True)
     # The auto-shard planner is ported: compile(strategy="auto") keeps a
     # pending plan for build.

@@ -510,7 +510,44 @@ def test_cli_hosts_runs_over_ssh(tmp_path, fake_ssh, monkeypatch, capsys):
     ["--supervise"], ["--checkpoint-dir", "c"], ["--elastic-min-workers", "1"],
     ["--elastic-max-workers", "2"], ["--elastic-divisor", "8"],
     ["--buddy-store-dir", "b"], ["--event-log", "e"]])
-def test_cli_resilience_flags_not_yet_ported(flags):
-    with pytest.raises(NotImplementedError, match="not yet ported .ROADMAP "
-                       "1.8"):
-        launch_cli.main(flags + ["script.py"])
+def test_cli_resilience_flags_not_yet_ported(flags, tmp_path, capsys):
+    """The JAX CLI's resilience flags were not ported until ``resilience/``
+    was; now each is taken (paths under ``tmp_path``) and a one-worker
+    gang of a trivial script runs to the end, under the supervisor with
+    ``--supervise`` (tests/test_torch_resilience.py and
+    tests/test_torch_redundancy.py drive it with faults)."""
+    flags = [str(tmp_path / f) if f in ("c", "b", "e") else f for f in flags]
+    script = write_worker(tmp_path, "print('fine')\n")
+    assert launch_cli.main(flags + ["--timeout", "60", script]) == 0
+    out = capsys.readouterr().out
+    assert "worker 0: ok" in out
+    assert ("supervisor: attempts=1" in out) == ("--supervise" in flags)
+
+
+def test_lost_peer_exits_become_collateral():
+    """On gloo a survivor's collective raises when a peer dies and the
+    survivor exits on its own: the launcher marks it gang_killed, as the
+    same worker blocked in NCCL would be, unless no worker failed first.
+    A failure whose log holds the same words outside gloo's transport
+    (an NCCL gang's own error) keeps its blame."""
+    gloo = "RuntimeError: [/src/gloo/transport/tcp/pair.cc:553]"
+
+    def row(i, tail, ok=False):
+        return core.WorkerResult(index=i, ok=ok, error=None if ok else
+                                 "exit code 1", exit_code=0 if ok else 1,
+                                 log_tail=tail, disposition="exited")
+
+    rows = [row(0, f"{gloo} Connection closed by peer [x]:1. GLHF!"),
+            row(1, f"Traceback ...\n{gloo} Read error [x]:2: Connection "
+                   "reset by peer\n"),
+            row(2, "Traceback ... ValueError: bad"),
+            row(3, "", ok=True),
+            row(4, "OSError: [Errno 32] Broken pipe")]
+    out = core._mark_lost_peers(rows)
+    assert [r.disposition for r in out] == [
+        "gang_killed", "gang_killed", "exited", "exited", "exited"]
+    assert "a peer failed" in out[0].error
+    alone = [row(0, f"{gloo} Connection closed by peer"),
+             row(1, f"{gloo} Write error: Broken pipe")]
+    assert [r.disposition for r in core._mark_lost_peers(alone)] == [
+        "exited", "exited"]

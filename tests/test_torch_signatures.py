@@ -282,8 +282,9 @@ PAIRS = {
     "ModelCheckpoint": (jcb.ModelCheckpoint, dtt.callbacks.ModelCheckpoint, {
         "save_freq": (2, None), "keep": (2, None), "restore": (True, None),
         "sharded": (True, None), "async_save": (True, None),
-        "buddy": (True, "1.8"), "buddy_refresh_every": (2, "1.8")},
-        lambda f, **kw: f("ckpt_dir", **kw)),
+        "buddy": (True, None), "buddy_refresh_every": (2, None)},
+        lambda f, **kw: f("ckpt_dir", **({"sharded": True} if "buddy" in kw
+                                         else {}), **kw)),
     "ShardedCheckpointer": (dtpu.ShardedCheckpointer,
                             dtt.ShardedCheckpointer, {
         "keep": (2, None), "async_save": (True, None)},
@@ -379,6 +380,191 @@ PAIRS = {
 }
 
 
+from distributed_tpu import resilience as jres  # noqa: E402
+from distributed_tpu.checkpoint import sharded as jsharded  # noqa: E402
+from distributed_tpu.obs import aggregate as jagg  # noqa: E402
+from distributed_tpu.obs import cli as jcli  # noqa: E402
+from distributed_tpu.obs import export as jexport  # noqa: E402
+from distributed_tpu.obs import flight as jflight  # noqa: E402
+from distributed_tpu.utils import profiler as jprofiler  # noqa: E402
+from distributed_tpu_torch import resilience as pres  # noqa: E402
+from distributed_tpu_torch.obs import aggregate as pagg  # noqa: E402
+from distributed_tpu_torch.obs import cli as pcli  # noqa: E402
+from distributed_tpu_torch.obs import export as pexport  # noqa: E402
+from distributed_tpu_torch.obs import flight as pflight  # noqa: E402
+from distributed_tpu_torch.utils import profiler as pprofiler  # noqa: E402
+
+
+def _tmp():
+    return tempfile.mkdtemp(prefix="sig_")
+
+
+def _buddy_cycle(method, **kw):
+    """A world-1 mirror of a small compiled model, then ``method``."""
+    buddy = pres.BuddyRedundancy(_tmp(), rank=0, world=1)
+    m = _compiled()
+    if method == "refresh":
+        buddy.refresh(m, **kw)
+        buddy.wait()
+        return buddy.available_step()
+    buddy.refresh(m, step=2)
+    buddy.wait()
+    return buddy.restore_into(m, **kw)
+
+
+_EVENTS = [{"event": "metrics_snapshot", "ts": 1.0, "rank": r,
+            "step_seconds": [s]} for r, s in ((0, 0.1), (1, 0.3))]
+
+# The resilience and obs entry points (every keyword of the JAX callable
+# that has a default, probed).
+PAIRS.update({
+    "RestartPolicy": (jres.RestartPolicy, pres.RestartPolicy, {
+        "max_restarts": (2, None), "backoff": (0.5, None),
+        "backoff_factor": (3.0, None), "backoff_max": (9.0, None),
+        "preemption_exempt": (False, None), "max_preemptions": (4, None)},
+        lambda f, **kw: f(**kw).delay(2)),
+    "ElasticPolicy": (jres.ElasticPolicy, pres.ElasticPolicy, {
+        "min_workers": (2, None), "max_workers": (4, None),
+        "failure_threshold": (3, None), "probe": (lambda: 2, None),
+        "divisor_of": (8, None), "max_resizes": (4, None)},
+        lambda f, **kw: f(**kw).snap(3, 4)),
+    "FailureLedger": (jres.FailureLedger, pres.FailureLedger, {},
+                      lambda f, **kw: f(**kw).record([1])),
+    "Supervisor": (jres.Supervisor, pres.Supervisor, {
+        "num_workers": (2, None), "launcher": (dtt.launch.LocalLauncher(),
+                                               None),
+        "policy": (pres.RestartPolicy(max_restarts=1), None),
+        "elastic": (pres.ElasticPolicy(min_workers=1), None),
+        "checkpoint_dir": ("tmp", None), "buddy_store_dir": ("tmp", None),
+        "event_log": ("tmp", None), "env_extra": ({"X": "1"}, None),
+        "liveness_timeout": (30.0, None), "straggler_threshold": (2.0, None),
+        "sleep": (lambda s: None, None)},
+        lambda f, **kw: f(PASS, **{
+            k: (_tmp() if v == "tmp" and k != "event_log" else
+                pres.EventLog(os.path.join(_tmp(), "ev.jsonl"))
+                if k == "event_log" else v) for k, v in kw.items()}).run(
+                    timeout=60)),
+    "Supervisor.run": (jres.Supervisor.run, pres.Supervisor.run, {
+        "timeout": (60.0, None), "grace": (1.0, None)},
+        lambda f, **kw: pres.Supervisor(PASS).run(**kw)),
+    "supervise": (jres.supervise, pres.supervise, {
+        "num_workers": (2, None)},
+        lambda f, **kw: f(PASS, timeout=60, **kw)),
+    "SupervisedResult": (jres.SupervisedResult, pres.SupervisedResult, {
+        "event_log": ("ev.jsonl", None), "resizes": (1, None),
+        "world_size": (2, None)},
+        lambda f, **kw: f(True, 1, 0, 0, [], **kw).failed),
+    "PreemptionHandler": (jres.PreemptionHandler, pres.PreemptionHandler, {
+        "signals": ((15, 10), None), "exit_code": (None, None),
+        "keep": (2, None), "checkpointer": (dtt.Checkpointer("ckpt_dir"),
+                                            None)},
+        lambda f, **kw: f(_tmp(), **kw)),
+    "FaultInjector": (jres.FaultInjector, pres.FaultInjector, {
+        "at_step": (3, None), "rank": (None, None),
+        "once_marker": ("m", None), "exit_code": (9, None),
+        "hang_seconds": (1.0, None), "slow_seconds": (0.1, None),
+        "directory": ("ckpt_dir", None), "replica": ("decode-1", None)},
+        lambda f, **kw: f("kill", **kw)),
+    "corrupt_latest_checkpoint": (jres.corrupt_latest_checkpoint,
+                                  pres.corrupt_latest_checkpoint, {},
+                                  lambda f, **kw: f(_tmp(), **kw)),
+    "BuddyStore": (jres.BuddyStore, pres.BuddyStore, {"keep": (2, None)},
+                   lambda f, **kw: f(_tmp(), **kw).available_step()),
+    "BuddyStore.write_mirror": (jres.BuddyStore.write_mirror,
+                                pres.BuddyStore.write_mirror, {},
+                                lambda f, **kw: None),
+    "BuddyRedundancy": (jres.BuddyRedundancy, pres.BuddyRedundancy, {
+        "rank": (0, None), "world": (1, None), "async_refresh": (False,
+                                                                 None)},
+        lambda f, **kw: f(_tmp(), **kw).available_step()),
+    "BuddyRedundancy.refresh": (jres.BuddyRedundancy.refresh,
+                                pres.BuddyRedundancy.refresh, {
+        "step": (5, None)}, lambda f, **kw: _buddy_cycle("refresh", **kw)),
+    "BuddyRedundancy.restore_into": (jres.BuddyRedundancy.restore_into,
+                                     pres.BuddyRedundancy.restore_into, {
+        "step": (2, None)}, lambda f, **kw: _buddy_cycle("restore", **kw)),
+    "select_restore_tier": (jres.select_restore_tier,
+                            pres.select_restore_tier, {},
+                            lambda f, **kw: f(None, None)),
+    "mirror_holder": (jres.mirror_holder, pres.mirror_holder, {},
+                      lambda f, **kw: f(1, 4)),
+    "mirror_source": (jres.mirror_source, pres.mirror_source, {},
+                      lambda f, **kw: f(1, 4)),
+    "ram_dir": (jres.ram_dir, pres.ram_dir, {"prefix": ("sig-buddy-", None)},
+                lambda f, **kw: os.rmdir(f(**kw))),
+    "recovery_rows": (jres.recovery_rows, pres.recovery_rows, {},
+                      lambda f, **kw: f([])),
+    "write_resume_marker": (jres.write_resume_marker,
+                            pres.write_resume_marker, {
+        "reason": ("maintenance", None)},
+        lambda f, **kw: f(_tmp(), 3, **kw)),
+    "read_resume_marker": (jres.read_resume_marker, pres.read_resume_marker,
+                           {}, lambda f, **kw: f(_tmp())),
+    "clear_resume_marker": (jres.clear_resume_marker,
+                            pres.clear_resume_marker, {},
+                            lambda f, **kw: f(_tmp())),
+    "restore_from_index": (jsharded.restore_from_index,
+                           dtt.checkpoint.sharded.restore_from_index, {},
+                           lambda f, **kw: None),
+    "redundancy_report": (jprofiler.redundancy_report,
+                          pprofiler.redundancy_report, {"world": (4, None)},
+                          lambda f, **kw: f(100, 50, **kw)),
+    "FlightRecorder": (jflight.FlightRecorder, pflight.FlightRecorder, {
+        "capacity": (8, None)}, lambda f, **kw: f(**kw).record("step")),
+    "FlightRecorder.dump": (jflight.FlightRecorder.dump,
+                            pflight.FlightRecorder.dump, {
+        "path": ("tmp", None), "reason": ("test", None),
+        "extra": ({"step": 1}, None)},
+        lambda f, **kw: pflight.FlightRecorder().dump(**{
+            k: (os.path.join(_tmp(), "f.jsonl") if v == "tmp" else v)
+            for k, v in kw.items()})),
+    "flight.dump": (jflight.dump, pflight.dump, {"reason": ("test", None)},
+                    lambda f, **kw: f(**kw)),
+    "read_dump": (jflight.read_dump, pflight.read_dump, {},
+                  lambda f, **kw: f(os.path.join(_tmp(), "none.jsonl"))),
+    "default_dump_path": (jflight.default_dump_path,
+                          pflight.default_dump_path, {},
+                          lambda f, **kw: f()),
+    "default_recorder": (jflight.default_recorder, pflight.default_recorder,
+                         {}, lambda f, **kw: f()),
+    "skew_report": (jagg.skew_report, pagg.skew_report, {},
+                    lambda f, **kw: f(_EVENTS)),
+    "straggler": (jagg.straggler, pagg.straggler, {"threshold": (2.0, None)},
+                  lambda f, **kw: f(_EVENTS, **kw)),
+    "rank_step_seconds": (jagg.rank_step_seconds, pagg.rank_step_seconds, {},
+                          lambda f, **kw: f(_EVENTS)),
+    "prometheus_text": (jexport.prometheus_text, pexport.prometheus_text, {
+        "snapshot": ({"counters": {"a": 1}}, None),
+        "registry": (dtt.obs.MetricsRegistry(), None)},
+        lambda f, **kw: f(**kw)),
+    "write_prometheus": (jexport.write_prometheus, pexport.write_prometheus,
+                         {"registry": (dtt.obs.MetricsRegistry(), None)},
+                         lambda f, **kw: f(os.path.join(_tmp(), "m.prom"),
+                                           **kw)),
+    "append_snapshot": (jexport.append_snapshot, pexport.append_snapshot, {
+        "registry": (dtt.obs.MetricsRegistry(), None)},
+        lambda f, **kw: f(os.path.join(_tmp(), "s.jsonl"), step=1, **kw)),
+    "cli.summarize": (jcli.summarize, pcli.summarize, {
+        "flight_paths": ((), None), "straggler_threshold": (2.0, None)},
+        lambda f, **kw: f(_EVENTS, **kw)),
+    "cli.render": (jcli.render, pcli.render, {"tail": (3, None)},
+                   lambda f, **kw: f(pcli.summarize(_EVENTS), **kw)),
+    "cli.follow": (jcli.follow, pcli.follow, {
+        "poll_s": (0.01, None), "stop": (lambda: True, None)},
+        lambda f, **kw: list(f(os.path.join(_tmp(), "none.jsonl"),
+                               **{"stop": lambda: True, **kw}))),
+    "cli.main": (jcli.main, pcli.main, {"argv": (["--help"], None)},
+                 lambda f, **kw: _exits_zero(f, **kw)),
+})
+
+
+def _exits_zero(f, **kw):
+    try:
+        f(**kw)
+    except SystemExit as e:
+        assert e.code == 0
+
+
 def _keywords(fn):
     return [n for n, p in inspect.signature(fn).parameters.items()
             if n != "self" and p.kind not in (p.VAR_POSITIONAL,
@@ -425,8 +611,9 @@ def _cli_flags(module):
 def test_launcher_cli_takes_every_jax_flag():
     """The port's ``python -m distributed_tpu_torch.launch`` accepts every
     flag of the JAX package's; each is exercised in
-    ``tests/test_torch_launch_restart.py`` (the resilience flags raise
-    "not yet ported", naming ROADMAP 1.8)."""
+    ``tests/test_torch_launch_restart.py`` (the resilience flags too, and
+    with faults in ``tests/test_torch_resilience.py``,
+    ``tests/test_torch_elastic.py`` and ``tests/test_torch_redundancy.py``)."""
     missing = (_cli_flags("distributed_tpu.launch")
                - _cli_flags("distributed_tpu_torch.launch"))
     assert not missing, missing
