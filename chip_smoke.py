@@ -369,7 +369,33 @@ z. The auto-shard planner and the gang launcher's restart and liveness.
    uninterrupted run (z2's); the ``recovery`` rows (detect, gang re-form,
    restore, first step) and the postmortem of the kill's event log
    (``python -m distributed_tpu_torch.obs.cli``, the flight dump's tail);
-   the kill's resumed worker's launches of K3-K5 and K9-K11.
+   the kill's resumed worker's launches of K3-K5 and K9-K11. (z4) The
+   serving fleet: phase c's GPT-2-small (bf16 layers, seed 0) behind
+   ``EnginePrograms(model, decode_kernel="fused")`` shared by a
+   ``ServingFleet`` of 2 decode replicas (8 slots, block 16, max_len
+   1,024) and 1 prefill replica with ``transfer="blocks"``, serving
+   phase c's 16 greedy requests in bursts of 4, 0.05 fleet-seconds
+   apart: tokens/s and TTFT on the fleet's virtual clock, handoffs
+   installed and fallen back, payload bytes, K1's launches (counted from
+   zero, one per layer and decode step), every first token equal to
+   phase c's and the agreement share; one 512-token prompt's handoff
+   packed and installed into another pool (bytes, ms) and, bf16, bit for
+   bit (z4c); a spawned replica killed and another retired, with
+   ``torch.cuda.memory_allocated`` back by a pool's bytes. (z4b) At phase
+   d's 2 layers in f32, each fleet token-exact against the fused Engine:
+   with transfer, with ``transfer="none"``, with ``decode-1`` killed by
+   ``FaultInjector(mode="replica_kill")``, gossiping on requests that
+   share a 64-token prefix (adoptions > 0), and after ``update_weights``
+   with moved weights against a fresh Engine on them. (z5) The serving
+   service: ``ServeService`` of a GPT-2-small-width LM in f32
+   (``ServeSpec(device=None)``: its workers build on this card) with 2
+   decode and 1 prefill worker processes and ``transport="shm"`` on 8
+   greedy requests: each worker's spawn-to-hello seconds, tokens/s and
+   TTFT on the wall clock, the payloads' bytes and ``/dev/shm``'s peak,
+   the streamed tokens equal to an in-process fleet built from the same
+   spec; then ``decode-1`` killed mid-run (``kill_replica``), recovered
+   token-exact, its flight dump's tail printed, and every worker exiting
+   0 at ``stop()``.
 Then the kernel table as one JSON line (each row also names the CUDA
 kernel of the main path, ``kernel``, and carries its launches in phase r's
 resumed steps, ``launches_resumed``, in phase t's fits that captured a
@@ -380,8 +406,9 @@ and its launches in phase u's sub-phases, ``launches_u1``-``launches_u3``,
 in phase v's scanned runs, ``launches_v``, in phase w's sharded runs,
 ``launches_w``, in phase x1's tensor- and sequence-parallel runs,
 ``launches_x``, in phase y's MoE, pipelined and composite runs,
-``launches_y``, in phase z1's auto-compiled run, ``launches_z``, and in
-phase z3's resumed worker, ``launches_z3``),
+``launches_y``, in phase z1's auto-compiled run, ``launches_z``, in
+phase z3's resumed worker, ``launches_z3``, and K1 in phase z4's
+full-width fleet, ``launches_z4``),
 the card's name and power limit, and ``{"ok": true, "device": {...}}`` as
 the last line.
 """
@@ -4360,6 +4387,340 @@ def phase_supervise(torch, reference):
     return counts
 
 
+# ----------------------------------------------------------------- phase z4
+def fleet_run(dtt, model, programs, reqs, arrivals=None, **kw):
+    """One ``ServingFleet`` over ``reqs`` at phase c's serving shapes;
+    returns (fleet, outputs, host seconds)."""
+    fl = dtt.fleet.ServingFleet(
+        model, programs=programs, max_slots=8, block_size=16,
+        max_len=LM["max_len"], **{"decode_replicas": 2,
+                                  "prefill_replicas": 1, **kw})
+    t = time.perf_counter()
+    outs = fl.run([dtt.serving.Request(p, m) for p, m in reqs],
+                  arrival_times=arrivals)
+    return fl, outs, time.perf_counter() - t
+
+
+def fleet_report(tag, tel, wall):
+    ttft = tel["time_to_first_token"]
+    ho = tel["handoffs"]
+    print(f"  {tag}: {tel['generated_tokens']} tokens, virtual clock "
+          f"{tel['tokens_per_sec']:.1f} tokens/s, TTFT p50 "
+          f"{ttft['p50'] * 1e3:.1f} ms p99 {ttft['p99'] * 1e3:.1f} ms "
+          f"(virtual), makespan {tel['makespan_s']:.3f} s (virtual), host "
+          f"{wall:.2f} s; handoffs installed {ho['installed']} fallen back "
+          f"{ho['fallback_reprefill']}, payload bytes {ho['bytes_shipped']}, "
+          f"decode steps {tel['decode_steps']}, lost "
+          f"{tel['lost_requests']}")
+
+
+def pool_bytes(kv):
+    return kv.bytes_per_block() * kv.num_blocks
+
+
+def handoff_timing(torch, dtt, model, programs, prompt_len=512):
+    """(z4, z4c) One 512-token prompt prefilled by a prefill replica at
+    full width: ``pack_kv`` and ``install_kv`` into another pool timed
+    (device synchronized), the payload's bytes, and the installed blocks
+    bit for bit the source pool's (the bf16 bits and the payload's)."""
+    from distributed_tpu_torch.fleet import handoff
+
+    rng = np.random.default_rng(7)
+    prompt = rng.integers(0, VOCAB, prompt_len).astype(np.int32)
+    src = dtt.fleet.PrefillReplica("prefill-t", programs, block_size=16,
+                                   max_len=LM["max_len"])
+    seq = dtt.serving.Sequence(dtt.serving.Request(prompt, 4))
+    assert src.kv.reserve(0, prompt_len)
+    seq.slot = 0
+    with torch.inference_mode():
+        src._run_prefill_chunk(seq, 0, prompt_len, prompt_len - 1)
+    dst = dtt.fleet.DecodeReplica("decode-t", programs, max_slots=8,
+                                  block_size=16, max_len=LM["max_len"])
+    assert dst.kv.reserve(3, 160) and dst.kv.reserve(0, prompt_len)
+    pack, install = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        payload = handoff.pack_kv(src.kv, 0, prompt_len, tokens=prompt)
+        pack.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        handoff.install_kv(dst.kv, 0, payload)
+        torch.cuda.synchronize()
+        install.append(time.perf_counter() - t)
+    sids = src.kv._slot_blocks[0]
+    dids = dst.kv._slot_blocks[0][:len(sids)]
+    same = all(torch.equal(a[sids].view(torch.int16),
+                           b[dids].view(torch.int16))
+               for (_, a), (_, b) in zip(
+                   dtt.interop.iter_leaf_paths(src.kv.caches),
+                   dtt.interop.iter_leaf_paths(dst.kv.caches)))
+    back, dtype = handoff._gather(dst.kv, dids)
+    bits = (dtype == payload.dtype == "bfloat16"
+            and all(np.array_equal(back[k], v)
+                    for k, v in payload.blocks.items()))
+    mb = payload.nbytes / 1e6
+    print(f"  (z4) handoff of one {prompt_len}-token prompt: "
+          f"{len(payload.blocks)} leaves x {len(sids)} blocks, "
+          f"{payload.nbytes} bytes ({payload.dtype} as uint16 bits), pack "
+          f"median {np.median(pack) * 1e3:.2f} ms ({mb / np.median(pack):.0f}"
+          f" MB/s), install median {np.median(install) * 1e3:.2f} ms "
+          f"({mb / np.median(install):.0f} MB/s), host clock around a "
+          f"synchronized card, 5 rounds")
+    print(f"  (z4c) bf16 payload installed into other blocks of another "
+          f"full-width pool: bit for bit {same}; payload bits round-trip "
+          f"{bits}")
+    if not (same and bits):
+        raise SystemExit("a bf16 handoff changed the blocks' bits")
+    return payload.nbytes, float(np.median(pack)), float(np.median(install))
+
+
+def fleet_memory(torch, dtt, fl):
+    """(z4) A spawned replica killed and another retired: the device
+    memory the pools held is returned (the caching allocator's
+    ``memory_allocated``, which counts live tensors)."""
+    import gc
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    rep = fl._spawn(0.0)
+    one = pool_bytes(rep.kv)
+    spawned = torch.cuda.memory_allocated()
+    rep.kill(0.0)
+    fl._retire(rep.name, 0.0)
+    del rep
+    gc.collect()
+    killed = torch.cuda.memory_allocated()
+    fl._configured_decode = len(fl.decode_pool) - 1
+    fl._reconcile(0.0)
+    gc.collect()
+    retired = torch.cuda.memory_allocated()
+    print(f"  (z4) device memory: {before} B before the spawn, {spawned} B "
+          f"after it (a pool is {one} B), {killed} B after the kill, "
+          f"{retired} B after a retire")
+    if abs(killed - before) >= one or before - retired < one // 2:
+        raise SystemExit("a killed or retired replica's pool stayed on the "
+                         "card")
+
+
+def gossip_requests(n=3, shared_len=64, seed=11):
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, VOCAB, shared_len).astype(np.int32)
+    return [(np.concatenate([shared, rng.integers(0, VOCAB, 8 + i).astype(
+        np.int32)]), 24) for i in range(n + 1)]
+
+
+def phase_fleet(torch, dtt, paged_ops, reqs, fused_c, small, sreqs,
+                small_fused):
+    """z4: the serving fleet at full width through K1, exact runs at 2
+    layers, a bf16 handoff's bits, and the pools' memory; returns K1's
+    launches in the full-width run."""
+    model = dtt.Model(dtt.models.transformer_lm(
+        VOCAB, dtype="bfloat16", **LM))
+    model.build((LM["max_len"],), seed=0)
+    programs = dtt.fleet.EnginePrograms(model, decode_kernel="fused")
+    fleet_run(dtt, model, programs, requests(2, (8, 16), (4, 4), seed=1))
+    arrivals = [0.05 * (i // 4) for i in range(len(reqs))]
+    paged_ops.reset_launch_counts()
+    fl, outs, wall = fleet_run(dtt, model, programs, reqs, arrivals)
+    k1 = paged_ops.launches["paged_attention"]
+    tel = fl.last_run_telemetry
+    fleet_report("GPT-2-small fleet (2 decode + 1 prefill replicas, fused)",
+                 tel, wall)
+    check_outputs(outs, reqs, VOCAB)
+    share, first = agreement(outs, fused_c, reqs)
+    print(f"  K1 launches {k1} (decode steps {tel['decode_steps']} x "
+          f"{LM['num_layers']} layers); agreement with phase c's Engine "
+          f"{share:.4f}, first tokens {'match' if first else 'DIFFER'}")
+    if not first:
+        raise SystemExit("the fleet's first tokens differ from phase c's")
+    if k1 == 0 or k1 != tel["decode_steps"] * LM["num_layers"]:
+        raise SystemExit("the fleet did not launch K1 once per layer and "
+                         "decode step")
+    if (tel["lost_requests"] or tel["handoffs"]["installed"] != len(reqs)
+            or tel["handoffs"]["fallback_reprefill"]):
+        raise SystemExit("the fleet lost a request or a handoff")
+    handoff_timing(torch, dtt, model, programs)
+    fleet_memory(torch, dtt, fl)
+    del fl, model, programs
+    torch.cuda.empty_cache()
+
+    print("  (z4b) 2 layers, f32, TF32 off: each fleet token-exact against "
+          "the fused Engine")
+    sprog = dtt.fleet.EnginePrograms(small, decode_kernel="fused")
+    runs = [("transfer", {}), ("transfer='none'", dict(transfer="none")),
+            ("replica_kill decode-1 at step 3", dict(
+                fault=dtt.resilience.FaultInjector(
+                    "replica_kill", replica="decode-1", at_step=3)))]
+    for label, kw in runs:
+        fl, got, _ = fleet_run(dtt, small, sprog, sreqs, **kw)
+        exact = all(np.array_equal(x, y) for x, y in zip(got, small_fused))
+        tel = fl.last_run_telemetry
+        print(f"    {label}: token-exact {exact}, handoffs installed "
+              f"{tel['handoffs']['installed']} fallen back "
+              f"{tel['handoffs']['fallback_reprefill']}, kills "
+              f"{len(tel['decode_pool']['kills'])}, lost "
+              f"{tel['lost_requests']}")
+        if not exact or tel["lost_requests"]:
+            raise SystemExit(f"fleet ({label}) differs from the Engine")
+        if "fault" in kw and len(tel["decode_pool"]["kills"]) != 1:
+            raise SystemExit("the replica kill did not fire")
+    greqs = gossip_requests()
+    want, _, _ = serve(dtt, small, greqs, decode_kernel="fused")
+    fl = dtt.fleet.ServingFleet(
+        small, programs=sprog, decode_replicas=2, prefill_replicas=0,
+        max_slots=8, block_size=16, max_len=LM["max_len"],
+        prefix_cache=True, prefix_gossip=True)
+    got = list(fl.run([dtt.serving.Request(*greqs[0])]))
+    got += fl.run([dtt.serving.Request(p, m) for p, m in greqs[1:]])
+    g = fl.last_run_telemetry["gossip"]
+    exact = all(np.array_equal(x, y) for x, y in zip(got, want))
+    print(f"    prefix gossip (a warm request, then 3 sharing its 64-token "
+          f"prefix): token-exact {exact}, adoptions {g['adoptions']} "
+          f"({g['adopted_blocks']} blocks), stale {g['stale_rejected']}")
+    if not exact or g["adoptions"] == 0:
+        raise SystemExit("the gossiping fleet differs or never adopted")
+    old = {k: v.clone() for k, v in small.params.items()}
+    fl = dtt.fleet.ServingFleet(small, programs=sprog, decode_replicas=2,
+                                prefill_replicas=1, max_slots=8,
+                                block_size=16, max_len=LM["max_len"])
+    version = fl.update_weights(moved(torch, old, 0.02))
+    got = fl.run([dtt.serving.Request(p, m) for p, m in sreqs])
+    want, _, _ = serve(dtt, small, sreqs, decode_kernel="fused")
+    small.load_params(old)
+    exact = all(np.array_equal(x, y) for x, y in zip(got, want))
+    moved_share, _ = agreement(got, small_fused, sreqs)
+    print(f"    update_weights (version {version}): token-exact against a "
+          f"fresh Engine on the moved weights {exact} (agreement with the "
+          f"old weights' tokens {moved_share:.4f})")
+    if not exact:
+        raise SystemExit("update_weights: the fleet differs from a fresh "
+                         "Engine on the same weights")
+    torch.cuda.empty_cache()
+    return k1
+
+
+# ----------------------------------------------------------------- phase z5
+SERVE_MODEL = dict(vocab_size=VOCAB, **LM)
+
+
+def dir_bytes(path):
+    total = 0
+    for root, _, files in os.walk(path):
+        for f in files:
+            try:
+                total += os.path.getsize(os.path.join(root, f))
+            except OSError:
+                pass
+    return total
+
+
+def phase_service(torch, dtt):
+    """z5: ServeService at GPT-2-small width (f32 layers) on this card: 2
+    decode workers, 1 prefill worker, KV over /dev/shm; the streamed
+    tokens against an in-process fleet built from the same spec; a decode
+    worker killed mid-run; every worker gone at ``stop()``."""
+    from distributed_tpu_torch.obs import cli as obs_cli
+    from distributed_tpu_torch.serve_service import ServeService, ServeSpec
+    from distributed_tpu_torch.utils.events import read_events
+
+    spec = ServeSpec(model=dict(SERVE_MODEL), build_len=LM["max_len"],
+                     max_slots=8, block_size=16, max_len=LM["max_len"])
+    sreqs = requests(8, (32, 256), (32, 64), seed=5)
+
+    def batch():
+        return [dtt.serving.Request(p, m, seed=0) for p, m in sreqs]
+
+    model = dtt.Model(dtt.models.transformer_lm(**spec.model))
+    model.compile(optimizer=spec.optimizer, loss=spec.loss)
+    model.build((spec.build_len,), seed=0)
+    programs = dtt.fleet.EnginePrograms(model, seed=spec.seed)
+    ref = dtt.fleet.ServingFleet(
+        model, programs=programs, decode_replicas=2, prefill_replicas=1,
+        max_slots=spec.max_slots, block_size=spec.block_size,
+        max_len=spec.max_len).run(batch())
+    del model, programs
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip-z5-")
+    log = os.path.join(tmp, "events.jsonl")
+    os.environ["DTPU_EVENT_LOG"] = log
+    peak = [0]
+
+    def sample(svc):
+        if svc._shm_root is not None:
+            peak[0] = max(peak[0], dir_bytes(svc._shm_root))
+
+    svc = ServeService(spec, decode_replicas=2, prefill_replicas=1,
+                       transport="shm", log_dir=tmp)
+    try:
+        t = time.perf_counter()
+        svc.start()
+        print(f"  3 workers ready in {time.perf_counter() - t:.1f} s; spawn "
+              f"to hello: " + ", ".join(
+                  f"{h.name} {h.spinup_s:.1f} s"
+                  for h in sorted(svc._handles.values(),
+                                  key=lambda h: h.name)))
+        res = svc.run(batch(), on_pump=sample, deadline_s=300)
+        tel = res.telemetry
+        ttft = tel["time_to_first_token"]
+        exact = all(np.array_equal(x, y) for x, y in zip(res, ref))
+        stats = svc.collect_stats()
+        installed = sum(s.get("handoffs_installed", 0)
+                        for s in stats.values())
+        payload = sum(-(-p.size // 16) for p, _ in sreqs) * 16 * (
+            2 * LM["num_layers"] * LM["d_model"] * 4)
+        print(f"  8 requests over shm: {tel['generated_tokens']} tokens in "
+              f"{tel['wall_s']:.2f} s wall, {tel['tokens_per_sec']:.1f} "
+              f"tokens/s (wall clock), TTFT p50 {ttft['p50_s'] * 1e3:.0f} ms "
+              f"p99 {ttft['p99_s'] * 1e3:.0f} ms (wall); handoffs installed "
+              f"{installed}; payloads {payload} B in all, /dev/shm peak "
+              f"{peak[0]} B; token-exact against the in-process fleet "
+              f"{exact}")
+        if not exact or installed != len(sreqs) or tel["lost_requests"]:
+            raise SystemExit("the service's tokens differ from the fleet's, "
+                             "or a handoff or request was lost")
+        killed = []
+        base = svc.streamed_tokens
+
+        def kill_once(svc):
+            if not killed and svc.streamed_tokens >= base + 40:
+                svc.kill_replica("decode-1")
+                killed.append(svc.streamed_tokens - base)
+
+        res = svc.run(batch(), on_pump=kill_once, deadline_s=300)
+        exact = all(np.array_equal(x, y) for x, y in zip(res, ref))
+        svc.wait_ready()  # the replacement's hello, if the run outpaced it
+        procs = [h.proc for h in svc._handles.values()]
+        respawned = sorted(f"{h.name} {h.spinup_s:.1f} s"
+                           for h in svc._handles.values()
+                           if h.name not in ("decode-0", "decode-1",
+                                             "prefill-0"))
+        print(f"  decode-1 killed after {killed[0] if killed else 0} "
+              f"streamed tokens: token-exact {exact}, kills {svc.kills}, "
+              f"lost {res.telemetry['lost_requests']}, respawned "
+              f"{respawned}")
+        svc.stop()
+        codes = [p.wait(timeout=30) for p in procs]
+        print(f"  stop(): worker exit codes {codes}")
+        if not exact or svc.kills != 1 or res.telemetry["lost_requests"]:
+            raise SystemExit("the killed worker's requests were not "
+                             "recovered token-exact")
+        if any(c != 0 for c in codes):
+            raise SystemExit("a worker did not exit cleanly at stop()")
+        post = obs_cli.summarize(read_events(log))
+        dumps = post["flight_dumps"]
+        if not dumps or not dumps[0]["readable"]:
+            raise SystemExit("the killed worker left no readable flight "
+                             "dump")
+        print(f"  decode-1's flight dump (reason {dumps[0]['reason']!r}, "
+              f"{len(dumps[0]['records'])} records), its last 3:")
+        for rec in dumps[0]["records"][-3:]:
+            print(f"    {json.dumps(rec, sort_keys=True)}")
+    finally:
+        svc.stop()
+        os.environ.pop("DTPU_EVENT_LOG", None)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     import torch
 
@@ -4435,9 +4796,9 @@ def main():
         VOCAB, **dict(LM, num_layers=2)))
     small.build((LM["max_len"],), seed=1)
     sreqs = requests(8, (32, 256), (16, 32), seed=2)
-    a, _, _ = serve(dtt, small, sreqs, decode_kernel="fused")
+    small_fused, _, _ = serve(dtt, small, sreqs, decode_kernel="fused")
     b, _, _ = serve(dtt, small, sreqs, decode_kernel="reference")
-    exact = all(np.array_equal(x, y) for x, y in zip(a, b))
+    exact = all(np.array_equal(x, y) for x, y in zip(small_fused, b))
     print(f"  token-exact: {exact}")
     if not exact:
         raise SystemExit("f32 fused and reference runs differ")
@@ -4616,6 +4977,15 @@ def main():
           f"--supervise --num-workers 1) | {card_line()}")
     u_counts["z3"] = phase_supervise(
         torch, restarted["restart"]["uninterrupted"])
+    print(f"phase z4: the serving fleet: GPT-2-small (bf16 layers) behind "
+          f"EnginePrograms(decode_kernel=\"fused\"), 2 decode + 1 prefill "
+          f"replicas, 16 requests in bursts of 4 | {card_line()}")
+    u_counts["z4"] = {"paged_attention": phase_fleet(
+        torch, dtt, paged_ops, reqs, fused, small, sreqs, small_fused)}
+    print(f"phase z5: ServeService at GPT-2-small width (f32 layers): 2 "
+          f"decode + 1 prefill worker processes, KV over /dev/shm | "
+          f"{card_line()}")
+    phase_service(torch, dtt)
     for sub, counts in u_counts.items():
         for name, n in counts.items():
             if n:
@@ -4637,7 +5007,8 @@ def main():
          "launches_fit": r.get("launches_fit"),
          "replayed_fit": r.get("replayed_fit"),
          **{f"launches_{sub}": r[f"launches_{sub}"]
-            for sub in ("u1", "u2", "u3", "v", "w", "x", "y", "z", "z3")
+            for sub in ("u1", "u2", "u3", "v", "w", "x", "y", "z", "z3",
+                        "z4")
             if f"launches_{sub}" in r},
          **({"launches_spec": r["launches_spec"], "ms_by_kw": r["ms_by_kw"]}
             if "ms_by_kw" in r else {})}

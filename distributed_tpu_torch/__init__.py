@@ -56,7 +56,14 @@ Ported so far:
   (``resilience``, ``ModelCheckpoint(buddy=)``, ``python -m
   distributed_tpu_torch.launch --supervise``), and the rest of ``obs``
   (the flight recorder, cross-rank aggregation, the exporters and the
-  postmortem CLI).
+  postmortem CLI);
+- the serving fleet (``fleet``: prefill and decode replicas sharing
+  ``EnginePrograms``, the KV-block handoff, the router, the autoscaler
+  and prefix gossip, on a virtual clock) and the serving service
+  (``serve_service``: the same replicas as worker processes behind a
+  socket router on wall time, KV payloads over ``/dev/shm`` or inline
+  frames, tenant quotas). ``fleet`` and ``serve_service`` load on first
+  use (``dtt.fleet``).
 """
 
 from . import (
@@ -88,3 +95,13 @@ __all__ = [
     "resilience",
     "resolve_device", "serving", "utils",
 ]
+
+
+def __getattr__(name):
+    # The serving tiers past one engine load on first use, as in the JAX
+    # package: processes that only train or only serve never pay for them.
+    if name in ("fleet", "serve_service"):
+        import importlib
+
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

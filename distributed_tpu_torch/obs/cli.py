@@ -40,11 +40,6 @@ from ..utils.events import read_events
 from . import aggregate
 from .flight import read_dump
 
-# The fleet's prefix-gossip kinds (not emitted by the port yet), read by
-# name so the summary keeps the JAX package's keys.
-_GOSSIP_ADVERTISE = "prefix_gossip_advertise"
-_GOSSIP_ADOPT = "prefix_gossip_adopt"
-
 
 def _fmt_ts(ts) -> str:
     try:
@@ -134,9 +129,9 @@ def summarize(events: List[dict], flight_paths=(),
         "spec_k_adjusts": [e for e in events
                            if e["event"] == evs.SPEC_K_ADJUST],
         "gossip_advertises": [e for e in events
-                              if e["event"] == _GOSSIP_ADVERTISE],
+                              if e["event"] == evs.PREFIX_GOSSIP_ADVERTISE],
         "gossip_adopts": [e for e in events
-                          if e["event"] == _GOSSIP_ADOPT],
+                          if e["event"] == evs.PREFIX_GOSSIP_ADOPT],
         "flight_dumps": dumps,
     }
 

@@ -241,6 +241,57 @@ class _PairedKV:
         self.draft.release(slot)
 
 
+def _precision_scope(precision):
+    """A served model's precision policy: its layers compute in the
+    policy's dtype, as in ``Model.generate``."""
+    return (contextlib.nullcontext() if precision is None
+            else precision.scope())
+
+
+def _on(device, a):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _prefill_dispatch(module, precision, device, kv, tokens, block_table,
+                      start, last_idx, key, temperature, top_k):
+    """One prompt chunk for one sequence on ``module``: KV scattered into
+    its blocks of ``kv`` and the next token sampled from position
+    ``last_idx``; returns (token, logprob) on the host. The Engine and the
+    fleet's ``EnginePrograms`` both dispatch through it."""
+    with _precision_scope(precision):
+        out, kv.caches = module.paged_prefill(
+            kv.caches, _on(device, tokens),
+            block_table=_on(device, block_table), start=int(start),
+        )
+    tok, logp = _sample_with_logprob(
+        out[0, last_idx:last_idx + 1], key[None], temperature, top_k)
+    return int(tok[0]), float(logp[0])
+
+
+def _decode_dispatch(module, precision, device, kv, tokens, block_tables,
+                     positions, keys, temperature, top_k, decode_kernel):
+    """One decode (tokens (S,)) or verify (tokens (S, K), keys (S, K, 2))
+    pass of ``module`` over every slot of ``kv``; the sampled tokens and
+    logprobs come back on the host, shaped as ``tokens``. The Engine and
+    the fleet's ``EnginePrograms`` both dispatch through it."""
+    t = _on(device, tokens)
+    kw = {"block_tables": _on(device, block_tables),
+          "positions": _on(device, positions),
+          "decode_kernel": decode_kernel}
+    with _precision_scope(precision):
+        if t.dim() == 1:
+            logits, kv.caches = module.paged_decode(kv.caches, t[:, None],
+                                                    **kw)
+        else:
+            logits, kv.caches = module.paged_verify(kv.caches, t, **kw)
+    toks, logp = _sample_with_logprob(
+        logits.reshape(-1, logits.shape[-1]),
+        np.asarray(keys).reshape(-1, 2), temperature, top_k)
+    shape = np.shape(tokens)
+    return (toks.cpu().numpy().reshape(shape),
+            logp.cpu().numpy().reshape(shape))
+
+
 class _Served:
     """One served LM: the engine's snapshot of its module, the tree that
     ``update_weights`` swaps into, and its paged pools (``kv``, set by the
@@ -253,50 +304,25 @@ class _Served:
         self.precision = model.precision
         self.kv: Optional[PagedKVCache] = None
 
-    def _scope(self):
-        """The served model's precision policy: its layers compute in the
-        policy's dtype, as in ``Model.generate``."""
-        return (contextlib.nullcontext() if self.precision is None
-                else self.precision.scope())
-
-    def tensor(self, a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
     def prefill(self, tokens, block_table, start, last_idx, key,
                 temperature, top_k):
-        """One prompt chunk for one sequence: KV scattered into its
-        blocks, and the next token sampled from position ``last_idx``."""
-        with self._scope():
-            out, self.kv.caches = self.module.paged_prefill(
-                self.kv.caches, self.tensor(tokens),
-                block_table=self.tensor(block_table), start=int(start),
-            )
-        tok, logp = _sample_with_logprob(
-            out[0, last_idx:last_idx + 1], key[None], temperature, top_k)
-        return int(tok[0]), float(logp[0])
+        return _prefill_dispatch(self.module, self.precision, self.device,
+                                 self.kv, tokens, block_table, start,
+                                 last_idx, key, temperature, top_k)
 
     def step(self, tokens, block_tables, positions, keys, temperature,
              top_k, decode_kernel):
-        """One decode (tokens (S,)) or verify (tokens (S, K), keys
-        (S, K, 2)) pass over every slot; the sampled tokens and logprobs
-        come back on the host, shaped as ``tokens``."""
-        t = self.tensor(tokens)
-        kw = {"block_tables": self.tensor(block_tables),
-              "positions": self.tensor(positions),
-              "decode_kernel": decode_kernel}
-        with self._scope():
-            if t.dim() == 1:
-                logits, self.kv.caches = self.module.paged_decode(
-                    self.kv.caches, t[:, None], **kw)
-            else:
-                logits, self.kv.caches = self.module.paged_verify(
-                    self.kv.caches, t, **kw)
-        toks, logp = _sample_with_logprob(
-            logits.reshape(-1, logits.shape[-1]),
-            np.asarray(keys).reshape(-1, 2), temperature, top_k)
-        shape = np.shape(tokens)
-        return (toks.cpu().numpy().reshape(shape),
-                logp.cpu().numpy().reshape(shape))
+        return _decode_dispatch(self.module, self.precision, self.device,
+                                self.kv, tokens, block_tables, positions,
+                                keys, temperature, top_k, decode_kernel)
+
+
+def _bucket(c: int, start: int, max_len: int) -> int:
+    """Chunk lengths round up to a multiple of 64 (the JAX engine's
+    compile buckets), capped so the padded chunk never runs past
+    ``max_len``: the positional rows and block indices must stay inside
+    their tables. The fleet's replicas pad the same way."""
+    return min(max(64, round_up(c, 64)), max_len - start)
 
 
 def _check_positions(model: Model, max_len: int) -> None:
@@ -526,11 +552,7 @@ class Engine:
 
     # ------------------------------------------------------------- helpers
     def _bucket(self, c: int, start: int) -> int:
-        """Chunk lengths round up to a multiple of 64 (the JAX engine's
-        compile buckets), capped so the padded chunk never runs past
-        max_len — the positional rows and block indices must stay inside
-        their tables."""
-        return min(max(64, round_up(c, 64)), self.max_len - start)
+        return _bucket(c, start, self.max_len)
 
     def _prefill_chunks(self, seq):
         """(start, length) chunks covering seq's current context — minus

@@ -145,6 +145,25 @@ class PrefixStore:
         self.insertions = 0
         self.evictions = 0
 
+    def __contains__(self, key: str) -> bool:
+        return key in self._entries
+
+    def keys(self) -> List[str]:
+        """Every cached chain key, LRU order (oldest first): the fleet's
+        gossip advertisement. No counter or LRU effect."""
+        return list(self._entries)
+
+    def peek_run(self, keys: List[str]) -> List[int]:
+        """Block ids for the leading run of ``keys`` present, WITHOUT
+        touching the hit/miss counters or LRU order: the gossip export's
+        probe (a peer packing blocks for export is not an admission)."""
+        found: List[int] = []
+        for k in keys:
+            if k not in self._entries:
+                break
+            found.append(self._entries[k])
+        return found
+
     def lookup(self, keys: List[str]) -> List[int]:
         """Block ids for the LEADING run of ``keys`` present in the store
         (the walk stops at the first miss). Hits refresh LRU order."""

@@ -3,8 +3,10 @@
 The port's copy of the rows of the JAX package's ``utils/event_schema.py``
 for the events it emits (the serving engine and its KV pool, the
 checkpointer, the fit loop and its callbacks, the supervisor, the fault
-injector, the preemption handler, the buddy-redundancy tier and the flight
-recorder), with the same names and the same field sets, so one event file reads the same with either package's tools.
+injector, the preemption handler, the buddy-redundancy tier, the flight
+recorder, the serving fleet and the serving service), with the same names
+and the same field sets, so one event file reads the same with either
+package's tools.
 The transport adds ``ts``, ``event`` and ``pid`` to every record; those
 never appear here. :func:`check` holds a record to its row.
 """
@@ -47,6 +49,18 @@ DRAFT_SYNC = "draft_sync"
 SPEC_K_ADJUST = "spec_k_adjust"
 DECODE_KERNEL_SELECTED = "decode_kernel_selected"
 PREFIX_EVICT = "prefix_evict"
+
+# The serving fleet (fleet/core.py) and its prefix gossip.
+FLEET_REPLICA_KILLED = "fleet_replica_killed"
+PREFIX_GOSSIP_ADVERTISE = "prefix_gossip_advertise"
+PREFIX_GOSSIP_ADOPT = "prefix_gossip_adopt"
+
+# The multi-process serving service (serve_service/).
+SERVICE_START = "service_start"
+REPLICA_SPAWN = "replica_spawn"
+STREAM_OPEN = "stream_open"
+QUOTA_REJECT = "quota_reject"
+TRANSPORT_FALLBACK = "transport_fallback"
 
 # Checkpoints and callbacks (checkpoint/core.py, training/callbacks.py).
 CORRUPT_CHECKPOINT_SKIPPED = "corrupt_checkpoint_skipped"
@@ -190,6 +204,43 @@ EVENTS: Dict[str, dict] = {
         "required": ("blocks",),
         "optional": ("reason",),
     },
+    FLEET_REPLICA_KILLED: {
+        "required": ("replica",),
+        "optional": ("requeued",),
+    },
+    # A replica's newly advertised prefix keys: one record per replica a
+    # run, stamped with the weights version.
+    PREFIX_GOSSIP_ADVERTISE: {
+        "required": ("replica", "blocks"),
+        "optional": ("weights_version", "runs"),
+    },
+    # A cold replica installed a peer's prefix run instead of prefilling.
+    PREFIX_GOSSIP_ADOPT: {
+        "required": ("replica", "source", "blocks"),
+        "optional": ("tokens", "weights_version", "transport"),
+    },
+    SERVICE_START: {
+        "required": ("decode_replicas", "prefill_replicas"),
+        "optional": ("transport", "port"),
+    },
+    REPLICA_SPAWN: {
+        "required": ("replica",),
+        "optional": ("role", "pid", "port", "spinup_s"),
+    },
+    STREAM_OPEN: {
+        "required": ("request_id",),
+        "optional": ("tenant",),
+    },
+    QUOTA_REJECT: {
+        "required": ("tenant",),
+        "optional": ("request_id", "retry_after_s"),
+    },
+    # A KV payload could not ride its transport (missing shm directory,
+    # torn frame, incompatible pool): the receiver prefills instead.
+    TRANSPORT_FALLBACK: {
+        "required": ("request_id",),
+        "optional": ("reason", "replica"),
+    },
     # The restore scan skipped a file that does not load.
     CORRUPT_CHECKPOINT_SKIPPED: {
         "required": ("step", "path"),
@@ -267,9 +318,11 @@ __all__ = [
     "RESIZE_CAP_EXHAUSTED", "RESTART", "RESTORE_BEGIN", "RESTORE_END",
     "RUN_COMPLETE", "STRAGGLER",
     "AUTO_SHARD_PLAN", "CORRUPT_CHECKPOINT_SKIPPED", "DECODE_KERNEL_SELECTED", "DRAFT_SYNC",
-    "BUBBLE_REPORT", "EVENTS", "METRICS_SNAPSHOT", "OVERLAP_REPORT",
-    "PIPELINE_SCHEDULE_SELECTED", "PREFIX_CACHE_HIT",
-    "PREFIX_EVICT",
+    "BUBBLE_REPORT", "EVENTS", "FLEET_REPLICA_KILLED", "METRICS_SNAPSHOT",
+    "OVERLAP_REPORT", "PIPELINE_SCHEDULE_SELECTED", "PREFIX_CACHE_HIT",
+    "PREFIX_EVICT", "PREFIX_GOSSIP_ADOPT", "PREFIX_GOSSIP_ADVERTISE",
+    "QUOTA_REJECT", "REPLICA_SPAWN", "SERVICE_START", "STREAM_OPEN",
+    "TRANSPORT_FALLBACK",
     "SPEC_K_ADJUST", "SPEC_VERIFY", "SYNC_CHECK_FAILED", "check",
     "allows_extra", "optional_keys", "required_keys",
 ]

@@ -558,6 +558,238 @@ PAIRS.update({
 })
 
 
+from distributed_tpu import fleet as jfl  # noqa: E402
+from distributed_tpu import serve_service as jsvc  # noqa: E402
+from distributed_tpu.fleet import handoff as jhandoff  # noqa: E402
+from distributed_tpu_torch import fleet as pfl  # noqa: E402
+from distributed_tpu_torch import serve_service as psvc  # noqa: E402
+from distributed_tpu_torch.fleet import handoff as phandoff  # noqa: E402
+
+_FLEET = dict(max_slots=2, block_size=4, max_len=8)
+
+
+def _fleet(**kw):
+    if kw.get("prefix_gossip"):
+        kw.setdefault("prefix_cache", True)
+    if kw.get("programs") == "programs":
+        kw["programs"] = pfl.EnginePrograms(_compiled())
+    return pfl.ServingFleet(_compiled(), **{**_FLEET, **kw})
+
+
+def _seq(n=3):
+    return dtt.serving.Sequence(dtt.serving.Request(np.arange(n) % 32, 2))
+
+
+def _pool(prefix_cache=False):
+    return dtt.serving.PagedKVCache(
+        _compiled().module, max_slots=2, block_size=4, max_blocks_per_seq=2,
+        num_blocks=5, dtype=torch.float32, device="cpu",
+        prefix_cache=prefix_cache)
+
+
+def _handoff(**kw):
+    kv = _pool()
+    kv.reserve(0, 5)
+    return pfl.pack_kv(kv, 0, 5, **kw)
+
+
+def _decode_replica(**kw):
+    return pfl.DecodeReplica("decode-0", pfl.EnginePrograms(_compiled()),
+                             **{**_FLEET, **kw})
+
+
+_SPEC = dict(model=dict(vocab_size=32, num_layers=1, d_model=16,
+                        num_heads=2, max_len=8), build_len=8, device="cpu")
+
+
+def _service(**kw):
+    return psvc.ServeService(psvc.ServeSpec(**_SPEC), spawn=False, **kw)
+
+
+def _stopped(svc, fn):
+    try:
+        return fn(svc)
+    finally:
+        svc.stop()
+
+
+PAIRS.update({
+    "ServingFleet": (jfl.ServingFleet, pfl.ServingFleet, {
+        "decode_replicas": (1, None), "prefill_replicas": (0, None),
+        "max_slots": (1, None), "block_size": (2, None), "max_len": (8, None),
+        "num_blocks": (9, None), "prefill_chunk": (2, None),
+        "transfer": ("none", None), "prefix_cache": (True, None),
+        "prefix_gossip": (True, None), "temperature": (0.5, None),
+        "top_k": (4, None), "eos_id": (1, None), "seed": (3, None),
+        "router": (pfl.Router(), None),
+        "autoscaler": (pfl.QueueAutoscaler(), None),
+        "fault": (pres.FaultInjector("replica_kill", replica="decode-9"),
+                  None),
+        "programs": ("programs", None)},
+        lambda f, **kw: _fleet(**kw).run([(np.arange(3), 2)])),
+    "ServingFleet.run": (jfl.ServingFleet.run, pfl.ServingFleet.run, {
+        "arrival_times": ([0.0, 0.01], None),
+        "tenants": (["a", "b"], None)},
+        lambda f, **kw: _fleet().run([(np.arange(3), 2)] * 2, **kw)),
+    "ServingFleet.update_weights": (
+        jfl.ServingFleet.update_weights, pfl.ServingFleet.update_weights, {},
+        lambda f, **kw: (lambda fl: fl.update_weights(
+            fl.model.params))(_fleet())),
+    "Router": (jfl.Router, pfl.Router, {
+        "max_queue": (4, None), "slo_ttft_s": (1.0, None),
+        "tenant_weights": ({"a": 2.0}, None), "service_window": (8, None)},
+        lambda f, **kw: f(**kw).telemetry()),
+    "Router.submit": (jfl.Router.submit, pfl.Router.submit, {
+        "tenant": ("a", None), "now": (1.0, None)},
+        lambda f, **kw: pfl.Router().submit(
+            dtt.serving.Request(np.arange(3), 2), **kw)),
+    "Router.place": (jfl.Router.place, pfl.Router.place, {
+        "gossip_adoptable": (True, None)},
+        lambda f, **kw: pfl.Router().place(_seq(), [_decode_replica()],
+                                           **kw)),
+    "QueueAutoscaler": (jfl.QueueAutoscaler, pfl.QueueAutoscaler, {
+        "min_replicas": (2, None), "max_replicas": (3, None),
+        "queue_high": (3.0, None), "queue_low": (0.5, None),
+        "slo_ttft_s": (1.0, None), "cooldown_s": (0.1, None),
+        "spinup_s": (0.2, None)},
+        lambda f, **kw: f(**kw).probe()),
+    "QueueAutoscaler.decide": (
+        jfl.QueueAutoscaler.decide, pfl.QueueAutoscaler.decide, {
+            "free_slots": (4, None), "slots_per_replica": (2, None),
+            "recent_p99_ttft": (2.0, None)},
+        lambda f, **kw: pfl.QueueAutoscaler().decide(
+            0.0, queue_depth=3, replicas=1, **kw)),
+    "EnginePrograms": (jfl.EnginePrograms, pfl.EnginePrograms, {
+        "temperature": (0.5, None), "top_k": (4, None), "seed": (3, None),
+        "decode_kernel": ("fused", None)},
+        lambda f, **kw: f(_compiled(), **kw).token_key(_seq())),
+    "PrefillReplica": (jfl.PrefillReplica, pfl.PrefillReplica, {
+        "prefill_chunk": (2, None)},
+        lambda f, **kw: f("prefill-0", pfl.EnginePrograms(_compiled()),
+                          block_size=4, max_len=8, **kw).prefill(_seq())),
+    "DecodeReplica": (jfl.DecodeReplica, pfl.DecodeReplica, {
+        "num_blocks": (9, None), "prefill_chunk": (2, None),
+        "eos_id": (1, None), "prefix_cache": (True, None)},
+        lambda f, **kw: (lambda r: (r.submit(_seq(), 0.0), r.step(0.0)))(
+            _decode_replica(**kw))),
+    "DecodeReplica.submit": (jfl.DecodeReplica.submit,
+                             pfl.DecodeReplica.submit, {
+        "payload": ("handoff", None)},
+        lambda f, **kw: _decode_replica().submit(
+            _seq(6), 0.0, payload=_handoff())),
+    "KVHandoff": (jfl.KVHandoff, pfl.KVHandoff, {
+        "prefix_hashes": (("k",), None), "skip_blocks": (1, None),
+        "weights_version": (2, None)},
+        lambda f, **kw: f({}, 4, 4, "float32", **kw).nbytes),
+    "pack_kv": (jfl.pack_kv, pfl.pack_kv, {"tokens": ([1, 2, 3, 4, 5], None)},
+                lambda f, **kw: _handoff(**kw)),
+    "install_kv": (jfl.install_kv, pfl.install_kv, {},
+                   lambda f, **kw: (lambda kv: (kv.reserve(0, 5), f(
+                       kv, 0, _handoff())))(_pool())),
+    "trim_kv": (jhandoff.trim_kv, phandoff.trim_kv, {},
+                lambda f, **kw: f(_handoff(tokens=[1] * 5), set())),
+    "pack_prefix": (jfl.pack_prefix, pfl.pack_prefix, {
+        "weights_version": (1, None)},
+        lambda f, **kw: f(_pool(prefix_cache=True), ["k"], **kw)),
+    "adopt_prefix": (jfl.adopt_prefix, pfl.adopt_prefix, {
+        "weights_version": (1, None)},
+        lambda f, **kw: f(_pool(prefix_cache=True), pfl.KVHandoff(
+            {}, 4, 4, "float32"), **kw)),
+    "PrefixGossipIndex.advertise": (
+        jfl.PrefixGossipIndex.advertise, pfl.PrefixGossipIndex.advertise, {
+            "weights_version": (1, None)},
+        lambda f, **kw: pfl.PrefixGossipIndex().advertise("r", ["k"], **kw)),
+    "PrefixGossipIndex.best_peer": (
+        jfl.PrefixGossipIndex.best_peer, pfl.PrefixGossipIndex.best_peer, {
+            "weights_version": (1, None), "exclude": (("r",), None)},
+        lambda f, **kw: pfl.PrefixGossipIndex().best_peer(["k"], **kw)),
+    "PrefixGossipIndex.holders": (
+        jfl.PrefixGossipIndex.holders, pfl.PrefixGossipIndex.holders, {
+            "weights_version": (1, None)},
+        lambda f, **kw: pfl.PrefixGossipIndex().holders("k", **kw)),
+    "ServeSpec": (jsvc.ServeSpec, psvc.ServeSpec, {
+        "optimizer": ("adam", None), "loss": ("sparse_categorical_"
+                                              "crossentropy", None),
+        "temperature": (0.5, None), "top_k": (4, None), "seed": (3, None),
+        "max_slots": (1, None), "block_size": (2, None), "max_len": (8, None),
+        "num_blocks": (9, None), "prefill_chunk": (2, None),
+        "eos_id": (1, None), "prefix_cache": (True, None)},
+        lambda f, **kw: f(**_SPEC, **kw).engine()),
+    "ServeSpec.worker_blob": (jsvc.ServeSpec.worker_blob,
+                              psvc.ServeSpec.worker_blob, {
+        "engine_overrides": ({"block_size": 8}, None)},
+        lambda f, **kw: psvc.ServeSpec(**_SPEC).worker_blob(
+            "decode-0", "decode", transport="none", shm_root=None, **kw)),
+    "ServeService": (jsvc.ServeService, psvc.ServeService, {
+        "decode_replicas": (2, None), "prefill_replicas": (1, None),
+        "router": (pfl.Router(), None), "quotas": (psvc.TenantQuotas(), None),
+        "autoscaler": (pfl.QueueAutoscaler(), None),
+        "transport": ("inline", None), "spawn": (False, None),
+        "respawn": (False, None), "dispatch_window": (2, None),
+        "engine_overrides": ({"decode": {"block_size": 8}}, None),
+        "log_dir": ("tmp", None)},
+        lambda f, **kw: _stopped(f(psvc.ServeSpec(**_SPEC), **{
+            "spawn": False, **{k: (_tmp() if v == "tmp" else v)
+                               for k, v in kw.items()}}).start(wait=False),
+            lambda svc: svc.run([]))),
+    "ServeService.start": (jsvc.ServeService.start, psvc.ServeService.start, {
+        "wait": (True, None), "timeout_s": (5.0, None)},
+        lambda f, **kw: _stopped(_service().start(**kw), lambda svc: None)),
+    "ServeService.submit": (jsvc.ServeService.submit,
+                            psvc.ServeService.submit, {
+        "tenant": ("a", None), "now": (1.0, None)},
+        lambda f, **kw: _service().submit(
+            dtt.serving.Request(np.arange(3), 2), **kw)),
+    "ServeService.run": (jsvc.ServeService.run, psvc.ServeService.run, {
+        "arrival_times": ([], None), "tenants": ([], None),
+        "deadline_s": (5.0, None), "on_pump": (lambda s: None, None)},
+        lambda f, **kw: _stopped(_service().start(wait=False),
+                                 lambda svc: svc.run([], **kw))),
+    "ServeService.wait_ready": (jsvc.ServeService.wait_ready,
+                                psvc.ServeService.wait_ready, {
+        "timeout_s": (5.0, None)},
+        lambda f, **kw: _stopped(_service().start(wait=False),
+                                 lambda svc: svc.wait_ready(**kw))),
+    "ServeService.scrape": (jsvc.ServeService.scrape,
+                            psvc.ServeService.scrape, {
+        "timeout_s": (1.0, None)},
+        lambda f, **kw: _stopped(_service().start(wait=False),
+                                 lambda svc: svc.scrape(**kw))),
+    "ServeService.collect_stats": (jsvc.ServeService.collect_stats,
+                                   psvc.ServeService.collect_stats, {
+        "timeout_s": (1.0, None)},
+        lambda f, **kw: _stopped(_service().start(wait=False),
+                                 lambda svc: svc.collect_stats(**kw))),
+    "TenantQuotas": (jsvc.TenantQuotas, psvc.TenantQuotas, {
+        "limits": ({"a": (1.0, 2.0)}, None)},
+        lambda f, **kw: f(**kw).admit("a", 1.0, 0.0)),
+    "TokenBucket": (jsvc.TokenBucket, psvc.TokenBucket, {},
+                    lambda f, **kw: f(1.0, 2.0).try_take(1.0, 0.0)),
+    "ShmTransport": (jsvc.ShmTransport, psvc.ShmTransport, {
+        "root": ("tmp", None), "owner": (True, None)},
+        lambda f, **kw: f(**{k: (_tmp() if v == "tmp" else v)
+                             for k, v in kw.items()}).close()),
+    "shm_root": (jsvc.shm_root, psvc.shm_root, {
+        "prefix": ("sig-serve-", None)},
+        lambda f, **kw: os.rmdir(f(**kw))),
+    "send_frame": (jsvc.send_frame, psvc.send_frame, {
+        "blobs": ((b"x",), None)},
+        lambda f, **kw: f(type("S", (), {"sendall": lambda s, d: None})(),
+                          {"type": "hello"}, **kw)),
+    "recv_frame": (jsvc.recv_frame, psvc.recv_frame, {},
+                   lambda f, **kw: None),
+    "encode_payload": (jsvc.encode_payload, psvc.encode_payload, {},
+                       lambda f, **kw: f(psvc.handoff_to_payload(
+                           _handoff()))),
+    "decode_payload": (jsvc.decode_payload, psvc.decode_payload, {},
+                       lambda f, **kw: f(*psvc.encode_payload(
+                           psvc.handoff_to_payload(_handoff())))),
+    "payload_to_handoff": (jsvc.payload_to_handoff, psvc.payload_to_handoff,
+                           {}, lambda f, **kw: f(psvc.handoff_to_payload(
+                               _handoff()))),
+})
+
+
 def _exits_zero(f, **kw):
     try:
         f(**kw)

@@ -71,6 +71,20 @@ def jax_engine(model, **kw):
     return engine
 
 
+class FixedClock:
+    """``time`` as the fleet modules see it (``fleet.replica``,
+    ``fleet.core`` of either package): each ``perf_counter`` call advances
+    10 ms, so every timed dispatch costs exactly that and the virtual
+    clock's schedule no longer depends on the host."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def perf_counter(self):
+        self.t += 0.01
+        return self.t
+
+
 def as_np(x):
     """A JAX array or torch tensor as an f32 numpy array."""
     if isinstance(x, torch.Tensor):
