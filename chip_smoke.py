@@ -395,7 +395,39 @@ z. The auto-shard planner and the gang launcher's restart and liveness.
    the streamed tokens equal to an in-process fleet built from the same
    spec; then ``decode-1`` killed mid-run (``kill_replica``), recovered
    token-exact, its flight dump's tail printed, and every worker exiting
-   0 at ``stop()``.
+   0 at ``stop()``. (z6) Online post-training: ``rl.PostTrainer`` on
+   phase c's GPT-2-small (bf16 layers, seed 0) over
+   ``Engine(max_slots=16, block_size=16, max_len=1024, temperature=1.0,
+   decode_kernel="fused")`` with ``kl_coef=AdaptiveKLCoef()`` and
+   ``optimizer=fused_adam(1e-5)``: 8 prompts of 32-64 tokens x 4 samples
+   x 64 new tokens, 3 iterations at the default ``train_len`` (1,024, so
+   ``fit`` takes the flash kernels); each iteration's row (reward, loss,
+   measured KL, kl_coef, rollout tokens/s, train s, weight-sync ms,
+   version); its 32 rollouts against a fresh Engine of the reference
+   read path on the same snapshot and seeds (each must be token-exact,
+   or part at a bf16 rounding tie of the sampling score, which one f32
+   forward of the common prefix checks for every rollout that parts);
+   ``weights_version`` rising by one; the KL finite; the launches of K1,
+   K3-K5 and K11 (counted around the iterations only) and peak memory.
+   Then ``bench.py:bench_rl``'s own configuration (``lm_l4_d256``, f32,
+   4 iterations), whose reward must rise every iteration. (z7)
+   ``rl.DraftDistiller`` on phase s's target and its 6-layer truncated
+   draft in a greedy speculative Engine (spec_k 4, fused): the accept
+   rate on phase c's 16 prompts before and after ``fit(rounds=2,
+   epochs=8)``, each round's loss falling, the draft's staleness back to
+   0; then phase d's f32 2-layer model with a 1-layer draft distilled the
+   same way, its speculative tokens equal to plain greedy decode's. (z8)
+   The data tiers: a ``FileSource`` of 2,560 random 224x224x3 images
+   (385 MB) under a temporary directory; ``Pipeline(dir)`` on the native
+   C++ ring (``is_native``) against the Python path, 10 batches of 256
+   bit for bit; ``scripts/torch_imagenet_resnet.py``'s model (RandomCrop
+   + RandomFlip + bf16 ResNet-50, its SGD-cosine and top-5 metric) for
+   10 steps at batch 256 from ``Pipeline(dir, prefetch=8,
+   num_threads=4)``: images/s, ``input_stall_fraction``, K12-K14's
+   launches, the augmentation's device ms against the step; then
+   ``mnist_cnn`` from 8,192 zlib-compressed records at
+   ``decode_workers`` 0 and 4: steps/s and the stall share, the two
+   streams bit-identical.
 Then the kernel table as one JSON line (each row also names the CUDA
 kernel of the main path, ``kernel``, and carries its launches in phase r's
 resumed steps, ``launches_resumed``, in phase t's fits that captured a
@@ -407,8 +439,9 @@ in phase v's scanned runs, ``launches_v``, in phase w's sharded runs,
 ``launches_w``, in phase x1's tensor- and sequence-parallel runs,
 ``launches_x``, in phase y's MoE, pipelined and composite runs,
 ``launches_y``, in phase z1's auto-compiled run, ``launches_z``, in
-phase z3's resumed worker, ``launches_z3``, and K1 in phase z4's
-full-width fleet, ``launches_z4``),
+phase z3's resumed worker, ``launches_z3``, K1 in phase z4's
+full-width fleet, ``launches_z4``, and in phases z6-z8,
+``launches_z6``-``launches_z8``),
 the card's name and power limit, and ``{"ok": true, "device": {...}}`` as
 the last line.
 """
@@ -4721,6 +4754,361 @@ def phase_service(torch, dtt):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------------------------ phases z6-z8
+def recording(engine, outs):
+    """``engine`` with its ``run`` outputs appended to ``outs``."""
+    run = engine.run
+
+    def wrapped(reqs, **kw):
+        got = run(reqs, **kw)
+        outs.append(got)
+        return got
+
+    engine.run = wrapped
+    return engine
+
+
+def counted(mods, counts, run):
+    """``run()``, its wrappers' launches added to ``counts``."""
+    before = launch_counts(mods)
+    out = run()
+    for k, v in launch_counts(mods).items():
+        counts[k] = counts.get(k, 0) + v - before.get(k, 0)
+    return out
+
+
+def sample_tie(torch, module, engine_seed, req, got, want):
+    """Where two sampled rollouts of ``req`` first part: the engine's
+    sampling score ``logits / T + gumbel`` (T = 1) of both tokens there,
+    from one f32-logit forward of the common prefix through ``module``
+    (eval, this card) and the token's own noise (the engine's key for
+    it). Returns (position, the score gap, whether the two are the top
+    two, whether the gap is within bf16's ``TOL`` of the logit: a
+    rounding tie, not a fault)."""
+    from distributed_tpu_torch.serving import engine as engine_lib
+    from distributed_tpu_torch.utils import threefry
+
+    pos = int(np.nonzero(got != want)[0][0])
+    prefix = torch.from_numpy(want[None, :pos].astype(np.int64)).cuda()
+    with torch.inference_mode():
+        logits = module(prefix)[0, -1].float()
+    key = engine_lib._token_key(engine_lib._mix_seed(engine_seed, req.seed),
+                                pos - req.prompt.size)
+    score = logits + threefry.gumbel_from_bits(threefry.row_bits(
+        key[None], logits.shape[-1], logits.device))[0]
+    a, b = int(want[pos]), int(got[pos])
+    top2 = set(torch.topk(score, 2).indices.tolist()) == {a, b}
+    gap = abs(float(score[a] - score[b]))
+    return pos, gap, top2, gap <= TOL["bfloat16"] * max(
+        1.0, abs(float(logits[a])))
+
+
+def phase_posttrain(torch, dtt, mods, iterations=3):
+    """z6: PostTrainer at GPT-2-small width (bf16 layers) over a sampling
+    Engine through K1, ``fused_adam`` (K11), ``AdaptiveKLCoef``; the
+    default ``train_len`` (1,024) takes the flash kernels in ``fit``.
+    Each iteration's rollouts against a fresh reference-read-path Engine
+    on the same snapshot and requests; then ``bench.py:bench_rl``'s own
+    small configuration, whose reward must rise every iteration."""
+    from distributed_tpu_torch import rl
+    from distributed_tpu_torch.rl.loop import request_seed
+
+    torch.cuda.reset_peak_memory_stats()
+    model = dtt.Model(dtt.models.transformer_lm(VOCAB, dtype="bfloat16",
+                                                **LM))
+    model.build((LM["max_len"],), seed=0)
+    kw = dict(max_slots=16, block_size=16, max_len=LM["max_len"],
+              temperature=1.0)
+    outs = []
+    engine = recording(dtt.serving.Engine(model, decode_kernel="fused",
+                                          **kw), outs)
+    pt = rl.PostTrainer(model, engine, kl_coef=dtt.optim.AdaptiveKLCoef(),
+                        optimizer=dtt.optim.fused_adam(1e-5))
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, VOCAB, (int(n),)).astype(np.int32)
+               for n in rng.integers(32, 65, 8)]
+    samples, new = 4, 64
+    counts, rows = {}, []
+    for it in range(1, iterations + 1):
+        reqs = [dtt.serving.Request(p, new, seed=request_seed(
+            pt.seed, pt.iteration + 1, pi, si))
+            for pi, p in enumerate(prompts) for si in range(samples)]
+        ref = dtt.serving.Engine(model, decode_kernel="reference", **kw)
+        want = ref.run(reqs)
+        row = counted(mods, counts, lambda: pt.iterate(
+            prompts, num_samples=samples, max_new_tokens=new))
+        got = outs[-1]
+        same = [np.array_equal(a, b) for a, b in zip(got, want)]
+        # Every rollout that differs is held to the sampling score where
+        # it parts: the reference engine's snapshot holds the weights both
+        # sampled from (the model has moved on).
+        ties = {i: sample_tie(torch, ref._target.module, engine.seed,
+                              reqs[i], got[i], want[i])
+                for i, ok in enumerate(same) if not ok}
+        del ref
+        rows.append(row)
+        print(f"  iteration {it}: reward {row['reward_mean']:.6f}, loss "
+              f"{row['loss']:.6f}, KL {row['kl']:.3e}, kl_coef "
+              f"{row['kl_coef']:.5f}, rollout {row['rollout_tokens_per_sec']:.1f}"
+              f" tokens/s, train {row['train_s']:.3f} s, weight sync "
+              f"{row['weight_sync_s'] * 1e3:.1f} ms, version "
+              f"{row['weights_version']}; rollouts token-exact against the "
+              f"reference read path: first {same[0]}, {sum(same)} of "
+              f"{len(same)}; the {len(ties)} that part, each at a bf16 "
+              f"tie of its sampling score: "
+              f"{sum(t[2] and t[3] for t in ties.values())}")
+        for i, (pos, gap, top2, tie) in ties.items():
+            print(f"    rollout {i} parts at position {pos}: score gap "
+                  f"{gap:.3e}, both the top two {top2}, a bf16 tie {tie}")
+            if not (top2 and tie):
+                raise SystemExit(f"iteration {it}: rollout {i} differs "
+                                 "from the reference read path's at a "
+                                 "token that is no rounding tie")
+        if row["weights_version"] != it or not math.isfinite(row["kl"]):
+            raise SystemExit(f"iteration {it}: weights_version "
+                             f"{row['weights_version']}, KL {row['kl']}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  launches in the {iterations} iterations {counts}; peak memory "
+          f"{peak:.2f} GB")
+    for name in ("paged_attention", "flash_fwd", "flash_dq", "flash_dkv",
+                 "fused_adam"):
+        if not counts.get(name):
+            raise SystemExit(f"post-training never launched {name}")
+    del pt, engine, model, outs
+    torch.cuda.empty_cache()
+
+    # bench.py:bench_rl's configuration (lm_l4_d256, f32, the reference
+    # read path, Adam(1e-3), kl 0.01, 4 iterations).
+    small = dtt.Model(dtt.models.transformer_lm(
+        512, num_layers=4, d_model=256, num_heads=8, max_len=128))
+    small.compile(optimizer="adam", loss="sparse_categorical_crossentropy")
+    small.build((32,))
+    eng = dtt.serving.Engine(small, 8, 16, max_len=128, temperature=1.0,
+                             seed=0)
+    bench = rl.PostTrainer(small, eng,
+                           reward_fn=rl.length_penalized_logprob(0.0),
+                           learning_rate=1e-3, kl_coef=0.01, seed=0)
+    brng = np.random.default_rng(0)
+    bprompts = [brng.integers(0, 512, (8,)).astype(np.int32)
+                for _ in range(8)]
+    brows = bench.train(bprompts, iterations=4, num_samples=4,
+                        max_new_tokens=32)
+    rewards = [r["reward_mean"] for r in brows]
+    print(f"  bench_rl's configuration: rewards {rewards}, rollout "
+          f"tokens/s {[r['rollout_tokens_per_sec'] for r in brows]}, weight "
+          f"sync ms {[round(r['weight_sync_s'] * 1e3, 2) for r in brows]}")
+    if any(b <= a for a, b in zip(rewards, rewards[1:])):
+        raise SystemExit(f"bench_rl: the reward did not rise every "
+                         f"iteration: {rewards}")
+    del bench, eng, small
+    torch.cuda.empty_cache()
+    return counts
+
+
+def distill_round(dtt, engine, draft, prompts, new, lr):
+    """Acceptance before, ``DraftDistiller.fit(rounds=2, epochs=8)``,
+    acceptance after; returns (rows, before, after, tokens after)."""
+    from distributed_tpu_torch import rl
+
+    def accept():
+        outs = engine.run([dtt.serving.Request(p, new) for p in prompts])
+        return outs, engine.last_run_telemetry["speculative"]["accept_rate"]
+
+    _, before = accept()
+    rows = rl.DraftDistiller(engine, draft, learning_rate=lr).fit(
+        prompts, max_new_tokens=new, rounds=2, epochs=8)
+    outs, after = accept()
+    return rows, before, after, outs
+
+
+def phase_distill(torch, dtt, mods, reqs, small):
+    """z7: DraftDistiller on phase s's GPT-2-small target (bf16) and its
+    6-layer truncated draft in a greedy speculative Engine (spec_k 4,
+    fused): accept rate on phase c's 16 prompts before and after 2 rounds
+    of 8 epochs; then the same at phase d's f32 2-layer width with a
+    1-layer draft, whose tokens must equal plain greedy decode's."""
+    target = dtt.Model(dtt.models.transformer_lm(VOCAB, dtype="bfloat16",
+                                                 **LM))
+    target.build((LM["max_len"],), seed=0)
+    draft = truncated_draft(dtt, target, LM["num_layers"] // 2,
+                            dtype="bfloat16", seed=1)
+    engine = dtt.serving.Engine(target, max_slots=8, block_size=16,
+                                max_len=LM["max_len"], decode_kernel="fused",
+                                draft_model=draft, spec_k=4)
+    prompts = [p for p, _ in reqs]
+    counts = {}
+    t = time.perf_counter()
+    rows, before, after, outs = counted(mods, counts, lambda: distill_round(
+        dtt, engine, draft, prompts, 64, 3e-4))
+    wall = time.perf_counter() - t
+    plain, _, _ = serve(dtt, target, [(p, 64) for p in prompts],
+                        decode_kernel="fused")
+    share, _ = agreement(outs, plain, [(p, 64) for p in prompts])
+    for r in rows:
+        print(f"  round {r['round']}: loss {r['loss_first']:.4f} -> "
+              f"{r['loss_last']:.4f} over {r['epochs']} epochs of "
+              f"{r['num_rollouts']} rollouts, train {r['train_s']:.2f} s")
+    print(f"  accept rate {before:.4f} before, {after:.4f} after; draft "
+          f"staleness {engine._draft_staleness}; agreement with plain "
+          f"greedy (bf16) {share:.4f}; {wall:.1f} s; launches {counts}")
+    if any(r["loss_last"] >= r["loss_first"] for r in rows):
+        raise SystemExit("distillation did not lower the draft's loss")
+    if engine._draft_staleness != 0:
+        raise SystemExit("the draft is stale after the distiller's sync")
+    del engine, draft, target
+    torch.cuda.empty_cache()
+
+    sdraft = truncated_draft(dtt, small, 1, seed=3)
+    sengine = dtt.serving.Engine(small, max_slots=8, block_size=16,
+                                 max_len=LM["max_len"], decode_kernel="fused",
+                                 draft_model=sdraft, spec_k=4)
+    sprompts = [p for p, _ in requests(8, (32, 256), (16, 32), seed=2)]
+    srows, sbefore, safter, souts = distill_round(dtt, sengine, sdraft,
+                                                  sprompts, 32, 1e-3)
+    splain, _, _ = serve(dtt, small, [(p, 32) for p in sprompts],
+                         decode_kernel="fused")
+    exact = all(np.array_equal(a, b) for a, b in zip(souts, splain))
+    print(f"  2 layers, f32: loss {srows[0]['loss_first']:.4f} -> "
+          f"{srows[-1]['loss_last']:.4f}, accept rate {sbefore:.4f} -> "
+          f"{safter:.4f}, token-exact against plain greedy decode {exact}")
+    if not exact or srows[-1]["loss_last"] >= srows[0]["loss_first"]:
+        raise SystemExit("f32 distilled speculation is not token-exact, or "
+                         "its loss did not fall")
+    return counts
+
+
+def write_image_shards(dtt, path, n=2560, size=224, classes=1000, seed=0):
+    """``n`` random uint8 images (size x size x 3) and labels as a
+    FileSource shard set, 512 rows a shard; returns the bytes written."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8)
+    y = rng.integers(0, classes, n).astype(np.int32)
+    dtt.data.write_shards(path, x, y, rows_per_shard=512)
+    return x.nbytes
+
+
+def same_stream(a, b, steps):
+    """True when two pipelines emit the same bytes for ``steps`` batches."""
+    for _ in range(steps):
+        (xa, ya), (xb, yb) = next(a), next(b)
+        if xa.tobytes() != xb.tobytes() or ya.tobytes() != yb.tobytes():
+            return False
+    return True
+
+
+def zlib_records(dtt, path, n=8192, seed=0):
+    """mnist-sized images (28 x 28, a label byte first) as zlib-compressed
+    records; returns the decoder."""
+    import zlib
+
+    x, y = dtt.data.synthetic_images(n, (28, 28), 10, seed)
+    dtt.data.write_records(path, (zlib.compress(bytes([int(c)]) + r.tobytes())
+                                  for r, c in zip(x, y)),
+                           records_per_shard=2048)
+
+    def decode(b):
+        raw = zlib.decompress(b)
+        return (np.frombuffer(raw, np.uint8, offset=1).reshape(28, 28, 1)
+                .astype(np.float32), raw[0])
+
+    return decode
+
+
+def phase_data_tiers(torch, dtt, mods, batch=256, steps=10):
+    """z8: scripts/torch_imagenet_resnet.py's model (RandomCrop + RandomFlip
+    + bf16 ResNet-50) fitted from ``Pipeline(dir)`` on the native ring over
+    a FileSource of 2,560 224x224x3 images (the stream held to the Python
+    path's), then mnist_cnn from zlib records at decode_workers 0 and 4."""
+    from distributed_tpu_torch.utils import threefry
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import torch_imagenet_resnet as recipe
+
+    tmp = tempfile.mkdtemp(prefix="chip-z8-")
+    try:
+        t = time.perf_counter()
+        nbytes = write_image_shards(dtt, os.path.join(tmp, "images"))
+        print(f"  FileSource of {nbytes // (224 * 224 * 3)} images, "
+              f"{nbytes} B in 5 shards, "
+              f"written in {time.perf_counter() - t:.1f} s")
+        shard_dir = os.path.join(tmp, "images")
+        ring = dtt.data.Pipeline(shard_dir, batch_size=batch, prefetch=8,
+                                 num_threads=4)
+        plain = dtt.data.Pipeline(shard_dir, batch_size=batch,
+                                  use_native=False)
+        t = time.perf_counter()
+        bits = same_stream(ring, plain, steps)
+        cmp_s = time.perf_counter() - t
+        print(f"  the ring (is_native {ring.is_native}) against the Python "
+              f"path: {steps} batches bit-identical {bits} ({cmp_s:.1f} s "
+              f"for both)")
+        if not (ring.is_native and bits):
+            raise SystemExit("the native ring did not run, or its stream "
+                             "differs from the Python path's")
+        ring.close()
+        plain.close()
+        model = recipe.compile_recipe(
+            dtt.Model(recipe.augmented_resnet50()), batch=batch, epochs=1,
+            steps_per_epoch=steps)
+        model.build((224, 224, 3))
+        source = dtt.data.Pipeline(shard_dir, batch_size=batch, prefetch=8,
+                                   num_threads=4)
+        model.fit(source, epochs=1, steps_per_epoch=2, verbose=0)  # warm-up
+        counts = {}
+        secs = wall_s(torch, lambda: counted(mods, counts, lambda: model.fit(
+            source, epochs=1, steps_per_epoch=steps, verbose=0)))
+        tel = model.last_fit_telemetry
+        crop, flip = model.module.layers[:2]
+        xb = torch.from_numpy(next(source)[0]).cuda()
+        key = threefry.device_key(threefry.PRNGKey(1), "cuda")
+        crop.train()
+        flip.train()
+        with dtt.nn.rng_scope(key):
+            aug_ms = cuda_ms(torch, lambda i: flip(crop(xb)), 10)
+        step_ms = secs / steps * 1e3
+        print(f"  {steps} steps at batch {batch}: {batch * steps / secs:.1f} "
+              f"images/s, {step_ms:.1f} ms a step, input_stall_fraction "
+              f"{tel['input_stall_fraction']}, augmentation {aug_ms:.3f} ms "
+              f"of device time a batch ({aug_ms / step_ms:.2%} of the "
+              f"step); launches {counts}")
+        for name in ("conv1x1", "bn_stats", "bn_bwd_reduce"):
+            if not counts.get(name):
+                raise SystemExit(f"the recipe never launched {name}")
+        source.close()
+        del model, xb
+        torch.cuda.empty_cache()
+
+        decode = zlib_records(dtt, os.path.join(tmp, "records"))
+        src = dtt.data.RecordSource(os.path.join(tmp, "records"), decode)
+        streams = [dtt.data.Pipeline(src, batch_size=batch, scale=1 / 255,
+                                     decode_workers=w) for w in (0, 4)]
+        bits = same_stream(*streams, 32)
+        for s in streams:
+            s.close()
+        for w in (0, 4):
+            m = dtt.Model(dtt.models.mnist_cnn())
+            m.compile(optimizer=dtt.optim.SGD(0.001),
+                      loss="sparse_categorical_crossentropy")
+            m.build((28, 28, 1), seed=0)
+            pipe = dtt.data.Pipeline(src, batch_size=batch, scale=1 / 255,
+                                     decode_workers=w)
+            m.fit(pipe, epochs=1, steps_per_epoch=2, verbose=0)
+            secs = wall_s(torch, lambda: m.fit(pipe, epochs=1,
+                                               steps_per_epoch=32, verbose=0))
+            print(f"  mnist_cnn from zlib records, decode_workers {w}: "
+                  f"{32 / secs:.1f} steps/s, input_stall_fraction "
+                  f"{m.last_fit_telemetry['input_stall_fraction']}")
+            pipe.close()
+        print(f"  decode_workers 0 and 4: 32 batches bit-identical {bits}")
+        if not bits:
+            raise SystemExit("the record streams differ between worker "
+                             "counts")
+        src.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts
+
+
 def main():
     import torch
 
@@ -4986,6 +5374,21 @@ def main():
           f"decode + 1 prefill worker processes, KV over /dev/shm | "
           f"{card_line()}")
     phase_service(torch, dtt)
+    print(f"phase z6: PostTrainer at GPT-2-small width (bf16 layers): "
+          f"Engine(16 slots, temperature 1.0, fused), fused_adam(1e-5), "
+          f"AdaptiveKLCoef, 8 prompts x 4 samples x 64 tokens, 3 iterations "
+          f"| {card_line()}")
+    u_counts["z6"] = phase_posttrain(torch, dtt, (paged_ops, flash_ops,
+                                                  adam_ops, xent_ops))
+    print(f"phase z7: DraftDistiller on phase s's target and 6-layer draft "
+          f"(greedy, spec_k 4, fused), 2 rounds of 8 epochs | {card_line()}")
+    u_counts["z7"] = phase_distill(torch, dtt, (paged_ops, flash_ops,
+                                                adam_ops, xent_ops), reqs,
+                                   small)
+    print(f"phase z8: the data tiers: scripts/torch_imagenet_resnet.py's "
+          f"model from a FileSource on the native ring, mnist_cnn from zlib "
+          f"records | {card_line()}")
+    u_counts["z8"] = phase_data_tiers(torch, dtt, (conv_ops, bn_ops))
     for sub, counts in u_counts.items():
         for name, n in counts.items():
             if n:
@@ -5008,7 +5411,7 @@ def main():
          "replayed_fit": r.get("replayed_fit"),
          **{f"launches_{sub}": r[f"launches_{sub}"]
             for sub in ("u1", "u2", "u3", "v", "w", "x", "y", "z", "z3",
-                        "z4")
+                        "z4", "z6", "z7", "z8")
             if f"launches_{sub}" in r},
          **({"launches_spec": r["launches_spec"], "ms_by_kw": r["ms_by_kw"]}
             if "ms_by_kw" in r else {})}

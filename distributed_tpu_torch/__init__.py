@@ -63,7 +63,13 @@ Ported so far:
   (``serve_service``: the same replicas as worker processes behind a
   socket router on wall time, KV payloads over ``/dev/shm`` or inline
   frames, tenant quotas). ``fleet`` and ``serve_service`` load on first
-  use (``dtt.fleet``).
+  use (``dtt.fleet``);
+- online post-training (``rl``: ``PostTrainer`` over a sampling Engine,
+  ``DraftDistiller`` for a speculative engine's draft, the rewards and
+  ``optim.AdaptiveKLCoef``) and the data tiers (``data``: ``FileSource``
+  and ``RecordSource`` shards, the native C++ ring built with ``g++``
+  into ``_build/``, the record decode pool, the remaining loaders) with
+  the augmentation layers ``nn.RandomCrop``/``nn.RandomFlip``.
 """
 
 from . import (
@@ -80,6 +86,7 @@ from .parallel import (FSDP, CompositeParallel, DataExpertParallel,
                        ZeroDataParallel)
 from .training import callbacks
 from . import resilience  # after training and checkpoint: builds on both
+from . import rl  # after training and serving: drives both
 from .training.history import History
 from .training.model import Model
 
@@ -93,7 +100,7 @@ __all__ = [
     "cluster", "data", "export_hdf5", "import_hdf5", "interop", "launch",
     "models", "nn", "obs", "ops", "optim", "parallel", "precision", "quant",
     "resilience",
-    "resolve_device", "serving", "utils",
+    "resolve_device", "rl", "serving", "utils",
 ]
 
 

@@ -1,42 +1,259 @@
-"""Input pipeline: shuffled, normalized batches of an in-memory uint8 array.
+"""Input pipeline: prefetched shuffle/gather/decode/normalize batches.
 
-The port's copy of the JAX package's ``data.Pipeline`` (``data/
-pipeline.py``), its Python path: the same batch order, bit for bit. Each
-pass's row permutation is ``np.random.default_rng((seed, pass))
-.permutation(n)`` (the identity without ``shuffle``), a pass is ``n //
-batch_size`` steps, and step s of a pass takes rows ``[s * b, (s + 1) *
-b)`` of it; ``shard=(i, P)`` keeps rows ``[i * b/P, (i + 1) * b/P)`` of
-each global batch. The reference documents its native C++ ring as
-emitting this order bit for bit, so ``use_native=None`` takes this path.
-``use_native=True`` (the C++ ring) and file or record sources raise
-``NotImplementedError`` naming ROADMAP 1.8; host-side prefetch of the
-batches is ``fit``'s ``DevicePrefetcher``.
+The port of the JAX package's ``data/pipeline.py``: the same batch
+streams, bit for bit, from the same sources. Two implementations behind
+one API:
+
+- **Native (C++)**: ``native/pipeline.cc``, compiled with ``g++`` into the
+  git-ignored ``_build/`` at first use (keyed on a hash of the source and
+  flags, under a file lock, so ranks sharing a host build it once) and
+  driven through ``ctypes``. Worker threads keep a bounded ring of ready
+  float32 batches ahead of the consumer.
+- **Python**: the same semantics (per-pass reshuffle, steps per pass,
+  /255 normalization), and the only path of record sources.
+
+Batch streams are deterministic in (seed, pass, step) ACROSS
+implementations: the per-pass permutation is computed once, in numpy
+(``np.random.default_rng((seed, pass))``), and handed to the ring as an
+index buffer. ``DTPU_NATIVE_LEGACY_SHUFFLE=1`` restores the ring's own
+splitmix64 order; ``DTPU_NO_NATIVE=1`` keeps the ring unloaded.
+
+Record sources (``data.RecordSource``) add host-side **decode** of
+variable-length encoded records, optionally fanned across a bounded
+worker pool (``decode_workers=W``) with work assigned by step index and
+reassembled in order: the stream is bit-identical for any ``W``.
 """
 
 from __future__ import annotations
 
+import ctypes
+import hashlib
 import os
+import queue
+import subprocess
+import threading
+from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["Pipeline"]
+from ..utils import logging as dlog
+
+_PKG = Path(__file__).resolve().parents[1]
+NATIVE_SOURCE = Path(__file__).resolve().parent / "native" / "pipeline.cc"
+BUILD_DIR = _PKG / "_build"
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
+
+_lib_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+_lib_error: Optional[str] = None  # why the last load failed
+_lib_tried = False
 
 
-def _unported(what: str):
-    raise NotImplementedError(f"Pipeline({what}): not yet ported (ROADMAP "
-                              "1.8, the data tiers)")
+def _build_native() -> Path:
+    """Compile ``native/pipeline.cc`` into ``_build/`` under a name keyed
+    on a hash of the source and the flags, unless that library exists. An
+    exclusive ``fcntl`` lock orders processes that build at once (the test
+    workers, the ranks of a gang on one host): the first builds into a
+    temporary file and renames it into place, the others find it."""
+    import fcntl
+
+    h = hashlib.sha256(NATIVE_SOURCE.read_bytes())
+    h.update(" ".join(CXX_FLAGS).encode())
+    so = BUILD_DIR / f"libdtpu_pipeline-{h.hexdigest()[:16]}.so"
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".native.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not so.exists():
+                tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+                cxx = os.environ.get("CXX", "g++")
+                run = subprocess.run(
+                    [cxx, *CXX_FLAGS, "-o", str(tmp), str(NATIVE_SOURCE)],
+                    capture_output=True, text=True, timeout=300)
+                if run.returncode != 0:
+                    tmp.unlink(missing_ok=True)
+                    raise OSError(f"{cxx} failed on {NATIVE_SOURCE.name}:\n"
+                                  f"{run.stdout}{run.stderr}")
+                os.replace(tmp, so)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return so
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The C interface's argument and result types (the JAX package's
+    list)."""
+    lib.dtpu_pipeline_create_spans.restype = ctypes.c_void_p
+    lib.dtpu_pipeline_create_spans.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p),  # xs (span base pointers)
+        ctypes.POINTER(ctypes.c_int64),   # span_rows
+        ctypes.c_int64,   # n_spans
+        ctypes.c_void_p,  # y
+        ctypes.c_int64,   # n
+        ctypes.c_int64,   # row_elems
+        ctypes.c_int64,   # batch
+        ctypes.c_int,     # shuffle
+        ctypes.c_uint64,  # seed
+        ctypes.c_int,     # depth
+        ctypes.c_int,     # threads
+        ctypes.c_float,   # scale
+        ctypes.c_int64,   # start_step
+        ctypes.c_int64,   # shard_index
+        ctypes.c_int64,   # shard_count
+        ctypes.c_int,     # external_perms
+    ]
+    lib.dtpu_pipeline_next.restype = ctypes.c_int64
+    lib.dtpu_pipeline_next.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.dtpu_pipeline_steps_per_pass.restype = ctypes.c_int64
+    lib.dtpu_pipeline_steps_per_pass.argtypes = [ctypes.c_void_p]
+    lib.dtpu_pipeline_supply_perm.restype = None
+    lib.dtpu_pipeline_supply_perm.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
+    ]
+    lib.dtpu_pipeline_destroy.restype = None
+    lib.dtpu_pipeline_destroy.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+def _load_native() -> Optional[ctypes.CDLL]:
+    """Load (building on first use) the ring's library; None if it cannot
+    be built or loaded (the reason is kept for ``use_native=True``'s
+    error). ``DTPU_NO_NATIVE=1`` keeps it unloaded."""
+    global _lib, _lib_error, _lib_tried
+    with _lib_lock:
+        if _lib is not None or _lib_tried:
+            return _lib
+        _lib_tried = True
+        if os.environ.get("DTPU_NO_NATIVE") == "1":
+            _lib_error = "DTPU_NO_NATIVE=1"
+            return None
+        try:
+            _lib = _bind(ctypes.CDLL(str(_build_native())))
+        except (OSError, subprocess.SubprocessError) as e:
+            _lib_error = str(e)
+            dlog.warning(f"native pipeline unavailable ({e}); using Python")
+        return _lib
+
+
+def native_available() -> bool:
+    return _load_native() is not None
+
+
+_POLL_S = 0.05  # decode worker/consumer wake-up period for stop checks
+
+
+class _DecodePool:
+    """Bounded, order-preserving parallel decode stage.
+
+    Work items are whole batch steps, ``(step, indices)``, decoded by
+    ``fn(indices)`` on one of ``workers`` daemon threads and reassembled
+    by step key, so the consumed stream is bit-identical for ANY worker
+    count (``fn`` must be pure). The Pipeline bounds outstanding work, so
+    the results held here are bounded too.
+    """
+
+    def __init__(self, fn, workers: int):
+        self._fn = fn
+        self._tasks: "queue.Queue" = queue.Queue()
+        self._results = {}
+        self._cv = threading.Condition()
+        self._error: Optional[BaseException] = None
+        self._threads = [
+            threading.Thread(
+                target=self._run, name=f"dtpu-decode-{i}", daemon=True
+            )
+            for i in range(workers)
+        ]
+        for t in self._threads:
+            t.start()
+
+    def _run(self):
+        while True:
+            task = self._tasks.get()
+            if task is None:  # poison pill from close()
+                return
+            step, idx = task
+            try:
+                out = self._fn(idx)
+            except BaseException as e:  # surfaced to the consumer in get()
+                with self._cv:
+                    if self._error is None:
+                        self._error = e
+                    self._cv.notify_all()
+                return
+            with self._cv:
+                self._results[step] = out
+                self._cv.notify_all()
+
+    def submit(self, step: int, idx: np.ndarray):
+        self._tasks.put((int(step), idx))
+
+    def get(self, step: int):
+        """Block until step ``step``'s decode lands; re-raise any worker
+        error with its original type."""
+        with self._cv:
+            while step not in self._results:
+                if self._error is not None:
+                    raise self._error
+                self._cv.wait(timeout=_POLL_S)
+            return self._results.pop(step)
+
+    def close(self, join_timeout: float = 10.0):
+        """Idempotent shutdown: drop pending tasks, poison every worker,
+        join each within ``join_timeout``. Never raises: errors the
+        consumer cares about surface in get()."""
+        while True:  # unsubmitted work is abandoned, not decoded
+            try:
+                self._tasks.get_nowait()
+            except queue.Empty:
+                break
+        for _ in self._threads:
+            self._tasks.put(None)
+        for t in self._threads:
+            t.join(timeout=join_timeout)
+        with self._cv:
+            self._results.clear()
 
 
 class Pipeline:
-    """Iterator of ``(x_float32, y_int32)`` batches, infinite (passes
-    repeat, reshuffled). ``steps_per_pass`` is one epoch's length,
-    ``batch_shape`` the emitted x's shape; ``state_dict``/``load_state``
-    capture and restore the cursor (``Checkpointer`` records it), ``seek``
-    jumps to a global step and ``reshard`` adopts another slice of the
-    same global stream. The arguments are the JAX ``Pipeline``'s:
-    ``scale`` defaults to 1/255; ``prefetch`` and ``num_threads`` size
-    the native ring and are kept only for call parity here."""
+    """Iterator of ``(x_float32, y_int32)`` batches with background prefetch.
+
+    Args (the JAX ``Pipeline``'s):
+      x: uint8 array (N, ...), a file-backed shard set (``FileSource`` or a
+        directory path), or an indexed record store (``RecordSource``,
+        whose ``decode_fn`` turns encoded records into fixed-shape rows).
+      y: int labels (N,) or None.
+      batch_size: rows per emitted (global) batch.
+      shuffle: reshuffle every pass deterministically from ``seed``.
+      scale: multiplier of the ->float32 conversion; default 1/255 for
+        uint8 sources, 1.0 for record sources (``decode_fn`` normalizes).
+      prefetch: ring depth, how many batches may be ready ahead.
+      num_threads: the ring's producer threads (the stream does not
+        depend on it).
+      use_native: True (the C++ ring; raises when it cannot be built or
+        loaded), False (the Python path) or None (the ring when it loads,
+        else the Python path with a warning; :attr:`is_native` says which
+        was taken). Record sources always run the Python path.
+      shard: ``(index, count)``: this pipeline prepares only rows ``[index
+        * b/count, (index + 1) * b/count)`` of each global batch; "auto"
+        takes ``(rank, world size)`` of the formed ``torch.distributed``
+        group, ``(0, 1)`` without one.
+      decode_workers: record sources only: decode on this many worker
+        threads (0 decodes inline); the stream is the same for any count.
+      decode_readahead: batch steps that may be decoding (or decoded,
+        unconsumed) ahead of the consumer; default ``2 * decode_workers``.
+
+    The stream is infinite (passes repeat, reshuffled); ``steps_per_pass``
+    is one epoch's length. :meth:`state_dict`/:meth:`load_state` capture
+    and restore the cursor (``Checkpointer`` records it), :meth:`seek`
+    jumps to a global step and :meth:`reshard` adopts another slice of the
+    same global stream.
+    """
 
     def __init__(
         self,
@@ -54,45 +271,127 @@ class Pipeline:
         decode_workers: int = 0,
         decode_readahead: Optional[int] = None,
     ):
+        from .filesource import FileSource
+        from .records import RecordSource
+
+        # Teardown-critical fields FIRST: __del__ runs on instances whose
+        # __init__ raised partway, and close() must find them.
+        self._lib = None
+        self._handle = None
         self._closed = False
+        self._py_step = 0
+        self._decode_pool = None
         self.steps_emitted = 0  # lets fit() fast-forward on resume
-        if use_native:
-            _unported("use_native=True")
-        if isinstance(x, (str, os.PathLike)) or not hasattr(x, "dtype"):
-            _unported(f"a {type(x).__name__} source; an in-memory uint8 "
-                      "array is ported")
-        x = np.ascontiguousarray(x)
-        if x.dtype != np.uint8:
-            raise TypeError(f"Pipeline feeds raw uint8 data, got {x.dtype}")
-        n_rows = x.shape[0]
+
+        self._source: Optional[FileSource] = None
+        self._records: Optional[RecordSource] = None
+        self._decode_labels = False
+        if isinstance(x, (str, os.PathLike)):
+            x = FileSource(x)
+        if isinstance(x, RecordSource):
+            if x.decode_fn is None:
+                raise ValueError(
+                    "Pipeline needs a RecordSource with a decode_fn: "
+                    "records are encoded bytes, and only the decoder "
+                    "knows the row shape"
+                )
+            if use_native is True:
+                raise ValueError(
+                    "use_native=True is unavailable for record sources: "
+                    "decode_fn runs in Python (decode parallelism comes "
+                    "from decode_workers instead)"
+                )
+            self._records = x
+            row_shape, self._decode_labels = x.probe()
+            if self._decode_labels and y is not None:
+                raise ValueError(
+                    "labels come from decode_fn (it returns (row, label)); "
+                    "do not also pass y"
+                )
+            n_rows = x.n
+            self._x = None
+        elif isinstance(x, FileSource):
+            # The ring reads the memmaps through their base pointers: the
+            # source (and so its maps) lives as long as this pipeline.
+            self._source = x
+            if y is None:
+                y = x.y  # labels from the shard set, if present
+            n_rows = x.n
+            row_shape = x.row_shape
+            self._x = None
+        else:
+            x = np.ascontiguousarray(x)
+            if x.dtype != np.uint8:
+                raise TypeError(
+                    f"Pipeline feeds raw uint8 data, got {x.dtype}"
+                )
+            self._x = x
+            n_rows = x.shape[0]
+            row_shape = x.shape[1:]
         if batch_size <= 0 or batch_size > n_rows:
             raise ValueError(
-                f"batch_size {batch_size} invalid for {n_rows} rows")
-        if int(decode_workers):
-            raise ValueError(
-                "decode_workers requires a RecordSource input (raw uint8 "
-                "sources have nothing to decode)")
-        self._x = x
-        self._y = (None if y is None
-                   else np.ascontiguousarray(y, dtype=np.int32))
+                f"batch_size {batch_size} invalid for {n_rows} rows"
+            )
+        self._y = (
+            None if y is None else np.ascontiguousarray(y, dtype=np.int32)
+        )
         if self._y is not None and len(self._y) != n_rows:
             raise ValueError("x and y lengths differ")
         self.batch_size = int(batch_size)
-        self._row_shape = tuple(x.shape[1:])
+        self._row_shape = tuple(row_shape)
         self._set_shard(shard)
         self.shuffle = bool(shuffle)
         self.seed = int(seed)
-        self.scale = float(1.0 / 255.0 if scale is None else scale)
+        if scale is None:
+            scale = 1.0 if self._records is not None else 1.0 / 255.0
+        self.scale = float(scale)
         self.prefetch = max(1, int(prefetch))
         self.num_threads = max(1, int(num_threads))
         self._n = int(n_rows)
         self.steps_per_pass = self._n // self.batch_size
-        self._perm_cache = {}  # pass -> permutation
-        self.decode_workers = 0  # record decode (not ported) runs none
+        self._row = int(np.prod(row_shape, dtype=np.int64))
+        self._perm_cache = {}  # pass -> permutation (numpy, both paths)
+
+        self.decode_workers = max(0, int(decode_workers))
+        if self.decode_workers and self._records is None:
+            raise ValueError(
+                "decode_workers requires a RecordSource input (raw uint8 "
+                "sources have nothing to decode)"
+            )
+        self._decode_readahead = (
+            2 * self.decode_workers
+            if decode_readahead is None
+            else max(0, int(decode_readahead))
+        )
+        self._next_submit = 0  # next step handed to the decode pool
+
+        lib = None
+        if self._records is None and use_native in (None, True):
+            lib = _load_native()
+            if use_native is True and lib is None:
+                raise RuntimeError(
+                    f"Native pipeline requested but unavailable: "
+                    f"{_lib_error}")
+        self._lib = lib
+        # The ring consumes the numpy per-pass permutations unless the
+        # legacy flag pins its own splitmix order.
+        self._external_perms = (
+            lib is not None
+            and self.shuffle
+            and os.environ.get("DTPU_NATIVE_LEGACY_SHUFFLE") != "1"
+        )
+        self._supplied_passes = set()
+        if lib is not None:
+            self._handle = self._create_handle(0)
+        elif self.decode_workers:
+            self._decode_pool = _DecodePool(
+                self._decode_batch, self.decode_workers
+            )
 
     def _set_shard(self, shard) -> None:
         """Adopt a ``(index, count)`` slice of the global batch (None: the
-        whole batch; "auto": this process's rank and world size)."""
+        whole batch; "auto": this process's rank and world size). Shared
+        by ``__init__`` and :meth:`reshard`."""
         if isinstance(shard, str):
             if shard != "auto":
                 raise ValueError(
@@ -119,15 +418,65 @@ class Pipeline:
     def reshard(self, shard) -> "Pipeline":
         """Adopt a new slice of the SAME global stream at the current
         position: the next batch is this shard's rows of the global batch
-        the old sharding would have assembled next."""
+        the old sharding would have assembled next. The ring (or the
+        decode pool) is recreated at the current step."""
         if self._closed:
             raise ValueError("Pipeline is closed")
         self._set_shard(shard)
+        if self._handle is not None:
+            # Detach before recreating: a failed recreate must not leave a
+            # handle close() would destroy twice.
+            handle, self._handle = self._handle, None
+            self._lib.dtpu_pipeline_destroy(handle)
+            self._supplied_passes = set()
+            self._handle = self._create_handle(self.steps_emitted)
+        else:
+            # Decoded-but-unconsumed results were sliced for the OLD
+            # shard; drop and re-stage them for the new one.
+            self._reset_decode_pool(self._py_step)
         return self
 
+    def _create_handle(self, start_step: int):
+        # One span for an in-memory array; one per memory-mapped shard of
+        # a FileSource (a memmap's .ctypes gives the mapping's address).
+        arrays = (self._source.x_shards if self._source is not None
+                  else [self._x])
+        n_spans = len(arrays)
+        xs = (ctypes.c_void_p * n_spans)(
+            *[a.ctypes.data_as(ctypes.c_void_p).value for a in arrays]
+        )
+        rows = (ctypes.c_int64 * n_spans)(*[a.shape[0] for a in arrays])
+        handle = self._lib.dtpu_pipeline_create_spans(
+            ctypes.cast(xs, ctypes.POINTER(ctypes.c_void_p)),
+            ctypes.cast(rows, ctypes.POINTER(ctypes.c_int64)),
+            n_spans,
+            None if self._y is None
+            else self._y.ctypes.data_as(ctypes.c_void_p),
+            self._n,
+            self._row,
+            self.batch_size,
+            1 if self.shuffle else 0,
+            self.seed,
+            self.prefetch,
+            self.num_threads,
+            self.scale,
+            start_step,
+            0 if self.shard is None else self.shard[0],
+            1 if self.shard is None else self.shard[1],
+            1 if self._external_perms else 0,
+        )
+        if not handle:
+            raise RuntimeError("dtpu_pipeline_create failed")
+        # Producers may fill up to prefetch steps ahead at once; hand them
+        # every permutation they can reach first.
+        self._supply_native_perms(handle, start_step + self.prefetch)
+        return handle
+
+    # ------------------------------------------------------------- shuffle --
     def _pass_perm(self, pass_idx: int) -> np.ndarray:
-        """The pass's row permutation, cached; passes behind the cursor
-        are dropped."""
+        """THE per-pass row permutation (identity when shuffle=False),
+        shared by every path; cached, and passes behind the cursor are
+        dropped."""
         order = self._perm_cache.get(pass_idx)
         if order is None:
             if self.shuffle:
@@ -141,6 +490,27 @@ class Pipeline:
                 del self._perm_cache[old]
         return order
 
+    def _supply_native_perms(self, handle, max_step: int) -> None:
+        """Feed the ring every per-pass permutation its producers can
+        reach while filling through ``max_step``."""
+        if not self._external_perms or handle is None:
+            return
+        spp = max(1, self.steps_per_pass)
+        for p in range(self.steps_emitted // spp, max_step // spp + 1):
+            if p in self._supplied_passes:
+                continue
+            order = np.ascontiguousarray(self._pass_perm(p))
+            self._lib.dtpu_pipeline_supply_perm(
+                handle, p,
+                order.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            )
+            self._supplied_passes.add(p)
+        cur = self.steps_emitted // spp
+        self._supplied_passes = {
+            p for p in self._supplied_passes if p >= cur
+        }
+
+    # -------------------------------------------------------------- decode --
     def _indices_for_step(self, step: int) -> np.ndarray:
         pass_idx, within = divmod(step, self.steps_per_pass)
         start = within * self.batch_size
@@ -148,6 +518,69 @@ class Pipeline:
             start += self.shard[0] * self.shard_rows
         return self._pass_perm(pass_idx)[start:start + self.shard_rows]
 
+    def _decode_batch(self, idx: np.ndarray):
+        """Fetch, CRC-check and decode the records of one batch step, and
+        scale them. Pure in ``idx`` (decode_fn must be pure), so it runs
+        identically inline or on any decode worker."""
+        src = self._records
+        xb = np.empty((len(idx),) + self._row_shape, np.float32)
+        yb = (
+            np.empty((len(idx),), np.int32) if self._decode_labels else None
+        )
+        for i, g in enumerate(idx):
+            out = src.decode(int(g))
+            if self._decode_labels:
+                row, label = out
+                yb[i] = label
+            else:
+                row = out
+            row = np.asarray(row)
+            if row.shape != self._row_shape:
+                raise ValueError(
+                    f"decode_fn returned shape {row.shape} for record "
+                    f"{int(g)}, but record 0 decoded to "
+                    f"{self._row_shape} — rows must share one shape"
+                )
+            xb[i] = row
+        if self.scale != 1.0:
+            xb *= np.float32(self.scale)
+        return xb, yb
+
+    def _reset_decode_pool(self, step: int) -> None:
+        """Recreate the decode pool at ``step``: work of an abandoned
+        cursor (seek/reshard) is dropped, never consumed."""
+        if self._decode_pool is not None:
+            self._decode_pool.close()
+            self._decode_pool = _DecodePool(
+                self._decode_batch, self.decode_workers
+            )
+        self._next_submit = step
+
+    def _fill_records(self, xb: np.ndarray, yb: np.ndarray) -> None:
+        step = self._py_step
+        self._py_step += 1
+        if self._decode_pool is None:
+            rows, labels = self._decode_batch(self._indices_for_step(step))
+        else:
+            # Keep the pool primed readahead steps past the consumer.
+            if self._next_submit <= step:
+                self._next_submit = step
+            while self._next_submit <= step + self._decode_readahead:
+                self._decode_pool.submit(
+                    self._next_submit,
+                    self._indices_for_step(self._next_submit),
+                )
+                self._next_submit += 1
+            rows, labels = self._decode_pool.get(step)
+        xb[:] = rows
+        if labels is not None:
+            yb[:] = labels
+        elif self._y is not None:
+            yb[:] = self._y[self._indices_for_step(step)]
+        else:
+            yb[:] = 0
+
+    # ------------------------------------------------------------ iteration --
     def seek(self, step: int):
         """Jump to global step ``step`` in O(1): the stream depends only on
         (seed, pass, step within the pass)."""
@@ -156,9 +589,20 @@ class Pipeline:
         step = int(step)
         if step < 0:
             raise ValueError(f"seek target must be >= 0, got {step}")
-        self._perm_cache = {}
+        if self._handle is not None:
+            handle, self._handle = self._handle, None
+            self._lib.dtpu_pipeline_destroy(handle)
+            self._supplied_passes = set()
+            self._perm_cache = {}
+            self.steps_emitted = step  # perm pruning keys off the cursor
+            self._handle = self._create_handle(step)
+        else:
+            self._py_step = step
+            self._perm_cache = {}
+            self._reset_decode_pool(step)
         self.steps_emitted = step
 
+    # ------------------------------------------------------ iterator state --
     def state_dict(self, consumed_steps: Optional[int] = None) -> dict:
         """The cursor as JSON-able meta, with the identity fields
         ``load_state`` checks. ``consumed_steps`` (the step the model
@@ -196,7 +640,8 @@ class Pipeline:
 
     @property
     def is_native(self) -> bool:
-        return False
+        """True when the C++ ring emits the batches."""
+        return self._handle is not None
 
     def __iter__(self):
         return self
@@ -210,19 +655,43 @@ class Pipeline:
         return xb, yb
 
     def _fill(self, xb: np.ndarray, yb: np.ndarray) -> None:
-        idx = self._indices_for_step(self.steps_emitted)
-        # The JAX path's ``rows.astype(np.float32) * scale`` (an f32
-        # product), written straight into the batch.
-        np.multiply(self._x[idx], np.float32(self.scale), out=xb,
-                    dtype=np.float32)
-        yb[:] = 0 if self._y is None else self._y[idx]
+        """Write the next batch into contiguous f32/int32 buffers of
+        ``batch_shape``/``(shard_rows,)``: the one emit path behind
+        ``__next__`` and ``next_k``."""
+        if self._records is not None:
+            self._fill_records(xb, yb)
+        elif self._handle is not None:
+            # The call advances the ring's consumer to steps_emitted + 1,
+            # after which producers may fill through steps_emitted +
+            # prefetch: supply every permutation that window can touch.
+            self._supply_native_perms(
+                self._handle, self.steps_emitted + self.prefetch)
+            step = self._lib.dtpu_pipeline_next(
+                self._handle,
+                xb.ctypes.data_as(ctypes.c_void_p),
+                yb.ctypes.data_as(ctypes.c_void_p),
+            )
+            if step < 0:
+                raise StopIteration
+        else:
+            idx = self._indices_for_step(self._py_step)
+            self._py_step += 1
+            rows = (self._source.gather(idx) if self._source is not None
+                    else self._x[idx])
+            # The JAX path's ``rows.astype(np.float32) * scale`` (an f32
+            # product), written straight into the batch.
+            np.multiply(rows, np.float32(self.scale), out=xb,
+                        dtype=np.float32)
+            yb[:] = 0 if self._y is None else self._y[idx]
         self.steps_emitted += 1
 
     def next_k(self, k: int, out=None) -> Tuple[np.ndarray, np.ndarray]:
         """The next ``k`` batches stacked, ``(k,) + batch_shape`` and
         ``(k, shard_rows)``: the super-batch of ``steps_per_execution``.
         ``out=(xs, ys)``: write them there (contiguous f32 and int32 of
-        those shapes; ``fit`` passes its pinned staging buffers)."""
+        those shapes; ``fit`` passes its pinned staging buffers). Each
+        batch is written straight into its row, by the ring's copy or the
+        Python path's gather."""
         k = int(k)
         if k < 1:
             raise ValueError(f"next_k needs k >= 1, got {k}")
@@ -235,12 +704,43 @@ class Pipeline:
         if xs.shape != (k,) + self.batch_shape or ys.shape != (
                 k, self.shard_rows):
             raise ValueError(f"next_k(out=) shapes {xs.shape}, {ys.shape}")
+        if not (xs.flags["C_CONTIGUOUS"] and ys.flags["C_CONTIGUOUS"]
+                and xs.dtype == np.float32 and ys.dtype == np.int32):
+            raise ValueError("next_k(out=) needs contiguous float32 and "
+                             "int32 arrays (the ring writes raw rows)")
         for i in range(k):
             self._fill(xs[i], ys[i])
         return xs, ys
 
     def close(self):
+        """Idempotent shutdown, safe on a half-built instance, a repeated
+        close and at interpreter exit (where the ctypes library may
+        already be torn down): every lookup is defensive and the destroy
+        may fail silently."""
         self._closed = True
+        pool = getattr(self, "_decode_pool", None)
+        self._decode_pool = None
+        if pool is not None:
+            try:
+                pool.close()
+            except Exception:
+                pass
+        handle = getattr(self, "_handle", None)
+        self._handle = None
+        if handle:
+            destroy = getattr(getattr(self, "_lib", None),
+                              "dtpu_pipeline_destroy", None)
+            if destroy is not None:
+                try:
+                    destroy(handle)
+                except Exception:
+                    pass  # shutdown-time ctypes teardown; nothing to save
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
 
     def __enter__(self):
         return self

@@ -155,16 +155,21 @@ def _check_classes(c: int):
         )
 
 
-@torch.library.custom_op("dtt::xent_fwd", mutates_args=())
-def _xent_fwd_op(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """:func:`xent_fwd` as an operator of the dispatcher, so selective
-    checkpointing sees it: the chunked head (``compile(head_chunks=)``)
-    keeps its (N,) losses and recomputes only the logits, and the
-    recompute launches no K9."""
-    return xent_fwd(logits, labels)
+# :func:`xent_fwd` as an operator of the dispatcher, so selective
+# checkpointing sees it: the chunked head (``compile(head_chunks=)``) keeps
+# its (N,) losses and recomputes only the logits, and the recompute launches
+# no K9. It is defined through ``torch.library.Library``, not
+# ``torch.library.custom_op``: a custom_op's first call imports
+# ``torch._dynamo`` (its backend functions are wrapped in
+# ``torch._disable_dynamo``), and with it FSDP, DTensor and sympy, 11-14 s
+# of a fresh process's first training step on an H100 host that caches no
+# bytecode (``tests/test_torch_xent.py::test_first_call_imports_no_dynamo``).
+_OPS = torch.library.Library("dtt", "DEF")
+_OPS.define("xent_fwd(Tensor logits, Tensor labels) -> Tensor")
+_OPS.impl("xent_fwd", xent_fwd, "CompositeExplicitAutograd")
 
 
-@_xent_fwd_op.register_fake
+@torch.library.register_fake("dtt::xent_fwd", lib=_OPS)
 def _(logits, labels):
     return logits.new_empty((logits.shape[0],), dtype=torch.float32)
 

@@ -686,6 +686,48 @@ class EmaBaseline:
         self.value = None if state["value"] is None else float(state["value"])
 
 
+
+class AdaptiveKLCoef:
+    """PPO-style adaptive KL-penalty coefficient (Schulman et al., 2017),
+    as the JAX package's ``optim.AdaptiveKLCoef``: after each policy
+    update, grow the coefficient when the observed policy-vs-reference KL
+    overshoots ``target`` and shrink it when the policy moves too timidly.
+    ``rl.PostTrainer`` accepts an instance wherever a fixed ``kl_coef``
+    float goes and calls ``update`` with the measured post-update KL each
+    iteration."""
+
+    def __init__(self, init_coef: float = 0.1, target: float = 0.01,
+                 factor: float = 1.5, tolerance: float = 1.5):
+        if init_coef < 0 or target <= 0 or factor <= 1 or tolerance < 1:
+            raise ValueError(
+                "need init_coef >= 0, target > 0, factor > 1, "
+                f"tolerance >= 1; got {init_coef}, {target}, {factor}, "
+                f"{tolerance}"
+            )
+        self.coef = float(init_coef)
+        self.target = float(target)
+        self.factor = float(factor)
+        self.tolerance = float(tolerance)
+
+    def update(self, observed_kl: float) -> float:
+        """Adapt to one iteration's measured KL; returns the new coef."""
+        kl = float(observed_kl)
+        if kl > self.target * self.tolerance:
+            self.coef *= self.factor
+        elif kl < self.target / self.tolerance:
+            self.coef /= self.factor
+        return self.coef
+
+    def state_dict(self):
+        return {"coef": self.coef, "target": self.target,
+                "factor": self.factor, "tolerance": self.tolerance}
+
+    def load_state(self, state):
+        self.coef = float(state["coef"])
+        self.target = float(state["target"])
+        self.factor = float(state["factor"])
+        self.tolerance = float(state["tolerance"])
+
 def get(name_or_opt, **kwargs) -> _Transform:
     """An optimizer from its name (``"sgd"``, ``"adam"``, ``"adamw"``,
     ``"fused_adam"``, ``"fused_adamw"``, ``"rmsprop"``, ``"adagrad"``,
@@ -753,7 +795,8 @@ def get_hyperparam(opt_state: Dict, name: str) -> float:
 
 
 __all__ = [
-    "Adagrad", "Adam", "AdamW", "EmaBaseline", "Lamb", "LossScaleState",
+    "Adagrad", "Adam", "AdamW", "AdaptiveKLCoef", "EmaBaseline", "Lamb",
+    "LossScaleState",
     "MultiSteps", "RMSprop", "SGD", "chain", "clip_by_global_norm",
     "cosine_schedule", "dynamic_loss_scaling", "exponential_schedule",
     "fused_adam", "fused_adamw", "get", "get_hyperparam", "leaf_reduction",

@@ -772,6 +772,20 @@ class Model:
             logits = self.precision.cast_output(logits)
         return logits
 
+    @contextlib.contextmanager
+    def _eval_forward(self):
+        """``predict``'s forward: yields ``forward(rows)``, the logits of
+        the host array ``rows`` on the device, in eval mode, without
+        autograd and under the precision policy; the train flag is
+        restored after."""
+        was_training = self.module.training
+        self.module.eval()
+        try:
+            with torch.inference_mode(), self._policy_scope():
+                yield lambda rows: self._logits(self._to_device(rows))
+        finally:
+            self.module.train(was_training)
+
     # -------------------------------------------------------- learning rate
     def set_learning_rate(self, lr: float):
         """Change the learning rate of the current optimizer state (held
@@ -1845,18 +1859,12 @@ class Model:
                     yield arr[start:start + batch_size]
 
         fetched, pending = [], []
-        was_training = self.module.training
-        self.module.eval()
-        try:
-            with torch.inference_mode(), self._policy_scope():
-                for xb in host_batches():
-                    xb = self._to_device(xb)
-                    pending.append(self._logits(xb).to(torch.float32))
-                    if len(pending) >= 16:
-                        fetched.append(pending.pop(0).cpu().numpy())
-                fetched += [o.cpu().numpy() for o in pending]
-        finally:
-            self.module.train(was_training)
+        with self._eval_forward() as forward:
+            for xb in host_batches():
+                pending.append(forward(xb).to(torch.float32))
+                if len(pending) >= 16:
+                    fetched.append(pending.pop(0).cpu().numpy())
+            fetched += [o.cpu().numpy() for o in pending]
         return np.concatenate(fetched, axis=0)
 
     # --------------------------------------------------------------- generate

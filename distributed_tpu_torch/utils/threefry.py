@@ -13,7 +13,10 @@ on) draws every random array from a key of two uint32 words:
   and subtracts 1, ``bernoulli(key, p, shape)`` is ``uniform < p``, and
   ``gumbel`` is ``-log(-log(u))`` over uniforms in ``[tiny, 1)``;
 - ``categorical(key, logits)`` is the argmax of ``logits + gumbel(key,
-  logits.shape)``: ONE key for the whole array.
+  logits.shape)``: ONE key for the whole array;
+- ``randint(key, shape, lo, hi)`` (int32) splits the key in two, draws 32
+  bits from each and folds the pair into ``[lo, hi)`` by uint32
+  remainders (:func:`randint`).
 
 The serving engine draws a row at a time from each token's own key
 (``row_bits``); ``Model.generate`` draws a whole ``(B, V)`` array from one
@@ -131,6 +134,29 @@ def bernoulli(key, p: float, shape, device) -> torch.Tensor:
     return uniform(key, shape, device) < pf
 
 
+def randint(key, shape, minval: int, maxval: int, device) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` in its default
+    int32 (the int32 values in an int64 tensor on ``device``): the key
+    split in two, one draw of 32 bits from each (``higher``, ``lower``),
+    and ``minval + ((higher % span) * m + lower % span) % span`` in uint32
+    arithmetic, where ``span = maxval - minval`` (1 when ``maxval <=
+    minval``) and ``m = (2**16 % span)**2 % span`` (which wraps to 0 for
+    spans above 2**16). Bounds outside int32 raise ``OverflowError``, as
+    JAX's do."""
+    minval, maxval = int(minval), int(maxval)
+    if not all(-(1 << 31) <= v < (1 << 31) for v in (minval, maxval)):
+        raise OverflowError(
+            f"randint bounds ({minval}, {maxval}) exceed int32's range")
+    span = (maxval - minval) & _M32 if maxval > minval else 1
+    mult = (1 << 16) % span
+    mult = ((mult * mult) & _M32) % span
+    k1, k2 = split(key)
+    higher, lower = bits(k1, shape, device), bits(k2, shape, device)
+    offset = (((higher % span) * mult + lower % span) & _M32) % span
+    # uint32 -> int32 and the add wrap modulo 2**32, as XLA's do.
+    return ((minval + offset + (1 << 31)) & _M32) - (1 << 31)
+
+
 def row_bits(keys, n: int, device) -> torch.Tensor:
     """``jax.random.bits(keys[r], (n,))`` for each row r of ``keys``
     ((R, 2) uint32 key data): an ``(R, n)`` int64 tensor on ``device``."""
@@ -159,6 +185,6 @@ def categorical(key, logits: torch.Tensor) -> torch.Tensor:
 
 __all__ = [
     "PRNGKey", "bernoulli", "bits", "categorical", "device_key", "fold_in",
-    "gumbel_from_bits", "row_bits", "split", "threefry2x32",
+    "gumbel_from_bits", "randint", "row_bits", "split", "threefry2x32",
     "uniform", "uniform_from_bits",
 ]

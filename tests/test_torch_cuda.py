@@ -1325,3 +1325,66 @@ def test_steps_per_execution_under_sharded_strategies(nccl_world1):
     with pytest.raises(NotImplementedError, match="ROADMAP 1.3a"):
         model(nccl_world1, 2).fit(x, y, batch_size=8, epochs=1,
                                   steps_per_epoch=2, verbose=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("padding", [0, 4])
+def test_random_crop_gather_on_the_card_equals_cpu(cuda_device, dtype,
+                                                   padding):
+    """RandomCrop's one indexed gather (and RandomFlip) from a device key
+    on the card: the CPU result from the same key data, bit for bit."""
+    from distributed_tpu_torch import nn
+    from distributed_tpu_torch.nn.core import rng_scope
+    from distributed_tpu_torch.utils import threefry
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((16, 40, 36, 3), generator=g).to(dtype)
+    layers = [nn.RandomCrop(32, 30, padding=padding),
+              nn.RandomFlip("horizontal_and_vertical")]
+    for layer in layers:
+        layer.build((40, 36, 3), None)
+        layer.train()
+    key = threefry.fold_in(threefry.PRNGKey(7), 5)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        with rng_scope(threefry.device_key(key, dev)):
+            y = layers[0](x.to(dev))
+            outs.append(layers[1](y).cpu())
+    assert outs[1].shape == (16, 32, 30, 3)
+    assert torch.equal(outs[0], outs[1])
+    assert not torch.equal(outs[0][0], outs[0][1])
+
+
+@pytest.mark.cuda
+def test_measured_kl_on_the_card_equals_the_cpu_formula(cuda_device):
+    """PostTrainer's measured KL (the log-softmax and the gather on the
+    card, a few rows at a time) against the k3 formula over the whole f32
+    logits computed on the CPU from the same parameters."""
+    import numpy as np
+
+    import distributed_tpu_torch as dtt
+    from distributed_tpu_torch import rl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lm = dict(num_layers=2, d_model=64, num_heads=4, max_len=64)
+    card = dtt.Model(dtt.models.transformer_lm(96, **lm), device="cuda")
+    card.build((63,), seed=0)
+    cpu = dtt.Model(dtt.models.transformer_lm(96, **lm), device="cpu")
+    cpu.build((63,), seed=0)
+    cpu.load_params({k: v.cpu() for k, v in card.params.items()})
+    rng = np.random.default_rng(0)
+    rolls = [rl.Rollout(rng.integers(0, 96, int(n)), 5,
+                        rng.normal(-4.0, 1.0, int(n) - 5))
+             for n in rng.integers(8, 64, 10)]
+    x, y = rl.pack_rollouts(rolls, 64)
+    pt = rl.PostTrainer.__new__(rl.PostTrainer)
+    pt.model = card
+    got = pt._measured_kl(x, y)
+    logits = torch.from_numpy(cpu.predict(x, batch_size=len(x)))
+    lp = torch.log_softmax(logits, -1).gather(
+        -1, torch.from_numpy(y[..., 0].astype(np.int64))[..., None])[..., 0]
+    w = y[..., 3]
+    d = (y[..., 2] - lp.numpy()) * w
+    want = float(np.sum(w * (np.exp(d) - 1 - d)) / max(w.sum(), 1.0))
+    np.testing.assert_allclose(got, want, rtol=1e-5)

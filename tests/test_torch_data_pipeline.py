@@ -3,7 +3,8 @@
 - ``data.Pipeline``: the batches equal the JAX ``Pipeline(use_native=
   False)``'s bit for bit, over seeds, passes, shuffle on and off, shards
   and ``next_k``; ``state_dict``/``load_state``/``seek``/``reshard`` move
-  the cursor as JAX's do; the ported-later cases raise "not yet ported".
+  the cursor as JAX's do; the native ring (``use_native=True``, ported
+  since) emits the same batches, and the bad inputs raise as in JAX.
 - ``data.DevicePrefetcher``: the same stream at depths 0, 1 and 2, and
   the unconsumed steps after an early close.
 - ``fit``/``evaluate``/``predict`` from a Pipeline, on a small dense
@@ -91,10 +92,17 @@ def test_pipeline_cursor_moves_as_jax():
 
 
 def test_pipeline_refuses_what_is_not_ported():
+    """Every path is ported now: the ring emits the Python path's
+    batches, and what stays refused is what JAX refuses."""
     x, y = _images()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        dtt.data.Pipeline(x, y, use_native=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    ring = dtt.data.Pipeline(x, y, use_native=True, seed=2)
+    plain = dtt.data.Pipeline(x, y, use_native=False, seed=2)
+    assert ring.is_native and not plain.is_native
+    for _ in range(3):
+        for a, b in zip(next(ring), next(plain)):
+            np.testing.assert_array_equal(a, b)
+    ring.close()
+    with pytest.raises(FileNotFoundError, match="shard directory not found"):
         dtt.data.Pipeline("/nonexistent/shards", batch_size=4)
     with pytest.raises(TypeError, match="uint8"):
         dtt.data.Pipeline(x.astype(np.float32), y)

@@ -36,7 +36,7 @@ from distributed_tpu_torch.utils import sync_check as psync
 from distributed_tpu_torch.utils.events import read_events
 
 from test_torch_obs import key_tree
-from torch_parity import jax_engine, lm_pair
+from torch_parity import jax_engine, lm_pair, no_cluster_env  # noqa: F401
 
 torch.set_num_threads(1)
 

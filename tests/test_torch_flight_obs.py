@@ -31,6 +31,7 @@ from distributed_tpu_torch.obs import cli as pcli
 from distributed_tpu_torch.obs import export as pexport
 from distributed_tpu_torch.obs import flight as pflight
 from distributed_tpu_torch.obs import registry as preg
+from torch_parity import no_cluster_env  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -136,3 +136,21 @@ def test_unsuitable_modules_and_counts_raise():
             pm.compile(optimizer="sgd", head_chunks=bad)
     pm.compile(optimizer="sgd", head_chunks=1)  # 1: the plain path
     assert pm.head_chunks == 1
+
+
+def test_chunked_head_keeps_the_fused_losses(monkeypatch):
+    """Selective checkpointing keeps each chunk's fused losses (the
+    ``dtt::xent_fwd`` operator's outputs): one fused forward a chunk in a
+    training step, none in the backward's recompute."""
+    from distributed_tpu_torch.ops import pallas_kernels as pk
+
+    calls, ref = [], pk.xent_fwd_ref
+    monkeypatch.setattr(pk, "xent_fwd_ref",
+                        lambda *a: calls.append(1) or ref(*a))
+    x, y = _data(n=4)
+    m = dtt.Model(dtt.models.transformer_lm(V, num_layers=1, d_model=16,
+                                            num_heads=2, max_len=T),
+                  device="cpu")
+    m.compile(optimizer="adam", loss=PALLAS, head_chunks=4)
+    m.fit(x, y, batch_size=4, epochs=1, steps_per_epoch=1, verbose=0)
+    assert len(calls) == 4

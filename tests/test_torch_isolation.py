@@ -111,6 +111,25 @@ def test_resilience_and_obs_modules_are_checked():
     assert "scripts/torch_restart.py" in checked
 
 
+
+def test_rl_and_data_tier_modules_are_checked():
+    """rl/, the data tiers, the augmentation layers and the ImageNet
+    recipe are among the sources checked above and the modules imported
+    with JAX blocked; the native ring's source is the port's own copy."""
+    checked = {str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")} | {
+        str(p.relative_to(ROOT)) for p in (ROOT / "scripts").glob(
+            "torch_*.py")}
+    names = ["rl", "rl.loop", "rl.distill", "rl.rewards", "data.records",
+             "data.filesource", "data.pipeline", "data.datasets",
+             "nn.augment"]
+    for name in names:
+        path = "distributed_tpu_torch/" + name.replace(".", "/")
+        path += "/__init__.py" if name == "rl" else ".py"
+        assert path in checked, path
+        assert f"distributed_tpu_torch.{name}" in _port_modules(), name
+    assert "scripts/torch_imagenet_resnet.py" in checked
+    assert (PKG / "data" / "native" / "pipeline.cc").is_file()
+
 def test_default_device_is_the_card_and_never_falls_back():
     if torch.cuda.is_available():
         pytest.skip("a card is present: device=None resolves to it")

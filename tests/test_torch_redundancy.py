@@ -49,7 +49,7 @@ from distributed_tpu_torch.launch import __main__ as launch_cli
 from distributed_tpu_torch.obs import flight as pflight
 from distributed_tpu_torch.resilience import faults as pfaults
 from distributed_tpu_torch.utils import profiler as pprofiler
-from torch_parity import ROOT, mnist_data, run_pair
+from torch_parity import ROOT, mnist_data, no_cluster_env, run_pair  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -25,6 +25,7 @@ import distributed_tpu as dtpu
 import distributed_tpu_torch as dtt
 from distributed_tpu.launch import core as jax_launch
 from distributed_tpu.parallel import mesh as jax_mesh
+from distributed_tpu import rl as jrl
 from distributed_tpu.training import callbacks as jcb
 
 torch.set_num_threads(1)
@@ -789,6 +790,104 @@ PAIRS.update({
                                _handoff()))),
 })
 
+
+
+def _sampling_engine(model, **kw):
+    return dtt.serving.Engine(model, max_slots=2, block_size=4, max_len=8,
+                              temperature=1.0, **kw)
+
+
+def _post_trainer(**kw):
+    m = _compiled()
+    return dtt.rl.PostTrainer(m, _sampling_engine(m), **kw)
+
+
+_PROMPTS = [np.arange(3) % 32, np.arange(2) % 32]
+
+
+def _distiller(**kw):
+    target, draft = _compiled(), _compiled()
+    eng = dtt.serving.Engine(target, max_slots=2, block_size=4, max_len=8,
+                             draft_model=draft, spec_k=2)
+    return dtt.rl.DraftDistiller(eng, draft, **kw)
+
+
+def _record_source(tmp):
+    dtt.data.write_records(tmp, [bytes([i]) * 6 for i in range(16)])
+    return dtt.data.RecordSource(tmp, decode_fn=lambda b: np.frombuffer(
+        b, np.uint8).reshape(2, 3).astype(np.float32))
+
+
+def _pipeline(f, **kw):
+    if "decode_workers" in kw or "decode_readahead" in kw:
+        x = _record_source(_tmp())
+        kw.setdefault("decode_workers", 1)
+    else:
+        x = np.arange(16 * 6, dtype=np.uint8).reshape(16, 2, 3)
+    with f(x, **{"batch_size": 4, **kw}) as p:
+        return next(p)
+
+
+PAIRS.update({
+    "PostTrainer": (jrl.PostTrainer, dtt.rl.PostTrainer, {
+        "reward_fn": ("toy_preference", None),
+        "optimizer": (dtt.optim.fused_adam(1e-3), None),
+        "learning_rate": (1e-2, None),
+        "kl_coef": (dtt.optim.AdaptiveKLCoef(), None),
+        "ppo_clip": (0.2, None), "baseline_decay": (0.5, None),
+        "train_len": (8, None), "grad_accum": (2, None),
+        "measure_kl": (False, None), "seed": (3, None)},
+        lambda f, **kw: _post_trainer(**(
+            {**kw, "reward_fn": dtt.rl.rewards.get(
+                "toy_preference", vocab_size=32)}
+            if "reward_fn" in kw else kw)).iterate(
+                _PROMPTS, num_samples=2, max_new_tokens=2)),
+    "PostTrainer.iterate": (jrl.PostTrainer.iterate,
+                            dtt.rl.PostTrainer.iterate, {
+        "num_samples": (1, None), "max_new_tokens": (3, None),
+        "train_epochs": (2, None)},
+        lambda f, **kw: _post_trainer().iterate(
+            _PROMPTS, **{"max_new_tokens": 2, **kw})),
+    "PostTrainer.train": (jrl.PostTrainer.train, dtt.rl.PostTrainer.train, {
+        "iterations": (2, None), "num_samples": (1, None),
+        "max_new_tokens": (3, None), "train_epochs": (2, None)},
+        lambda f, **kw: _post_trainer().train(
+            _PROMPTS, **{"iterations": 1, "max_new_tokens": 2, **kw})),
+    "DraftDistiller": (jrl.DraftDistiller, dtt.rl.DraftDistiller, {
+        "optimizer": (dtt.optim.Adam(1e-3), None),
+        "learning_rate": (1e-3, None), "train_len": (8, None),
+        "seed": (3, None)},
+        lambda f, **kw: _distiller(**kw).fit(_PROMPTS, max_new_tokens=2,
+                                             epochs=1)),
+    "DraftDistiller.fit": (jrl.DraftDistiller.fit, dtt.rl.DraftDistiller.fit,
+                           {"max_new_tokens": (3, None),
+                            "num_samples": (2, None), "epochs": (2, None),
+                            "rounds": (2, None), "sync": (False, None)},
+        lambda f, **kw: _distiller().fit(
+            _PROMPTS, **{"max_new_tokens": 2, "epochs": 1, **kw})),
+    "DraftDistiller.collect": (jrl.DraftDistiller.collect,
+                               dtt.rl.DraftDistiller.collect, {
+        "max_new_tokens": (3, None), "num_samples": (2, None)},
+        lambda f, **kw: _distiller().collect(
+            _PROMPTS, **{"max_new_tokens": 2, **kw})),
+    "DraftDistiller.distill": (jrl.DraftDistiller.distill,
+                               dtt.rl.DraftDistiller.distill, {
+        "epochs": (2, None), "batch_size": (1, None)},
+        lambda f, **kw: (lambda d: d.distill(d.collect(
+            _PROMPTS, max_new_tokens=2), **kw))(_distiller())),
+    "data.Pipeline": (dtpu.data.Pipeline, dtt.data.Pipeline, {
+        "batch_size": (8, None), "shuffle": (False, None), "seed": (3, None),
+        "scale": (0.5, None), "prefetch": (2, None),
+        "num_threads": (3, None), "use_native": (True, None),
+        "shard": ((1, 2), None), "decode_workers": (2, None),
+        "decode_readahead": (3, None)}, _pipeline),
+    "nn.RandomCrop": (dtpu.nn.RandomCrop, dtt.nn.RandomCrop, {
+        "padding": (2, None), "name": ("crop", None)},
+        lambda f, **kw: f(4, 4, **kw).build((4, 5, 3), None)),
+    "nn.RandomFlip": (dtpu.nn.RandomFlip, dtt.nn.RandomFlip, {
+        "mode": ("vertical", None), "name": ("flip", None)},
+        lambda f, **kw: f(**kw).build((4, 5, 3), None)),
+})
 
 def _exits_zero(f, **kw):
     try:

@@ -135,3 +135,29 @@ def test_wrapper_never_runs_the_plain_version_off_the_cpu():
         port_pk.xent_fwd(meta, torch.empty((2,), dtype=torch.int64,
                                            device="meta"))
     assert dtt.ops.pallas_kernels is port_pk
+
+
+def test_first_call_imports_no_dynamo():
+    """The fused loss's operator (``dtt::xent_fwd``, there for selective
+    checkpointing) is a plain dispatcher operator: its first call, in a
+    fresh process, imports neither ``torch._dynamo`` nor what that pulls
+    in (FSDP, DTensor, sympy), which a ``torch.library.custom_op`` does
+    and which made a fresh worker's first training step seconds long."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys, torch\n"
+        "import distributed_tpu_torch as dtt\n"
+        "logits = torch.randn(6, 10, requires_grad=True)\n"
+        "labels = torch.tensor([0, 1, 2, 3, 4, 9])\n"
+        "loss = dtt.ops.pallas_kernels.fused_softmax_xent(logits, labels)\n"
+        "loss.sum().backward()\n"
+        "heavy = [m for m in ('torch._dynamo', 'torch.distributed.fsdp',\n"
+        "         'torch.distributed.tensor', 'sympy') if m in sys.modules]\n"
+        "print(heavy)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=str(
+                             __import__("pathlib").Path(__file__).parents[1]))
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"

@@ -10,6 +10,7 @@ import functools
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 import distributed_tpu as dtpu
@@ -83,6 +84,18 @@ class FixedClock:
     def perf_counter(self):
         self.t += 0.01
         return self.t
+
+
+@pytest.fixture(autouse=True)
+def no_cluster_env(monkeypatch):
+    """No cluster spec in the environment: the port stamps events, flight
+    records and buddy mirrors with the rank and world of a live group,
+    else of ``DTPU_CONFIG``/``TF_CONFIG``, while the JAX side reads its
+    process count. A spec another test in the same worker process left in
+    ``os.environ`` would stamp the port's rows with that world. Autouse in
+    each module that imports it."""
+    for var in ("DTPU_CONFIG", "TF_CONFIG"):
+        monkeypatch.delenv(var, raising=False)
 
 
 def as_np(x):
