@@ -427,7 +427,16 @@ z. The auto-shard planner and the gang launcher's restart and liveness.
    launches, the augmentation's device ms against the step; then
    ``mnist_cnn`` from 8,192 zlib-compressed records at
    ``decode_workers`` 0 and 4: steps/s and the stall share, the two
-   streams bit-identical.
+   streams bit-identical. (z9) The port's linter (``dtt-lint``, every
+   rule) over ``distributed_tpu_torch/``, which must find nothing; then
+   the port's R binding: ``r/distributedtputorch/examples/local.R`` on the
+   simulated R runtime of ``tests/torch_r_sim.py`` with device = NULL,
+   so ``mnist_cnn`` trains its 15 steps on this card, its losses held to
+   the same script on the CPU (relative 1e-4), with the card's busy time
+   and the launches of the port's kernels it reached; then
+   ``utils.profiler``'s hooks (allocator stats, ``trace()`` around an
+   ``annotate``d predict) in this process and in a fresh one, whose trace
+   must hold the card's kernels.
 Then the kernel table as one JSON line (each row also names the CUDA
 kernel of the main path, ``kernel``, and carries its launches in phase r's
 resumed steps, ``launches_resumed``, in phase t's fits that captured a
@@ -440,8 +449,8 @@ in phase v's scanned runs, ``launches_v``, in phase w's sharded runs,
 ``launches_x``, in phase y's MoE, pipelined and composite runs,
 ``launches_y``, in phase z1's auto-compiled run, ``launches_z``, in
 phase z3's resumed worker, ``launches_z3``, K1 in phase z4's
-full-width fleet, ``launches_z4``, and in phases z6-z8,
-``launches_z6``-``launches_z8``),
+full-width fleet, ``launches_z4``, and in phases z6-z9,
+``launches_z6``-``launches_z9``, where any),
 the card's name and power limit, and ``{"ok": true, "device": {...}}`` as
 the last line.
 """
@@ -5109,6 +5118,136 @@ def phase_data_tiers(torch, dtt, mods, batch=256, steps=10):
     return counts
 
 
+# ------------------------------------------------------------------ phase z9
+def r_local_losses(torch_r_sim, device=None):
+    """``r/distributedtputorch/examples/local.R`` in a fresh simulated R
+    session (``tests/torch_r_sim.py``) on ``device`` (None: the R option
+    unset, device = NULL, this card); returns (the Python model, the
+    epoch losses that came back to R)."""
+    interp = torch_r_sim.TorchInterp(device=device)
+    hist = interp.run_file(os.path.join(torch_r_sim.EXAMPLES, "local.R"))
+    interp.global_env.define("hist", hist)
+    losses = interp.run_source("hist$metrics$loss").values
+    return interp.global_env.lookup("model").value._obj, list(losses)
+
+
+def profiler_hooks(torch, model):
+    """``utils.profiler`` on the card: the allocator's stats, then a
+    ``trace()`` around an ``annotate`` region that holds a predict of
+    ``model`` on 64 images. Returns (the stats, the trace files written,
+    whether the annotation is in them, their kernel events)."""
+    from distributed_tpu_torch.utils import profiler as prof
+
+    stats = prof.device_memory_stats()
+    tmp = tempfile.mkdtemp(prefix="chip-z9-")
+    try:
+        with prof.trace(tmp):
+            with prof.annotate("z9-predict"):
+                model.predict(np.zeros((64, 28, 28, 1), np.float32),
+                              batch_size=64)
+        texts = [open(os.path.join(tmp, f)).read() for f in os.listdir(tmp)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return (stats, len(texts), any("z9-predict" in t for t in texts),
+            sum(t.count('"cat": "kernel"') for t in texts))
+
+
+def profiler_hooks_fresh():
+    """:func:`profiler_hooks` in a process of its own, on local.R's
+    model (``mnist_cnn``, compiled as local.R compiles it, seed 0)."""
+    import torch
+
+    import distributed_tpu_torch as dtt
+
+    model = dtt.Model(dtt.models.mnist_cnn(10))
+    model.compile(optimizer=dtt.optim.get("sgd", learning_rate=0.001),
+                  loss="sparse_categorical_crossentropy",
+                  metrics=["accuracy"])
+    model.build((28, 28, 1), seed=0)
+    return profiler_hooks(torch, model)
+
+
+def phase_lint_and_r(torch, mods):
+    """z9: the port's linter (``dtt-lint``) over ``distributed_tpu_torch/``
+    on this machine, which must find nothing; then the port's R binding:
+    ``local.R`` through the simulated R runtime with device = NULL, so
+    mnist_cnn trains its 15 steps on this card, held to the same script on
+    the CPU (TF32 off: the same weights from seed 0, the same batches);
+    then ``utils.profiler``'s hooks on the card (:func:`profiler_hooks`)
+    in this process and in a fresh one, whose trace must hold kernel
+    events. Returns the launches of every kernel the card's run
+    reached."""
+    from distributed_tpu_torch.analysis import cli as lint_cli
+    from distributed_tpu_torch.analysis import core as lint_core
+
+    t = time.perf_counter()
+    rc = lint_cli.main([os.path.join(ROOT, "distributed_tpu_torch")])
+    print(f"  {len(lint_core.rule_names())} rules "
+          f"({', '.join(lint_core.rule_names())}); exit code {rc}; "
+          f"{time.perf_counter() - t:.2f} s with the interpreter's imports")
+    if rc != 0:
+        raise SystemExit("the port's linter found violations in "
+                         "distributed_tpu_torch/")
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_r_sim
+
+    counts, out = {}, {}
+    t = time.perf_counter()
+    busy, ops = busy_ms(torch, lambda: counted(
+        mods, counts, lambda: out.update(card=r_local_losses(torch_r_sim))))
+    card_s = time.perf_counter() - t
+    model, losses = out["card"]
+    print(f"  local.R on the card: {card_s:.1f} s (the data, the session and "
+          f"15 steps, under the profiler), the card busy {busy:.1f} ms over "
+          f"{ops} operations; device {model.device}, step {model.step}; "
+          f"losses {losses}; launches of the port's kernels "
+          f"{ {k: n for k, n in counts.items() if n} or 'none'}")
+    t = time.perf_counter()
+    cpu_model, cpu_losses = r_local_losses(torch_r_sim, device="cpu")
+    print(f"  local.R on the CPU: {time.perf_counter() - t:.1f} s; losses "
+          f"{cpu_losses}")
+    gap = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+    print(f"  card against CPU: largest relative loss gap {gap:.3e} "
+          f"(limit 1e-4)")
+    if (model.device.type != "cuda" or model.step != 15
+            or cpu_model.step != 15 or len(losses) != 3
+            or not all(math.isfinite(v) for v in losses) or gap > 1e-4):
+        raise SystemExit("local.R did not train its 15 steps on the card, "
+                         "or its losses differ from the CPU's")
+    stats, files, annotated, kernels = profiler_hooks(torch, model)
+    print(f"  utils.profiler in this process: device_memory_stats {stats}; "
+          f"trace() wrote {files} file(s), the annotation "
+          f"{'in it' if annotated else 'MISSING'}, {kernels} kernel events")
+    if not (stats and 0 < stats["bytes_in_use"] <= stats["peak_bytes_in_use"]
+            < stats["bytes_limit"] and files == 1 and annotated):
+        raise SystemExit("the profiler hooks did not read the card or "
+                         "write the trace")
+    # Where the card's kernel stamps lag the host clock more as a process
+    # ages (a gVisor sandbox), the profiler drops a short block's kernels
+    # late in a long run as earlier than the capture (see
+    # scripts/torch_profiler_clock.py): a fresh process must keep them.
+    run = subprocess.run(
+        [sys.executable, "-c", "import json, chip_smoke; print('Z9PROF', "
+         "json.dumps(chip_smoke.profiler_hooks_fresh()))"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    line = [ln for ln in run.stdout.splitlines() if ln.startswith("Z9PROF ")]
+    if run.returncode != 0 or not line:
+        raise SystemExit(f"the fresh process's profiler check failed "
+                         f"(exit {run.returncode}):\n{run.stderr[-4000:]}")
+    stats, files, annotated, kernels = json.loads(line[0][len("Z9PROF "):])
+    print(f"  utils.profiler in a fresh process: device_memory_stats "
+          f"{stats}; trace() wrote {files} file(s), the annotation "
+          f"{'in it' if annotated else 'MISSING'}, {kernels} kernel events")
+    if not (stats and 0 < stats["bytes_in_use"] <= stats["peak_bytes_in_use"]
+            < stats["bytes_limit"] and files == 1 and annotated
+            and kernels > 0):
+        raise SystemExit("trace() did not record the card's kernels in a "
+                         "fresh process")
+    del model, cpu_model
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     import torch
 
@@ -5389,6 +5528,13 @@ def main():
           f"model from a FileSource on the native ring, mnist_cnn from zlib "
           f"records | {card_line()}")
     u_counts["z8"] = phase_data_tiers(torch, dtt, (conv_ops, bn_ops))
+    print(f"phase z9: dtt-lint over distributed_tpu_torch/, and the port's R "
+          f"binding: r/distributedtputorch/examples/local.R with device = "
+          f"NULL (mnist_cnn, SGD(0.001), 3 epochs x 5 steps of 64) | "
+          f"{card_line()}")
+    u_counts["z9"] = phase_lint_and_r(torch, (
+        paged_ops, xent_ops, flash_ops, adam_ops, conv_ops, bn_ops,
+        probe_ops))
     for sub, counts in u_counts.items():
         for name, n in counts.items():
             if n:
@@ -5411,7 +5557,7 @@ def main():
          "replayed_fit": r.get("replayed_fit"),
          **{f"launches_{sub}": r[f"launches_{sub}"]
             for sub in ("u1", "u2", "u3", "v", "w", "x", "y", "z", "z3",
-                        "z4", "z6", "z7", "z8")
+                        "z4", "z6", "z7", "z8", "z9")
             if f"launches_{sub}" in r},
          **({"launches_spec": r["launches_spec"], "ms_by_kw": r["ms_by_kw"]}
             if "ms_by_kw" in r else {})}

@@ -69,7 +69,9 @@ Ported so far:
   ``optim.AdaptiveKLCoef``) and the data tiers (``data``: ``FileSource``
   and ``RecordSource`` shards, the native C++ ring built with ``g++``
   into ``_build/``, the record decode pool, the remaining loaders) with
-  the augmentation layers ``nn.RandomCrop``/``nn.RandomFlip``.
+  the augmentation layers ``nn.RandomCrop``/``nn.RandomFlip``;
+- the port's linter (``analysis``, the ``dtt-lint`` console script) and,
+  outside the package, its R binding (``r/distributedtputorch/``).
 """
 
 from . import (
@@ -79,25 +81,29 @@ from . import (
 from .checkpoint import (Checkpointer, ShardedCheckpointer, export_hdf5,
                          import_hdf5)
 from .device import resolve_device
+from .ops import losses, metrics
 from .parallel import (FSDP, CompositeParallel, DataExpertParallel,
                        DataParallel, DataPipelineParallel, DataSeqParallel,
                        DataTensorParallel, FullyShardedDataParallel,
-                       MultiWorkerMirroredStrategy, SingleDevice,
-                       ZeroDataParallel)
+                       MultiWorkerMirroredStrategy, SingleDevice, Strategy,
+                       ZeroDataParallel, current_strategy, make_mesh)
+from .precision import Policy
 from .training import callbacks
 from . import resilience  # after training and checkpoint: builds on both
 from . import rl  # after training and serving: drives both
 from .training.history import History
 from .training.model import Model
+from .version import __version__
 
 __all__ = [
     "Checkpointer", "CompositeParallel", "DataExpertParallel",
     "DataParallel", "DataPipelineParallel", "DataSeqParallel",
     "DataTensorParallel", "FSDP", "FullyShardedDataParallel",
-    "History", "Model", "MultiWorkerMirroredStrategy",
-    "ShardedCheckpointer", "SingleDevice", "ZeroDataParallel", "callbacks",
-    "checkpoint",
-    "cluster", "data", "export_hdf5", "import_hdf5", "interop", "launch",
+    "History", "Model", "MultiWorkerMirroredStrategy", "Policy",
+    "ShardedCheckpointer", "SingleDevice", "Strategy", "ZeroDataParallel",
+    "__version__", "callbacks", "checkpoint",
+    "cluster", "current_strategy", "data", "export_hdf5", "import_hdf5",
+    "interop", "launch", "losses", "make_mesh", "metrics",
     "models", "nn", "obs", "ops", "optim", "parallel", "precision", "quant",
     "resilience",
     "resolve_device", "rl", "serving", "utils",

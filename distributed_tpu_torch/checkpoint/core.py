@@ -455,7 +455,7 @@ class Checkpointer:
             except Exception as e:  # raised by the next save/wait
                 self._writer_error = e
 
-        writer = threading.Thread(target=write, name="dtt-ckpt-writer",
+        writer = threading.Thread(target=write, name="dtpu-ckpt-writer",
                                   daemon=True)
         with self._writer_lock:
             self._writer = writer

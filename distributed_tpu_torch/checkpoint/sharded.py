@@ -461,7 +461,7 @@ class ShardedCheckpointer:
                     self._writer_error = e
 
             self._pending = manifest
-            writer = threading.Thread(target=write, name="dtt-shard-writer",
+            writer = threading.Thread(target=write, name="dtpu-shard-writer",
                                       daemon=True)
             with self._writer_lock:
                 self._writer = writer

@@ -2,6 +2,7 @@
 
 from .config import ClusterSpec, from_barrier, from_env, resolve
 from .init import (
+    ELASTIC_WORLD_ENV,
     barrier,
     initialize,
     is_chief,
@@ -15,6 +16,7 @@ from .net import check_reachable, free_port, my_ip, preflight
 
 __all__ = [
     "ClusterSpec",
+    "ELASTIC_WORLD_ENV",
     "from_env",
     "from_barrier",
     "resolve",

@@ -259,12 +259,13 @@ def fetch_mnist(dest_dir: Optional[str] = None,
             results[mirror] = False
 
     threads = [
-        # Deliberately UNNAMED: a probe stuck in the system resolver is
-        # abandoned past the join deadline below, and the conftest leak
-        # checker polices dtpu-* names — an abandonable thread must stay
-        # outside that contract.  # dtpu-lint: allow[thread-hygiene]
-        threading.Thread(target=_probe, args=(m,), daemon=True)
-        for m in _MNIST_MIRRORS
+        # Named like every thread of the port: a probe stuck in the system
+        # resolver is abandoned alive past the join deadline below, and a
+        # test that leaves one behind has reached for the network, which
+        # the tests' leak check then reports.
+        threading.Thread(target=_probe, args=(m,), daemon=True,
+                         name=f"dtpu-mirror-probe-{i}")
+        for i, m in enumerate(_MNIST_MIRRORS)
     ]
     deadline = 4.0
     import time as _time

@@ -69,7 +69,7 @@ class DevicePrefetcher:
         if self._depth > 0 and len(self._sizes) > 1:
             self._q = queue.Queue(maxsize=self._depth)
             self._thread = threading.Thread(
-                target=self._run, name="dtt-prefetch", daemon=True)
+                target=self._run, name="dtpu-prefetch", daemon=True)
             self._thread.start()
 
     def _run(self):

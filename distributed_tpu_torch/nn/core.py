@@ -270,6 +270,18 @@ class NameScope:
         return name
 
 
+def _pair_tp(a: Layer, b: Layer) -> None:
+    """Megatron's pairing, decided by the Sequential for both layers: a
+    column-parallel product whose next layer is a row-parallel one hands
+    it its feature block without a gather (``feeds_row``), and that layer
+    takes the block as it is (``takes_block``) instead of splitting a
+    whole input."""
+    if getattr(a, "shard", None) == "col" and \
+            getattr(b, "shard", None) == "row":
+        a.feeds_row = True
+        b.takes_block = True
+
+
 class Sequential(Layer):
     """Linear stack of layers; itself a Layer, so stacks compose."""
 
@@ -280,16 +292,43 @@ class Sequential(Layer):
         for layer in self.layers:
             layer.name = scope.assign(layer)
             self.add_module(layer.name, layer)
-        # Megatron's pairing, decided here for both layers: a
-        # column-parallel product whose next layer is a row-parallel one
-        # hands it its feature block without a gather (``feeds_row``), and
-        # that layer takes the block as it is (``takes_block``) instead of
-        # splitting a whole input.
         for a, b in zip(self.layers, self.layers[1:]):
-            if getattr(a, "shard", None) == "col" and \
-                    getattr(b, "shard", None) == "row":
-                a.feeds_row = True
-                b.takes_block = True
+            _pair_tp(a, b)
+
+    def add(self, layer: Layer):
+        """Append ``layer``, named after the names already taken, as the
+        JAX ``Sequential.add`` names it ('dense_2' after 'dense_1')."""
+        scope = NameScope()
+        for existing in self.layers:
+            scope._used.add(existing.name)
+            m = re.fullmatch(r"(.+?)(?:_(\d+))?", existing.name)
+            base = m.group(1) if m else existing.name
+            idx = int(m.group(2)) + 1 if m and m.group(2) else 1
+            scope._counts[base] = max(scope._counts.get(base, 0), idx)
+        layer.name = scope.assign(layer)
+        if self.layers:
+            _pair_tp(self.layers[-1], layer)
+        self.layers.append(layer)
+        self.add_module(layer.name, layer)
+
+    def summary_lines(self, input_shape: Shape):
+        """Keras-style summary rows ``(name, output_shape, param_count)``,
+        as the JAX ``Sequential.summary_lines``: each layer built afresh
+        from the shape, on fake tensors (shapes only: nothing is drawn or
+        stored, and this module's own leaves are left as they are)."""
+        from ..parallel.auto_shard import _abstract_copy, _fake_mode
+
+        mode = _fake_mode()
+        abstract = _abstract_copy(self, input_shape, 0, mode)
+        rows = []
+        shape = tuple(input_shape)
+        with mode:
+            generator = torch.Generator().manual_seed(0)
+            for layer in abstract.layers:
+                shape = tuple(int(d) for d in layer.build(shape, generator))
+                count = sum(t.numel() for t in param_tree(layer).values())
+                rows.append((layer.name, (None,) + shape, count))
+        return rows
 
     def build(self, input_shape, generator):
         shape = tuple(input_shape)

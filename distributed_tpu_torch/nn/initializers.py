@@ -116,10 +116,11 @@ _REGISTRY = {
 }
 
 
-def get(name_or_fn):
+def get(name_or_fn, dtype=torch.float32):
     """An initializer by the JAX package's name, or a callable
     ``init(generator, shape)`` as it is; an unknown name raises
-    ``ValueError``, as in JAX."""
+    ``ValueError``, as in JAX. ``dtype`` is the JAX signature's, and
+    unused there too: the layers cast what they draw."""
     if callable(name_or_fn):
         return name_or_fn
     try:

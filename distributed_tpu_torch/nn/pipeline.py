@@ -331,17 +331,24 @@ class PipelinedBlocks(ScannedBlocks):
         return super().init_paged_cache(num_blocks, block_size, dtype,
                                         device)
 
-    def paged_decode(self, cache, x, **kw):
+    def paged_decode(self, cache, x, *, block_tables, positions,
+                     decode_kernel="reference"):
         self._no_paged_on_pipe_mesh()
-        return super().paged_decode(cache, x, **kw)
+        return super().paged_decode(
+            cache, x, block_tables=block_tables, positions=positions,
+            decode_kernel=decode_kernel)
 
-    def paged_verify(self, cache, x, **kw):
+    def paged_verify(self, cache, x, *, block_tables, positions,
+                     decode_kernel="reference"):
         self._no_paged_on_pipe_mesh()
-        return super().paged_verify(cache, x, **kw)
+        return super().paged_verify(
+            cache, x, block_tables=block_tables, positions=positions,
+            decode_kernel=decode_kernel)
 
-    def paged_prefill(self, cache, x, **kw):
+    def paged_prefill(self, cache, x, *, block_table, start):
         self._no_paged_on_pipe_mesh()
-        return super().paged_prefill(cache, x, **kw)
+        return super().paged_prefill(cache, x, block_table=block_table,
+                                     start=start)
 
     def extra_repr(self) -> str:
         return (f"num_blocks={self.num_blocks}, schedule={self.schedule!r}, "

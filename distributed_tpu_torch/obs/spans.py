@@ -21,11 +21,10 @@ registry and the trace record are skipped.
 from __future__ import annotations
 
 import contextlib
+import sys
 import threading
 import time
 from typing import Optional
-
-import torch
 
 from . import registry as registry_mod
 
@@ -68,7 +67,10 @@ def span(name: str, *, timer=None, registry=None):
     path = "/".join(stack)
     handle = Span(name, path)
     on = registry_mod.enabled()
-    ctx = (torch.profiler.record_function(name) if on
+    # torch is not imported here: a process without it (a controller)
+    # runs no profiler for the record to show in.
+    torch = sys.modules.get("torch")
+    ctx = (torch.profiler.record_function(name) if on and torch is not None
            else contextlib.nullcontext())
     t0 = time.perf_counter()
     try:

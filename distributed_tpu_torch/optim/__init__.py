@@ -669,9 +669,9 @@ class EmaBaseline:
         self.decay = float(decay)
         self.value = None  # None until the first update (cold start)
 
-    def update(self, observed: float) -> float:
+    def update(self, reward_mean: float) -> float:
         """Fold one observation in; returns the new value."""
-        r = float(observed)
+        r = float(reward_mean)
         if self.value is None:
             self.value = r
         else:
@@ -728,18 +728,18 @@ class AdaptiveKLCoef:
         self.factor = float(state["factor"])
         self.tolerance = float(state["tolerance"])
 
-def get(name_or_opt, **kwargs) -> _Transform:
+def get(name_or_tx, **kwargs) -> _Transform:
     """An optimizer from its name (``"sgd"``, ``"adam"``, ``"adamw"``,
     ``"fused_adam"``, ``"fused_adamw"``, ``"rmsprop"``, ``"adagrad"``,
     ``"lamb"``; ``kwargs`` go to its constructor) or an optimizer instance
     as is."""
-    if isinstance(name_or_opt, _Transform):
-        return name_or_opt
+    if isinstance(name_or_tx, _Transform):
+        return name_or_tx
     try:
-        return _REGISTRY[str(name_or_opt).lower()](**kwargs)
+        return _REGISTRY[str(name_or_tx).lower()](**kwargs)
     except KeyError:
         raise ValueError(
-            f"Unknown optimizer {name_or_opt!r}; known: {sorted(_REGISTRY)}"
+            f"Unknown optimizer {name_or_tx!r}; known: {sorted(_REGISTRY)}"
         ) from None
 
 

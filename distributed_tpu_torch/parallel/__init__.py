@@ -4,7 +4,7 @@ the auto-shard planner (``auto_shard.py``)."""
 
 from . import auto_shard, collectives, mesh
 from .auto_shard import Candidate, Feasibility, Plan, plan_sharding
-from .mesh import batch_sharding, make_mesh, replicated
+from .mesh import AXES, batch_sharding, make_mesh, replicated
 from .strategy import (
     FSDP,
     CompositeParallel,
@@ -22,6 +22,7 @@ from .strategy import (
 )
 
 __all__ = [
+    "AXES",
     "Candidate",
     "CompositeParallel",
     "DataExpertParallel",

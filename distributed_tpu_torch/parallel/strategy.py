@@ -432,6 +432,10 @@ class DataParallel(Strategy):
     def num_replicas_in_sync(self) -> int:
         return dist.get_world_size()
 
+    def row_axes(self) -> tuple:
+        """Mesh axes the batch's row (leading) dim shards over."""
+        return (self.axis,)
+
     def _rank(self) -> int:
         return dist.get_rank()
 

@@ -44,7 +44,7 @@ reassembly — only the medium differs):
 **Refresh** rides the ``async_save`` writer-thread idiom: the blocks are
 cloned on the card on the training thread (``checkpoint.core.
 _device_snapshot``, an event recorded after the clones), then a background
-"dtt-buddy-writer" waits for that event on a stream of its own, copies
+"dtpu-buddy-writer" waits for that event on a stream of its own, copies
 the blocks to the host and writes the store; it never reads a tensor the
 next step updates in place. A mirror becomes
 visible atomically (blocks first, ``manifest.json`` commit marker last,
@@ -385,7 +385,7 @@ class BuddyRedundancy:
     group's (``utils.logging.rank_world``) at first use; tests simulate
     other gang positions by passing them explicitly.
     ``async_refresh=True`` (default) runs the host copy and the writes on a
-    background "dtt-buddy-writer" thread after an on-card snapshot, the
+    background "dtpu-buddy-writer" thread after an on-card snapshot, the
     ``ShardedCheckpointer(async_save=True)`` idiom; a refresh failure
     degrades the TIER (warning + ``buddy_refresh_failed`` event), never
     the training run. A process killed right after a refresh abandons a
@@ -505,7 +505,7 @@ class BuddyRedundancy:
             write(host)
 
         writer = threading.Thread(target=fetch_and_write,
-                                  name="dtt-buddy-writer", daemon=True)
+                                  name="dtpu-buddy-writer", daemon=True)
         with self._writer_lock:
             self._writer = writer
         writer.start()

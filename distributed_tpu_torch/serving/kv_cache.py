@@ -110,6 +110,22 @@ class BlockAllocator:
                 freed += 1
         return freed
 
+    def free(self, blocks) -> None:
+        """Release EXCLUSIVELY-owned blocks. Raises on a double free and on
+        a block with refcount > 1: its storage would go to the next
+        allocation while a peer sequence or the prefix store still reads
+        it. Shared owners must ``decref``."""
+        for b in blocks:
+            if b not in self._refs:
+                raise ValueError(f"double free of block {b}")
+            if self._refs[b] > 1:
+                raise ValueError(
+                    f"free of shared block {b} (refcount "
+                    f"{self._refs[b]}) — holders of possibly-shared "
+                    "blocks must decref, not free"
+                )
+        self.decref(blocks)
+
     def utilization(self) -> float:
         """Fraction of allocatable pool blocks currently owned."""
         return len(self._refs) / max(self.num_allocatable, 1)
@@ -145,8 +161,15 @@ class PrefixStore:
         self.insertions = 0
         self.evictions = 0
 
+    def __len__(self) -> int:
+        return len(self._entries)
+
     def __contains__(self, key: str) -> bool:
         return key in self._entries
+
+    @property
+    def blocks(self) -> List[int]:
+        return list(self._entries.values())
 
     def keys(self) -> List[str]:
         """Every cached chain key, LRU order (oldest first): the fleet's

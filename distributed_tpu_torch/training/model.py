@@ -256,6 +256,14 @@ class _LocalLeaf:
         self.tensor, self.layout = tensor, layout
 
 
+def _host_array(a) -> np.ndarray:
+    """A host array as the step takes it: float64 (what R, and Python
+    floats, hand over) as float32, the cast JAX's 32-bit default makes at
+    the same entry points; every kernel of the port refuses float64."""
+    a = np.asarray(a)
+    return a.astype(np.float32) if a.dtype == np.float64 else a
+
+
 class Model:
     """``Model(module, name=None, device=None)``: the model on the device
     of the ambient strategy (``strategy.scope()``), else on ``device``,
@@ -1190,8 +1198,8 @@ class Model:
                 return next(source)
         else:
             source, per_host = None, False
-            x = np.asarray(x)
-            y = np.asarray(y)
+            x = _host_array(x)
+            y = _host_array(y)
             if not self.built:
                 self.build(x.shape[1:], seed=0 if seed is None else seed)
             n = x.shape[0]
@@ -1735,8 +1743,8 @@ class Model:
                 f"yielding (x, y); got {type(x).__name__} without labels")
         if not (self.built and self.compiled):
             raise RuntimeError("Model must be built and compiled")
-        x = self.strategy.shard_seq(np.asarray(x))
-        y = self.strategy.shard_seq(np.asarray(y))
+        x = self.strategy.shard_seq(_host_array(x))
+        y = self.strategy.shard_seq(_host_array(y))
         n = x.shape[0]
         lo, hi = self.strategy.row_range(batch_size)
         # The chunks split the batch's tokens, an MoE routes the batch's
@@ -1851,7 +1859,7 @@ class Model:
                     yield np.asarray(batch[0] if isinstance(batch, tuple)
                                      else batch)
         else:  # steps goes with an iterator; arrays ignore it, as in JAX
-            arr = np.asarray(x)
+            arr = _host_array(x)
             self.strategy.local_batch_size(batch_size)
 
             def host_batches():
@@ -2000,6 +2008,27 @@ class Model:
         if self.compiled:
             self._init_opt_state()
         return self
+
+    # ---------------------------------------------------------------- summary
+    def summary(self):
+        """Keras-style table of the layers (name, output shape, parameter
+        count) and the total, with the JAX ``Model.summary``'s text:
+        printed on rank 0, and returned."""
+        if self.input_shape is None:
+            raise ValueError("Build the model (or fit once) before summary()")
+        rows = self.module.summary_lines(self.input_shape)
+        width = max(len(r[0]) for r in rows) + 2
+        lines = [f"Model: {self.name}", "-" * (width + 30)]
+        total = 0
+        for name, shape, count in rows:
+            lines.append(f"{name:<{width}}{str(shape):<22}{count}")
+            total += count
+        lines.append("-" * (width + 30))
+        lines.append(f"Total params: {total}")
+        text = "\n".join(lines)
+        if dlog.rank_world()[0] == 0:
+            print(text)
+        return text
 
 
 __all__ = ["Model"]

@@ -1,8 +1,11 @@
-"""Stall accounting and model-state bytes: the port's copies of the JAX
-package's ``StepTimer``, ``tree_bytes_per_device`` and
-``redundancy_report``
-(``distributed_tpu/utils/profiler.py``; that module imports JAX, so only
-these are copied here, and of the timer what the serving engine uses).
+"""Profiling hooks, the step timer and model-state bytes: the port's
+counterparts of the JAX package's ``utils/profiler.py``.
+
+``trace`` captures a ``torch.profiler`` trace of a block (the card's
+kernels beside the host's calls, written for TensorBoard), ``annotate``
+names a region on it (``record_function``), and ``device_memory_stats``
+reads the card's allocator (None on the CPU, as JAX returns None on a
+backend without an instrumented allocator).
 
 ``tree_bytes_per_device`` measures live tensors: each rank counts the
 bytes it holds (a sharded leaf's block, a replicated leaf whole), and the
@@ -20,6 +23,7 @@ synchronization.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Optional
 
@@ -27,6 +31,61 @@ import torch
 import torch.distributed as dist
 
 from ..obs import registry as obs_registry
+from . import logging as dlog
+
+
+@contextlib.contextmanager
+def trace(logdir: str, *, chief_only: bool = True):
+    """Capture a profiler trace for the duration of the block, into
+    ``logdir`` (one ``*.pt.trace.json`` a capture; TensorBoard's profile
+    plugin and chrome://tracing read it). With ``chief_only``, ranks
+    other than 0 run the block untraced, so a gang writes one trace.
+
+        with dtt.utils.profiler.trace("/tmp/trace"):
+            model.fit(...)
+    """
+    if chief_only and dlog.rank_world()[0] != 0:
+        yield
+        return
+    cuda = torch.cuda.is_available()
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                str(logdir))):
+        yield
+        if cuda:
+            # The card's work launched in the block ends inside the capture.
+            torch.cuda.synchronize()
+
+
+def annotate(name: str):
+    """Named region that shows on the trace's timeline (host, and the
+    card's work launched inside it)."""
+    return torch.profiler.record_function(name)
+
+
+def device_memory_stats(device=None):
+    """Allocator stats of one card as ``{bytes_in_use, peak_bytes_in_use,
+    bytes_limit}``: how close to the card's memory a ZeRO/FSDP run sits.
+    ``device``: a CUDA device (default: the current one). None for a CPU
+    device or without a card: the CPU has no instrumented allocator (use
+    :func:`tree_bytes_per_device` for the model-state share there)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            return None
+        device = torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    stats = torch.cuda.memory_stats(device)
+    return {
+        "bytes_in_use": int(stats.get("allocated_bytes.all.current", 0)),
+        "peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak", 0)),
+        "bytes_limit": int(torch.cuda.mem_get_info(device)[1]),
+    }
 
 
 def _held_bytes(tree) -> int:
@@ -87,12 +146,42 @@ def redundancy_report(state_bytes: int, mirror_host_bytes: int,
 
 
 class StepTimer:
-    """Wall time attributed to named stall categories over the timer's
-    lifetime."""
+    """Steps/sec with the warmup steps excluded, and wall time attributed
+    to named stall categories over the timer's lifetime."""
 
-    def __init__(self):
+    def __init__(self, warmup: int = 1):
+        self.warmup = int(warmup)
+        self.steps = 0
+        self._t0 = None
+        self._measured_from = 0  # step count when the clock started
         self.stalls = {}  # category -> accumulated seconds
         self._wall0 = time.perf_counter()
+
+    def tick(self, steps: int = 1):
+        """Count ``steps`` completed optimizer steps (``steps=K`` for one
+        dispatch of K steps). The clock starts at the first tick that
+        reaches ``warmup``; the steps up to it are not in the rate."""
+        self.steps += int(steps)
+        if self._t0 is None and self.steps >= self.warmup:
+            self._t0 = time.perf_counter()
+            self._measured_from = self.steps
+
+    @property
+    def steps_per_sec(self) -> float:
+        counted = self.steps - self._measured_from
+        if self._t0 is None or counted <= 0:
+            return 0.0
+        return counted / (time.perf_counter() - self._t0)
+
+    def report(self, **extra):
+        """The rate; on rank 0 also a ``step_rate`` event and a log line."""
+        rate = self.steps_per_sec
+        if dlog.rank_world()[0] == 0:
+            dlog.event("step_rate", steps_per_sec=rate, steps=self.steps,
+                       **extra)
+            dlog.info(f"{rate:.2f} steps/s over "
+                      f"{self.steps - self._measured_from} steps")
+        return rate
 
     def attribute(self, category: str, seconds: float):
         """Accrue ``seconds`` of wall time to ``category``, and to the
@@ -125,4 +214,5 @@ class StepTimer:
         return out
 
 
-__all__ = ["StepTimer", "redundancy_report", "tree_bytes_per_device"]
+__all__ = ["StepTimer", "annotate", "device_memory_stats",
+           "redundancy_report", "trace", "tree_bytes_per_device"]

@@ -51,12 +51,15 @@ def _crc(t: torch.Tensor) -> int:
 
 
 def assert_replicas_identical(params: Dict[str, torch.Tensor],
-                              what: str = "params") -> None:
+                              what: str = "params",
+                              cross_host: bool = True) -> None:
     """Raise AssertionError naming the first parameter whose replicas have
     diverged: each rank takes a CRC32 fingerprint of each parameter's
     bytes, and the ranks all-gather them (names first, so that a rank
-    holding other parameters is reported, not gathered out of order)."""
-    if _world() < 2:
+    holding other parameters is reported, not gathered out of order).
+    ``cross_host=False`` compares only the replicas this process holds,
+    as in JAX; a process here holds one, so nothing is compared."""
+    if not cross_host or _world() < 2:
         return
     names = sorted(params)
     names_crc = zlib.crc32("\x00".join(names).encode())

@@ -401,7 +401,7 @@ def test_async_save_equals_sync_save_despite_in_place_update(tmp_path,
     real_save = pckpt.save_npz
 
     def held_back(path, tree, meta=None):
-        if threading.current_thread().name == "dtt-ckpt-writer":
+        if threading.current_thread().name == "dtpu-ckpt-writer":
             assert step3.wait(60)  # write only after step 3's update
         return real_save(path, tree, meta)
 

@@ -60,7 +60,7 @@ _FORBIDDEN = re.compile(
 @pytest.mark.parametrize(
     "path",
     sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py"))
-    + ["chip_smoke.py"]
+    + ["chip_smoke.py", "tests/torch_r_sim.py"]
     + sorted(str(p.relative_to(ROOT))
              for p in (ROOT / "scripts").glob("torch_*.py")),
 )
@@ -129,6 +129,33 @@ def test_rl_and_data_tier_modules_are_checked():
         assert f"distributed_tpu_torch.{name}" in _port_modules(), name
     assert "scripts/torch_imagenet_resnet.py" in checked
     assert (PKG / "data" / "native" / "pipeline.cc").is_file()
+
+def test_r_runtime_and_linter_of_phase_z9_run_without_jax():
+    """chip_smoke.py's phase z9 builds the R session of
+    ``tests/torch_r_sim.py`` (the port's R package on the simulated R
+    runtime) and runs the port's linter: both work where ``jax`` and
+    ``distributed_tpu`` cannot be imported."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['distributed_tpu'] = None\n"
+        f"sys.path.insert(0, {str(ROOT / 'tests')!r})\n"
+        "import torch_r_sim\n"
+        "from distributed_tpu_torch.analysis import cli\n"
+        "interp = torch_r_sim.TorchInterp(device='cpu')\n"
+        "interp.run_source('library(distributedtputorch)\\n"
+        "v <- dtpu_version()\\nm <- dtpu_model(mnist_cnn(10L), "
+        "device = \"cpu\")')\n"
+        "print(interp.global_env.lookup('v').values[0])\n"
+        "print(cli.main(['--rules', 'thread-hygiene']))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=str(ROOT), env=env, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert lines[0] == dtt.__version__ and lines[-1] == "0", lines
+
 
 def test_default_device_is_the_card_and_never_falls_back():
     if torch.cuda.is_available():
