@@ -437,6 +437,33 @@ z. The auto-shard planner and the gang launcher's restart and liveness.
    ``utils.profiler``'s hooks (allocator stats, ``trace()`` around an
    ``annotate``d predict) in this process and in a fresh one, whose trace
    must hold the card's kernels.
+z10. Configurations the port ran only on the CPU before. (z10a)
+   Pythia-160M's widths (EleutherAI's ``pythia-160m``: 12 layers, d 768,
+   12 heads, d_ff 3,072, vocab 50,304) with GPT-NeoX's parallel residual,
+   ``Residual(main=Residual(MLP), shortcut=Sequential([LayerNorm,
+   MultiHeadAttention]))``, so K1/K2 read the shortcut's pool (cut: a
+   learned positional table of 1,024 rows in place of rotary; random
+   weights from seed 0): in f32 the fused Engine token-exact against
+   ``Model.generate`` on 8 requests of 128 + 128 tokens; in bf16 layers
+   phase c's 16 requests with bf16 and int8 KV (tokens/s, TTFT, the pool's
+   bytes and the shortcut's share); ``spec_k=4`` with its first 6 blocks
+   as the draft, token-exact against the f32 run. (z10b) Phase v1's LM
+   with ``fused_adam(1e-4)``, its scanned template wrapping each residual
+   in ``Remat`` (the default policy, then ``dots_with_no_batch_dims_
+   saveable``): one warm-up and 3 timed steps, losses and every parameter
+   bit for bit against the unrolled ``remat=True`` LM from the same
+   weights; ms a step and peak memory beside the scanned twin with one
+   ``Remat`` around the whole block. (z10c) ResNet-50 (bf16) under
+   ``DataParallel`` (NCCL, world 1) predicting 1,024 images at batch 256
+   from ``Pipeline(shard="auto")``, bit for bit the predict of the same
+   rows as a host array, K12 counted: a world-1 predict from a pipeline,
+   which at one process reads whole (no shard), so ``predict``'s gather
+   over the batch group does not run here; ``scripts/torch_dp_scaling.py
+   --predict`` on 4 cards checks that. (z10d) Dropout's slice-only draws
+   (``threefry.bernoulli_block``) at 8 x 1024 x 768 for every rank of 2
+   and of 4: TP's column block and the ring's and Ulysses' token chunk
+   through ``nn.Dropout``, the zigzag schedule's two chunks through the
+   draw itself, each bit for bit its slice of the full-shape mask.
 Then the kernel table as one JSON line (each row also names the CUDA
 kernel of the main path, ``kernel``, and carries its launches in phase r's
 resumed steps, ``launches_resumed``, in phase t's fits that captured a
@@ -449,8 +476,8 @@ in phase v's scanned runs, ``launches_v``, in phase w's sharded runs,
 ``launches_x``, in phase y's MoE, pipelined and composite runs,
 ``launches_y``, in phase z1's auto-compiled run, ``launches_z``, in
 phase z3's resumed worker, ``launches_z3``, K1 in phase z4's
-full-width fleet, ``launches_z4``, and in phases z6-z9,
-``launches_z6``-``launches_z9``, where any),
+full-width fleet, ``launches_z4``, and in phases z6-z10,
+``launches_z6``-``launches_z10``, where any),
 the card's name and power limit, and ``{"ok": true, "device": {...}}`` as
 the last line.
 """
@@ -5248,6 +5275,380 @@ def phase_lint_and_r(torch, mods):
     return counts
 
 
+# ----------------------------------------------------------------- phase z10
+#: Pythia-160M's widths (EleutherAI's ``pythia-160m`` config).
+PYTHIA = dict(vocab=50304, num_layers=12, d_model=768, num_heads=12,
+              d_ff=3072)
+
+
+def pythia_lm(dtt, num_layers=PYTHIA["num_layers"], dtype=None):
+    """Pythia-160M's widths with GPT-NeoX's parallel residual
+    (``use_parallel_residual``), ``x + attn(ln1(x)) + mlp(ln2(x))``, from
+    the repo's layers: ``Residual(main=Residual(Sequential([LayerNorm,
+    Dense(gelu, col), Dense(row)])), shortcut=Sequential([LayerNorm,
+    MultiHeadAttention]))``, the attention in the shortcut, so its KV pool
+    is the shortcut's. Cut: a learned ``PositionalEmbedding`` of
+    ``LM["max_len"]`` (1,024) rows in place of rotary (the repo has no
+    rotary layer; Pythia reaches 2,048)."""
+    nn = dtt.nn
+    d = PYTHIA["d_model"]
+    layers = [nn.Embedding(PYTHIA["vocab"], d, dtype=dtype),
+              nn.PositionalEmbedding(LM["max_len"])]
+    for _ in range(num_layers):
+        mlp = nn.Sequential([
+            nn.LayerNorm(),
+            nn.Dense(PYTHIA["d_ff"], activation="gelu", shard="col",
+                     dtype=dtype),
+            nn.Dense(d, shard="row", dtype=dtype)])
+        attn = nn.Sequential([
+            nn.LayerNorm(),
+            nn.MultiHeadAttention(PYTHIA["num_heads"], causal=True,
+                                  dtype=dtype)])
+        layers.append(nn.Residual(nn.Residual(mlp), shortcut=attn))
+    return nn.Sequential(layers + [nn.LayerNorm(),
+                                   nn.Dense(PYTHIA["vocab"], dtype=dtype)])
+
+
+def first_token_difference(a, b):
+    """(request, position) of the first token where two runs differ, or
+    None."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if not np.array_equal(x, y):
+            n = min(len(x), len(y))
+            where = np.nonzero(x[:n] != y[:n])[0]
+            return i, int(where[0]) if where.size else n
+    return None
+
+
+def shortcut_bytes(caches, under=False):
+    """Bytes of the paged pool's leaves that sit below a ``shortcut``
+    key."""
+    if isinstance(caches, dict):
+        return sum(shortcut_bytes(v, under or k == "shortcut")
+                   for k, v in caches.items())
+    return caches.numel() * caches.element_size() if under else 0
+
+
+def phase_parallel_residual(torch, dtt, paged_ops, reqs, n=8, t_p=128,
+                            new=128):
+    """z10a: the Pythia-width parallel-residual LM served by the paged
+    Engine, its attention's pool under the residual's shortcut. (i) f32:
+    ``Engine(decode_kernel="fused")`` token-exact against ``Model.
+    generate`` (the dense cache) on 8 requests of 128 + 128 tokens; (ii)
+    bf16 layers: phase c's 16 requests through K1, then with int8 KV
+    through K2 (tokens/s, TTFT, the pool's bytes with the shortcut's
+    share); (iii) f32, ``spec_k=4`` with the first 6 blocks as the draft,
+    4 requests, token-exact against (i). Returns K1's and K2's
+    launches."""
+    counts = {}
+    f32 = dtt.Model(pythia_lm(dtt)).build((LM["max_len"],), seed=0)
+    n_params = sum(p.numel() for p in f32.params.values())
+    prompts = np.random.default_rng(5).integers(
+        0, PYTHIA["vocab"], (n, t_p)).astype(np.int32)
+    t = time.perf_counter()
+    greedy = f32.generate(prompts, new, temperature=0.0)
+    gen_s = time.perf_counter() - t
+    ireqs = [(p, new) for p in prompts]
+    paged_ops.reset_launch_counts()
+    outs, tel, wall = serve(dtt, f32, ireqs, decode_kernel="fused")
+    counts["paged_attention"] = paged_ops.launches["paged_attention"]
+    diff = first_token_difference(list(greedy), outs)
+    print(f"  (i) f32, {n_params / 1e6:.1f}M params: generate {n} x ({t_p} "
+          f"+ {new}) in {gen_s:.2f} s; Engine (fused) "
+          f"{tel['tokens_per_sec']:.1f} tokens/s, K1 launches "
+          f"{counts['paged_attention']} ({tel['decode_steps']} decode steps"
+          f" x {PYTHIA['num_layers']} layers); token-exact against "
+          f"generate: {diff is None}"
+          + ("" if diff is None else f" (first difference: request "
+             f"{diff[0]}, position {diff[1]})"))
+    if diff is not None:
+        raise SystemExit("z10a (i): the Engine's greedy tokens differ from "
+                         "generate's")
+    if counts["paged_attention"] != tel["decode_steps"] * PYTHIA[
+            "num_layers"]:
+        raise SystemExit("z10a (i): K1 did not read the shortcut's pool "
+                         "once per layer and decode step")
+    draft = dtt.Model(pythia_lm(dtt, num_layers=PYTHIA["num_layers"] // 2))
+    draft.build((LM["max_len"],), seed=1)
+    own = f32.params
+    draft.load_params({k: own[k] for k in draft.params})
+    paged_ops.reset_launch_counts()
+    souts, stel, _ = serve(dtt, f32, ireqs[:4], decode_kernel="fused",
+                           draft_model=draft, spec_k=4)
+    by_kw = launches_by_kw(paged_ops)
+    counts["paged_attention"] += paged_ops.launches["paged_attention"]
+    diff = first_token_difference(outs[:4], souts)
+    spec = stel["speculative"]
+    print(f"  (iii) f32 spec_k=4, 6-block draft: accept rate "
+          f"{spec['accept_rate']:.4f}, rounds {spec['rounds']}, "
+          f"{stel['tokens_per_sec']:.1f} tokens/s; K1 by kw {by_kw}; "
+          f"token-exact against (i): {diff is None}")
+    if diff is not None or not spec["rounds"]:
+        raise SystemExit("z10a (iii): speculative tokens differ from (i)")
+    if by_kw.get("paged_attention/kw4", 0) != PYTHIA["num_layers"] * spec[
+            "rounds"]:
+        raise SystemExit("z10a (iii): the verify did not read the "
+                         "shortcut's pool at kw 4 once per layer and round")
+    del f32, draft
+    torch.cuda.empty_cache()
+
+    bf = dtt.Model(pythia_lm(dtt, dtype="bfloat16")).build(
+        (LM["max_len"],), seed=0)
+    ref = None
+    for kv, name in ((None, "paged_attention"),
+                     ("int8", "paged_attention_int8")):
+        engine = dtt.serving.Engine(
+            bf, max_slots=8, block_size=16, max_len=LM["max_len"],
+            decode_kernel="fused", kv_dtype=kv)
+        paged_ops.reset_launch_counts()
+        t = time.perf_counter()
+        got = engine.run([dtt.serving.Request(p, m) for p, m in reqs])
+        wall = time.perf_counter() - t
+        launched = paged_ops.launches[name]
+        counts[name] = counts.get(name, 0) + launched
+        tel = engine.last_run_telemetry
+        pool, sc = pool_bytes(engine.kv), shortcut_bytes(engine.kv.caches)
+        check_outputs(got, reqs, PYTHIA["vocab"])
+        report(f"(ii) bf16 layers, {kv or 'bf16'} KV", tel, wall)
+        share = "" if ref is None else (
+            f"; agreement with bf16 KV {agreement(got, ref, reqs)[0]:.4f}")
+        print(f"    pool {pool / 1e6:.1f} MB, of it under 'shortcut' "
+              f"{sc / 1e6:.1f} MB; {name} launches {launched}{share}")
+        if launched != tel["decode_steps"] * PYTHIA["num_layers"] or \
+                sc != pool or not sc:
+            raise SystemExit(f"z10a (ii): {name} did not read the "
+                             "shortcut's pool once per layer and step")
+        ref = got if ref is None else ref
+        del engine
+    del bf
+    torch.cuda.empty_cache()
+    return counts
+
+
+def inner_remat_lm(dtt, policy):
+    """GPT-2-small (LM, bf16 layers) with ``scan=True``'s tree, its
+    template's attention residual and MLP residual each wrapped in
+    ``nn.Remat(policy=)`` (no ``Remat`` around the whole block)."""
+    nn = dtt.nn
+    d = LM["d_model"]
+
+    def make_block():
+        return nn.Sequential([
+            nn.Remat(r, policy=policy) for r in
+            dtt.models.transformer.transformer_block(
+                d, LM["num_heads"], 4 * d, dtype="bfloat16")])
+
+    return nn.Sequential([
+        nn.Embedding(VOCAB, d, dtype="bfloat16"),
+        nn.PositionalEmbedding(LM["max_len"]),
+        nn.ScannedBlocks(make_block, LM["num_layers"]),
+        nn.LayerNorm(), nn.Dense(VOCAB, dtype="bfloat16")],
+        name="transformer_lm")
+
+
+def phase_inner_remat(torch, dtt, mods, batch=32, steps=3):
+    """z10b: phase v1's LM (GPT-2-small, bf16 layers, the pallas loss,
+    batch 32 x 1024) with ``fused_adam(1e-4)`` (Adam through K11), for the
+    default policy and ``dots_with_no_batch_dims_saveable``: the scanned
+    template with a ``Remat`` around each residual against the unrolled
+    ``transformer_lm(remat=True, remat_policy=)`` from the same weights
+    (restacked), one warm-up and 3 timed steps each, losses and every
+    parameter bit for bit; beside them the scanned twin with one ``Remat``
+    around the whole block. ms a step and peak memory of each; the inner
+    template's launches. Returns those launches."""
+    t_len, layers = LM["max_len"], LM["num_layers"]
+    x, y = lm_batch(batch, t_len)
+    fit = dict(batch_size=batch, steps_per_epoch=1, shuffle=False,
+               verbose=0)
+    total = {}
+    for policy in (None, REMAT_POLICY):
+        un = None
+        rows = {}
+        for arm in ("unrolled", "inner", "outer"):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            module = (inner_remat_lm(dtt, policy) if arm == "inner" else
+                      dtt.models.transformer_lm(
+                          VOCAB, dtype="bfloat16", remat=True,
+                          remat_policy=policy, scan=arm == "outer", **LM))
+            m = dtt.Model(module)
+            m.compile(optimizer=dtt.optim.fused_adam(1e-4), loss=PALLAS,
+                      metrics=[])
+            m.build((t_len,), seed=0)
+            if arm == "unrolled":
+                un = m
+                start = {k: v.detach().clone() for k, v in restack_blocks(
+                    m.params, layers).items()}
+            else:
+                m.load_params(start)
+            losses = m.fit(x, y, epochs=1, **fit).history["loss"]
+            reset_counts(mods)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            losses += m.fit(x, y, epochs=steps, **fit).history["loss"]
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t) / steps
+            peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+            counts = launch_counts(mods)
+            rows[arm] = (losses, ms, peak, counts)
+            if arm == "inner":
+                for name, c in counts.items():
+                    total[name] = total.get(name, 0) + c
+            if arm != "unrolled":
+                diff = first_difference(
+                    torch, restack_blocks(un.params, layers), m.params)
+                rows[arm] += (diff,)
+                del m
+            torch.cuda.empty_cache()
+        del un
+        torch.cuda.empty_cache()
+        label = policy or "default"
+        for arm, row in rows.items():
+            losses, ms, peak, counts = row[:4]
+            print(f"  {label}, {arm}: losses {[round(v, 5) for v in losses]},"
+                  f" {ms:.1f} ms a step, peak {peak:.2f} GB, launches a step "
+                  f"{ {k: c / steps for k, c in counts.items() if c} }")
+        for arm in ("inner", "outer"):
+            same = rows[arm][0] == rows["unrolled"][0]
+            say_same(f"{label}, {arm} against unrolled: losses "
+                     f"{'equal' if same else 'DIFFER'}; parameters",
+                     rows[arm][4])
+            if arm == "inner" and (not same or rows[arm][4] is not None):
+                raise SystemExit("z10b: the inner-Remat template parts from "
+                                 "the unrolled remat LM")
+        want = {"flash_fwd", "flash_dq", "flash_dkv", "xent_fwd", "xent_bwd",
+                "fused_adam"}
+        if not all(rows["inner"][3].get(k) for k in want):
+            raise SystemExit(f"z10b: launches {rows['inner'][3]} miss one of "
+                             f"{sorted(want)}")
+    return total
+
+
+def phase_pipeline_predict(torch, dtt, conv_ops, n=1024, batch=256):
+    """z10c: ResNet-50 (bf16) under ``DataParallel`` (NCCL, world 1)
+    predicts 1,024 random uint8 images at batch 256 from ``Pipeline(
+    shard="auto")``; the result must equal ``predict`` of the same rows as
+    a host array bit for bit. At world 1 the pipeline reads whole (its
+    ``shard`` is None), so this is the world-1 predict from a pipeline,
+    not the gather of a sharded one (``scripts/torch_dp_scaling.py
+    --predict``, 4 cards). Returns K12's launches."""
+    nccl_world1(dtt)
+    try:
+        with dtt.DataParallel().scope():
+            m = dtt.Model(dtt.models.resnet(50, 1000, dtype="bfloat16"))
+        m.build((224, 224, 3), seed=0)
+        x8 = np.random.default_rng(9).integers(
+            0, 256, (n, 224, 224, 3), dtype=np.uint8)
+        y = np.zeros((n,), np.int32)
+        kw = dict(shuffle=False, use_native=False)
+        with dtt.data.Pipeline(x8, y, batch, shard="auto", **kw) as pipe:
+            shard = pipe.shard
+            conv_ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = m.predict(pipe)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            k12 = conv_ops.launches["conv1x1"]
+        with dtt.data.Pipeline(x8, y, batch, **kw) as pipe:
+            host = np.concatenate([next(pipe)[0] for _ in range(n // batch)])
+        want = m.predict(host, batch_size=batch)
+        same = bool(np.array_equal(got, want))
+        print(f"  shard {shard or '(0, 1): one shard, read whole'}; logits "
+              f"{got.shape} in {wall:.2f} s ({n / wall:.1f} images/s, the "
+              f"pipeline's reads included); K12 launches {k12}; equal to "
+              f"the host array's predict bit for bit: {same}")
+        if not same or got.shape != (n, 1000) or not k12:
+            raise SystemExit("z10c: predict from the pipeline differs from "
+                             "the host array's")
+    finally:
+        dtt.cluster.shutdown()
+    del m
+    torch.cuda.empty_cache()
+    return {"conv1x1": k12}
+
+
+def phase_dropout_slices(torch, dtt, shape=(8, 1024, 768), keep=0.9,
+                         dev="cuda"):
+    """z10d: on the card, each rank's slice-only Dropout draw against its
+    slice of the full-shape ``threefry.bernoulli`` mask, bit for bit, at
+    phase v5's shape, for n = 2 and 4 ranks: TP's column block (through
+    ``nn.Dropout`` paired after a column ``Dense``), the contiguous token
+    chunk of the ring and of Ulysses (through ``nn.Dropout`` under a
+    sequence split), and the zigzag schedule's two chunks (rank i's
+    chunks i and 2n-1-i, through ``threefry.bernoulli_block``)."""
+    from distributed_tpu_torch.parallel import collectives
+    from distributed_tpu_torch.parallel.strategy import Strategy
+    from distributed_tpu_torch.utils import threefry
+
+    dev = torch.device(dev)
+    key = threefry.device_key(threefry.PRNGKey(7), dev)
+    full = threefry.bernoulli(key, keep, shape, dev)
+    b, t_len, d = shape
+
+    class Split(Strategy):
+        """Rank ``r`` of ``n`` on a sequence or model line, no group."""
+
+        def __init__(self, n, r, seq):
+            self.n, self.r, self.seq, self.device = n, r, seq, dev
+
+        @property
+        def num_batch_shards(self):
+            return self.n if self.seq else 1
+
+        def seq_offset(self, t_local):
+            return self.r * t_local
+
+        def computes_block(self, layout):
+            return True
+
+    def layer_mask(layer, local, st):
+        layer.train()
+        with st.scope(), dtt.nn.rng_scope(key), torch.no_grad():
+            return layer(torch.ones(local, device=dev)) != 0
+
+    checks, slice_ms = 0, {}
+    for n in (2, 4):
+        for r in range(n):
+            st = Split(n, r, seq=True)
+            tl = t_len // n
+            got = layer_mask(dtt.nn.Dropout(1 - keep), (b, tl, d), st)
+            ok = torch.equal(got, full[:, r * tl:(r + 1) * tl])
+            col = dtt.nn.Dense(d, shard="col")
+            col.build((d,), torch.Generator().manual_seed(0))
+            w = d // n
+            col.kernel = torch.nn.Parameter(torch.empty((d, w), device=dev))
+            collectives.mark(col.kernel, collectives.Layout(
+                (d, d), 1, n, r, None, "model"))
+            drop = dtt.nn.Dropout(1 - keep)
+            dtt.nn.Sequential([col, drop, dtt.nn.Dense(d, shard="row")])
+            got = layer_mask(drop, (b, t_len, w), Split(n, r, seq=False))
+            ok &= torch.equal(got, full[..., r * w:(r + 1) * w])
+            c = t_len // (2 * n)
+            idx = torch.cat([torch.arange(r * c, (r + 1) * c, device=dev),
+                             torch.arange((2 * n - 1 - r) * c,
+                                          (2 * n - r) * c, device=dev)])
+            got = threefry.bernoulli_block(key, keep, shape,
+                                           [None, idx, None], dev)
+            ok &= torch.equal(got, full[:, idx])
+            checks += 3
+            if not ok:
+                raise SystemExit(f"z10d: rank {r} of {n}: a slice-only draw "
+                                 "differs from the full mask's slice")
+        tl = t_len // n
+        idx = [None, torch.arange(0, tl, device=dev), None]
+        slice_ms[n] = cuda_ms(torch, lambda i: threefry.bernoulli_block(
+            key, keep, shape, idx, dev), 10)
+    full_ms = cuda_ms(torch, lambda i: threefry.bernoulli(key, keep, shape,
+                                                          dev), 10)
+    print(f"  {checks} slices (TP columns, ring/Ulysses tokens, zigzag "
+          f"chunks; n = 2 and 4) equal to the full mask's, bit for bit; "
+          f"kept share {float(full.float().mean()):.5f}; device ms: full "
+          f"{shape} draw {full_ms:.3f}, one rank's slice at n = 2 "
+          f"{slice_ms[2]:.3f}, at n = 4 {slice_ms[4]:.3f}")
+
+
 def main():
     import torch
 
@@ -5535,6 +5936,27 @@ def main():
     u_counts["z9"] = phase_lint_and_r(torch, (
         paged_ops, xent_ops, flash_ops, adam_ops, conv_ops, bn_ops,
         probe_ops))
+    print(f"phase z10a: Pythia-160M's widths with GPT-NeoX's parallel "
+          f"residual (the attention in the Residual's shortcut) served by "
+          f"the paged Engine: f32 against generate, bf16 and int8 KV, "
+          f"spec_k=4 | {card_line()}")
+    z10 = phase_parallel_residual(torch, dtt, paged_ops, reqs)
+    print(f"phase z10b: a Remat around each residual inside the scanned "
+          f"template of phase v1's LM (fused_adam(1e-4)), against the "
+          f"unrolled remat=True LM and the whole-block Remat twin | "
+          f"{card_line()}")
+    more = [phase_inner_remat(torch, dtt, (xent_ops, flash_ops, adam_ops))]
+    print(f"phase z10c: ResNet-50 (bf16) under DataParallel (NCCL, world 1)"
+          f" predicting 1,024 images from Pipeline(shard=\"auto\") | "
+          f"{card_line()}")
+    more.append(phase_pipeline_predict(torch, dtt, conv_ops))
+    print("phase z10d: Dropout's slice-only draws against the full-shape "
+          "mask at 8 x 1024 x 768, 2 and 4 ranks")
+    phase_dropout_slices(torch, dtt)
+    for counts in more:
+        for name, c in counts.items():
+            z10[name] = z10.get(name, 0) + c
+    u_counts["z10"] = z10
     for sub, counts in u_counts.items():
         for name, n in counts.items():
             if n:
@@ -5557,7 +5979,7 @@ def main():
          "replayed_fit": r.get("replayed_fit"),
          **{f"launches_{sub}": r[f"launches_{sub}"]
             for sub in ("u1", "u2", "u3", "v", "w", "x", "y", "z", "z3",
-                        "z4", "z6", "z7", "z8", "z9")
+                        "z4", "z6", "z7", "z8", "z9", "z10")
             if f"launches_{sub}" in r},
          **({"launches_spec": r["launches_spec"], "ms_by_kw": r["ms_by_kw"]}
             if "ms_by_kw" in r else {})}

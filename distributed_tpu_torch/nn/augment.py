@@ -6,7 +6,10 @@ per-sample randomness from the step key through the port's rng routing
 (``nn.core.current_rng``, as ``Dropout`` does), so augmentation is
 deterministic given (seed, step): a resumed run replays the same crops
 and flips, and the draws equal JAX's bit for bit (``utils.threefry``).
-The host pipeline stays a byte mover. Inputs are NHWC.
+JAX draws over the global batch; under a strategy that splits the rows,
+each rank draws its own rows' coins and offsets only
+(``nn.core.draw_block``). The host pipeline stays a byte mover. Inputs
+are NHWC.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils import threefry
-from .core import Layer, Shape, current_rng
+from .core import Layer, Shape, current_rng, draw_block
 
 
 def _check_hwc(name: str, input_shape: Shape) -> None:
@@ -59,13 +62,15 @@ class RandomFlip(Layer):
         if not self.training:
             return x
         keys = threefry.split(_step_rng("RandomFlip"))
-        b = x.shape[0]
+        shape, index = draw_block((x.shape[0], 1, 1, 1), x.device,
+                                  seq_dim=None)
         # (axis flipped, its key): horizontal flips W (dim 2) on the first
         # key, vertical flips H (dim 1) on the second, as in JAX.
         for axis, key, modes in ((2, keys[0], ("horizontal",)),
                                  (1, keys[1], ("vertical",))):
             if self.mode in modes + ("horizontal_and_vertical",):
-                coin = threefry.bernoulli(key, 0.5, (b, 1, 1, 1), x.device)
+                coin = threefry.bernoulli_block(key, 0.5, shape, index,
+                                                x.device)
                 x = torch.where(coin, x.flip(axis), x)
         return x
 
@@ -113,8 +118,11 @@ class RandomCrop(Layer):
             y0, x0 = max_y // 2, max_x // 2
             return xp[:, y0:y0 + self.height, x0:x0 + self.width, :]
         k_y, k_x = threefry.split(_step_rng("RandomCrop"))
-        ys = threefry.randint(k_y, (b,), 0, max_y + 1, x.device)
-        xs = threefry.randint(k_x, (b,), 0, max_x + 1, x.device)
+        shape, index = draw_block((b,), x.device, seq_dim=None)
+        ys = threefry.randint_block(k_y, shape, index, 0, max_y + 1,
+                                    x.device)
+        xs = threefry.randint_block(k_x, shape, index, 0, max_x + 1,
+                                    x.device)
         rows = ys[:, None] + torch.arange(self.height, device=x.device)
         cols = xs[:, None] + torch.arange(self.width, device=x.device)
         batch = torch.arange(b, device=x.device)

@@ -75,6 +75,25 @@ def rng_scope(key):
         _RNG.key = prev
 
 
+def local_draws() -> bool:
+    """True inside :func:`local_draw_scope`: a layer draws its random
+    numbers at the shape of the tensor it holds, not as its slice of a
+    global array (``nn.Dropout``)."""
+    return bool(getattr(_RNG, "local", False))
+
+
+@contextlib.contextmanager
+def local_draw_scope(local: bool = True):
+    """Draw at local shapes inside (``local``), as a JAX ``shard_map``
+    body does: the pipeline schedule's ticks, and their recompute."""
+    prev = local_draws()
+    _RNG.local = bool(local)
+    try:
+        yield
+    finally:
+        _RNG.local = prev
+
+
 def needs_rng(layer) -> bool:
     return bool(getattr(layer, "needs_rng", False))
 
@@ -116,6 +135,48 @@ def tp_layout(layer, name: str):
     if strategy is None or not strategy.computes_block(lay):
         return None
     return lay
+
+
+def draw_block(shape, device=None, *, seq_dim: Optional[int] = 1,
+               col: Optional["Layer"] = None):
+    """``(global shape, index)``: which block of the array that JAX draws
+    at once over the global batch a rank's draw of local ``shape`` is,
+    under the ambient strategy. ``index`` holds, per dimension, a 1-D
+    tensor on ``device`` of the global indices held (None: all of them),
+    as ``utils.threefry``'s block draws take it: the rank's rows of
+    dimension 0 where the strategy splits rows (``row_range``), its
+    contiguous positions of dimension ``seq_dim`` under a sequence split
+    (``seq_offset``; None: the draw has no sequence dimension), and its
+    feature columns of the last dimension where ``col``, a
+    column-parallel layer, made them. Inside :func:`local_draw_scope`
+    rows and positions are the local ones. Every layer that draws per
+    element or per row reads its block here (``Dropout``,
+    ``RandomFlip``, ``RandomCrop``)."""
+    from ..parallel.strategy import current_strategy
+
+    shape, index = list(shape), [None] * len(shape)
+
+    def span(lo, n):
+        return torch.arange(lo, lo + n, device=device)
+
+    strategy = current_strategy()
+    if strategy is not None and shape and not local_draws():
+        rows = int(strategy.num_replicas_in_sync)
+        if rows > 1:
+            b = shape[0]
+            lo, _ = strategy.row_range(b * rows)
+            shape[0], index[0] = b * rows, span(lo, b)
+        seq = int(strategy.num_batch_shards) // rows
+        if seq > 1 and seq_dim is not None and len(shape) > seq_dim:
+            t = shape[seq_dim]
+            off = int(strategy.seq_offset(t))
+            shape[seq_dim], index[seq_dim] = t * seq, span(off, t)
+    lay = None if col is None else tp_layout(col, "kernel")
+    if lay is not None and lay.n > 1:
+        w = shape[-1]
+        shape[-1] = w * lay.n
+        index[-1] = span(lay.rank * w, w)
+    return tuple(shape), index
 
 
 def _camel_to_snake(name: str) -> str:
@@ -270,16 +331,26 @@ class NameScope:
         return name
 
 
-def _pair_tp(a: Layer, b: Layer) -> None:
-    """Megatron's pairing, decided by the Sequential for both layers: a
+def _pair_tp(layers: Sequence[Layer]) -> None:
+    """Megatron's pairing, decided by the Sequential for its layers: a
     column-parallel product whose next layer is a row-parallel one hands
     it its feature block without a gather (``feeds_row``), and that layer
     takes the block as it is (``takes_block``) instead of splitting a
-    whole input."""
-    if getattr(a, "shard", None) == "col" and \
-            getattr(b, "shard", None) == "row":
-        a.feeds_row = True
-        b.takes_block = True
+    whole input. Layers between them that act element by element
+    (``tp_elementwise``: Dropout) take the block too, each told which
+    product made it (``col_source``, not a registered child)."""
+    for i, a in enumerate(layers):
+        if getattr(a, "shard", None) != "col":
+            continue
+        j = i + 1
+        while j < len(layers) and getattr(layers[j], "tp_elementwise",
+                                          False):
+            j += 1
+        if j < len(layers) and getattr(layers[j], "shard", None) == "row":
+            a.feeds_row = True
+            layers[j].takes_block = True
+            for mid in layers[i + 1:j]:
+                object.__setattr__(mid, "col_source", a)
 
 
 class Sequential(Layer):
@@ -292,8 +363,7 @@ class Sequential(Layer):
         for layer in self.layers:
             layer.name = scope.assign(layer)
             self.add_module(layer.name, layer)
-        for a, b in zip(self.layers, self.layers[1:]):
-            _pair_tp(a, b)
+        _pair_tp(self.layers)
 
     def add(self, layer: Layer):
         """Append ``layer``, named after the names already taken, as the
@@ -306,10 +376,9 @@ class Sequential(Layer):
             idx = int(m.group(2)) + 1 if m and m.group(2) else 1
             scope._counts[base] = max(scope._counts.get(base, 0), idx)
         layer.name = scope.assign(layer)
-        if self.layers:
-            _pair_tp(self.layers[-1], layer)
         self.layers.append(layer)
         self.add_module(layer.name, layer)
+        _pair_tp(self.layers)
 
     def summary_lines(self, input_shape: Shape):
         """Keras-style summary rows ``(name, output_shape, param_count)``,
@@ -464,8 +533,9 @@ def state_tree(module) -> Dict[str, torch.Tensor]:
 class Residual(Layer):
     """Skip connection: ``y = activation(main(x) + shortcut(x))``, the
     shortcut the identity by default, as the JAX package's Residual. The
-    branches register as ``main`` and ``shortcut`` (the JAX tree's keys).
-    The paged paths serve the identity shortcut only (the LM's blocks)."""
+    branches register as ``main`` and ``shortcut`` (the JAX tree's keys),
+    and so do their caches: every decode path runs both branches, each on
+    its own cache or paged pool."""
 
     def __init__(self, main: Layer, shortcut: Optional[Layer] = None,
                  activation=None, name: Optional[str] = None):
@@ -523,11 +593,6 @@ class Residual(Layer):
                 hints[key] = h
         return hints
 
-    def _identity_only(self):
-        if self.shortcut is not None:
-            raise NotImplementedError(
-                "Residual with a shortcut branch: paged decode not ported")
-
     def init_cache(self, batch, max_len, dtype, device):
         caches = {}
         c = self.main.init_cache(batch, max_len, dtype, device)
@@ -554,36 +619,45 @@ class Residual(Layer):
         return self.activation(y + sc), new_cache
 
     def init_paged_cache(self, num_blocks, block_size, dtype, device):
-        c = self.main.init_paged_cache(num_blocks, block_size, dtype, device)
-        return {"main": c} if c else {}
+        caches = {}
+        for key, branch in (("main", self.main), ("shortcut", self.shortcut)):
+            c = None if branch is None else branch.init_paged_cache(
+                num_blocks, block_size, dtype, device)
+            if c:
+                caches[key] = c
+        return caches
+
+    def _paged(self, hook, cache, x, **kw):
+        """``hook`` (a paged path's name) through both branches over the
+        same block tables and positions, each on its own pool
+        (``cache["main"]``, ``cache["shortcut"]``), the shortcut's output
+        added before the activation; the identity shortcut adds ``x``."""
+        y, c = getattr(self.main, hook)(cache.get("main", {}), x, **kw)
+        if c:
+            cache["main"] = c
+        sc = x
+        if self.shortcut is not None:
+            sc, c = getattr(self.shortcut, hook)(
+                cache.get("shortcut", {}), x, **kw)
+            if c:
+                cache["shortcut"] = c
+        return self.activation(y + sc), cache
 
     def paged_decode(self, cache, x, *, block_tables, positions,
                      decode_kernel="reference"):
-        self._identity_only()
-        y, c = self.main.paged_decode(
-            cache.get("main", {}), x, block_tables=block_tables,
-            positions=positions, decode_kernel=decode_kernel)
-        if c:
-            cache["main"] = c
-        return self.activation(y + x), cache
+        return self._paged("paged_decode", cache, x,
+                           block_tables=block_tables, positions=positions,
+                           decode_kernel=decode_kernel)
 
     def paged_verify(self, cache, x, *, block_tables, positions,
                      decode_kernel="reference"):
-        self._identity_only()
-        y, c = self.main.paged_verify(
-            cache.get("main", {}), x, block_tables=block_tables,
-            positions=positions, decode_kernel=decode_kernel)
-        if c:
-            cache["main"] = c
-        return self.activation(y + x), cache
+        return self._paged("paged_verify", cache, x,
+                           block_tables=block_tables, positions=positions,
+                           decode_kernel=decode_kernel)
 
     def paged_prefill(self, cache, x, *, block_table, start):
-        self._identity_only()
-        y, c = self.main.paged_prefill(
-            cache.get("main", {}), x, block_table=block_table, start=start)
-        if c:
-            cache["main"] = c
-        return self.activation(y + x), cache
+        return self._paged("paged_prefill", cache, x,
+                           block_table=block_table, start=start)
 
 
 class Lambda(Layer):
@@ -612,5 +686,7 @@ class Lambda(Layer):
 
 
 __all__ = ["Lambda", "Layer", "NameScope", "Residual", "Sequential", "Shape",
-           "apply_layers", "current_rng", "needs_rng", "param_tree",
-           "rng_scope", "state_tree", "tp_layout"]
+           "apply_layers", "current_rng", "draw_block", "local_draw_scope",
+           "local_draws",
+           "needs_rng", "param_tree", "rng_scope", "state_tree",
+           "tp_layout"]

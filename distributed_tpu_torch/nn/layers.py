@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from . import activations, initializers
-from .core import Layer, Shape, current_rng, tp_layout
+from .core import Layer, Shape, current_rng, draw_block, tp_layout
 from ..ops import bn_reduce
 from ..ops.conv1x1 import conv1x1_apply
 from ..parallel import collectives
@@ -237,9 +237,26 @@ class Dropout(Layer):
     rate 0; in training without an ambient rng it raises. The key may be
     a device tensor (``Model.fit``'s step key), so the mask is computed on
     the input's device and a CUDA graph replays it with the key of each
-    step."""
+    step.
+
+    The mask is JAX's draw over the GLOBAL shape, of which a rank holds
+    its block (``nn.core.draw_block``): its rows of the batch under a
+    strategy that splits them, its positions of each row under a sequence split
+    (a contiguous chunk, ``seq_offset``: the activations between blocks
+    are laid out so under the ring, zigzag and Ulysses alike), and its
+    feature columns after a column-parallel ``Dense`` whose block it
+    passes on to a row-parallel one (``Sequential`` pairs them across it,
+    ``col_source``); the whole tensor where it is replicated. The rank
+    draws the counters of its own block only (``threefry.
+    bernoulli_block``), so ranks that hold the same block draw the same
+    mask. Inside ``nn.core.local_draw_scope`` (the pipeline schedule, a
+    JAX ``shard_map`` body) rows and positions are the local ones."""
 
     needs_rng = True
+    #: Acts element by element: a column block passes through it
+    #: (``nn.core._pair_tp``).
+    tp_elementwise = True
+    col_source = None
 
     def __init__(self, rate: float, name: Optional[str] = None):
         super().__init__(name)
@@ -254,14 +271,10 @@ class Dropout(Layer):
         rng = current_rng()
         if rng is None:
             raise ValueError("Dropout needs an rng when train=True")
-        strategy = current_strategy()
-        if getattr(strategy, "tp", 1) > 1 or getattr(strategy, "sp", 1) > 1:
-            raise NotImplementedError(
-                "Dropout under a model or seq mesh axis: not yet ported "
-                "(ROADMAP 1.7): the mask is JAX's full-shape draw, of which "
-                "this rank would keep its slice")
         keep = 1.0 - self.rate
-        mask = threefry.bernoulli(rng, keep, tuple(x.shape), x.device)
+        shape, index = draw_block(tuple(x.shape), x.device,
+                                  col=self.col_source)
+        mask = threefry.bernoulli_block(rng, keep, shape, index, x.device)
         # JAX divides by the weakly typed keep cast to x's dtype; a tensor
         # divisor (a Python one is a product by its reciprocal on CUDA).
         kept = x / torch.full((), keep, dtype=x.dtype, device=x.device)

@@ -35,7 +35,9 @@ rank. A rank runs its blocks only on the ticks of its active window: the
 JAX schedule's bubble ticks compute on values that no output reads, and
 their gradients are zero, so skipping them changes no number. Dropout's
 stage keys are ``split(rng, S)`` (permuted under interleave), each folded
-with the tick (``fold_in(key, t)``), as in JAX.
+with the tick (``fold_in(key, t)``), as in JAX; each tick's masks are
+drawn at the microbatch's local shape (``nn.core.local_draw_scope``), as
+in the JAX schedule's ``shard_map`` body.
 
 ``decode`` on a stack split over a pipe line runs the JAX ring decode:
 each rank keeps its S/n blocks' caches, the token's activation visits the
@@ -53,8 +55,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .core import Layer, current_rng, rng_scope
-from .remat import Remat
+from .core import Layer, current_rng, local_draw_scope, rng_scope
 from .scan import ScannedBlocks, _tree_leaves, _tree_map
 from ..obs import spans as obs_spans
 from ..parallel import collectives
@@ -153,17 +154,10 @@ class PipelinedBlocks(ScannedBlocks):
     def _run(self, h, blocks, keys):
         """``h`` through ``blocks`` (each a list of its leaves), block i
         under ``keys[i]``; the carry cast back to ``h``'s dtype."""
-        remat = isinstance(self.block, Remat)
-        inner = self.block.inner if remat else self.block
-
-        def body(a, *leaves):
-            with self._swapped(leaves):
-                return inner(a)
-
         for i, leaves in enumerate(blocks):
-            with rng_scope(None if keys is None else keys[i]):
-                y = (self.block.checkpointed(body, h, *leaves) if remat
-                     else body(h, *leaves))
+            with rng_scope(None if keys is None else keys[i]), \
+                    self._swapped(leaves):
+                y = self.block(h)
             h = y.to(h.dtype)
         return h
 
@@ -259,7 +253,8 @@ class PipelinedBlocks(ScannedBlocks):
                 kt = (None if keys is None else
                       [threefry.fold_in(k, t)
                        for k in keys[lap * cs:(lap + 1) * cs]])
-                y = self._run(h, part, kt)
+                with local_draw_scope():  # a shard_map body in JAX
+                    y = self._run(h, part, kt)
             else:
                 y = h  # a bubble tick: no output reads it
             ys.append(y)

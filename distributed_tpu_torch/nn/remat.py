@@ -37,15 +37,21 @@ every policy but ``everything_saveable``. Any other name raises
 The recompute runs in the backward, where the ambient precision policy,
 strategy and rng key of the forward are not set (the autograd engine may
 run it on another thread), so :func:`checkpoint` re-enters all three
-around the function. Dropout's mask is a function of that key
+around the function (and ``nn.core.local_draw_scope``, which says how
+Dropout draws). Dropout's mask is a function of that key
 (``utils.threefry``), so the recompute draws the forward's mask. No
 generator state is kept: reading the card's generator is not allowed
 inside a CUDA graph capture (``compile(steps_per_execution=K)``).
 
-Inside ``nn.ScannedBlocks`` a ``Remat`` template is not called as a
-module: the stack passes each block's weight slices to :func:`checkpoint`
-as inputs (the recompute must see block i's weights, not the template's),
-through :meth:`Remat.checkpointed`.
+The wrapper passes the parameters and buffers of its subtree, as its
+slots hold them at the call, to :func:`checkpoint` as inputs, and
+rebinds them into those slots around the recompute. Inside
+``nn.ScannedBlocks`` (and ``nn.PipelinedBlocks``) the template's slots
+hold block i's slices for its call and block i+1's after it, so a
+recompute that read the slots as it finds them would take another
+block's weights, or the template's ``meta`` placeholders. This holds for
+a ``Remat`` around the whole template, around one residual inside it,
+or both.
 """
 
 from __future__ import annotations
@@ -59,7 +65,8 @@ import torch.utils.checkpoint as torch_ckpt
 
 from .. import precision
 from ..parallel.strategy import current_strategy
-from .core import Layer, current_rng, needs_rng, rng_scope
+from .core import (Layer, current_rng, local_draw_scope, local_draws,
+                   needs_rng, rng_scope)
 
 _MM = ("mm", "addmm")
 _BMM = ("bmm", "baddbmm")
@@ -111,7 +118,7 @@ def checkpoint(fn, *args, policy=None, save=()):
         return fn(*args)
     saved = tuple(saved) + tuple(save)
     pol, strategy = precision.current_policy(), current_strategy()
-    rng = current_rng()
+    rng, local = current_rng(), local_draws()
 
     def run(*a):
         with contextlib.ExitStack() as stack:
@@ -120,6 +127,7 @@ def checkpoint(fn, *args, policy=None, save=()):
             if strategy is not None:
                 stack.enter_context(strategy.scope())
             stack.enter_context(rng_scope(rng))
+            stack.enter_context(local_draw_scope(local))
             return fn(*a)
 
     kw = {"context_fn": functools.partial(_saving, saved)} if saved else {}
@@ -183,18 +191,36 @@ class Remat(Layer):
     def build(self, input_shape, generator):
         return self.inner.build(input_shape, generator)
 
+    def _slots(self):
+        """``(slot dict, name)`` of every parameter and buffer of the
+        wrapped subtree, each slot once."""
+        seen, out = set(), []
+        for mod in self.inner.modules():
+            for slots in (mod._parameters, mod._buffers):
+                if id(slots) in seen:
+                    continue
+                seen.add(id(slots))
+                out += [(slots, k) for k, t in slots.items()
+                        if t is not None]
+        return out
+
     def forward(self, x):
         if not torch.is_grad_enabled():
             return self.inner(x)
-        return checkpoint(self.inner, x, policy=self.policy)
+        slots = self._slots()
 
-    def checkpointed(self, fn, x, *leaves):
-        """``fn(x, *leaves)`` under this wrapper's remat policy, the leaves
-        passed to the checkpoint as inputs, so the recompute reads the
-        same tensors (``nn.ScannedBlocks``: one block's slices)."""
-        if not torch.is_grad_enabled():
-            return fn(x, *leaves)
-        return checkpoint(fn, x, *leaves, policy=self.policy)
+        def bound(h, *leaves):
+            saved = [(d, k, d[k]) for d, k in slots]
+            for (d, k), t in zip(slots, leaves):
+                d[k] = t
+            try:
+                return self.inner(h)
+            finally:
+                for d, k, t in saved:
+                    d[k] = t
+
+        return checkpoint(bound, x, *[d[k] for d, k in slots],
+                          policy=self.policy)
 
     # No remat at decode: one-token steps have nothing worth dropping.
     def init_cache(self, batch, max_len, dtype, device):

@@ -20,9 +20,10 @@ block would build a full (S, ...) zero gradient per slice. Buffers are
 indexed views, so BatchNorm's in-place running-statistics update lands in
 slice i of the stacked (S, C) buffer. The carry is cast back to the
 input's dtype after each block, as the JAX scan's carry is. A ``Remat``
-template checkpoints each block with its slices passed as the
-checkpoint's inputs (``Remat.checkpointed``), so the recompute in the
-backward reads block i's weights, not the template's placeholders.
+around the template, or around a part of it, passes the slices its
+slots hold at the call to its checkpoint as inputs and rebinds them
+around the recompute (``nn.remat``), so the backward reads block i's
+weights, not the template's placeholders.
 
 Randomness: the ambient key is split into S streams, block i's the i-th
 (``jax.random.split(rng, S)``), so Dropout's masks are the JAX stack's.
@@ -60,7 +61,6 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from .core import Layer, Shape, current_rng, rng_scope
-from .remat import Remat
 from ..parallel import collectives
 from ..parallel.collectives import layout_of
 from ..quant import QuantizedWeight
@@ -227,13 +227,6 @@ class ScannedBlocks(Layer):
 
     def build(self, input_shape: Shape, generator):
         shape = tuple(input_shape)
-        inner = self.block.inner if isinstance(self.block, Remat) \
-            else self.block
-        if any(isinstance(m, Remat) for m in inner.modules()):
-            raise NotImplementedError(
-                "ScannedBlocks with a Remat inside its template block: "
-                "only a Remat around the whole block is ported (its "
-                "checkpoint takes the block's slices as inputs)")
         stack, params, buffers = init_stacked_blocks(
             self.block_fn, self.block, self.num_blocks, shape, generator,
             **self._stack_options)
@@ -281,7 +274,8 @@ class ScannedBlocks(Layer):
         if quantized:
             raise NotImplementedError(
                 "ScannedBlocks over int8-quantized stacked weights whose "
-                "scales happen to have S entries: not ported")
+                "scales happen to have S entries: not yet ported "
+                "(ROADMAP 1.7b)")
         return leaves
 
     def _slices(self) -> List[List[torch.Tensor]]:
@@ -380,13 +374,6 @@ class ScannedBlocks(Layer):
         rng = current_rng()
         keys = (threefry.split(rng, self.num_blocks)
                 if rng is not None else None)
-        remat = isinstance(self.block, Remat)
-        inner = self.block.inner if remat else self.block
-
-        def body(h, *leaves):
-            with self._swapped(leaves):
-                return inner(h)
-
         stacked = self._stacked()
         fetch = None
         if active or not self._resident(stacked):
@@ -403,9 +390,9 @@ class ScannedBlocks(Layer):
                 if i + 1 < self.num_blocks and active:
                     # Slice i+1's gather goes out before slice i's compute.
                     pending = fetch(i + 1)
-            with rng_scope(None if keys is None else keys[i]):
-                y = (self.block.checkpointed(body, x, *leaves) if remat
-                     else body(x, *leaves))
+            with rng_scope(None if keys is None else keys[i]), \
+                    self._swapped(leaves):
+                y = self.block(x)
             x = y.to(x.dtype)
             if fetch is not None and not active and i + 1 < self.num_blocks:
                 pending = fetch(i + 1)

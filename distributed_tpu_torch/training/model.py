@@ -98,6 +98,7 @@ from typing import Dict, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import interop, optim
 from .. import precision as precision_lib
@@ -722,8 +723,6 @@ class Model:
         same winner. The candidate's tensors are freed before the next.
         Returns None, with a warning, when the candidate cannot be timed."""
         import copy
-
-        import torch.distributed as dist
 
         device = None if self.device.type == "cuda" else self.device
         tx = self.tx
@@ -1828,9 +1827,14 @@ class Model:
         the source's ``steps_per_pass``; batches are ``(x, y)`` or bare
         x, and ``batch_size`` is ignored). Under ``DataParallel`` every
         rank computes all rows, so each returns the whole result, as in
-        the JAX package. Up to 16 batches of logits stay on the device
-        before they are fetched. A per-host-sharded source raises (its
-        ranks' logits would need a gather: ROADMAP 1.6)."""
+        the JAX package. A per-host-sharded source (``data.Pipeline(
+        shard=)``) gives each rank its rows of every batch: under a
+        strategy whose batch axis is the whole world (``DataParallel``,
+        ``ZeroDataParallel``, ``FSDP``) each rank runs the forward on its
+        rows and the logits are all-gathered over the batch group in
+        shard order, so every rank again returns the whole result; under
+        a strategy with other axes it raises (ROADMAP 1.6). Up to 16
+        batches of logits stay on the device before they are fetched."""
         self._require_built()
         if hasattr(x, "__next__"):
             if steps is None:
@@ -1840,10 +1844,15 @@ class Model:
                         "steps is required when predicting from a plain "
                         "iterator (sources with steps_per_pass, e.g. "
                         "data.Pipeline, default to one pass)")
-            if isinstance(getattr(x, "shard", None), tuple):
+            per_host = _per_host_source(x, self.strategy)
+            if per_host and (self.strategy.num_replicas_in_sync
+                             != dist.get_world_size()):
                 raise NotImplementedError(
-                    "predict from a per-host-sharded source: not yet "
-                    "ported (ROADMAP 1.6)")
+                    "predict from a per-host-sharded source under "
+                    f"{type(self.strategy).__name__}, whose batch axis is "
+                    f"{self.strategy.num_replicas_in_sync} of "
+                    f"{dist.get_world_size()} ranks: not yet ported "
+                    "(ROADMAP 1.6)")
             source = x
 
             def host_batches():
@@ -1859,6 +1868,7 @@ class Model:
                     yield np.asarray(batch[0] if isinstance(batch, tuple)
                                      else batch)
         else:  # steps goes with an iterator; arrays ignore it, as in JAX
+            per_host = False
             arr = _host_array(x)
             self.strategy.local_batch_size(batch_size)
 
@@ -1869,7 +1879,10 @@ class Model:
         fetched, pending = [], []
         with self._eval_forward() as forward:
             for xb in host_batches():
-                pending.append(forward(xb).to(torch.float32))
+                out = forward(xb).to(torch.float32)
+                if per_host:  # every rank's rows, in shard order
+                    out = self.strategy.all_gather_rows(out).flatten(0, 1)
+                pending.append(out)
                 if len(pending) >= 16:
                     fetched.append(pending.pop(0).cpu().numpy())
             fetched += [o.cpu().numpy() for o in pending]

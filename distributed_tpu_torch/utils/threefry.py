@@ -26,7 +26,9 @@ tensors (the card's noise).
 
 A key may also be a device tensor (``(2,)`` int64 holding the two words,
 :func:`device_key`): ``fold_in``, ``split``, ``bits``, ``uniform`` and
-``bernoulli`` then compute on that device from the tensor, with no host
+``bernoulli`` (each a call of its block form, ``bits_block`` and
+``bernoulli_block``, which draw only the counters of a block of the
+whole array; the whole array is the block of all indices) then compute on that device from the tensor, with no host
 read, so a CUDA graph that captured them reads whatever key was copied
 into the tensor before its replay (the train step's key, which
 ``Model.fit`` refreshes every step).
@@ -108,11 +110,32 @@ def fold_in(key, data: int):
 def bits(key, shape, device) -> torch.Tensor:
     """``jax.random.bits(key, shape)`` (uint32 values in an int64 tensor
     on ``device``): one key for the whole array."""
+    return bits_block(key, shape, (None,) * len(shape), device)
+
+
+def bits_block(key, shape, index, device) -> torch.Tensor:
+    """``bits(key, shape)[np.ix_(*index)]`` without the whole array: the
+    counters of the block's own elements only. ``index`` holds, for each
+    dimension of ``shape``, a 1-D int64 tensor of the global indices this
+    block takes (None: all of them); element e of the flattened shape
+    has the counter ``(e >> 32, e mod 2**32)``."""
     k0, k1 = _words(key)
-    n = int(np.prod(shape, dtype=np.int64))
-    e = torch.arange(n, dtype=torch.int64, device=device)
+    if all(idx is None for idx in index):  # the whole array: one arange
+        n = int(np.prod(shape, dtype=np.int64))
+        e = torch.arange(n, dtype=torch.int64, device=device).reshape(
+            tuple(shape))
+    else:
+        e, stride = None, 1
+        for d in reversed(range(len(shape))):
+            n, idx = int(shape[d]), index[d]
+            v = (torch.arange(n, dtype=torch.int64, device=device)
+                 if idx is None
+                 else idx.to(device=device, dtype=torch.int64)) * stride
+            v = v.reshape((-1,) + (1,) * (len(shape) - 1 - d))
+            e = v if e is None else v + e
+            stride *= n
     y0, y1 = threefry2x32(k0, k1, e >> 32, e & _M32)
-    return (y0 ^ y1).reshape(shape)
+    return y0 ^ y1
 
 
 def uniform_from_bits(b: torch.Tensor) -> torch.Tensor:
@@ -129,9 +152,16 @@ def uniform(key, shape, device) -> torch.Tensor:
 def bernoulli(key, p: float, shape, device) -> torch.Tensor:
     """``jax.random.bernoulli(key, p, shape)``: ``uniform < p``, with
     ``p`` an f32 as JAX holds it (a bool tensor)."""
+    return bernoulli_block(key, p, shape, (None,) * len(shape), device)
+
+
+def bernoulli_block(key, p: float, shape, index, device) -> torch.Tensor:
+    """The block ``index`` (:func:`bits_block`) of ``bernoulli(key, p,
+    shape)``, drawn from its own counters: a rank's slice of a mask whose
+    whole ``shape`` no rank holds."""
     # A fill on the device, no host copy: safe inside a graph capture.
     pf = torch.full((), float(p), dtype=torch.float32, device=device)
-    return uniform(key, shape, device) < pf
+    return uniform_from_bits(bits_block(key, shape, index, device)) < pf
 
 
 def randint(key, shape, minval: int, maxval: int, device) -> torch.Tensor:
@@ -143,6 +173,14 @@ def randint(key, shape, minval: int, maxval: int, device) -> torch.Tensor:
     minval``) and ``m = (2**16 % span)**2 % span`` (which wraps to 0 for
     spans above 2**16). Bounds outside int32 raise ``OverflowError``, as
     JAX's do."""
+    return randint_block(key, shape, (None,) * len(shape), minval, maxval,
+                         device)
+
+
+def randint_block(key, shape, index, minval: int, maxval: int,
+                  device) -> torch.Tensor:
+    """The block ``index`` (:func:`bits_block`) of ``randint(key, shape,
+    minval, maxval)``, drawn from its own counters."""
     minval, maxval = int(minval), int(maxval)
     if not all(-(1 << 31) <= v < (1 << 31) for v in (minval, maxval)):
         raise OverflowError(
@@ -151,7 +189,8 @@ def randint(key, shape, minval: int, maxval: int, device) -> torch.Tensor:
     mult = (1 << 16) % span
     mult = ((mult * mult) & _M32) % span
     k1, k2 = split(key)
-    higher, lower = bits(k1, shape, device), bits(k2, shape, device)
+    higher = bits_block(k1, shape, index, device)
+    lower = bits_block(k2, shape, index, device)
     offset = (((higher % span) * mult + lower % span) & _M32) % span
     # uint32 -> int32 and the add wrap modulo 2**32, as XLA's do.
     return ((minval + offset + (1 << 31)) & _M32) - (1 << 31)
@@ -184,7 +223,8 @@ def categorical(key, logits: torch.Tensor) -> torch.Tensor:
 
 
 __all__ = [
-    "PRNGKey", "bernoulli", "bits", "categorical", "device_key", "fold_in",
-    "gumbel_from_bits", "randint", "row_bits", "split", "threefry2x32",
-    "uniform", "uniform_from_bits",
+    "PRNGKey", "bernoulli", "bernoulli_block", "bits", "bits_block",
+    "categorical", "device_key", "fold_in", "gumbel_from_bits", "randint",
+    "randint_block", "row_bits", "split", "threefry2x32", "uniform",
+    "uniform_from_bits",
 ]

@@ -3,7 +3,7 @@
 
     python3 scripts/torch_dp_scaling.py [--num-workers 1 4] [--timeout 900]
         [--strategy dp zero1 fsdp tp2 tp4 sp_ring sp_ulysses pp2 pp4 pp2i
-                    ep2 ep4 composite]
+                    ep2 ep4 composite] [--dropout RATE] [--predict]
 
 For each worker count N, starts N processes with the port's
 ``launch.LocalLauncher`` (one per card, each with its own DTPU_CONFIG).
@@ -87,6 +87,30 @@ for ``grad_accum > 1``, which the port's fit holds only during a step),
 and the tokens/s a card against ``dp``'s at the same N when ``dp`` is
 listed.
 
+``--dropout RATE`` puts ``Dropout(RATE)`` after each of the LM's 12
+blocks (chip_smoke.py's phase-v5 arrangement) in every LM run, timed and
+parity alike, so each strategy's parity losses are held to ``dp``'s at
+the first N with the masks drawn: each rank draws its block of the
+global mask (its rows, its positions of each row under a sequence
+split). With it, ``sp_ring`` and ``sp_ulysses`` train phase l's LM as
+the other strategies do (``DataSeqParallel(seq_parallel=2)``: data N/2,
+each rank 512 positions of its rows), not the long-context search.
+
+``--predict`` runs, after the strategies, one group at the last N:
+each rank builds ResNet-50 (bf16, seed 0) under ``DataParallel()`` and
+predicts 1,024 random uint8 images (224x224x3, seed 9) at a global batch
+of 256 from ``data.Pipeline(shard="auto")``, which gives it 256/N rows of
+each batch; ``predict`` gathers the logits over the group. Every rank's
+result must equal, bit for bit, the predict of the same rows as a host
+array at batch 256/N (each forward then has the shape of a rank's
+shard; cuDNN deterministic, no autotuning). Both predicts are timed
+warm: one untimed sharded predict first runs every shape, the group's
+first all_gather (NCCL sets its communicator up lazily) and the first
+reads. Each row gives both predicts' seconds and images/s: the sharded
+one with its shard's reads from the pipeline inside, the host array's
+on rows already read; and the reads alone of both (the shard's 1/N of
+each batch, the whole array's every row).
+
 Prints, per strategy, N and model, steps/s, images or tokens per second
 (in all and per card), the all-reduce's ms, the model state a card holds
 and its ratio to ``dp``'s at the same N where both ran, and one JSON
@@ -128,6 +152,11 @@ STRATEGIES = {"dp": ("DataParallel", {}),
                             {"axes": {"fsdp": 2, "model": 2}}),
               "auto": ("auto", {})}
 SP = ("sp_ring", "sp_ulysses")
+# Under --dropout the SP strategies train the LM at seq 2 (module
+# docstring).
+SP_LM = {"sp_ring": {"seq_parallel": 2},
+         "sp_ulysses": {"seq_parallel": 2, "attention": "ulysses"}}
+PREDICT = (1024, 256)  # images, global batch
 # The strategies that run their own one-card form at N=1 (the keywords
 # that make the split axis 1 there) and the LM's keywords each trains.
 ONE_CARD = {"pp2": {"pipeline_parallel": 1}, "pp4": {"pipeline_parallel": 1},
@@ -146,11 +175,19 @@ SP_FIRST, SP_STEPS = 65536, 2
 SP_MAX, SP_TIMEOUT = 524288, 420.0
 
 
-def split_of(strat):
+def strategy_kw(strat, dropout=None):
+    """The keywords a strategy is built with (the SP ones' seq 2 under
+    ``--dropout``)."""
+    kw = STRATEGIES[strat][1]
+    return dict(kw, **SP_LM[strat]) if dropout and strat in SP else kw
+
+
+def split_of(strat, dropout=None):
     """The size of a strategy's split axis (1 for the data-parallel
     family, which any N divides)."""
-    kw = STRATEGIES[strat][1]
-    for key in ("model_parallel", "pipeline_parallel", "expert_parallel"):
+    kw = strategy_kw(strat, dropout)
+    for key in ("model_parallel", "pipeline_parallel", "expert_parallel",
+                "seq_parallel"):
         if key in kw:
             return kw[key]
     return math.prod(kw.get("axes", {}).values()) or 1
@@ -294,7 +331,106 @@ def auto_worker():
     dtt.cluster.shutdown()
 
 
-def worker(strategy_name="dp", lm_only=True):
+def dropout_lm(dtt, rate):
+    """Phase l's LM (bf16 layers) with ``Dropout(rate)`` after each
+    block, under ``transformer_lm``'s tree paths."""
+    import chip_smoke
+
+    nn, lm = dtt.nn, chip_smoke.LM
+    d = lm["d_model"]
+    layers = [nn.Embedding(chip_smoke.VOCAB, d, dtype="bfloat16"),
+              nn.PositionalEmbedding(lm["max_len"])]
+    for _ in range(lm["num_layers"]):
+        layers += dtt.models.transformer.transformer_block(
+            d, lm["num_heads"], 4 * d, dtype="bfloat16")
+        layers.append(nn.Dropout(rate))
+    layers += [nn.LayerNorm(), nn.Dense(chip_smoke.VOCAB, dtype="bfloat16")]
+    return nn.Sequential(layers, name="transformer_lm")
+
+
+def predict_worker():
+    """One rank of the ``--predict`` group (module docstring)."""
+    import numpy as np
+    import torch
+
+    import distributed_tpu_torch as dtt
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    spec = dtt.cluster.initialize(timeout=300)
+    n_img, batch = PREDICT
+    world = torch.distributed.get_world_size()
+    with dtt.DataParallel().scope():
+        model = dtt.Model(dtt.models.resnet(50, 1000, dtype="bfloat16"))
+    model.build((224, 224, 3), seed=0)
+    x8 = np.random.default_rng(9).integers(0, 256, (n_img, 224, 224, 3),
+                                           dtype=np.uint8)
+    y = np.zeros((n_img,), np.int32)
+    kw = dict(shuffle=False, use_native=False)
+    steps = n_img // batch
+    times = {}
+
+    def reads(pipe):
+        t = time.perf_counter()
+        got = [next(pipe)[0] for _ in range(steps)]
+        return np.concatenate(got), time.perf_counter() - t
+
+    with dtt.data.Pipeline(x8, y, batch, **kw) as pipe:
+        host, times["host_reads_s"] = reads(pipe)
+    with dtt.data.Pipeline(x8, y, batch, shard="auto", **kw) as pipe:
+        _, times["shard_reads_s"] = reads(pipe)
+    # Untimed: the first forwards at each shape, the first all_gather on
+    # the group (its communicator is set up lazily) and the first reads.
+    model.predict(host[:batch // world], batch_size=batch // world)
+    with dtt.data.Pipeline(x8, y, batch, shard="auto", **kw) as pipe:
+        model.predict(pipe)
+    with dtt.data.Pipeline(x8, y, batch, shard="auto", **kw) as pipe:
+        shard = list(pipe.shard or (0, 1))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = model.predict(pipe)
+        torch.cuda.synchronize()
+        times["sharded_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    want = model.predict(host, batch_size=batch // world)
+    torch.cuda.synchronize()
+    times["host_s"] = time.perf_counter() - t
+    dtt.launch.report_result({
+        "rank": spec.index, "shard": shard, "shape": list(got.shape),
+        "equal": bool(np.array_equal(got, want)),
+        "finite": bool(np.isfinite(got).all()), **times})
+    dtt.cluster.shutdown()
+
+
+def run_predict(dtt, env, n, timeout):
+    """The ``--predict`` group on ``n`` cards; True when it failed."""
+    results = dtt.launch.LocalLauncher(env_extra=env).run(
+        [sys.executable, os.path.abspath(__file__), "--worker",
+         "--predict"], n, timeout=timeout)
+    failed = False
+    for r in results:
+        if not r.ok:
+            print(f"predict N={n} worker {r.index} FAILED ({r.error})\n"
+                  f"{r.log_tail}")
+            failed = True
+            continue
+        v = r.value
+        print(f"predict N={n} rank {v['rank']}: shard {v['shard']}, logits "
+              f"{v['shape']}, equal to the host array's bit for bit "
+              f"{v['equal']}, finite {v['finite']}; sharded "
+              f"{v['sharded_s']:.3f} s ({PREDICT[0] / v['sharded_s']:.1f} "
+              f"images/s, its shard's reads included; the reads alone "
+              f"{v['shard_reads_s']:.3f} s), host array "
+              f"{v['host_s']:.3f} s ({PREDICT[0] / v['host_s']:.1f} "
+              f"images/s, read before: {v['host_reads_s']:.3f} s)")
+        failed |= not (v["equal"] and v["finite"]
+                       and v["shape"] == [PREDICT[0], 1000]
+                       and v["shard"] == ([v["rank"], n] if n > 1
+                                          else [0, 1]))
+    return failed
+
+
+def worker(strategy_name="dp", lm_only=True, dropout=None):
     import numpy as np
     import torch
 
@@ -306,8 +442,9 @@ def worker(strategy_name="dp", lm_only=True):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     spec = dtt.cluster.initialize(timeout=300)
-    cls, kw = STRATEGIES[strategy_name]
-    if torch.distributed.get_world_size() < split_of(strategy_name):
+    cls = STRATEGIES[strategy_name][0]
+    kw = strategy_kw(strategy_name, dropout)
+    if torch.distributed.get_world_size() < split_of(strategy_name, dropout):
         kw = dict(kw, **ONE_CARD[strategy_name])
     strategy = getattr(dtt, cls)(**kw)
     n = strategy.num_replicas_in_sync
@@ -371,9 +508,10 @@ def worker(strategy_name="dp", lm_only=True):
         """(model, x, y) of one configuration at a global batch."""
         if name == "lm":
             x, y = chip_smoke.lm_batch(batch, chip_smoke.LM["max_len"])
-            module = dtt.models.transformer_lm(
-                chip_smoke.VOCAB, dtype="bfloat16", **chip_smoke.LM,
-                **LM_KW.get(strategy_name, {}))
+            module = (dropout_lm(dtt, dropout) if dropout else
+                      dtt.models.transformer_lm(
+                          chip_smoke.VOCAB, dtype="bfloat16", **chip_smoke.LM,
+                          **LM_KW.get(strategy_name, {})))
             opt = dtt.optim.fused_adamw(3e-4, weight_decay=0.01)
             loss, shape = ("pallas_sparse_categorical_crossentropy",
                            (chip_smoke.LM["max_len"],))
@@ -445,18 +583,26 @@ def main():
     ap.add_argument("--timeout", type=float, default=900.0)
     ap.add_argument("--strategy", nargs="+", default=["dp"],
                     choices=sorted(STRATEGIES))
+    ap.add_argument("--dropout", type=float, default=None,
+                    help="Dropout(RATE) after each of the LM's blocks")
+    ap.add_argument("--predict", action="store_true",
+                    help="the sharded-source predict group at the last N")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--seq-len", type=int, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.dropout is not None and args.dropout <= 0:
+        args.dropout = None
     if args.worker:
-        if args.seq_len:
+        if args.predict:
+            predict_worker()
+        elif args.seq_len:
             sp_worker(args.strategy[0], args.seq_len)
         elif args.strategy[0] == "auto":
             auto_worker()
         else:
             # The first strategy listed is the worker's; dp trains every
             # model only when nothing else is listed.
-            worker(args.strategy[0], args.strategy != ["dp"])
+            worker(args.strategy[0], args.strategy != ["dp"], args.dropout)
         return 0
     import torch
 
@@ -470,9 +616,10 @@ def main():
     env = {"PYTHONPATH": os.pathsep.join(
         p for p in (ROOT, os.environ.get("PYTHONPATH")) if p)}
     out, failed = {}, False
-    sp = [strat for strat in args.strategy if strat in SP]
+    sp = [strat for strat in args.strategy
+          if strat in SP and args.dropout is None]
     for strat in args.strategy:
-        if strat in SP:
+        if strat in sp:
             continue
         out[strat] = run_strategy(dtt, env, args, strat)
         if strat == "auto":
@@ -522,6 +669,10 @@ def main():
     if sp:
         out["sp"] = run_sp(dtt, env, args.num_workers[-1], sp)
         failed |= out["sp"]["failed"]
+    if args.predict:
+        out["predict_failed"] = run_predict(dtt, env, args.num_workers[-1],
+                                            args.timeout)
+        failed |= out["predict_failed"]
     print(json.dumps(out))
     return 1 if failed else 0
 
@@ -642,14 +793,16 @@ def run_strategy(dtt, env, args, strat):
     """{N: {"devices", "rows", "parity"}} of one strategy at every worker
     count, or None when a worker failed (its log printed)."""
     res = {}
+    drop = [] if args.dropout is None else ["--dropout", str(args.dropout)]
     for n in args.num_workers:
-        if n % split_of(strat) and not (n == 1 and strat in ONE_CARD):
+        if n % split_of(strat, args.dropout) and not (
+                n == 1 and strat in ONE_CARD):
             continue
         results = dtt.launch.LocalLauncher(env_extra=env).run(
             [sys.executable, os.path.abspath(__file__), "--worker",
              "--strategy", strat,
-             *[other for other in args.strategy if other != strat]], n,
-            timeout=args.timeout)
+             *[other for other in args.strategy if other != strat], *drop],
+            n, timeout=args.timeout)
         bad = [r for r in results if not r.ok]
         for r in bad:
             print(f"{strat} N={n} worker {r.index} FAILED ({r.error})\n"

@@ -23,7 +23,9 @@ JAX-built parameters and batches):
   ``NotImplementedError`` on a live pipe line, a cacheless stack's decode
   its ``ValueError``; blocks or batches that do not divide raise JAX's
   errors.
-- 4 ranks (data 2 x pipe 2), GPipe M = 2: JAX's losses and parameters.
+- 4 ranks (data 2 x pipe 2), GPipe M = 2: JAX's losses and parameters,
+  for the LM and for the Dropout stack (each rank's masks drawn at its
+  microbatch's local shape, as in the JAX schedule's ``shard_map``).
 """
 
 import jax
@@ -247,6 +249,11 @@ m = make(st, plm(), PLM)
 out["dp2pp2"] = fit(m, "lm")
 out["rep"] = replicated_same(m)
 save(m, "dp2pp2")
+d = make(st, drop_model(), DROP, (8,))
+out["drop4"] = [float(v) for v in d.fit(
+    FX, FY, batch_size=16, epochs=2, steps_per_epoch=1, shuffle=False,
+    verbose=0).history["loss"]]
+save(d, "drop4")
 dtt.launch.report_result(out)
 dtt.cluster.shutdown()
 '''
@@ -295,6 +302,10 @@ def runs(tmp_path_factory):
     jax_runs["dp2pp2"] = _jax_run(
         dtpu.DataPipelineParallel(d4, pipeline_parallel=2), _plm(dtpu), tx,
         ty, **LM_FIT)
+    jax_runs["drop4"] = _jax_run(
+        dtpu.DataPipelineParallel(d4, pipeline_parallel=2),
+        _drop_model(dtpu), fx, fy, (8,), batch_size=16, epochs=2,
+        steps_per_epoch=1, shuffle=False, verbose=0)
     np.savez(tmp / "in.npz", x=np.zeros((1, 28, 28, 1), np.float32),
              y=np.zeros(1, np.int32), tx=tx, ty=ty, fx=fx, fy=fy,
              **{f"p:{k}": v for k, v in jax_runs["m1"][1].items()},
@@ -303,8 +314,8 @@ def runs(tmp_path_factory):
     quad = run_ranks(4, tmp, QUAD, tmp / "in.npz", tmp / "quad",
                      timeout=240)
     got = {}
-    for name in ("m1", "m2", "m4", "il", "drop", "dp2pp2"):
-        prefix = "quad" if name == "dp2pp2" else "pair"
+    for name in ("m1", "m2", "m4", "il", "drop", "dp2pp2", "drop4"):
+        prefix = "quad" if name in ("dp2pp2", "drop4") else "pair"
         with np.load(tmp / f"{prefix}_{name}.npz") as z:
             got[name] = {k: z[k] for k in z.files}
     st = dtpu.DataPipelineParallel(d2, pipeline_parallel=2)
@@ -324,10 +335,11 @@ def runs(tmp_path_factory):
                 jax={k: v[2:] for k, v in jax_runs.items()})
 
 
-@pytest.mark.parametrize("run", ["m1", "m2", "m4", "il", "drop", "dp2pp2"])
+@pytest.mark.parametrize("run", ["m1", "m2", "m4", "il", "drop", "dp2pp2",
+                                 "drop4"])
 def test_pipeline_matches_jax(runs, run):
     want_losses, want = runs["jax"][run]
-    rows = runs["quad" if run == "dp2pp2" else "pair"]
+    rows = runs["quad" if run in ("dp2pp2", "drop4") else "pair"]
     for row in rows.values():
         np.testing.assert_allclose(row[run], want_losses, rtol=1e-5)
     got = runs["got"][run]

@@ -35,6 +35,13 @@ the reference on the same stacked weights (f32):
 - ``quant.quantize_model`` on a scanned LM: the stacked leaves quantize
   to JAX's ``q`` and shared ``scale`` bit for bit, and a forward then
   raises ``ValueError`` as JAX's ``lax.scan`` does.
+- A template whose attention and MLP residuals are each wrapped in
+  ``nn.Remat`` (the default policy, ``dots_with_no_batch_dims_saveable``,
+  and the default with a ``Remat`` around the whole block as well): the
+  stack's forward and gradients against JAX's (rtol 1e-5), 3 ``fit``
+  steps against JAX (losses rtol 1e-5, parameters atol 1e-5), and bit
+  for bit the unrolled ``transformer_lm(remat=True)`` given the same
+  weights, alone and under ``FSDP``'s overlapped gathers at world 1.
 """
 
 import jax
@@ -669,3 +676,127 @@ def test_stacked_dtype_hints_in_cast_to_compute():
     for path, leaf in want.items():
         assert str(leaf.dtype) == str(cast[path].dtype).replace(
             "torch.", ""), path
+
+
+# ------------------------------------------- a Remat inside the template
+def inner_remat_lm(pkg, policy, *, outer=False, num_layers=3, d_model=32,
+                   num_heads=4, max_len=64, scan_overlap="auto"):
+    """The scanned LM whose template wraps its attention residual and its
+    MLP residual each in ``nn.Remat(policy=)`` (``outer``: the template
+    wrapped whole in one more ``Remat``); the tree paths are
+    ``transformer_lm(scan=True)``'s."""
+    nn = pkg.nn
+
+    def make_block():
+        block = nn.Sequential([
+            nn.Remat(r, policy=policy) for r in
+            pkg.models.transformer.transformer_block(
+                d_model, num_heads, 4 * d_model)])
+        return nn.Remat(block, policy=policy) if outer else block
+
+    return nn.Sequential([
+        nn.Embedding(V, d_model), nn.PositionalEmbedding(max_len),
+        nn.ScannedBlocks(make_block, num_layers, overlap=scan_overlap),
+        nn.LayerNorm(), nn.Dense(V)], name="transformer_lm")
+
+
+INNER = [(None, False), (DOTS, False), (None, True)]
+INNER_IDS = ["default", "dots", "default_outer"]
+
+
+@pytest.mark.parametrize("policy,outer", INNER, ids=INNER_IDS)
+def test_inner_remat_template_forward_and_gradients_match_jax(policy,
+                                                              outer):
+    """The stack alone: forward and the gradients of every stacked leaf
+    (of a fixed random projection of the output) against JAX's
+    ``ScannedBlocks`` of the same template, rtol 1e-5."""
+    def stack(pkg):
+        return inner_remat_lm(pkg, policy, outer=outer).layers[2]
+
+    js, ps = stack(dtpu), stack(dtt)
+    params, state = _load_block_stack(js, ps, (16, 32))
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 16, 32)).astype(np.float32)
+    w = rng.standard_normal((2, 16, 32)).astype(np.float32) / 16
+
+    def loss(p):
+        y, _ = js.apply(p, state, jax.numpy.asarray(x), train=True)
+        return jax.numpy.sum(y * w), y
+
+    (_, want_y), want_g = jax.value_and_grad(loss, has_aux=True)(params)
+    ps.train()
+    y = ps(torch.from_numpy(x))
+    grads = torch.autograd.grad(torch.sum(y * torch.from_numpy(w)),
+                                list(ps.parameters()))
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(want_y),
+                               rtol=1e-5, atol=1e-5)
+    want_g = _flat(want_g)
+    assert sorted(want_g) == sorted(
+        n.replace(".", "/") for n, _ in ps.named_parameters())
+    for (name, _), g in zip(ps.named_parameters(), grads):
+        np.testing.assert_allclose(g.numpy(), want_g[name.replace(".", "/")],
+                                   rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("policy,outer", INNER, ids=INNER_IDS)
+def test_inner_remat_template_fit_matches_jax(policy, outer):
+    jm = jax_model(inner_remat_lm(dtpu, policy, outer=outer), (16,))
+    pm = dtt.Model(inner_remat_lm(dtt, policy, outer=outer),
+                   device="cpu").build((16,))
+    pm.load_params(dtt.interop.params_from_jax(jax.device_get(jm.params)))
+    assert sorted(pm.params) == sorted(_flat(jm.params))
+    for m, pkg in ((jm, dtpu), (pm, dtt)):
+        m.compile(optimizer=pkg.optim.SGD(0.05, momentum=0.9),
+                  loss="pallas_sparse_categorical_crossentropy",
+                  metrics=["accuracy"])
+    x, y = _lm_data()
+    fit = dict(batch_size=4, epochs=3, steps_per_epoch=1, shuffle=True,
+               seed=0, verbose=0)
+    hj = jm.fit(x, y, **fit).history
+    hp = pm.fit(x, y, **fit).history
+    np.testing.assert_allclose(hp["loss"], hj["loss"], rtol=1e-5)
+    want = _flat(jm.params)
+    for path, got in dtt.interop.params_to_numpy(pm.params).items():
+        np.testing.assert_allclose(got, want[path], rtol=0, atol=1e-5,
+                                   err_msg=path)
+
+
+@pytest.mark.parametrize("policy", [None, DOTS], ids=["default", "dots"])
+def test_inner_remat_template_equals_unrolled_remat_lm(policy):
+    """Given the same weights, the template of inner Remats trains bit for
+    bit as the unrolled ``transformer_lm(remat=True)`` (every residual a
+    Remat), and as itself under ``FSDP``'s overlapped gathers at world 1
+    (an in-process gloo group)."""
+    kw = dict(num_layers=2, d_model=32, num_heads=2, max_len=64)
+    un = dtt.Model(dtt.models.transformer_lm(V, remat=True,
+                                             remat_policy=policy, **kw),
+                   device="cpu").build((16,), seed=1)
+    start = {p: t.detach().clone()
+             for p, t in restack(un.params, 2).items()}
+    x, y = _lm_data(n=8)
+
+    def fit(m):
+        m.compile(optimizer=dtt.optim.Adam(1e-3),
+                  loss="pallas_sparse_categorical_crossentropy",
+                  metrics=["accuracy"])
+        return m.fit(x, y, batch_size=4, epochs=1, steps_per_epoch=2,
+                     shuffle=False, verbose=0).history
+
+    want_hist = fit(un)
+    want = restack(un.params, 2)
+    sc = dtt.Model(inner_remat_lm(dtt, policy, **kw), device="cpu")
+    sc.build((16,), seed=1).load_params(start)
+    assert fit(sc) == want_hist
+    for p, t in want.items():
+        assert torch.equal(t, sc.params[p]), p
+    try:
+        with dtt.FSDP(device="cpu").scope():
+            fs = dtt.Model(inner_remat_lm(dtt, policy, **kw))
+        fs.build((16,), seed=1).load_params(start)
+        assert fit(fs) == want_hist
+        assert fs.last_fit_telemetry["overlap"][
+            "exposed_comm_fraction"] == 0.5
+        for p, t in want.items():
+            assert torch.equal(t, fs.params[p]), p
+    finally:
+        dtt.cluster.shutdown()

@@ -22,7 +22,7 @@ parameters and numpy batches.
   parameters and running statistics (atol 1e-5).
 - Errors: JAX's for heads that the seq axis does not divide (Ulysses) and
   for an attention mode other than "ring" or "ulysses"; Dropout under a
-  seq axis raises "not yet ported".
+  seq axis keeps the rank's rows and positions of the global mask.
 """
 
 import jax
@@ -77,12 +77,13 @@ for name, (seq, mode, kw) in RUNS.items():
                          bool(torch.equal(rows, table[r * 8:(r + 1) * 8]))]
         drop = dtt.nn.Dropout(0.1)
         drop.train()
-        try:
-            with st.scope(), dtt.nn.core.rng_scope(np.zeros(2, np.uint32)):
-                drop(torch.ones((1, 8, 32)))
-            out["dropout"] = None
-        except NotImplementedError as e:
-            out["dropout"] = str(e)
+        key = np.zeros(2, np.uint32)
+        with st.scope(), dtt.nn.core.rng_scope(key):
+            kept = drop(torch.ones((1, 8, 32))) != 0
+        whole = dtt.utils.threefry.bernoulli(key, 0.9, (2, 16, 32), "cpu")
+        d = st.row_range(2)[0]
+        out["dropout"] = bool(torch.equal(
+            kept, whole[d:d + 1, r * 8:(r + 1) * 8]))
     if mode == "ulysses":
         attn = dtt.nn.MultiHeadAttention(3, head_dim=4)
         attn.build((8, 12), torch.Generator().manual_seed(0))
@@ -228,7 +229,8 @@ def test_sp_errors(runs):
         assert row["heads"] == (
             "Ulysses attention shards heads over the 'seq' axis: num_heads "
             "3 not divisible by its size 2")
-        assert "not yet ported (ROADMAP 1.7)" in row["dropout"]
+        # Dropout runs: the rank's rows and positions of the global mask.
+        assert row["dropout"] is True
     with pytest.raises(ValueError) as jax_err:
         dtpu.DataSeqParallel(seq_parallel=2, attention="flash")
     with pytest.raises(ValueError) as port_err:
