@@ -356,7 +356,7 @@ z. The auto-shard planner and the gang launcher's restart and liveness.
    (SIGSTOP) after its first beats, killed by ``liveness_timeout``, with
    the seconds from the stop to the kill. (z3)
    ``scripts/torch_restart.py --supervise`` on this card (its three
-   cases one after another): the same LM under ``python -m
+   cases at once, one script each): the same LM under ``python -m
    distributed_tpu_torch.launch --supervise`` with
    ``ModelCheckpoint(sharded=True, restore=True, save_freq=3, buddy=)``
    (the asynchronous refresh: a snapshot on the card, the copy to the
@@ -369,7 +369,12 @@ z. The auto-shard planner and the gang launcher's restart and liveness.
    uninterrupted run (z2's); the ``recovery`` rows (detect, gang re-form,
    restore, first step) and the postmortem of the kill's event log
    (``python -m distributed_tpu_torch.obs.cli``, the flight dump's tail);
-   the kill's resumed worker's launches of K3-K5 and K9-K11. (z4) The
+   the kill's resumed worker's launches of K3-K5 and K9-K11. z2 and z3,
+   then z8, z9, z10a and z10b (each in a process of its own,
+   ``child_phase``), run one after another on a thread from phase r on,
+   beside phases r-y, since they spend much of their time starting
+   processes; each prints its lines at its place, and each process group
+   they start is killed if the run stops first. (z4) The
    serving fleet: phase c's GPT-2-small (bf16 layers, seed 0) behind
    ``EnginePrograms(model, decode_kernel="fused")`` shared by a
    ``ServingFleet`` of 2 decode replicas (8 slots, block 16, max_len
@@ -400,7 +405,7 @@ z. The auto-shard planner and the gang launcher's restart and liveness.
    ``Engine(max_slots=16, block_size=16, max_len=1024, temperature=1.0,
    decode_kernel="fused")`` with ``kl_coef=AdaptiveKLCoef()`` and
    ``optimizer=fused_adam(1e-5)``: 8 prompts of 32-64 tokens x 4 samples
-   x 64 new tokens, 3 iterations at the default ``train_len`` (1,024, so
+   x 64 new tokens, 2 iterations at the default ``train_len`` (1,024, so
    ``fit`` takes the flash kernels); each iteration's row (reward, loss,
    measured KL, kl_coef, rollout tokens/s, train s, weight-sync ms,
    version); its 32 rollouts against a fresh Engine of the reference
@@ -464,7 +469,26 @@ z10. Configurations the port ran only on the CPU before. (z10a)
    and of 4: TP's column block and the ring's and Ulysses' token chunk
    through ``nn.Dropout``, the zigzag schedule's two chunks through the
    draw itself, each bit for bit its slice of the full-shape mask.
-Then the kernel table as one JSON line (each row also names the CUDA
+z11. The strategy compositions (NCCL, world 1): phase y1's MoE LM
+   (GPT-2-small widths, 8 experts every second block, bf16 layers,
+   ``fused_adamw``, the pallas loss, batch 8 x 1024, seed 0; cut to 4
+   blocks, ``Z11_LAYERS``) under
+   ``DataParallel``, ``DataSeqParallel(seq_parallel=1)`` with ring and
+   with Ulysses, and ``CompositeParallel``'s pairs seq x model, fsdp x
+   seq, expert x model, expert x seq, expert x fsdp and expert x pipe at
+   sizes 1: 3 steps each, parameters, optimizer state and aux losses bit
+   for bit against ``DataParallel``'s, with the losses, the aux loss, the
+   dropped share and the launches a step (K3-K5 4, K9/K10 1, K11 one a
+   64 leaves). Then a ``Pipeline(shard="auto")`` built in a
+   ``DataTensorParallel(model_parallel=1)`` scope feeds 3 steps of phase
+   l's LM at the same depth (uint8 tokens
+   below 256, each position labelled with its row's label), bit for bit
+   the same steps from host arrays; at world 1 the row line is the whole
+   group, so "auto" reads whole (the 4-card runs of
+   ``scripts/torch_dp_scaling.py --shard-auto`` shard it).
+Then each phase's seconds from its header to the next (``phase
+seconds``; every header also prints the seconds since the run began),
+the kernel table as one JSON line (each row also names the CUDA
 kernel of the main path, ``kernel``, and carries its launches in phase r's
 resumed steps, ``launches_resumed``, in phase t's fits that captured a
 graph, ``launches_fit``, and its runs in their 8 replayed steps from the
@@ -476,21 +500,24 @@ in phase v's scanned runs, ``launches_v``, in phase w's sharded runs,
 ``launches_x``, in phase y's MoE, pipelined and composite runs,
 ``launches_y``, in phase z1's auto-compiled run, ``launches_z``, in
 phase z3's resumed worker, ``launches_z3``, K1 in phase z4's
-full-width fleet, ``launches_z4``, and in phases z6-z10,
-``launches_z6``-``launches_z10``, where any),
+full-width fleet, ``launches_z4``, and in phases z6-z11,
+``launches_z6``-``launches_z11``, where any),
 the card's name and power limit, and ``{"ok": true, "device": {...}}`` as
 the last line.
 """
 
+import concurrent.futures
 import contextlib
 import json
 import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -4067,10 +4094,10 @@ def moe_layer_ms(torch, dtt, batch, t_len):
     return cuda_ms(torch, step, 5)
 
 
-def per_step_want(model):
+def per_step_want(model, layers=LM["num_layers"]):
     leaves = len(model.live_params())
-    return {"xent_fwd": 1, "xent_bwd": 1, "flash_fwd": LM["num_layers"],
-            "flash_dq": LM["num_layers"], "flash_dkv": LM["num_layers"],
+    return {"xent_fwd": 1, "xent_bwd": 1, "flash_fwd": layers,
+            "flash_dq": layers, "flash_dkv": layers,
             "fused_adam": math.ceil(leaves / 64)}
 
 
@@ -4407,26 +4434,58 @@ def phase_auto(torch, dtt, mods, batch=32, steps=3):
     return counts
 
 
-def phase_restart(torch):
-    """z2: scripts/torch_restart.py on this card, restart then liveness."""
+CHILDREN = []  # the background's processes, each its own process group
+
+
+def run_child(argv, timeout, cwd=None):
+    """``subprocess.run(argv, capture_output=True, text=True, cwd=cwd)`` in a
+    process group of its own, kept in ``CHILDREN`` until it ends, so that
+    ``stop_children`` can end it and the gangs it started."""
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=cwd,
+                            start_new_session=True)
+    CHILDREN.append(proc)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        stop_children([proc])
+        CHILDREN.remove(proc)
+    return subprocess.CompletedProcess(argv, proc.returncode, out, err)
+
+
+def stop_children(procs=None):
+    """Kill each process group of ``procs`` (all of ``CHILDREN``) that is
+    still there."""
+    for proc in list(CHILDREN if procs is None else procs):
+        with contextlib.suppress(ProcessLookupError, PermissionError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        with contextlib.suppress(Exception):
+            proc.wait(timeout=30)
+
+
+def phase_restart(torch, say=print):
+    """z2: scripts/torch_restart.py on this card, restart and liveness at
+    once."""
     script = os.path.join(ROOT, "scripts", "torch_restart.py")
     out = {}
-    for mode in ([], ["--liveness"]):
-        run = subprocess.run(
-            [sys.executable, script, "--num-workers", "1", "--timeout", "300",
-             *mode], capture_output=True, text=True, timeout=600)
+    modes = ([], ["--liveness"])
+    with concurrent.futures.ThreadPoolExecutor(len(modes)) as pool:
+        runs = list(pool.map(lambda mode: run_child(
+            [sys.executable, script, "--num-workers", "1", "--timeout",
+             "300", *mode], timeout=600), modes))
+    for mode, run in zip(modes, runs):
         lines = run.stdout.strip().splitlines()
         for line in lines[:-1]:
-            print(f"  {line}")
+            say(f"  {line}")
         if run.returncode != 0 or not lines:
-            print(run.stderr[-3000:])
+            say(run.stderr[-3000:])
             raise SystemExit(f"scripts/torch_restart.py {' '.join(mode)} "
                              f"failed ({run.returncode})")
         out.update(json.loads(lines[-1]))
     return out
 
 
-def phase_supervise(torch, reference):
+def phase_supervise(torch, reference, say=print):
     """z3: scripts/torch_restart.py --supervise on this card, held to z2's
     uninterrupted run (``reference``: its result values; the same LM,
     data and optimizer); returns the kill case's resumed worker's kernel
@@ -4435,25 +4494,134 @@ def phase_supervise(torch, reference):
     fd, ref_path = tempfile.mkstemp(suffix=".json")
     with os.fdopen(fd, "w") as f:
         json.dump(reference, f)
-    run = subprocess.run(
-        [sys.executable, script, "--supervise", "--num-workers", "1",
-         "--timeout", "300", "--reference", ref_path],
-        capture_output=True, text=True, timeout=900)
+    cases = ("kill", "preempt", "corrupt")
+    with concurrent.futures.ThreadPoolExecutor(len(cases)) as pool:
+        runs = list(pool.map(lambda case: run_child(
+            [sys.executable, script, "--supervise", "--num-workers", "1",
+             "--timeout", "300", "--reference", ref_path, "--cases", case],
+            timeout=600), cases))
     os.unlink(ref_path)
-    lines = run.stdout.strip().splitlines()
-    for line in lines[:-1]:
-        print(f"  {line}")
-    if run.returncode != 0 or not lines:
-        print(run.stderr[-3000:])
-        raise SystemExit(f"scripts/torch_restart.py --supervise failed "
-                         f"({run.returncode})")
-    out = json.loads(lines[-1])["supervise"]
-    counts = out["cases"]["kill"]["launches"]
+    out = {}
+    for case, run in zip(cases, runs):
+        lines = run.stdout.strip().splitlines()
+        for line in lines[:-1]:
+            say(f"  {line}")
+        if run.returncode != 0 or not lines:
+            say(run.stderr[-3000:])
+            raise SystemExit(f"scripts/torch_restart.py --supervise --cases "
+                             f"{case} failed ({run.returncode})")
+        out.update(json.loads(lines[-1])["supervise"]["cases"])
+    counts = out["kill"]["launches"]
     for name in ("flash_fwd", "flash_dq", "flash_dkv", "xent_fwd", "xent_bwd",
                  "fused_adam"):
         if not counts.get(name):
             raise SystemExit(f"the supervised worker never launched {name}")
     return counts
+
+
+#: phases that run in a process of their own (``child_phase``), on the
+#: thread of ``start_background`` after z2 and z3
+CHILD_PHASES = ("z8", "z9", "z10a", "z10b")
+
+
+def child_phase(sub):
+    """Phase ``sub`` (one of ``CHILD_PHASES``) in this process, which
+    ``run_phase_child`` started: its lines, then ``CHILD`` and the JSON
+    of its launches."""
+    import torch
+
+    import distributed_tpu_torch as dtt
+    from distributed_tpu_torch.ops import bn_reduce as bn_ops
+    from distributed_tpu_torch.ops import conv1x1 as conv_ops
+    from distributed_tpu_torch.ops import flash_attention as flash_ops
+    from distributed_tpu_torch.ops import fused_update as adam_ops
+    from distributed_tpu_torch.ops import launch_probe as probe_ops
+    from distributed_tpu_torch.ops import paged_attention as paged_ops
+    from distributed_tpu_torch.ops import pallas_kernels as xent_ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if sub == "z8":
+        counts = phase_data_tiers(torch, dtt, (conv_ops, bn_ops))
+    elif sub == "z9":
+        counts = phase_lint_and_r(torch, (
+            paged_ops, xent_ops, flash_ops, adam_ops, conv_ops, bn_ops,
+            probe_ops))
+    elif sub == "z10a":
+        counts = phase_parallel_residual(torch, dtt, paged_ops,
+                                         requests(16, (32, 512), (64, 128)))
+    else:
+        counts = phase_inner_remat(torch, dtt, (xent_ops, flash_ops,
+                                                adam_ops))
+    print("CHILD " + json.dumps(counts), flush=True)
+
+
+def run_phase_child(sub, say):
+    """``child_phase(sub)`` in a new process: says its lines, returns its
+    launches."""
+    run = run_child([sys.executable, "-c", "import chip_smoke; "
+                     f"chip_smoke.child_phase({sub!r})"], timeout=900,
+                    cwd=ROOT)
+    lines = run.stdout.rstrip().splitlines()
+    for line in lines:
+        if not line.startswith("CHILD "):
+            say(line)
+    tagged = [ln for ln in lines if ln.startswith("CHILD ")]
+    if run.returncode != 0 or not tagged:
+        say(run.stderr[-4000:])
+        raise SystemExit(f"phase {sub} failed in its process "
+                         f"({run.returncode})")
+    return json.loads(tagged[-1][len("CHILD "):])
+
+
+def start_background(torch):
+    """Phases z2 and z3, then each of ``CHILD_PHASES`` in a process of its
+    own, one after another on a thread, beside the phases from r on: they
+    spend much of their time starting processes. Returns the box that
+    ``join_background`` reads."""
+    subs = ("z2", "z3") + CHILD_PHASES
+    box = {"lines": {sub: [] for sub in subs}, "result": {}, "seconds": {},
+           "done": {sub: threading.Event() for sub in subs}, "error": None}
+
+    def step(sub, fn):
+        t = time.perf_counter()
+        box["result"][sub] = fn(box["lines"][sub].append)
+        box["seconds"][sub] = time.perf_counter() - t
+        box["done"][sub].set()
+
+    def run():
+        sub = "z2"
+        try:
+            step(sub, lambda say: phase_restart(torch, say))
+            sub = "z3"
+            step(sub, lambda say: phase_supervise(
+                torch, box["result"]["z2"]["restart"]["uninterrupted"], say))
+            for sub in CHILD_PHASES:
+                step(sub, lambda say, sub=sub: run_phase_child(sub, say))
+        except BaseException as e:  # raised again by the join
+            box["error"] = (sub, e)
+        finally:
+            for done in box["done"].values():
+                done.set()
+
+    box["thread"] = threading.Thread(target=run, name="dtpu-smoke-bg",
+                                     daemon=True)
+    box["thread"].start()
+    return box
+
+
+def join_background(box, sub):
+    """Wait for ``start_background``'s phase ``sub``, print its lines and
+    raise what it (or a phase before it on the thread) raised; returns
+    its result."""
+    box["done"][sub].wait()
+    for line in box["lines"][sub]:
+        print(line)
+    if sub in box["seconds"]:
+        print(f"  ({sub} ran beside the phases from r on: "
+              f"{box['seconds'][sub]:.1f} s)")
+        return box["result"][sub]
+    raise box["error"][1]
 
 
 # ----------------------------------------------------------------- phase z4
@@ -4839,7 +5007,7 @@ def sample_tie(torch, module, engine_seed, req, got, want):
         1.0, abs(float(logits[a])))
 
 
-def phase_posttrain(torch, dtt, mods, iterations=3):
+def phase_posttrain(torch, dtt, mods, iterations=2):
     """z6: PostTrainer at GPT-2-small width (bf16 layers) over a sampling
     Engine through K1, ``fused_adam`` (K11), ``AdaptiveKLCoef``; the
     default ``train_len`` (1,024) takes the flash kernels in ``fit``.
@@ -5649,6 +5817,159 @@ def phase_dropout_slices(torch, dtt, shape=(8, 1024, 768), keep=0.9,
           f"{slice_ms[2]:.3f}, at n = 4 {slice_ms[4]:.3f}")
 
 
+# ----------------------------------------------------------------- phase z11
+#: z11's strategies: each new composition at world 1, its split axes of
+#: size 1 (``CompositeParallel``'s pairs) or the sequence split of 1.
+Z11 = {
+    "DataSeqParallel(1, ring)": ("DataSeqParallel", {"seq_parallel": 1}),
+    "DataSeqParallel(1, ulysses)": ("DataSeqParallel", {
+        "seq_parallel": 1, "attention": "ulysses"}),
+    "seq x model": ("CompositeParallel", {"axes": {
+        "data": 1, "seq": 1, "model": 1}}),
+    "fsdp x seq": ("CompositeParallel", {"axes": {"fsdp": 1, "seq": 1}}),
+    "expert x model": ("CompositeParallel", {"axes": {
+        "data": 1, "expert": 1, "model": 1}}),
+    "expert x seq": ("CompositeParallel", {"axes": {
+        "data": 1, "expert": 1, "seq": 1}}),
+    "expert x fsdp": ("CompositeParallel", {"axes": {
+        "fsdp": 1, "expert": 1}}),
+    "expert x pipe": ("CompositeParallel", {"axes": {
+        "data": 1, "expert": 1, "pipe": 1}}),
+}
+
+
+#: z11's depth: phase y1's MoE LM cut from 12 blocks to 4 (2 of them MoE)
+Z11_LAYERS = 4
+
+
+def phase_compositions(torch, dtt, mods, batch=8, steps=3):
+    """z11: phase y1's MoE LM (GPT-2-small widths, 8 experts every second
+    block, bf16 layers, fused_adamw, the pallas loss, batch 8 x 1024, seed
+    0) at ``Z11_LAYERS`` blocks under ``DataParallel`` and each of ``Z11``
+    over an NCCL group of world 1: 3 steps each, parameters, optimizer state and the aux losses
+    bit for bit against ``DataParallel``'s, with the losses, the aux loss,
+    the dropped share and the launches a step (counts zeroed just before
+    each run, read just after). Then a ``Pipeline(shard="auto")`` built
+    in a ``DataTensorParallel(model_parallel=1)`` scope feeds 3 steps of
+    the LM (uint8 tokens below 256, each position's label its row's),
+    bit for bit the same steps from the host arrays: at world 1 the row
+    line is the whole group, so "auto" reads whole. Returns the launches
+    of every run but ``DataParallel``'s."""
+    t_len = LM["max_len"]
+    x, y = lm_batch(batch, t_len)
+    launches, base = {}, None
+    nccl_world1(dtt)
+    try:
+        for name, (cls, kw) in [("DataParallel", ("DataParallel", {}))] + \
+                list(Z11.items()):
+            strategy = getattr(dtt, cls)(**kw)
+            model = w_lm(dtt, strategy, t_len, num_layers=Z11_LAYERS,
+                         **MOE)
+            reset_counts(mods)
+            losses = w_fit(model, x, y, batch, steps)
+            torch.cuda.synchronize()
+            counts = launch_counts(mods)
+            dropped, aux = moe_routing(dtt, model)
+            print(f"  {name}: losses {[round(v, 5) for v in losses]}, aux "
+                  f"loss {aux:.6f}, dropped {dropped:.4f} of the routed "
+                  f"choices")
+            if not all(np.isfinite(losses)) or not np.isfinite(aux):
+                raise SystemExit(f"z11 {name}: losses {losses}, aux {aux}")
+            check_per_step(name, counts, per_step_want(model, Z11_LAYERS),
+                           steps)
+            state = full_state(dtt, model)
+            state.update({f"state/{k}": v.detach().clone()
+                          for k, v in model.state.items()})
+            if base is None:
+                base = state
+            else:
+                diff = first_difference(torch, base, state)
+                say_same(f"{name} against DataParallel, params, optimizer "
+                         "state and aux losses", diff)
+                if diff is not None:
+                    raise SystemExit(f"z11: {name} differs from "
+                                     "DataParallel at world 1")
+                for k, v in counts.items():
+                    launches[k] = launches.get(k, 0) + v
+            del model, state
+            torch.cuda.empty_cache()
+        base = None
+        for k, v in pipeline_fit(torch, dtt, mods, batch, steps).items():
+            launches[k] = launches.get(k, 0) + v
+    finally:
+        dtt.cluster.shutdown()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def pipeline_fit(torch, dtt, mods, batch, steps):
+    """z11's ``Pipeline(shard="auto")`` fit (``phase_compositions``)."""
+    t_len = LM["max_len"]
+    rng = np.random.default_rng(11)
+    x8 = rng.integers(0, 256, (batch * steps, t_len), dtype=np.uint8)
+    y = rng.integers(0, VOCAB, (batch * steps,), dtype=np.int32)
+    pallas = dtt.ops.losses.get(PALLAS)
+
+    def loss(logits, labels):
+        return pallas(logits, labels[:, None].expand(logits.shape[:2]))
+
+    runs = {}
+    for name in ("Pipeline(shard=\"auto\")", "host arrays"):
+        strategy = dtt.DataTensorParallel(model_parallel=1)
+        with strategy.scope():
+            model = dtt.Model(dtt.models.transformer_lm(
+                VOCAB, **dict(LM, dtype="bfloat16",
+                              num_layers=Z11_LAYERS)))
+            model.compile(optimizer=dtt.optim.fused_adamw(
+                3e-4, weight_decay=0.01), loss=loss, metrics=[])
+            pipe = (dtt.data.Pipeline(x8, y, batch, shard="auto",
+                                      shuffle=False, scale=1.0,
+                                      use_native=False)
+                    if name.startswith("Pipeline") else None)
+        model.build((t_len,), seed=0)
+        reset_counts(mods)
+        if pipe is not None:
+            shard = pipe.shard
+            losses = model.fit(pipe, epochs=1, verbose=0).history["loss"]
+            pipe.close()
+            counts = launch_counts(mods)
+        else:
+            losses = model.fit(x8.astype(np.int32), y, batch_size=batch,
+                               epochs=1, steps_per_epoch=steps,
+                               shuffle=False, verbose=0).history["loss"]
+        torch.cuda.synchronize()
+        runs[name] = (losses, full_state(dtt, model))
+        del model
+    (got, a), (want, b) = runs.values()
+    diff = first_difference(torch, a, b)
+    print(f"  Pipeline(shard=\"auto\") under DataTensorParallel(1): shard "
+          f"{shard or '(0, 1): one row shard, read whole'}, epoch loss "
+          f"{got}; launches {counts}")
+    say_same("the pipeline's fit against the host arrays', params and "
+             "optimizer state", diff)
+    if diff is not None or got != want or not counts["xent_fwd"]:
+        raise SystemExit("z11: the Pipeline(shard=\"auto\") fit differs "
+                         "from the host arrays'")
+    runs.clear()
+    return counts
+
+
+PHASE_SECONDS = {}  # each phase's seconds, from its header to the next
+_PHASE = {"name": None, "t": None, "t0": time.perf_counter()}
+
+
+def phase(title):
+    """Print phase ``title``'s header with the seconds since the run
+    began, and close the phase before it in ``PHASE_SECONDS`` (``None``
+    closes the last)."""
+    now = time.perf_counter()
+    if _PHASE["name"] is not None:
+        PHASE_SECONDS[_PHASE["name"]] = round(now - _PHASE["t"], 1)
+    if title is not None:
+        print(f"{title} [{now - _PHASE['t0']:.1f} s]")
+        _PHASE["name"], _PHASE["t"] = title.split(":")[0].split()[1], now
+
+
 def main():
     import torch
 
@@ -5672,7 +5993,7 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} | {card}")
 
-    print("phase a: build")
+    phase("phase a: build")
     t = time.perf_counter()
     built = _build.build(*sorted(set(SOURCES.values())))
     print(f"  built {', '.join(p.name for p, _ in built.values())} in "
@@ -5685,11 +6006,11 @@ def main():
                 print(f"      {line.strip()}")
     wgmma_report(flash_ops, conv_ops, built)
 
-    print("phase b: kernels vs plain versions, S=8 H=12 hd=64 bs=16 nb=64")
+    phase("phase b: kernels vs plain versions, S=8 H=12 hd=64 bs=16 nb=64")
     print('kernels: ["paged_attention (K1)", "paged_attention_int8 (K2)"]')
     rows = phase_kernels(torch, paged_ops)
 
-    print("phase c: GPT-2-small LM, bf16 layers, Engine(8 slots, block 16, "
+    phase("phase c: GPT-2-small LM, bf16 layers, Engine(8 slots, block 16, "
           "max_len 1024), fused")
     model = dtt.Model(dtt.models.transformer_lm(
         VOCAB, dtype="bfloat16", **LM))
@@ -5719,7 +6040,7 @@ def main():
     if not first:
         raise SystemExit("first tokens (prefill) differ between engines")
 
-    print("phase d: 2 layers, f32, TF32 off: fused must be token-exact")
+    phase("phase d: 2 layers, f32, TF32 off: fused must be token-exact")
     small = dtt.Model(dtt.models.transformer_lm(
         VOCAB, **dict(LM, num_layers=2)))
     small.build((LM["max_len"],), seed=1)
@@ -5732,7 +6053,7 @@ def main():
         raise SystemExit("f32 fused and reference runs differ")
     torch.cuda.empty_cache()
 
-    print("phase e: int8 KV at full width, fused")
+    phase("phase e: int8 KV at full width, fused")
     paged_ops.reset_launch_counts()
     q8, tel8, wall8 = serve(dtt, model, reqs, kv_dtype="int8",
                             decode_kernel="fused")
@@ -5748,104 +6069,105 @@ def main():
     del model
     torch.cuda.empty_cache()
 
-    print(f"phase f: fused cross-entropy kernels vs plain (C={VOCAB}, bf16)")
+    phase(f"phase f: fused cross-entropy kernels vs plain (C={VOCAB}, bf16)")
     rows.update(phase_xent(torch, xent_ops))
 
-    print("phase g: flash-attention kernels vs plain (B=32, T=1024, H=12, "
+    phase("phase g: flash-attention kernels vs plain (B=32, T=1024, H=12, "
           "D=64, causal)")
     rows.update(phase_flash(torch, flash_ops))
 
-    print("phase h: GPT-2-small LM training, bf16 layers, Adam(1e-4), pallas "
+    phase("phase h: GPT-2-small LM training, bf16 layers, Adam(1e-4), pallas "
           "loss, batch 32 x 1024")
     train_launches = phase_train(torch, dtt, (xent_ops, flash_ops))
     for name, n in train_launches.items():
         rows[name]["launches"] = n
 
-    print("phase i: 2 layers, f32, TF32 off: kernel path vs plain path, 3 "
+    phase("phase i: 2 layers, f32, TF32 off: kernel path vs plain path, 3 "
           "Adam steps")
     phase_kernel_vs_plain(torch, dtt)
 
-    print("phase j: fused Adam kernel vs plain, GPT-2-small's parameter tree")
+    phase("phase j: fused Adam kernel vs plain, GPT-2-small's parameter tree")
     rows.update(phase_fused_adam(torch, dtt, adam_ops))
 
-    print("phase k: mnist_cnn and cifar_cnn under DataParallel (NCCL, world 1)")
+    phase("phase k: mnist_cnn and cifar_cnn under DataParallel (NCCL, world 1)")
     strategy = phase_cnn(torch, dtt)
 
-    print("phase l: GPT-2-small under DataParallel, fused_adamw(3e-4, wd "
+    phase("phase l: GPT-2-small under DataParallel, fused_adamw(3e-4, wd "
           "0.01), pallas loss, batch 32 x 1024")
     rows["fused_adam"]["launches"] = phase_dp_lm(
         torch, dtt, strategy, (xent_ops, flash_ops, adam_ops))
 
-    print("phase m: K12, K13, K14 vs plain at ResNet-50's shapes (batch 256, "
+    phase("phase m: K12, K13, K14 vs plain at ResNet-50's shapes (batch 256, "
           "224x224)")
     rows.update(phase_resnet_kernels(torch, dtt, conv_ops, bn_ops))
 
-    print("phase n: ResNet-50 training under DataParallel, bf16, SGD(0.1, "
+    phase("phase n: ResNet-50 training under DataParallel, bf16, SGD(0.1, "
           "momentum=0.9), batch 256 x 224x224")
     resnet_launches = phase_resnet_train(torch, dtt, strategy, conv_ops,
                                          bn_ops)
     for name in ("conv1x1", "bn_stats", "bn_bwd_reduce"):
         rows[name]["launches"] = resnet_launches[name]
 
-    print("phase o: small f32 ResNet, TF32 off: card vs CPU, then "
+    phase("phase o: small f32 ResNet, TF32 off: card vs CPU, then "
           "DataParallel (world 1) vs SingleDevice")
     phase_resnet_kernel_vs_plain(torch, dtt, strategy)
     dtt.cluster.shutdown()
 
-    print("phase p: the launch probe (K15) vs x * 1.0001; the host's cost "
+    phase("phase p: the launch probe (K15) vs x * 1.0001; the host's cost "
           "of a launch")
     rows.update(phase_launch_probe(torch, probe_ops, paged_ops))
 
-    print("phase q: float16 through K9/K10, K12 and K13/K14, and a small "
+    phase("phase q: float16 through K9/K10, K12 and K13/K14, and a small "
           "f16 ResNet")
     phase_f16(torch, dtt, xent_ops, conv_ops, bn_ops)
 
-    print("phase r: checkpoints: ResNet-50 and a small LM resumed mid-fit "
+    background = start_background(torch)
+    phase("phase r: checkpoints: ResNet-50 and a small LM resumed mid-fit "
           "under DataParallel (NCCL, world 1)")
     for name, n in phase_resume(torch, dtt, conv_ops, bn_ops,
                                 (xent_ops, flash_ops, adam_ops)).items():
         rows[name]["launches_resumed"] = n
 
-    print("phase s: speculative serving and weight hot-swap through Engine")
+    phase("phase s: speculative serving and weight hot-swap through Engine")
     k1, k2 = phase_spec(torch, dtt, paged_ops, reqs, fused, small, sreqs)
     rows["paged_attention"]["launches_spec"] = k1
     rows["paged_attention_int8"]["launches_spec"] = k2
 
-    print("phase t1: GPT-2-small's fit loop: grad_accum, steps_per_execution "
+    phase("phase t1: GPT-2-small's fit loop: grad_accum, steps_per_execution "
           "as CUDA graphs, an iterator with prefetch")
     t1_captured, t1_runs, _ = phase_fit_lm(torch, dtt,
                                            (xent_ops, flash_ops, adam_ops))
-    print("phase t2: ResNet-50, K=4 + a Pipeline with prefetch=2 against the "
+    phase("phase t2: ResNet-50, K=4 + a Pipeline with prefetch=2 against the "
           "K=1 loop (SingleDevice)")
     t2_captured, t2_runs, _, _ = phase_fit_resnet(torch, dtt,
                                                   (conv_ops, bn_ops))
-    print("phase t2b: mnist_cnn under DataParallel (NCCL, world 1), K=8 "
+    phase("phase t2b: mnist_cnn under DataParallel (NCCL, world 1), K=8 "
           "against K=1")
     phase_fit_mnist(torch, dtt)
-    print("phase t3: Model.generate at GPT-2-small width, f32, against the "
+    phase("phase t3: Model.generate at GPT-2-small width, f32, against the "
           "Engine")
     phase_generate(torch, dtt)
-    print("phase u1: long context at GPT-2-small width: remat, head_chunks, "
+    phase("phase u1: long context at GPT-2-small width: remat, head_chunks, "
           "T up to 65,536")
     u_counts = {"u1": phase_longctx(torch, dtt, (xent_ops, flash_ops))}
-    print("phase u2: precision policies on phase h's LM (no dtype= on the "
+    phase("phase u2: precision policies on phase h's LM (no dtype= on the "
           "layers), batch 32 x 1024")
     u_counts["u2"] = phase_precision(torch, dtt, (xent_ops, flash_ops,
                                                   adam_ops), flash_ops)
-    print("phase u3: int8 weights served through Engine (fused)")
+    phase("phase u3: int8 weights served through Engine (fused)")
     u_counts["u3"] = {"paged_attention": phase_quant_serve(
         torch, dtt, paged_ops, reqs, fused)}
     v_mods = (xent_ops, flash_ops, adam_ops, conv_ops, bn_ops, paged_ops)
-    print("phase v1: GPT-2-small LM, scan=True against unrolled, bf16 "
+    phase("phase v1: GPT-2-small LM, scan=True against unrolled, bf16 "
           "layers, Adam(1e-4), pallas loss, batch 32 x 1024")
     v = phase_scan_lm(torch, dtt, v_mods, paged_ops, reqs)
-    print("phase v3: ResNet-50 scan_stages=True against unrolled, bf16, "
+    phase("phase v3: ResNet-50 scan_stages=True against unrolled, bf16, "
           "SGD(0.1, momentum=0.9), batch 256 x 224x224")
     more = [phase_scan_resnet(torch, dtt, v_mods)]
-    print("phase v4: ViT-B/16 scan=True against unrolled, bf16 layers, "
+    phase("phase v4: ViT-B/16 scan=True against unrolled, bf16 layers, "
           "fused_adamw(1e-3), pallas loss, batch 128 x 224x224 uint8")
     more.append(phase_scan_vit(torch, dtt, v_mods, xent_ops))
-    print("phase v5: Dropout(0.1) after each of 2 scanned GPT-2-small "
+    phase("phase v5: Dropout(0.1) after each of 2 scanned GPT-2-small "
           "blocks: the card's mask, K=4 graphs against K=1")
     more.append(phase_scan_dropout(torch, dtt, v_mods))
     for counts in more:
@@ -5853,38 +6175,38 @@ def main():
             v[name] = v.get(name, 0) + n
     u_counts["v"] = v
     w_mods = (xent_ops, flash_ops, adam_ops)
-    print(f"phase w1: GPT-2-small under DataParallel, ZeroDataParallel and "
+    phase(f"phase w1: GPT-2-small under DataParallel, ZeroDataParallel and "
           f"FSDP (NCCL, world 1), bf16 layers, fused_adamw, batch 32 x "
           f"1024 | {card_line()}")
     nccl_world1(dtt)
     w, _ = phase_sharded(torch, dtt, w_mods)
-    print("phase w3: phase u2's LM under FSDP, mixed_bfloat16 against "
+    phase("phase w3: phase u2's LM under FSDP, mixed_bfloat16 against "
           "float32: the gathers' dtype and bytes")
     more = [phase_sharded_bf16(torch, dtt, w_mods)]
-    print("phase w4: ShardedCheckpointer on the FSDP LM mid-fit, batch 8 x "
+    phase("phase w4: ShardedCheckpointer on the FSDP LM mid-fit, batch 8 x "
           "1024")
     more.append(phase_sharded_ckpt(torch, dtt, w_mods))
     for counts in more:
         for name, n in counts.items():
             w[name] = w.get(name, 0) + n
     u_counts["w"] = w
-    print(f"phase x1: GPT-2-small under DataTensorParallel(model_parallel=1)"
+    phase(f"phase x1: GPT-2-small under DataTensorParallel(model_parallel=1)"
           f" and DataSeqParallel(seq_parallel=1), ring and ulysses, against "
           f"DataParallel (NCCL, world 1), batch 32 x 1024 | {card_line()}")
     u_counts["x"] = phase_tp_sp(torch, dtt, w_mods)
-    print("phase x2: ring attention and the Ulysses exchange on CUDA tensors "
+    phase("phase x2: ring attention and the Ulysses exchange on CUDA tensors "
           "over the world-1 group, against dense attention")
     phase_ring_ops(torch, dtt)
     y_mods = (xent_ops, flash_ops, adam_ops)
-    print(f"phase y1: the MoE LM at GPT-2-small widths (8 experts every 2nd "
+    phase(f"phase y1: the MoE LM at GPT-2-small widths (8 experts every 2nd "
           f"block) under DataParallel and DataExpertParallel(1) (NCCL, world "
           f"1), bf16 layers, fused_adamw, batch 8 x 1024 | {card_line()}")
     y = phase_moe(torch, dtt, y_mods, paged_ops)
-    print("phase y2: GPT-2-small pipeline=True under DataPipelineParallel(1) "
+    phase("phase y2: GPT-2-small pipeline=True under DataPipelineParallel(1) "
           "against its scan=True twin, batch 32 x 1024; the Engine off the "
           "pipe mesh")
     more = [phase_pipe(torch, dtt, y_mods, paged_ops, reqs)]
-    print('phase y3: CompositeParallel({"data": 1}) against DataParallel on '
+    phase('phase y3: CompositeParallel({"data": 1}) against DataParallel on '
           "phase l's LM")
     more.append(phase_composite(torch, dtt, y_mods))
     for counts in more:
@@ -5893,70 +6215,73 @@ def main():
     u_counts["y"] = y
     dtt.cluster.shutdown()
     z_mods = (xent_ops, flash_ops, adam_ops)
-    print(f"phase z1: compile(strategy=\"auto\") on phase l's GPT-2-small, "
+    phase(f"phase z1: compile(strategy=\"auto\") on phase l's GPT-2-small, "
           f"batch 32 x 1024: the plan, 3 steps against the same configuration "
           f"by hand, measure=True, a cap | {card_line()}")
     u_counts["z"] = phase_auto(torch, dtt, z_mods)
-    print("phase z2: run_with_restart and liveness on this card "
+    phase("phase z2: run_with_restart and liveness on this card "
           "(scripts/torch_restart.py --num-workers 1)")
-    restarted = phase_restart(torch)
-    print(f"phase z3: the supervisor, the buddy tier, preemption and a "
+    join_background(background, "z2")
+    phase(f"phase z3: the supervisor, the buddy tier, preemption and a "
           f"corrupt checkpoint on this card (scripts/torch_restart.py "
           f"--supervise --num-workers 1) | {card_line()}")
-    u_counts["z3"] = phase_supervise(
-        torch, restarted["restart"]["uninterrupted"])
-    print(f"phase z4: the serving fleet: GPT-2-small (bf16 layers) behind "
+    u_counts["z3"] = join_background(background, "z3")
+    phase(f"phase z4: the serving fleet: GPT-2-small (bf16 layers) behind "
           f"EnginePrograms(decode_kernel=\"fused\"), 2 decode + 1 prefill "
           f"replicas, 16 requests in bursts of 4 | {card_line()}")
     u_counts["z4"] = {"paged_attention": phase_fleet(
         torch, dtt, paged_ops, reqs, fused, small, sreqs, small_fused)}
-    print(f"phase z5: ServeService at GPT-2-small width (f32 layers): 2 "
+    phase(f"phase z5: ServeService at GPT-2-small width (f32 layers): 2 "
           f"decode + 1 prefill worker processes, KV over /dev/shm | "
           f"{card_line()}")
     phase_service(torch, dtt)
-    print(f"phase z6: PostTrainer at GPT-2-small width (bf16 layers): "
+    phase(f"phase z6: PostTrainer at GPT-2-small width (bf16 layers): "
           f"Engine(16 slots, temperature 1.0, fused), fused_adam(1e-5), "
-          f"AdaptiveKLCoef, 8 prompts x 4 samples x 64 tokens, 3 iterations "
+          f"AdaptiveKLCoef, 8 prompts x 4 samples x 64 tokens, 2 iterations "
           f"| {card_line()}")
     u_counts["z6"] = phase_posttrain(torch, dtt, (paged_ops, flash_ops,
                                                   adam_ops, xent_ops))
-    print(f"phase z7: DraftDistiller on phase s's target and 6-layer draft "
+    phase(f"phase z7: DraftDistiller on phase s's target and 6-layer draft "
           f"(greedy, spec_k 4, fused), 2 rounds of 8 epochs | {card_line()}")
     u_counts["z7"] = phase_distill(torch, dtt, (paged_ops, flash_ops,
                                                 adam_ops, xent_ops), reqs,
                                    small)
-    print(f"phase z8: the data tiers: scripts/torch_imagenet_resnet.py's "
+    phase(f"phase z8: the data tiers: scripts/torch_imagenet_resnet.py's "
           f"model from a FileSource on the native ring, mnist_cnn from zlib "
           f"records | {card_line()}")
-    u_counts["z8"] = phase_data_tiers(torch, dtt, (conv_ops, bn_ops))
-    print(f"phase z9: dtt-lint over distributed_tpu_torch/, and the port's R "
+    u_counts["z8"] = join_background(background, "z8")
+    phase(f"phase z9: dtt-lint over distributed_tpu_torch/, and the port's R "
           f"binding: r/distributedtputorch/examples/local.R with device = "
           f"NULL (mnist_cnn, SGD(0.001), 3 epochs x 5 steps of 64) | "
           f"{card_line()}")
-    u_counts["z9"] = phase_lint_and_r(torch, (
-        paged_ops, xent_ops, flash_ops, adam_ops, conv_ops, bn_ops,
-        probe_ops))
-    print(f"phase z10a: Pythia-160M's widths with GPT-NeoX's parallel "
+    u_counts["z9"] = join_background(background, "z9")
+    phase(f"phase z10a: Pythia-160M's widths with GPT-NeoX's parallel "
           f"residual (the attention in the Residual's shortcut) served by "
           f"the paged Engine: f32 against generate, bf16 and int8 KV, "
           f"spec_k=4 | {card_line()}")
-    z10 = phase_parallel_residual(torch, dtt, paged_ops, reqs)
-    print(f"phase z10b: a Remat around each residual inside the scanned "
+    z10 = join_background(background, "z10a")
+    phase(f"phase z10b: a Remat around each residual inside the scanned "
           f"template of phase v1's LM (fused_adam(1e-4)), against the "
           f"unrolled remat=True LM and the whole-block Remat twin | "
           f"{card_line()}")
-    more = [phase_inner_remat(torch, dtt, (xent_ops, flash_ops, adam_ops))]
-    print(f"phase z10c: ResNet-50 (bf16) under DataParallel (NCCL, world 1)"
+    more = [join_background(background, "z10b")]
+    phase(f"phase z10c: ResNet-50 (bf16) under DataParallel (NCCL, world 1)"
           f" predicting 1,024 images from Pipeline(shard=\"auto\") | "
           f"{card_line()}")
     more.append(phase_pipeline_predict(torch, dtt, conv_ops))
-    print("phase z10d: Dropout's slice-only draws against the full-shape "
+    phase("phase z10d: Dropout's slice-only draws against the full-shape "
           "mask at 8 x 1024 x 768, 2 and 4 ranks")
     phase_dropout_slices(torch, dtt)
     for counts in more:
         for name, c in counts.items():
             z10[name] = z10.get(name, 0) + c
     u_counts["z10"] = z10
+    phase(f"phase z11: phase y1's MoE LM (4 blocks) under DataSeqParallel(1),"
+          f" ring and ulysses, and CompositeParallel's new pairs at sizes 1 "
+          f"against DataParallel (NCCL, world 1); a Pipeline(shard=\"auto\") "
+          f"fit under DataTensorParallel(1) | {card_line()}")
+    u_counts["z11"] = phase_compositions(torch, dtt,
+                                         (xent_ops, flash_ops, adam_ops))
     for sub, counts in u_counts.items():
         for name, n in counts.items():
             if n:
@@ -5979,12 +6304,14 @@ def main():
          "replayed_fit": r.get("replayed_fit"),
          **{f"launches_{sub}": r[f"launches_{sub}"]
             for sub in ("u1", "u2", "u3", "v", "w", "x", "y", "z", "z3",
-                        "z4", "z6", "z7", "z8", "z9", "z10")
+                        "z4", "z6", "z7", "z8", "z9", "z10", "z11")
             if f"launches_{sub}" in r},
          **({"launches_spec": r["launches_spec"], "ms_by_kw": r["ms_by_kw"]}
             if "ms_by_kw" in r else {})}
         for name, r in rows.items()
     ]
+    phase(None)
+    print(f"phase seconds: {json.dumps(PHASE_SECONDS)}")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
@@ -5994,4 +6321,7 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        stop_children()

@@ -220,6 +220,23 @@ class _DecodePool:
             self._results.clear()
 
 
+def _auto_shard() -> Tuple[int, int]:
+    """``shard="auto"``: ``(row coordinate, row shards)`` of the ambient
+    strategy; else ``(rank, world size)`` of the formed process group;
+    else ``(0, 1)``. JAX's "auto" is ``(process index, process count)``,
+    a TPU host holding whole model lines; the port runs one process a
+    card, so the rows come from the strategy's row line."""
+    from ..parallel.strategy import current_strategy
+
+    strategy = current_strategy()
+    if strategy is not None:
+        return strategy.row_shard()
+    import torch.distributed as dist
+
+    return ((dist.get_rank(), dist.get_world_size())
+            if dist.is_available() and dist.is_initialized() else (0, 1))
+
+
 class Pipeline:
     """Iterator of ``(x_float32, y_int32)`` batches with background prefetch.
 
@@ -241,8 +258,14 @@ class Pipeline:
         was taken). Record sources always run the Python path.
       shard: ``(index, count)``: this pipeline prepares only rows ``[index
         * b/count, (index + 1) * b/count)`` of each global batch; "auto"
-        takes ``(rank, world size)`` of the formed ``torch.distributed``
-        group, ``(0, 1)`` without one.
+        takes this rank's coordinate on the row line of the ambient
+        strategy and the number of row shards (``Strategy.row_shard``:
+        the ranks of one model, pipe, expert or seq line read the same
+        rows), ``(rank, world size)`` of the formed ``torch.distributed``
+        group outside a strategy's scope, ``(0, 1)`` without one. A
+        source built with "auto" is resolved again under the strategy of
+        the ``fit``, ``evaluate`` or ``predict`` it is handed to
+        (:attr:`shard_auto`).
       decode_workers: record sources only: decode on this many worker
         threads (0 decodes inline); the stream is the same for any count.
       decode_readahead: batch steps that may be decoding (or decoded,
@@ -390,18 +413,17 @@ class Pipeline:
 
     def _set_shard(self, shard) -> None:
         """Adopt a ``(index, count)`` slice of the global batch (None: the
-        whole batch; "auto": this process's rank and world size). Shared
-        by ``__init__`` and :meth:`reshard`."""
+        whole batch; "auto": ``_auto_shard``). Shared by ``__init__`` and
+        :meth:`reshard`."""
+        #: True when the shard was given as "auto" (and so follows the
+        #: strategy it is trained, evaluated or predicted under).
+        self.shard_auto = isinstance(shard, str)
         if isinstance(shard, str):
             if shard != "auto":
                 raise ValueError(
                     f"shard must be (index, count), None, or 'auto'; "
                     f"got {shard!r}")
-            import torch.distributed as dist
-
-            shard = ((dist.get_rank(), dist.get_world_size())
-                     if dist.is_available() and dist.is_initialized()
-                     else (0, 1))
+            shard = _auto_shard()
         if shard is None:
             shard = (0, 1)
         index, count = int(shard[0]), int(shard[1])

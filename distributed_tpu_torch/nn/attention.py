@@ -211,11 +211,14 @@ class MultiHeadAttention(Layer):
         memory stays O(T*D)), and back."""
         group = strategy.mesh.get_group(self.ring_axis)
         n = strategy.axis_sizes[self.ring_axis]
-        if self.num_heads % n:
+        heads = q.shape[2]  # this rank's: H/m under a model split
+        if heads % n:
             raise ValueError(
                 f"Ulysses attention shards heads over the {self.ring_axis!r}"
-                f" axis: num_heads {self.num_heads} not divisible by its "
-                f"size {n}")
+                f" axis: num_heads {self.num_heads}"
+                + (f" ({heads} a rank of the model line)"
+                   if heads != self.num_heads else "")
+                + f" not divisible by its size {n}")
         q, k, v = (collectives.ulysses_to_heads(a, group) for a in (q, k, v))
         if self._use_flash(q):
             ctx = flash_attention(q, k, v, causal=self.causal)

@@ -144,14 +144,14 @@ def draw_block(shape, device=None, *, seq_dim: Optional[int] = 1,
     under the ambient strategy. ``index`` holds, per dimension, a 1-D
     tensor on ``device`` of the global indices held (None: all of them),
     as ``utils.threefry``'s block draws take it: the rank's rows of
-    dimension 0 where the strategy splits rows (``row_range``), its
-    contiguous positions of dimension ``seq_dim`` under a sequence split
-    (``seq_offset``; None: the draw has no sequence dimension), and its
-    feature columns of the last dimension where ``col``, a
-    column-parallel layer, made them. Inside :func:`local_draw_scope`
-    rows and positions are the local ones. Every layer that draws per
-    element or per row reads its block here (``Dropout``,
-    ``RandomFlip``, ``RandomCrop``)."""
+    dimension 0 where the strategy splits rows, its contiguous positions
+    of dimension ``seq_dim`` under a sequence split (both from
+    ``Strategy.token_layout``; ``seq_dim`` None: the draw has no sequence
+    dimension), and its feature columns of the last dimension where
+    ``col``, a column-parallel layer, made them. Inside
+    :func:`local_draw_scope` rows and positions are the local ones. Every
+    layer that draws per element or per row reads its block here
+    (``Dropout``, ``RandomFlip``, ``RandomCrop``)."""
     from ..parallel.strategy import current_strategy
 
     shape, index = list(shape), [None] * len(shape)
@@ -161,16 +161,14 @@ def draw_block(shape, device=None, *, seq_dim: Optional[int] = 1,
 
     strategy = current_strategy()
     if strategy is not None and shape and not local_draws():
-        rows = int(strategy.num_replicas_in_sync)
-        if rows > 1:
-            b = shape[0]
-            lo, _ = strategy.row_range(b * rows)
-            shape[0], index[0] = b * rows, span(lo, b)
-        seq = int(strategy.num_batch_shards) // rows
-        if seq > 1 and seq_dim is not None and len(shape) > seq_dim:
-            t = shape[seq_dim]
-            off = int(strategy.seq_offset(t))
-            shape[seq_dim], index[seq_dim] = t * seq, span(off, t)
+        b = shape[0]
+        has_seq = seq_dim is not None and len(shape) > seq_dim
+        t = shape[seq_dim] if has_seq else 1
+        lay = strategy.token_layout(b, t)
+        if lay.rows > b:
+            shape[0], index[0] = lay.rows, span(lay.row_start, b)
+        if has_seq and lay.seq > t:
+            shape[seq_dim], index[seq_dim] = lay.seq, span(lay.seq_offset, t)
     lay = None if col is None else tp_layout(col, "kernel")
     if lay is not None and lay.n > 1:
         w = shape[-1]

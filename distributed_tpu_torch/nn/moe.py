@@ -19,26 +19,35 @@ The JAX layer builds one-hot dispatch and combine tensors and einsums
 them; here the same slots are filled by index (each slot holds at most
 one token, so the buffers are the same values; a dropped choice goes to
 a spare row of its own, so no shape depends on the routing and nothing
-waits for the host) and the combine sums each token's kept choices in f32. Ties in the router's probabilities go to the
-lower expert index, as ``lax.top_k`` breaks them (a stable sort).
+waits for the host) and the combine sums each token's kept choices in
+f32. Ties in the router's probabilities go to the lower expert index, as
+``lax.top_k`` breaks them (a stable sort).
 
-Under a data-parallel strategy the JAX step routes the GLOBAL batch: its
-groups run over the global token order, so a group may span ranks. Each
-rank holds rows ``[r*b, (r+1)*b)`` of the batch, so its tokens are the
-global tokens ``[r*n, (r+1)*n)``; the capacity comes from the global
-group size, a token's slot is offset by the choices of the same group on
-the lower ranks (one all-gather of per-group counts), and ``frac`` and
-``prob`` are summed over the ranks (one all-reduce). The loss each rank
-differentiates is R times its share of the global aux term (R the ranks
-that hold distinct rows), whose value is the global term, so the
-strategy's division of the summed gradients by R gives the global
-term's gradient.
+Under a data- or sequence-parallel strategy the JAX step routes the
+GLOBAL batch: its groups run over the global token order, so a group may
+span ranks. A rank holds rows ``[r0, r0 + b)`` and, under a sequence
+split, positions ``[s0, s0 + t)`` of each (``Strategy.token_layout``), so
+its token ``(i, j)`` is global token ``(r0 + i) * T + s0 + j``: each of
+its rows is a segment of ``t`` consecutive tokens of the global order.
+The capacity comes from the global group size; a token's slot adds to
+the choices before it in its segment those of the earlier segments of
+its group, from the per-(segment, group) counts of every rank, summed
+over the batch group (one all-reduce of counts, which carry no
+gradient); ``frac`` and ``prob`` are summed over the same group (one
+all-reduce). The loss each rank differentiates is N times its share of
+the global aux term (N the ranks of the batch group), whose value is the
+global term, so the strategy's division of the summed gradients by N
+gives the global term's gradient.
 
-Under ``DataExpertParallel`` the expert stacks are stored as this rank's
-block of E/ep experts (role "expert", dim 0): the tokens and the gates go
-in through ``copy_to_group`` over the expert line, the rank's experts run
-on their slots, and the partial combine is summed over the line by
-``reduce_from_group`` (Megatron's f/g pair). ``decode`` routes each token without capacity, through every
+Under ``DataExpertParallel``, and ``CompositeParallel`` with an expert
+axis (joined to model, seq, fsdp or pipe), the expert stacks are stored
+as this rank's block of E/ep experts (role "expert", dim 0; under fsdp
+that block's fsdp split, gathered where it is read): the tokens and the
+gates go in through ``copy_to_group`` over the expert line, the rank's
+experts run on their slots, and the partial combine is summed over the
+line by ``reduce_from_group`` (Megatron's f/g pair). As in JAX, the
+models that stack blocks (``scan=True``, ``pipeline=True``) take no MoE
+block. ``decode`` routes each token without capacity, through every
 expert (the leaves gathered where they are split).
 """
 
@@ -52,6 +61,7 @@ import torch
 from . import activations, initializers
 from .core import Layer, Shape, tp_layout
 from ..parallel import collectives
+from ..parallel.strategy import TokenLayout
 from ..precision import resolve_dtype
 
 _WEIGHTS = threading.local()
@@ -164,16 +174,22 @@ class MoE(Layer):
         n = b * t
         e, k = self.num_experts, self.top_k
         strategy = current_strategy()
-        rows, r = (1, 0) if strategy is None else strategy.row_line()
-        if rows == 1:
-            strategy = None
-        n_global = n * rows
+        lay_t = None if strategy is None else strategy.token_layout(b, t)
+        if lay_t is None or lay_t.shards == 1:
+            strategy, lay_t = None, TokenLayout(b, t, 0, 0, 1)
+        seq = lay_t.seq
+        n_global = lay_t.rows * seq
         g = min(self.group_size, n_global)
         cap = self._capacity(g)
-        base = r * n  # this rank's first token in the global order
-        g0, g1 = base // g, (base + n - 1) // g
-        n_groups = g1 - g0 + 1
         dev = x.device
+        # Each local row is a segment of t consecutive global tokens:
+        # segment S = row * (T/t) + seq block, tokens [S*t, S*t + t).
+        per_row = seq // t
+        seg = ((lay_t.row_start + torch.arange(b, device=dev)) * per_row
+               + lay_t.seq_offset // t)
+        g0 = (lay_t.row_start * seq + lay_t.seq_offset) // g
+        g1 = ((lay_t.row_start + b - 1) * seq + lay_t.seq_offset + t - 1) // g
+        n_groups = g1 - g0 + 1
 
         flat = x.reshape(n, d)
         valid = torch.ones(n, dtype=torch.float32, device=dev)
@@ -188,22 +204,41 @@ class MoE(Layer):
                   * valid[:, None, None])  # (n, k, e)
 
         # Each (token, choice)'s slot in its expert's group buffer: the
-        # choices of that expert before it in the group, on this rank and
-        # on the lower ranks of the same group.
-        gid = (base + torch.arange(n, device=dev)) // g - g0  # local group
+        # choices of that expert before it in its group, in the global
+        # order (tokens, then choices). A piece is the part of a segment
+        # in one group (at most m of them a segment); the counts of every
+        # piece of the batch are summed over the batch group, so a token
+        # finds the choices of the earlier segments of its group, on this
+        # rank and on the others, then adds those before it in its piece.
+        grp = (seg[:, None] * t + torch.arange(t, device=dev)) // g  # (b, t)
+        m = (t - 1) // g + 2
+        j = grp - ((seg * t) // g)[:, None]  # a token's piece in its segment
+        piece = (torch.arange(b, device=dev)[:, None] * m + j).reshape(n)
         cf = choice.reshape(n * k, e)
-        gid_k = gid.repeat_interleave(k)
+        piece_k = piece.repeat_interleave(k)
         excl = torch.cumsum(cf, 0) - cf
-        counts = torch.zeros(n_groups, e, device=dev).index_add_(0, gid_k, cf)
-        before = torch.cumsum(counts, 0) - counts  # local groups before
-        pos = excl - before[gid_k]
+        mine = torch.zeros(b * m, e, device=dev).index_add_(0, piece_k, cf)
+        within = excl - (torch.cumsum(mine, 0) - mine)[piece_k]
+        n_seg = lay_t.rows * per_row
+        where = (seg[:, None] * m + torch.arange(m, device=dev)).reshape(-1)
+        counts = torch.zeros(n_seg * m, e, device=dev).index_copy_(
+            0, where, mine)
         if strategy is not None:
-            n_all = -(-n_global // g)
-            mine = torch.zeros(n_all, e, device=dev)
-            mine[g0:g0 + n_groups] = counts
-            everyone = strategy.all_gather_rows(mine)
-            lower = everyone[:r].sum(0)[g0:g0 + n_groups]
-            pos = pos + lower[gid_k]
+            counts = strategy.all_reduce_sum(counts)
+        # Pieces in segment order are in global order, so the choices
+        # before a piece in its group are the exclusive prefix over the
+        # pieces less the totals of the earlier groups (a piece past its
+        # segment's last group counts nothing; its group is clamped).
+        n_all = -(-n_global // g)
+        pg = ((torch.arange(n_seg, device=dev)[:, None] * t) // g
+              + torch.arange(m, device=dev)).reshape(-1).clamp(max=n_all - 1)
+        totals = torch.zeros(n_all, e, device=dev).index_add_(0, pg, counts)
+        earlier = (torch.cumsum(counts, 0) - counts
+                   - (torch.cumsum(totals, 0) - totals)[pg])
+        pos = within + earlier[(seg[:, None] * m + j).reshape(n)
+                               .repeat_interleave(k)]
+        grp = grp.reshape(n)
+        gid = grp - g0  # this rank's group index, for its buffers
         slot = (pos.reshape(n, k, e) * choice).sum(-1)  # (n, k)
         kept = (valid[:, None] > 0) & (slot < cap)
 
@@ -251,11 +286,11 @@ class MoE(Layer):
         # device: the share of dropped tokens, read without a sync.
         self.routed = torch.stack([kept.sum().to(torch.float32),
                                    choice.sum().detach()])
-        self._aux(probs, choice, valid, rows, strategy)
+        self._aux(probs, choice, valid, lay_t.shards, strategy)
         out = out.to(cd).reshape(b, t, d).to(x.dtype)
         return out[:, 0] if squeeze else out
 
-    def _aux(self, probs, choice, valid, rows, strategy):
+    def _aux(self, probs, choice, valid, shards, strategy):
         """The load-balance term over the valid tokens of the global batch
         (``aux_term``; the state ``aux_loss`` holds its value after a
         training forward)."""
@@ -272,9 +307,10 @@ class MoE(Layer):
         nv = torch.clamp_min(nv, 1.0)
         scale = self.aux_loss_weight * e
         value = scale * torch.sum((frac_g / nv) * (prob_g / nv))
-        # R times this rank's share; its value replaced by the global
-        # term's (the share's gradient, the global value).
-        term = scale * torch.sum((frac_g / nv) * (prob * rows / nv))
+        # N times this rank's share (N the batch group's ranks); its value
+        # replaced by the global term's (the share's gradient, the global
+        # value).
+        term = scale * torch.sum((frac_g / nv) * (prob * shards / nv))
         self.aux_term = term + (value - term).detach()
         if self.training:
             with torch.no_grad():

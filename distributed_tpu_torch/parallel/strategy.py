@@ -73,7 +73,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -83,6 +83,19 @@ from . import collectives
 from .collectives import Layout
 
 _local = threading.local()
+
+
+class TokenLayout(NamedTuple):
+    """A rank's block of the global batch's tokens (``Strategy.
+    token_layout``): the global ``rows`` x ``seq`` tokens, this rank's
+    first row and first position, and the number of ranks that hold
+    distinct blocks (the batch group: rows x sequence blocks)."""
+
+    rows: int
+    seq: int
+    row_start: int
+    seq_offset: int
+    shards: int
 
 
 def current_strategy() -> Optional["Strategy"]:
@@ -209,18 +222,26 @@ class Strategy:
     def _rank(self) -> int:
         return 0
 
-    def row_line(self):
-        """``(R, r)``: how many ranks hold distinct rows of a batch and
-        this rank's index among them, for the layers whose statistics run
-        over the global token order (``nn.MoE``'s routing groups)."""
+    def row_shard(self):
+        """``(index, count)``: this rank's coordinate on the row line and
+        the number of row shards, the slice of each global batch a
+        per-host source gives it (``data.Pipeline(shard="auto")``)."""
         n = int(self.num_replicas_in_sync)
-        if self.num_batch_shards > n:
-            raise NotImplementedError(
-                "the global token order under sequence parallelism: not "
-                "yet ported (ROADMAP 1.7). A sequence split interleaves "
-                "each row's tokens across ranks, and nn.MoE's routing "
-                "groups run over the global token order")
-        return n, (int(self._rank()) if n > 1 else 0)
+        return (int(self._rank()) if n > 1 else 0), n
+
+    def token_layout(self, b: int, t: int) -> TokenLayout:
+        """Where this rank's ``(b, t)`` block of tokens sits in the global
+        batch that the JAX step sees (its token ``(i, j)`` is global token
+        ``(row_start + i) * T + seq_offset + j``), for the layers whose
+        statistics run over the global token order (``nn.MoE``'s routing
+        groups). ``all_reduce_sum`` sums over the ``shards`` ranks that
+        hold the distinct blocks."""
+        rows = int(self.num_replicas_in_sync)
+        shards = int(self.num_batch_shards)
+        row_start = self.row_range(b * rows)[0] if rows > 1 else 0
+        seq = shards // rows
+        return TokenLayout(b * rows, t * seq, int(row_start),
+                           int(self.seq_offset(t)) if seq > 1 else 0, shards)
 
     def reduce_gradients(self, grads: Sequence[torch.Tensor]):
         """The gradients averaged over the replicas (as they are here)."""
@@ -888,6 +909,9 @@ class DataSeqParallel(_HintedParallel):
     def seq_offset(self, t_local: int) -> int:
         return self.sp_rank * int(t_local)
 
+    def _rows_group(self):
+        return self.mesh.get_group(self.axis)
+
     def shard_seq(self, a, dim: int = 1):
         """This rank's ``T/s`` positions of ``a``'s dimension ``dim``
         (JAX's ``_put_batch_rows_seq``: a leaf with fewer dimensions is
@@ -1060,15 +1084,23 @@ class CompositeParallel(_HintedParallel):
     batch's rows split over ("data", "fsdp"), the sequence over "seq"
     with ring or Ulysses attention as under ``DataSeqParallel``.
 
-    The combinations the JAX package's tests run are ported: data x
-    model x pipe, fsdp x model, data x seq and data x fsdp x pipe, and
-    every mesh whose axes are a subset of one of them; the others raise
-    "not yet ported" (ROADMAP 1.7)."""
+    The ported combinations (the axes larger than 1) are data x model x
+    pipe, data x fsdp x pipe, data x seq, fsdp x model, fsdp x seq, seq x
+    model, and expert with model, seq, fsdp or pipe, each held to the JAX
+    strategy, and every mesh whose split axes are a subset of one of
+    them; the others raise "not yet ported" (ROADMAP 1.7). Under an
+    expert axis the MoE runs as under ``DataExpertParallel`` (the rows
+    replicated along the expert line), on the tokens the other axes give
+    it (``Strategy.token_layout``). A mesh that splits both "seq" and
+    "pipe" raises: ring or Ulysses attention would run inside the
+    pipeline's schedule, which the JAX package refuses too."""
 
     #: axes that shard batch rows (in canonical mesh order)
     BATCH_AXES = ("data", "fsdp")
-    _PORTED = ({"data", "model", "pipe"}, {"fsdp", "model"},
-               {"data", "seq"}, {"data", "fsdp", "pipe"})
+    _PORTED = ({"data", "model", "pipe"}, {"data", "fsdp", "pipe"},
+               {"data", "seq"}, {"fsdp", "model"}, {"fsdp", "seq"},
+               {"seq", "model"}, {"expert", "model"}, {"expert", "seq"},
+               {"expert", "fsdp"}, {"expert", "pipe"})
 
     def __init__(self, axes=None, devices=None, *, mesh=None,
                  num_microbatches: Optional[int] = None,
@@ -1106,11 +1138,19 @@ class CompositeParallel(_HintedParallel):
         self._row_axes = tuple(row_axes)
         self.axis_sizes = {a: int(mesh.size(i)) for i, a in enumerate(names)}
         split = {a for a, n in self.axis_sizes.items() if n > 1}
+        if {"seq", "pipe"} <= split:
+            raise ValueError(
+                f"CompositeParallel over {sorted(split)}: a sequence split "
+                "with a pipeline would run ring or Ulysses attention inside "
+                "the pipeline's schedule, which the JAX package cannot run "
+                "either (its shard_map refuses the context mesh); split "
+                "the sequence or the stages, not both")
         if not any(split <= ported for ported in self._PORTED):
             raise NotImplementedError(
                 f"CompositeParallel over {sorted(split)}: not yet ported "
                 "(ROADMAP 1.7); the ported combinations are data x model x "
-                "pipe, fsdp x model, data x seq and data x fsdp x pipe")
+                "pipe, data x fsdp x pipe, data x seq, fsdp x model, fsdp x "
+                "seq, seq x model and expert with model, seq, fsdp or pipe")
 
         def present(name):
             return name if self.axis_sizes.get(name, 1) > 1 else None

@@ -180,7 +180,15 @@ def _per_host_source(source, strategy) -> bool:
     """True when a batch source emits only this process's rows of each
     global batch (a ``(index, count)`` ``shard`` tuple, as
     ``data.Pipeline(shard=...)`` sets); its count must be the number of
-    replicas, or the slices could not assemble into a whole batch."""
+    row shards (``num_replicas_in_sync``: the ranks of a model, pipe,
+    expert or seq line read the same rows), or the slices could not
+    assemble into a whole batch. A source built with ``shard="auto"``
+    outside ``strategy``'s scope is resharded to the strategy's row
+    line first."""
+    if getattr(source, "shard_auto", False) and tuple(
+            source.shard or (0, 1)) != strategy.row_shard():
+        with strategy.scope():
+            source.reshard("auto")
     shard = getattr(source, "shard", None)
     if not isinstance(shard, tuple):
         return False
@@ -1259,7 +1267,11 @@ class Model:
                     arrays, [next(stream) for _ in range(k)], stacked,
                     accum_m)
             if isinstance(source, Pipeline) and (
-                    per_host or self.strategy.num_replicas_in_sync == 1):
+                    per_host or self.strategy.num_replicas_in_sync == 1
+            ) and self.strategy.num_batch_shards == (
+                    self.strategy.num_replicas_in_sync):
+                # Its rows as they come; under a sequence split each
+                # rank cuts its positions from them (_stage_batch).
                 return self._stage_pipeline(source, k, stacked, accum_m)
             if stacked:
                 pairs = [next_batch() for _ in range(k)]
@@ -1833,8 +1845,11 @@ class Model:
         ``ZeroDataParallel``, ``FSDP``) each rank runs the forward on its
         rows and the logits are all-gathered over the batch group in
         shard order, so every rank again returns the whole result; under
-        a strategy with other axes it raises (ROADMAP 1.6). Up to 16
-        batches of logits stay on the device before they are fetched."""
+        a strategy with other axes too the rows are those of the rank's
+        row line (the ranks of a model, pipe, expert or seq line hold the
+        same ones, at full T) and the gather runs over the row group. Up
+        to 16 batches of logits stay on the device before they are
+        fetched."""
         self._require_built()
         if hasattr(x, "__next__"):
             if steps is None:
@@ -1845,14 +1860,6 @@ class Model:
                         "iterator (sources with steps_per_pass, e.g. "
                         "data.Pipeline, default to one pass)")
             per_host = _per_host_source(x, self.strategy)
-            if per_host and (self.strategy.num_replicas_in_sync
-                             != dist.get_world_size()):
-                raise NotImplementedError(
-                    "predict from a per-host-sharded source under "
-                    f"{type(self.strategy).__name__}, whose batch axis is "
-                    f"{self.strategy.num_replicas_in_sync} of "
-                    f"{dist.get_world_size()} ranks: not yet ported "
-                    "(ROADMAP 1.6)")
             source = x
 
             def host_batches():

@@ -3,7 +3,9 @@
 
     python3 scripts/torch_dp_scaling.py [--num-workers 1 4] [--timeout 900]
         [--strategy dp zero1 fsdp tp2 tp4 sp_ring sp_ulysses pp2 pp4 pp2i
-                    ep2 ep4 composite] [--dropout RATE] [--predict]
+                    ep2 ep4 composite sp2tp2 fsdp2sp2 ep2tp2 ep2sp2
+                    ep2fsdp2 ep2pp2 moe_sp_ring moe_sp_ulysses]
+        [--dropout RATE] [--predict] [--shard-auto]
 
 For each worker count N, starts N processes with the port's
 ``launch.LocalLauncher`` (one per card, each with its own DTPU_CONFIG).
@@ -55,7 +57,16 @@ MoE LM (8 experts in every second block); ``composite``
 (``CompositeParallel({"fsdp": 2, "model": 2})``) the LM. 32 x 1024
 tokens a data rank. Their rows add the peak memory a card and the
 pipeline's bubble fraction or the share of the routed choices the
-experts' capacity dropped.
+experts' capacity dropped. So do ``CompositeParallel``'s other pairs,
+each with a data axis of 1 where it has no fsdp axis: ``sp2tp2`` (seq 2
+x model 2) and ``fsdp2sp2`` (fsdp 2 x seq 2) train the LM; ``ep2tp2``
+(expert 2 x model 2), ``ep2sp2`` (expert 2 x seq 2) and ``ep2fsdp2``
+(fsdp 2 x expert 2) phase y1's MoE LM; ``ep2pp2`` (expert 2 x pipe 2, M
+= 4) the LM's 12 blocks pipelined with one MoE block of 8 experts after
+the stack (an MoE inside the stack raises in both packages). And
+``moe_sp_ring`` and ``moe_sp_ulysses`` (``DataSeqParallel(
+seq_parallel=2)``: data N/2) phase y1's MoE LM, each rank 512 positions
+of its rows, its routing groups over the global token order.
 
 ``sp_ring`` and ``sp_ulysses`` (``DataSeqParallel(seq_parallel=N)``,
 ring with the zigzag schedule or Ulysses) train ``bench_longctx``'s LM
@@ -111,6 +122,15 @@ one with its shard's reads from the pipeline inside, the host array's
 on rows already read; and the reads alone of both (the shard's 1/N of
 each batch, the whole array's every row).
 
+``--shard-auto`` adds, for every strategy but ``dp`` and the
+long-context search, a run of phase l's LM at 32 x 1024 tokens a data
+rank fed by ``data.Pipeline(shard="auto")`` (built outside the
+strategy's scope, so ``fit`` reshards it to the row line: the ranks of a
+model, seq, expert or pipe line read the same rows): uint8 tokens below
+256 (seed 11), each position's label its row's, 2 + 5 steps; the same
+steps from the host arrays follow, and the two runs' losses must be
+equal on every rank. Its row gives the pipeline run's tokens/s.
+
 Prints, per strategy, N and model, steps/s, images or tokens per second
 (in all and per card), the all-reduce's ms, the model state a card holds
 and its ratio to ``dp``'s at the same N where both ran, and one JSON
@@ -150,6 +170,22 @@ STRATEGIES = {"dp": ("DataParallel", {}),
               "ep4": ("DataExpertParallel", {"expert_parallel": 4}),
               "composite": ("CompositeParallel",
                             {"axes": {"fsdp": 2, "model": 2}}),
+              "sp2tp2": ("CompositeParallel",
+                         {"axes": {"data": 1, "seq": 2, "model": 2}}),
+              "fsdp2sp2": ("CompositeParallel",
+                           {"axes": {"fsdp": 2, "seq": 2}}),
+              "ep2tp2": ("CompositeParallel",
+                         {"axes": {"data": 1, "expert": 2, "model": 2}}),
+              "ep2sp2": ("CompositeParallel",
+                         {"axes": {"data": 1, "expert": 2, "seq": 2}}),
+              "ep2fsdp2": ("CompositeParallel",
+                           {"axes": {"fsdp": 2, "expert": 2}}),
+              "ep2pp2": ("CompositeParallel",
+                         {"axes": {"data": 1, "expert": 2, "pipe": 2},
+                          "num_microbatches": 4}),
+              "moe_sp_ring": ("DataSeqParallel", {"seq_parallel": 2}),
+              "moe_sp_ulysses": ("DataSeqParallel",
+                                 {"seq_parallel": 2, "attention": "ulysses"}),
               "auto": ("auto", {})}
 SP = ("sp_ring", "sp_ulysses")
 # Under --dropout the SP strategies train the LM at seq 2 (module
@@ -162,12 +198,22 @@ PREDICT = (1024, 256)  # images, global batch
 ONE_CARD = {"pp2": {"pipeline_parallel": 1}, "pp4": {"pipeline_parallel": 1},
             "pp2i": {"pipeline_parallel": 1},
             "ep2": {"expert_parallel": 1}, "ep4": {"expert_parallel": 1},
-            "composite": {"axes": {"fsdp": 1, "model": 1}}}
+            "composite": {"axes": {"fsdp": 1, "model": 1}},
+            "moe_sp_ring": {"seq_parallel": 1},
+            "moe_sp_ulysses": {"seq_parallel": 1}}
+# The composite pairs' one-card forms: every axis of size 1.
+ONE_CARD.update({
+    name: {"axes": dict.fromkeys(STRATEGIES[name][1]["axes"], 1)}
+    for name in ("sp2tp2", "fsdp2sp2", "ep2tp2", "ep2sp2", "ep2fsdp2",
+                 "ep2pp2")})
+MOE = {"moe_experts": 8, "moe_every": 2}
 LM_KW = {"pp2": {"pipeline": True}, "pp4": {"pipeline": True},
          "pp2i": {"pipeline": True, "pipeline_schedule": "interleaved",
                   "pipeline_interleave": 2},
-         "ep2": {"moe_experts": 8, "moe_every": 2},
-         "ep4": {"moe_experts": 8, "moe_every": 2}}
+         **dict.fromkeys(("ep2", "ep4", "ep2tp2", "ep2sp2", "ep2fsdp2",
+                          "moe_sp_ring", "moe_sp_ulysses"), MOE),
+         # Built by pipe_moe_lm: the stack pipelined, one MoE after it.
+         "ep2pp2": {"moe_experts": 8}}
 # The long-context LM's first T, and its timed steps after one warm-up;
 # the longest T the search tries, and the seconds a group of workers at
 # one T may take.
@@ -348,6 +394,89 @@ def dropout_lm(dtt, rate):
     return nn.Sequential(layers, name="transformer_lm")
 
 
+def pipe_moe_lm(dtt):
+    """Phase l's LM (bf16 layers) with its 12 blocks in one
+    ``nn.PipelinedBlocks`` and one MoE block (8 experts, hidden 3,072)
+    after the stack, for ``ep2pp2``."""
+    import chip_smoke
+
+    nn, lm = dtt.nn, chip_smoke.LM
+    d = lm["d_model"]
+    return nn.Sequential([
+        nn.Embedding(chip_smoke.VOCAB, d, dtype="bfloat16"),
+        nn.PositionalEmbedding(lm["max_len"]),
+        nn.PipelinedBlocks(lambda: nn.Sequential(
+            dtt.models.transformer.transformer_block(
+                d, lm["num_heads"], 4 * d, dtype="bfloat16")),
+            lm["num_layers"]),
+        *dtt.models.transformer.transformer_block(
+            d, lm["num_heads"], 4 * d, moe_experts=8, dtype="bfloat16"),
+        nn.LayerNorm(), nn.Dense(chip_smoke.VOCAB, dtype="bfloat16")],
+        name="transformer_lm")
+
+
+def shard_auto_run(dtt, strategy, n, rows):
+    """The ``--shard-auto`` run of one worker (module docstring): adds
+    ``rows["lm_shard_auto"]``; raises when the pipeline's losses differ
+    from the host arrays'."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+
+    per_card, warmup, steps = LM_RUN
+    batch, t_len = per_card * n, chip_smoke.LM["max_len"]
+    rng = np.random.default_rng(11)
+    x8 = rng.integers(0, 256, (batch * (warmup + steps), t_len),
+                      dtype=np.uint8)
+    y = rng.integers(0, chip_smoke.VOCAB, (len(x8),), dtype=np.int32)
+    pallas = dtt.ops.losses.get(chip_smoke.PALLAS)
+
+    def loss(logits, labels):
+        return pallas(logits, labels[:, None].expand(logits.shape[:2]))
+
+    pipe = dtt.data.Pipeline(x8, y, batch, shard="auto", shuffle=False,
+                             scale=1.0, use_native=False)
+    out = {}
+    for src in ("pipeline", "host"):
+        with strategy.scope():
+            model = dtt.Model(dtt.models.transformer_lm(
+                chip_smoke.VOCAB, dtype="bfloat16", **chip_smoke.LM))
+            model.compile(optimizer=dtt.optim.fused_adamw(
+                3e-4, weight_decay=0.01), loss=loss, metrics=[])
+        model.build((t_len,), seed=0)
+        if src == "pipeline":
+            def fit(epochs, k):
+                return model.fit(pipe, epochs=epochs, steps_per_epoch=k,
+                                 verbose=0).history["loss"]
+        else:
+            def fit(epochs, k):
+                return model.fit(x8.astype(np.int32), y, batch_size=batch,
+                                 epochs=epochs, steps_per_epoch=k,
+                                 shuffle=False, verbose=0).history["loss"]
+        losses = fit(1, warmup)
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        t = time.perf_counter()
+        losses += fit(steps, 1)
+        torch.cuda.synchronize()
+        out[src] = (losses, steps / (time.perf_counter() - t),
+                    model.last_fit_telemetry["model_state_bytes_per_device"])
+        del model
+        torch.cuda.empty_cache()
+    shard = list(pipe.shard or (0, 1))
+    pipe.close()
+    (got, sps, state), (want, host_sps, _) = out.values()
+    if got != want:
+        raise SystemExit(f"--shard-auto: the pipeline's losses {got} differ "
+                         f"from the host arrays' {want}")
+    rows["lm_shard_auto"] = {
+        "steps_per_s": sps, "unit": "tokens", "per_s": sps * batch * t_len,
+        "loss": got, "allreduce_ms": float("nan"),
+        "model_state_bytes_per_device": state, "shard": shard,
+        "host_per_s": host_sps * batch * t_len}
+
+
 def predict_worker():
     """One rank of the ``--predict`` group (module docstring)."""
     import numpy as np
@@ -430,7 +559,8 @@ def run_predict(dtt, env, n, timeout):
     return failed
 
 
-def worker(strategy_name="dp", lm_only=True, dropout=None):
+def worker(strategy_name="dp", lm_only=True, dropout=None,
+           shard_auto=False):
     import numpy as np
     import torch
 
@@ -495,7 +625,7 @@ def worker(strategy_name="dp", lm_only=True, dropout=None):
                       "peak_gb": float(peak)}
         if "pipeline" in tel:
             rows[name]["bubble_fraction"] = tel["pipeline"]["bubble_fraction"]
-        if LM_KW.get(strategy_name, {}).get("moe_experts"):
+        if "moe_experts" in LM_KW.get(strategy_name, {}):
             # Over the global batch: every rank's (kept, routed) choices
             # (an expert line's ranks hold the same rows, which scales
             # both sums alike).
@@ -509,6 +639,7 @@ def worker(strategy_name="dp", lm_only=True, dropout=None):
         if name == "lm":
             x, y = chip_smoke.lm_batch(batch, chip_smoke.LM["max_len"])
             module = (dropout_lm(dtt, dropout) if dropout else
+                      pipe_moe_lm(dtt) if strategy_name == "ep2pp2" else
                       dtt.models.transformer_lm(
                           chip_smoke.VOCAB, dtype="bfloat16", **chip_smoke.LM,
                           **LM_KW.get(strategy_name, {})))
@@ -571,6 +702,8 @@ def worker(strategy_name="dp", lm_only=True, dropout=None):
                                  verbose=0).history["loss"]
         sync_check.assert_model_replicas_identical(model)
         del model
+    if shard_auto and strategy_name != "dp":
+        shard_auto_run(dtt, strategy, n, rows)
     dtt.launch.report_result({"rank": spec.index, "world": n,
                               "device": str(strategy.device), "rows": rows,
                               "parity": parity})
@@ -587,6 +720,9 @@ def main():
                     help="Dropout(RATE) after each of the LM's blocks")
     ap.add_argument("--predict", action="store_true",
                     help="the sharded-source predict group at the last N")
+    ap.add_argument("--shard-auto", action="store_true",
+                    help="a Pipeline(shard='auto') run of the LM under each "
+                    "strategy but dp")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--seq-len", type=int, help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -602,7 +738,8 @@ def main():
         else:
             # The first strategy listed is the worker's; dp trains every
             # model only when nothing else is listed.
-            worker(args.strategy[0], args.strategy != ["dp"], args.dropout)
+            worker(args.strategy[0], args.strategy != ["dp"], args.dropout,
+                   args.shard_auto)
         return 0
     import torch
 
@@ -646,7 +783,8 @@ def main():
                           f"{total / cards / dp_row['per_s']:.4f} of {of})")
                 extra = "".join(
                     f", {key} {row[key]:.6f}" for key in
-                    ("peak_gb", "bubble_fraction", "dropped_share")
+                    ("peak_gb", "bubble_fraction", "dropped_share",
+                     "host_per_s")
                     if key in row)
                 print(f"{strat} N={n} {name:9s} {row['steps_per_s']:8.3f} "
                       f"steps/s, {total:12.1f} {row['unit']}/s "
@@ -673,6 +811,9 @@ def main():
         out["predict_failed"] = run_predict(dtt, env, args.num_workers[-1],
                                             args.timeout)
         failed |= out["predict_failed"]
+    # Again at the end: a long run's head falls outside a tail of its
+    # output.
+    print(chip_smoke.card_line(), f"x {torch.cuda.device_count()}")
     print(json.dumps(out))
     return 1 if failed else 0
 
@@ -794,6 +935,8 @@ def run_strategy(dtt, env, args, strat):
     count, or None when a worker failed (its log printed)."""
     res = {}
     drop = [] if args.dropout is None else ["--dropout", str(args.dropout)]
+    if args.shard_auto:
+        drop.append("--shard-auto")
     for n in args.num_workers:
         if n % split_of(strat, args.dropout) and not (
                 n == 1 and strat in ONE_CARD):

@@ -20,8 +20,10 @@ equals JAX's addressable shard's.
 A sharded checkpoint of the fsdp x model ranks restores under
 ``DataParallel`` bit for bit. The constructor raises JAX's errors
 (missing axes, an unknown axis, no batch axis, a bad attention mode),
-counts the replicas over ("data", "fsdp"), and a combination outside the
-four raises "not yet ported" naming ROADMAP 1.7.
+counts the replicas over ("data", "fsdp"), and data x expert, outside
+the ported combinations (these four and the pairs of
+tests/test_torch_composite_pairs.py), raises "not yet ported" naming
+ROADMAP 1.7.
 """
 
 import jax

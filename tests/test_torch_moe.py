@@ -220,12 +220,19 @@ def test_moe_lm_evaluate_with_a_ratio_loss_matches_jax():
 
 
 def test_row_line_raises_under_a_sequence_split():
+    """The row line that raised under a sequence split is now the token
+    layout every strategy answers: a rank's first row and position in the
+    global batch and the ranks of its batch group (nn.MoE routes by it;
+    tests/test_torch_moe_seq.py holds that to JAX)."""
     class SeqSplit(dtt.parallel.strategy.Strategy):
         num_batch_shards = 2  # one row line, its tokens over 2 ranks
 
-    assert dtt.parallel.strategy.Strategy().row_line() == (1, 0)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP 1\.7\)"):
-        SeqSplit().row_line()
+        def seq_offset(self, t_local):
+            return t_local  # the second sequence block
+
+    assert dtt.parallel.strategy.Strategy().token_layout(4, 16) == (
+        4, 16, 0, 0, 1)
+    assert SeqSplit().token_layout(4, 8) == (4, 16, 0, 8, 2)
     assert SeqSplit().forward_collectives(False, moe=True) is not None
     assert dtt.parallel.strategy.Strategy().forward_collectives(
         False, moe=True) is None

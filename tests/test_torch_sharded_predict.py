@@ -16,7 +16,7 @@ returns the whole result, as the JAX package's predict does
 - a shard count other than the replica count still raises the
   ``ValueError`` that ``fit`` and ``evaluate`` raise;
 - under a strategy whose batch axis is not the whole world, predict
-  from a sharded source still raises "not yet ported (ROADMAP 1.6)".
+  from a sharded source gathers over the row group.
 """
 
 import jax
@@ -110,20 +110,25 @@ def test_shard_count_error_is_kept(runs, name):
 
 def test_hinted_strategy_with_other_axes_still_raises(monkeypatch):
     """A strategy whose batch axis is not the whole world (here a world-1
-    ``DataTensorParallel`` made to report a batch axis of 2) refuses a
-    sharded source, naming ROADMAP 1.6."""
+    ``DataTensorParallel`` made to report a batch axis of 2) no longer
+    refuses a sharded source (ROADMAP 1.6.2 is done): predict runs the
+    rank's rows and gathers them over its row group, which here holds
+    the rank alone, so it returns shard 0's rows of every batch
+    (tests/test_torch_shard_auto.py runs the 4-rank case)."""
     x8, y8 = images(32)
     try:
         st = dtt.DataTensorParallel(model_parallel=1, device="cpu")
         with st.scope():
             m = dtt.Model(dtt.models.mnist_cnn())
         m.build((28, 28, 1))
+        kw = dict(shuffle=True, seed=3, use_native=False)
+        with dtt.data.Pipeline(x8, y8, BATCH, **kw) as whole:
+            want = m.predict(whole)
         monkeypatch.setattr(type(st), "num_replicas_in_sync",
                             property(lambda self: 2))
-        with dtt.data.Pipeline(x8, y8, BATCH, shard=(0, 2),
-                               use_native=False) as pipe:
-            with pytest.raises(NotImplementedError,
-                               match=r"not yet ported \(ROADMAP 1\.6\)"):
-                m.predict(pipe)
+        with dtt.data.Pipeline(x8, y8, BATCH, shard=(0, 2), **kw) as pipe:
+            got = m.predict(pipe)
+        half = want.reshape(-1, 2, BATCH // 2, 10)[:, 0].reshape(-1, 10)
+        assert np.array_equal(got, half)
     finally:
         dtt.cluster.shutdown()
