@@ -486,6 +486,18 @@ z11. The strategy compositions (NCCL, world 1): phase y1's MoE LM
    the same steps from host arrays; at world 1 the row line is the whole
    group, so "auto" reads whole (the 4-card runs of
    ``scripts/torch_dp_scaling.py --shard-auto`` shard it).
+z12. The Engine under tensor parallelism (NCCL, world 1): phase c's
+   GPT-2-small (bf16 layers, random weights from seed 0) built under
+   ``DataTensorParallel(model_parallel=1)`` and under ``DataParallel``,
+   served by ``Engine(8 slots, block 16, max_len 1024, "fused")`` on phase
+   c's 16 requests with bf16 and int8 KV pools, then after
+   ``quant.quantize_model``: tokens and logprobs bit for bit DP's; every
+   hinted leaf served is a marked block of its one-rank line (nothing
+   gathered); the paged paths call Megatron's ``copy_to_group`` and
+   ``reduce_from_group`` 2 times a block and dispatch each; K1 (K2 with
+   int8 KV) once a layer and decode step. Tokens/s, TTFT p50/p99, the
+   served parameter and pool bytes. (``scripts/torch_tp_serve.py`` runs
+   model_parallel 2 and 4 on 4 cards.)
 Then each phase's seconds from its header to the next (``phase
 seconds``; every header also prints the seconds since the run began),
 the kernel table as one JSON line (each row also names the CUDA
@@ -500,8 +512,8 @@ in phase v's scanned runs, ``launches_v``, in phase w's sharded runs,
 ``launches_x``, in phase y's MoE, pipelined and composite runs,
 ``launches_y``, in phase z1's auto-compiled run, ``launches_z``, in
 phase z3's resumed worker, ``launches_z3``, K1 in phase z4's
-full-width fleet, ``launches_z4``, and in phases z6-z11,
-``launches_z6``-``launches_z11``, where any),
+full-width fleet, ``launches_z4``, and in phases z6-z12,
+``launches_z6``-``launches_z12``, where any),
 the card's name and power limit, and ``{"ok": true, "device": {...}}`` as
 the last line.
 """
@@ -5954,6 +5966,121 @@ def pipeline_fit(torch, dtt, mods, batch, steps):
     return counts
 
 
+# ------------------------------------------------------------ phase z12
+def tp_lm(dtt, strategy):
+    """Phase c's GPT-2-small (bf16 layers, seed 0) built under
+    ``strategy``."""
+    with strategy.scope():
+        model = dtt.Model(dtt.models.transformer_lm(
+            VOCAB, dtype="bfloat16", **LM))
+    return model.build((LM["max_len"],), seed=0)
+
+
+def tp_served(dtt, engine):
+    """(parameter bytes, pool bytes) the engine holds on this card, and
+    the hinted leaves it serves whole (none under tensor parallelism)."""
+    from distributed_tpu_torch.parallel.collectives import layout_of
+    from distributed_tpu_torch.parallel.strategy import role_of
+
+    hints = engine.model.module.sharding_hints()
+    whole = []
+    for path, t in engine._target.params.items():
+        weight, _, leaf = path.rpartition("/")
+        role = (dtt.quant.leaf_role(leaf, role_of(weight, hints))
+                if leaf in ("q", "scale") else role_of(path, hints))
+        lay = layout_of(t)
+        if role is not None and (lay is None or lay.local_shape
+                                 != tuple(t.shape)):
+            whole.append(path)
+    return snapshot_bytes(engine._target), pool_bytes(engine.kv), whole
+
+
+def tp_serve_arm(torch, dtt, paged_ops, model, reqs, **kw):
+    """One Engine run of ``model`` on ``reqs`` (fused, logprobs kept):
+    (tokens, logprobs, telemetry, wall s, K1/K2 launches, Megatron pair
+    calls, served bytes), the counts zeroed just before the run."""
+    engine = dtt.serving.Engine(model, max_slots=8, block_size=16,
+                                max_len=LM["max_len"],
+                                decode_kernel="fused", **kw)
+    paged_ops.reset_launch_counts()
+    with megatron_pair_counted() as pair:
+        t = time.perf_counter()
+        outs = engine.run([dtt.serving.Request(p, m) for p, m in reqs],
+                          return_logprobs=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    launches = {k: v for k, v in paged_ops.launches.items() if v}
+    served = tp_served(dtt, engine)
+    tel = engine.last_run_telemetry
+    del engine
+    logps = [np.asarray(r["logprobs"]) for r in tel["requests"]]
+    return outs, logps, tel, wall, launches, dict(pair), served
+
+
+def phase_tp_serve(torch, dtt, paged_ops, reqs):
+    """z12: phase c's LM served under ``DataTensorParallel(
+    model_parallel=1)`` against the same weights under ``DataParallel``
+    (NCCL, world 1): bf16 and int8 KV, then int8 weights; tokens and
+    logprobs bit for bit, the served leaves blocks of the one-rank line,
+    Megatron's pair reached by the paged paths (2 calls each a block and
+    dispatch), K1/K2 once a layer and decode step. Returns the launches of
+    the tensor-parallel runs."""
+    nccl_world1(dtt)
+    launches = {}
+    try:
+        models = {"DataParallel": tp_lm(dtt, dtt.DataParallel()),
+                  "DataTensorParallel(1)": tp_lm(
+                      dtt, dtt.DataTensorParallel(model_parallel=1))}
+        arms = (("bf16 KV", {}), ("int8 KV", {"kv_dtype": "int8"}),
+                ("int8 weights", {}))
+        for arm, kw in arms:
+            if arm == "int8 weights":
+                for model in models.values():
+                    dtt.quant.quantize_model(model)
+            runs = {name: tp_serve_arm(torch, dtt, paged_ops, model, reqs,
+                                       **kw)
+                    for name, model in models.items()}
+            (dt, dl, dtel, dwall, *_), (tt, tl, tel, wall, n, pair,
+                                         served) = runs.values()
+            report(f"{arm}, DataParallel", dtel, dwall)
+            check_outputs(tt, reqs, VOCAB)
+            same = (all(np.array_equal(a, b) for a, b in zip(dt, tt))
+                    and all(np.array_equal(a, b) for a, b in zip(dl, tl)))
+            name = "paged_attention_int8" if kw else "paged_attention"
+            dispatches = tel["decode_steps"] + tel["prefill_dispatches"]
+            want_pair = 2 * LM["num_layers"] * dispatches
+            params_b, pool_b, whole = served
+            report(f"{arm}, DataTensorParallel(1)", tel, wall)
+            print(f"  {arm}: host ms a decode step, DataParallel "
+                  f"{1e3 * dtel['decode'] / dtel['decode_steps']:.3f}, "
+                  f"DataTensorParallel(1) "
+                  f"{1e3 * tel['decode'] / tel['decode_steps']:.3f}")
+            print(f"  {arm}: tokens and logprobs "
+                  f"{'bit for bit' if same else 'DIFFER from'} "
+                  f"DataParallel's; served parameters {params_b / 1e6:.1f} "
+                  f"MB, pools {pool_b / 1e6:.1f} MB; hinted leaves served "
+                  f"whole {len(whole)}; Megatron pair {pair} over "
+                  f"{dispatches} dispatches (want {want_pair} each); "
+                  f"launches {n}")
+            if not same:
+                raise SystemExit(f"z12 {arm}: the TP engine differs from "
+                                 "DP's at world 1")
+            if whole:
+                raise SystemExit(f"z12 {arm}: hinted leaves served whole: "
+                                 f"{whole[:4]}")
+            if any(v != want_pair for v in pair.values()):
+                raise SystemExit(f"z12 {arm}: Megatron pair {pair}, want "
+                                 f"{want_pair} each")
+            if n.get(name) != tel["decode_steps"] * LM["num_layers"]:
+                raise SystemExit(f"z12 {arm}: {name} launches {n}")
+            launches[name] = launches.get(name, 0) + n[name]
+        del models
+    finally:
+        dtt.cluster.shutdown()
+    torch.cuda.empty_cache()
+    return launches
+
+
 PHASE_SECONDS = {}  # each phase's seconds, from its header to the next
 _PHASE = {"name": None, "t": None, "t0": time.perf_counter()}
 
@@ -6282,6 +6409,10 @@ def main():
           f"fit under DataTensorParallel(1) | {card_line()}")
     u_counts["z11"] = phase_compositions(torch, dtt,
                                          (xent_ops, flash_ops, adam_ops))
+    phase(f"phase z12: the Engine under DataTensorParallel(model_parallel=1)"
+          f" (NCCL, world 1): phase c's LM and requests, fused, bf16 and "
+          f"int8 KV, int8 weights, against DataParallel | {card_line()}")
+    u_counts["z12"] = phase_tp_serve(torch, dtt, paged_ops, reqs)
     for sub, counts in u_counts.items():
         for name, n in counts.items():
             if n:
@@ -6304,7 +6435,8 @@ def main():
          "replayed_fit": r.get("replayed_fit"),
          **{f"launches_{sub}": r[f"launches_{sub}"]
             for sub in ("u1", "u2", "u3", "v", "w", "x", "y", "z", "z3",
-                        "z4", "z6", "z7", "z8", "z9", "z10", "z11")
+                        "z4", "z6", "z7", "z8", "z9", "z10", "z11",
+                        "z12")
             if f"launches_{sub}" in r},
          **({"launches_spec": r["launches_spec"], "ms_by_kw": r["ms_by_kw"]}
             if "ms_by_kw" in r else {})}

@@ -202,10 +202,27 @@ def reset_for_relaunch() -> None:
 
 def shutdown() -> None:
     """Leave the cluster: destroy the default process group (whoever
-    formed it, ``initialize`` or a world-1 ``DataParallel``) and clear the
-    memo state, making ``initialize()`` callable again."""
+    formed it, ``initialize`` or a world-1 ``DataParallel``) and every
+    group formed over it, and clear the memo state, making
+    ``initialize()`` callable again. Every rank of the gang calls it.
+
+    The ranks first meet at a barrier, so no rank leaves (rank 0 with the
+    rendezvous store) while a peer still connects or runs a collective.
+    The port holds its groups weakly (``parallel.collectives``) and the
+    meshes drop theirs here, so destroying them ends each gloo group's
+    worker threads now, while the interpreter is whole: a worker that
+    outlived it, releasing a finished collective's tensors as the
+    interpreter finalized, would abort the rank (``std::terminate``); a
+    group the caller still holds keeps its workers so. A barrier that
+    fails (a peer gone) raises after the teardown."""
     if dist.is_initialized():
-        dist.destroy_process_group()
+        from ..parallel import mesh
+
+        try:
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+            mesh.release_groups()
     reset_for_relaunch()
 
 

@@ -23,11 +23,14 @@ compute dtype, and dequantized first when it is int8 (``quant``).
 
 Paged KV (``serving.Engine``): one pool of fixed-size blocks per layer,
 shared by every slot and addressed through per-slot block tables. New
-K/V rows are scattered into the pools IN PLACE. Decode and speculative
-verification (K candidate rows a slot) read either through the gathered
-view (``decode_kernel="reference"``) or through the fused kernel
-(``ops.paged_attention``, ``"fused"``); prefill always reads through the
-view.
+K/V rows are scattered into the pools IN PLACE. Under tensor
+parallelism (the engine dispatches inside the model's strategy scope) a
+rank's pools hold its heads only, ``(NB, bs, H/m, hd)``, and the paged
+paths project, cache and attend over them as ``forward`` does. Decode
+and speculative verification (K candidate rows a slot) read either
+through the gathered view (``decode_kernel="reference"``) or through the
+fused kernel (``ops.paged_attention``, ``"fused"``); prefill always
+reads through the view.
 """
 
 from __future__ import annotations
@@ -226,17 +229,32 @@ class MultiHeadAttention(Layer):
             ctx = dense_attention(q, k, v, self.causal)
         return collectives.ulysses_to_seq(ctx, group)
 
+    def _tp(self):
+        """The layout of this rank's column block of ``wq`` under tensor
+        parallelism (heads ``[r*H/m, (r+1)*H/m)``), else None; heads
+        that the model line does not divide raise."""
+        tp = tp_layout(self, "wq")
+        if tp is not None and self.num_heads % tp.n:
+            raise ValueError(
+                f"num_heads {self.num_heads} not divisible by the "
+                f"model axis size {tp.n}")
+        return tp
+
+    def _tp_input(self, x):
+        """``(x, tp)``: under tensor parallelism ``x``, cast to the layer
+        dtype, enters the model line through ``copy_to_group``. Every
+        path that projects (forward, paged decode, verify and prefill)
+        starts here."""
+        tp = self._tp()
+        if tp is None:
+            return x, None
+        dt = resolve_dtype(self.dtype)
+        return collectives.copy_to_group(x if dt is None else x.to(dt),
+                                         tp.group), tp
+
     def forward(self, x):
         b, t, _ = x.shape
-        tp = tp_layout(self, "wq")
-        if tp is not None:
-            if self.num_heads % tp.n:
-                raise ValueError(
-                    f"num_heads {self.num_heads} not divisible by the "
-                    f"model axis size {tp.n}")
-            dt = resolve_dtype(self.dtype)
-            x = collectives.copy_to_group(x if dt is None else x.to(dt),
-                                          tp.group)
+        x, tp = self._tp_input(x)
         q, k, v = self._qkv(x, (b, t), (b, t))
         ring = self._ring_config()
         if ring is not None:
@@ -287,7 +305,11 @@ class MultiHeadAttention(Layer):
 
     # ------------------------------------------- paged (block) KV cache --
     def init_paged_cache(self, num_blocks, block_size, dtype, device):
-        shape = (num_blocks, block_size, self.num_heads, self._hd)
+        # Under tensor parallelism a rank pools its own heads [r*H/m,
+        # (r+1)*H/m), the block its column blocks project.
+        tp = self._tp()
+        heads = self.num_heads if tp is None else self.num_heads // tp.n
+        shape = (num_blocks, block_size, heads, self._hd)
         if dtype == torch.int8:
             # int8 KV: per-(position, head) dynamic scales beside the
             # payload (_kv_scatter); the same {"q","scale"} idiom as quant.
@@ -331,6 +353,7 @@ class MultiHeadAttention(Layer):
         _require_causal(self)
         s = x.shape[0]
         bs = _kv_block_size(cache["k"])
+        x, tp = self._tp_input(x)
         q, k, v = self._qkv(x, (s, 1), (s,))
         pos = positions.long()
         slots = torch.arange(s, device=x.device)
@@ -346,7 +369,7 @@ class MultiHeadAttention(Layer):
                 torch.arange(ll, device=x.device)[None] <= pos[:, None]
             )[:, None, :]  # (S, 1, L)
             ctx = self._view_attention(q, ck, cv, block_tables, visible)
-        return self._out(ctx.reshape(s, 1, -1)), {"k": ck, "v": cv}
+        return self._out(ctx.reshape(s, 1, -1), tp), {"k": ck, "v": cv}
 
     def paged_verify(self, cache, x, *, block_tables, positions,
                      decode_kernel=paged_ops.REFERENCE):
@@ -361,6 +384,7 @@ class MultiHeadAttention(Layer):
         _require_causal(self)
         s, kw, _ = x.shape
         bs = _kv_block_size(cache["k"])
+        x, tp = self._tp_input(x)
         q, k, v = self._qkv(x, (s, kw), (s, kw))
         abs_pos = positions.long()[:, None] + torch.arange(
             kw, device=x.device)[None]  # (S, K)
@@ -381,7 +405,7 @@ class MultiHeadAttention(Layer):
             # The view-level mask is the K rows' union, positions <=
             # positions + K - 1 (_view_attention: visible.any over rows).
             ctx = self._view_attention(q, ck, cv, block_tables, visible)
-        return self._out(ctx.reshape(s, kw, -1)), {"k": ck, "v": cv}
+        return self._out(ctx.reshape(s, kw, -1), tp), {"k": ck, "v": cv}
 
     def paged_prefill(self, cache, x, *, block_table, start):
         """Prompt-chunk prefill for one sequence: x (1, C, D) covers
@@ -392,6 +416,7 @@ class MultiHeadAttention(Layer):
         _require_causal(self)
         c = x.shape[1]
         bs = _kv_block_size(cache["k"])
+        x, tp = self._tp_input(x)
         q, k, v = self._qkv(x, (1, c), (c,))
         abs_pos = start + torch.arange(c, device=x.device)  # (C,)
         blk = block_table.long()[abs_pos // bs]
@@ -403,7 +428,7 @@ class MultiHeadAttention(Layer):
             torch.arange(ll, device=x.device)[None, :] <= abs_pos[:, None]
         )[None]  # (1, C, L): causal against each query's position
         ctx = self._view_attention(q, ck, cv, block_table[None], visible)
-        return self._out(ctx.reshape(1, c, -1)), {"k": ck, "v": cv}
+        return self._out(ctx.reshape(1, c, -1), tp), {"k": ck, "v": cv}
 
 
 class PositionalEmbedding(Layer):

@@ -53,10 +53,21 @@ JAX package gets from GSPMD and ``shard_map``:
 Every buffer is flat: gloo takes the concatenated form of
 ``all_gather_into_tensor``/``reduce_scatter_tensor`` only. A collective
 that fails raises; nothing here falls back to a full leaf.
+
+A :class:`Layout` and a strategy hold their process groups weakly
+(:class:`WeakGroup`): torch's registry holds every group until
+``destroy_process_group``, so ``cluster.shutdown()`` destroys each one,
+and a gloo group's destructor joins its worker threads while the
+interpreter is whole. A group kept alive past that keeps its workers;
+the worker that releases a finished collective takes the GIL to drop
+its tensors, and one that does so after the interpreter began to
+finalize is ended inside a C++ destructor (``std::terminate``: the rank
+aborts at exit).
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -72,7 +83,54 @@ _reduce_scatter_flat = getattr(dist, "reduce_scatter_single", None) or \
     dist.reduce_scatter_tensor
 
 
-class Layout(NamedTuple):
+def _held(group):
+    """A weak reference to ``group`` (None: the default group; a weak
+    reference, as a copied Layout passes it, as it is)."""
+    if group is None or isinstance(group, weakref.ref):
+        return group
+    return weakref.ref(group)
+
+
+def _live(ref, what="a process group"):
+    """The group ``ref`` refers to; raises once it was destroyed."""
+    if ref is None:
+        return None
+    group = ref()
+    if group is None:
+        raise RuntimeError(
+            f"{what} was destroyed (cluster.shutdown()); build the model "
+            "and its strategy again in the new group")
+    return group
+
+
+class WeakGroup:
+    """A class attribute holding an instance's process group weakly
+    (module docstring); it reads None (the default group) until set."""
+
+    def __set_name__(self, owner, name):
+        self._key = "_weak_" + name
+        self._name = name
+
+    def __get__(self, obj, owner=None):
+        if obj is None:
+            return self
+        return _live(obj.__dict__.get(self._key), f"group {self._name}")
+
+    def __set__(self, obj, group):
+        obj.__dict__[self._key] = _held(group)
+
+
+class _LayoutFields(NamedTuple):
+    shape: Tuple[int, ...]
+    dim: int
+    n: int
+    rank: int
+    group_ref: object = None
+    axis: Optional[str] = None
+    sub: Optional["Layout"] = None
+
+
+class Layout(_LayoutFields):
     """One rank's block of a sharded leaf: ``shape`` the full shape,
     ``dim`` the shard dimension, ``n`` the number of ranks and ``rank``
     this one's index among them; ``group`` the process group they form
@@ -84,15 +142,19 @@ class Layout(NamedTuple):
     leaf split over two mesh axes at once (``CompositeParallel``'s ZeRO-3
     overlay on a Megatron block): the rank then stores ``sub``'s block,
     :attr:`local_shape`. :meth:`levels` lists the single splits, the
-    stored one first; the gathers take them in that order."""
+    stored one first; the gathers take them in that order.
 
-    shape: Tuple[int, ...]
-    dim: int
-    n: int
-    rank: int
-    group: object = None
-    axis: Optional[str] = None
-    sub: Optional["Layout"] = None
+    The group is held weakly (``group_ref``, module docstring)."""
+
+    __slots__ = ()
+
+    def __new__(cls, shape, dim, n, rank, group=None, axis=None, sub=None):
+        return super().__new__(cls, shape, dim, n, rank, _held(group), axis,
+                               sub)
+
+    @property
+    def group(self):
+        return _live(self.group_ref)
 
     @property
     def size(self) -> int:
@@ -390,13 +452,18 @@ class _ReduceFromGroup(torch.autograd.Function):
 def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` as it is; its gradient summed over ``group`` (Megatron's
     f: the replicated input of a column-parallel product, whose ranks
-    each hold part of its gradient)."""
+    each hold part of its gradient). Without gradients (serving under
+    ``inference_mode``) it is ``x`` itself, with no autograd node."""
+    if not torch.is_grad_enabled():
+        return x
     return _CopyToGroup.apply(x, group)
 
 
 def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` summed over ``group``; the gradient passed as it is
     (Megatron's g: the partial products of a row-parallel product)."""
+    if not torch.is_grad_enabled():
+        return _all_reduce(x, group)
     return _ReduceFromGroup.apply(x, group)
 
 

@@ -12,10 +12,16 @@ starting a process. ``mesh.get_group(axis)`` is the process group of this
 rank's line along ``axis`` and ``mesh.get_local_rank(axis)`` its
 coordinate there. ``replicated`` and ``batch_sharding`` give the DTensor
 placements of the JAX helpers of the same names.
+
+A ``DeviceMesh`` keeps its groups in a registry of its own; the meshes
+``make_mesh`` builds are listed (weakly), and :func:`release_groups`
+empties their registries when the gang leaves (``cluster.shutdown``), so
+no mesh keeps a destroyed group and its worker threads alive.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -23,6 +29,8 @@ import torch.distributed as dist
 
 # The JAX package's canonical axis names, in its order.
 AXES = ("data", "fsdp", "pipe", "seq", "expert", "model")
+
+_MESHES: "weakref.WeakSet" = weakref.WeakSet()  # what make_mesh built
 
 
 def _hybrid_grid(ranks, names, sizes, dcn_axis, slice_ids) -> np.ndarray:
@@ -107,8 +115,19 @@ def make_mesh(axis_sizes: Optional[Dict[str, int]] = None, *,
              else [int(d) for d in devices])
     names, grid = device_grid(axis_sizes, ranks, dcn_axis=dcn_axis,
                               slice_ids=slice_ids)
-    return DeviceMesh(device_type, torch.from_numpy(grid),
+    mesh = DeviceMesh(device_type, torch.from_numpy(grid),
                       mesh_dim_names=names)
+    _MESHES.add(mesh)
+    return mesh
+
+
+def release_groups() -> None:
+    """Drop every group the meshes of :func:`make_mesh` still hold (their
+    ``_pg_registry``), after ``destroy_process_group``."""
+    for mesh in list(_MESHES):
+        registry = getattr(mesh, "_pg_registry", None)
+        if isinstance(registry, dict):
+            registry.clear()
 
 
 def replicated(mesh=None):

@@ -521,8 +521,9 @@ class DataParallel(Strategy):
         return self._mesh
 
     #: The group whose ranks hold distinct pieces of a batch (None: the
-    #: default group): the gradients' and the losses' all-reduce.
-    _batch_group = None
+    #: default group): the gradients' and the losses' all-reduce. Every
+    #: group a strategy keeps is held weakly (``collectives.WeakGroup``).
+    _batch_group = collectives.WeakGroup()
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self._batch_group)
@@ -710,6 +711,11 @@ class _HintedParallel(DataParallel):
     split over the ``axis`` line (``row_range``). ``devices`` (ranks),
     ``mesh`` and the axis sizes are the JAX constructors'; ``device``
     the port's (None: this rank's card, "cpu": a gloo group)."""
+
+    tp_group = collectives.WeakGroup()
+    sp_group = collectives.WeakGroup()
+    ep_group = collectives.WeakGroup()
+    pp_group = collectives.WeakGroup()
 
     def __init__(self, devices, mesh, axis, split_axis, split, keyword,
                  device):
@@ -1101,6 +1107,8 @@ class CompositeParallel(_HintedParallel):
                {"data", "seq"}, {"fsdp", "model"}, {"fsdp", "seq"},
                {"seq", "model"}, {"expert", "model"}, {"expert", "seq"},
                {"expert", "fsdp"}, {"expert", "pipe"})
+    _rows = collectives.WeakGroup()
+    _rest_group = collectives.WeakGroup()
 
     def __init__(self, axes=None, devices=None, *, mesh=None,
                  num_microbatches: Optional[int] = None,

@@ -146,16 +146,30 @@ def quantize_tree(tree, *, min_ndim: int = 2):
     return walk(tree)
 
 
+def leaf_role(leaf: str, role):
+    """The tensor-parallel role of a quantized weight's ``q`` or
+    ``scale`` whose weight has ``role``: ``q`` takes the weight's
+    Megatron split ("col", "row", "row1"); the per-output-channel
+    ``scale`` is split with the output columns ("col") and is whole
+    under a row split, where it factors out of the row sum. Any other
+    role (an expert or a pipeline stage) leaves both whole."""
+    if role not in ("col", "row", "row1"):
+        return None
+    return role if leaf == QKEY or role == "col" else None
+
+
 def quantize_model(model, *, min_ndim: int = 2):
     """Quantize a built model's parameters in place (weight-only int8):
     each floating parameter with ``ndim >= min_ndim`` becomes a
     :class:`QuantizedWeight` on its device. The captured step graphs and
     the memoized decode dtype are dropped, and so is the optimizer state
-    (int8 weights train nothing; ``fit`` raises). Under FSDP each weight
-    is gathered whole first (its per-channel scales span every row), and
-    ``q`` and ``scale`` are then stored as this rank's blocks by the
-    placement rule on their own shapes (every rank calls it). Returns
-    the model."""
+    (int8 weights train nothing; ``fit`` raises). Under a sharding
+    strategy each weight is gathered whole first (its per-channel scales
+    span every row, so the bits equal JAX's), and ``q`` and ``scale`` are
+    then stored as this rank's blocks (every rank calls it): by the
+    placement rule on their own shapes under FSDP, by the weight's
+    Megatron role under tensor parallelism (:func:`leaf_role`), so a
+    layer dequantizes and computes with its block. Returns the model."""
     if not model.built:
         raise RuntimeError("Build the model (or restore a checkpoint) "
                            "before quantizing")

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import signal
 import sys
+import weakref
 from pathlib import Path
 from typing import Optional
 
@@ -80,7 +81,7 @@ class PreemptionHandler(Callback):
         self._flag = False
         self._prev = {}
         self.triggered = False  # post-hoc: did a preemption stop this run?
-        self._group = None  # the vote's CPU group (gang only)
+        self._group_ref = None  # the vote's CPU group (gang only), weakly
         self._vote = None
         self._work = None  # the vote started at the previous batch end
 
@@ -105,12 +106,19 @@ class PreemptionHandler(Callback):
     def _vote_group(self):
         """Set the CPU group the flags are voted over (None without a
         gang). Every rank calls this at train begin (a new group is
-        collective)."""
+        collective). The group is held weakly, as a strategy holds its
+        groups (``parallel.collectives``), so ``cluster.shutdown()``
+        destroys it; a later gang votes over a group of its own."""
         if not dist.is_initialized() or dist.get_world_size() < 2:
-            self._group = None
+            self._group_ref = None
         elif self._group is None:
-            self._group = (dist.group.WORLD if dist.get_backend() == "gloo"
-                           else dist.new_group(backend="gloo"))
+            self._group_ref = weakref.ref(
+                dist.group.WORLD if dist.get_backend() == "gloo"
+                else dist.new_group(backend="gloo"))
+
+    @property
+    def _group(self):
+        return None if self._group_ref is None else self._group_ref()
 
     def _stop_now(self) -> bool:
         """Whether every rank stops at this batch end (module docstring)."""

@@ -33,6 +33,21 @@ on the model after the engine was built leave the served tokens alone, as
 in the JAX engine. The copy costs the parameters' bytes once more in
 device memory (a draft model's likewise).
 
+Tensor parallelism: on a model built under ``DataTensorParallel``, or a
+``CompositeParallel`` whose split axes are data and model, each rank
+serves its blocks of the model line, as the JAX engine serves the
+model's sharded tree: the snapshot copies the rank's blocks with their
+layouts, the dispatches run inside the model's strategy scope (where the
+layers compute with them, Megatron's pair joining the line), and every
+attention layer's pool holds the rank's heads only. Every rank of the
+line runs the same scheduler on the same requests (no decision reads the
+clock) and takes the sampled tokens and logprobs of the line's first
+rank (one broadcast a dispatch), so the ranks cannot part; ranks on
+other data coordinates serve the same requests as replicas. Under any
+other sharding strategy (FSDP, an fsdp, seq, expert or pipe axis) the
+snapshot gathers every leaf whole; the JAX engine serves FSDP's row
+blocks instead, with its pool's heads split over fsdp (ROADMAP 1.7b.8).
+
 Speculative decoding (``draft_model`` + ``spec_k``): the draft proposes
 ``spec_k - 1`` greedy tokens a slot, one at a time, and the target scores
 all ``spec_k`` candidates in one verify pass (``paged_verify``; under
@@ -59,6 +74,7 @@ from typing import List, Optional, Sequence as SequenceT
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..nn.core import param_tree
 from ..nn.attention import PositionalEmbedding
@@ -109,21 +125,37 @@ def _served_tree(module) -> dict:
     return param_tree(module)
 
 
-def _snapshot(model):
+def _serves_blocks(model) -> bool:
+    """True when the engine serves each rank's Megatron blocks of
+    ``model``: built under ``DataTensorParallel``, or under a
+    ``CompositeParallel`` whose axes larger than 1 are data and model."""
+    from ..parallel.strategy import CompositeParallel, DataTensorParallel
+
+    st = model.strategy
+    if isinstance(st, DataTensorParallel):
+        return True
+    return (isinstance(st, CompositeParallel) and st.model_axis is not None
+            and all(n == 1 or a in ("data", "model")
+                    for a, n in st.axis_sizes.items()))
+
+
+def _snapshot(model, blocks: bool):
     """An engine-owned copy of ``model.module``: its parameters and
-    buffers copied on their device, detached and without grad. A model
-    built under FSDP is served whole, as the JAX Engine serves the full
-    arrays: its leaves are gathered (every rank builds the engine) and the
-    copy holds them, unsharded."""
+    buffers copied on their device, detached and without grad. With
+    ``blocks`` (tensor parallelism) each leaf is this rank's block,
+    marked with its layout, and nothing is gathered. Otherwise a leaf a
+    strategy shards (FSDP) is gathered whole (every rank builds the
+    engine) and the copy holds it unmarked (module docstring)."""
     live = model.live_params()
-    full = (model.params if any(layout_of(t) is not None
-                                for t in live.values()) else None)
+    full = (model.params if not blocks and any(
+        layout_of(t) is not None for t in live.values()) else None)
     snap = copy.deepcopy(model.module)
-    if full is not None:
-        with torch.no_grad():
-            for path, t in param_tree(snap).items():
+    with torch.no_grad():
+        for path, t in param_tree(snap).items():
+            if full is not None:
                 t.data = full[path].detach().clone()
-                mark(t, None)
+            # A deep-copied Parameter drops its attributes: re-mark.
+            mark(t, None if full is not None else layout_of(live[path]))
     for p in snap.parameters():
         p.requires_grad_(False)
         p.grad = None
@@ -131,10 +163,17 @@ def _snapshot(model):
     return snap
 
 
+def _full_shape(t) -> tuple:
+    """A served leaf's whole shape (its layout's, for a block)."""
+    lay = layout_of(t)
+    return tuple(lay.shape) if lay is not None else tuple(t.shape)
+
+
 def _validate_swap(served: dict, params: dict, label: str) -> None:
     """Hot-swap gate of ``Engine.update_weights`` (target and draft arms):
-    the paths, each leaf's shape AND dtype must match the served tree
-    exactly, or ``ValueError`` names the path."""
+    the paths, each leaf's whole shape (a served block's layout's) AND
+    dtype must match the served tree exactly, or ``ValueError`` names the
+    path."""
     if set(served) != set(params):
         raise ValueError(
             f"{label}: new param tree structure does not match the served "
@@ -144,10 +183,10 @@ def _validate_swap(served: dict, params: dict, label: str) -> None:
     for path, have in served.items():
         want = params[path]
         shape = tuple(getattr(want, "shape", ()))
-        if shape != tuple(have.shape):
+        if shape != _full_shape(have):
             raise ValueError(
                 f"{label}: shape mismatch at {path}: new weights have "
-                f"{shape}, engine serves {tuple(have.shape)}"
+                f"{shape}, engine serves {_full_shape(have)}"
             )
         dtype = want.dtype if isinstance(want, torch.Tensor) else (
             torch.as_tensor(want).dtype)
@@ -248,45 +287,69 @@ def _precision_scope(precision):
             else precision.scope())
 
 
+def _strategy_scope(strategy):
+    """The served model's strategy scope, under tensor parallelism (where
+    the layers compute with their blocks), else none."""
+    return contextlib.nullcontext() if strategy is None else strategy.scope()
+
+
+def _line_agree(strategy, toks, logp):
+    """The model line's first rank's sampled ``toks`` and ``logp`` on
+    every rank of the line (one broadcast of both), so the ranks' next
+    dispatches and admissions cannot part; ``strategy`` None: as they
+    are."""
+    if strategy is None:
+        return toks, logp
+    group = strategy.tp_group
+    both = torch.stack([toks.to(torch.float64), logp.to(torch.float64)])
+    dist.broadcast(both, src=dist.get_global_rank(group, 0), group=group)
+    return both[0].to(toks.dtype), both[1].to(logp.dtype)
+
+
 def _on(device, a):
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
 def _prefill_dispatch(module, precision, device, kv, tokens, block_table,
-                      start, last_idx, key, temperature, top_k):
+                      start, last_idx, key, temperature, top_k,
+                      strategy=None):
     """One prompt chunk for one sequence on ``module``: KV scattered into
     its blocks of ``kv`` and the next token sampled from position
     ``last_idx``; returns (token, logprob) on the host. The Engine and the
-    fleet's ``EnginePrograms`` both dispatch through it."""
-    with _precision_scope(precision):
+    fleet's ``EnginePrograms`` both dispatch through it. ``strategy``:
+    the tensor-parallel strategy whose blocks ``module`` holds (the
+    pass runs in its scope and the line agrees on the sample)."""
+    with _strategy_scope(strategy), _precision_scope(precision):
         out, kv.caches = module.paged_prefill(
             kv.caches, _on(device, tokens),
             block_table=_on(device, block_table), start=int(start),
         )
-    tok, logp = _sample_with_logprob(
-        out[0, last_idx:last_idx + 1], key[None], temperature, top_k)
+    tok, logp = _line_agree(strategy, *_sample_with_logprob(
+        out[0, last_idx:last_idx + 1], key[None], temperature, top_k))
     return int(tok[0]), float(logp[0])
 
 
 def _decode_dispatch(module, precision, device, kv, tokens, block_tables,
-                     positions, keys, temperature, top_k, decode_kernel):
+                     positions, keys, temperature, top_k, decode_kernel,
+                     strategy=None):
     """One decode (tokens (S,)) or verify (tokens (S, K), keys (S, K, 2))
     pass of ``module`` over every slot of ``kv``; the sampled tokens and
     logprobs come back on the host, shaped as ``tokens``. The Engine and
-    the fleet's ``EnginePrograms`` both dispatch through it."""
+    the fleet's ``EnginePrograms`` both dispatch through it. ``strategy``
+    as for :func:`_prefill_dispatch`."""
     t = _on(device, tokens)
     kw = {"block_tables": _on(device, block_tables),
           "positions": _on(device, positions),
           "decode_kernel": decode_kernel}
-    with _precision_scope(precision):
+    with _strategy_scope(strategy), _precision_scope(precision):
         if t.dim() == 1:
             logits, kv.caches = module.paged_decode(kv.caches, t[:, None],
                                                     **kw)
         else:
             logits, kv.caches = module.paged_verify(kv.caches, t, **kw)
-    toks, logp = _sample_with_logprob(
+    toks, logp = _line_agree(strategy, *_sample_with_logprob(
         logits.reshape(-1, logits.shape[-1]),
-        np.asarray(keys).reshape(-1, 2), temperature, top_k)
+        np.asarray(keys).reshape(-1, 2), temperature, top_k))
     shape = np.shape(tokens)
     return (toks.cpu().numpy().reshape(shape),
             logp.cpu().numpy().reshape(shape))
@@ -294,27 +357,52 @@ def _decode_dispatch(module, precision, device, kv, tokens, block_tables,
 
 class _Served:
     """One served LM: the engine's snapshot of its module, the tree that
-    ``update_weights`` swaps into, and its paged pools (``kv``, set by the
-    engine)."""
+    ``update_weights`` swaps into, its paged pools (``kv``, made by
+    :meth:`pools`), and under tensor parallelism the strategy whose
+    blocks it serves (``strategy``; None: served whole)."""
 
     def __init__(self, model: Model):
-        self.module = _snapshot(model)
+        blocks = _serves_blocks(model)
+        self.strategy = model.strategy if blocks else None
+        self.module = _snapshot(model, blocks)
         self.params = _served_tree(self.module)
         self.device = model.device
         self.precision = model.precision
         self.kv: Optional[PagedKVCache] = None
 
+    def pools(self, **kw) -> PagedKVCache:
+        """The module's paged pools (``PagedKVCache(**kw)``), made in the
+        strategy's scope: a rank's attention pools hold its heads."""
+        with _strategy_scope(self.strategy):
+            self.kv = PagedKVCache(self.module, device=self.device, **kw)
+        return self.kv
+
+    def swap(self, params: dict) -> None:
+        """Copy the whole tree ``params`` into the snapshot in place (each
+        served block takes its block of the whole leaf) and wait until
+        the card has them (the next pass must read them, and the caller's
+        timing must cover the copy)."""
+        with torch.no_grad():
+            for path, t in self.params.items():
+                new = torch.as_tensor(params[path])
+                lay = layout_of(t)
+                t.copy_(new if lay is None else new[lay.index()])
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def prefill(self, tokens, block_table, start, last_idx, key,
                 temperature, top_k):
         return _prefill_dispatch(self.module, self.precision, self.device,
                                  self.kv, tokens, block_table, start,
-                                 last_idx, key, temperature, top_k)
+                                 last_idx, key, temperature, top_k,
+                                 self.strategy)
 
     def step(self, tokens, block_tables, positions, keys, temperature,
              top_k, decode_kernel):
         return _decode_dispatch(self.module, self.precision, self.device,
                                 self.kv, tokens, block_tables, positions,
-                                keys, temperature, top_k, decode_kernel)
+                                keys, temperature, top_k, decode_kernel,
+                                self.strategy)
 
 
 def _bucket(c: int, start: int, max_len: int) -> int:
@@ -415,12 +503,11 @@ class Engine:
         if num_blocks is None:
             num_blocks = self.max_slots * nb_per_seq + 1
         self._target = _Served(model)
-        self.kv = self._target.kv = PagedKVCache(
-            self._target.module,
+        self.kv = self._target.pools(
             max_slots=self.max_slots, block_size=self.block_size,
             max_blocks_per_seq=nb_per_seq, num_blocks=int(num_blocks),
             dtype=torch.int8 if kv_dtype is not None else model.decode_dtype(),
-            device=self.device, prefix_cache=bool(prefix_cache),
+            prefix_cache=bool(prefix_cache),
         )
         # spec_k="adaptive": the round's width comes from SPEC_K_LADDER;
         # headroom and reservations use the ladder's max.
@@ -449,12 +536,11 @@ class Engine:
                 )
             _check_positions(draft_model, self.max_len)
             self._draft_served = _Served(draft_model)
-            self._draft_kv = self._draft_served.kv = PagedKVCache(
-                self._draft_served.module,
+            self._draft_kv = self._draft_served.pools(
                 max_slots=self.max_slots, block_size=self.block_size,
                 max_blocks_per_seq=nb_per_seq,
                 num_blocks=self.max_slots * nb_per_seq + 1,
-                dtype=draft_model.decode_dtype(), device=self.device,
+                dtype=draft_model.decode_dtype(),
             )
             self._kvs = _PairedKV(self.kv, self._draft_kv)
         else:
@@ -489,22 +575,14 @@ class Engine:
         +1 per ``update_weights``. Recorded per generated token."""
         return self._weights_version
 
-    def _swap(self, served: _Served, params: dict) -> None:
-        """Copy ``params`` into ``served``'s snapshot in place and wait
-        until the card has them (the next pass must read them, and the
-        caller's timing must cover the copy)."""
-        with torch.no_grad():
-            for path, t in served.params.items():
-                t.copy_(torch.as_tensor(params[path]))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     def update_weights(self, params=None, *, draft_params=None) -> int:
         """Hot-swap the served weights without a restart, as the JAX
         engine's ``update_weights``: validate the new ``{tree path:
-        tensor}`` tree (``Model.params``' form) against the served one,
-        copy it into the engine's snapshot, synchronize, and bump
-        ``weights_version``. Returns the new version.
+        tensor}`` tree (``Model.params``' form: every leaf whole) against
+        the served one, copy it into the engine's snapshot (under tensor
+        parallelism each rank its blocks, as the JAX engine places the
+        tree), synchronize, and bump ``weights_version``. Returns the new
+        version.
 
         In-flight sequences keep their KV (written by the old weights) and
         finish under the new ones; their per-token ``weights_versions``
@@ -531,14 +609,14 @@ class Engine:
             _validate_swap(self._draft_served.params, draft_params,
                            "update_weights(draft_params)")
         if params is not None:
-            self._swap(self._target, params)
+            self._target.swap(params)
             self._weights_version += 1
             if self.kv.prefix is not None:
                 self.kv.prefix.flush(self.kv.allocator)
             if self._draft is not None and draft_params is None:
                 self._draft_staleness += 1
         if draft_params is not None:
-            self._swap(self._draft_served, draft_params)
+            self._draft_served.swap(draft_params)
             staleness = self._draft_staleness
             self._draft_version = self._weights_version
             self._draft_staleness = 0

@@ -352,16 +352,15 @@ class Model:
         shards parameters (FSDP; tensor parallelism by the layers'
         ``sharding_hints`` roles), marked with its layout."""
         hints = self.module.sharding_hints()
-        # An int8 weight's q and scale take no role: stored whole under
-        # tensor parallelism (its layer then computes with the whole).
         quant = {name.replace(".", "/") for name, sub in
                  self.module.named_modules()
                  if isinstance(sub, quant_lib.QuantizedWeight)}
         with torch.no_grad():
             for path, t in param_tree(self.module).items():
                 if layout_of(t) is None:
-                    role = (None if path.rpartition("/")[0] in quant
-                            else role_of(path, hints))
+                    weight, _, leaf = path.rpartition("/")
+                    role = (quant_lib.leaf_role(leaf, role_of(weight, hints))
+                            if weight in quant else role_of(path, hints))
                     lay = self.strategy.param_layout(tuple(t.shape), role)
                     if lay is not None:
                         t.data = lay.block(t.data)

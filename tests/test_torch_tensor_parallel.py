@@ -23,8 +23,8 @@ parameters and numpy batches. The LM is 2 layers, d 32, 4 heads, vocab
 - Greedy ``generate`` equals the single-device port's on the same
   weights and JAX's TP ``generate``; the ``Engine`` serves a TP-built
   model with the same tokens as a DP-built one, and after
-  ``quant.quantize_model`` (int8 weights stored whole) ``predict`` gives
-  DP's logits.
+  ``quant.quantize_model`` (int8 weights split as their layers are)
+  ``predict`` gives DP's logits.
 - Checkpoints: a JAX TP ``ShardedCheckpointer`` save restores into the
   port's TP ranks; the port's TP save restores under ``DataParallel``
   and in JAX (each Megatron block written once); ``save_weights`` gathers.
@@ -112,7 +112,7 @@ d = make(dp, dtt.optim.SGD(0.1),
 out["engine_dp"] = [t.tolist() for t in dtt.serving.Engine(
     d, max_slots=2, block_size=4, max_len=16).run(prompts)]
 
-# int8 weights (quant.quantize_model) are stored whole under TP.
+# int8 weights (quant.quantize_model) take their layers' Megatron split.
 preds = []
 for st in (tp, dp):
     q = make(st, dtt.optim.SGD(0.1), PARAMS["lm"], dict(flash=True))
